@@ -1,0 +1,139 @@
+"""Model settings of the port.
+
+Counterpart of ``mtlora_tpu/config.py`` plus ``MTLoRASpec.from_config``
+(``mtlora_tpu/models/lora.py:49-128``). The port never parses YAML: the
+machine that runs it has no ``yaml``, and ``mtlora_tpu``'s loader reaches
+``cv2``. :func:`from_config` reads a config node that was already loaded
+(any object with the reference schema's attributes), and
+:func:`tiny_448_r64_pertask` is the flagship written out as a literal.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class StageLoRA:
+    """Adapter ranks and scales of one Swin stage (``LoRASpec``)."""
+    r_shared: int
+    r_tasks: Tuple[int, ...]
+    shared_scale: float
+    task_scales: Tuple[float, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Everything the eval forward of ``MultiTaskSwin`` depends on."""
+    tasks: Tuple[str, ...]
+    num_outputs: Tuple[int, ...]
+    img_size: int
+    stages: Tuple[StageLoRA, ...]
+    patch_size: int = 4
+    embed_dim: int = 96
+    depths: Tuple[int, ...] = (2, 2, 6, 2)
+    num_heads: Tuple[int, ...] = (3, 6, 12, 24)
+    window_size: int = 7
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    qk_scale: float | None = None
+    patch_norm: bool = True
+    qkv_enabled: bool = True
+    proj_enabled: bool = True
+    fc1_enabled: bool = True
+    fc2_enabled: bool = True
+    decoder_channels: Tuple[int, ...] = (18, 36, 72, 144)
+    compute_dtype: str = "bfloat16"   # "bfloat16" (AMP_ENABLE) or "float32"
+
+
+def _unsupported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, {item}); the port does not "
+        "run a plain stand-in for it")
+
+
+def from_config(config) -> ModelConfig:
+    """Build from a loaded reference-schema config node (after
+    ``normalize_mtlora``), read by attribute only."""
+    tpu = config.TPU
+    if bool(tpu.USE_PALLAS_LN):
+        _unsupported("TPU.USE_PALLAS_LN (LN+LoRA, merge, whole-MLP and "
+                     "task-merge kernels)", "Queue 2, kernels 2, 3, 4, 6")
+    if bool(tpu.USE_PALLAS_ADAPTER):
+        _unsupported("TPU.USE_PALLAS_ADAPTER (adapter MLP-tail kernel)",
+                     "Queue 2, kernel 5")
+    if bool(tpu.USE_PALLAS_LORA_GEMM):
+        _unsupported("TPU.USE_PALLAS_LORA_GEMM (LoRA GEMM kernel)",
+                     "Queue 2, kernel 8")
+    m = config.MODEL.MTLORA
+    swin = config.MODEL.SWIN
+    if not bool(m.ENABLED):
+        _unsupported("MODEL.MTLORA.ENABLED False", "Queue 1, item 9")
+    if str(m.SHARED_MODE) != "matrix":
+        _unsupported(f"MTLORA.SHARED_MODE {m.SHARED_MODE!r}", "Queue 1, item 9")
+    for flag in ("DOWNSAMPLER_ENABLED", "INTERMEDIATE_SPECIALIZATION",
+                 "SPLIT_QKV", "TRAINABLE_SCALE_SHARED",
+                 "TRAINABLE_SCALE_PER_TASK"):
+        if bool(getattr(m, flag)):
+            _unsupported(f"MTLORA.{flag}", "Queue 1, item 9")
+    if bool(swin.APE):
+        _unsupported("MODEL.SWIN.APE", "Queue 1, item 9")
+    if not (bool(config.MODEL.DECODER_DOWNSAMPLER)
+            and bool(config.MODEL.PER_TASK_DOWNSAMPLER)):
+        _unsupported("shared or disabled decoder downsampler",
+                     "Queue 1, item 9")
+    tasks = tuple(config.TASKS)
+    for t in tasks:
+        if config.MODEL.DECODER_HEAD.get(t, "hrnet") != "hrnet":
+            _unsupported(f"decoder head {config.MODEL.DECODER_HEAD[t]!r}",
+                         "Queue 1, item 9")
+    stages = []
+    for i in range(len(swin.DEPTHS)):
+        r_map = m.R_PER_TASK_LIST[i]
+        s_map = m.SCALE_PER_TASK_LIST[i]
+        stages.append(StageLoRA(
+            r_shared=int(r_map["shared"]),
+            r_tasks=tuple(int(r_map[t]) for t in tasks),
+            shared_scale=float(m.SHARED_SCALE[i]),
+            task_scales=tuple(float(s_map[t]) for t in tasks)))
+    amp = bool(config.AMP_ENABLE)
+    compute = ("bfloat16" if amp and str(tpu.COMPUTE_DTYPE) == "bfloat16"
+               else "float32")
+    return ModelConfig(
+        tasks=tasks,
+        num_outputs=tuple(int(config.TASKS_CONFIG.ALL_TASKS.NUM_OUTPUT[t])
+                          for t in tasks),
+        img_size=int(config.DATA.IMG_SIZE),
+        stages=tuple(stages),
+        patch_size=int(swin.PATCH_SIZE),
+        embed_dim=int(swin.EMBED_DIM),
+        depths=tuple(int(d) for d in swin.DEPTHS),
+        num_heads=tuple(int(h) for h in swin.NUM_HEADS),
+        window_size=int(swin.WINDOW_SIZE),
+        mlp_ratio=float(swin.MLP_RATIO),
+        qkv_bias=bool(swin.QKV_BIAS),
+        qk_scale=(None if swin.QK_SCALE is None else float(swin.QK_SCALE)),
+        patch_norm=bool(swin.PATCH_NORM),
+        qkv_enabled=bool(m.QKV_ENABLED),
+        proj_enabled=bool(m.PROJ_ENABLED),
+        fc1_enabled=bool(m.FC1_ENABLED),
+        fc2_enabled=bool(m.FC2_ENABLED),
+        decoder_channels=tuple(int(c) for c in config.MODEL.DECODER_CHANNELS),
+        compute_dtype=compute,
+    )
+
+
+def tiny_448_r64_pertask() -> ModelConfig:
+    """``configs/mtlora/tiny_448/mtlora_tiny_448_r64_scale4_pertask.yaml``
+    with the four PASCAL tasks, ``TPU.USE_PALLAS_LN False`` and
+    ``TPU.USE_PALLAS_ADAPTER False``: Swin-T at 448, shared rank 64 and
+    per-task rank 4 at scale 4 in every stage, bf16 compute."""
+    stage = StageLoRA(r_shared=64, r_tasks=(4, 4, 4, 4), shared_scale=4.0,
+                      task_scales=(4.0, 4.0, 4.0, 4.0))
+    return ModelConfig(
+        tasks=("semseg", "normals", "sal", "human_parts"),
+        num_outputs=(21, 3, 1, 7),
+        img_size=448,
+        stages=(stage,) * 4,
+    )

@@ -1,0 +1,85 @@
+"""Frozen linear layer with task-shared and per-task low-rank adapters.
+
+Counterpart of ``MTLoRALinear`` in ``mtlora_tpu/models/lora.py:169-572``,
+eval path, ``matrix`` shared mode:
+
+    y   = x W^T + b + s   * (x   A^T) B^T                 (shared stream)
+    y_t = x W^T + b + s_t * (x_t A_t^T) B_t^T              (task t)
+
+The frozen GEMM acts on the SHARED x for every task stream; a layer given
+no task inputs feeds all T adapters from the shared x. Parameters are
+fp32 in the reference torch layout (``linear.weight [out, in]``,
+``lora_shared_A [r, in]``, ``lora_shared_B [out, r]``); the per-task
+adapters are stacked, ``lora_tasks_A [T, r_max, in]`` and
+``lora_tasks_B [T, out, r_max]``, and a constant rank mask keeps the
+padded slots of tasks with rank below ``r_max`` at exactly zero. The
+layer computes in the dtype of its input.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class MTLoRALinear(nn.Module):
+    def __init__(self, in_features: int, out_features: int, *,
+                 r_shared: int = 0, shared_scale: float = 1.0,
+                 tasks: Sequence[str] = (), r_tasks: Sequence[int] = (),
+                 task_scales: Sequence[float] = (), bias: bool = True):
+        super().__init__()
+        self.linear = nn.Linear(in_features, out_features, bias=bias)
+        self.r_shared = r_shared
+        self.shared_scale = float(shared_scale)
+        # per-task adapters exist only beside a shared one (lora.py:401)
+        self.tasks = tuple(tasks) if r_shared > 0 else ()
+        self.r_tasks = tuple(r_tasks) if self.tasks else ()
+        self.task_scales = tuple(float(s) for s in task_scales)
+        if r_shared > 0:
+            self.lora_shared_A = nn.Parameter(torch.zeros(r_shared,
+                                                          in_features))
+            self.lora_shared_B = nn.Parameter(torch.zeros(out_features,
+                                                          r_shared))
+        if self.tasks:
+            T, r_max = len(self.tasks), max(self.r_tasks)
+            self.lora_tasks_A = nn.Parameter(torch.zeros(T, r_max,
+                                                         in_features))
+            self.lora_tasks_B = nn.Parameter(torch.zeros(T, out_features,
+                                                         r_max))
+            mask = (torch.arange(r_max)[None, :]
+                    < torch.tensor(self.r_tasks)[:, None])
+            self.register_buffer("rank_mask", mask.float(), persistent=False)
+            self.register_buffer("task_scale", torch.tensor(self.task_scales),
+                                 persistent=False)
+
+    def forward(self, x: torch.Tensor, x_tasks: torch.Tensor | None = None):
+        """x [..., in]; x_tasks [T, ..., in] or None. Returns
+        ``(y [..., out], y_tasks [T, ..., out] or None)``."""
+        dt = x.dtype
+        w = self.linear.weight.to(dt)
+        b = self.linear.bias.to(dt) if self.linear.bias is not None else None
+        pretrained = F.linear(x, w, b)
+        if self.r_shared == 0:
+            return pretrained, None
+        shared = F.linear(F.linear(x, self.lora_shared_A.to(dt)),
+                          self.lora_shared_B.to(dt)) * self.shared_scale
+        y = pretrained + shared
+        if not self.tasks:
+            return y, None
+        T = len(self.tasks)
+        a_t = (self.lora_tasks_A * self.rank_mask[:, :, None]).to(dt)
+        # the per-task scale rides on B, as the JAX layer folds it
+        b_eff = self.lora_tasks_B.to(dt) * self.task_scale.to(dt).view(T, 1, 1)
+        lead = x.shape[:-1]
+        if x_tasks is None:
+            mid = torch.matmul(x.reshape(1, -1, x.shape[-1]),
+                               a_t.transpose(1, 2))            # [T, M, r]
+        else:
+            mid = torch.bmm(x_tasks.reshape(T, -1, x.shape[-1]),
+                            a_t.transpose(1, 2))
+        update = torch.bmm(mid, b_eff.transpose(1, 2))          # [T, M, out]
+        y_tasks = pretrained[None] + update.view(T, *lead, -1)
+        return y, y_tasks

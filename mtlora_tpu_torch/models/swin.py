@@ -1,0 +1,257 @@
+"""Swin Transformer backbone with MTLoRA adapters (eval forward).
+
+Counterpart of ``mtlora_tpu/models/swin.py`` on the route the JAX package
+takes with ``TPU.USE_PALLAS_LN`` and ``TPU.USE_PALLAS_ADAPTER`` off:
+materialized task streams ``[T, B, L, C]``, LayerNorm outside the GEMMs,
+the window attention core in the CUDA kernel of ``ops/window_attn.py``.
+Token layout is ``[B, L, C]`` with L = H*W row-major; the qkv GEMM runs on
+the tokens after the window gather, the proj GEMM after the inverse
+gather, as in the JAX ``WindowAttention``.
+
+Task-stream contract (``swin.py:16-23``):
+  - qkv adapters have no task branches;
+  - proj/fc1/fc2 carry task branches only in the last block of a stage;
+  - a block returns ``attn_tasks + mlp_tasks``, where the attention task
+    streams are ``shortcut + proj_t`` and enter fc1 through norm2;
+  - PatchMerging runs its one set of weights on the shared stream and on
+    every task stream.
+Parameter names follow the reference torch keys
+(``layers.0.blocks.0.attn.qkv.linear.weight``, ``layers.0.downsample.
+reduction.weight``, ...).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mtlora_tpu_torch.config import ModelConfig, StageLoRA
+from mtlora_tpu_torch.models.lora import MTLoRALinear
+from mtlora_tpu_torch.ops.attention import (
+    relative_position_index,
+    shift_attention_mask,
+)
+from mtlora_tpu_torch.ops.window import (
+    shift_window_partition,
+    window_merge_unshift,
+)
+from mtlora_tpu_torch.ops.window_attn import fused_window_attention
+
+
+def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    """LayerNorm with fp32 statistics, variance as E[x^2] - E[x]^2 (the
+    flax ``nn.LayerNorm`` and ``_manual_ln`` numerics), output in x's
+    dtype."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 * x32).mean(-1, keepdim=True) - mu * mu
+    y = (x32 - mu) * torch.rsqrt(var + norm.eps) * norm.weight + norm.bias
+    return y.to(x.dtype)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int, lora: StageLoRA,
+                 tasks: tuple, fc1_tasks: bool, fc2_tasks: bool,
+                 fc1_lora: bool, fc2_lora: bool):
+        super().__init__()
+        self.fc1 = _lora_linear(dim, hidden, lora, tasks if fc1_tasks else (),
+                                fc1_lora)
+        self.fc2 = _lora_linear(hidden, dim, lora, tasks if fc2_tasks else (),
+                                fc2_lora)
+
+    def forward(self, x, x_tasks=None):
+        x, t = self.fc1(x, x_tasks)
+        x = F.gelu(x)
+        if t is not None:
+            t = F.gelu(t)
+        return self.fc2(x, t)
+
+
+def _lora_linear(cin, cout, lora: StageLoRA, tasks, enabled: bool,
+                 bias: bool = True) -> MTLoRALinear:
+    if not enabled:
+        return MTLoRALinear(cin, cout, bias=bias)
+    return MTLoRALinear(cin, cout, r_shared=lora.r_shared,
+                        shared_scale=lora.shared_scale, tasks=tasks,
+                        r_tasks=lora.r_tasks, task_scales=lora.task_scales,
+                        bias=bias)
+
+
+class WindowAttention(nn.Module):
+    """(S)W-MSA with relative position bias and MTLoRA qkv/proj."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int,
+                 lora: StageLoRA, tasks: tuple, proj_tasks: bool,
+                 qkv_lora: bool = True, proj_lora: bool = True,
+                 qkv_bias: bool = True, qk_scale: float | None = None):
+        super().__init__()
+        self.dim, self.window_size, self.num_heads = dim, window_size, num_heads
+        self.scale = qk_scale or (dim // num_heads) ** -0.5
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * window_size - 1) ** 2, num_heads))
+        self.register_buffer(
+            "relative_position_index",
+            torch.from_numpy(relative_position_index(window_size)).long(),
+            persistent=False)
+        self.qkv = _lora_linear(dim, 3 * dim, lora, (), qkv_lora, qkv_bias)
+        self.proj = _lora_linear(dim, dim, lora,
+                                 tasks if proj_tasks else (), proj_lora)
+
+    def rel_bias(self) -> torch.Tensor:
+        N = self.window_size ** 2
+        idx = self.relative_position_index.view(-1)
+        return (self.relative_position_bias_table[idx]
+                .view(N, N, self.num_heads).permute(2, 0, 1).contiguous())
+
+    def forward(self, x, H: int, W: int, shift: int, mask=None):
+        """x [B, H*W, C] (normed) -> (y [B, L, C], y_tasks or None)."""
+        B = x.shape[0]
+        ws = self.window_size
+        xw = shift_window_partition(x, H, W, ws, shift)     # [B*nW, N, C]
+        qkv, _ = self.qkv(xw)
+        attn = fused_window_attention(qkv, self.num_heads, self.rel_bias(),
+                                      mask, self.scale)
+        tok = window_merge_unshift(attn, B, H, W, ws, shift)
+        return self.proj(tok)
+
+
+class SwinBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, dim: int, resolution: int,
+                 num_heads: int, lora: StageLoRA, produce_tasks: bool,
+                 shift_size: int):
+        super().__init__()
+        ws, shift = cfg.window_size, shift_size
+        if resolution <= ws:   # window clamping (swin.py:496-497)
+            ws, shift = resolution, 0
+        self.resolution, self.shift = resolution, shift
+        tasks = cfg.tasks if produce_tasks else ()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = WindowAttention(
+            dim, ws, num_heads, lora, tasks,
+            proj_tasks=produce_tasks and cfg.proj_enabled,
+            qkv_lora=cfg.qkv_enabled, proj_lora=cfg.proj_enabled,
+            qkv_bias=cfg.qkv_bias, qk_scale=cfg.qk_scale)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio), lora, tasks,
+                       fc1_tasks=produce_tasks and cfg.fc1_enabled,
+                       fc2_tasks=produce_tasks and cfg.fc2_enabled,
+                       fc1_lora=cfg.fc1_enabled, fc2_lora=cfg.fc2_enabled)
+        mask = (torch.from_numpy(shift_attention_mask(
+            resolution, resolution, ws, shift)) if shift > 0 else None)
+        self.register_buffer("attn_mask", mask, persistent=False)
+
+    def forward(self, x):
+        # drop-path (DropPath, swin.py:153) is the identity at eval
+        H = W = self.resolution
+        shortcut = x
+        aw, aw_tasks = self.attn(layer_norm(x, self.norm1), H, W, self.shift,
+                                 self.attn_mask)
+        x = shortcut + aw
+        attn_tasks = (shortcut[None] + aw_tasks
+                      if aw_tasks is not None else None)
+        mlp_out, mlp_tasks = self.mlp(
+            layer_norm(x, self.norm2),
+            layer_norm(attn_tasks, self.norm2)
+            if attn_tasks is not None else None)
+        x = x + mlp_out
+        if mlp_tasks is None:
+            return x, attn_tasks
+        if attn_tasks is None:
+            # no shortcut when only the MLP produced task streams
+            # (reference quirk, swin.py:627-634)
+            return x, mlp_tasks
+        return x, attn_tasks + mlp_tasks
+
+
+class PatchMerging(nn.Module):
+    """2x2 merge + LayerNorm(4C) + 4C -> 2C reduction, concat order
+    [x(0,0), x(1,0), x(0,1), x(1,1)] (row offset first)."""
+
+    def __init__(self, resolution: int, dim: int):
+        super().__init__()
+        self.resolution = resolution
+        self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
+        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+
+    def _merge(self, x):
+        *lead, L, C = x.shape
+        H = W = self.resolution
+        x = x.reshape(*lead, H // 2, 2, W // 2, 2, C)
+        n = len(lead)
+        # [.., H/2, di, W/2, dj, C] -> [.., H/2, W/2, dj, di, C]
+        x = x.permute(*range(n), n, n + 2, n + 3, n + 1, n + 4)
+        x = x.reshape(*lead, L // 4, 4 * C)
+        return F.linear(layer_norm(x, self.norm),
+                        self.reduction.weight.to(x.dtype))
+
+    def forward(self, x, x_tasks=None):
+        out = self._merge(x)
+        if x_tasks is None:
+            return out, None
+        T = x_tasks.shape[0]
+        out_t = self._merge(x_tasks.flatten(0, 1))
+        return out, out_t.view(T, *out.shape)
+
+
+class BasicLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, stage: int):
+        super().__init__()
+        dim = cfg.embed_dim * 2 ** stage
+        res = cfg.img_size // cfg.patch_size // 2 ** stage
+        depth = cfg.depths[stage]
+        self.blocks = nn.ModuleList(
+            SwinBlock(cfg, dim, res, cfg.num_heads[stage], cfg.stages[stage],
+                      produce_tasks=(i == depth - 1),
+                      shift_size=0 if i % 2 == 0 else cfg.window_size // 2)
+            for i in range(depth))
+        self.downsample = (PatchMerging(res, dim)
+                           if stage < len(cfg.depths) - 1 else None)
+
+    def forward(self, x):
+        tasks = None
+        for blk in self.blocks:
+            x, t = blk(x)
+            if t is not None:
+                tasks = t   # only the last streams survive
+        if self.downsample is not None:
+            x, tasks = self.downsample(x, tasks)
+        return x, tasks
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, patch_size: int, embed_dim: int, patch_norm: bool):
+        super().__init__()
+        self.proj = nn.Conv2d(3, embed_dim, patch_size, patch_size)
+        self.norm = nn.LayerNorm(embed_dim, eps=1e-5) if patch_norm else None
+
+    def forward(self, x):
+        """[B, H, W, 3] -> [B, L, C]."""
+        dt = x.dtype
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.proj.weight.to(dt),
+                     self.proj.bias.to(dt), stride=self.proj.stride)
+        y = y.flatten(2).transpose(1, 2)
+        return layer_norm(y, self.norm) if self.norm is not None else y
+
+
+class SwinTransformerMTLoRA(nn.Module):
+    """Backbone: per stage (shared [B, L, C], tasks [T, B, L, C]);
+    stage outputs are post-merge except the last."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.num_tasks = len(cfg.tasks)
+        self.patch_embed = PatchEmbed(cfg.patch_size, cfg.embed_dim,
+                                      cfg.patch_norm)
+        self.layers = nn.ModuleList(BasicLayer(cfg, i)
+                                    for i in range(len(cfg.depths)))
+
+    def forward(self, x):
+        x = self.patch_embed(x)
+        outs = []
+        for layer in self.layers:
+            x, tasks = layer(x)
+            if tasks is None:
+                tasks = x[None].expand(self.num_tasks, *x.shape)
+            outs.append((x, tasks))
+        return outs

@@ -1,0 +1,149 @@
+// Window attention core (forward) for Hopper.
+//
+// Replaces mtlora_tpu/ops/pallas_window_attn.py: _fwd_kernel, launched by
+// _run_fwd through fused_window_attention_windowed /
+// fused_window_attention_padded. Per window w and head h:
+//   out[w, :, h] = softmax(q*scale @ k^T + bias[h] + mask[w % nW]) @ v
+// with q*scale rounded to bf16, fp32 scores, bias, mask and softmax, P
+// rounded to bf16 and P@V accumulated in fp32.
+//
+// What bounds it: at the Swin-T 448 shapes (N = 49, hd = 32) the input is
+// 18.4 KB of qkv per (window, head) pair and the work 2 * 49*49*32 FMAs, so
+// the kernel is neither large in bytes nor in FLOPs; the TPU kernel's win
+// was keeping the [windows, heads, 49, 49] fp32 scores out of HBM. Design:
+// one block per (window, head); q, k and v of the head go to shared memory
+// as fp32 (rows padded to hd + 1 to avoid bank conflicts), the 49 x 49
+// scores stay in shared memory, softmax runs one warp per row, and both
+// products are plain FMA loops. No TPU pack-2 or pad-104 layout: the block
+// reads the plain [B*nW, N, 3C] window order with 16-byte loads. Tensor
+// cores (mma / wgmma) are left for a later version.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__global__ void __launch_bounds__(kThreads)
+window_attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ mask,
+                       __nv_bfloat16* __restrict__ out,
+                       int N, int C, int hd, int mask_windows, float scale) {
+  extern __shared__ float smem[];
+  const int w = blockIdx.x;
+  const int h = blockIdx.y;
+  const int ld = hd + 1;
+  const int lds = N + 1;
+  float* q = smem;
+  float* k = q + N * ld;
+  float* v = k + N * ld;
+  float* s = v + N * ld;
+
+  // ---- load q (scaled, rounded to bf16), k, v of head h -------------------
+  const __nv_bfloat16* base = qkv + (size_t)w * N * 3 * C + h * hd;
+  const int vecs = hd / 8;  // 16-byte vectors per row and part
+  for (int i = threadIdx.x; i < N * 3 * vecs; i += blockDim.x) {
+    const int row = i / (3 * vecs);
+    const int rem = i - row * 3 * vecs;
+    const int part = rem / vecs;
+    const int c = rem - part * vecs;
+    const uint4 u = *reinterpret_cast<const uint4*>(
+        base + (size_t)row * 3 * C + part * C + c * 8);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+    float* dst = (part == 0 ? q : (part == 1 ? k : v)) + row * ld + c * 8;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float f = __bfloat162float(e[j]);
+      dst[j] = (part == 0) ? round_bf16(f * scale) : f;
+    }
+  }
+  __syncthreads();
+
+  // ---- scores: fp32 dot + bias + mask -------------------------------------
+  const float* bh = bias + (size_t)h * N * N;
+  const float* mw = mask ? mask + (size_t)(w % mask_windows) * N * N : nullptr;
+  for (int i = threadIdx.x; i < N * N; i += blockDim.x) {
+    const int r = i / N;
+    const int c = i - r * N;
+    const float* qr = q + r * ld;
+    const float* kc = k + c * ld;
+    float acc = 0.f;
+    for (int d = 0; d < hd; ++d) acc = fmaf(qr[d], kc[d], acc);
+    acc += bh[i];
+    if (mw) acc += mw[i];
+    s[r * lds + c] = acc;
+  }
+  __syncthreads();
+
+  // ---- fp32 softmax, one warp per row; P rounded to bf16 ------------------
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int r = warp; r < N; r += blockDim.x / 32) {
+    float* row = s + r * lds;
+    float m = -INFINITY;
+    for (int c = lane; c < N; c += 32) m = fmaxf(m, row[c]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int c = lane; c < N; c += 32) {
+      const float e = expf(row[c] - m);
+      row[c] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int c = lane; c < N; c += 32) row[c] = round_bf16(row[c] / sum);
+  }
+  __syncthreads();
+
+  // ---- P @ V, fp32 accumulation, bf16 out ---------------------------------
+  __nv_bfloat16* ob = out + (size_t)w * N * C + h * hd;
+  for (int i = threadIdx.x; i < N * hd; i += blockDim.x) {
+    const int r = i / hd;
+    const int d = i - r * hd;
+    const float* pr = s + r * lds;
+    float acc = 0.f;
+    for (int c = 0; c < N; ++c) acc = fmaf(pr[c], v[c * ld + d], acc);
+    ob[(size_t)r * C + d] = __float2bfloat16(acc);
+  }
+}
+
+}  // namespace
+
+extern "C" int mtlora_window_attn_fwd(const void* qkv, const void* bias,
+                                      const void* mask, void* out,
+                                      int n_windows, int N, int C,
+                                      int num_heads, int mask_windows,
+                                      float scale, void* stream) {
+  const int hd = C / num_heads;
+  const size_t smem = sizeof(float) * (3 * (size_t)N * (hd + 1) +
+                                       (size_t)N * (N + 1));
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        window_attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid(n_windows, num_heads);
+  window_attn_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), static_cast<__nv_bfloat16*>(out), N,
+      C, hd, mask_windows > 0 ? mask_windows : 1, scale);
+  return (int)cudaGetLastError();
+}

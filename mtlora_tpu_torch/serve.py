@@ -1,0 +1,86 @@
+"""Serving entry point: batches of images in, four dense predictions out.
+
+Counterpart of the JAX package's eval step (``train/step.py:108-118``)
+and of ``main.py --throughput`` (``main.py:265-281``).
+
+    python -m mtlora_tpu_torch.serve --batch-size 32 --requests 10 --seed 0
+
+builds the flagship (``config.tiny_448_r64_pertask``) on the GPU with
+seeded random weights, runs synthetic images through :func:`predict` and
+prints the img/s timed with CUDA events. It needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from mtlora_tpu_torch.config import ModelConfig, tiny_448_r64_pertask
+from mtlora_tpu_torch.models.mtl import (
+    MultiTaskSwin,
+    build_mtl_model,
+    init_random_,
+)
+
+
+def predict(model: MultiTaskSwin, images) -> dict:
+    """images [B, H, W, 3] (numpy or tensor) -> {task: [B, H, W, n]}."""
+    device = next(model.parameters()).device
+    x = torch.as_tensor(images).to(device, non_blocking=True)
+    model.eval()
+    with torch.inference_mode():
+        return model(x)
+
+
+def random_model(cfg: ModelConfig, seed: int, device) -> MultiTaskSwin:
+    """The model with weights drawn from ``torch.Generator().manual_seed``."""
+    model = build_mtl_model(cfg)
+    init_random_(model, torch.Generator().manual_seed(seed))
+    return model.to(device)
+
+
+def synthetic_images(batch: int, size: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((batch, size, size, 3), dtype=np.float32)
+
+
+def throughput(model, images: torch.Tensor, iters: int,
+               warmup: int = 2) -> float:
+    """img/s of :func:`predict` on device-resident images, CUDA events."""
+    for _ in range(warmup):
+        predict(model, images)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        predict(model, images)
+    end.record()
+    end.synchronize()
+    return images.shape[0] * iters / (start.elapsed_time(end) / 1e3)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch-size", type=int, default=32)
+    ap.add_argument("--requests", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("serve: no CUDA device")
+    cfg = tiny_448_r64_pertask()
+    model = random_model(cfg, args.seed, "cuda")
+    images = torch.from_numpy(synthetic_images(
+        args.batch_size, cfg.img_size, args.seed)).cuda()
+    rate = throughput(model, images, args.requests)
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "batch_size": args.batch_size,
+                      "requests": args.requests,
+                      "dtype": cfg.compute_dtype,
+                      "img_per_s": rate}))
+
+
+if __name__ == "__main__":
+    main()

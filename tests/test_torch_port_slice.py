@@ -1,0 +1,161 @@
+"""The whole slice: MultiTaskSwin forward vs the JAX package, the
+flagship preset vs the YAML config, the weight bridge through the
+reference torch keys, and the port's import hygiene.
+
+The JAX model is ``build_mtl_model(cfg).clone(use_pallas=True)`` with
+``TPU.USE_PALLAS_LN`` and ``TPU.USE_PALLAS_ADAPTER`` off: on the CPU its
+window-attention and head kernels run in interpret mode.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from mtlora_tpu.ckpt.torch_convert import (
+    convert_torch_state_dict,
+    merge_converted,
+)
+from mtlora_tpu.config import load_config
+from mtlora_tpu.models.mtl import build_mtl_model as jax_build
+from mtlora_tpu_torch import config as port_config
+from mtlora_tpu_torch.ckpt.convert import (
+    from_jax_variables,
+    to_reference_state_dict,
+)
+from mtlora_tpu_torch.models.mtl import build_mtl_model
+
+torch.set_num_threads(2)
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+CFG = os.path.join(ROOT, "configs/mtlora/tiny_448/"
+                   "mtlora_tiny_448_r64_scale4_pertask.yaml")
+TASKS = ["semseg", "normals", "sal", "human_parts"]
+SLICE_FLAGS = ["TPU.USE_PALLAS_LN", "False",
+               "TPU.USE_PALLAS_ADAPTER", "False"]
+# the toy shape of tests/test_end_to_end.py:33-41; stage 2 (4x4 tokens)
+# and stage 3 (2x2) clamp the window
+TOY = ["MODEL.SWIN.DEPTHS", "[2, 2, 2, 2]",
+       "MODEL.SWIN.EMBED_DIM", "24",
+       "MODEL.SWIN.NUM_HEADS", "[2, 2, 2, 2]",
+       "MODEL.SWIN.WINDOW_SIZE", "4",
+       "AMP_ENABLE", "False"]
+
+
+def numpy_variables(model, x, seed):
+    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), x))
+    rng = np.random.RandomState(seed)
+
+    def fill(path, s):
+        name = path[-1].key
+        if name == "var":
+            return rng.uniform(0.8, 1.2, s.shape).astype(np.float32)
+        if name == "mean":
+            return rng.uniform(-0.05, 0.05, s.shape).astype(np.float32)
+        return rng.uniform(-0.08, 0.08, s.shape).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+@pytest.fixture(scope="module")
+def toy():
+    cfg = load_config(CFG, tasks=TASKS, img_size=64, opts=TOY + SLICE_FLAGS)
+    jmodel = jax_build(cfg).clone(use_pallas=True)
+    x = np.random.RandomState(0).randn(2, 64, 64, 3).astype(np.float32)
+    variables = numpy_variables(jmodel, x, seed=0)
+    port = build_mtl_model(port_config.from_config(cfg))
+    port.load_state_dict(from_jax_variables(variables, TASKS), strict=True)
+    return cfg, jmodel, variables, port, x
+
+
+def test_multitask_forward_matches_jax(toy):
+    """(e) all four tasks' fp32 logits, atol = rtol = 1e-4."""
+    _, jmodel, variables, port, x = toy
+    ref = jax.jit(jmodel.apply)(variables, x)
+    with torch.inference_mode():
+        out = port(torch.from_numpy(x))
+    assert set(out) == set(TASKS)
+    for task in TASKS:
+        assert out[task].shape == ref[task].shape, task
+        np.testing.assert_allclose(out[task].numpy(), np.asarray(ref[task]),
+                                   atol=1e-4, rtol=1e-4, err_msg=task)
+
+
+def test_reference_key_bridge_round_trip(toy, capsys):
+    """Port weights under the reference torch keys go through the JAX
+    package's converter with no unmapped key and give back the JAX
+    variables exactly."""
+    _, _, variables, port, _ = toy
+    sd = to_reference_state_dict(port)
+    assert "backbone.layers.0.blocks.0.attn.qkv.linear.weight" in sd
+    assert "decoders.semseg.last_layer.0.weight" in sd
+    assert "backbone.layers.0.blocks.1.attn.proj.lora_tasks_A.sal" in sd
+    converted = convert_torch_state_dict(sd, TASKS, verbose=True)
+    assert "unmapped" not in capsys.readouterr().out
+    zeros = jax.tree.map(np.zeros_like, variables)
+    merged = merge_converted(zeros, converted, strict=True, verbose=False)
+    flat_a = jax.tree_util.tree_leaves_with_path(merged)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(variables))
+    assert len(flat_a) == len(flat_b)
+    for path, leaf in flat_a:
+        np.testing.assert_array_equal(np.asarray(leaf),
+                                      np.asarray(flat_b[path]),
+                                      err_msg=jax.tree_util.keystr(path))
+
+
+def test_flagship_preset_equals_yaml_config():
+    """(f) the literal preset cannot drift from the YAML it stands for."""
+    cfg = load_config(CFG, tasks=TASKS, opts=SLICE_FLAGS)
+    assert port_config.from_config(cfg) == port_config.tiny_448_r64_pertask()
+
+
+@pytest.mark.parametrize("flag", ["TPU.USE_PALLAS_LN",
+                                  "TPU.USE_PALLAS_ADAPTER",
+                                  "TPU.USE_PALLAS_LORA_GEMM"])
+def test_unported_kernel_flags_raise(flag):
+    opts = SLICE_FLAGS + [flag, "True"]
+    cfg = load_config(CFG, tasks=TASKS, opts=opts)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_config.from_config(cfg)
+
+
+HYGIENE = r"""
+import importlib, pkgutil, sys
+for name in list(sys.modules):
+    if name.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "cv2"):
+        del sys.modules[name]
+for name in ("jax", "jaxlib", "flax", "yaml", "cv2"):
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(2)
+import mtlora_tpu_torch
+for m in pkgutil.walk_packages(mtlora_tpu_torch.__path__,
+                               "mtlora_tpu_torch."):
+    importlib.import_module(m.name)
+from mtlora_tpu_torch.config import ModelConfig, StageLoRA
+from mtlora_tpu_torch.serve import predict, random_model, synthetic_images
+st = StageLoRA(8, (4, 4), 4.0, (4.0, 4.0))
+cfg = ModelConfig(tasks=("semseg", "sal"), num_outputs=(21, 1), img_size=64,
+                  stages=(st,) * 4, embed_dim=24, depths=(2, 2, 2, 2),
+                  num_heads=(2, 2, 2, 2), window_size=4,
+                  compute_dtype="float32")
+out = predict(random_model(cfg, 0, "cpu"), synthetic_images(1, 64, 0))
+assert out["semseg"].shape == (1, 64, 64, 21)
+assert all(bool(torch.isfinite(v).all()) for v in out.values())
+assert not any(k.split(".")[0] == "mtlora_tpu" for k in sys.modules)
+print("HYGIENE-OK")
+"""
+
+
+def test_port_imports_no_jax_flax_yaml_cv2():
+    """Every port module imports, and a toy forward runs, with jax, flax,
+    yaml and cv2 made unimportable."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
+    proc = subprocess.run([sys.executable, "-c", HYGIENE], env=env,
+                          cwd=os.path.abspath(ROOT), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "HYGIENE-OK" in proc.stdout
