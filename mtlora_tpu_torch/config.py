@@ -21,11 +21,12 @@ class StageLoRA:
     r_tasks: Tuple[int, ...]
     shared_scale: float
     task_scales: Tuple[float, ...]
+    dropout: float = 0.0        # on the adapters' shared input, in training
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Everything the eval forward of ``MultiTaskSwin`` depends on."""
+    """Everything the forward of ``MultiTaskSwin`` depends on."""
     tasks: Tuple[str, ...]
     num_outputs: Tuple[int, ...]
     img_size: int
@@ -45,6 +46,7 @@ class ModelConfig:
     fc2_enabled: bool = True
     decoder_channels: Tuple[int, ...] = (18, 36, 72, 144)
     compute_dtype: str = "bfloat16"   # "bfloat16" (AMP_ENABLE) or "float32"
+    drop_path_rate: float = 0.0       # stochastic depth, linear over blocks
 
 
 def _unsupported(what: str, item: str):
@@ -70,6 +72,8 @@ def from_config(config) -> ModelConfig:
     swin = config.MODEL.SWIN
     if not bool(m.ENABLED):
         _unsupported("MODEL.MTLORA.ENABLED False", "Queue 1, item 9")
+    if not bool(m.FREEZE_PRETRAINED):
+        _unsupported("MTLORA.FREEZE_PRETRAINED False", "Queue 1, item 9")
     if str(m.SHARED_MODE) != "matrix":
         _unsupported(f"MTLORA.SHARED_MODE {m.SHARED_MODE!r}", "Queue 1, item 9")
     for flag in ("DOWNSAMPLER_ENABLED", "INTERMEDIATE_SPECIALIZATION",
@@ -79,6 +83,9 @@ def from_config(config) -> ModelConfig:
             _unsupported(f"MTLORA.{flag}", "Queue 1, item 9")
     if bool(swin.APE):
         _unsupported("MODEL.SWIN.APE", "Queue 1, item 9")
+    if float(config.MODEL.DROP_RATE) != 0.0:
+        _unsupported("MODEL.DROP_RATE > 0 (token and projection dropout)",
+                     "Queue 1, item 9")
     if not (bool(config.MODEL.DECODER_DOWNSAMPLER)
             and bool(config.MODEL.PER_TASK_DOWNSAMPLER)):
         _unsupported("shared or disabled decoder downsampler",
@@ -96,7 +103,8 @@ def from_config(config) -> ModelConfig:
             r_shared=int(r_map["shared"]),
             r_tasks=tuple(int(r_map[t]) for t in tasks),
             shared_scale=float(m.SHARED_SCALE[i]),
-            task_scales=tuple(float(s_map[t]) for t in tasks)))
+            task_scales=tuple(float(s_map[t]) for t in tasks),
+            dropout=float(m.DROPOUT[i])))
     amp = bool(config.AMP_ENABLE)
     compute = ("bfloat16" if amp and str(tpu.COMPUTE_DTYPE) == "bfloat16"
                else "float32")
@@ -121,6 +129,7 @@ def from_config(config) -> ModelConfig:
         fc2_enabled=bool(m.FC2_ENABLED),
         decoder_channels=tuple(int(c) for c in config.MODEL.DECODER_CHANNELS),
         compute_dtype=compute,
+        drop_path_rate=float(config.MODEL.DROP_PATH_RATE),
     )
 
 
@@ -128,12 +137,14 @@ def tiny_448_r64_pertask() -> ModelConfig:
     """``configs/mtlora/tiny_448/mtlora_tiny_448_r64_scale4_pertask.yaml``
     with the four PASCAL tasks, ``TPU.USE_PALLAS_LN False`` and
     ``TPU.USE_PALLAS_ADAPTER False``: Swin-T at 448, shared rank 64 and
-    per-task rank 4 at scale 4 in every stage, bf16 compute."""
+    per-task rank 4 at scale 4 in every stage, adapter dropout 0.05,
+    drop-path 0.2, bf16 compute."""
     stage = StageLoRA(r_shared=64, r_tasks=(4, 4, 4, 4), shared_scale=4.0,
-                      task_scales=(4.0, 4.0, 4.0, 4.0))
+                      task_scales=(4.0, 4.0, 4.0, 4.0), dropout=0.05)
     return ModelConfig(
         tasks=("semseg", "normals", "sal", "human_parts"),
         num_outputs=(21, 3, 1, 7),
         img_size=448,
         stages=(stage,) * 4,
+        drop_path_rate=0.2,
     )

@@ -1,10 +1,15 @@
-"""HRNet decode head (eval) and the bilinear resize it uses.
+"""HRNet decode head and the bilinear resize it uses.
 
 Counterpart of ``mtlora_tpu/models/heads.py:39-52,80-144``: upsample the
 scales 1..3 to scale 0 and concatenate (18+36+72+144 = 270 channels), then
 1x1 expand (4x) + BatchNorm + ReLU + 1x1 predict in the fused kernel of
-``ops/head.py``. BatchNorm uses its running statistics, folded into a
-per-channel affine outside the kernel (``heads.py:134-139``).
+``ops/head.py``. BatchNorm is folded into a per-channel affine outside the
+kernel (``heads.py:134-139``): from the running statistics at eval, and in
+training from the batch moments of ``ops.head.bn_stats_from_x``, through
+which the BN gradient flows; training also updates the running statistics
+as ``0.9 * old + 0.1 * batch`` with the BIASED batch variance
+(``heads.py:127-133``), which is why ``nn.BatchNorm2d``'s own update (with
+the unbiased one) is not used.
 """
 
 from __future__ import annotations
@@ -15,7 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mtlora_tpu_torch.ops.head import head_mlp
+from mtlora_tpu_torch.ops.head import bn_stats_from_x, head_mlp
+
+BN_MOMENTUM = 0.9
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
@@ -49,20 +56,27 @@ class HighResolutionHead(nn.Module):
 
     def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
         """xs: 4 NHWC maps -> [B, H0, W0, n] logits at scale 0."""
-        if self.training:
-            raise NotImplementedError(
-                "HRNet head in training mode (batch-statistics BN) is not "
-                "ported yet (ROADMAP.md, Queue 1 item 5)")
         x = upcat(xs)
         B, H, W, c = x.shape
         dt = x.dtype
         expand, bn, _, pred = self.last_layer
-        inv = torch.rsqrt(bn.running_var + bn.eps)
-        mul = (inv * bn.weight)[None]
-        add = (bn.bias - bn.running_mean * inv * bn.weight)[None]
+        x2 = x.reshape(B * H * W, c)
         # ek [C, 4C] and pk [4C, n] as transposed views of the conv weights
         ek = expand.weight.view(4 * c, c).to(dt).t()
         pk = pred.weight.view(pred.out_channels, 4 * c).to(dt).t()
-        y = head_mlp(x.reshape(B * H * W, c), ek, expand.bias[None], mul,
-                     add, pk, pred.bias[None])
+        if self.training:
+            mu, var = bn_stats_from_x(x2, ek, expand.bias)
+            with torch.no_grad():
+                for stat, batch in ((bn.running_mean, mu),
+                                    (bn.running_var, var)):
+                    stat.copy_(BN_MOMENTUM * stat
+                               + (1 - BN_MOMENTUM) * batch)
+                bn.num_batches_tracked += 1
+        else:
+            mu, var = bn.running_mean, bn.running_var
+        inv = torch.rsqrt(var + bn.eps)
+        mul = (inv * bn.weight)[None]
+        add = (bn.bias - mu * inv * bn.weight)[None]
+        y = head_mlp(x2, ek, expand.bias[None], mul, add, pk,
+                     pred.bias[None])
         return y.view(B, H, W, -1)

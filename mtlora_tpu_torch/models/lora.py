@@ -1,13 +1,18 @@
 """Frozen linear layer with task-shared and per-task low-rank adapters.
 
 Counterpart of ``MTLoRALinear`` in ``mtlora_tpu/models/lora.py:169-572``,
-eval path, ``matrix`` shared mode:
+``matrix`` shared mode:
 
-    y   = x W^T + b + s   * (x   A^T) B^T                 (shared stream)
+    y   = x W^T + b + s   * (drop(x) A^T) B^T             (shared stream)
     y_t = x W^T + b + s_t * (x_t A_t^T) B_t^T              (task t)
 
 The frozen GEMM acts on the SHARED x for every task stream; a layer given
-no task inputs feeds all T adapters from the shared x. Parameters are
+no task inputs feeds all T adapters from the shared, dropped x. Dropout
+(training only, ``lora.py:409-421``) hits the adapters' shared input and
+never the task inputs; its mask comes from an explicit
+``torch.Generator``. The frozen ``linear`` weight and bias take no
+gradient (``MTLORA.FREEZE_PRETRAINED``, the JAX ``stop_gradient``).
+Parameters are
 fp32 in the reference torch layout (``linear.weight [out, in]``,
 ``lora_shared_A [r, in]``, ``lora_shared_B [out, r]``); the per-task
 adapters are stacked, ``lora_tasks_A [T, r_max, in]`` and
@@ -24,14 +29,32 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mtlora_tpu_torch.ops.attention import dtype_const
+
+
+def inverted_dropout(x: torch.Tensor, rate: float,
+                     generator: torch.Generator | None) -> torch.Tensor:
+    """Keep each element with probability ``1 - rate`` and divide it by
+    ``1 - rate`` in x's dtype (``lora.py:_fast_drop``); the mask is drawn
+    from ``generator``, never from the global RNG."""
+    if generator is None:
+        raise ValueError("dropout in training needs an explicit "
+                         "torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / dtype_const(1.0 - rate, x.dtype),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
 
 class MTLoRALinear(nn.Module):
     def __init__(self, in_features: int, out_features: int, *,
                  r_shared: int = 0, shared_scale: float = 1.0,
                  tasks: Sequence[str] = (), r_tasks: Sequence[int] = (),
-                 task_scales: Sequence[float] = (), bias: bool = True):
+                 task_scales: Sequence[float] = (), bias: bool = True,
+                 dropout: float = 0.0):
         super().__init__()
         self.linear = nn.Linear(in_features, out_features, bias=bias)
+        self.linear.requires_grad_(False)
+        self.dropout = float(dropout)
         self.r_shared = r_shared
         self.shared_scale = float(shared_scale)
         # per-task adapters exist only beside a shared one (lora.py:401)
@@ -55,15 +78,19 @@ class MTLoRALinear(nn.Module):
             self.register_buffer("task_scale", torch.tensor(self.task_scales),
                                  persistent=False)
 
-    def forward(self, x: torch.Tensor, x_tasks: torch.Tensor | None = None):
+    def forward(self, x: torch.Tensor, x_tasks: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
         """x [..., in]; x_tasks [T, ..., in] or None. Returns
-        ``(y [..., out], y_tasks [T, ..., out] or None)``."""
+        ``(y [..., out], y_tasks [T, ..., out] or None)``. In training,
+        dropout draws from ``generator``."""
         dt = x.dtype
         w = self.linear.weight.to(dt)
         b = self.linear.bias.to(dt) if self.linear.bias is not None else None
         pretrained = F.linear(x, w, b)
         if self.r_shared == 0:
             return pretrained, None
+        if self.training and self.dropout > 0.0:
+            x = inverted_dropout(x, self.dropout, generator)
         shared = F.linear(F.linear(x, self.lora_shared_A.to(dt)),
                           self.lora_shared_B.to(dt)) * self.shared_scale
         y = pretrained + shared

@@ -2,9 +2,16 @@
 
 Counterpart of ``mtlora_tpu/models/mtl.py:27-65,90-281`` on the route with
 per-task HRNet heads run one after another (``MTLORA_BATCHED_HEADS`` off).
-``forward(images [B, H, W, 3]) -> {task: [B, H, W, n_task]}``, NHWC, in the
-model's compute dtype. Parameters are fp32 and are cast where they are
-used, as under the JAX package's ``AMP_ENABLE``.
+``forward(images [B, H, W, 3], generator=None) -> {task: [B, H, W,
+n_task]}``, NHWC, in the model's compute dtype. Parameters are fp32 and
+are cast where they are used, as under the JAX package's ``AMP_ENABLE``;
+autograd through those casts gives fp32 gradients.
+
+``model.train()`` is the JAX ``deterministic=False`` with batch-statistics
+BatchNorm (``mtl.py:153-155``): adapter dropout and drop-path draw from the
+``generator`` passed to the forward, and the heads normalise with the
+batch moments and update their running statistics. ``model.eval()`` is
+the eval path, with no draw.
 """
 
 from __future__ import annotations
@@ -58,9 +65,10 @@ class MultiTaskSwin(nn.Module):
             {t: HighResolutionHead(sum(cfg.decoder_channels), n_out)
              for t, n_out in zip(cfg.tasks, cfg.num_outputs)})
 
-    def forward(self, images: torch.Tensor) -> dict:
+    def forward(self, images: torch.Tensor,
+                generator: torch.Generator | None = None) -> dict:
         x = images.to(self.compute_dtype)
-        stages = self.backbone(x)
+        stages = self.backbone(x, generator)
         size = (self.cfg.img_size, self.cfg.img_size)
         out = {}
         for i, task in enumerate(self.cfg.tasks):
@@ -70,13 +78,15 @@ class MultiTaskSwin(nn.Module):
         return out
 
 
-def build_mtl_model(cfg: ModelConfig, device=None) -> MultiTaskSwin:
-    """Eval model with zero-initialised parameters; load a state dict
+def build_mtl_model(cfg: ModelConfig, device="cuda") -> MultiTaskSwin:
+    """Eval model with zero-initialised parameters, allocated on ``device``
+    (the card unless the caller names another); load a state dict
     (``ckpt/convert.py``) or call :func:`init_random_` next."""
-    model = MultiTaskSwin(cfg)
-    if device is not None:
-        model = model.to(device)
-    return model.eval()
+    with torch.device(device):
+        model = MultiTaskSwin(cfg)
+    # buffers made from numpy constants (window masks, the relative
+    # position index) are born on the CPU
+    return model.to(device).eval()
 
 
 @torch.no_grad()

@@ -1,4 +1,4 @@
-"""Swin Transformer backbone with MTLoRA adapters (eval forward).
+"""Swin Transformer backbone with MTLoRA adapters.
 
 Counterpart of ``mtlora_tpu/models/swin.py`` on the route the JAX package
 takes with ``TPU.USE_PALLAS_LN`` and ``TPU.USE_PALLAS_ADAPTER`` off:
@@ -18,10 +18,18 @@ Task-stream contract (``swin.py:16-23``):
 Parameter names follow the reference torch keys
 (``layers.0.blocks.0.attn.qkv.linear.weight``, ``layers.0.downsample.
 reduction.weight``, ...).
+
+In training (``module.train()``) the adapters drop their shared input and
+the blocks drop paths per sample (``swin.py:153-166``): one keep draw per
+sample on the shared stream and one per (task, sample) on ``[T, B, L, C]``
+streams, at rates ``linspace(0, drop_path_rate, 12)`` over the blocks
+(``swin.py:1042``). Every draw comes from the ``torch.Generator`` passed
+down the forward; eval is the identity and draws nothing.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,6 +37,7 @@ from torch import nn
 from mtlora_tpu_torch.config import ModelConfig, StageLoRA
 from mtlora_tpu_torch.models.lora import MTLoRALinear
 from mtlora_tpu_torch.ops.attention import (
+    dtype_const,
     relative_position_index,
     shift_attention_mask,
 )
@@ -50,6 +59,21 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def drop_path(x: torch.Tensor, rate: float,
+              generator: torch.Generator | None) -> torch.Tensor:
+    """Per-sample stochastic depth (timm ``DropPath``): one keep draw for
+    each index of ``x.shape[:-2]`` -- per sample on ``[B, L, C]``, per
+    (task, sample) on ``[T, B, L, C]`` -- and kept rows scaled by
+    ``1 / keep`` in x's dtype."""
+    if generator is None:
+        raise ValueError("drop-path in training needs an explicit "
+                         "torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape[:-2] + (1, 1), generator=generator,
+                      device=x.device) < keep
+    return x * (mask.to(x.dtype) * dtype_const(1.0 / keep, x.dtype))
+
+
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, lora: StageLoRA,
                  tasks: tuple, fc1_tasks: bool, fc2_tasks: bool,
@@ -60,12 +84,12 @@ class Mlp(nn.Module):
         self.fc2 = _lora_linear(hidden, dim, lora, tasks if fc2_tasks else (),
                                 fc2_lora)
 
-    def forward(self, x, x_tasks=None):
-        x, t = self.fc1(x, x_tasks)
+    def forward(self, x, x_tasks=None, generator=None):
+        x, t = self.fc1(x, x_tasks, generator)
         x = F.gelu(x)
         if t is not None:
             t = F.gelu(t)
-        return self.fc2(x, t)
+        return self.fc2(x, t, generator)
 
 
 def _lora_linear(cin, cout, lora: StageLoRA, tasks, enabled: bool,
@@ -75,7 +99,7 @@ def _lora_linear(cin, cout, lora: StageLoRA, tasks, enabled: bool,
     return MTLoRALinear(cin, cout, r_shared=lora.r_shared,
                         shared_scale=lora.shared_scale, tasks=tasks,
                         r_tasks=lora.r_tasks, task_scales=lora.task_scales,
-                        bias=bias)
+                        bias=bias, dropout=lora.dropout)
 
 
 class WindowAttention(nn.Module):
@@ -104,23 +128,25 @@ class WindowAttention(nn.Module):
         return (self.relative_position_bias_table[idx]
                 .view(N, N, self.num_heads).permute(2, 0, 1).contiguous())
 
-    def forward(self, x, H: int, W: int, shift: int, mask=None):
+    def forward(self, x, H: int, W: int, shift: int, mask=None,
+                generator=None):
         """x [B, H*W, C] (normed) -> (y [B, L, C], y_tasks or None)."""
         B = x.shape[0]
         ws = self.window_size
         xw = shift_window_partition(x, H, W, ws, shift)     # [B*nW, N, C]
-        qkv, _ = self.qkv(xw)
+        qkv, _ = self.qkv(xw, None, generator)
         attn = fused_window_attention(qkv, self.num_heads, self.rel_bias(),
                                       mask, self.scale)
         tok = window_merge_unshift(attn, B, H, W, ws, shift)
-        return self.proj(tok)
+        return self.proj(tok, None, generator)
 
 
 class SwinBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, dim: int, resolution: int,
                  num_heads: int, lora: StageLoRA, produce_tasks: bool,
-                 shift_size: int):
+                 shift_size: int, drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = float(drop_path_rate)
         ws, shift = cfg.window_size, shift_size
         if resolution <= ws:   # window clamping (swin.py:496-497)
             ws, shift = resolution, 0
@@ -141,27 +167,32 @@ class SwinBlock(nn.Module):
             resolution, resolution, ws, shift)) if shift > 0 else None)
         self.register_buffer("attn_mask", mask, persistent=False)
 
-    def forward(self, x):
-        # drop-path (DropPath, swin.py:153) is the identity at eval
+    def forward(self, x, generator=None):
         H = W = self.resolution
+        if self.training and self.drop_path_rate > 0.0:
+            def dp(t):
+                return drop_path(t, self.drop_path_rate, generator)
+        else:
+            def dp(t):
+                return t
         shortcut = x
         aw, aw_tasks = self.attn(layer_norm(x, self.norm1), H, W, self.shift,
-                                 self.attn_mask)
-        x = shortcut + aw
-        attn_tasks = (shortcut[None] + aw_tasks
+                                 self.attn_mask, generator)
+        x = shortcut + dp(aw)
+        attn_tasks = (shortcut[None] + dp(aw_tasks)
                       if aw_tasks is not None else None)
         mlp_out, mlp_tasks = self.mlp(
             layer_norm(x, self.norm2),
             layer_norm(attn_tasks, self.norm2)
-            if attn_tasks is not None else None)
-        x = x + mlp_out
+            if attn_tasks is not None else None, generator)
+        x = x + dp(mlp_out)
         if mlp_tasks is None:
             return x, attn_tasks
         if attn_tasks is None:
             # no shortcut when only the MLP produced task streams
             # (reference quirk, swin.py:627-634)
-            return x, mlp_tasks
-        return x, attn_tasks + mlp_tasks
+            return x, dp(mlp_tasks)
+        return x, attn_tasks + dp(mlp_tasks)
 
 
 class PatchMerging(nn.Module):
@@ -195,7 +226,7 @@ class PatchMerging(nn.Module):
 
 
 class BasicLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, stage: int):
+    def __init__(self, cfg: ModelConfig, stage: int, drop_path_rates):
         super().__init__()
         dim = cfg.embed_dim * 2 ** stage
         res = cfg.img_size // cfg.patch_size // 2 ** stage
@@ -203,15 +234,16 @@ class BasicLayer(nn.Module):
         self.blocks = nn.ModuleList(
             SwinBlock(cfg, dim, res, cfg.num_heads[stage], cfg.stages[stage],
                       produce_tasks=(i == depth - 1),
-                      shift_size=0 if i % 2 == 0 else cfg.window_size // 2)
+                      shift_size=0 if i % 2 == 0 else cfg.window_size // 2,
+                      drop_path_rate=drop_path_rates[i])
             for i in range(depth))
         self.downsample = (PatchMerging(res, dim)
                            if stage < len(cfg.depths) - 1 else None)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         tasks = None
         for blk in self.blocks:
-            x, t = blk(x)
+            x, t = blk(x, generator)
             if t is not None:
                 tasks = t   # only the last streams survive
         if self.downsample is not None:
@@ -243,14 +275,17 @@ class SwinTransformerMTLoRA(nn.Module):
         self.num_tasks = len(cfg.tasks)
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.embed_dim,
                                       cfg.patch_norm)
-        self.layers = nn.ModuleList(BasicLayer(cfg, i)
-                                    for i in range(len(cfg.depths)))
+        dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)).tolist()
+        starts = np.cumsum((0,) + tuple(cfg.depths)).tolist()
+        self.layers = nn.ModuleList(
+            BasicLayer(cfg, i, dpr[starts[i]:starts[i + 1]])
+            for i in range(len(cfg.depths)))
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         x = self.patch_embed(x)
         outs = []
         for layer in self.layers:
-            x, tasks = layer(x)
+            x, tasks = layer(x, generator)
             if tasks is None:
                 tasks = x[None].expand(self.num_tasks, *x.shape)
             outs.append((x, tasks))

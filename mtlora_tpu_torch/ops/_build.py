@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
+``sm_90a``, all started together, and the objects are linked into one
 shared library with a plain C interface, loaded with ``ctypes``. The
 build happens at first use, never at import, into ``build/`` at the root
 of the checkout; the file name carries a hash of the sources, so an edit
@@ -20,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argument types; each returns a cudaError_t
@@ -28,9 +29,15 @@ SIGNATURES = {
     # qkv, bias, mask, out, n_windows, N, C, num_heads, mask_windows,
     # scale, stream
     "mtlora_window_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # qkv, bias, mask, dout, dqkv, dbias_part, dbias, n_windows, N, C,
+    # num_heads, mask_windows, group, scale_c, scale, stream
+    "mtlora_window_attn_bwd": [_P] * 7 + [_I] * 6 + [_F, _F, _P],
     # x, ek_t, eb, mul, add, pk_t, pb, y, M, cin, hidden, n_out, stream
     "mtlora_head_mlp_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _P],
+    # x, ek_t, eb, mul, add, pk_t, gy, dx, part, dek_t, deb, dmul, dadd,
+    # dpk_t, dpb, M, cin, hidden, n_out, stripes, stream
+    "mtlora_head_mlp_bwd": [_P] * 15 + [_I] * 5 + [_P],
 }
 
 _lib = None
@@ -64,16 +71,33 @@ def library() -> ctypes.CDLL:
     out = BUILD_DIR / f"libmtlora_kernels_{digest.hexdigest()[:16]}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        nvcc = _nvcc()
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(sources, objs)]
+        outputs = [proc.communicate() for proc in procs]   # wait for all
+        logs = []
+        for src, proc, (stdout, stderr) in zip(sources, procs, outputs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{stdout}\n"
+                                   f"{stderr}")
+            logs.append(stderr)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run(
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+             "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n"
+                               f"{link.stderr}")
         os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink()
         build_seconds = time.perf_counter() - t0
-        ptxas_log = proc.stderr
+        ptxas_log = "".join(logs)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

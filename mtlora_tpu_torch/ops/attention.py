@@ -40,6 +40,36 @@ def shift_attention_mask(H: int, W: int, window_size: int,
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
+def dtype_const(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``: a JAX weakly typed Python scalar
+    meeting an array of that dtype (``q * scale``, ``x / keep``)."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def attention_probs(qkv: torch.Tensor, num_heads: int,
+                    rel_bias: torch.Tensor, mask: torch.Tensor | None,
+                    scale: float):
+    """q, k, v ``[B*nW, nH, N, hd]`` (views of qkv) and the attention
+    probabilities P ``[B*nW, nH, N, N]`` in fp32 (fp64 for fp64 qkv).
+
+    Cast points, shared by the forward and the backward: q*scale rounds to
+    qkv's dtype; scores, bias, mask and softmax are fp32."""
+    Bw, N, C3 = qkv.shape
+    hd = C3 // 3 // num_heads
+    dt = qkv.dtype
+    f = torch.promote_types(dt, torch.float32)       # fp64 stays fp64
+    x = qkv.view(Bw, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = x[0], x[1], x[2]
+    s = torch.matmul((q * dtype_const(scale, dt)).to(f),
+                     k.to(f).transpose(-1, -2))
+    s = s + rel_bias.to(f)[None]
+    if mask is not None:
+        nW = mask.shape[0]
+        s = (s.view(Bw // nW, nW, num_heads, N, N)
+             + mask.to(f)[None, :, None]).view(Bw, num_heads, N, N)
+    return q, k, v, torch.softmax(s, dim=-1)
+
+
 def window_attention(qkv: torch.Tensor, num_heads: int,
                      rel_bias: torch.Tensor, mask: torch.Tensor | None,
                      scale: float) -> torch.Tensor:
@@ -47,24 +77,12 @@ def window_attention(qkv: torch.Tensor, num_heads: int,
 
     qkv [B*nW, N, 3C] with columns q | k | v and head h at h*hd;
     rel_bias [nH, N, N] and mask [nW, N, N] fp32. Returns [B*nW, N, C]
-    in qkv's dtype. Cast points: q*scale rounds to the working dtype,
-    scores, bias, mask and softmax are fp32, P rounds to the working
-    dtype before P@V, which accumulates in fp32.
+    in qkv's dtype. Cast points: those of :func:`attention_probs`, then
+    P rounds to the working dtype before P@V, which accumulates in fp32.
     """
     Bw, N, C3 = qkv.shape
-    C = C3 // 3
-    hd = C // num_heads
     dt = qkv.dtype
-    # the scale is a working-dtype constant, as JAX's weakly typed scalar
-    scale_c = float(torch.tensor(scale, dtype=dt))
-    qkv = qkv.view(Bw, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]                 # [Bw, nH, N, hd]
-    s = torch.matmul((q * scale_c).float(), k.float().transpose(-1, -2))
-    s = s + rel_bias.float()[None]
-    if mask is not None:
-        nW = mask.shape[0]
-        s = (s.view(Bw // nW, nW, num_heads, N, N)
-             + mask.float()[None, :, None]).view(Bw, num_heads, N, N)
-    p = torch.softmax(s, dim=-1).to(dt)
-    out = torch.matmul(p.float(), v.float()).to(dt)  # [Bw, nH, N, hd]
-    return out.transpose(1, 2).reshape(Bw, N, C)
+    f = torch.promote_types(dt, torch.float32)
+    _, _, v, p = attention_probs(qkv, num_heads, rel_bias, mask, scale)
+    out = torch.matmul(p.to(dt).to(f), v.to(f)).to(dt)   # [Bw, nH, N, hd]
+    return out.transpose(1, 2).reshape(Bw, N, C3 // 3)

@@ -32,7 +32,10 @@ def shift_partition_perm(H: int, W: int, ws: int, shift: int):
 def _index(H: int, W: int, ws: int, shift: int, inverse: bool,
            device: torch.device) -> torch.Tensor:
     perm, inv = shift_partition_perm(H, W, ws, shift)
-    return torch.from_numpy(inv if inverse else perm).to(device)
+    # a normal tensor even when first built under inference_mode (serving),
+    # so that a later training step can save it for backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(inv if inverse else perm).to(device)
 
 
 def shift_window_partition(x: torch.Tensor, H: int, W: int, ws: int,

@@ -8,6 +8,9 @@ and of ``main.py --throughput`` (``main.py:265-281``).
 builds the flagship (``config.tiny_448_r64_pertask``) on the GPU with
 seeded random weights, runs synthetic images through :func:`predict` and
 prints the img/s timed with CUDA events. It needs a CUDA device.
+``--profile TRACE`` then runs 3 more forwards under ``torch.profiler``,
+writes the Chrome trace to TRACE and prints a second JSON line: device
+ms per forward by kernel class, busy time and idle share.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import json
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from mtlora_tpu_torch.config import ModelConfig, tiny_448_r64_pertask
 from mtlora_tpu_torch.models.mtl import (
@@ -36,10 +40,12 @@ def predict(model: MultiTaskSwin, images) -> dict:
 
 
 def random_model(cfg: ModelConfig, seed: int, device) -> MultiTaskSwin:
-    """The model with weights drawn from ``torch.Generator().manual_seed``."""
-    model = build_mtl_model(cfg)
+    """The model, built on ``device``, with weights drawn from
+    ``torch.Generator().manual_seed(seed)`` (on the CPU, then copied, so
+    every device gets the same weights)."""
+    model = build_mtl_model(cfg, device)
     init_random_(model, torch.Generator().manual_seed(seed))
-    return model.to(device)
+    return model
 
 
 def synthetic_images(batch: int, size: int, seed: int) -> np.ndarray:
@@ -67,6 +73,7 @@ def main(argv=None):
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--requests", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", metavar="TRACE", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serve: no CUDA device")
@@ -80,6 +87,16 @@ def main(argv=None):
                       "requests": args.requests,
                       "dtype": cfg.compute_dtype,
                       "img_per_s": rate}))
+    if args.profile:
+        from mtlora_tpu_torch.train.profile import breakdown
+        forwards = 3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(forwards):
+                predict(model, images)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(args.profile)
+        print(json.dumps({"profile": breakdown(args.profile, forwards)}))
 
 
 if __name__ == "__main__":

@@ -49,6 +49,10 @@ def _port(module, variables, tasks=()):
     return module.eval()
 
 
+def _np(t):
+    return t.detach().float().cpu().numpy()
+
+
 def _close(a, b):
     np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), **TOL)
 
@@ -118,8 +122,47 @@ def test_hrnet_head_module_matches_jax(n):
 
 
 def test_hrnet_head_refuses_training_mode():
-    head = HighResolutionHead(270, 3).train()
-    xs = [torch.zeros(1, r, r, c)
-          for r, c in ((4, 18), (2, 36), (1, 72), (1, 144))]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        head(xs)
+    """The head in training mode: it normalises with the batch moments of
+    ``bn_stats_from_x``, and its logits, updated running
+    statistics (0.9 old + 0.1 batch, biased variance) and parameter
+    gradients match the JAX head with ``train=True`` (fused kernel in
+    interpret mode). fp32, 1e-4 (atol = rtol)."""
+    n = 7
+    rng = np.random.RandomState(11)
+    xs = [rng.randn(2, r, r, c).astype(np.float32)
+          for r, c in ((8, 18), (4, 36), (2, 72), (2, 144))]
+    gy = rng.randn(2, 8, 8, n).astype(np.float32)
+    jmod = JaxHead(num_outputs=n, use_pallas=True)
+    shapes = jax.eval_shape(
+        lambda: jmod.init(jax.random.PRNGKey(0), xs, train=False))
+    vrng = np.random.RandomState(12)
+    variables = jax.tree_util.tree_map_with_path(
+        lambda p, s: (vrng.uniform(0.8, 1.2, s.shape) if p[-1].key == "var"
+                      else vrng.uniform(-0.08, 0.08, s.shape)
+                      ).astype(np.float32), shapes)
+
+    def jloss(params):
+        y, upd = jmod.apply({"params": params,
+                             "batch_stats": variables["batch_stats"]},
+                            xs, train=True, mutable=["batch_stats"])
+        return jnp.sum(y * gy), (y, upd)
+
+    (_, (y_ref, upd)), g_ref = jax.value_and_grad(jloss, has_aux=True)(
+        variables["params"])
+    port = HighResolutionHead(270, n)
+    port.load_state_dict(from_jax_variables(variables), strict=True)
+    port.train()
+    y = port([torch.from_numpy(a) for a in xs])
+    (y * torch.from_numpy(gy)).sum().backward()
+    tol = dict(atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(_np(y), np.asarray(y_ref), **tol)
+    want = from_jax_variables({"batch_stats": upd["batch_stats"]})
+    got = port.state_dict()
+    for k in ("last_layer.1.running_mean", "last_layer.1.running_var"):
+        np.testing.assert_allclose(_np(got[k]), _np(want[k]), **tol,
+                                   err_msg=k)
+    g_port = {k: p.grad for k, p in port.named_parameters()}
+    g_want = from_jax_variables({"params": g_ref})
+    assert set(g_port) == set(g_want)
+    for k, g in g_port.items():
+        np.testing.assert_allclose(_np(g), _np(g_want[k]), **tol, err_msg=k)

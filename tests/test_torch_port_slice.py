@@ -66,7 +66,7 @@ def toy():
     jmodel = jax_build(cfg).clone(use_pallas=True)
     x = np.random.RandomState(0).randn(2, 64, 64, 3).astype(np.float32)
     variables = numpy_variables(jmodel, x, seed=0)
-    port = build_mtl_model(port_config.from_config(cfg))
+    port = build_mtl_model(port_config.from_config(cfg), device="cpu")
     port.load_state_dict(from_jax_variables(variables, TASKS), strict=True)
     return cfg, jmodel, variables, port, x
 
@@ -142,17 +142,27 @@ cfg = ModelConfig(tasks=("semseg", "sal"), num_outputs=(21, 1), img_size=64,
                   stages=(st,) * 4, embed_dim=24, depths=(2, 2, 2, 2),
                   num_heads=(2, 2, 2, 2), window_size=4,
                   compute_dtype="float32")
-out = predict(random_model(cfg, 0, "cpu"), synthetic_images(1, 64, 0))
+model = random_model(cfg, 0, "cpu")
+out = predict(model, synthetic_images(1, 64, 0))
 assert out["semseg"].shape == (1, 64, 64, 21)
 assert all(bool(torch.isfinite(v).all()) for v in out.values())
+from mtlora_tpu_torch.train.optim import (TrainConfig, build_optimizer,
+                                          build_schedule)
+from mtlora_tpu_torch.train.step import synthetic_batch, train_step
+tcfg = TrainConfig(batch_size=2)
+batch = synthetic_batch(2, 64, 0, "cpu")
+metrics = train_step(model, build_optimizer(model, tcfg),
+                     build_schedule(tcfg, 10), batch,
+                     torch.Generator().manual_seed(0))
+assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
 assert not any(k.split(".")[0] == "mtlora_tpu" for k in sys.modules)
 print("HYGIENE-OK")
 """
 
 
 def test_port_imports_no_jax_flax_yaml_cv2():
-    """Every port module imports, and a toy forward runs, with jax, flax,
-    yaml and cv2 made unimportable."""
+    """Every port module imports, and a toy forward and a toy training
+    step run, with jax, flax, yaml and cv2 made unimportable."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
     proc = subprocess.run([sys.executable, "-c", HYGIENE], env=env,
                           cwd=os.path.abspath(ROOT), capture_output=True,
