@@ -4,28 +4,32 @@
 
 Phases, each printing a line; any failure raises and exits non-zero:
   1. device: a CUDA card must be present; its name and power limit;
-  2. build: the four CUDA kernels from ops/csrc (one nvcc each, in
+  2. build: the eight CUDA sources from ops/csrc (one nvcc each, in
      parallel), with the build time;
-  3. forward kernels vs plain: window attention at the four Swin-T 448
-     stage shapes (batch 32, shifted and not) and the HRNet head at batch
-     32 for the four task widths (the training step's shapes, and the
-     batch-32 forward's), on the card, against their plain PyTorch
-     versions on the same tensors; kernel, plain and library-call times
-     and the roofline bound;
+  3. forward kernels vs plain, on the card, against their plain PyTorch
+     versions on the same tensors, at the batch-32 training step's shapes:
+     window attention at the four Swin-T 448 stage shapes (shifted and
+     not), the HRNet head for the four task widths, kernel 2 (LN + qkv GEMM
+     + shared LoRA) and kernel 4 (LN + whole MLP) at the four stage shapes
+     and kernel 3 (patch merge) at the three merges for the shared and the
+     task streams, with adapter dropout on (rate 0.05, the same seeds);
+     kernel, plain and library-call times and the roofline bound;
   3b. backward kernels vs plain: the same shapes, every gradient against
      the plain backward, with the same four numbers;
+then, for the LN route (TPU.USE_PALLAS_LN on, the main path) and for the
+LN-outside route (off):
   4. serve: the flagship model (bf16, seeded random weights) answers
      requests of 1, 8 and 32 images through ``serve.predict``; shapes,
-     finiteness and 12 attention + 4 head launches per forward;
+     finiteness and the exact launches of every kernel per forward;
   5. cross-check: the 1-image request against the same weights run on the
      CPU in fp32 through the plain versions;
   6. throughput: bf16 forward img/s at batch 32;
   7. train: the flagship at batch 32, full width and depth, adapter
      dropout and drop-path on, 3 steps of ``train.step.train_step``:
-     finite losses and grad norm, 12 + 12 attention and 4 + 4 head
-     launches per step, frozen weights bit-unchanged, every trainable
-     with a gradient changed, BatchNorm running statistics moved, peak
-     memory; then the train img/s at batch 32;
+     finite losses and grad norm, exact launches per step (each forward
+     kernel and its backward), frozen weights bit-unchanged, every
+     trainable with a gradient changed, BatchNorm running statistics
+     moved, peak memory; then the train img/s at batch 32;
   8. train cross-check: one step at batch 2 at 448 with dropout and
      drop-path off, on the card in bf16 and on the CPU in fp32 through
      the plain versions, from the same weights and batch;
@@ -50,6 +54,22 @@ from mtlora_tpu_torch.ops import _build, counters
 from mtlora_tpu_torch.ops.attention import (
     shift_attention_mask,
     window_attention,
+)
+from mtlora_tpu_torch.ops.ln_lora import (
+    ln_lora_bwd,
+    ln_lora_bwd_plain,
+    ln_lora_fwd,
+    ln_lora_plain,
+    merge_ln_bwd,
+    merge_ln_bwd_plain,
+    merge_ln_fwd,
+    merge_ln_plain,
+)
+from mtlora_tpu_torch.ops.ln_mlp import (
+    ln_mlp_bwd,
+    ln_mlp_bwd_plain,
+    ln_mlp_fwd,
+    ln_mlp_plain,
 )
 from mtlora_tpu_torch.ops.head import (
     head_mlp_bwd,
@@ -109,6 +129,14 @@ BWD_FP32_REL = 1e-4
 # error, a gross check, within 2^-3 of the largest element.
 HEAD_BWD_RMS = 2.0 ** -7
 HEAD_BWD_MAX_REL = 2.0 ** -3
+# kernels 2, 3, 4 vs their plain versions, both bf16 on the card: the bf16
+# outputs (y, dx) within 2^-6 of their largest element (a last bit flipped
+# where fp32 sums taken in another order round the other way, or where a
+# bf16 intermediate -- ln, m, g -- does); the fp32 sums over up to 401,408
+# rows (dgamma, dbeta, the adapters' and the reduction's gradients) at the
+# head backward's bounds: relative RMS <= 2^-7, largest error <= 2^-3 of
+# the largest element.
+LN_BF16_REL = 2.0 ** -6
 # card (bf16, 12 blocks) vs CPU (fp32): relative RMS error of each task's
 # logits; bf16 keeps 8 bits (rel. step 2^-8 = 3.9e-3), and ~40 rounded
 # ops in a row grow that to about 1e-2.
@@ -158,13 +186,15 @@ class Tally:
         self.err = self.ms = self.plain = self.lib = 0.0
         self.bytes = self.flops = 0.0
 
-    def add(self, err, ms, plain, lib, nbytes, flops):
+    def add(self, err, ms, plain, lib, nbytes, flops, weight=1):
+        """``weight``: the launches of this shape per pass (the sites of a
+        forward that take it), so that the sums are per pass."""
         self.err = max(self.err, err)
-        self.ms += ms
-        self.plain += plain
-        self.lib += lib
-        self.bytes += nbytes
-        self.flops += flops
+        self.ms += weight * ms
+        self.plain += weight * plain
+        self.lib += weight * lib
+        self.bytes += weight * nbytes
+        self.flops += weight * flops
 
     def json(self) -> dict:
         t_bytes = self.bytes / PEAK_HBM_BYTES * 1e3
@@ -350,6 +380,288 @@ def check_head(gen) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
+# ---------------------------------------------------------------------------
+# Kernels 2, 3, 4 (the TPU.USE_PALLAS_LN route): LN + GEMM + LoRA, patch
+# merge, whole MLP, forward and backward, at every site shape of the
+# batch-32 step, dropout on at the flagship's rate on the same seeds.
+# ---------------------------------------------------------------------------
+
+def _uniform(gen, shape, bound):
+    return ((torch.rand(shape, generator=gen, device="cuda") * 2 - 1)
+            * bound).to(torch.bfloat16)
+
+
+def _ln_params(gen, K):
+    gamma = (0.9 + 0.2 * torch.rand(K, generator=gen, device="cuda"))
+    beta = 0.02 * torch.randn(K, generator=gen, device="cuda")
+    return gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+
+
+def _seed(gen):
+    return torch.randint(0, 2 ** 31 - 1, (2,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def check_outputs(label, got, want, names, bf16_idx):
+    """Forward-style bound for the bf16 outputs at ``bf16_idx`` (largest
+    error <= 2^-6 of the largest element), and relative RMS <= 2^-7 plus
+    largest error <= 2^-3 of the largest element for the fp32 sums.
+    Returns (worst error, text)."""
+    worst, parts = 0.0, []
+    for i, (name, a, b) in enumerate(zip(names, got, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype, (label, name)
+        d = (a.float() - b.float())
+        e = d.abs().max().item()
+        top = b.float().abs().max().item()
+        if i in bf16_idx:
+            parts.append(f"{name} {e:.2e}/{LN_BF16_REL * top:.2e}")
+            assert e <= LN_BF16_REL * top, f"{label} {name}: {e} > {top}"
+        else:
+            rms = (d.norm() / b.float().norm()).item()
+            parts.append(f"{name} {e:.2e} rel_rms {rms:.2e}")
+            assert rms <= HEAD_BWD_RMS, f"{label} {name}: rel_rms {rms}"
+            assert e <= HEAD_BWD_MAX_REL * top, f"{label} {name}: {e}"
+        worst = max(worst, e)
+    return worst, " ".join(parts)
+
+
+def stage_dims(s):
+    cfg = tiny_448_r64_pertask()
+    res = cfg.img_size // cfg.patch_size // 2 ** s
+    C = cfg.embed_dim * 2 ** s
+    return cfg, res, C, KERNEL_BATCH * res * res
+
+
+def ln_lora_library(x, gamma, beta, wt, bias, at, bt, scale):
+    ln = F.layer_norm(x, (x.shape[1],), gamma, beta, 1e-5)
+    return torch.addmm(bias, ln, wt.t()) + scale * ((ln @ at.t()) @ bt.t())
+
+
+def check_ln_lora(gen) -> dict:
+    """Kernel 2 at the qkv sites: per stage x [M, C] -> [M, 3C], rank 64,
+    scale 4, dropout 0.05; weighted by the stage's blocks."""
+    fwd, bwd = Tally(), Tally()
+    for s in range(4):
+        cfg, _, C, M = stage_dims(s)
+        st = cfg.stages[s]
+        O, r, sc, p = 3 * C, st.r_shared, st.shared_scale, st.dropout
+        x = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
+        gamma, beta = _ln_params(gen, C)
+        wt = _uniform(gen, (O, C), C ** -0.5)
+        bias = _uniform(gen, (O,), 0.02)
+        at = _uniform(gen, (r, C), C ** -0.5)
+        bt = _uniform(gen, (O, r), r ** -0.5)
+        seed = _seed(gen)
+        gy = torch.randn(M, O, generator=gen, device="cuda").to(torch.bfloat16)
+        args = (x, gamma, beta, wt, bias, at, bt, seed, sc, p)
+        lib_args = (x, gamma, beta, wt, bias, at, bt, sc)
+        n = cfg.depths[s]
+        y = ln_lora_fwd(*args)
+        ref = ln_lora_plain(*args)
+        torch.cuda.synchronize()
+        err, text = check_outputs(f"ln_lora fwd stage {s}", [y], [ref], ["y"],
+                                  {0})
+        t_k = median_ms(lambda: ln_lora_fwd(*args))
+        t_p = median_ms(lambda: ln_lora_plain(*args))
+        t_l = median_ms(lambda: ln_lora_library(*lib_args))
+        w_bytes = 2 * (O * C + O + r * C + O * r + 2 * C)
+        nbytes = 2 * M * (C + O) + w_bytes
+        flops = 2.0 * M * (C * O + C * r + r * O)
+        print(f"ln_lora fwd stage {s} x [{M}, {C}] -> {O} (x{n}): {text} "
+              f"kernel {t_k:.4f} ms plain {t_p:.4f} ms library {t_l:.4f} ms "
+              f"{bound_text(nbytes, flops)}")
+        fwd.add(err, t_k, t_p, t_l, nbytes, flops, n)
+        got = ln_lora_bwd(*args, gy)
+        want = ln_lora_bwd_plain(*args, gy)
+        torch.cuda.synchronize()
+        err, text = check_outputs(f"ln_lora bwd stage {s}", got, want,
+                                  ("dx", "dgamma", "dbeta", "dA", "dB"), {0})
+        leaves = [t.detach().requires_grad_(True) for t in (x, gamma, beta,
+                                                            at, bt)]
+        yl = ln_lora_library(leaves[0], leaves[1], leaves[2], wt, bias,
+                             leaves[3], leaves[4], sc)
+        t_k = median_ms(lambda: ln_lora_bwd(*args, gy))
+        t_p = median_ms(lambda: ln_lora_bwd_plain(*args, gy))
+        t_l = median_ms(lambda: torch.autograd.grad(yl, leaves, gy,
+                                                    retain_graph=True))
+        nbytes = 2 * M * (2 * C + O) + 2 * w_bytes
+        flops = 2.0 * M * (O * C + 3 * C * r + 2 * O * r)
+        print(f"ln_lora bwd stage {s}: {text} kernel {t_k:.4f} ms plain "
+              f"{t_p:.4f} ms library backward {t_l:.4f} ms "
+              f"{bound_text(nbytes, flops)}")
+        bwd.add(err, t_k, t_p, t_l, nbytes, flops, n)
+        del x, gy, y, ref, got, want, yl, leaves
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def merge_library(x, gamma, beta, wt, idx):
+    """2x2 gather as one index_select, LN(4C), GEMM."""
+    L, HW, C = x.shape
+    xc = x.index_select(1, idx).reshape(L * HW // 4, 4 * C)
+    ln = F.layer_norm(xc, (4 * C,), gamma, beta, 1e-5)
+    return ln @ wt.t()
+
+
+def merge_index(H, W, device):
+    """Source token of every (merged token, quarter) in the concat order
+    k = di + 2 dj."""
+    i, j = torch.meshgrid(torch.arange(H // 2), torch.arange(W // 2),
+                          indexing="ij")
+    idx = [(2 * i + di) * W + 2 * j + dj for dj in (0, 1) for di in (0, 1)]
+    return torch.stack(idx, -1).reshape(-1).to(device)
+
+
+def check_merge(gen) -> dict:
+    """Kernel 3 at the three merges, for the shared stream (B rows) and the
+    flattened task streams (T*B rows)."""
+    fwd, bwd = Tally(), Tally()
+    for s in range(3):
+        cfg, res, C, _ = stage_dims(s)
+        K, O = 4 * C, 2 * C
+        gamma, beta = _ln_params(gen, K)
+        wt = _uniform(gen, (O, K), K ** -0.5)
+        idx = merge_index(res, res, "cuda")
+        for L in (KERNEL_BATCH, len(cfg.tasks) * KERNEL_BATCH):
+            x = torch.randn(L, res * res, C, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            gy = torch.randn(L, res * res // 4, O, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+            M = L * res * res // 4
+            args = (x, gamma, beta, wt, res, res)
+            y = merge_ln_fwd(*args)
+            ref = merge_ln_plain(*args)
+            torch.cuda.synchronize()
+            err, text = check_outputs(f"merge fwd {s} L {L}", [y], [ref],
+                                      ["y"], {0})
+            t_k = median_ms(lambda: merge_ln_fwd(*args))
+            t_p = median_ms(lambda: merge_ln_plain(*args))
+            t_l = median_ms(lambda: merge_library(x, gamma, beta, wt, idx))
+            nbytes = 2 * (M * K + M * O + O * K + 2 * K)
+            flops = 2.0 * M * K * O
+            print(f"merge fwd {res}->{res // 2} L {L} x [{M}, {K}] -> {O}: "
+                  f"{text} kernel {t_k:.4f} ms plain {t_p:.4f} ms library "
+                  f"{t_l:.4f} ms {bound_text(nbytes, flops)}")
+            fwd.add(err, t_k, t_p, t_l, nbytes, flops)
+            got = merge_ln_bwd(*args, gy)
+            want = merge_ln_bwd_plain(*args, gy)
+            torch.cuda.synchronize()
+            err, text = check_outputs(f"merge bwd {s} L {L}", got, want,
+                                      ("dx", "dgamma", "dbeta", "dW"), {0})
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (x, gamma, beta, wt)]
+            yl = merge_library(*leaves, idx).reshape(gy.shape)
+            t_k = median_ms(lambda: merge_ln_bwd(*args, gy))
+            t_p = median_ms(lambda: merge_ln_bwd_plain(*args, gy))
+            t_l = median_ms(lambda: torch.autograd.grad(yl, leaves, gy,
+                                                        retain_graph=True))
+            nbytes = 2 * (2 * M * K + M * O + O * K + 2 * K) + 4 * (O * K
+                                                                + 2 * K)
+            flops = 4.0 * M * K * O
+            print(f"merge bwd {res}->{res // 2} L {L}: {text} kernel "
+                  f"{t_k:.4f} ms plain {t_p:.4f} ms library backward "
+                  f"{t_l:.4f} ms {bound_text(nbytes, flops)}")
+            bwd.add(err, t_k, t_p, t_l, nbytes, flops)
+            del x, gy, y, ref, got, want, yl, leaves
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def ln_mlp_library(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2,
+                   s1, s2):
+    ln = F.layer_norm(x, (x.shape[1],), gamma, beta, 1e-5)
+    h = torch.addmm(bias1, ln, w1.t()) + s1 * ((ln @ a1.t()) @ bb1.t())
+    g = F.gelu(h)
+    return torch.addmm(bias2, g, w2.t()) + s2 * ((g @ a2.t()) @ bb2.t())
+
+
+def check_ln_mlp(gen) -> dict:
+    """Kernel 4 at the no-task blocks' MLPs: per stage x [M, C], hidden 4C,
+    rank 64, scales 4, dropout 0.05; weighted by the stage's no-task
+    blocks."""
+    fwd, bwd = Tally(), Tally()
+    for s in range(4):
+        cfg, _, C, M = stage_dims(s)
+        st = cfg.stages[s]
+        H4, r, sc, p = 4 * C, st.r_shared, st.shared_scale, st.dropout
+        x = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
+        gamma, beta = _ln_params(gen, C)
+        w1 = _uniform(gen, (H4, C), C ** -0.5)
+        bias1 = _uniform(gen, (H4,), 0.02)
+        a1 = _uniform(gen, (r, C), C ** -0.5)
+        bb1 = _uniform(gen, (H4, r), r ** -0.5)
+        w2 = _uniform(gen, (C, H4), H4 ** -0.5)
+        bias2 = _uniform(gen, (C,), 0.02)
+        a2 = _uniform(gen, (r, H4), H4 ** -0.5)
+        bb2 = _uniform(gen, (C, r), r ** -0.5)
+        seed = _seed(gen)
+        gy = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
+        ws = (w1, bias1, a1, bb1, w2, bias2, a2, bb2)
+        args = (x, gamma, beta, *ws, seed, sc, sc, p)
+        n = cfg.depths[s] - 1
+        y = ln_mlp_fwd(*args)
+        ref = ln_mlp_plain(*args)
+        torch.cuda.synchronize()
+        err, text = check_outputs(f"ln_mlp fwd stage {s}", [y], [ref], ["y"],
+                                  {0})
+        t_k = median_ms(lambda: ln_mlp_fwd(*args))
+        t_p = median_ms(lambda: ln_mlp_plain(*args))
+        t_l = median_ms(lambda: ln_mlp_library(x, gamma, beta, *ws, sc, sc))
+        w_bytes = 2 * (2 * C * H4 + H4 + C + 2 * r * (C + H4) + 2 * C)
+        nbytes = 4 * M * C + w_bytes
+        flops = 2.0 * M * (2 * C * H4 + 2 * r * (C + H4))
+        print(f"ln_mlp fwd stage {s} x [{M}, {C}] hidden {H4} (x{n}): {text} "
+              f"kernel {t_k:.4f} ms plain {t_p:.4f} ms library {t_l:.4f} ms "
+              f"{bound_text(nbytes, flops)}")
+        fwd.add(err, t_k, t_p, t_l, nbytes, flops, n)
+        got = ln_mlp_bwd(*args, gy)
+        want = ln_mlp_bwd_plain(*args, gy)
+        torch.cuda.synchronize()
+        err, text = check_outputs(
+            f"ln_mlp bwd stage {s}", got, want,
+            ("dx", "dgamma", "dbeta", "dA1", "dB1", "dA2", "dB2"), {0})
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x, gamma, beta, a1, bb1, a2, bb2)]
+        yl = ln_mlp_library(leaves[0], leaves[1], leaves[2], w1, bias1,
+                            leaves[3], leaves[4], w2, bias2, leaves[5],
+                            leaves[6], sc, sc)
+        t_k = median_ms(lambda: ln_mlp_bwd(*args, gy), reps=5)
+        t_p = median_ms(lambda: ln_mlp_bwd_plain(*args, gy), reps=5)
+        t_l = median_ms(lambda: torch.autograd.grad(yl, leaves, gy,
+                                                    retain_graph=True),
+                        reps=5)
+        nbytes = 6 * M * C + 2 * w_bytes
+        flops = 2.0 * M * (3 * C * H4 + 6 * r * H4 + 5 * r * C)
+        print(f"ln_mlp bwd stage {s}: {text} kernel {t_k:.4f} ms plain "
+              f"{t_p:.4f} ms library backward {t_l:.4f} ms "
+              f"{bound_text(nbytes, flops)}")
+        bwd.add(err, t_k, t_p, t_l, nbytes, flops, n)
+        del x, gy, y, ref, got, want, yl, leaves
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def launches_per_pass(cfg, backward: bool) -> dict:
+    """Exact kernel launches of one forward (or training step): attention
+    in every block, a head per task; on the LN route kernel 2 in every
+    block, kernel 4 in the blocks with no task streams and kernel 3 on the
+    shared and the task streams at every merge; each doubled by the
+    backward."""
+    n_blocks, stages = sum(cfg.depths), len(cfg.depths)
+    fwd = {"window_attention": n_blocks, "hrnet_head_mlp": len(cfg.tasks)}
+    if cfg.use_pallas_ln:
+        fwd.update(ln_lora=n_blocks, ln_mlp=n_blocks - stages,
+                   patch_merge=2 * (stages - 1))
+    want = dict.fromkeys(counters.WRAPPERS, 0)
+    for name, n in fwd.items():
+        want[name] = n
+        if backward:
+            want[name + "_bwd"] = n
+    return want
+
+
+def route_name(cfg) -> str:
+    return ("LN route (TPU.USE_PALLAS_LN on)" if cfg.use_pallas_ln
+            else "LN-outside route (TPU.USE_PALLAS_LN off)")
+
+
 def serve_requests(model, cfg) -> tuple:
     """Phase 4; returns (launch counts of the run, the 1-image request's
     images and outputs)."""
@@ -374,8 +686,7 @@ def serve_requests(model, cfg) -> tuple:
         if first is None:
             first = (images, {t: v.float().cpu() for t, v in out.items()})
     counts = counters.read()
-    want = {"window_attention": sum(cfg.depths), "window_attention_bwd": 0,
-            "hrnet_head_mlp": len(cfg.tasks), "hrnet_head_mlp_bwd": 0}
+    want = launches_per_pass(cfg, backward=False)
     for c in per_forward:
         assert c == want, f"expected {want} launches per forward, got {c}"
     return counts, first
@@ -421,10 +732,7 @@ def train_phase(cfg, card) -> dict:
               if k.endswith("running_mean") or k.endswith("running_var")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    want = {"window_attention": sum(cfg.depths),
-            "window_attention_bwd": sum(cfg.depths),
-            "hrnet_head_mlp": len(cfg.tasks),
-            "hrnet_head_mlp_bwd": len(cfg.tasks)}
+    want = launches_per_pass(cfg, backward=True)
     counters.reset()
     had_grad = set()
     for i in range(TRAIN_STEPS):
@@ -533,24 +841,31 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     attn = check_attention(gen)
     head = check_head(gen)
+    ln2 = check_ln_lora(gen)
+    merge = check_merge(gen)
+    mlp = check_ln_mlp(gen)
 
-    cfg = tiny_448_r64_pertask()
-    model = random_model(cfg, SEED, "cuda")
-    serve_counts, (images1, card_out1) = serve_requests(model, cfg)
-    cross_check(model, cfg, images1, card_out1)
-
-    batch = torch.from_numpy(synthetic_images(
-        THROUGHPUT_BATCH, cfg.img_size, SEED)).cuda()
-    torch.cuda.reset_peak_memory_stats()
-    rate = throughput(model, batch, iters=5)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"throughput: {rate:.2f} img/s bf16 forward at batch "
-          f"{THROUGHPUT_BATCH} (peak {peak:.2f} GiB) on {card}")
-    del model, batch
-
-    train_counts = train_phase(cfg, card)
-    print(f"launches: serve {serve_counts}, train {train_counts}")
-    train_cross_check(cfg)
+    train_counts = None
+    for use_ln in (True, False):
+        cfg = tiny_448_r64_pertask(use_pallas_ln=use_ln)
+        route = route_name(cfg)
+        print(f"=== {route}")
+        model = random_model(cfg, SEED, "cuda")
+        serve_counts, (images1, card_out1) = serve_requests(model, cfg)
+        cross_check(model, cfg, images1, card_out1)
+        batch = torch.from_numpy(synthetic_images(
+            THROUGHPUT_BATCH, cfg.img_size, SEED)).cuda()
+        torch.cuda.reset_peak_memory_stats()
+        rate = throughput(model, batch, iters=5)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"throughput ({route}): {rate:.2f} img/s bf16 forward at "
+              f"batch {THROUGHPUT_BATCH} (peak {peak:.2f} GiB) on {card}")
+        del model, batch
+        counts = train_phase(cfg, card)
+        print(f"launches ({route}): serve {serve_counts}, train {counts}")
+        train_cross_check(cfg)
+        if use_ln:
+            train_counts = counts      # the main path's launches
 
     def entry(name, source, replaces, tally):
         return {"name": name, "route": "cuda",
@@ -567,6 +882,16 @@ def main():
               head["fwd"]),
         entry("hrnet_head_mlp_bwd", "head_mlp_bwd.cu", "pallas_head.py:111",
               head["bwd"]),
+        entry("ln_lora", "ln_lora.cu", "pallas_ln_lora.py:74", ln2["fwd"]),
+        entry("ln_lora_bwd", "ln_lora_bwd.cu", "pallas_ln_lora.py:124",
+              ln2["bwd"]),
+        entry("patch_merge", "ln_lora.cu", "pallas_ln_lora.py:465",
+              merge["fwd"]),
+        entry("patch_merge_bwd", "ln_lora_bwd.cu", "pallas_ln_lora.py:492",
+              merge["bwd"]),
+        entry("ln_mlp", "ln_mlp.cu", "pallas_ln_mlp.py:54", mlp["fwd"]),
+        entry("ln_mlp_bwd", "ln_mlp_bwd.cu", "pallas_ln_mlp.py:103",
+              mlp["bwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

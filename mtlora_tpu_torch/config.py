@@ -47,6 +47,9 @@ class ModelConfig:
     decoder_channels: Tuple[int, ...] = (18, 36, 72, 144)
     compute_dtype: str = "bfloat16"   # "bfloat16" (AMP_ENABLE) or "float32"
     drop_path_rate: float = 0.0       # stochastic depth, linear over blocks
+    # TPU.USE_PALLAS_LN: LN fused into qkv (kernel 2), the whole MLP of the
+    # no-task blocks (kernel 4) and the patch merges (kernel 3)
+    use_pallas_ln: bool = False
 
 
 def _unsupported(what: str, item: str):
@@ -59,17 +62,21 @@ def from_config(config) -> ModelConfig:
     """Build from a loaded reference-schema config node (after
     ``normalize_mtlora``), read by attribute only."""
     tpu = config.TPU
-    if bool(tpu.USE_PALLAS_LN):
-        _unsupported("TPU.USE_PALLAS_LN (LN+LoRA, merge, whole-MLP and "
-                     "task-merge kernels)", "Queue 2, kernels 2, 3, 4, 6")
     if bool(tpu.USE_PALLAS_ADAPTER):
-        _unsupported("TPU.USE_PALLAS_ADAPTER (adapter MLP-tail kernel)",
-                     "Queue 2, kernel 5")
+        _unsupported("TPU.USE_PALLAS_ADAPTER (adapter MLP-tail and "
+                     "task-merge kernels, factored task streams)",
+                     "Queue 2, kernels 5 and 6")
     if bool(tpu.USE_PALLAS_LORA_GEMM):
         _unsupported("TPU.USE_PALLAS_LORA_GEMM (LoRA GEMM kernel)",
                      "Queue 2, kernel 8")
     m = config.MODEL.MTLORA
     swin = config.MODEL.SWIN
+    use_ln = bool(tpu.USE_PALLAS_LN)
+    if use_ln and not (bool(m.QKV_ENABLED) and bool(m.FC1_ENABLED)
+                       and bool(m.FC2_ENABLED)):
+        _unsupported("TPU.USE_PALLAS_LN with qkv, fc1 or fc2 adapters off "
+                     "(kernel 2's GELU and dropped-output modes)",
+                     "Queue 2, kernel 2")
     if not bool(m.ENABLED):
         _unsupported("MODEL.MTLORA.ENABLED False", "Queue 1, item 9")
     if not bool(m.FREEZE_PRETRAINED):
@@ -130,15 +137,17 @@ def from_config(config) -> ModelConfig:
         decoder_channels=tuple(int(c) for c in config.MODEL.DECODER_CHANNELS),
         compute_dtype=compute,
         drop_path_rate=float(config.MODEL.DROP_PATH_RATE),
+        use_pallas_ln=use_ln,
     )
 
 
-def tiny_448_r64_pertask() -> ModelConfig:
+def tiny_448_r64_pertask(use_pallas_ln: bool = True) -> ModelConfig:
     """``configs/mtlora/tiny_448/mtlora_tiny_448_r64_scale4_pertask.yaml``
-    with the four PASCAL tasks, ``TPU.USE_PALLAS_LN False`` and
-    ``TPU.USE_PALLAS_ADAPTER False``: Swin-T at 448, shared rank 64 and
-    per-task rank 4 at scale 4 in every stage, adapter dropout 0.05,
-    drop-path 0.2, bf16 compute."""
+    with the four PASCAL tasks and ``TPU.USE_PALLAS_ADAPTER False``: Swin-T
+    at 448, shared rank 64 and per-task rank 4 at scale 4 in every stage,
+    adapter dropout 0.05, drop-path 0.2, bf16 compute. ``use_pallas_ln``
+    is ``TPU.USE_PALLAS_LN``: on by default, as in the YAML; off is the
+    route with LayerNorm outside the GEMMs."""
     stage = StageLoRA(r_shared=64, r_tasks=(4, 4, 4, 4), shared_scale=4.0,
                       task_scales=(4.0, 4.0, 4.0, 4.0), dropout=0.05)
     return ModelConfig(
@@ -147,4 +156,5 @@ def tiny_448_r64_pertask() -> ModelConfig:
         img_size=448,
         stages=(stage,) * 4,
         drop_path_rate=0.2,
+        use_pallas_ln=use_pallas_ln,
     )

@@ -19,6 +19,13 @@ adapters are stacked, ``lora_tasks_A [T, r_max, in]`` and
 ``lora_tasks_B [T, out, r_max]``, and a constant rank mask keeps the
 padded slots of tasks with rank below ``r_max`` at exactly zero. The
 layer computes in the dtype of its input.
+
+:meth:`MTLoRALinear.ln_fused` is the ``TPU.USE_PALLAS_LN`` prologue
+(``_ln_fused``, ``lora.py:207-265``): it takes the PRE-norm input and the
+block's ``nn.LayerNorm`` and runs LayerNorm, the frozen GEMM and the shared
+adapter as kernel 2 (``ops/ln_lora.py``), its dropout mask hashed in the
+kernel from two seeds drawn from the generator. It has no task branch, as
+``_ln_fused`` has no materialized-task form.
 """
 
 from __future__ import annotations
@@ -29,7 +36,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mtlora_tpu_torch.ops import dropout as hash_dropout
 from mtlora_tpu_torch.ops.attention import dtype_const
+from mtlora_tpu_torch.ops.ln_lora import fused_ln_lora_linear
 
 
 def inverted_dropout(x: torch.Tensor, rate: float,
@@ -110,3 +119,35 @@ class MTLoRALinear(nn.Module):
         update = torch.bmm(mid, b_eff.transpose(1, 2))          # [T, M, out]
         y_tasks = pretrained[None] + update.view(T, *lead, -1)
         return y, y_tasks
+
+    def kernel_operands(self, dt: torch.dtype):
+        """The frozen weight and bias and the shared adapter in compute
+        dtype ``dt``, module layouts: ``(wt [out, in], bias [out],
+        at [r, in], bt [out, r])``."""
+        lin = self.linear
+        bias = (lin.bias if lin.bias is not None
+                else torch.zeros(lin.out_features, device=lin.weight.device))
+        return (lin.weight.to(dt), bias.to(dt), self.lora_shared_A.to(dt),
+                self.lora_shared_B.to(dt))
+
+    def drop_rate(self) -> float:
+        return self.dropout if (self.training and self.dropout > 0.0) else 0.0
+
+    def ln_fused(self, x: torch.Tensor, norm: nn.LayerNorm,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        """``LN(x) W^T + b + s (drop(LN x) A^T) B^T`` on the pre-norm
+        ``x [..., in]`` in one kernel-2 call; shared stream only."""
+        if self.r_shared == 0 or self.tasks:
+            raise ValueError("ln_fused needs a shared adapter and no task "
+                             "branch (_ln_fused has no materialized-task "
+                             "form)")
+        dt = x.dtype
+        lead = x.shape[:-1]
+        drop = self.drop_rate()
+        seed = (hash_dropout.draw_seed(generator, x.device) if drop > 0.0
+                else torch.zeros(2, dtype=torch.int32, device=x.device))
+        y = fused_ln_lora_linear(
+            x.reshape(-1, x.shape[-1]).contiguous(), norm.weight.to(dt),
+            norm.bias.to(dt), *self.kernel_operands(dt), seed,
+            self.shared_scale, drop)
+        return y.view(*lead, -1)

@@ -1,9 +1,16 @@
 """Swin Transformer backbone with MTLoRA adapters.
 
-Counterpart of ``mtlora_tpu/models/swin.py`` on the route the JAX package
-takes with ``TPU.USE_PALLAS_LN`` and ``TPU.USE_PALLAS_ADAPTER`` off:
-materialized task streams ``[T, B, L, C]``, LayerNorm outside the GEMMs,
-the window attention core in the CUDA kernel of ``ops/window_attn.py``.
+Counterpart of ``mtlora_tpu/models/swin.py`` with ``TPU.USE_PALLAS_ADAPTER``
+off: materialized task streams ``[T, B, L, C]``, the window attention core
+in the CUDA kernel of ``ops/window_attn.py``. Two routes, as the JAX
+package's ``TPU.USE_PALLAS_LN`` switch (``cfg.use_pallas_ln``):
+
+  - off: LayerNorm outside the GEMMs, every linear layer as a module;
+  - on: norm1 -> qkv runs kernel 2 in every block (``swin.py:411-421``);
+    the whole MLP of a block with no task streams runs kernel 4
+    (:215-251); the stage-tail blocks keep ``layer_norm`` plus the module
+    path (:298-302); PatchMerging runs kernel 3 on the shared stream and
+    on the flattened task streams (:704-741). Parameters are the same.
 Token layout is ``[B, L, C]`` with L = H*W row-major; the qkv GEMM runs on
 the tokens after the window gather, the proj GEMM after the inverse
 gather, as in the JAX ``WindowAttention``.
@@ -36,6 +43,7 @@ from torch import nn
 
 from mtlora_tpu_torch.config import ModelConfig, StageLoRA
 from mtlora_tpu_torch.models.lora import MTLoRALinear
+from mtlora_tpu_torch.ops import dropout as hash_dropout
 from mtlora_tpu_torch.ops.attention import (
     dtype_const,
     relative_position_index,
@@ -45,6 +53,8 @@ from mtlora_tpu_torch.ops.window import (
     shift_window_partition,
     window_merge_unshift,
 )
+from mtlora_tpu_torch.ops.ln_lora import fused_merge_ln_linear
+from mtlora_tpu_torch.ops.ln_mlp import fused_ln_mlp
 from mtlora_tpu_torch.ops.window_attn import fused_window_attention
 
 
@@ -91,6 +101,29 @@ class Mlp(nn.Module):
             t = F.gelu(t)
         return self.fc2(x, t, generator)
 
+    @property
+    def ln_fusible(self) -> bool:
+        """Kernel 4 takes the whole MLP: no task streams, shared adapters
+        on both layers (``_ln_mlp_fusible``)."""
+        return (not self.fc1.tasks and not self.fc2.tasks
+                and self.fc1.r_shared > 0 and self.fc2.r_shared > 0)
+
+    def ln_fused(self, x, norm: nn.LayerNorm, generator=None):
+        """norm -> fc1 -> GELU -> fc2 on the pre-norm ``x [..., C]`` as one
+        kernel-4 call (``swin.py:224-251``); the two dropout streams hash
+        seed[0] and seed[1] of one draw."""
+        dt = x.dtype
+        lead = x.shape[:-1]
+        drop = self.fc1.drop_rate()
+        seed = (hash_dropout.draw_seed(generator, x.device) if drop > 0.0
+                else torch.zeros(2, dtype=torch.int32, device=x.device))
+        y = fused_ln_mlp(x.reshape(-1, x.shape[-1]).contiguous(),
+                         norm.weight.to(dt), norm.bias.to(dt),
+                         *self.fc1.kernel_operands(dt),
+                         *self.fc2.kernel_operands(dt), seed,
+                         self.fc1.shared_scale, self.fc2.shared_scale, drop)
+        return y.view(*lead, -1)
+
 
 def _lora_linear(cin, cout, lora: StageLoRA, tasks, enabled: bool,
                  bias: bool = True) -> MTLoRALinear:
@@ -129,12 +162,20 @@ class WindowAttention(nn.Module):
                 .view(N, N, self.num_heads).permute(2, 0, 1).contiguous())
 
     def forward(self, x, H: int, W: int, shift: int, mask=None,
-                generator=None):
-        """x [B, H*W, C] (normed) -> (y [B, L, C], y_tasks or None)."""
+                generator=None, norm: nn.LayerNorm | None = None):
+        """x [B, H*W, C] -> (y [B, L, C], y_tasks or None). ``norm``: x is
+        PRE-norm and the LayerNorm runs inside the qkv kernel (kernel 2) on
+        the gathered tokens, or before the module path when qkv has no
+        adapter."""
         B = x.shape[0]
         ws = self.window_size
         xw = shift_window_partition(x, H, W, ws, shift)     # [B*nW, N, C]
-        qkv, _ = self.qkv(xw, None, generator)
+        if norm is not None and self.qkv.r_shared > 0:
+            qkv = self.qkv.ln_fused(xw, norm, generator)
+        else:
+            if norm is not None:
+                xw = layer_norm(xw, norm)
+            qkv, _ = self.qkv(xw, None, generator)
         attn = fused_window_attention(qkv, self.num_heads, self.rel_bias(),
                                       mask, self.scale)
         tok = window_merge_unshift(attn, B, H, W, ws, shift)
@@ -147,6 +188,7 @@ class SwinBlock(nn.Module):
                  shift_size: int, drop_path_rate: float = 0.0):
         super().__init__()
         self.drop_path_rate = float(drop_path_rate)
+        self.use_pallas_ln = cfg.use_pallas_ln
         ws, shift = cfg.window_size, shift_size
         if resolution <= ws:   # window clamping (swin.py:496-497)
             ws, shift = resolution, 0
@@ -176,11 +218,18 @@ class SwinBlock(nn.Module):
             def dp(t):
                 return t
         shortcut = x
-        aw, aw_tasks = self.attn(layer_norm(x, self.norm1), H, W, self.shift,
-                                 self.attn_mask, generator)
+        if self.use_pallas_ln:
+            aw, aw_tasks = self.attn(x, H, W, self.shift, self.attn_mask,
+                                     generator, norm=self.norm1)
+        else:
+            aw, aw_tasks = self.attn(layer_norm(x, self.norm1), H, W,
+                                     self.shift, self.attn_mask, generator)
         x = shortcut + dp(aw)
         attn_tasks = (shortcut[None] + dp(aw_tasks)
                       if aw_tasks is not None else None)
+        if (self.use_pallas_ln and attn_tasks is None
+                and self.mlp.ln_fusible):
+            return x + dp(self.mlp.ln_fused(x, self.norm2, generator)), None
         mlp_out, mlp_tasks = self.mlp(
             layer_norm(x, self.norm2),
             layer_norm(attn_tasks, self.norm2)
@@ -199,15 +248,25 @@ class PatchMerging(nn.Module):
     """2x2 merge + LayerNorm(4C) + 4C -> 2C reduction, concat order
     [x(0,0), x(1,0), x(0,1), x(1,1)] (row offset first)."""
 
-    def __init__(self, resolution: int, dim: int):
+    def __init__(self, resolution: int, dim: int,
+                 use_pallas_ln: bool = False):
         super().__init__()
         self.resolution = resolution
+        self.use_pallas_ln = use_pallas_ln
         self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
 
     def _merge(self, x):
         *lead, L, C = x.shape
         H = W = self.resolution
+        if self.use_pallas_ln:
+            # kernel 3: the 2x2 gather, LN(4C) and the reduction in one
+            # pass over [L', H*W, C] (swin.py:709, :737-741)
+            dt = x.dtype
+            y = fused_merge_ln_linear(
+                x.reshape(-1, L, C).contiguous(), self.norm.weight.to(dt),
+                self.norm.bias.to(dt), self.reduction.weight.to(dt), H, W)
+            return y.view(*lead, L // 4, -1)
         x = x.reshape(*lead, H // 2, 2, W // 2, 2, C)
         n = len(lead)
         # [.., H/2, di, W/2, dj, C] -> [.., H/2, W/2, dj, di, C]
@@ -237,7 +296,7 @@ class BasicLayer(nn.Module):
                       shift_size=0 if i % 2 == 0 else cfg.window_size // 2,
                       drop_path_rate=drop_path_rates[i])
             for i in range(depth))
-        self.downsample = (PatchMerging(res, dim)
+        self.downsample = (PatchMerging(res, dim, cfg.use_pallas_ln)
                            if stage < len(cfg.depths) - 1 else None)
 
     def forward(self, x, generator=None):

@@ -23,7 +23,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_uint)
 # C entry points: name -> argument types; each returns a cudaError_t
 SIGNATURES = {
     # qkv, bias, mask, out, n_windows, N, C, num_heads, mask_windows,
@@ -38,6 +39,20 @@ SIGNATURES = {
     # x, ek_t, eb, mul, add, pk_t, gy, dx, part, dek_t, deb, dmul, dadd,
     # dpk_t, dpb, M, cin, hidden, n_out, stripes, stream
     "mtlora_head_mlp_bwd": [_P] * 15 + [_I] * 5 + [_P],
+    # x, gamma, beta, wt, bias, at, bt, seed, y, M, K, O, r, merge_wh,
+    # scale, drop threshold, use_drop, inv_keep, stream
+    "mtlora_ln_lora_fwd": [_P] * 9 + [_I] * 5 + [_F, _U, _I, _F, _P],
+    # x, gamma, beta, w_ko, at, a_kr, b_ro, seed, gy, dx, stats, work, lbuf,
+    # mbuf, gb, pa, pb, pw, dgb, dat, dbt, dwt, M, K, O, r, merge_wh, sa, sb,
+    # sw, scale, drop threshold, use_drop, inv_keep, stream
+    "mtlora_ln_lora_bwd": [_P] * 22 + [_I] * 8 + [_F, _U, _I, _F, _P],
+    # x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed, y,
+    # M, C, H4, r, s1, s2, drop threshold, use_drop, inv_keep, stream
+    "mtlora_ln_mlp_fwd": [_P] * 13 + [_I] * 4 + [_F, _F, _U, _I, _F, _P],
+    # the forward's 12 operands, w2t, bb2t, a2t, w1t, bb1t, a1t, gy, dx,
+    # stats, lbuf, mbuf, gb, pa, pb, ph, dgb, da1, dh, dbb2, M, C, H4, r,
+    # sa, sb, sh, s1, s2, drop threshold, use_drop, inv_keep, stream
+    "mtlora_ln_mlp_bwd": [_P] * 31 + [_I] * 7 + [_F, _F, _U, _I, _F, _P],
 }
 
 _lib = None

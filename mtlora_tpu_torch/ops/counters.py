@@ -9,6 +9,13 @@ from __future__ import annotations
 from typing import Dict
 
 from mtlora_tpu_torch.ops.head import head_mlp_bwd, head_mlp_fwd
+from mtlora_tpu_torch.ops.ln_lora import (
+    ln_lora_bwd,
+    ln_lora_fwd,
+    merge_ln_bwd,
+    merge_ln_fwd,
+)
+from mtlora_tpu_torch.ops.ln_mlp import ln_mlp_bwd, ln_mlp_fwd
 from mtlora_tpu_torch.ops.window_attn import (
     window_attention_bwd,
     window_attention_fwd,
@@ -19,6 +26,12 @@ WRAPPERS = {
     "window_attention_bwd": window_attention_bwd,
     "hrnet_head_mlp": head_mlp_fwd,
     "hrnet_head_mlp_bwd": head_mlp_bwd,
+    "ln_lora": ln_lora_fwd,
+    "ln_lora_bwd": ln_lora_bwd,
+    "patch_merge": merge_ln_fwd,
+    "patch_merge_bwd": merge_ln_bwd,
+    "ln_mlp": ln_mlp_fwd,
+    "ln_mlp_bwd": ln_mlp_bwd,
 }
 
 

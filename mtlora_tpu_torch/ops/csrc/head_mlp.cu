@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
 constexpr int kBM = 64;     // rows per block
@@ -37,32 +39,6 @@ constexpr int kHC = 64;     // hidden columns per chunk
 constexpr int kWarps = 4;   // 16 rows each
 constexpr int kNMax = 64;   // outputs: at most 8 n-tiles of 8
 constexpr int kZld = kHC + 8;
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment of a 16 x 16 bf16 tile at `base` (row stride ld elements).
-__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* base,
-                                       int ld, int g, int t) {
-  a[0] = ld32(base + g * ld + 2 * t);
-  a[1] = ld32(base + (g + 8) * ld + 2 * t);
-  a[2] = ld32(base + g * ld + 2 * t + 8);
-  a[3] = ld32(base + (g + 8) * ld + 2 * t + 8);
-}
 
 __global__ void __launch_bounds__(kWarps * 32)
 head_mlp_fwd_kernel(const __nv_bfloat16* __restrict__ x,

@@ -41,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
 constexpr int kBM = 64;       // rows per tile
@@ -50,39 +52,6 @@ constexpr int kNMax = 64;     // outputs n
 constexpr int kCMax = 272;    // padded inputs C (34 n-tiles of 8)
 constexpr int kCT = kCMax / 16;  // n-tiles of 8 per warp half: 17
 constexpr int kZld = kHC + 8;
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 at p and p + stride as one register, the first in the low half.
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p,
-                                            int stride) {
-  return (uint32_t)__bfloat16_as_ushort(p[0]) |
-         ((uint32_t)__bfloat16_as_ushort(p[stride]) << 16);
-}
-
-// A fragment of a 16 x 16 bf16 tile at `base` (row stride ld elements).
-__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* base,
-                                       int ld, int g, int t) {
-  a[0] = ld32(base + g * ld + 2 * t);
-  a[1] = ld32(base + (g + 8) * ld + 2 * t);
-  a[2] = ld32(base + g * ld + 2 * t + 8);
-  a[3] = ld32(base + (g + 8) * ld + 2 * t + 8);
-}
 
 struct Shapes {
   int M, cin, hidden, n_out;

@@ -1,0 +1,459 @@
+// Building blocks of the LN kernels (ln_lora*.cu, ln_mlp*.cu).
+//
+// Every row kernel gives a block of 4 warps 16 rows: the warps split the
+// rows' LayerNorm statistics and the bf16 LN tile in shared memory, then
+// split the output columns, multiplying with mma.sync m16n8k16 (bf16 in,
+// fp32 accumulate). The A operand is a tile in shared memory, rows read
+// straight from device memory, or accumulator registers; the B operand is
+// a weight in the [n][k] layout (k contiguous) read from device memory
+// through L1/L2 (the weights are at most 4.7 MB and shared by every
+// block). Reductions over rows (weight and LayerNorm-affine gradients)
+// are written as fp32 partials and summed in a fixed order: no fp32
+// atomics. The kernels defined here are static: every source that
+// includes the header compiles its own copy.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "dropout.cuh"
+#include "mma.cuh"
+
+namespace lnk {
+
+typedef __nv_bfloat16 bf16;
+constexpr float kEps = 1e-5f;
+constexpr int kRows = 16;           // rows per warp
+constexpr int kT = 64 + 8;          // row stride of a 64-wide bf16 tile
+
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+
+__device__ __forceinline__ float2 bf2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void st_bf2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// LN output value: ((x - mu) * inv) * gamma + beta with the roundings of
+// the plain version (no fused multiply-add), so that every kernel that
+// recomputes it gets the same bits.
+__device__ __forceinline__ float ln_val(float v, float mu, float inv,
+                                        float g, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mu), inv), g), b);
+}
+
+// Rows of a LayerNorm input: plain [M, K] (Wh == 0), or the 2x2 merge of a
+// [.., H, W, Cin] stream (W = 2 Wh, K = 4 Cin), concat order
+// k = (di + 2 dj) Cin + c (merge_ln_reference), output row
+// m = (lead * H/2 + i) * Wh + j.
+struct Rows {
+  const bf16* x;
+  int M, K, Cin, Wh;
+  __device__ __forceinline__ size_t offset(int m, int k) const {
+    if (Wh == 0) return (size_t)m * K + k;
+    const int q = k / Cin, c = k - q * Cin;
+    const int rr = m / Wh, j = m - rr * Wh;
+    return ((size_t)(2 * rr + (q & 1)) * (2 * Wh) + 2 * j + (q >> 1)) * Cin +
+           c;
+  }
+  __device__ __forceinline__ float2 pair(int m, int k) const {
+    return bf2(x + offset(m, k));
+  }
+};
+
+// Dropout of one stream as the host describes it: the call's int32 seeds
+// in device memory, the stream, on or off, the threshold and 1/(1-rate).
+struct DropSpec {
+  const int* seed;
+  int stream, on;
+  uint32_t thr;
+  float inv_keep;
+};
+
+// The same with the stream's key read and hashed once.
+struct Drop {
+  int on;
+  uint32_t key, thr;
+  float inv_keep;
+  __device__ __forceinline__ float apply(float v, uint32_t row, uint32_t cols,
+                                         uint32_t col) const {
+    if (!on) return v;
+    return drop_keep(key, row, cols, col, thr) ? v * inv_keep : 0.f;
+  }
+};
+
+__device__ __forceinline__ Drop make_drop(const DropSpec& s) {
+  Drop d;
+  d.on = s.on;
+  d.key = s.on ? drop_key(s.seed, s.stream) : 0u;
+  d.thr = s.thr;
+  d.inv_keep = s.inv_keep;
+  return d;
+}
+
+__device__ __forceinline__ Drop no_drop() {
+  Drop d;
+  d.on = 0;
+  d.key = d.thr = 0u;
+  d.inv_keep = 1.f;
+  return d;
+}
+
+// Mean and 1/sqrt(var + eps) of rows m0 + i, i = i0, i0 + di, .. < 16,
+// into mu[i], inv[i] (var = E[x^2] - E[x]^2 in fp32, as _layer_norm
+// computes it); rows past M get mu = 0, inv = 0. One warp per row; the
+// warps of a block split the rows (i0 = warp, di = warps).
+__device__ __forceinline__ void rows_stats(const Rows& R, int m0, float* mu,
+                                           float* inv, int i0 = 0,
+                                           int di = 1) {
+  const int lane = lane_id();
+  for (int i = i0; i < kRows; i += di) {
+    const int m = m0 + i;
+    float s = 0.f, q = 0.f;
+    if (m < R.M)
+      for (int k = 2 * lane; k < R.K; k += 64) {
+        const float2 v = R.pair(m, k);
+        s += v.x + v.y;
+        q += v.x * v.x + v.y * v.y;
+      }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      q += __shfl_xor_sync(0xffffffffu, q, o);
+    }
+    if (lane == 0) {
+      const float mean = s / R.K;
+      const bool in = m < R.M;
+      mu[i] = in ? mean : 0.f;
+      inv[i] = in ? rsqrtf(q / R.K - mean * mean + kEps) : 0.f;
+    }
+  }
+  __syncwarp();
+}
+
+// tile[i][k] = bf16(drop(LN(x))[m0 + i][k]) (stream over [M, K]) for the
+// rows i = i0, i0 + di, ..; rows past M are zero.
+__device__ __forceinline__ void rows_ln_tile(bf16* tile, int ld,
+                                             const Rows& R,
+                                             const bf16* gamma,
+                                             const bf16* beta, int m0,
+                                             const float* mu,
+                                             const float* inv,
+                                             const Drop& d, int i0 = 0,
+                                             int di = 1) {
+  const int lane = lane_id();
+  for (int i = i0; i < kRows; i += di) {
+    const int m = m0 + i;
+    for (int k = 2 * lane; k < R.K; k += 64) {
+      float a = 0.f, b = 0.f;
+      if (m < R.M) {
+        const float2 v = R.pair(m, k), g = bf2(gamma + k), be = bf2(beta + k);
+        a = d.apply(ln_val(v.x, mu[i], inv[i], g.x, be.x), m, R.K, k);
+        b = d.apply(ln_val(v.y, mu[i], inv[i], g.y, be.y), m, R.K, k + 1);
+      }
+      st_bf2(tile + i * ld + k, a, b);
+    }
+  }
+  __syncwarp();
+}
+
+// The first `cols` columns of a 16-row bf16 tile to rows [m0, M) of a
+// device array [M][cols], by all threads of the block.
+__device__ __forceinline__ void block_tile_to_global(bf16* out,
+                                                     const bf16* tile, int ld,
+                                                     int m0, int M, int cols) {
+  const int pairs = cols / 2;
+  for (int i = threadIdx.x; i < kRows * pairs; i += blockDim.x) {
+    const int r = i / pairs, c = 2 * (i - r * pairs);
+    if (m0 + r < M)
+      *reinterpret_cast<uint32_t*>(out + (size_t)(m0 + r) * cols + c) =
+          ld32(tile + r * ld + c);
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (*acc)[4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+}
+
+// acc[nt] += A[16 x kdim] * B^T for the n-tiles n0 + 8 nt < N: A at `a`
+// (row stride lda, shared or device memory, all 16 rows readable), B an
+// [n][k] array in device memory (row stride ldb). kdim % 16 == 0. U: the
+// k steps unrolled, so that more fragment loads are in flight (2 pays in
+// the MLP backward, whose chunks are long; elsewhere the registers it
+// takes cost more than it gains).
+template <int NT, int U = 1>
+__device__ __forceinline__ void mma_tile(float (*acc)[4], const bf16* a,
+                                         int lda, const bf16* b, int ldb,
+                                         int kdim, int n0, int N) {
+  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
+#pragma unroll U
+  for (int kk = 0; kk < kdim; kk += 16) {
+    uint32_t af[4];
+    load_a(af, a + kk, lda, g, t);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (n0 + nt * 8 < N) {
+        const bf16* bp = b + (size_t)(n0 + nt * 8 + g) * ldb + kk + 2 * t;
+        mma_bf16_16816(acc[nt], af, ld32(bp), ld32(bp + 8));
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t scale_pair(uint32_t v, float s) {
+  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
+  const float2 f = __bfloat1622float2(h);
+  h = __floats2bfloat162_rn(s * f.x, s * f.y);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// As mma_tile, with A = rows [m0, m0 + 16) of a device array (row stride
+// lda) whose rows from `valid` on are read as zero; SCALED rounds
+// s * a to bf16 first (du = bf16(s gy)).
+template <int NT, bool SCALED, int U = 1>
+__device__ __forceinline__ void mma_rows(float (*acc)[4], const bf16* a,
+                                         int lda, int valid, float s,
+                                         const bf16* b, int ldb, int kdim,
+                                         int n0, int N) {
+  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
+  const bool r0 = g < valid, r1 = g + 8 < valid;
+#pragma unroll U
+  for (int kk = 0; kk < kdim; kk += 16) {
+    const bf16* p = a + kk + 2 * t;
+    uint32_t af[4];
+    af[0] = r0 ? ld32(p + (size_t)g * lda) : 0u;
+    af[1] = r1 ? ld32(p + (size_t)(g + 8) * lda) : 0u;
+    af[2] = r0 ? ld32(p + (size_t)g * lda + 8) : 0u;
+    af[3] = r1 ? ld32(p + (size_t)(g + 8) * lda + 8) : 0u;
+    if (SCALED)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) af[e] = scale_pair(af[e], s);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (n0 + nt * 8 < N) {
+        const bf16* bp = b + (size_t)(n0 + nt * 8 + g) * ldb + kk + 2 * t;
+        mma_bf16_16816(acc[nt], af, ld32(bp), ld32(bp + 8));
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf2(float a, float b) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// acc[nt] += A[16 x 64] * B^T where A is the bf16 rounding of eight
+// accumulator tiles c[0..8) of one warp (16 rows x 64 columns): two
+// adjacent n8 accumulator tiles hold exactly the registers of one k16 A
+// fragment, so A never goes through shared memory. B as in mma_tile.
+template <int NT>
+__device__ __forceinline__ void mma_frag(float (*acc)[4], const float (*c)[4],
+                                         const bf16* b, int ldb, int n0,
+                                         int N) {
+  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    uint32_t af[4];
+    af[0] = pack_bf2(c[2 * ks][0], c[2 * ks][1]);
+    af[1] = pack_bf2(c[2 * ks][2], c[2 * ks][3]);
+    af[2] = pack_bf2(c[2 * ks + 1][0], c[2 * ks + 1][1]);
+    af[3] = pack_bf2(c[2 * ks + 1][2], c[2 * ks + 1][3]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (n0 + nt * 8 < N) {
+        const bf16* bp = b + (size_t)(n0 + nt * 8 + g) * ldb + ks * 16 + 2 * t;
+        mma_bf16_16816(acc[nt], af, ld32(bp), ld32(bp + 8));
+      }
+    }
+  }
+}
+
+// Fragment-order partial sums of one warp in shared memory ([8][32][4]
+// floats from `p`, p = base + lane * 4).
+__device__ __forceinline__ void load_frag(float (*acc)[4], const float* p) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const float4 v = *reinterpret_cast<const float4*>(p + nt * 128);
+    acc[nt][0] = v.x; acc[nt][1] = v.y; acc[nt][2] = v.z; acc[nt][3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void store_frag(float* p, const float (*acc)[4]) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+    *reinterpret_cast<float4*>(p + nt * 128) =
+        make_float4(acc[nt][0], acc[nt][1], acc[nt][2], acc[nt][3]);
+}
+
+// bf16 of the sum over the warps (in order) of fragment-order partials
+// [warps][1024] into a [16][72] tile and, where out != null, to rows
+// [m0, M) of a device array [M][64].
+__device__ __forceinline__ void sum_frags(const float* part, int warps,
+                                          bf16* tile, bf16* out, int m0,
+                                          int M) {
+  for (int i = threadIdx.x; i < 1024; i += blockDim.x) {
+    float v = 0.f;
+    for (int w = 0; w < warps; ++w) v += part[w * 1024 + i];
+    const int nt = i >> 7, ln = (i >> 2) & 31, e = i & 3;
+    const int row = (ln >> 2) + 8 * (e >> 1);
+    const int col = nt * 8 + 2 * (ln & 3) + (e & 1);
+    const bf16 b = __float2bfloat16(v);
+    tile[row * kT + col] = b;
+    if (out && m0 + row < M) out[(size_t)(m0 + row) * 64 + col] = b;
+  }
+}
+
+// bf16 of an accumulator block into a tile at columns col0 + 8 nt.
+template <int NT>
+__device__ __forceinline__ void store_tile(bf16* tile, int ld,
+                                           const float (*acc)[4], int col0) {
+  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int c = col0 + nt * 8 + 2 * t;
+    st_bf2(tile + g * ld + c, acc[nt][0], acc[nt][1]);
+    st_bf2(tile + (g + 8) * ld + c, acc[nt][2], acc[nt][3]);
+  }
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------------------
+// Weight gradients: part[stripe][n][k] = sum over the stripe's rows of
+// P[row][n] Q[row][k]. One block of 4 warps per (64 n, 64 k, stripe);
+// both operands are staged TRANSPOSED in shared memory ([n][row],
+// [k][row]) so the products over rows read 32-bit fragments.
+// ---------------------------------------------------------------------------
+
+// bf16 rows of a device array, optionally rounded s * v (du = bf16(s gy)).
+struct MatSrc {
+  const bf16* p;
+  int ld;
+  float s;
+  int scaled;
+  __device__ __forceinline__ float2 pair(int m, int c) const {
+    float2 v = bf2(p + (size_t)m * ld + c);
+    if (scaled) {
+      v.x = round_bf16(s * v.x);
+      v.y = round_bf16(s * v.y);
+    }
+    return v;
+  }
+};
+
+// Rows [r0, r1) x columns [c0, c0 + 64) of `src` into dst TRANSPOSED
+// ([col][row], row stride kT), zero-padded; each thread takes two rows of
+// one column pair.
+__device__ __forceinline__ void stage_t(bf16* dst, const MatSrc& src, int r0,
+                                        int r1, int c0, int C) {
+  for (int i = threadIdx.x; i < 32 * 32; i += blockDim.x) {
+    const int rp = 2 * (i >> 5), cp = 2 * (i & 31);
+    const int m = r0 + rp, c = c0 + cp;
+    float2 v0 = make_float2(0.f, 0.f), v1 = v0;
+    if (c < C) {
+      if (m < r1) v0 = src.pair(m, c);
+      if (m + 1 < r1) v1 = src.pair(m + 1, c);
+    }
+    st_bf2(dst + cp * kT + rp, v0.x, v1.x);
+    st_bf2(dst + (cp + 1) * kT + rp, v0.y, v1.y);
+  }
+}
+
+static __global__ void __launch_bounds__(128)
+wgrad_kernel(MatSrc P, MatSrc Q, int rows, int N, int Kq, int stripe_rows,
+             float* __restrict__ part) {
+  __shared__ __align__(16) bf16 pt[64 * kT];
+  __shared__ __align__(16) bf16 qt[64 * kT];
+  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
+  const int w = threadIdx.x >> 5;
+  const int n0 = blockIdx.x * 64, k0 = blockIdx.y * 64;
+  const int r_begin = blockIdx.z * stripe_rows;
+  const int r_end = min(rows, r_begin + stripe_rows);
+  float acc[8][4];
+  zero<8>(acc);
+  for (int rb = r_begin; rb < r_end; rb += 64) {
+    __syncthreads();
+    stage_t(pt, P, rb, r_end, n0, N);
+    stage_t(qt, Q, rb, r_end, k0, Kq);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < 64; kk += 16) {
+      uint32_t af[4];
+      load_a(af, pt + w * 16 * kT + kk, kT, g, t);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const bf16* bp = qt + (nt * 8 + g) * kT + kk + 2 * t;
+        mma_bf16_16816(acc[nt], af, ld32(bp), ld32(bp + 8));
+      }
+    }
+  }
+  float* out = part + (size_t)blockIdx.z * N * Kq;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = n0 + w * 16 + g + 8 * half, k = k0 + nt * 8 + 2 * t;
+      if (n < N && k < Kq) {
+        out[(size_t)n * Kq + k] = acc[nt][2 * half];
+        out[(size_t)n * Kq + k + 1] = acc[nt][2 * half + 1];
+      }
+    }
+}
+
+// Partials summed in a fixed order, in two levels: group g sums partials
+// [g per, (g + 1) per) into the first of them, then out[i] sums the groups'
+// firsts in order.
+static __global__ void sum_groups_kernel(float* __restrict__ part, int parts,
+                                         int per, size_t E) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int p0 = blockIdx.y * per, p1 = min(parts, p0 + per);
+  if (i >= E || p0 >= parts) return;
+  float s = 0.f;
+  for (int p = p0; p < p1; ++p) s += part[(size_t)p * E + i];
+  part[(size_t)p0 * E + i] = s;
+}
+
+static __global__ void sum_firsts_kernel(const float* __restrict__ part,
+                                         int parts, int per, size_t E,
+                                         float* __restrict__ out) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= E) return;
+  float s = 0.f;
+  for (int p = 0; p < parts; p += per) s += part[(size_t)p * E + i];
+  out[i] = s;
+}
+
+// out[E] = sum over the `parts` partials [parts][E] (overwrites them).
+inline cudaError_t sum_parts(float* part, int parts, size_t E, float* out,
+                             cudaStream_t st) {
+  const int groups = parts < 64 ? parts : 64;
+  const int per = (parts + groups - 1) / groups;
+  const unsigned bx = (unsigned)((E + 255) / 256);
+  sum_groups_kernel<<<dim3(bx, groups), 256, 0, st>>>(part, parts, per, E);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  sum_firsts_kernel<<<bx, 256, 0, st>>>(part, parts, per, E, out);
+  return cudaGetLastError();
+}
+
+inline cudaError_t wgrad(const MatSrc& P, const MatSrc& Q, int rows, int N, int Kq,
+                         int stripes, float* part, float* out,
+                         cudaStream_t st) {
+  const int tiles = (rows + 63) / 64;
+  const int stripe_rows = (tiles + stripes - 1) / stripes * 64;
+  dim3 grid((N + 63) / 64, (Kq + 63) / 64, stripes);
+  wgrad_kernel<<<grid, 128, 0, st>>>(P, Q, rows, N, Kq, stripe_rows,
+                                             part);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return sum_parts(part, stripes, (size_t)N * Kq, out, st);
+}
+
+}  // namespace lnk

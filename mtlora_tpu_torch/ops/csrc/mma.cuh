@@ -1,0 +1,46 @@
+// Tensor-core helpers shared by the port's kernels: mma.sync m16n8k16
+// (bf16 in, fp32 accumulate) and the 32-bit fragment loads that feed it.
+//
+// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
+//   A (16 x 16, row-major): a[0] = (g, 2t..2t+1), a[1] = (g+8, 2t..),
+//                           a[2] = (g, 2t+8..),   a[3] = (g+8, 2t+8..);
+//   B (16 x 8, "col"):      b0 = (k 2t..2t+1, n g), b1 = (k 2t+8.., n g),
+//                           so B is read from an [n][k] array, k contiguous;
+//   C (16 x 8):             c[0..1] = (g, 2t..2t+1), c[2..3] = (g+8, 2t..).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two bf16 at p and p + stride as one register, the first in the low half.
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p,
+                                            int stride) {
+  return (uint32_t)__bfloat16_as_ushort(p[0]) |
+         ((uint32_t)__bfloat16_as_ushort(p[stride]) << 16);
+}
+
+// A fragment of a 16 x 16 bf16 tile at `base` (row stride ld elements).
+__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* base,
+                                       int ld, int g, int t) {
+  a[0] = ld32(base + g * ld + 2 * t);
+  a[1] = ld32(base + (g + 8) * ld + 2 * t);
+  a[2] = ld32(base + g * ld + 2 * t + 8);
+  a[3] = ld32(base + (g + 8) * ld + 2 * t + 8);
+}

@@ -1,0 +1,408 @@
+"""Fused LayerNorm + frozen GEMM + shared LoRA, and the fused patch merge:
+the CUDA kernels, their plain versions, counters.
+
+Counterpart of ``mtlora_tpu/ops/pallas_ln_lora.py``, which holds two TPU
+kernels:
+
+  - ``fused_ln_lora_linear`` (kernel 2 and its backward 2b):
+    ``y = LN(x) W + b + s (drop(LN x) A) B``;
+  - ``fused_merge_ln_linear`` (kernel 3 and 3b): the 2x2 patch merge of a
+    ``[.., H, W, C]`` stream, ``LN(4C)`` and the ``4C -> 2C`` reduction,
+    no bias and no LoRA, with a gradient for the reduction weight.
+
+One forward source (``csrc/ln_lora.cu``) and one backward source
+(``csrc/ln_lora_bwd.cu``) serve both: the row loader reads rows plainly
+or gathers them 2x2 (concat order ``k = di + 2 dj``, ``merge_ln_reference``
+:663-679), and the LoRA epilogue is on for kernel 2 and off for kernel 3.
+
+Weights are passed in the port's module layouts (``nn.Linear.weight``
+``wt [O, K]``, ``lora_shared_A`` ``at [r, K]``, ``lora_shared_B``
+``bt [O, r]``) cast to the compute dtype, and their gradients come back in
+the same layouts. ``gamma``, ``beta`` and the bias are cast to the
+compute dtype too, as ``_ln_fused`` casts them. Cast points follow the TPU
+kernel: LN in fp32 with ``var = E[x^2] - E[x]^2``; ``lnc`` rounded;
+``p = lnc W`` in fp32 plus the bias; ``m = lnd A`` rounded, then
+``u = m B`` in fp32; ``y = p + s u`` rounded once.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mtlora_tpu_torch.ops import _build, dropout
+
+EPS = 1e-5
+ROADMAP_MODES = ("the out_p, out_act, out_drop and train_w modes of kernel 2 "
+                 "come with kernel 5 (ROADMAP.md, Queue 2, kernel 2)")
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """Accumulation dtype: fp32, or fp64 for fp64 inputs (gradcheck)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def layer_norm_parts(x, gamma, beta):
+    """``(ln, xhat, inv)`` of ``_layer_norm`` (``pallas_ln_lora.py:59``)
+    in the accumulation dtype."""
+    f = _acc(x.dtype)
+    x32 = x.to(f)
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 * x32).mean(-1, keepdim=True) - mu * mu
+    inv = torch.rsqrt(var + EPS)
+    xhat = (x32 - mu) * inv
+    return xhat * gamma.to(f) + beta.to(f), xhat, inv
+
+
+def layer_norm_bwd(dln, xhat, inv, gamma):
+    """``(dx, dgamma, dbeta)`` of the LayerNorm, from the cotangent of its
+    output (``pallas_ln_lora.py:216-222``)."""
+    dg = (dln * xhat).sum(0)
+    db = dln.sum(0)
+    dxhat = dln * gamma.to(dln.dtype)
+    dx = inv * (dxhat - dxhat.mean(-1, keepdim=True)
+                - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return dx, dg, db
+
+
+def _dropped(ln, seed, drop, stream=0):
+    """``(lnd, keep)``: the dropped fp32 values and the mask, or
+    ``(ln, None)`` without dropout."""
+    if drop <= 0.0:
+        return ln, None
+    keep = dropout.keep_mask(seed, stream, ln.shape[0], ln.shape[1], drop)
+    return dropout.apply(ln, keep, drop), keep
+
+
+def ln_lora_plain(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
+                  drop: float):
+    """y [M, O] of kernel 2 from x [M, K] (y-only mode)."""
+    cdt, f = x.dtype, _acc(x.dtype)
+    ln, _, _ = layer_norm_parts(x, gamma, beta)
+    lnc = ln.to(cdt)
+    y = lnc.to(f) @ wt.to(f).t() + bias.to(f)
+    if scale != 0.0:
+        lnd, _ = _dropped(ln, seed, drop)
+        m = (lnd.to(cdt).to(f) @ at.to(f).t()).to(cdt)
+        y = y + scale * (m.to(f) @ bt.to(f).t())
+    return y.to(cdt)
+
+
+def ln_lora_bwd_plain(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
+                      drop: float, gy):
+    """``(dx, dgamma, dbeta, dat, dbt)`` of :func:`ln_lora_plain` with the
+    cast points of ``_bwd_kernel`` (:124-222): ``gy`` rounded to the
+    compute dtype for ``dln = gy W^T``, ``du = s gy`` and ``dm = du B^T``
+    rounded, ``dB = m^T du``, ``dA = lnd^T dm``, the mask applied to
+    ``dm A^T``. dx in x's dtype; the rest in the accumulation dtype, dat
+    ``[r, K]`` and dbt ``[O, r]`` in the adapters' layouts."""
+    cdt, f = x.dtype, _acc(x.dtype)
+    ln, xhat, inv = layer_norm_parts(x, gamma, beta)
+    gyf = gy.to(f)
+    dln = gyf.to(cdt).to(f) @ wt.to(f)
+    if scale != 0.0:
+        lnd, keep = _dropped(ln, seed, drop)
+        lnd = lnd.to(cdt).to(f)
+        m = (lnd @ at.to(f).t()).to(cdt).to(f)
+        du = (scale * gyf).to(cdt).to(f)
+        dm = (du @ bt.to(f)).to(cdt).to(f)
+        dbt = du.t() @ m
+        dat = dm.t() @ lnd
+        dlnd = dm @ at.to(f)
+        dln = dln + (dlnd if keep is None else dropout.apply(dlnd, keep, drop))
+    else:
+        dat = torch.zeros(at.shape, dtype=f, device=x.device)
+        dbt = torch.zeros(bt.shape, dtype=f, device=x.device)
+    dx, dg, db = layer_norm_bwd(dln, xhat, inv, gamma)
+    return dx.to(x.dtype), dg, db, dat, dbt
+
+
+def merge_rows(x, H: int, W: int):
+    """[L, H*W, C] -> [L*H/2*W/2, 4C] in the reference concat order
+    ``[x(0,0), x(1,0), x(0,1), x(1,1)]`` (k = di + 2 dj)."""
+    L, _, C = x.shape
+    x = x.reshape(L, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 4, 2, 5)
+    return x.reshape(L * (H // 2) * (W // 2), 4 * C)
+
+
+def unmerge_rows(d, L: int, H: int, W: int):
+    """Inverse of :func:`merge_rows`: [L*H/2*W/2, 4C] -> [L, H*W, C]."""
+    C = d.shape[1] // 4
+    d = d.reshape(L, H // 2, W // 2, 2, 2, C).permute(0, 1, 4, 2, 3, 5)
+    return d.reshape(L, H * W, C)
+
+
+def merge_ln_plain(x, gamma, beta, wt, H: int, W: int):
+    """y [L, H/2*W/2, O] of kernel 3 from x [L, H*W, C]: 2x2 merge, LN(4C)
+    with ``gamma, beta [4C]`` in the reference order, ``lnc wt^T`` in fp32,
+    rounded once (``merge_ln_reference``)."""
+    cdt, f = x.dtype, _acc(x.dtype)
+    ln, _, _ = layer_norm_parts(merge_rows(x, H, W), gamma, beta)
+    y = ln.to(cdt).to(f) @ wt.to(f).t()
+    return y.to(cdt).reshape(x.shape[0], (H // 2) * (W // 2), -1)
+
+
+def merge_ln_bwd_plain(x, gamma, beta, wt, H: int, W: int, gy):
+    """``(dx, dgamma, dbeta, dwt)`` of :func:`merge_ln_plain`
+    (``_merge_bwd_kernel`` with ``train_w``): ``gp = gy`` rounded,
+    ``dln = gp wt``, ``dwt = gp^T lnc``; dx [L, H*W, C] in x's dtype."""
+    cdt, f = x.dtype, _acc(x.dtype)
+    ln, xhat, inv = layer_norm_parts(merge_rows(x, H, W), gamma, beta)
+    gp = gy.reshape(-1, gy.shape[-1]).to(cdt).to(f)
+    dln = gp @ wt.to(f)
+    dwt = gp.t() @ ln.to(cdt).to(f)
+    dx, dg, db = layer_norm_bwd(dln, xhat, inv, gamma)
+    return (unmerge_rows(dx, x.shape[0], H, W).to(x.dtype), dg, db, dwt)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def require_cuda(name, x):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {x.device}")
+
+
+def _check(name, x, tensors, shapes):
+    require_cuda(name, x)
+    for (label, t), shape in zip(tensors, shapes):
+        want = torch.int32 if label == "seed" else torch.bfloat16
+        if t.dtype != want or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} kernel: {label} must be {want} "
+                             f"{tuple(shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} kernel: {label} must be contiguous "
+                             f"and on {x.device}")
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def wgrad_stripes(device, rows: int, n: int, k: int) -> int:
+    """Row stripes of a weight-gradient product ``[n, k]`` summed over
+    ``rows``: about eight blocks of 64 x 64 outputs per SM, and the fp32
+    partials at most 64 MB."""
+    tiles = -(-n // 64) * -(-k // 64)
+    cap = max(1, (64 << 20) // (4 * n * k))
+    return max(1, min(-(-rows // 64), 8 * _sms(device) // tiles, cap))
+
+
+def _kernel2_shapes(x, wt, at, bt):
+    require_cuda("LN+LoRA", x)
+    M, K = x.shape
+    O, r = wt.shape[0], at.shape[0]
+    if K % 16 or O % 8 or r % 16 or r > 64:
+        raise ValueError(f"LN+LoRA kernel: needs K % 16 == 0 ({K}), O % 8 "
+                         f"== 0 ({O}) and r a multiple of 16 up to 64 ({r})")
+    return M, K, O, r
+
+
+def ln_lora_fwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
+                drop: float):
+    """Kernel 2 forward, no autograd: the plain version for CPU tensors,
+    the kernel for CUDA tensors (all bf16 but the int32 seed)."""
+    if x.device.type == "cpu":
+        return ln_lora_plain(x, gamma, beta, wt, bias, at, bt, seed, scale,
+                             drop)
+    M, K, O, r = _kernel2_shapes(x, wt, at, bt)
+    _check("LN+LoRA forward", x,
+           [("x", x), ("gamma", gamma), ("beta", beta), ("wt", wt),
+            ("bias", bias), ("at", at), ("bt", bt), ("seed", seed)],
+           [(M, K), (K,), (K,), (O, K), (O,), (r, K), (O, r), (2,)])
+    y = torch.empty((M, O), dtype=x.dtype, device=x.device)
+    use_drop = int(drop > 0.0 and scale != 0.0)
+    err = _build.library().mtlora_ln_lora_fwd(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.data_ptr(),
+        bias.data_ptr(), at.data_ptr(), bt.data_ptr(), seed.data_ptr(),
+        y.data_ptr(), M, K, O, r, 0, float(scale),
+        dropout.threshold(drop) if use_drop else 0, use_drop,
+        dropout.inv_keep(drop) if use_drop else 1.0, _stream(x))
+    _build.check(err, "mtlora_ln_lora_fwd")
+    ln_lora_fwd.launches += 1
+    return y
+
+
+ROW_TILE = 16     # rows of one warp of the backward row kernels
+
+
+def bwd_scratch(x, M, K):
+    """The row kernel's scratch: row statistics [2, M], the dxhat rows
+    [M, K] and the per-16-row gamma/beta partials (fp32), and the bf16 LN
+    rows [M, K] the weight products read."""
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty((2, M), **f32), torch.empty((M, K), **f32),
+            torch.empty((-(-M // ROW_TILE), 2, K), **f32),
+            torch.empty((M, K), dtype=x.dtype, device=x.device))
+
+
+def ln_lora_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
+                drop: float, gy):
+    """``(dx, dgamma, dbeta, dat, dbt)`` of :func:`ln_lora_bwd_plain`: the
+    plain version for CPU tensors, for CUDA tensors the row kernel (dx,
+    the row statistics, m and dm, gamma/beta partials), the weight-gradient
+    kernels over row stripes and their reductions in a fixed order."""
+    if x.device.type == "cpu":
+        return ln_lora_bwd_plain(x, gamma, beta, wt, bias, at, bt, seed,
+                                 scale, drop, gy)
+    M, K, O, r = _kernel2_shapes(x, wt, at, bt)
+    _check("LN+LoRA backward", x,
+           [("x", x), ("gamma", gamma), ("beta", beta), ("wt", wt),
+            ("at", at), ("bt", bt), ("seed", seed), ("gy", gy)],
+           [(M, K), (K,), (K,), (O, K), (r, K), (O, r), (2,), (M, O)])
+    f32 = dict(dtype=torch.float32, device=x.device)
+    sa = wgrad_stripes(x.device, M, r, K)
+    sb = wgrad_stripes(x.device, M, O, r)
+    stats, work, gb, lbuf = bwd_scratch(x, M, K)
+    pa = torch.empty((sa, r, K), **f32)
+    pb = torch.empty((sb, O, r), **f32)
+    mbuf = torch.empty((2, M, r), dtype=x.dtype, device=x.device)
+    dx = torch.empty_like(x)
+    dgb = torch.empty((2, K), **f32)
+    dat = torch.empty((r, K), **f32)
+    dbt = torch.empty((O, r), **f32)
+    use_drop = int(drop > 0.0 and scale != 0.0)
+    # the layouts the backward products read: W [K, O], A [K, r], B [r, O]
+    w_ko, a_kr, b_ro = (t.t().contiguous() for t in (wt, at, bt))
+    err = _build.library().mtlora_ln_lora_bwd(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_ko.data_ptr(),
+        at.data_ptr(), a_kr.data_ptr(), b_ro.data_ptr(), seed.data_ptr(),
+        gy.data_ptr(), dx.data_ptr(), stats.data_ptr(), work.data_ptr(),
+        lbuf.data_ptr(), mbuf.data_ptr(), gb.data_ptr(), pa.data_ptr(),
+        pb.data_ptr(), None,
+        dgb.data_ptr(), dat.data_ptr(), dbt.data_ptr(), None,
+        M, K, O, r, 0, sa, sb, 0, float(scale),
+        dropout.threshold(drop) if use_drop else 0, use_drop,
+        dropout.inv_keep(drop) if use_drop else 1.0, _stream(x))
+    _build.check(err, "mtlora_ln_lora_bwd")
+    ln_lora_bwd.launches += 1
+    return dx, dgb[0], dgb[1], dat, dbt
+
+
+def _merge_shapes(x, wt, H, W):
+    require_cuda("patch merge", x)
+    L, HW, C = x.shape
+    O = wt.shape[0]
+    if HW != H * W or H % 2 or W % 2 or C % 4 or O % 8:
+        raise ValueError(f"patch merge kernel: needs x [L, H*W, C] with "
+                         f"even H ({H}), W ({W}), C % 4 == 0 ({C}) and "
+                         f"O % 8 == 0 ({O})")
+    return L * (H // 2) * (W // 2), 4 * C, O
+
+
+def merge_ln_fwd(x, gamma, beta, wt, H: int, W: int):
+    """Kernel 3 forward, no autograd: plain for CPU tensors, the kernel for
+    CUDA tensors."""
+    if x.device.type == "cpu":
+        return merge_ln_plain(x, gamma, beta, wt, H, W)
+    M, K, O = _merge_shapes(x, wt, H, W)
+    _check("patch merge forward", x,
+           [("x", x), ("gamma", gamma), ("beta", beta), ("wt", wt)],
+           [x.shape, (K,), (K,), (O, K)])
+    y = torch.empty((x.shape[0], M // x.shape[0], O), dtype=x.dtype,
+                    device=x.device)
+    err = _build.library().mtlora_ln_lora_fwd(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.data_ptr(),
+        None, None, None, None, y.data_ptr(), M, K, O, 0, W // 2, 0.0, 0, 0,
+        1.0, _stream(x))
+    _build.check(err, "mtlora_ln_lora_fwd (merge)")
+    merge_ln_fwd.launches += 1
+    return y
+
+
+def merge_ln_bwd(x, gamma, beta, wt, H: int, W: int, gy):
+    """``(dx, dgamma, dbeta, dwt)`` of :func:`merge_ln_bwd_plain`: plain
+    for CPU tensors, the kernels for CUDA tensors."""
+    if x.device.type == "cpu":
+        return merge_ln_bwd_plain(x, gamma, beta, wt, H, W, gy)
+    M, K, O = _merge_shapes(x, wt, H, W)
+    _check("patch merge backward", x,
+           [("x", x), ("gamma", gamma), ("beta", beta), ("wt", wt),
+            ("gy", gy)],
+           [x.shape, (K,), (K,), (O, K), (x.shape[0], M // x.shape[0], O)])
+    f32 = dict(dtype=torch.float32, device=x.device)
+    sw = wgrad_stripes(x.device, M, O, K)
+    stats, work, gb, lbuf = bwd_scratch(x, M, K)
+    pw = torch.empty((sw, O, K), **f32)
+    dx = torch.empty_like(x)
+    dgb = torch.empty((2, K), **f32)
+    dwt = torch.empty((O, K), **f32)
+    w_ko = wt.t().contiguous()
+    err = _build.library().mtlora_ln_lora_bwd(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_ko.data_ptr(),
+        None, None, None, None, gy.data_ptr(), dx.data_ptr(),
+        stats.data_ptr(), work.data_ptr(), lbuf.data_ptr(), None,
+        gb.data_ptr(), None, None, pw.data_ptr(), dgb.data_ptr(), None, None, dwt.data_ptr(),
+        M, K, O, 0, W // 2, 0, 0, sw, 0.0, 0, 0, 1.0, _stream(x))
+    _build.check(err, "mtlora_ln_lora_bwd (merge)")
+    merge_ln_bwd.launches += 1
+    return dx, dgb[0], dgb[1], dwt
+
+
+ln_lora_fwd.launches = 0
+ln_lora_bwd.launches = 0
+merge_ln_fwd.launches = 0
+merge_ln_bwd.launches = 0
+
+
+class LNLoRAFn(torch.autograd.Function):
+    """``custom_vjp`` of ``fused_ln_lora_linear`` in y-only mode: gradients
+    for x, gamma, beta and the shared adapters; the frozen weight and bias
+    take none."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, wt, bias, at, bt, seed, scale, drop):
+        ctx.save_for_backward(x, gamma, beta, wt, bias, at, bt, seed)
+        ctx.scale, ctx.drop = scale, drop
+        return ln_lora_fwd(x, gamma, beta, wt, bias, at, bt, seed, scale,
+                           drop)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, gamma, beta, wt, bias, at, bt, seed = ctx.saved_tensors
+        dx, dg, db, dat, dbt = ln_lora_bwd(x, gamma, beta, wt, bias, at, bt,
+                                           seed, ctx.scale, ctx.drop,
+                                           gy.contiguous())
+        return dx, dg, db, None, None, dat, dbt, None, None, None
+
+
+class MergeLNFn(torch.autograd.Function):
+    """``custom_vjp`` of ``fused_merge_ln_linear`` with ``train_w``: the
+    reduction weight trains (``TRAIN.FREEZE_DOWNSAMPLE_REDUCTION False``)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, wt, H, W):
+        ctx.save_for_backward(x, gamma, beta, wt)
+        ctx.hw = (H, W)
+        return merge_ln_fwd(x, gamma, beta, wt, H, W)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, gamma, beta, wt = ctx.saved_tensors
+        dx, dg, db, dwt = merge_ln_bwd(x, gamma, beta, wt, *ctx.hw,
+                                       gy.contiguous())
+        return dx, dg, db, dwt, None, None
+
+
+def fused_ln_lora_linear(x, gamma, beta, wt, bias, at, bt, seed,
+                         scale: float, drop: float, out_p: bool = False,
+                         out_act: bool = False, out_drop: bool = False,
+                         train_w: bool = False):
+    """Kernel 2: ``LN(x) wt^T + bias + scale (drop(LN x) at^T) bt^T`` on
+    x [M, K], differentiable in x, gamma, beta, at and bt. ``seed``: int32
+    [2] (read only when ``drop > 0``). Only the y-only mode is ported."""
+    if out_p or out_act or out_drop or train_w:
+        raise NotImplementedError(ROADMAP_MODES)
+    return LNLoRAFn.apply(x, gamma, beta, wt, bias, at, bt, seed,
+                          float(scale), float(drop))
+
+
+def fused_merge_ln_linear(x, gamma, beta, wt, H: int, W: int):
+    """Kernel 3: x [L, H*W, C] -> [L, H/2*W/2, O], differentiable in x,
+    gamma, beta and the reduction weight ``wt [O, 4C]``."""
+    return MergeLNFn.apply(x, gamma, beta, wt, H, W)

@@ -1,0 +1,257 @@
+"""Fused LayerNorm + whole MLP with shared LoRA on both layers: the CUDA
+kernels, their plain versions, counters.
+
+Counterpart of ``mtlora_tpu/ops/pallas_ln_mlp.py`` (kernel 4 and its
+backward 4b), for the blocks that carry no task streams:
+
+    ln = LN(x)                                   (fp32 statistics)
+    h  = lnc W1^T + b1 + s1 (drop1(ln) A1^T) B1^T
+    g  = gelu(h)                                 (exact erf)
+    y  = gc W2^T + b2 + s2 (drop2(g) A2^T) B2^T
+
+The ``[M, 4C]`` hidden never reaches device memory: the kernels walk it
+in chunks, and the backward recomputes ln, h, g and both masks. Weights
+come in the port's module layouts (``fc1.linear.weight [4C, C]``,
+``fc1.lora_shared_A [r, C]``, ``fc1.lora_shared_B [4C, r]``, and fc2's
+likewise), cast to the compute dtype; the adapters' gradients come back in
+those layouts. GELU is exact erf in the kernels and here, as in the port's
+unfused MLP; the TPU kernel takes the tanh form in bf16 (ROADMAP Queue 3).
+Cast points as ``ln_mlp_reference`` (:326-349) and ``_bwd_kernel``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from mtlora_tpu_torch.ops import _build, dropout
+from mtlora_tpu_torch.ops.ln_lora import (
+    ROW_TILE,
+    _acc,
+    _check,
+    _stream,
+    _sms,
+    layer_norm_bwd,
+    layer_norm_parts,
+    require_cuda,
+    wgrad_stripes,
+)
+
+
+def gelu_pair(h):
+    """(gelu(h), gelu'(h)), exact erf form."""
+    cdf = 0.5 * (1.0 + torch.erf(h * (1.0 / math.sqrt(2.0))))
+    return h * cdf, cdf + h * torch.exp(-0.5 * h * h) * (
+        1.0 / math.sqrt(2.0 * math.pi))
+
+
+def _hidden(x, gamma, beta, w1, bias1, a1, bb1, seed, s1, drop):
+    """LN, the masked LN and the hidden: ``(ln, xhat, inv, lnd, keep1, m1,
+    h)`` in the accumulation dtype, lnd and m1 rounded as the kernel
+    rounds them."""
+    cdt, f = x.dtype, _acc(x.dtype)
+    ln, xhat, inv = layer_norm_parts(x, gamma, beta)
+    h = ln.to(cdt).to(f) @ w1.to(f).t() + bias1.to(f)
+    lnd = keep1 = m1 = None
+    if s1 != 0.0:
+        keep1 = (dropout.keep_mask(seed, 0, *ln.shape, drop)
+                 if drop > 0.0 else None)
+        lnd = (ln if keep1 is None else dropout.apply(ln, keep1, drop))
+        lnd = lnd.to(cdt).to(f)
+        m1 = (lnd @ a1.to(f).t()).to(cdt).to(f)
+        h = h + s1 * (m1 @ bb1.to(f).t())
+    return ln, xhat, inv, lnd, keep1, m1, h
+
+
+def _dropped_g(gl, seed, s2, drop, cdt):
+    keep2 = (dropout.keep_mask(seed, 1, *gl.shape, drop)
+             if (drop > 0.0 and s2 != 0.0) else None)
+    gd = gl if keep2 is None else dropout.apply(gl, keep2, drop)
+    return gd.to(cdt).to(gl.dtype), keep2
+
+
+def ln_mlp_plain(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2,
+                 seed, s1: float, s2: float, drop: float):
+    """y [M, C] of kernel 4 from x [M, C]."""
+    cdt, f = x.dtype, _acc(x.dtype)
+    *_, h = _hidden(x, gamma, beta, w1, bias1, a1, bb1, seed, s1, drop)
+    gl, _ = gelu_pair(h)
+    y = gl.to(cdt).to(f) @ w2.to(f).t() + bias2.to(f)
+    if s2 != 0.0:
+        gd, _ = _dropped_g(gl, seed, s2, drop, cdt)
+        m2 = (gd @ a2.to(f).t()).to(cdt).to(f)
+        y = y + s2 * (m2 @ bb2.to(f).t())
+    return y.to(cdt)
+
+
+def ln_mlp_bwd_plain(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2,
+                     seed, s1: float, s2: float, drop: float, gy):
+    """``(dx, dgamma, dbeta, da1, dbb1, da2, dbb2)`` of
+    :func:`ln_mlp_plain` with the cast points of ``_bwd_kernel``
+    (:103-209): gy rounded for ``dg = gy W2``; ``du2 = s2 gy``,
+    ``dm2 = du2 B2`` rounded; ``dh = dg gelu'(h)`` in fp32, rounded for
+    ``dln = dh W1``; ``du1 = s1 dh``, ``dm1 = du1 B1`` rounded."""
+    cdt, f = x.dtype, _acc(x.dtype)
+    ln, xhat, inv, lnd, keep1, m1, h = _hidden(
+        x, gamma, beta, w1, bias1, a1, bb1, seed, s1, drop)
+    gl, dgelu = gelu_pair(h)
+    gyf = gy.to(f)
+    dg = gyf.to(cdt).to(f) @ w2.to(f)
+    zeros = dict(dtype=f, device=x.device)
+    da2, dbb2 = torch.zeros(a2.shape, **zeros), torch.zeros(bb2.shape, **zeros)
+    if s2 != 0.0:
+        gd, keep2 = _dropped_g(gl, seed, s2, drop, cdt)
+        m2 = (gd @ a2.to(f).t()).to(cdt).to(f)
+        du2 = (s2 * gyf).to(cdt).to(f)
+        dm2 = (du2 @ bb2.to(f)).to(cdt).to(f)
+        dbb2 = du2.t() @ m2
+        da2 = dm2.t() @ gd
+        dgd = dm2 @ a2.to(f)
+        dg = dg + (dgd if keep2 is None else dropout.apply(dgd, keep2, drop))
+    dh = dg * dgelu
+    dln = dh.to(cdt).to(f) @ w1.to(f)
+    da1, dbb1 = torch.zeros(a1.shape, **zeros), torch.zeros(bb1.shape, **zeros)
+    if s1 != 0.0:
+        du1 = (s1 * dh).to(cdt).to(f)
+        dm1 = (du1 @ bb1.to(f)).to(cdt).to(f)
+        dbb1 = du1.t() @ m1
+        da1 = dm1.t() @ lnd
+        dlnd = dm1 @ a1.to(f)
+        dln = dln + (dlnd if keep1 is None
+                     else dropout.apply(dlnd, keep1, drop))
+    dx, dgam, dbet = layer_norm_bwd(dln, xhat, inv, gamma)
+    return dx.to(x.dtype), dgam, dbet, da1, dbb1, da2, dbb2
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _shapes(x, w1, a1, name):
+    require_cuda(name, x)
+    M, C = x.shape
+    H4, r = w1.shape[0], a1.shape[0]
+    if C % 32 or H4 % 64 or r != 64 or C > 768:
+        raise ValueError(f"{name} kernel: needs C % 32 == 0 and C <= 768 "
+                         f"({C}), 4C % 64 == 0 ({H4}) and r == 64 ({r})")
+    return M, C, H4, r
+
+
+def _operands(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed,
+              M, C, H4, r):
+    return ([("x", x), ("gamma", gamma), ("beta", beta), ("w1", w1),
+             ("bias1", bias1), ("a1", a1), ("bb1", bb1), ("w2", w2),
+             ("bias2", bias2), ("a2", a2), ("bb2", bb2), ("seed", seed)],
+            [(M, C), (C,), (C,), (H4, C), (H4,), (r, C), (H4, r), (C, H4),
+             (C,), (r, H4), (C, r), (2,)])
+
+
+def _drop_args(drop):
+    use = int(drop > 0.0)
+    return (dropout.threshold(drop) if use else 0, use,
+            dropout.inv_keep(drop) if use else 1.0)
+
+
+def ln_mlp_fwd(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed,
+               s1: float, s2: float, drop: float):
+    """Kernel 4 forward, no autograd: plain for CPU tensors, the kernel for
+    CUDA tensors (bf16, int32 seed)."""
+    args = (x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed)
+    if x.device.type == "cpu":
+        return ln_mlp_plain(*args, s1, s2, drop)
+    M, C, H4, r = _shapes(x, w1, a1, "LN+MLP forward")
+    _check("LN+MLP forward", x, *_operands(*args, M, C, H4, r))
+    y = torch.empty_like(x)
+    err = _build.library().mtlora_ln_mlp_fwd(
+        *(t.data_ptr() for t in args), y.data_ptr(), M, C, H4, r,
+        float(s1), float(s2), *_drop_args(drop), _stream(x))
+    _build.check(err, "mtlora_ln_mlp_fwd")
+    ln_mlp_fwd.launches += 1
+    return y
+
+
+def hidden_stripes(device, rows: int, H4: int) -> int:
+    """Row stripes of the hidden weight-gradient kernel (dB1, dA2): one
+    block per (64-column hidden chunk, stripe), about two waves."""
+    return max(1, min(-(-rows // 64), 2 * _sms(device) // (H4 // 64)))
+
+
+def ln_mlp_bwd(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed,
+               s1: float, s2: float, drop: float, gy):
+    """``(dx, dgamma, dbeta, da1, dbb1, da2, dbb2)`` of
+    :func:`ln_mlp_bwd_plain`: plain for CPU tensors; for CUDA tensors the
+    row kernel (dx, m1, dm1, m2, dm2, gamma/beta partials), the hidden
+    weight kernel (dB1, dA2 over row stripes), the weight-gradient kernels
+    of dA1 and dB2 and the fixed-order reductions."""
+    args = (x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed)
+    if x.device.type == "cpu":
+        return ln_mlp_bwd_plain(*args, s1, s2, drop, gy)
+    M, C, H4, r = _shapes(x, w1, a1, "LN+MLP backward")
+    names, shapes = _operands(*args, M, C, H4, r)
+    _check("LN+MLP backward", x, names + [("gy", gy)], shapes + [(M, C)])
+    f32 = dict(dtype=torch.float32, device=x.device)
+    sa = wgrad_stripes(x.device, M, r, C)
+    sb = wgrad_stripes(x.device, M, C, r)
+    sh = hidden_stripes(x.device, M, H4)
+    stats = torch.empty((2, M), **f32)
+    gb = torch.empty((-(-M // ROW_TILE), 2, C), **f32)
+    pa = torch.empty((sa, r, C), **f32)
+    pb = torch.empty((sb, C, r), **f32)
+    ph = torch.empty((sh, 2, H4 * r), **f32)
+    mbuf = torch.empty((4, M, r), dtype=x.dtype, device=x.device)
+    lbuf = torch.empty((2, M, C), dtype=x.dtype, device=x.device)
+    dx = torch.empty_like(x)
+    dgb = torch.empty((2, C), **f32)
+    da1, dbb2 = torch.empty((r, C), **f32), torch.empty((C, r), **f32)
+    dh = torch.empty((2, H4 * r), **f32)
+    # the layouts the backward products read (n-major, k contiguous)
+    w2_t, bb2_t, a2_t, w1_t, bb1_t, a1_t = (
+        t.t().contiguous() for t in (w2, bb2, a2, w1, bb1, a1))
+    err = _build.library().mtlora_ln_mlp_bwd(
+        *(t.data_ptr() for t in args),
+        w2_t.data_ptr(), bb2_t.data_ptr(), a2_t.data_ptr(), w1_t.data_ptr(),
+        bb1_t.data_ptr(), a1_t.data_ptr(), gy.data_ptr(), dx.data_ptr(),
+        stats.data_ptr(), lbuf.data_ptr(), mbuf.data_ptr(), gb.data_ptr(),
+        pa.data_ptr(),
+        pb.data_ptr(), ph.data_ptr(), dgb.data_ptr(), da1.data_ptr(),
+        dh.data_ptr(), dbb2.data_ptr(), M, C, H4, r, sa, sb, sh,
+        float(s1), float(s2), *_drop_args(drop), _stream(x))
+    _build.check(err, "mtlora_ln_mlp_bwd")
+    ln_mlp_bwd.launches += 1
+    return (dx, dgb[0], dgb[1], da1, dh[0].view(H4, r), dh[1].view(r, H4),
+            dbb2)
+
+
+ln_mlp_fwd.launches = 0
+ln_mlp_bwd.launches = 0
+
+
+class LNMLPFn(torch.autograd.Function):
+    """``custom_vjp`` of ``fused_ln_mlp``: gradients for x, gamma, beta and
+    the four shared adapters; the frozen fc weights and biases take none."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2,
+                seed, s1, s2, drop):
+        ctx.save_for_backward(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2,
+                              a2, bb2, seed)
+        ctx.consts = (s1, s2, drop)
+        return ln_mlp_fwd(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2,
+                          bb2, seed, s1, s2, drop)
+
+    @staticmethod
+    def backward(ctx, gy):
+        saved = ctx.saved_tensors
+        dx, dg, db, da1, dbb1, da2, dbb2 = ln_mlp_bwd(
+            *saved, *ctx.consts, gy.contiguous())
+        return (dx, dg, db, None, None, da1, dbb1, None, None, da2, dbb2,
+                None, None, None, None)
+
+
+def fused_ln_mlp(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2,
+                 seed, s1: float, s2: float, drop: float):
+    """Kernel 4 on x [M, C] (see the module note), differentiable in x,
+    gamma, beta and the shared adapters of both layers."""
+    return LNMLPFn.apply(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2,
+                         bb2, seed, float(s1), float(s2), float(drop))

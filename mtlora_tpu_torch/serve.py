@@ -7,7 +7,9 @@ and of ``main.py --throughput`` (``main.py:265-281``).
 
 builds the flagship (``config.tiny_448_r64_pertask``) on the GPU with
 seeded random weights, runs synthetic images through :func:`predict` and
-prints the img/s timed with CUDA events. It needs a CUDA device.
+prints the img/s timed with CUDA events. It needs a CUDA device. The
+flagship runs the ``TPU.USE_PALLAS_LN`` route (kernels 2, 3 and 4);
+``--no-pallas-ln`` runs LayerNorm outside the GEMMs instead.
 ``--profile TRACE`` then runs 3 more forwards under ``torch.profiler``,
 writes the Chrome trace to TRACE and prints a second JSON line: device
 ms per forward by kernel class, busy time and idle share.
@@ -74,10 +76,13 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="TRACE", default=None)
+    ap.add_argument("--no-pallas-ln", action="store_true",
+                    help="TPU.USE_PALLAS_LN off: LayerNorm outside the GEMMs "
+                    "(no kernels 2, 3, 4)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serve: no CUDA device")
-    cfg = tiny_448_r64_pertask()
+    cfg = tiny_448_r64_pertask(use_pallas_ln=not args.no_pallas_ln)
     model = random_model(cfg, args.seed, "cuda")
     images = torch.from_numpy(synthetic_images(
         args.batch_size, cfg.img_size, args.seed)).cuda()
@@ -86,6 +91,7 @@ def main(argv=None):
                       "batch_size": args.batch_size,
                       "requests": args.requests,
                       "dtype": cfg.compute_dtype,
+                      "use_pallas_ln": cfg.use_pallas_ln,
                       "img_per_s": rate}))
     if args.profile:
         from mtlora_tpu_torch.train.profile import breakdown

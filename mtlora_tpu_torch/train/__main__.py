@@ -9,7 +9,9 @@ backward, AdamW with the cosine schedule and clipping at 5.0) on the
 synthetic batch of ``bench.py``: ``--warmup`` steps, then ``--steps``
 timed with CUDA events. Prints one JSON line with the img/s, the step
 time, the device and the launches of each kernel in the timed steps. It
-needs a CUDA device and exits non-zero without one.
+needs a CUDA device and exits non-zero without one. The flagship runs the
+``TPU.USE_PALLAS_LN`` route (kernels 2, 3 and 4 forward and backward);
+``--no-pallas-ln`` runs LayerNorm outside the GEMMs instead.
 
 ``--profile TRACE`` then runs 2 more steps under ``torch.profiler``,
 writes the Chrome trace to TRACE and prints a second JSON line: device ms
@@ -46,10 +48,13 @@ def main(argv=None):
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="TRACE", default=None)
+    ap.add_argument("--no-pallas-ln", action="store_true",
+                    help="TPU.USE_PALLAS_LN off: LayerNorm outside the GEMMs "
+                    "(no kernels 2, 3, 4)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("train: no CUDA device")
-    cfg = tiny_448_r64_pertask()
+    cfg = tiny_448_r64_pertask(use_pallas_ln=not args.no_pallas_ln)
     tcfg = TrainConfig(batch_size=args.batch_size)
     model = random_model(cfg, args.seed, "cuda")
     optimizer = build_optimizer(model, tcfg)
@@ -76,7 +81,7 @@ def main(argv=None):
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "batch_size": args.batch_size, "steps": args.steps,
-        "dtype": cfg.compute_dtype,
+        "dtype": cfg.compute_dtype, "use_pallas_ln": cfg.use_pallas_ln,
         "img_per_s": args.batch_size / (ms / 1e3), "step_ms": ms,
         "loss": float(metrics["loss"]),
         "grad_norm": float(metrics["grad_norm"]),

@@ -19,6 +19,14 @@ CLASSES: List[Tuple[str, Tuple[str, ...]]] = [
     ("window attention kernel (bwd)", ("window_attn_bwd", "sum_groups")),
     ("HRNet head kernel (fwd)", ("head_mlp_fwd",)),
     ("HRNet head kernel (bwd)", ("head_bwd_",)),
+    ("LN+LoRA kernel 2 (fwd)", ("ln_lora_fwd_kernel<true>",)),
+    ("LN+LoRA kernel 2b (bwd rows)", ("ln_lora_bwd_rows<true>",)),
+    ("patch merge kernel 3 (fwd)", ("ln_lora_fwd_kernel<false>",)),
+    ("patch merge kernel 3b (bwd rows)", ("ln_lora_bwd_rows<false>",)),
+    ("whole-MLP kernel 4 (fwd)", ("ln_mlp_fwd_kernel",)),
+    ("whole-MLP kernel 4b (bwd rows, hidden weights)", ("ln_mlp_bwd_",)),
+    ("LN kernels' weight-gradient passes (2b, 3b, 4b)",
+     ("wgrad_kernel", "sum_parts_kernel")),
     ("optimizer (foreach AdamW, clipping)", ("multi_tensor",)),
     ("GEMMs (cuBLAS / CUTLASS)", ("gemm", "gemv", "cutlass", "xmma",
                                   "nvjet", "splitk", "s16816", "s1688")),

@@ -20,6 +20,11 @@ from mtlora_tpu.ops.pallas_window_attn import fused_window_attention_windowed
 from mtlora_tpu_torch.models.heads import resize_bilinear
 from mtlora_tpu_torch.ops import attention, window
 from mtlora_tpu_torch.ops.head import head_mlp
+from mtlora_tpu_torch.ops.ln_lora import (
+    fused_ln_lora_linear,
+    fused_merge_ln_linear,
+)
+from mtlora_tpu_torch.ops.ln_mlp import fused_ln_mlp
 from mtlora_tpu_torch.ops.window_attn import fused_window_attention
 
 torch.set_num_threads(2)
@@ -132,19 +137,43 @@ def test_head_mlp_op_matches_jax(n):
     np.testing.assert_allclose(_np(out), np.asarray(j_ref), **TOL)
 
 
-@pytest.mark.parametrize("op", ["attention", "head"])
+def _meta(*arrays):
+    return [torch.zeros(a.shape, dtype=torch.float32, device="meta")
+            for a in arrays]
+
+
+@pytest.mark.parametrize("op", ["attention", "head", "ln_lora", "merge",
+                                "ln_mlp"])
 def test_wrappers_refuse_devices_without_kernel(op):
     """A tensor that is neither on the CPU nor on a CUDA card gets an
     error, never the plain version."""
+    seed = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         if op == "attention":
             qkv, bias, mask, nH, _, scale = _attn_inputs(0)
             fused_window_attention(torch.from_numpy(qkv).to("meta"), nH,
                                    torch.from_numpy(bias).to("meta"), None,
                                    scale)
-        else:
+        elif op == "head":
             head_mlp(*[torch.from_numpy(a).to("meta")
                        for a in _head_inputs(3)])
+        elif op == "ln_lora":
+            # x, gamma, beta, wt, bias, at, bt
+            args = _meta(*[np.zeros(s) for s in ((98, 32), (32,), (32,),
+                                                  (96, 32), (96,), (16, 32),
+                                                  (96, 16))])
+            fused_ln_lora_linear(*args, seed, 4.0, 0.0)
+        elif op == "merge":
+            args = _meta(*[np.zeros(s) for s in ((2, 256, 8), (32,), (32,),
+                                                  (16, 32))])
+            fused_merge_ln_linear(*args, 16, 16)
+        else:
+            # x, gamma, beta, fc1 (w, b, A, B), fc2 (w, b, A, B)
+            C, H4, r = 32, 128, 64
+            args = _meta(*[np.zeros(s) for s in (
+                (64, C), (C,), (C,), (H4, C), (H4,), (r, C), (H4, r),
+                (C, H4), (C,), (r, H4), (C, r))])
+            fused_ln_mlp(*args, seed, 4.0, 4.0, 0.0)
 
 
 @pytest.mark.parametrize("src,dst", [((8, 8), (16, 16)), ((2, 2), (8, 8)),

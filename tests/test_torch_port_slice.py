@@ -3,8 +3,9 @@ flagship preset vs the YAML config, the weight bridge through the
 reference torch keys, and the port's import hygiene.
 
 The JAX model is ``build_mtl_model(cfg).clone(use_pallas=True)`` with
-``TPU.USE_PALLAS_LN`` and ``TPU.USE_PALLAS_ADAPTER`` off: on the CPU its
-window-attention and head kernels run in interpret mode.
+``TPU.USE_PALLAS_ADAPTER`` off, and ``TPU.USE_PALLAS_LN`` off (LayerNorm
+outside the GEMMs) or on (kernels 2, 3 and 4): on the CPU its kernels
+run in interpret mode.
 """
 
 import os
@@ -36,6 +37,7 @@ CFG = os.path.join(ROOT, "configs/mtlora/tiny_448/"
 TASKS = ["semseg", "normals", "sal", "human_parts"]
 SLICE_FLAGS = ["TPU.USE_PALLAS_LN", "False",
                "TPU.USE_PALLAS_ADAPTER", "False"]
+LN_FLAGS = ["TPU.USE_PALLAS_ADAPTER", "False"]
 # the toy shape of tests/test_end_to_end.py:33-41; stage 2 (4x4 tokens)
 # and stage 3 (2x2) clamp the window
 TOY = ["MODEL.SWIN.DEPTHS", "[2, 2, 2, 2]",
@@ -60,9 +62,10 @@ def numpy_variables(model, x, seed):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-@pytest.fixture(scope="module")
-def toy():
-    cfg = load_config(CFG, tasks=TASKS, img_size=64, opts=TOY + SLICE_FLAGS)
+def make_toy(flags):
+    """The JAX model and the port on the same numpy weights, and an input
+    batch, at the toy shape with the given route flags."""
+    cfg = load_config(CFG, tasks=TASKS, img_size=64, opts=TOY + flags)
     jmodel = jax_build(cfg).clone(use_pallas=True)
     x = np.random.RandomState(0).randn(2, 64, 64, 3).astype(np.float32)
     variables = numpy_variables(jmodel, x, seed=0)
@@ -71,8 +74,30 @@ def toy():
     return cfg, jmodel, variables, port, x
 
 
+@pytest.fixture(scope="module")
+def toy():
+    return make_toy(SLICE_FLAGS)
+
+
+@pytest.fixture(scope="module")
+def toy_ln():
+    return make_toy(LN_FLAGS)
+
+
 def test_multitask_forward_matches_jax(toy):
     """(e) all four tasks' fp32 logits, atol = rtol = 1e-4."""
+    _check_forward(toy)
+
+
+def test_multitask_forward_ln_route_matches_jax(toy_ln):
+    """The same on the TPU.USE_PALLAS_LN route: the port's kernels 2, 3, 4
+    (plain versions on the CPU) against the interpret-mode Pallas kernels
+    (the JAX merges at 8 -> 4 and 4 -> 2 take its kernel-2 fallback)."""
+    assert toy_ln[3].cfg.use_pallas_ln
+    _check_forward(toy_ln)
+
+
+def _check_forward(toy):
     _, jmodel, variables, port, x = toy
     ref = jax.jit(jmodel.apply)(variables, x)
     with torch.inference_mode():
@@ -107,16 +132,34 @@ def test_reference_key_bridge_round_trip(toy, capsys):
 
 
 def test_flagship_preset_equals_yaml_config():
-    """(f) the literal preset cannot drift from the YAML it stands for."""
+    """(f) the literal preset cannot drift from the YAML it stands for:
+    the LN-outside route, ``TPU.USE_PALLAS_LN False``."""
     cfg = load_config(CFG, tasks=TASKS, opts=SLICE_FLAGS)
-    assert port_config.from_config(cfg) == port_config.tiny_448_r64_pertask()
+    assert (port_config.from_config(cfg)
+            == port_config.tiny_448_r64_pertask(use_pallas_ln=False))
 
 
-@pytest.mark.parametrize("flag", ["TPU.USE_PALLAS_LN",
-                                  "TPU.USE_PALLAS_ADAPTER",
-                                  "TPU.USE_PALLAS_LORA_GEMM"])
-def test_unported_kernel_flags_raise(flag):
-    opts = SLICE_FLAGS + [flag, "True"]
+def test_flagship_ln_preset_equals_yaml_config():
+    """The default preset is the YAML with only ``TPU.USE_PALLAS_ADAPTER``
+    off: the LN route."""
+    cfg = load_config(CFG, tasks=TASKS, opts=LN_FLAGS)
+    pcfg = port_config.from_config(cfg)
+    assert pcfg.use_pallas_ln
+    assert pcfg == port_config.tiny_448_r64_pertask()
+    assert pcfg == port_config.tiny_448_r64_pertask(use_pallas_ln=True)
+
+
+@pytest.mark.parametrize("flag,ln", [
+    ("TPU.USE_PALLAS_ADAPTER", "True"),
+    ("TPU.USE_PALLAS_ADAPTER", "False"),
+    ("TPU.USE_PALLAS_LORA_GEMM", "False"),
+], ids=["TPU.USE_PALLAS_ADAPTER-ln", "TPU.USE_PALLAS_ADAPTER",
+        "TPU.USE_PALLAS_LORA_GEMM"])
+def test_unported_kernel_flags_raise(flag, ln):
+    """The adapter kernel raises with the LN route on or off, the LoRA GEMM
+    kernel too; ``TPU.USE_PALLAS_LN`` itself no longer raises."""
+    opts = ["TPU.USE_PALLAS_ADAPTER", "False", "TPU.USE_PALLAS_LN", ln,
+            flag, "True"]
     cfg = load_config(CFG, tasks=TASKS, opts=opts)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_config.from_config(cfg)
@@ -155,6 +198,17 @@ metrics = train_step(model, build_optimizer(model, tcfg),
                      build_schedule(tcfg, 10), batch,
                      torch.Generator().manual_seed(0))
 assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
+import dataclasses
+from mtlora_tpu_torch.ops import counters
+cfg_ln = dataclasses.replace(cfg, use_pallas_ln=True)
+model = random_model(cfg_ln, 0, "cpu")
+out = predict(model, synthetic_images(1, 64, 0))
+assert all(bool(torch.isfinite(v).all()) for v in out.values())
+metrics = train_step(model, build_optimizer(model, tcfg),
+                     build_schedule(tcfg, 10), batch,
+                     torch.Generator().manual_seed(0))
+assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
+assert not any(counters.read().values())   # the CPU route counts nothing
 assert not any(k.split(".")[0] == "mtlora_tpu" for k in sys.modules)
 print("HYGIENE-OK")
 """
@@ -162,7 +216,8 @@ print("HYGIENE-OK")
 
 def test_port_imports_no_jax_flax_yaml_cv2():
     """Every port module imports, and a toy forward and a toy training
-    step run, with jax, flax, yaml and cv2 made unimportable."""
+    step run on both routes (LN outside the GEMMs, and kernels 2, 3, 4),
+    with jax, flax, yaml and cv2 made unimportable."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
     proc = subprocess.run([sys.executable, "-c", HYGIENE], env=env,
                           cwd=os.path.abspath(ROOT), capture_output=True,

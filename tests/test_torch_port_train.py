@@ -187,8 +187,13 @@ def test_schedule_matches_jax(name, opts):
 @pytest.fixture(scope="module")
 def parity():
     """The JAX and port models on the same numpy weights, and the batch."""
+    return make_parity(SLICE_FLAGS)
+
+
+def make_parity(flags):
+    """:func:`parity` on the route that ``flags`` select."""
     cfg = load_config(CFG, tasks=TASKS, img_size=64,
-                      opts=TOY + SLICE_FLAGS + PARITY)
+                      opts=TOY + flags + PARITY)
     jmodel = jax_build(cfg).clone(use_pallas=True)
     r = np.random.RandomState(0)
     B, S = 2, 64
@@ -414,6 +419,11 @@ def test_model_train_mode_draws_and_eval_does_not():
 def steps(parity):
     """Three steps of both steps from the same weights and batch; the JAX
     step is jitted once."""
+    return run_steps(parity, 3)
+
+
+def run_steps(parity, n_steps):
+    """``n_steps`` of both training steps from the parity weights."""
     cfg, jmodel, variables, batch = parity
     tx = joptim.build_optimizer(cfg, variables["params"],
                                 n_iter_per_epoch=ITERS)
@@ -423,7 +433,7 @@ def steps(parity):
     jstep = jax.jit(make_train_step(jmodel, tx, TASKS))
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     jax_states, jax_metrics = [state], []
-    for _ in range(3):
+    for _ in range(n_steps):
         state, m = jstep(state, jbatch)
         jax_states.append(state)
         jax_metrics.append({k: float(v) for k, v in m.items()})
@@ -435,7 +445,7 @@ def steps(parity):
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     before = {k: v.clone() for k, v in port.state_dict().items()}
     port_states, port_metrics, port_grads = [before], [], []
-    for _ in range(3):
+    for _ in range(n_steps):
         m = train_step(port, opt, sched, tbatch, None,
                        clip_grad=tcfg.clip_grad)
         port_metrics.append({k: float(v) for k, v in m.items()})
@@ -516,6 +526,11 @@ def test_step_gradients_match_jax(steps):
       - the four expand biases: below 1e-6 of the largest gradient
         element in both packages (measured 5.7e-8).
     The frozen ones do not exist in the port and are zero in JAX."""
+    check_first_grads(steps)
+
+
+def check_first_grads(steps):
+    """The body of :func:`test_step_gradients_match_jax`."""
     params = jax.device_get(steps["jax_states"][0].params)
     want = {k: _np(v) for k, v in _jax_first_grads(steps, params).items()}
     got = {k: _np(v) for k, v in steps["port_grads"][0].items()}
