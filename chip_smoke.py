@@ -4,20 +4,25 @@
 
 Phases, each printing a line; any failure raises and exits non-zero:
   1. device: a CUDA card must be present; its name and power limit;
-  2. build: the eight CUDA sources from ops/csrc (one nvcc each, in
+  2. build: the twelve CUDA sources from ops/csrc (one nvcc each, in
      parallel), with the build time;
   3. forward kernels vs plain, on the card, against their plain PyTorch
      versions on the same tensors, at the batch-32 training step's shapes:
      window attention at the four Swin-T 448 stage shapes (shifted and
      not), the HRNet head for the four task widths, kernel 2 (LN + qkv GEMM
-     + shared LoRA) and kernel 4 (LN + whole MLP) at the four stage shapes
-     and kernel 3 (patch merge) at the three merges for the shared and the
-     task streams, with adapter dropout on (rate 0.05, the same seeds);
-     kernel, plain and library-call times and the roofline bound;
+     + shared LoRA) and kernel 4 (LN + whole MLP) at the four stage shapes,
+     kernel 3 (patch merge) at the three merges for the shared and the
+     task streams, kernel 2's tail mode (norm2 -> fc1 with GELU, p and
+     dropout(y)) and kernel 5 (adapter MLP tail) at the four stage-tail
+     blocks, kernel 6 (factored task merge) at the three merges with
+     drop-path coefficients, all with adapter dropout on (rate 0.05, the
+     same seeds); kernel, plain and library-call times and the roofline
+     bound;
   3b. backward kernels vs plain: the same shapes, every gradient against
      the plain backward, with the same four numbers;
-then, for the LN route (TPU.USE_PALLAS_LN on, the main path) and for the
-LN-outside route (off):
+then, for the adapter route (TPU.USE_PALLAS_LN and USE_PALLAS_ADAPTER on,
+the JAX package's default and the main path), the LN route without the
+adapter kernels, and the LN-outside route (both off):
   4. serve: the flagship model (bf16, seeded random weights) answers
      requests of 1, 8 and 32 images through ``serve.predict``; shapes,
      finiteness and the exact launches of every kernel per forward;
@@ -55,15 +60,33 @@ from mtlora_tpu_torch.ops.attention import (
     shift_attention_mask,
     window_attention,
 )
+from mtlora_tpu_torch.models.lora import droppath_coef
+from mtlora_tpu_torch.ops.adapter_mlp import (
+    adapter_mid_bwd,
+    adapter_mid_bwd_plain,
+    adapter_mid_fwd,
+    adapter_mid_plain,
+)
 from mtlora_tpu_torch.ops.ln_lora import (
     ln_lora_bwd,
     ln_lora_bwd_plain,
     ln_lora_fwd,
     ln_lora_plain,
+    ln_lora_tail_bwd,
+    ln_lora_tail_bwd_plain,
+    ln_lora_tail_fwd,
+    ln_lora_tail_plain,
     merge_ln_bwd,
     merge_ln_bwd_plain,
     merge_ln_fwd,
     merge_ln_plain,
+)
+from mtlora_tpu_torch.ops.task_merge import (
+    rank_operands,
+    task_merge_bwd,
+    task_merge_bwd_plain,
+    task_merge_fwd,
+    task_merge_plain,
 )
 from mtlora_tpu_torch.ops.ln_mlp import (
     ln_mlp_bwd,
@@ -105,9 +128,20 @@ TRAIN_STEPS = 3
 TRAIN_TIMED = 5
 CROSS_BATCH = 2
 ITERS_PER_EPOCH = 1000
-# published peaks of one H100 SXM (dense bf16 tensor cores, HBM3)
+# (TPU.USE_PALLAS_LN, TPU.USE_PALLAS_ADAPTER): the adapter route, the JAX
+# package's default and the main path, first; then the LN route without
+# the adapter kernels, and the route with LayerNorm outside the GEMMs
+ROUTES = ((True, True), (True, False), (False, False))
+# published peaks of one H100 SXM (dense bf16 tensor cores, fp32 outside
+# the tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# fp32 operations counted per element for an exact-erf GELU (CUDA's erff
+# is a polynomial of about 13 fused multiply-adds, plus the GELU's own
+# multiplies and adds) and for GELU with its derivative (one erf, one exp)
+GELU_OPS = 20
+GELU_PAIR_OPS = 30
 # kernel vs plain, both bf16 on the card: outputs agree up to the order of
 # fp32 sums, which can flip a bf16 rounding of P (attention) or of the
 # hidden (head) and of the output. Attention outputs are convex mixes of v
@@ -179,35 +213,45 @@ def median_ms(fn, reps: int = 20, rounds: int = 3, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def ops_seconds(flops, fp32_ops=0.0) -> float:
+    """Least time of the operations: the tensor-core products at the bf16
+    rate and the fp32 work outside the tensor cores at its rate, the two
+    units running at once."""
+    return max(flops / PEAK_BF16_FLOPS, fp32_ops / PEAK_FP32_FLOPS)
+
+
 class Tally:
     """Sums of one kernel's numbers over the shapes it is checked at."""
 
     def __init__(self):
         self.err = self.ms = self.plain = self.lib = 0.0
-        self.bytes = self.flops = 0.0
+        self.bytes = self.flops = self.fp32 = 0.0
 
-    def add(self, err, ms, plain, lib, nbytes, flops, weight=1):
+    def add(self, err, ms, plain, lib, nbytes, flops, weight=1, fp32_ops=0.0):
         """``weight``: the launches of this shape per pass (the sites of a
-        forward that take it), so that the sums are per pass."""
+        forward that take it), so that the sums are per pass; ``fp32_ops``:
+        operations on the CUDA cores (GELU, rank-4 products)."""
         self.err = max(self.err, err)
         self.ms += weight * ms
         self.plain += weight * plain
         self.lib += weight * lib
         self.bytes += weight * nbytes
         self.flops += weight * flops
+        self.fp32 += weight * fp32_ops
 
     def json(self) -> dict:
         t_bytes = self.bytes / PEAK_HBM_BYTES * 1e3
-        t_ops = self.flops / PEAK_BF16_FLOPS * 1e3
+        t_ops = ops_seconds(self.flops, self.fp32) * 1e3
         return {"max_abs_err": self.err, "ms": self.ms,
                 "plain_ms": self.plain, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": self.lib}
 
 
-def bound_text(nbytes, flops) -> str:
-    return (f"bound {max(nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS) * 1e3:.4f}"
-            f" ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+def bound_text(nbytes, flops, fp32_ops=0.0) -> str:
+    t = max(nbytes / PEAK_HBM_BYTES, ops_seconds(flops, fp32_ops)) * 1e3
+    return (f"bound {t:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+            f"GFLOP bf16, {fp32_ops / 1e9:.2f} GFLOP fp32)")
 
 
 def attention_shapes(gen):
@@ -513,7 +557,9 @@ def merge_index(H, W, device):
 
 def check_merge(gen) -> dict:
     """Kernel 3 at the three merges, for the shared stream (B rows) and the
-    flattened task streams (T*B rows)."""
+    flattened task streams (T*B rows); the sums count the shared stream's
+    shapes only, the main path's (the adapter route merges the task
+    streams in kernel 6)."""
     fwd, bwd = Tally(), Tally()
     for s in range(3):
         cfg, res, C, _ = stage_dims(s)
@@ -541,7 +587,8 @@ def check_merge(gen) -> dict:
             print(f"merge fwd {res}->{res // 2} L {L} x [{M}, {K}] -> {O}: "
                   f"{text} kernel {t_k:.4f} ms plain {t_p:.4f} ms library "
                   f"{t_l:.4f} ms {bound_text(nbytes, flops)}")
-            fwd.add(err, t_k, t_p, t_l, nbytes, flops)
+            main = int(L == KERNEL_BATCH)
+            fwd.add(err, t_k, t_p, t_l, nbytes, flops, main)
             got = merge_ln_bwd(*args, gy)
             want = merge_ln_bwd_plain(*args, gy)
             torch.cuda.synchronize()
@@ -560,7 +607,7 @@ def check_merge(gen) -> dict:
             print(f"merge bwd {res}->{res // 2} L {L}: {text} kernel "
                   f"{t_k:.4f} ms plain {t_p:.4f} ms library backward "
                   f"{t_l:.4f} ms {bound_text(nbytes, flops)}")
-            bwd.add(err, t_k, t_p, t_l, nbytes, flops)
+            bwd.add(err, t_k, t_p, t_l, nbytes, flops, main)
             del x, gy, y, ref, got, want, yl, leaves
     return {"fwd": fwd, "bwd": bwd}
 
@@ -638,6 +685,239 @@ def check_ln_mlp(gen) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
+# ---------------------------------------------------------------------------
+# The TPU.USE_PALLAS_ADAPTER route: kernel 2's tail mode (norm2 -> fc1 of
+# the stage-tail blocks), kernel 5 (adapter MLP tail) and kernel 6
+# (factored task merge), forward and backward, at every site shape of the
+# batch-32 step, adapter dropout on and drop-path coefficients drawn at
+# the flagship's rates.
+# ---------------------------------------------------------------------------
+
+def ln_lora_tail_library(x, gamma, beta, wt, bias, at, bt, scale):
+    ln = F.layer_norm(x, (x.shape[1],), gamma, beta, 1e-5)
+    p = torch.addmm(bias, ln, wt.t())
+    return F.gelu(p + scale * ((ln @ at.t()) @ bt.t())), p
+
+
+def check_ln_lora_tail(gen) -> dict:
+    """Kernel 2's tail mode at the four fc1 sites: x [M, C] -> y =
+    gelu(z), p and dropout(y) [M, 4C], rank 64, scale 4, dropout 0.05;
+    the backward from the cotangents of all three."""
+    fwd, bwd = Tally(), Tally()
+    for s in range(4):
+        cfg, _, C, M = stage_dims(s)
+        st = cfg.stages[s]
+        O, r, sc, p = 4 * C, st.r_shared, st.shared_scale, st.dropout
+        x = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
+        gamma, beta = _ln_params(gen, C)
+        wt = _uniform(gen, (O, C), C ** -0.5)
+        bias = _uniform(gen, (O,), 0.02)
+        at = _uniform(gen, (r, C), C ** -0.5)
+        bt = _uniform(gen, (O, r), r ** -0.5)
+        seed = _seed(gen)
+        gy, gp, gd = (torch.randn(M, O, generator=gen, device="cuda")
+                      .to(torch.bfloat16) for _ in range(3))
+        args = (x, gamma, beta, wt, bias, at, bt, seed, sc, p)
+        got = ln_lora_tail_fwd(*args, True, True)
+        want = ln_lora_tail_plain(*args, True, True)
+        torch.cuda.synchronize()
+        err, text = check_outputs(f"ln_lora_tail fwd stage {s}", got, want,
+                                  ("y", "p", "d"), {0, 1, 2})
+        t_k = median_ms(lambda: ln_lora_tail_fwd(*args, True, True))
+        t_p = median_ms(lambda: ln_lora_tail_plain(*args, True, True))
+        t_l = median_ms(lambda: ln_lora_tail_library(x, gamma, beta, wt, bias,
+                                                     at, bt, sc))
+        w_bytes = 2 * (O * C + O + r * C + O * r + 2 * C)
+        nbytes = 2 * M * (C + 3 * O) + w_bytes
+        flops = 2.0 * M * (C * O + C * r + r * O)
+        ops32 = float(GELU_OPS) * M * O
+        print(f"ln_lora_tail fwd stage {s} x [{M}, {C}] -> {O}: {text} "
+              f"kernel {t_k:.4f} ms plain {t_p:.4f} ms library {t_l:.4f} ms "
+              f"{bound_text(nbytes, flops, ops32)}")
+        fwd.add(err, t_k, t_p, t_l, nbytes, flops, 1, ops32)
+        del got, want
+        got = ln_lora_tail_bwd(*args, gy, gp, gd, True)
+        want = ln_lora_tail_bwd_plain(*args, gy, gp, gd, True)
+        torch.cuda.synchronize()
+        err, text = check_outputs(f"ln_lora_tail bwd stage {s}", got, want,
+                                  ("dx", "dgamma", "dbeta", "dA", "dB"), {0})
+        del got, want
+        leaves = [t.detach().requires_grad_(True) for t in (x, gamma, beta,
+                                                            at, bt)]
+        yl, pl = ln_lora_tail_library(leaves[0], leaves[1], leaves[2], wt,
+                                      bias, leaves[3], leaves[4], sc)
+        t_k = median_ms(lambda: ln_lora_tail_bwd(*args, gy, gp, gd, True),
+                        reps=10)
+        t_p = median_ms(lambda: ln_lora_tail_bwd_plain(*args, gy, gp, gd,
+                                                       True), reps=5)
+        t_l = median_ms(lambda: torch.autograd.grad(
+            (yl, pl), leaves, (gy, gp), retain_graph=True), reps=10)
+        nbytes = 2 * M * (2 * C + 3 * O) + 2 * w_bytes
+        # z recomputed (the frozen product and the adapter), dln, the
+        # adapter's backward products
+        flops = 2.0 * M * (2 * O * C + 4 * C * r + 3 * O * r)
+        ops32 = float(GELU_PAIR_OPS) * M * O
+        print(f"ln_lora_tail bwd stage {s}: {text} kernel {t_k:.4f} ms plain "
+              f"{t_p:.4f} ms library backward {t_l:.4f} ms "
+              f"{bound_text(nbytes, flops, ops32)}")
+        bwd.add(err, t_k, t_p, t_l, nbytes, flops, 1, ops32)
+        del x, gy, gp, gd, yl, pl, leaves
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def adapter_library(mid1T, p1, b1, a2T, s):
+    """bmm -> add -> GELU -> bmm, the [T, M, 4C] hidden in device memory."""
+    h = F.gelu(p1[None] + s * torch.bmm(mid1T.transpose(1, 2), b1))
+    return torch.bmm(a2T, h.transpose(1, 2))
+
+
+def check_adapter_mid(gen) -> dict:
+    """Kernel 5 at the four stage-tail MLPs: T 4, rank 4, M = 32 L_s, H4 =
+    4 C_s; every operation counted on the CUDA cores in fp32 (the rank is
+    below a tensor-core tile's depth)."""
+    fwd, bwd = Tally(), Tally()
+    for s in range(4):
+        cfg, _, C, M = stage_dims(s)
+        T, r, H4 = len(cfg.tasks), 4, 4 * C
+        scales = cfg.stages[s].task_scales
+        mid1T = (0.5 * torch.randn(T, r, M, generator=gen, device="cuda")
+                 ).to(torch.bfloat16)
+        p1 = torch.randn(M, H4, generator=gen, device="cuda").to(torch.bfloat16)
+        b1 = _uniform(gen, (T, r, H4), 0.1)
+        a2T = _uniform(gen, (T, r, H4), H4 ** -0.5)
+        g = torch.randn(T, r, M, generator=gen, device="cuda").to(torch.bfloat16)
+        args = (mid1T, p1, b1, a2T, scales)
+        sv = torch.tensor(scales, device="cuda").view(T, 1, 1).to(
+            torch.bfloat16)
+        y = adapter_mid_fwd(*args)
+        ref = adapter_mid_plain(*args)
+        torch.cuda.synchronize()
+        err, text = check_outputs(f"adapter_mid fwd stage {s}", [y], [ref],
+                                  ["mid2T"], {0})
+        t_k = median_ms(lambda: adapter_mid_fwd(*args))
+        t_p = median_ms(lambda: adapter_mid_plain(*args), reps=5)
+        t_l = median_ms(lambda: adapter_library(mid1T, p1, b1, a2T, sv),
+                        reps=5)
+        nbytes = 2 * (2 * T * r * M + M * H4 + 2 * T * r * H4)
+        ops32 = float(T) * M * H4 * (GELU_OPS + 4 * r)
+        print(f"adapter_mid fwd stage {s} T {T} M {M} H4 {H4}: {text} kernel "
+              f"{t_k:.4f} ms plain {t_p:.4f} ms library {t_l:.4f} ms "
+              f"{bound_text(nbytes, 0.0, ops32)}")
+        fwd.add(err, t_k, t_p, t_l, nbytes, 0.0, 1, ops32)
+        got = adapter_mid_bwd(*args, g)
+        want = adapter_mid_bwd_plain(*args, g)
+        torch.cuda.synchronize()
+        err, text = check_outputs(f"adapter_mid bwd stage {s}", got, want,
+                                  ("dmid1T", "dp1", "dB1", "dA2T"), {0, 1})
+        del got, want
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (mid1T, p1, b1, a2T)]
+        yl = adapter_library(*leaves, sv)
+        t_k = median_ms(lambda: adapter_mid_bwd(*args, g), reps=5)
+        t_p = median_ms(lambda: adapter_mid_bwd_plain(*args, g), reps=3)
+        t_l = median_ms(lambda: torch.autograd.grad(yl, leaves, g,
+                                                    retain_graph=True),
+                        reps=5)
+        nbytes = (2 * (3 * T * r * M + 2 * M * H4 + 2 * T * r * H4)
+                  + 4 * 2 * T * r * H4)
+        # z, gelu and gelu', dh, dmid1, dB1, dA2
+        ops32 = float(T) * M * H4 * (GELU_PAIR_OPS + 10 * r)
+        print(f"adapter_mid bwd stage {s}: {text} kernel {t_k:.4f} ms plain "
+              f"{t_p:.4f} ms library backward {t_l:.4f} ms "
+              f"{bound_text(nbytes, 0.0, ops32)}")
+        bwd.add(err, t_k, t_p, t_l, nbytes, 0.0, 1, ops32)
+        del mid1T, p1, g, y, ref, yl, leaves
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def task_merge_library(base, pre, p2, midc, bs, k1, k2, gamma, beta, wt,
+                       idx):
+    """The streams expanded (one bmm and the shared terms), the 2x2 gather
+    as one index_select, LN(4C), GEMM."""
+    T = midc.shape[0]
+    B, L, C = base.shape
+    u = torch.bmm(midc.transpose(1, 2), bs).view(T, B, L, C)
+    y = (base + k1 * pre + k2 * p2 + u).view(T * B, L, C)
+    xc = y.index_select(1, idx).reshape(T * B * L // 4, 4 * C)
+    return F.layer_norm(xc, (4 * C,), gamma, beta, 1e-5) @ wt.t()
+
+
+def check_task_merge(gen) -> dict:
+    """Kernel 6 at the three merges: T 4, r1 = r2 = 4, batch 32, drop-path
+    coefficients drawn at the rate of the merging block (both non-trivial),
+    scales 4; the reduction trains."""
+    fwd, bwd = Tally(), Tally()
+    gcpu = torch.Generator().manual_seed(SEED)
+    for s in range(3):
+        cfg, res, C, _ = stage_dims(s)
+        T, r, B, L = len(cfg.tasks), 4, KERNEL_BATCH, res * res
+        K, O, Mm = 4 * C, 2 * C, KERNEL_BATCH * res * res // 4
+        rate = 0.2 * (sum(cfg.depths[:s + 1]) - 1) / (sum(cfg.depths) - 1)
+        base, pre, p2 = (torch.randn(B, L, C, generator=gen, device="cuda")
+                         .to(torch.bfloat16) for _ in range(3))
+        mid1T, mid2T = ((0.5 * torch.randn(T, r, B * L, generator=gen,
+                                           device="cuda")).to(torch.bfloat16)
+                        for _ in range(2))
+        b1, b2 = (_uniform(gen, (T, r, C), 0.1) for _ in range(2))
+        c1, c2 = (droppath_coef(rate, T, B, gcpu, "cpu").cuda()
+                  for _ in range(2))
+        sc = cfg.stages[s].task_scales
+        gamma, beta = _ln_params(gen, K)
+        wt = _uniform(gen, (O, K), K ** -0.5)
+        gy = torch.randn(T, B, L // 4, O, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        args = (base, pre, p2, mid1T, b1, mid2T, b2, c1, c2, sc, sc, gamma,
+                beta, wt, res, res)
+        y = task_merge_fwd(*args)
+        ref = task_merge_plain(*args)
+        torch.cuda.synchronize()
+        err, text = check_outputs(f"task_merge fwd {s}", [y], [ref], ["y"],
+                                  {0})
+        midc, bs = rank_operands(mid1T, b1, mid2T, b2, c1, c2, sc, sc, B, L)
+        k1, k2 = (c.to(torch.bfloat16).view(T, B, 1, 1) for c in (c1, c2))
+        idx = merge_index(res, res, "cuda")
+        lib = (base, pre, p2, midc, bs, k1, k2, gamma, beta, wt, idx)
+        t_k = median_ms(lambda: task_merge_fwd(*args))
+        t_p = median_ms(lambda: task_merge_plain(*args), reps=5)
+        t_l = median_ms(lambda: task_merge_library(*lib), reps=5)
+        w_bytes = 2 * (O * K + 2 * K)
+        nbytes = 2 * (3 * B * L * C + T * B * L * 2 * r + 2 * T * r * C
+                      + T * Mm * O) + w_bytes
+        flops = 2.0 * T * Mm * K * O
+        ops32 = 2.0 * T * B * L * C * 2 * r
+        print(f"task_merge fwd {res}->{res // 2} T {T} B {B} C {C} -> {O}: "
+              f"{text} kernel {t_k:.4f} ms plain {t_p:.4f} ms library "
+              f"{t_l:.4f} ms {bound_text(nbytes, flops, ops32)}")
+        fwd.add(err, t_k, t_p, t_l, nbytes, flops, 1, ops32)
+        got = task_merge_bwd(*args, gy)
+        want = task_merge_bwd_plain(*args, gy)
+        torch.cuda.synchronize()
+        err, text = check_outputs(
+            f"task_merge bwd {s}", got, want,
+            ("dbase", "dpre", "dp2", "dmid1T", "dB1", "dmid2T", "dB2",
+             "dgamma", "dbeta", "dW"), {0, 1, 2, 3, 5})
+        del got, want
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (base, pre, p2, midc, bs, gamma, beta, wt)]
+        yl = task_merge_library(*leaves[:5], k1, k2, *leaves[5:], idx)
+        t_k = median_ms(lambda: task_merge_bwd(*args, gy), reps=5)
+        t_p = median_ms(lambda: task_merge_bwd_plain(*args, gy), reps=3)
+        t_l = median_ms(lambda: torch.autograd.grad(
+            yl, leaves, gy.view(yl.shape), retain_graph=True), reps=5)
+        nbytes = (2 * (6 * B * L * C + 2 * T * B * L * 2 * r + T * Mm * O
+                       + 2 * T * r * C) + 2 * w_bytes
+                  + 4 * (O * K + 2 * K + 2 * T * r * C))
+        # dln, dW, the streams' expansion recomputed, dmid and dB
+        flops = 4.0 * T * Mm * K * O
+        ops32 = 3 * 2.0 * T * B * L * C * 2 * r
+        print(f"task_merge bwd {res}->{res // 2}: {text} kernel {t_k:.4f} ms "
+              f"plain {t_p:.4f} ms library backward {t_l:.4f} ms "
+              f"{bound_text(nbytes, flops, ops32)}")
+        bwd.add(err, t_k, t_p, t_l, nbytes, flops, 1, ops32)
+        del base, pre, p2, mid1T, mid2T, gy, y, ref, yl, leaves
+    return {"fwd": fwd, "bwd": bwd}
+
+
 def launches_per_pass(cfg, backward: bool) -> dict:
     """Exact kernel launches of one forward (or training step): attention
     in every block, a head per task; on the LN route kernel 2 in every
@@ -649,6 +929,11 @@ def launches_per_pass(cfg, backward: bool) -> dict:
     if cfg.use_pallas_ln:
         fwd.update(ln_lora=n_blocks, ln_mlp=n_blocks - stages,
                    patch_merge=2 * (stages - 1))
+    if cfg.use_pallas_adapter:
+        # the stage-tail blocks: fc1 in kernel 2's tail mode, fc2's task
+        # branch in kernel 5; the merges take the task streams in kernel 6
+        fwd.update(ln_lora_tail=stages, adapter_mid=stages,
+                   patch_merge=stages - 1, task_merge=stages - 1)
     want = dict.fromkeys(counters.WRAPPERS, 0)
     for name, n in fwd.items():
         want[name] = n
@@ -658,7 +943,10 @@ def launches_per_pass(cfg, backward: bool) -> dict:
 
 
 def route_name(cfg) -> str:
-    return ("LN route (TPU.USE_PALLAS_LN on)" if cfg.use_pallas_ln
+    if cfg.use_pallas_adapter:
+        return "adapter route (TPU.USE_PALLAS_LN and USE_PALLAS_ADAPTER on)"
+    return ("LN route (TPU.USE_PALLAS_LN on, USE_PALLAS_ADAPTER off)"
+            if cfg.use_pallas_ln
             else "LN-outside route (TPU.USE_PALLAS_LN off)")
 
 
@@ -844,10 +1132,14 @@ def main():
     ln2 = check_ln_lora(gen)
     merge = check_merge(gen)
     mlp = check_ln_mlp(gen)
+    tail = check_ln_lora_tail(gen)
+    mid = check_adapter_mid(gen)
+    tmerge = check_task_merge(gen)
 
     train_counts = None
-    for use_ln in (True, False):
-        cfg = tiny_448_r64_pertask(use_pallas_ln=use_ln)
+    for use_ln, use_adapter in ROUTES:
+        cfg = tiny_448_r64_pertask(use_pallas_ln=use_ln,
+                                   use_pallas_adapter=use_adapter)
         route = route_name(cfg)
         print(f"=== {route}")
         model = random_model(cfg, SEED, "cuda")
@@ -864,7 +1156,7 @@ def main():
         counts = train_phase(cfg, card)
         print(f"launches ({route}): serve {serve_counts}, train {counts}")
         train_cross_check(cfg)
-        if use_ln:
+        if train_counts is None:
             train_counts = counts      # the main path's launches
 
     def entry(name, source, replaces, tally):
@@ -892,6 +1184,18 @@ def main():
         entry("ln_mlp", "ln_mlp.cu", "pallas_ln_mlp.py:54", mlp["fwd"]),
         entry("ln_mlp_bwd", "ln_mlp_bwd.cu", "pallas_ln_mlp.py:103",
               mlp["bwd"]),
+        entry("ln_lora_tail", "ln_lora.cu", "pallas_ln_lora.py:74",
+              tail["fwd"]),
+        entry("ln_lora_tail_bwd", "ln_lora_bwd.cu", "pallas_ln_lora.py:124",
+              tail["bwd"]),
+        entry("adapter_mid", "adapter_mlp.cu", "pallas_adapter_mlp.py:129",
+              mid["fwd"]),
+        entry("adapter_mid_bwd", "adapter_mlp_bwd.cu",
+              "pallas_adapter_mlp.py:146", mid["bwd"]),
+        entry("task_merge", "task_merge.cu", "pallas_task_merge.py:70",
+              tmerge["fwd"]),
+        entry("task_merge_bwd", "task_merge_bwd.cu",
+              "pallas_task_merge.py:115", tmerge["bwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -50,6 +50,10 @@ class ModelConfig:
     # TPU.USE_PALLAS_LN: LN fused into qkv (kernel 2), the whole MLP of the
     # no-task blocks (kernel 4) and the patch merges (kernel 3)
     use_pallas_ln: bool = False
+    # TPU.USE_PALLAS_ADAPTER (with USE_PALLAS_LN): the stage-tail blocks'
+    # task streams stay factored; fc1 in kernel 2's tail mode, the adapter
+    # MLP tail (kernel 5), the factored task merge (kernel 6)
+    use_pallas_adapter: bool = False
 
 
 def _unsupported(what: str, item: str):
@@ -62,16 +66,14 @@ def from_config(config) -> ModelConfig:
     """Build from a loaded reference-schema config node (after
     ``normalize_mtlora``), read by attribute only."""
     tpu = config.TPU
-    if bool(tpu.USE_PALLAS_ADAPTER):
-        _unsupported("TPU.USE_PALLAS_ADAPTER (adapter MLP-tail and "
-                     "task-merge kernels, factored task streams)",
-                     "Queue 2, kernels 5 and 6")
     if bool(tpu.USE_PALLAS_LORA_GEMM):
         _unsupported("TPU.USE_PALLAS_LORA_GEMM (LoRA GEMM kernel)",
                      "Queue 2, kernel 8")
     m = config.MODEL.MTLORA
     swin = config.MODEL.SWIN
     use_ln = bool(tpu.USE_PALLAS_LN)
+    use_adapter = bool(tpu.USE_PALLAS_ADAPTER)
+    _check_adapter_route(use_ln, use_adapter, bool(m.PROJ_ENABLED))
     if use_ln and not (bool(m.QKV_ENABLED) and bool(m.FC1_ENABLED)
                        and bool(m.FC2_ENABLED)):
         _unsupported("TPU.USE_PALLAS_LN with qkv, fc1 or fc2 adapters off "
@@ -138,16 +140,40 @@ def from_config(config) -> ModelConfig:
         compute_dtype=compute,
         drop_path_rate=float(config.MODEL.DROP_PATH_RATE),
         use_pallas_ln=use_ln,
+        use_pallas_adapter=use_adapter,
     )
 
 
-def tiny_448_r64_pertask(use_pallas_ln: bool = True) -> ModelConfig:
+def _check_adapter_route(use_ln: bool, use_adapter: bool,
+                         proj_enabled: bool = True):
+    """The adapter route runs only on the LN route, with proj task
+    adapters: without them fc1 takes ``_ln_fused``'s ``x_tasks None``
+    branch."""
+    if use_adapter and not use_ln:
+        _unsupported("TPU.USE_PALLAS_ADAPTER with TPU.USE_PALLAS_LN off "
+                     "(kernel 5 with the task streams expanded by "
+                     "expand_factored_tasks)", "Queue 1, item 9")
+    if use_adapter and not proj_enabled:
+        _unsupported("TPU.USE_PALLAS_ADAPTER with MTLORA.PROJ_ENABLED off "
+                     "(fc1's task projection from the shared LN output)",
+                     "Queue 1, item 9")
+
+
+def tiny_448_r64_pertask(use_pallas_ln: bool = True,
+                         use_pallas_adapter: bool | None = None
+                         ) -> ModelConfig:
     """``configs/mtlora/tiny_448/mtlora_tiny_448_r64_scale4_pertask.yaml``
-    with the four PASCAL tasks and ``TPU.USE_PALLAS_ADAPTER False``: Swin-T
-    at 448, shared rank 64 and per-task rank 4 at scale 4 in every stage,
-    adapter dropout 0.05, drop-path 0.2, bf16 compute. ``use_pallas_ln``
-    is ``TPU.USE_PALLAS_LN``: on by default, as in the YAML; off is the
-    route with LayerNorm outside the GEMMs."""
+    with the four PASCAL tasks: Swin-T at 448, shared rank 64 and per-task
+    rank 4 at scale 4 in every stage, adapter dropout 0.05, drop-path 0.2,
+    bf16 compute. ``use_pallas_ln`` and ``use_pallas_adapter`` are
+    ``TPU.USE_PALLAS_LN`` and ``TPU.USE_PALLAS_ADAPTER``: both on by
+    default, as in the YAML; adapter off is the LN route of kernels 2, 3,
+    4 with materialized task streams, and both off the route with
+    LayerNorm outside the GEMMs. The adapter route needs the LN route, so
+    ``use_pallas_adapter`` defaults to ``use_pallas_ln``."""
+    if use_pallas_adapter is None:
+        use_pallas_adapter = use_pallas_ln
+    _check_adapter_route(use_pallas_ln, use_pallas_adapter)
     stage = StageLoRA(r_shared=64, r_tasks=(4, 4, 4, 4), shared_scale=4.0,
                       task_scales=(4.0, 4.0, 4.0, 4.0), dropout=0.05)
     return ModelConfig(
@@ -157,4 +183,5 @@ def tiny_448_r64_pertask(use_pallas_ln: bool = True) -> ModelConfig:
         stages=(stage,) * 4,
         drop_path_rate=0.2,
         use_pallas_ln=use_pallas_ln,
+        use_pallas_adapter=use_pallas_adapter,
     )

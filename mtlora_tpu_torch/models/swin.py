@@ -1,16 +1,27 @@
 """Swin Transformer backbone with MTLoRA adapters.
 
-Counterpart of ``mtlora_tpu/models/swin.py`` with ``TPU.USE_PALLAS_ADAPTER``
-off: materialized task streams ``[T, B, L, C]``, the window attention core
-in the CUDA kernel of ``ops/window_attn.py``. Two routes, as the JAX
-package's ``TPU.USE_PALLAS_LN`` switch (``cfg.use_pallas_ln``):
+Counterpart of ``mtlora_tpu/models/swin.py``, the window attention core in
+the CUDA kernel of ``ops/window_attn.py``. Three routes, as the JAX
+package's ``TPU.USE_PALLAS_LN`` and ``TPU.USE_PALLAS_ADAPTER`` switches
+(``cfg.use_pallas_ln``, ``cfg.use_pallas_adapter``):
 
-  - off: LayerNorm outside the GEMMs, every linear layer as a module;
-  - on: norm1 -> qkv runs kernel 2 in every block (``swin.py:411-421``);
+  - both off: LayerNorm outside the GEMMs, every linear layer as a
+    module, materialized task streams ``[T, B, L, C]``;
+  - LN on: norm1 -> qkv runs kernel 2 in every block (``swin.py:411-421``);
     the whole MLP of a block with no task streams runs kernel 4
     (:215-251); the stage-tail blocks keep ``layer_norm`` plus the module
     path (:298-302); PatchMerging runs kernel 3 on the shared stream and
-    on the flattened task streams (:704-741). Parameters are the same.
+    on the flattened task streams (:704-741);
+  - LN and adapter on (the JAX default): the stage-tail blocks keep their
+    task streams factored (:524-626): proj's task output is a
+    ``TaskStream`` with per-(task, sample) drop-path coefficients, fc1
+    runs kernel 2's tail mode with the task projection folded from the
+    shared tensors, fc2's task branch runs kernel 5, and the block hands
+    ``DeferredTasks`` to PatchMerging, which merges the task streams in
+    kernel 6 without forming them (at every merge: the JAX package's
+    ``Wh % 8`` gate is a TPU tiling constraint); the last stage expands
+    them once (``expand_task_streams``).
+Parameters are the same on every route.
 Token layout is ``[B, L, C]`` with L = H*W row-major; the qkv GEMM runs on
 the tokens after the window gather, the proj GEMM after the inverse
 gather, as in the JAX ``WindowAttention``.
@@ -42,7 +53,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from mtlora_tpu_torch.config import ModelConfig, StageLoRA
-from mtlora_tpu_torch.models.lora import MTLoRALinear
+from mtlora_tpu_torch.models.lora import (
+    DeferredTasks,
+    MTLoRALinear,
+    TaskStream,
+    droppath_coef,
+    expand_task_streams,
+)
 from mtlora_tpu_torch.ops import dropout as hash_dropout
 from mtlora_tpu_torch.ops.attention import (
     dtype_const,
@@ -55,6 +72,7 @@ from mtlora_tpu_torch.ops.window import (
 )
 from mtlora_tpu_torch.ops.ln_lora import fused_merge_ln_linear
 from mtlora_tpu_torch.ops.ln_mlp import fused_ln_mlp
+from mtlora_tpu_torch.ops.task_merge import fused_task_merge
 from mtlora_tpu_torch.ops.window_attn import fused_window_attention
 
 
@@ -107,6 +125,18 @@ class Mlp(nn.Module):
         on both layers (``_ln_mlp_fusible``)."""
         return (not self.fc1.tasks and not self.fc2.tasks
                 and self.fc1.r_shared > 0 and self.fc2.r_shared > 0)
+
+    def ln_fused_tail(self, x, norm: nn.LayerNorm, stream: TaskStream,
+                      generator=None):
+        """A stage-tail MLP on the adapter route (``swin.py:252-297``,
+        ``fused``): fc1 as kernel 2's tail mode on the pre-norm ``x`` (GELU
+        in the kernel, the task projection folded from ``stream``), fc2's
+        shared branch on fc1's in-kernel dropped output, its task branch
+        through kernel 5. Returns ``(y [..., C], FactoredTasks)``."""
+        h, t, hd = self.fc1.ln_fused_tail(x, norm, stream, generator,
+                                          out_drop=True)
+        return self.fc2(h, None, generator, factored_tasks=True,
+                        task_factored=t, x_dropped=hd)
 
     def ln_fused(self, x, norm: nn.LayerNorm, generator=None):
         """norm -> fc1 -> GELU -> fc2 on the pre-norm ``x [..., C]`` as one
@@ -162,11 +192,13 @@ class WindowAttention(nn.Module):
                 .view(N, N, self.num_heads).permute(2, 0, 1).contiguous())
 
     def forward(self, x, H: int, W: int, shift: int, mask=None,
-                generator=None, norm: nn.LayerNorm | None = None):
+                generator=None, norm: nn.LayerNorm | None = None,
+                factored_tasks: bool = False):
         """x [B, H*W, C] -> (y [B, L, C], y_tasks or None). ``norm``: x is
         PRE-norm and the LayerNorm runs inside the qkv kernel (kernel 2) on
         the gathered tokens, or before the module path when qkv has no
-        adapter."""
+        adapter. ``factored_tasks``: proj's task output as a
+        ``FactoredTasks``."""
         B = x.shape[0]
         ws = self.window_size
         xw = shift_window_partition(x, H, W, ws, shift)     # [B*nW, N, C]
@@ -179,16 +211,24 @@ class WindowAttention(nn.Module):
         attn = fused_window_attention(qkv, self.num_heads, self.rel_bias(),
                                       mask, self.scale)
         tok = window_merge_unshift(attn, B, H, W, ws, shift)
-        return self.proj(tok, None, generator)
+        return self.proj(tok, None, generator, factored_tasks=factored_tasks)
 
 
 class SwinBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, dim: int, resolution: int,
                  num_heads: int, lora: StageLoRA, produce_tasks: bool,
-                 shift_size: int, drop_path_rate: float = 0.0):
+                 shift_size: int, drop_path_rate: float = 0.0,
+                 defer_expand: bool = False):
         super().__init__()
         self.drop_path_rate = float(drop_path_rate)
         self.use_pallas_ln = cfg.use_pallas_ln
+        # the adapter route's factored task streams (swin.py:524-529);
+        # from_config admits the route only with the LN route and proj, fc1
+        # and fc2 adapters
+        self.factored = (cfg.use_pallas_adapter and produce_tasks
+                         and max(lora.r_tasks, default=0) > 0)
+        # hand the streams to PatchMerging unexpanded (DeferredTasks)
+        self.defer_expand = defer_expand and self.factored
         ws, shift = cfg.window_size, shift_size
         if resolution <= ws:   # window clamping (swin.py:496-497)
             ws, shift = resolution, 0
@@ -217,6 +257,8 @@ class SwinBlock(nn.Module):
         else:
             def dp(t):
                 return t
+        if self.factored:
+            return self._forward_factored(x, generator, dp)
         shortcut = x
         if self.use_pallas_ln:
             aw, aw_tasks = self.attn(x, H, W, self.shift, self.attn_mask,
@@ -242,6 +284,30 @@ class SwinBlock(nn.Module):
             # (reference quirk, swin.py:627-634)
             return x, dp(mlp_tasks)
         return x, attn_tasks + dp(mlp_tasks)
+
+    def _forward_factored(self, x, generator, dp):
+        """The stage-tail block on the adapter route (``swin.py:550-626``):
+        the task streams never materialize here; the block returns them
+        as ``DeferredTasks`` or expanded once."""
+        H = W = self.resolution
+        B, L, _ = x.shape
+        shortcut = x
+        aw, ft = self.attn(x, H, W, self.shift, self.attn_mask, generator,
+                           norm=self.norm1, factored_tasks=True)
+        x = shortcut + dp(aw)
+        rate = self.drop_path_rate if self.training else 0.0
+        T = ft.B.shape[0]
+        stream = TaskStream(base=shortcut, pre=ft.pretrained.view(B, L, -1),
+                            midT=ft.midT, B=ft.B, scales=ft.scales,
+                            coef=droppath_coef(rate, T, B, generator,
+                                               x.device))
+        mlp_out, mlp_tasks = self.mlp.ln_fused_tail(x, self.norm2, stream,
+                                                    generator)
+        x = x + dp(mlp_out)
+        coef2 = droppath_coef(rate, T, B, generator, x.device)
+        if self.defer_expand:
+            return x, DeferredTasks(stream, mlp_tasks, coef2)
+        return x, expand_task_streams(stream, mlp_tasks, coef2)
 
 
 class PatchMerging(nn.Module):
@@ -275,10 +341,26 @@ class PatchMerging(nn.Module):
         return F.linear(layer_norm(x, self.norm),
                         self.reduction.weight.to(x.dtype))
 
+    def _task_merge(self, d: DeferredTasks):
+        """Kernel 6 (``task_merge_down``, ``swin.py:712-735``): the 2x2
+        merge, LN and reduction of every implicit task stream of ``d``,
+        ``[T, B, L/4, 2C]`` in the compute dtype."""
+        s, f2 = d.stream, d.f2
+        B, L, C = s.base.shape
+        dt = s.base.dtype
+        return fused_task_merge(
+            s.base.contiguous(), s.pre.contiguous(),
+            f2.pretrained.reshape(B, L, C).contiguous(), s.midT, s.B,
+            f2.midT, f2.B, s.coef, d.coef2, s.scales, f2.scales,
+            self.norm.weight.to(dt), self.norm.bias.to(dt),
+            self.reduction.weight.to(dt), self.resolution, self.resolution)
+
     def forward(self, x, x_tasks=None):
         out = self._merge(x)
         if x_tasks is None:
             return out, None
+        if isinstance(x_tasks, DeferredTasks):
+            return out, self._task_merge(x_tasks)
         T = x_tasks.shape[0]
         out_t = self._merge(x_tasks.flatten(0, 1))
         return out, out_t.view(T, *out.shape)
@@ -290,14 +372,16 @@ class BasicLayer(nn.Module):
         dim = cfg.embed_dim * 2 ** stage
         res = cfg.img_size // cfg.patch_size // 2 ** stage
         depth = cfg.depths[stage]
+        has_down = stage < len(cfg.depths) - 1
         self.blocks = nn.ModuleList(
             SwinBlock(cfg, dim, res, cfg.num_heads[stage], cfg.stages[stage],
                       produce_tasks=(i == depth - 1),
                       shift_size=0 if i % 2 == 0 else cfg.window_size // 2,
-                      drop_path_rate=drop_path_rates[i])
+                      drop_path_rate=drop_path_rates[i],
+                      defer_expand=has_down and i == depth - 1)
             for i in range(depth))
         self.downsample = (PatchMerging(res, dim, cfg.use_pallas_ln)
-                           if stage < len(cfg.depths) - 1 else None)
+                           if has_down else None)
 
     def forward(self, x, generator=None):
         tasks = None

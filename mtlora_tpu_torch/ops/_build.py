@@ -42,10 +42,16 @@ SIGNATURES = {
     # x, gamma, beta, wt, bias, at, bt, seed, y, M, K, O, r, merge_wh,
     # scale, drop threshold, use_drop, inv_keep, stream
     "mtlora_ln_lora_fwd": [_P] * 9 + [_I] * 5 + [_F, _U, _I, _F, _P],
-    # x, gamma, beta, w_ko, at, a_kr, b_ro, seed, gy, dx, stats, work, lbuf,
-    # mbuf, gb, pa, pb, pw, dgb, dat, dbt, dwt, M, K, O, r, merge_wh, sa, sb,
-    # sw, scale, drop threshold, use_drop, inv_keep, stream
-    "mtlora_ln_lora_bwd": [_P] * 22 + [_I] * 8 + [_F, _U, _I, _F, _P],
+    # x, gamma, beta, wt, bias, at, bt, seed, y, p, d, M, K, O, r, act,
+    # scale, drop threshold, use_drop, inv_keep, stream
+    "mtlora_ln_lora_tail_fwd": [_P] * 11 + [_I] * 5 + [_F, _U, _I, _F, _P],
+    # x, gamma, beta, wt, bias, at, bt, seed, gy, gp, gd, gpt, du, M, K, O,
+    # r, act, scale, drop threshold, use_drop, inv_keep, stream
+    "mtlora_ln_lora_tail_grad": [_P] * 13 + [_I] * 5 + [_F, _U, _I, _F, _P],
+    # x, gamma, beta, w_ko, at, a_kr, b_ro, seed, gy, du, dx, stats, work,
+    # lbuf, mbuf, gb, pa, pb, pw, dgb, dat, dbt, dwt, M, K, O, r, merge_wh,
+    # sa, sb, sw, scale, drop threshold, use_drop, inv_keep, stream
+    "mtlora_ln_lora_bwd": [_P] * 23 + [_I] * 8 + [_F, _U, _I, _F, _P],
     # x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed, y,
     # M, C, H4, r, s1, s2, drop threshold, use_drop, inv_keep, stream
     "mtlora_ln_mlp_fwd": [_P] * 13 + [_I] * 4 + [_F, _F, _U, _I, _F, _P],
@@ -53,6 +59,18 @@ SIGNATURES = {
     # stats, lbuf, mbuf, gb, pa, pb, ph, dgb, da1, dh, dbb2, M, C, H4, r,
     # sa, sb, sh, s1, s2, drop threshold, use_drop, inv_keep, stream
     "mtlora_ln_mlp_bwd": [_P] * 31 + [_I] * 7 + [_F, _F, _U, _I, _F, _P],
+    # mid1T, p1, b1, a2T, mid2T, T, M, H4, s0, s1, s2, s3, stream
+    "mtlora_adapter_mid_fwd": [_P] * 5 + [_I] * 3 + [_F] * 4 + [_P],
+    # mid1T, p1, b1, a2T, g, dmid1T, dp1, part, dw, T, M, H4, stripes,
+    # s0, s1, s2, s3, stream
+    "mtlora_adapter_mid_bwd": [_P] * 9 + [_I] * 4 + [_F] * 4 + [_P],
+    # base, pre, p2, mid, bs_cs, coef, gamma, beta, wt, y, T, B, H, W, C, O,
+    # stream
+    "mtlora_task_merge_fwd": [_P] * 10 + [_I] * 6 + [_P],
+    # base, pre, p2, mid, bs_cs, bs_sc, coef, gamma, beta, w_ko, gy, stats,
+    # work, lbuf, gb, du, dmid, pb, pw, dbase, dpre, dp2, dbs, dgb, dwt, T,
+    # B, H, W, C, O, sb, sw, stream
+    "mtlora_task_merge_bwd": [_P] * 25 + [_I] * 8 + [_P],
 }
 
 _lib = None

@@ -8,14 +8,18 @@ from __future__ import annotations
 
 from typing import Dict
 
+from mtlora_tpu_torch.ops.adapter_mlp import adapter_mid_bwd, adapter_mid_fwd
 from mtlora_tpu_torch.ops.head import head_mlp_bwd, head_mlp_fwd
 from mtlora_tpu_torch.ops.ln_lora import (
     ln_lora_bwd,
     ln_lora_fwd,
+    ln_lora_tail_bwd,
+    ln_lora_tail_fwd,
     merge_ln_bwd,
     merge_ln_fwd,
 )
 from mtlora_tpu_torch.ops.ln_mlp import ln_mlp_bwd, ln_mlp_fwd
+from mtlora_tpu_torch.ops.task_merge import task_merge_bwd, task_merge_fwd
 from mtlora_tpu_torch.ops.window_attn import (
     window_attention_bwd,
     window_attention_fwd,
@@ -32,6 +36,12 @@ WRAPPERS = {
     "patch_merge_bwd": merge_ln_bwd,
     "ln_mlp": ln_mlp_fwd,
     "ln_mlp_bwd": ln_mlp_bwd,
+    "ln_lora_tail": ln_lora_tail_fwd,
+    "ln_lora_tail_bwd": ln_lora_tail_bwd,
+    "adapter_mid": adapter_mid_fwd,
+    "adapter_mid_bwd": adapter_mid_bwd,
+    "task_merge": task_merge_fwd,
+    "task_merge_bwd": task_merge_bwd,
 }
 
 

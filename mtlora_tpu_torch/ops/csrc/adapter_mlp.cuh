@@ -1,0 +1,57 @@
+// Shared pieces of the adapter MLP-tail kernels (adapter_mlp.cu,
+// adapter_mlp_bwd.cu): the arguments and the per-task expansion
+// z = p1 + s_t mid1_t^T B1_t for two hidden columns.
+#pragma once
+
+#include "ln_common.cuh"
+
+namespace adk {
+
+using lnk::bf16;
+using lnk::bf2;
+
+constexpr int R = 4;           // rank of every task (r_max)
+constexpr int kMaxT = 4;       // tasks
+constexpr int kRPW = 4;        // rows a warp carries at once
+constexpr int kBlockRows = 4 * kRPW;
+
+struct Args {
+  const bf16 *mid1, *p1, *b1, *a2, *g;   // [T,R,M], [M,H4], [T,R,H4] x2, [T,R,M]
+  bf16 *out, *dp1;                        // mid2T or dmid1T [T,R,M]; dp1 [M,H4]
+  float* part;                            // [stripes][2][T][R][H4]
+  int T, M, H4, stripe_rows;
+  float s[kMaxT];
+};
+
+// vals[tr][i] = float(src[tr * M + m0 + i]) for tr < T * R, i < rows
+// (zero past M), by all threads of the block.
+__device__ __forceinline__ void stage_rank_rows(float* vals, const bf16* src,
+                                                int T, int M, int m0,
+                                                int rows) {
+  for (int i = threadIdx.x; i < T * R * rows; i += blockDim.x) {
+    const int tr = i / rows, rr = i - tr * rows, m = m0 + rr;
+    vals[i] = m < M ? __bfloat162float(src[(size_t)tr * M + m]) : 0.f;
+  }
+}
+
+// The two columns h, h + 1 of z for task t: z = p + s (sum_r mid[r] B1[r]).
+__device__ __forceinline__ float2 expand(float2 p, const float* mid,
+                                         int stride, const float2* b,
+                                         float s) {
+  float ux = 0.f, uy = 0.f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float mv = mid[r * stride];
+    ux += mv * b[r].x;
+    uy += mv * b[r].y;
+  }
+  return make_float2(p.x + s * ux, p.y + s * uy);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+}  // namespace adk

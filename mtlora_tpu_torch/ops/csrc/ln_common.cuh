@@ -29,6 +29,18 @@ constexpr int kT = 64 + 8;          // row stride of a 64-wide bf16 tile
 
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
 
+// Exact-erf GELU, and with it its derivative, in fp32.
+__device__ __forceinline__ float gelu_exact(float h) {
+  return h * (0.5f * (1.f + erff(h * 0.70710678118654752f)));
+}
+
+__device__ __forceinline__ void gelu_exact_pair(float h, float* gl,
+                                                float* dg) {
+  const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
+  *gl = h * cdf;
+  *dg = cdf + h * (expf(-0.5f * h * h) * 0.39894228040143268f);
+}
+
 __device__ __forceinline__ float2 bf2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
@@ -105,8 +117,10 @@ __device__ __forceinline__ Drop no_drop() {
 // Mean and 1/sqrt(var + eps) of rows m0 + i, i = i0, i0 + di, .. < 16,
 // into mu[i], inv[i] (var = E[x^2] - E[x]^2 in fp32, as _layer_norm
 // computes it); rows past M get mu = 0, inv = 0. One warp per row; the
-// warps of a block split the rows (i0 = warp, di = warps).
-__device__ __forceinline__ void rows_stats(const Rows& R, int m0, float* mu,
+// warps of a block split the rows (i0 = warp, di = warps). Src is a row
+// source with M, K and pair(m, k) (Rows, or the task merge's rows).
+template <class Src>
+__device__ __forceinline__ void rows_stats(const Src& R, int m0, float* mu,
                                            float* inv, int i0 = 0,
                                            int di = 1) {
   const int lane = lane_id();
@@ -136,8 +150,9 @@ __device__ __forceinline__ void rows_stats(const Rows& R, int m0, float* mu,
 
 // tile[i][k] = bf16(drop(LN(x))[m0 + i][k]) (stream over [M, K]) for the
 // rows i = i0, i0 + di, ..; rows past M are zero.
+template <class Src>
 __device__ __forceinline__ void rows_ln_tile(bf16* tile, int ld,
-                                             const Rows& R,
+                                             const Src& R,
                                              const bf16* gamma,
                                              const bf16* beta, int m0,
                                              const float* mu,

@@ -7,27 +7,40 @@
 // Kernel 3 is the same with the rows gathered 2x2 from a [.., H, W, C]
 // stream (concat order k = di + 2 dj), no bias and no adapter.
 //
+// The stage-tail mode (norm2 -> fc1 of the four blocks that carry task
+// streams) takes z = p + s (m B^T) through GELU (exact erf) and writes
+// y = bf16(gelu(z)), the frozen pre-activation bf16(p) and, in training,
+// bf16(drop1(gelu(z))) on dropout stream 1 (the next layer's pre-dropped
+// adapter input). Its backward starts here too: mtlora_ln_lora_tail_grad
+// recomputes z as the forward does and folds the cotangents into the two
+// bf16 rows the kernel-2 backward reads (ln_lora_bwd.cu):
+//   g   = (gy + drop1(gd)) gelu'(z)    fp32
+//   gpt = bf16(g + gp)                 the frozen path's cotangent
+//   du  = bf16(s g)                    the adapter's
+//
 // Replaces mtlora_tpu/ops/pallas_ln_lora.py: _fwd_kernel (launched by
-// _run_fwd through fused_ln_lora_linear, y-only mode) and
-// _merge_fwd_kernel (launched by _merge_run_fwd through
+// _run_fwd through fused_ln_lora_linear: the y-only mode and the out_p,
+// out_act, out_drop modes), the gelu-recompute part of _bwd_kernel
+// (:159-181), and _merge_fwd_kernel (launched by _merge_run_fwd through
 // fused_merge_ln_linear).
 //
 // What bounds it: at the flagship's qkv shapes a row of K = C inputs makes
 // 3C outputs, 2*C*3C + 2*r*(C + 3C) FLOP for 2*(C + 3C) bytes: 96-768
 // FLOP per byte, near or above the card's ~295 ridge, so the kernel wants
-// to be bound by the tensor cores; the TPU kernel's win, kept here, is
-// that the normalised activations and the rank-r intermediate never
-// reach device memory. Design: a block of 4 warps owns 16 rows (so that
-// the 6,272 rows of the last stage still make 392 blocks); the warps split
-// the rows' statistics and the bf16(drop(ln)) tile in shared memory, then
-// the 64 columns of m = tile A (bf16, held on chip, once per row block),
-// rewrite the tile as bf16(ln), and take the 64-column output chunks round
-// robin, accumulating p and u with mma.sync m16n8k16 and writing y. The
-// dropout mask is a hash of the element index (dropout.cuh): nothing is
-// stored for the backward. The weights are read in their nn.Linear
-// layouts ([O, K], [r, K], [O, r]: k contiguous, the mma B layout)
-// straight from device memory through L1/L2. No TMA, wgmma or pipelining
-// yet.
+// to be bound by the tensor cores; the tail mode writes three [M, 4C]
+// outputs and is bound by those bytes at every stage. The TPU kernel's
+// win, kept here, is that the normalised activations and the rank-r
+// intermediate never reach device memory. Design: a block of 4 warps owns
+// 16 rows (so that the 6,272 rows of the last stage still make 392
+// blocks); the warps split the rows' statistics and the bf16(drop(ln))
+// tile in shared memory, then the 64 columns of m = tile A (bf16, held on
+// chip, once per row block), rewrite the tile as bf16(ln), and take the
+// 64-column output chunks round robin, accumulating p and u with mma.sync
+// m16n8k16 and writing the epilogue of the mode. Dropout masks are a hash
+// of the element index (dropout.cuh): nothing is stored for the backward.
+// The weights are read in their nn.Linear layouts ([O, K], [r, K], [O, r]:
+// k contiguous, the mma B layout) straight from device memory through
+// L1/L2. No TMA, wgmma or pipelining yet.
 
 #include "ln_common.cuh"
 
@@ -35,13 +48,20 @@ namespace {
 
 using namespace lnk;
 
+enum Mode { kY = 0, kTail = 1, kTailGrad = 2 };
+
 struct FwdArgs {
   Rows R;
   const bf16 *gamma, *beta, *wt, *bias, *at, *bt;
   bf16* y;
-  int O, r;
+  int O, r, act;   // act: GELU on z (tail modes)
   float scale;
-  DropSpec drop;
+  DropSpec drop, drop1;
+  // tail mode: p and d (d may be null); tail grad: gy, gp, gd (gp, gd
+  // may be null) in, gpt and du out
+  bf16 *p, *d;
+  const bf16 *gy, *gp, *gd;
+  bf16 *gpt, *du;
 };
 
 // Shared memory of a block: LN tile [16][K + 8] and m tile [16][72]
@@ -51,8 +71,8 @@ inline size_t block_bytes(int K) {
          2 * kRows * sizeof(float);
 }
 
-template <bool LORA>
-__global__ void __launch_bounds__(128) ln_lora_fwd_kernel(FwdArgs a) {
+template <bool LORA, int MODE>
+__device__ __forceinline__ void fwd_body(const FwdArgs& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int K = a.R.K, M = a.R.M, ld = K + 8;
   const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
@@ -66,6 +86,7 @@ __global__ void __launch_bounds__(128) ln_lora_fwd_kernel(FwdArgs a) {
   rows_stats(a.R, m0, mu, inv, warp, warps);
   __syncthreads();
   const Drop d = LORA ? make_drop(a.drop) : no_drop();
+  const Drop d1 = MODE != kY ? make_drop(a.drop1) : no_drop();
   rows_ln_tile(tile, ld, a.R, a.gamma, a.beta, m0, mu, inv, d, warp, warps);
   __syncthreads();
   if (LORA) {
@@ -99,13 +120,101 @@ __global__ void __launch_bounds__(128) ln_lora_fwd_kernel(FwdArgs a) {
       for (int half = 0; half < 2; ++half) {
         const int m = m0 + g + 8 * half;
         if (m >= M) continue;
-        const float y0 = (acc[nt][2 * half] + b.x) + a.scale * u[nt][2 * half];
-        const float y1 =
-            (acc[nt][2 * half + 1] + b.y) + a.scale * u[nt][2 * half + 1];
-        st_bf2(a.y + (size_t)m * a.O + c, y0, y1);
+        const float p0 = acc[nt][2 * half] + b.x;
+        const float p1 = acc[nt][2 * half + 1] + b.y;
+        const float z0 = p0 + a.scale * u[nt][2 * half];
+        const float z1 = p1 + a.scale * u[nt][2 * half + 1];
+        const size_t o = (size_t)m * a.O + c;
+        if (MODE == kY) {
+          st_bf2(a.y + o, z0, z1);
+        } else if (MODE == kTail) {
+          const float y0 = a.act ? gelu_exact(z0) : z0;
+          const float y1 = a.act ? gelu_exact(z1) : z1;
+          st_bf2(a.y + o, y0, y1);
+          st_bf2(a.p + o, p0, p1);
+          if (a.d)
+            st_bf2(a.d + o, d1.apply(y0, m, a.O, c),
+                   d1.apply(y1, m, a.O, c + 1));
+        } else {
+          float y0, y1, dg0 = 1.f, dg1 = 1.f;
+          if (a.act) {
+            gelu_exact_pair(z0, &y0, &dg0);
+            gelu_exact_pair(z1, &y1, &dg1);
+          }
+          float2 gv = bf2(a.gy + o);
+          if (a.gd) {
+            const float2 dv = bf2(a.gd + o);
+            gv.x += d1.apply(dv.x, m, a.O, c);
+            gv.y += d1.apply(dv.y, m, a.O, c + 1);
+          }
+          gv.x *= dg0;
+          gv.y *= dg1;
+          const float2 pv = a.gp ? bf2(a.gp + o) : make_float2(0.f, 0.f);
+          st_bf2(a.gpt + o, gv.x + pv.x, gv.y + pv.y);
+          st_bf2(a.du + o, a.scale * gv.x, a.scale * gv.y);
+        }
       }
     }
   }
+}
+
+template <bool LORA>
+__global__ void __launch_bounds__(128) ln_lora_fwd_kernel(FwdArgs a) {
+  fwd_body<LORA, kY>(a);
+}
+
+__global__ void __launch_bounds__(128) ln_lora_tail_fwd_kernel(FwdArgs a) {
+  fwd_body<true, kTail>(a);
+}
+
+__global__ void __launch_bounds__(128) ln_lora_tail_grad_kernel(FwdArgs a) {
+  fwd_body<true, kTailGrad>(a);
+}
+
+FwdArgs make_args(const void* x, const void* gamma, const void* beta,
+                  const void* wt, const void* bias, const void* at,
+                  const void* bt, const void* seed, int M, int K, int O,
+                  int r, int merge_wh, float scale, unsigned thr,
+                  int use_drop, float inv_keep) {
+  FwdArgs a = {};
+  a.R.x = static_cast<const bf16*>(x);
+  a.R.M = M;
+  a.R.K = K;
+  a.R.Cin = merge_wh ? K / 4 : K;
+  a.R.Wh = merge_wh;
+  a.gamma = static_cast<const bf16*>(gamma);
+  a.beta = static_cast<const bf16*>(beta);
+  a.wt = static_cast<const bf16*>(wt);
+  a.bias = static_cast<const bf16*>(bias);
+  a.at = static_cast<const bf16*>(at);
+  a.bt = static_cast<const bf16*>(bt);
+  a.O = O;
+  a.r = r;
+  a.scale = scale;
+  for (int s = 0; s < 2; ++s) {
+    DropSpec& d = s ? a.drop1 : a.drop;
+    d.seed = static_cast<const int*>(seed);
+    d.stream = s;
+    d.on = use_drop;
+    d.thr = thr;
+    d.inv_keep = inv_keep;
+  }
+  return a;
+}
+
+cudaError_t launch(void (*kern)(FwdArgs), const FwdArgs& a, void* stream) {
+  const size_t smem = block_bytes(a.R.K);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kern<<<(a.R.M + kRows - 1) / kRows, 128, smem,
+         static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int M, int K, int O, int r, int merge_wh) {
+  return M < 1 || K % 16 || O % 8 || r < 0 || r % 16 || r > 64 ||
+         (merge_wh && K % 8);
 }
 
 }  // namespace
@@ -119,38 +228,51 @@ extern "C" int mtlora_ln_lora_fwd(const void* x, const void* gamma,
                                   int M, int K, int O, int r, int merge_wh,
                                   float scale, unsigned thr, int use_drop,
                                   float inv_keep, void* stream) {
-  if (M < 1 || K % 16 || O % 8 || r < 0 || r % 16 || r > 64 ||
-      (merge_wh && K % 8))
-    return (int)cudaErrorInvalidValue;
-  FwdArgs a;
-  a.R.x = static_cast<const bf16*>(x);
-  a.R.M = M;
-  a.R.K = K;
-  a.R.Cin = merge_wh ? K / 4 : K;
-  a.R.Wh = merge_wh;
-  a.gamma = static_cast<const bf16*>(gamma);
-  a.beta = static_cast<const bf16*>(beta);
-  a.wt = static_cast<const bf16*>(wt);
-  a.bias = static_cast<const bf16*>(bias);
-  a.at = static_cast<const bf16*>(at);
-  a.bt = static_cast<const bf16*>(bt);
+  if (bad_shape(M, K, O, r, merge_wh)) return (int)cudaErrorInvalidValue;
+  FwdArgs a = make_args(x, gamma, beta, wt, bias, at, bt, seed, M, K, O, r,
+                        merge_wh, scale, thr, use_drop, inv_keep);
   a.y = static_cast<bf16*>(y);
-  a.O = O;
-  a.r = r;
-  a.scale = scale;
-  a.drop.seed = static_cast<const int*>(seed);
-  a.drop.stream = 0;
-  a.drop.on = use_drop;
-  a.drop.thr = thr;
-  a.drop.inv_keep = inv_keep;
   const bool lora = r > 0 && scale != 0.f;
-  const size_t smem = block_bytes(K);
-  const int blocks = (M + kRows - 1) / kRows;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto kern = lora ? ln_lora_fwd_kernel<true> : ln_lora_fwd_kernel<false>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<blocks, 128, smem, st>>>(a);
-  return (int)cudaGetLastError();
+  return (int)launch(lora ? ln_lora_fwd_kernel<true> : ln_lora_fwd_kernel<false>,
+                     a, stream);
+}
+
+// Tail mode: x [M, K] -> y = bf16(gelu(z)) [M, O] (z without act),
+// p = bf16(LN(x) W^T + b) and d = bf16(drop1(y)) [M, O] (d may be null;
+// d needs use_drop).
+extern "C" int mtlora_ln_lora_tail_fwd(
+    const void* x, const void* gamma, const void* beta, const void* wt,
+    const void* bias, const void* at, const void* bt, const void* seed,
+    void* y, void* p, void* d, int M, int K, int O, int r, int act,
+    float scale, unsigned thr, int use_drop, float inv_keep, void* stream) {
+  if (bad_shape(M, K, O, r, 0) || r == 0 || !p || (d && !use_drop))
+    return (int)cudaErrorInvalidValue;
+  FwdArgs a = make_args(x, gamma, beta, wt, bias, at, bt, seed, M, K, O, r,
+                        0, scale, thr, use_drop, inv_keep);
+  a.y = static_cast<bf16*>(y);
+  a.act = act;
+  a.p = static_cast<bf16*>(p);
+  a.d = static_cast<bf16*>(d);
+  return (int)launch(ln_lora_tail_fwd_kernel, a, stream);
+}
+
+// Tail mode's backward prologue: from the cotangents gy of y, gp of p and
+// gd of d ([M, O] each; gp, gd may be null) the rows gpt and du [M, O].
+extern "C" int mtlora_ln_lora_tail_grad(
+    const void* x, const void* gamma, const void* beta, const void* wt,
+    const void* bias, const void* at, const void* bt, const void* seed,
+    const void* gy, const void* gp, const void* gd, void* gpt, void* du,
+    int M, int K, int O, int r, int act, float scale, unsigned thr,
+    int use_drop, float inv_keep, void* stream) {
+  if (bad_shape(M, K, O, r, 0) || r == 0 || (gd && !use_drop))
+    return (int)cudaErrorInvalidValue;
+  FwdArgs a = make_args(x, gamma, beta, wt, bias, at, bt, seed, M, K, O, r,
+                        0, scale, thr, use_drop, inv_keep);
+  a.act = act;
+  a.gy = static_cast<const bf16*>(gy);
+  a.gp = static_cast<const bf16*>(gp);
+  a.gd = static_cast<const bf16*>(gd);
+  a.gpt = static_cast<bf16*>(gpt);
+  a.du = static_cast<bf16*>(du);
+  return (int)launch(ln_lora_tail_grad_kernel, a, stream);
 }

@@ -41,10 +41,6 @@ struct MlpArgs {
   DropSpec d1, d2;
 };
 
-__device__ __forceinline__ float gelu_erf(float h) {
-  return h * (0.5f * (1.f + erff(h * 0.70710678118654752f)));
-}
-
 constexpr int kG = 4 * 64 + 8;     // row stride of the 4-chunk hidden tiles
 
 // Shared memory of a block: LN tile [16][C + 8], m tile [16][72], the
@@ -114,7 +110,7 @@ __global__ void __launch_bounds__(128) ln_mlp_fwd_kernel(MlpArgs a) {
           const int col = h0 + nt * 8 + 2 * t + (e & 1);
           const float hv =
               (h[nt][e] + __bfloat162float(a.bias1[col])) + a.s1 * u[nt][e];
-          const float gl = gelu_erf(hv);
+          const float gl = gelu_exact(hv);
           h[nt][e] = gl;
           u[nt][e] = d2.apply(gl, m0 + g + 8 * (e >> 1), H4, col);
         }

@@ -48,12 +48,6 @@ struct MlpBwdArgs {
   DropSpec d1, d2;
 };
 
-__device__ __forceinline__ void gelu_pair(float h, float* gl, float* dg) {
-  const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
-  *gl = h * cdf;
-  *dg = cdf + h * (expf(-0.5f * h * h) * 0.39894228040143268f);
-}
-
 // h chunk [16, 64] of rows m0.. at hidden columns h0..: bf16(ln) W1^T + b1
 // + s1 bf16(m1) B1^T, bf16(ln) and m1 from the rows the row kernel wrote.
 __device__ __forceinline__ void hidden_chunk(float (*h)[4],
@@ -192,7 +186,7 @@ __global__ void __launch_bounds__(128, 3) ln_mlp_bwd_rows(MlpBwdArgs a) {
           const float hv =
               (h[nt][e] + __bfloat162float(a.bias1[col])) + a.s1 * u[nt][e];
           float gl, dgl;
-          gelu_pair(hv, &gl, &dgl);
+          gelu_exact_pair(hv, &gl, &dgl);
           h[nt][e] = dgl;
           u[nt][e] = d2.apply(gl, m0 + g + 8 * (e >> 1), H4, col);
         }
@@ -368,7 +362,7 @@ ln_mlp_bwd_hidden(MlpBwdArgs a, int stripe_rows, float* __restrict__ part) {
         const int rl = warp * kRows + g + 8 * (e >> 1);
         const int m = rb + rl;
         float gl, dgl;
-        gelu_pair(h[nt][e], &gl, &dgl);
+        gelu_exact_pair(h[nt][e], &gl, &dgl);
         const bool in = m < r_end;
         gdT[hl * kT + rl] =
             __float2bfloat16(in ? d2.apply(gl, m, H4, h0 + hl) : 0.f);

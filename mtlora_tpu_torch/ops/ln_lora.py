@@ -5,7 +5,11 @@ Counterpart of ``mtlora_tpu/ops/pallas_ln_lora.py``, which holds two TPU
 kernels:
 
   - ``fused_ln_lora_linear`` (kernel 2 and its backward 2b):
-    ``y = LN(x) W + b + s (drop(LN x) A) B``;
+    ``y = LN(x) W + b + s (drop(LN x) A) B``; in the stage-tail mode
+    (norm2 -> fc1 of the blocks with task streams: ``out_act``, ``out_p``,
+    ``out_drop``) y goes through GELU and the kernel also writes the frozen
+    pre-activation ``p = LN(x) W + b`` and ``dropout(y)`` on the second
+    hash stream;
   - ``fused_merge_ln_linear`` (kernel 3 and 3b): the 2x2 patch merge of a
     ``[.., H, W, C]`` stream, ``LN(4C)`` and the ``4C -> 2C`` reduction,
     no bias and no LoRA, with a gradient for the reduction weight.
@@ -22,23 +26,38 @@ the same layouts. ``gamma``, ``beta`` and the bias are cast to the
 compute dtype too, as ``_ln_fused`` casts them. Cast points follow the TPU
 kernel: LN in fp32 with ``var = E[x^2] - E[x]^2``; ``lnc`` rounded;
 ``p = lnc W`` in fp32 plus the bias; ``m = lnd A`` rounded, then
-``u = m B`` in fp32; ``y = p + s u`` rounded once.
+``u = m B`` in fp32; ``y = p + s u`` rounded once (tail mode: ``gelu(p +
+s u)``, exact erf, and ``p`` rounded once). The tail mode's backward
+recomputes ``z = p + s u`` and folds the cotangents of y, p and
+``dropout(y)`` through ``gelu'(z)`` into the two rows that kernel 2b reads
+in place of ``gy``: ``gpt = bf16(g + gp)`` and ``du = bf16(s g)`` with
+``g = (gy + drop1(gd)) gelu'(z)`` (``_bwd_kernel`` :159-181).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from mtlora_tpu_torch.ops import _build, dropout
 
 EPS = 1e-5
-ROADMAP_MODES = ("the out_p, out_act, out_drop and train_w modes of kernel 2 "
-                 "come with kernel 5 (ROADMAP.md, Queue 2, kernel 2)")
+TRAIN_W = ("kernel 2's train_w mode (the trainable reduction of a patch "
+           "merge) is not ported: the port runs every merge, the reduction's "
+           "gradient included, as kernel 3 (ROADMAP.md, Queue 2, kernel 2)")
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
     """Accumulation dtype: fp32, or fp64 for fp64 inputs (gradcheck)."""
     return torch.promote_types(dtype, torch.float32)
+
+
+def gelu_pair(h):
+    """(gelu(h), gelu'(h)), exact erf form."""
+    cdf = 0.5 * (1.0 + torch.erf(h * (1.0 / math.sqrt(2.0))))
+    return h * cdf, cdf + h * torch.exp(-0.5 * h * h) * (
+        1.0 / math.sqrt(2.0 * math.pi))
 
 
 def layer_norm_parts(x, gamma, beta):
@@ -73,18 +92,45 @@ def _dropped(ln, seed, drop, stream=0):
     return dropout.apply(ln, keep, drop), keep
 
 
+def _pre_activation(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
+                    drop: float):
+    """``(ln, xhat, inv, lnd, keep, m, p, z)`` of kernel 2 in the
+    accumulation dtype: ``p = lnc W^T + b``, ``z = p + s m B^T``; lnd and m
+    rounded as the kernel rounds them (None without an adapter)."""
+    cdt, f = x.dtype, _acc(x.dtype)
+    ln, xhat, inv = layer_norm_parts(x, gamma, beta)
+    p = ln.to(cdt).to(f) @ wt.to(f).t() + bias.to(f)
+    z, lnd, keep, m = p, None, None, None
+    if scale != 0.0:
+        lnd, keep = _dropped(ln, seed, drop)
+        lnd = lnd.to(cdt).to(f)
+        m = (lnd @ at.to(f).t()).to(cdt).to(f)
+        z = p + scale * (m @ bt.to(f).t())
+    return ln, xhat, inv, lnd, keep, m, p, z
+
+
 def ln_lora_plain(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
                   drop: float):
     """y [M, O] of kernel 2 from x [M, K] (y-only mode)."""
-    cdt, f = x.dtype, _acc(x.dtype)
-    ln, _, _ = layer_norm_parts(x, gamma, beta)
-    lnc = ln.to(cdt)
-    y = lnc.to(f) @ wt.to(f).t() + bias.to(f)
-    if scale != 0.0:
-        lnd, _ = _dropped(ln, seed, drop)
-        m = (lnd.to(cdt).to(f) @ at.to(f).t()).to(cdt)
-        y = y + scale * (m.to(f) @ bt.to(f).t())
-    return y.to(cdt)
+    *_, z = _pre_activation(x, gamma, beta, wt, bias, at, bt, seed, scale,
+                            drop)
+    return z.to(x.dtype)
+
+
+def ln_lora_tail_plain(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
+                       drop: float, act: bool = True, out_drop: bool = False):
+    """Kernel 2's tail mode: ``(y, p, d)`` [M, O] in x's dtype with
+    ``y = gelu(z)`` (``z`` itself when not ``act``), the frozen
+    pre-activation ``p`` and ``d = drop1(y)`` on hash stream 1 (None unless
+    ``out_drop``)."""
+    *_, p, z = _pre_activation(x, gamma, beta, wt, bias, at, bt, seed,
+                               scale, drop)
+    y = gelu_pair(z)[0] if act else z
+    d = None
+    if out_drop:
+        keep = dropout.keep_mask(seed, 1, *y.shape, drop)
+        d = dropout.apply(y, keep, drop).to(x.dtype)
+    return y.to(x.dtype), p.to(x.dtype), d
 
 
 def ln_lora_bwd_plain(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
@@ -95,15 +141,53 @@ def ln_lora_bwd_plain(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
     rounded, ``dB = m^T du``, ``dA = lnd^T dm``, the mask applied to
     ``dm A^T``. dx in x's dtype; the rest in the accumulation dtype, dat
     ``[r, K]`` and dbt ``[O, r]`` in the adapters' layouts."""
+    gyf = gy.to(_acc(x.dtype))
+    return _lora_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale, drop,
+                     gyf, gyf)
+
+
+def tail_cotangents(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
+                    drop: float, gy, gp=None, gd=None, act: bool = True):
+    """``(gpt, g)`` of the tail mode in the accumulation dtype:
+    ``g = (gy + drop1(gd)) gelu'(z)`` (no ``gelu'`` without ``act``) and
+    ``gpt = g + gp``; the kernel rounds ``gpt`` and ``s g`` to the compute
+    dtype."""
+    f = _acc(x.dtype)
+    *_, z = _pre_activation(x, gamma, beta, wt, bias, at, bt, seed, scale,
+                            drop)
+    g = gy.to(f)
+    if gd is not None:
+        keep = dropout.keep_mask(seed, 1, *g.shape, drop)
+        g = g + dropout.apply(gd.to(f), keep, drop)
+    if act:
+        g = g * gelu_pair(z)[1]
+    return (g if gp is None else g + gp.to(f)), g
+
+
+def ln_lora_tail_bwd_plain(x, gamma, beta, wt, bias, at, bt, seed,
+                           scale: float, drop: float, gy, gp=None, gd=None,
+                           act: bool = True):
+    """``(dx, dgamma, dbeta, dat, dbt)`` of :func:`ln_lora_tail_plain`
+    from the cotangents of y, p and d (gp, gd may be None), with the cast
+    points of ``_bwd_kernel``."""
+    gpt, g = tail_cotangents(x, gamma, beta, wt, bias, at, bt, seed, scale,
+                             drop, gy, gp, gd, act)
+    return _lora_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale, drop,
+                     gpt, g)
+
+
+def _lora_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
+              drop: float, gpt, g):
+    """Kernel 2b from the frozen path's cotangent ``gpt`` and the
+    adapter's ``g`` (both ``gy`` in the y-only mode), accumulation dtype."""
     cdt, f = x.dtype, _acc(x.dtype)
     ln, xhat, inv = layer_norm_parts(x, gamma, beta)
-    gyf = gy.to(f)
-    dln = gyf.to(cdt).to(f) @ wt.to(f)
+    dln = gpt.to(cdt).to(f) @ wt.to(f)
     if scale != 0.0:
         lnd, keep = _dropped(ln, seed, drop)
         lnd = lnd.to(cdt).to(f)
         m = (lnd @ at.to(f).t()).to(cdt).to(f)
-        du = (scale * gyf).to(cdt).to(f)
+        du = (scale * g).to(cdt).to(f)
         dm = (du @ bt.to(f)).to(cdt).to(f)
         dbt = du.t() @ m
         dat = dm.t() @ lnd
@@ -255,6 +339,16 @@ def ln_lora_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
            [("x", x), ("gamma", gamma), ("beta", beta), ("wt", wt),
             ("at", at), ("bt", bt), ("seed", seed), ("gy", gy)],
            [(M, K), (K,), (K,), (O, K), (r, K), (O, r), (2,), (M, O)])
+    out = _launch_bwd(x, gamma, beta, wt, at, bt, seed, scale, drop, gy, None)
+    ln_lora_bwd.launches += 1
+    return out
+
+
+def _launch_bwd(x, gamma, beta, wt, at, bt, seed, scale, drop, gy, du):
+    """Kernel 2b on the card; ``du``: the adapter's cotangent rows (tail
+    mode), or None for ``bf16(s gy)``."""
+    M, K = x.shape
+    O, r = wt.shape[0], at.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
     sa = wgrad_stripes(x.device, M, r, K)
     sb = wgrad_stripes(x.device, M, O, r)
@@ -272,16 +366,80 @@ def ln_lora_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
     err = _build.library().mtlora_ln_lora_bwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_ko.data_ptr(),
         at.data_ptr(), a_kr.data_ptr(), b_ro.data_ptr(), seed.data_ptr(),
-        gy.data_ptr(), dx.data_ptr(), stats.data_ptr(), work.data_ptr(),
-        lbuf.data_ptr(), mbuf.data_ptr(), gb.data_ptr(), pa.data_ptr(),
+        gy.data_ptr(), None if du is None else du.data_ptr(), dx.data_ptr(),
+        stats.data_ptr(), work.data_ptr(), lbuf.data_ptr(), mbuf.data_ptr(),
+        gb.data_ptr(), pa.data_ptr(),
         pb.data_ptr(), None,
         dgb.data_ptr(), dat.data_ptr(), dbt.data_ptr(), None,
         M, K, O, r, 0, sa, sb, 0, float(scale),
         dropout.threshold(drop) if use_drop else 0, use_drop,
         dropout.inv_keep(drop) if use_drop else 1.0, _stream(x))
     _build.check(err, "mtlora_ln_lora_bwd")
-    ln_lora_bwd.launches += 1
     return dx, dgb[0], dgb[1], dat, dbt
+
+
+def _tail_args(name, x, gamma, beta, wt, bias, at, bt, seed, cots=()):
+    """Checks of a tail-mode launch; the operands' pointers and the
+    sizes."""
+    M, K, O, r = _kernel2_shapes(x, wt, at, bt)
+    _check(name, x,
+           [("x", x), ("gamma", gamma), ("beta", beta), ("wt", wt),
+            ("bias", bias), ("at", at), ("bt", bt), ("seed", seed)]
+           + [(n, c) for n, c in cots if c is not None],
+           [(M, K), (K,), (K,), (O, K), (O,), (r, K), (O, r), (2,)]
+           + [(M, O) for _, c in cots if c is not None])
+    return [t.data_ptr() for t in (x, gamma, beta, wt, bias, at, bt, seed)]
+
+
+def ln_lora_tail_fwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
+                     drop: float, act: bool = True, out_drop: bool = False):
+    """Kernel 2's tail mode forward, no autograd: ``(y, p, d)`` (d None
+    unless ``out_drop``), plain for CPU tensors, the kernel for CUDA
+    tensors."""
+    if x.device.type == "cpu":
+        return ln_lora_tail_plain(x, gamma, beta, wt, bias, at, bt, seed,
+                                  scale, drop, act, out_drop)
+    ptrs = _tail_args("LN+LoRA tail forward", x, gamma, beta, wt, bias, at,
+                      bt, seed)
+    M, O = x.shape[0], wt.shape[0]
+    y = torch.empty((M, O), dtype=x.dtype, device=x.device)
+    p = torch.empty_like(y)
+    d = torch.empty_like(y) if out_drop else None
+    use_drop = int(drop > 0.0 or out_drop)
+    err = _build.library().mtlora_ln_lora_tail_fwd(
+        *ptrs, y.data_ptr(), p.data_ptr(),
+        None if d is None else d.data_ptr(), M, x.shape[1], O, at.shape[0],
+        int(act), float(scale), dropout.threshold(drop) if use_drop else 0,
+        use_drop, dropout.inv_keep(drop) if use_drop else 1.0, _stream(x))
+    _build.check(err, "mtlora_ln_lora_tail_fwd")
+    ln_lora_tail_fwd.launches += 1
+    return y, p, d
+
+
+def ln_lora_tail_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
+                     drop: float, gy, gp=None, gd=None, act: bool = True):
+    """``(dx, dgamma, dbeta, dat, dbt)`` of :func:`ln_lora_tail_bwd_plain`:
+    plain for CPU tensors; for CUDA tensors the prologue kernel (z
+    recomputed, the rows gpt and du), then kernel 2b on them."""
+    if x.device.type == "cpu":
+        return ln_lora_tail_bwd_plain(x, gamma, beta, wt, bias, at, bt, seed,
+                                      scale, drop, gy, gp, gd, act)
+    ptrs = _tail_args("LN+LoRA tail backward", x, gamma, beta, wt, bias, at,
+                      bt, seed, [("gy", gy), ("gp", gp), ("gd", gd)])
+    M, O = x.shape[0], wt.shape[0]
+    gpt = torch.empty((M, O), dtype=x.dtype, device=x.device)
+    du = torch.empty_like(gpt)
+    use_drop = int(drop > 0.0 or gd is not None)
+    err = _build.library().mtlora_ln_lora_tail_grad(
+        *ptrs, gy.data_ptr(), None if gp is None else gp.data_ptr(),
+        None if gd is None else gd.data_ptr(), gpt.data_ptr(), du.data_ptr(),
+        M, x.shape[1], O, at.shape[0], int(act), float(scale),
+        dropout.threshold(drop) if use_drop else 0, use_drop,
+        dropout.inv_keep(drop) if use_drop else 1.0, _stream(x))
+    _build.check(err, "mtlora_ln_lora_tail_grad")
+    out = _launch_bwd(x, gamma, beta, wt, at, bt, seed, scale, drop, gpt, du)
+    ln_lora_tail_bwd.launches += 1
+    return out
 
 
 def _merge_shapes(x, wt, H, W):
@@ -335,9 +493,10 @@ def merge_ln_bwd(x, gamma, beta, wt, H: int, W: int, gy):
     w_ko = wt.t().contiguous()
     err = _build.library().mtlora_ln_lora_bwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_ko.data_ptr(),
-        None, None, None, None, gy.data_ptr(), dx.data_ptr(),
+        None, None, None, None, gy.data_ptr(), None, dx.data_ptr(),
         stats.data_ptr(), work.data_ptr(), lbuf.data_ptr(), None,
-        gb.data_ptr(), None, None, pw.data_ptr(), dgb.data_ptr(), None, None, dwt.data_ptr(),
+        gb.data_ptr(), None, None, pw.data_ptr(), dgb.data_ptr(), None, None,
+        dwt.data_ptr(),
         M, K, O, 0, W // 2, 0, 0, sw, 0.0, 0, 0, 1.0, _stream(x))
     _build.check(err, "mtlora_ln_lora_bwd (merge)")
     merge_ln_bwd.launches += 1
@@ -346,6 +505,8 @@ def merge_ln_bwd(x, gamma, beta, wt, H: int, W: int, gy):
 
 ln_lora_fwd.launches = 0
 ln_lora_bwd.launches = 0
+ln_lora_tail_fwd.launches = 0
+ln_lora_tail_bwd.launches = 0
 merge_ln_fwd.launches = 0
 merge_ln_bwd.launches = 0
 
@@ -369,6 +530,37 @@ class LNLoRAFn(torch.autograd.Function):
                                            seed, ctx.scale, ctx.drop,
                                            gy.contiguous())
         return dx, dg, db, None, None, dat, dbt, None, None, None
+
+
+class LNLoRATailFn(torch.autograd.Function):
+    """``custom_vjp`` of ``fused_ln_lora_linear`` in the tail mode:
+    outputs ``(y, p[, d])``; gradients for x, gamma, beta and the shared
+    adapters from the cotangents of all three (those of unused outputs
+    are None)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, wt, bias, at, bt, seed, scale, drop,
+                act, out_drop):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, gamma, beta, wt, bias, at, bt, seed)
+        ctx.consts = (scale, drop, act)
+        y, p, d = ln_lora_tail_fwd(x, gamma, beta, wt, bias, at, bt, seed,
+                                   scale, drop, act, out_drop)
+        return (y, p, d) if out_drop else (y, p)
+
+    @staticmethod
+    def backward(ctx, gy, gp, gd=None):
+        x, gamma, beta, wt, bias, at, bt, seed = ctx.saved_tensors
+        scale, drop, act = ctx.consts
+        if gy is None:
+            gy = torch.zeros(x.shape[0], wt.shape[0], dtype=x.dtype,
+                             device=x.device)
+        dx, dg, db, dat, dbt = ln_lora_tail_bwd(
+            x, gamma, beta, wt, bias, at, bt, seed, scale, drop,
+            gy.contiguous(), None if gp is None else gp.contiguous(),
+            None if gd is None else gd.contiguous(), act)
+        return (dx, dg, db, None, None, dat, dbt, None, None, None, None,
+                None)
 
 
 class MergeLNFn(torch.autograd.Function):
@@ -395,11 +587,22 @@ def fused_ln_lora_linear(x, gamma, beta, wt, bias, at, bt, seed,
                          train_w: bool = False):
     """Kernel 2: ``LN(x) wt^T + bias + scale (drop(LN x) at^T) bt^T`` on
     x [M, K], differentiable in x, gamma, beta, at and bt. ``seed``: int32
-    [2] (read only when ``drop > 0``). Only the y-only mode is ported."""
-    if out_p or out_act or out_drop or train_w:
-        raise NotImplementedError(ROADMAP_MODES)
-    return LNLoRAFn.apply(x, gamma, beta, wt, bias, at, bt, seed,
-                          float(scale), float(drop))
+    [2] (read only when ``drop > 0`` or ``out_drop``). ``out_act`` applies
+    GELU to y; ``out_p`` also returns the frozen pre-activation p;
+    ``out_drop`` also returns ``dropout(y)`` at rate ``drop`` on hash stream
+    1. Returns y, or ``(y[, p][, d])`` as ``fused_ln_lora_linear`` does.
+    ``train_w`` raises: kernel 3 trains the reduction."""
+    if train_w:
+        raise NotImplementedError(TRAIN_W)
+    if not (out_p or out_act or out_drop):
+        return LNLoRAFn.apply(x, gamma, beta, wt, bias, at, bt, seed,
+                              float(scale), float(drop))
+    outs = LNLoRATailFn.apply(x, gamma, beta, wt, bias, at, bt, seed,
+                              float(scale), float(drop), bool(out_act),
+                              bool(out_drop))
+    y, p = outs[0], outs[1]
+    res = (y,) + ((p,) if out_p else ()) + ((outs[2],) if out_drop else ())
+    return res if len(res) > 1 else y
 
 
 def fused_merge_ln_linear(x, gamma, beta, wt, H: int, W: int):

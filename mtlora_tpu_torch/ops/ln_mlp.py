@@ -21,8 +21,6 @@ Cast points as ``ln_mlp_reference`` (:326-349) and ``_bwd_kernel``.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from mtlora_tpu_torch.ops import _build, dropout
@@ -32,18 +30,12 @@ from mtlora_tpu_torch.ops.ln_lora import (
     _check,
     _stream,
     _sms,
+    gelu_pair,
     layer_norm_bwd,
     layer_norm_parts,
     require_cuda,
     wgrad_stripes,
 )
-
-
-def gelu_pair(h):
-    """(gelu(h), gelu'(h)), exact erf form."""
-    cdf = 0.5 * (1.0 + torch.erf(h * (1.0 / math.sqrt(2.0))))
-    return h * cdf, cdf + h * torch.exp(-0.5 * h * h) * (
-        1.0 / math.sqrt(2.0 * math.pi))
 
 
 def _hidden(x, gamma, beta, w1, bias1, a1, bb1, seed, s1, drop):

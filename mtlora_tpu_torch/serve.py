@@ -8,8 +8,10 @@ and of ``main.py --throughput`` (``main.py:265-281``).
 builds the flagship (``config.tiny_448_r64_pertask``) on the GPU with
 seeded random weights, runs synthetic images through :func:`predict` and
 prints the img/s timed with CUDA events. It needs a CUDA device. The
-flagship runs the ``TPU.USE_PALLAS_LN`` route (kernels 2, 3 and 4);
-``--no-pallas-ln`` runs LayerNorm outside the GEMMs instead.
+flagship runs the JAX package's default route, ``TPU.USE_PALLAS_LN`` and
+``TPU.USE_PALLAS_ADAPTER`` on (kernels 2 to 6); ``--no-pallas-adapter``
+keeps the task streams materialized (kernels 2, 3, 4), and
+``--no-pallas-ln`` also runs LayerNorm outside the GEMMs.
 ``--profile TRACE`` then runs 3 more forwards under ``torch.profiler``,
 writes the Chrome trace to TRACE and prints a second JSON line: device
 ms per forward by kernel class, busy time and idle share.
@@ -78,11 +80,16 @@ def main(argv=None):
     ap.add_argument("--profile", metavar="TRACE", default=None)
     ap.add_argument("--no-pallas-ln", action="store_true",
                     help="TPU.USE_PALLAS_LN off: LayerNorm outside the GEMMs "
-                    "(no kernels 2, 3, 4)")
+                    "(no kernels 2, 3, 4); implies --no-pallas-adapter")
+    ap.add_argument("--no-pallas-adapter", action="store_true",
+                    help="TPU.USE_PALLAS_ADAPTER off: materialized task "
+                    "streams (no kernels 5, 6, nor kernel 2's tail mode)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serve: no CUDA device")
-    cfg = tiny_448_r64_pertask(use_pallas_ln=not args.no_pallas_ln)
+    cfg = tiny_448_r64_pertask(
+        use_pallas_ln=not args.no_pallas_ln,
+        use_pallas_adapter=not (args.no_pallas_ln or args.no_pallas_adapter))
     model = random_model(cfg, args.seed, "cuda")
     images = torch.from_numpy(synthetic_images(
         args.batch_size, cfg.img_size, args.seed)).cuda()
@@ -92,6 +99,7 @@ def main(argv=None):
                       "requests": args.requests,
                       "dtype": cfg.compute_dtype,
                       "use_pallas_ln": cfg.use_pallas_ln,
+                      "use_pallas_adapter": cfg.use_pallas_adapter,
                       "img_per_s": rate}))
     if args.profile:
         from mtlora_tpu_torch.train.profile import breakdown

@@ -10,8 +10,10 @@ synthetic batch of ``bench.py``: ``--warmup`` steps, then ``--steps``
 timed with CUDA events. Prints one JSON line with the img/s, the step
 time, the device and the launches of each kernel in the timed steps. It
 needs a CUDA device and exits non-zero without one. The flagship runs the
-``TPU.USE_PALLAS_LN`` route (kernels 2, 3 and 4 forward and backward);
-``--no-pallas-ln`` runs LayerNorm outside the GEMMs instead.
+JAX package's default route, ``TPU.USE_PALLAS_LN`` and
+``TPU.USE_PALLAS_ADAPTER`` on (kernels 2 to 6 forward and backward);
+``--no-pallas-adapter`` keeps the task streams materialized (kernels 2, 3,
+4), and ``--no-pallas-ln`` also runs LayerNorm outside the GEMMs.
 
 ``--profile TRACE`` then runs 2 more steps under ``torch.profiler``,
 writes the Chrome trace to TRACE and prints a second JSON line: device ms
@@ -50,11 +52,16 @@ def main(argv=None):
     ap.add_argument("--profile", metavar="TRACE", default=None)
     ap.add_argument("--no-pallas-ln", action="store_true",
                     help="TPU.USE_PALLAS_LN off: LayerNorm outside the GEMMs "
-                    "(no kernels 2, 3, 4)")
+                    "(no kernels 2, 3, 4); implies --no-pallas-adapter")
+    ap.add_argument("--no-pallas-adapter", action="store_true",
+                    help="TPU.USE_PALLAS_ADAPTER off: materialized task "
+                    "streams (no kernels 5, 6, nor kernel 2's tail mode)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("train: no CUDA device")
-    cfg = tiny_448_r64_pertask(use_pallas_ln=not args.no_pallas_ln)
+    cfg = tiny_448_r64_pertask(
+        use_pallas_ln=not args.no_pallas_ln,
+        use_pallas_adapter=not (args.no_pallas_ln or args.no_pallas_adapter))
     tcfg = TrainConfig(batch_size=args.batch_size)
     model = random_model(cfg, args.seed, "cuda")
     optimizer = build_optimizer(model, tcfg)
@@ -82,6 +89,7 @@ def main(argv=None):
         "device": torch.cuda.get_device_name(0),
         "batch_size": args.batch_size, "steps": args.steps,
         "dtype": cfg.compute_dtype, "use_pallas_ln": cfg.use_pallas_ln,
+        "use_pallas_adapter": cfg.use_pallas_adapter,
         "img_per_s": args.batch_size / (ms / 1e3), "step_ms": ms,
         "loss": float(metrics["loss"]),
         "grad_norm": float(metrics["grad_norm"]),

@@ -15,6 +15,10 @@ from typing import Dict, List, Tuple
 
 # first match wins; matched against the lower-cased kernel name
 CLASSES: List[Tuple[str, Tuple[str, ...]]] = [
+    # the LN-family kernels' products over rows and fixed-order sums
+    # (ln_common.cuh), ahead of the attention backward's own sum_groups
+    ("weight-gradient passes of 2b, 3b, 4b, 5b, 6b",
+     ("wgrad_kernel", "lnk::sum_")),
     ("window attention kernel (fwd)", ("window_attn_fwd",)),
     ("window attention kernel (bwd)", ("window_attn_bwd", "sum_groups")),
     ("HRNet head kernel (fwd)", ("head_mlp_fwd",)),
@@ -25,8 +29,13 @@ CLASSES: List[Tuple[str, Tuple[str, ...]]] = [
     ("patch merge kernel 3b (bwd rows)", ("ln_lora_bwd_rows<false>",)),
     ("whole-MLP kernel 4 (fwd)", ("ln_mlp_fwd_kernel",)),
     ("whole-MLP kernel 4b (bwd rows, hidden weights)", ("ln_mlp_bwd_",)),
-    ("LN kernels' weight-gradient passes (2b, 3b, 4b)",
-     ("wgrad_kernel", "sum_parts_kernel")),
+    ("LN+LoRA kernel 2, tail mode (fwd)", ("ln_lora_tail_fwd_kernel",)),
+    ("LN+LoRA kernel 2b, tail-mode cotangent prologue",
+     ("ln_lora_tail_grad_kernel",)),
+    ("adapter MLP-tail kernel 5 (fwd)", ("adapter_mid_fwd",)),
+    ("adapter MLP-tail kernel 5b (bwd rows, weights)", ("adapter_mid_bwd",)),
+    ("task-merge kernel 6 (fwd)", ("task_merge_fwd",)),
+    ("task-merge kernel 6b (bwd rows, combine, dmid)", ("task_merge_bwd",)),
     ("optimizer (foreach AdamW, clipping)", ("multi_tensor",)),
     ("GEMMs (cuBLAS / CUTLASS)", ("gemm", "gemv", "cutlass", "xmma",
                                   "nvjet", "splitk", "s16816", "s1688")),

@@ -151,11 +151,20 @@ def test_ln_lora_bf16_cast_points():
 
 
 def test_ln_lora_other_modes_raise():
+    """Of kernel 2's other modes only ``train_w`` raises, naming kernel 3
+    and ROADMAP; ``out_p``, ``out_act`` and ``out_drop`` (the stage-tail
+    mode, tests/test_torch_port_adapter.py) return y and the outputs they
+    ask for, as ``fused_ln_lora_linear`` does."""
     args = _port_ln_lora_args(*_ln_lora_inputs()[:7])
-    for mode in ("out_p", "out_act", "out_drop", "train_w"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fused_ln_lora_linear(*args, torch.zeros(2, dtype=torch.int32),
-                                 4.0, 0.0, **{mode: True})
+    seed = _t(SEED)
+    M, O = args[0].shape[0], args[3].shape[0]
+    for mode, n in (("out_p", 2), ("out_act", 1), ("out_drop", 2)):
+        out = fused_ln_lora_linear(*args, seed, 4.0, 0.1, **{mode: True})
+        outs = out if isinstance(out, tuple) else (out,)
+        assert len(outs) == n, mode
+        assert all(o.shape == (M, O) for o in outs), mode
+    with pytest.raises(NotImplementedError, match="ROADMAP.*|kernel 3"):
+        fused_ln_lora_linear(*args, seed, 4.0, 0.0, train_w=True)
 
 
 # ---------------------------------------------------------------------------
@@ -440,9 +449,12 @@ def test_swin_block_ln_route_matches_jax(produce_tasks, shift):
 
 @pytest.mark.parametrize("H", [16, 8])
 def test_patch_merging_ln_route_matches_jax(H):
-    """Shared and task streams through kernel 3; at H = 8 the JAX package
-    takes its kernel-2 fallback (``Wh % 8``), the port kernel 3 all the
-    same."""
+    """Shared and task streams through kernel 3, forward and backward; at
+    H = 8 the JAX package takes its kernel-2 fallback (``Wh % 8``):
+    ``fused_ln_lora_linear(train_w=True)`` on ``merge2x2_cat`` rows, whose
+    reduction-weight gradient, dgamma and dbeta (interpret-mode VJP) the
+    port's kernel 3 matches as well: kernel 2's ``train_w`` mode is covered
+    by kernel 3."""
     from mtlora_tpu.models.lora import LoRASpec
     from mtlora_tpu.models.swin import PatchMerging as JaxMerge
     from mtlora_tpu_torch.ckpt.convert import from_jax_variables
@@ -451,17 +463,29 @@ def test_patch_merging_ln_route_matches_jax(H):
     jmod = JaxMerge(input_resolution=(H, H), dim=C,
                     spec=LoRASpec(r_shared=0), use_pallas=True,
                     use_pallas_ln=True)
+    assert not jmod.freeze_pretrained        # train_w: the reduction trains
     rng = np.random.RandomState(3)
     x = rng.randn(2, H * H, C).astype(np.float32)
     xt = rng.randn(2, 2, H * H, C).astype(np.float32)
     variables = _numpy_variables(jmod, 4, x, xt)
-    y_ref, t_ref = jmod.apply(variables, x, xt)
+    (y_ref, t_ref), vjp = jax.vjp(lambda v, x, xt: jmod.apply(v, x, xt),
+                                  variables, jnp.asarray(x), jnp.asarray(xt))
+    gy = rng.randn(*y_ref.shape).astype(np.float32)
+    gt = rng.randn(*t_ref.shape).astype(np.float32)
+    dvars, dx_ref, dxt_ref = vjp((jnp.asarray(gy), jnp.asarray(gt)))
     port = PatchMerging(H, C, use_pallas_ln=True)
     port.load_state_dict(from_jax_variables(variables), strict=True)
-    with torch.no_grad():
-        y, t = port(torch.from_numpy(x), torch.from_numpy(xt))
+    xs, xts = (torch.from_numpy(a).requires_grad_() for a in (x, xt))
+    y, t = port(xs, xts)
     np.testing.assert_allclose(_np(y), np.asarray(y_ref), **MOD)
     np.testing.assert_allclose(_np(t), np.asarray(t_ref), **MOD)
+    torch.autograd.backward((y, t), (_t(gy), _t(gt)))
+    np.testing.assert_allclose(_np(xs.grad), np.asarray(dx_ref), **MOD)
+    np.testing.assert_allclose(_np(xts.grad), np.asarray(dxt_ref), **MOD)
+    want = from_jax_variables(dvars)
+    for name, p in port.named_parameters():
+        np.testing.assert_allclose(_np(p.grad), _np(want[name]), err_msg=name,
+                                   **MOD)
 
 
 # ---------------------------------------------------------------------------
@@ -471,11 +495,17 @@ def test_patch_merging_ln_route_matches_jax(H):
 @pytest.fixture(scope="module")
 def ln_step():
     """tests/test_torch_port_train.py's parity weights and batch, one step
-    of both packages on the TPU.USE_PALLAS_LN route (dropout and drop-path
-    off; the JAX kernels in interpret mode)."""
+    of the port on the TPU.USE_PALLAS_LN route against the JAX package's
+    LN-outside route, which computes the same function (dropout and
+    drop-path off); the comparison against the JAX LN route's own kernels
+    is :func:`ln_kernel_step`."""
     import test_torch_port_train as tt
-    par = tt.make_parity(["TPU.USE_PALLAS_ADAPTER", "False"])
-    assert tt.port_config.from_config(par[0]).use_pallas_ln
+    par = tt.make_parity(["TPU.USE_PALLAS_ADAPTER", "False"],
+                         jax_route=(False, False))
+    jmodel = par[1]
+    assert not jmodel.use_pallas_ln and not jmodel.use_pallas_adapter
+    pcfg = tt.port_config.from_config(par[0])
+    assert pcfg.use_pallas_ln and not pcfg.use_pallas_adapter
     return tt.run_steps(par, 1)
 
 
@@ -494,3 +524,34 @@ def test_ln_route_step_gradients_match_jax(ln_step):
     reduction weights now come from kernels 2b, 3b, 4b."""
     import test_torch_port_train as tt
     tt.check_first_grads(ln_step)
+
+
+@pytest.fixture(scope="module")
+def ln_kernel_step():
+    """The same step against the JAX package on its own TPU.USE_PALLAS_LN
+    route, kernels 2, 3 and 4 in interpret mode (``make_parity`` clones
+    the JAX model with the config's route flags, asserted here)."""
+    import test_torch_port_train as tt
+    par = tt.make_parity(["TPU.USE_PALLAS_ADAPTER", "False"])
+    jmodel = par[1]
+    assert jmodel.use_pallas_ln and not jmodel.use_pallas_adapter
+    return tt.run_steps(par, 1)
+
+
+def test_ln_route_step_metrics_match_jax_kernels(ln_kernel_step):
+    """loss, the per-task losses and the pre-clip grad norm against the
+    JAX LN route, 1e-4 relative."""
+    got, want = (ln_kernel_step["port_metrics"][0],
+                 ln_kernel_step["jax_metrics"][0])
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
+
+
+def test_ln_route_step_gradients_match_jax_kernels(ln_kernel_step):
+    """Every trainable gradient of the first step against the JAX LN
+    route at the bounds of ``test_step_gradients_match_jax``, and the
+    saliency prediction bias at its rounding bound
+    (``KERNEL_ROUTE_ROUNDING``: measured 1.31e-4)."""
+    import test_torch_port_train as tt
+    tt.check_first_grads(ln_kernel_step, tt.KERNEL_ROUTE_ROUNDING)

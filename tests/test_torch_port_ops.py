@@ -19,12 +19,14 @@ from mtlora_tpu.ops.pallas_head import fused_head_mlp, head_mlp_reference
 from mtlora_tpu.ops.pallas_window_attn import fused_window_attention_windowed
 from mtlora_tpu_torch.models.heads import resize_bilinear
 from mtlora_tpu_torch.ops import attention, window
+from mtlora_tpu_torch.ops.adapter_mlp import fused_adapter_mid
 from mtlora_tpu_torch.ops.head import head_mlp
 from mtlora_tpu_torch.ops.ln_lora import (
     fused_ln_lora_linear,
     fused_merge_ln_linear,
 )
 from mtlora_tpu_torch.ops.ln_mlp import fused_ln_mlp
+from mtlora_tpu_torch.ops.task_merge import fused_task_merge
 from mtlora_tpu_torch.ops.window_attn import fused_window_attention
 
 torch.set_num_threads(2)
@@ -143,7 +145,8 @@ def _meta(*arrays):
 
 
 @pytest.mark.parametrize("op", ["attention", "head", "ln_lora", "merge",
-                                "ln_mlp"])
+                                "ln_mlp", "ln_lora_tail", "adapter_mid",
+                                "task_merge"])
 def test_wrappers_refuse_devices_without_kernel(op):
     """A tensor that is neither on the CPU nor on a CUDA card gets an
     error, never the plain version."""
@@ -167,13 +170,33 @@ def test_wrappers_refuse_devices_without_kernel(op):
             args = _meta(*[np.zeros(s) for s in ((2, 256, 8), (32,), (32,),
                                                   (16, 32))])
             fused_merge_ln_linear(*args, 16, 16)
-        else:
+        elif op == "ln_mlp":
             # x, gamma, beta, fc1 (w, b, A, B), fc2 (w, b, A, B)
             C, H4, r = 32, 128, 64
             args = _meta(*[np.zeros(s) for s in (
                 (64, C), (C,), (C,), (H4, C), (H4,), (r, C), (H4, r),
                 (C, H4), (C,), (r, H4), (C, r))])
             fused_ln_mlp(*args, seed, 4.0, 4.0, 0.0)
+        elif op == "ln_lora_tail":
+            args = _meta(*[np.zeros(s) for s in ((98, 32), (32,), (32,),
+                                                  (128, 32), (128,), (16, 32),
+                                                  (128, 16))])
+            fused_ln_lora_linear(*args, seed, 4.0, 0.0, out_p=True,
+                                 out_act=True)
+        elif op == "adapter_mid":
+            # mid1T, p1, b1, a2T
+            fused_adapter_mid(*_meta(*[np.zeros(s) for s in (
+                (4, 4, 64), (64, 128), (4, 4, 128), (4, 4, 128))]),
+                (4.0,) * 4)
+        else:
+            # base, pre, p2, mid1T, b1, mid2T, b2; gamma, beta, wt
+            B, H, C, T = 2, 8, 16, 4
+            t = _meta(*[np.zeros(s) for s in (
+                (B, H * H, C), (B, H * H, C), (B, H * H, C),
+                (T, 4, B * H * H), (T, 4, C), (T, 4, B * H * H), (T, 4, C),
+                (4 * C,), (4 * C,), (2 * C, 4 * C))])
+            fused_task_merge(*t[:7], None, None, (4.0,) * T, (4.0,) * T,
+                             *t[7:], H, H)
 
 
 @pytest.mark.parametrize("src,dst", [((8, 8), (16, 16)), ((2, 2), (8, 8)),

@@ -2,10 +2,11 @@
 flagship preset vs the YAML config, the weight bridge through the
 reference torch keys, and the port's import hygiene.
 
-The JAX model is ``build_mtl_model(cfg).clone(use_pallas=True)`` with
-``TPU.USE_PALLAS_ADAPTER`` off, and ``TPU.USE_PALLAS_LN`` off (LayerNorm
-outside the GEMMs) or on (kernels 2, 3 and 4): on the CPU its kernels
-run in interpret mode.
+The JAX model is ``build_mtl_model(cfg).clone(use_pallas=True)`` with the
+config's ``TPU.USE_PALLAS_LN`` and ``TPU.USE_PALLAS_ADAPTER``
+(``build_mtl_model`` turns both off on a CPU host): the adapter off and
+``TPU.USE_PALLAS_LN`` off (LayerNorm outside the GEMMs) or on (kernels 2,
+3 and 4); on the CPU its kernels run in interpret mode.
 """
 
 import os
@@ -66,7 +67,9 @@ def make_toy(flags):
     """The JAX model and the port on the same numpy weights, and an input
     batch, at the toy shape with the given route flags."""
     cfg = load_config(CFG, tasks=TASKS, img_size=64, opts=TOY + flags)
-    jmodel = jax_build(cfg).clone(use_pallas=True)
+    jmodel = jax_build(cfg).clone(
+        use_pallas=True, use_pallas_ln=bool(cfg.TPU.USE_PALLAS_LN),
+        use_pallas_adapter=bool(cfg.TPU.USE_PALLAS_ADAPTER))
     x = np.random.RandomState(0).randn(2, 64, 64, 3).astype(np.float32)
     variables = numpy_variables(jmodel, x, seed=0)
     port = build_mtl_model(port_config.from_config(cfg), device="cpu")
@@ -94,6 +97,7 @@ def test_multitask_forward_ln_route_matches_jax(toy_ln):
     (plain versions on the CPU) against the interpret-mode Pallas kernels
     (the JAX merges at 8 -> 4 and 4 -> 2 take its kernel-2 fallback)."""
     assert toy_ln[3].cfg.use_pallas_ln
+    assert toy_ln[1].use_pallas_ln and not toy_ln[1].use_pallas_adapter
     _check_forward(toy_ln)
 
 
@@ -140,26 +144,31 @@ def test_flagship_preset_equals_yaml_config():
 
 
 def test_flagship_ln_preset_equals_yaml_config():
-    """The default preset is the YAML with only ``TPU.USE_PALLAS_ADAPTER``
-    off: the LN route."""
+    """The YAML with only ``TPU.USE_PALLAS_ADAPTER`` off is the preset's LN
+    route (the default preset is the adapter route,
+    tests/test_torch_port_adapter.py)."""
     cfg = load_config(CFG, tasks=TASKS, opts=LN_FLAGS)
     pcfg = port_config.from_config(cfg)
-    assert pcfg.use_pallas_ln
-    assert pcfg == port_config.tiny_448_r64_pertask()
-    assert pcfg == port_config.tiny_448_r64_pertask(use_pallas_ln=True)
+    assert pcfg.use_pallas_ln and not pcfg.use_pallas_adapter
+    assert pcfg == port_config.tiny_448_r64_pertask(use_pallas_adapter=False)
+    assert pcfg == port_config.tiny_448_r64_pertask(use_pallas_ln=True,
+                                                    use_pallas_adapter=False)
 
 
-@pytest.mark.parametrize("flag,ln", [
-    ("TPU.USE_PALLAS_ADAPTER", "True"),
-    ("TPU.USE_PALLAS_ADAPTER", "False"),
-    ("TPU.USE_PALLAS_LORA_GEMM", "False"),
+@pytest.mark.parametrize("flag,ln,extra", [
+    ("TPU.USE_PALLAS_ADAPTER", "True", ["MODEL.MTLORA.PROJ_ENABLED",
+                                        "False"]),
+    ("TPU.USE_PALLAS_ADAPTER", "False", []),
+    ("TPU.USE_PALLAS_LORA_GEMM", "False", []),
 ], ids=["TPU.USE_PALLAS_ADAPTER-ln", "TPU.USE_PALLAS_ADAPTER",
         "TPU.USE_PALLAS_LORA_GEMM"])
-def test_unported_kernel_flags_raise(flag, ln):
-    """The adapter kernel raises with the LN route on or off, the LoRA GEMM
-    kernel too; ``TPU.USE_PALLAS_LN`` itself no longer raises."""
+def test_unported_kernel_flags_raise(flag, ln, extra):
+    """The routes not ported raise: the adapter kernels with the LN route
+    off, and with it on but without proj task adapters (fc1's task
+    projection from the shared LN output); the LoRA GEMM kernel too. The
+    adapter route itself (LN on, proj on) no longer raises."""
     opts = ["TPU.USE_PALLAS_ADAPTER", "False", "TPU.USE_PALLAS_LN", ln,
-            flag, "True"]
+            flag, "True"] + extra
     cfg = load_config(CFG, tasks=TASKS, opts=opts)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_config.from_config(cfg)
@@ -208,6 +217,14 @@ metrics = train_step(model, build_optimizer(model, tcfg),
                      build_schedule(tcfg, 10), batch,
                      torch.Generator().manual_seed(0))
 assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
+cfg_ad = dataclasses.replace(cfg, use_pallas_ln=True, use_pallas_adapter=True)
+model = random_model(cfg_ad, 0, "cpu")
+out = predict(model, synthetic_images(1, 64, 0))
+assert all(bool(torch.isfinite(v).all()) for v in out.values())
+metrics = train_step(model, build_optimizer(model, tcfg),
+                     build_schedule(tcfg, 10), batch,
+                     torch.Generator().manual_seed(0))
+assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
 assert not any(counters.read().values())   # the CPU route counts nothing
 assert not any(k.split(".")[0] == "mtlora_tpu" for k in sys.modules)
 print("HYGIENE-OK")
@@ -216,8 +233,9 @@ print("HYGIENE-OK")
 
 def test_port_imports_no_jax_flax_yaml_cv2():
     """Every port module imports, and a toy forward and a toy training
-    step run on both routes (LN outside the GEMMs, and kernels 2, 3, 4),
-    with jax, flax, yaml and cv2 made unimportable."""
+    step run on the three routes (LN outside the GEMMs; kernels 2, 3, 4;
+    and the adapter route, kernels 2 to 6), with jax, flax, yaml and cv2
+    made unimportable."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
     proc = subprocess.run([sys.executable, "-c", HYGIENE], env=env,
                           cwd=os.path.abspath(ROOT), capture_output=True,

@@ -3,13 +3,15 @@ trainability and weight-decay masks, clipping, dropout and drop-path, and
 the training step itself against ``make_train_step`` over 1 and 3 steps.
 
 Inputs come from numpy seeds. The JAX model is
-``build_mtl_model(cfg).clone(use_pallas=True)`` at the toy shape of
-tests/test_torch_port_slice.py, so its attention and head kernels run
-forward and backward in interpret mode; parity runs with adapter dropout
+``build_mtl_model(cfg).clone(use_pallas=True)``, with the config's
+``TPU.USE_PALLAS_LN`` and ``TPU.USE_PALLAS_ADAPTER``, at the toy shape of
+tests/test_torch_port_slice.py, so its kernels run forward and backward in
+interpret mode; parity runs with adapter dropout
 and drop-path at 0 (the random streams of the two frameworks differ), and
 dropout and drop-path are tested on their own for rates and masks.
 """
 
+import contextlib
 import inspect
 import os
 
@@ -24,6 +26,7 @@ import torch
 from mtlora_tpu.config import load_config
 from mtlora_tpu.data.task_config import LOSS_WEIGHTS as JAX_LOSS_WEIGHTS
 from mtlora_tpu.models.mtl import build_mtl_model as jax_build
+from mtlora_tpu.ops import pallas_adapter_mlp
 from mtlora_tpu.train import losses as jlosses
 from mtlora_tpu.train import optim as joptim
 from mtlora_tpu.train.step import TrainState, make_train_step
@@ -190,11 +193,18 @@ def parity():
     return make_parity(SLICE_FLAGS)
 
 
-def make_parity(flags):
-    """:func:`parity` on the route that ``flags`` select."""
+def make_parity(flags, jax_route=None):
+    """:func:`parity` on the route that ``flags`` select: the JAX model
+    takes the config's ``TPU.USE_PALLAS_LN`` and ``TPU.USE_PALLAS_ADAPTER``
+    (``build_mtl_model`` turns them off on a CPU host), unless
+    ``jax_route`` names them, ``(use_pallas_ln, use_pallas_adapter)``."""
     cfg = load_config(CFG, tasks=TASKS, img_size=64,
                       opts=TOY + flags + PARITY)
-    jmodel = jax_build(cfg).clone(use_pallas=True)
+    ln, adapter = (jax_route if jax_route is not None else
+                   (bool(cfg.TPU.USE_PALLAS_LN),
+                    bool(cfg.TPU.USE_PALLAS_ADAPTER)))
+    jmodel = jax_build(cfg).clone(use_pallas=True, use_pallas_ln=ln,
+                                  use_pallas_adapter=adapter)
     r = np.random.RandomState(0)
     B, S = 2, 64
     ign = r.rand(B, S, S, 1) < 0.1
@@ -422,6 +432,23 @@ def steps(parity):
     return run_steps(parity, 3)
 
 
+@contextlib.contextmanager
+def exact_erf():
+    """The JAX package's fp32 Pallas kernels take GELU with an
+    Abramowitz-Stegun erf (``pallas_adapter_mlp._erf``, error 1.5e-7, a
+    relative error of up to ~3e-6 in GELU where its input is negative);
+    the port takes the exact erf (ROADMAP Queue 3). For the step parity,
+    while the JAX step is traced, the kernels take ``jax.lax.erf``: the
+    comparison then holds the port to the JAX route's algorithm, and the
+    ops tests hold it to the kernels as they are."""
+    saved = pallas_adapter_mlp._erf
+    pallas_adapter_mlp._erf = jax.lax.erf
+    try:
+        yield
+    finally:
+        pallas_adapter_mlp._erf = saved
+
+
 def run_steps(parity, n_steps):
     """``n_steps`` of both training steps from the parity weights."""
     cfg, jmodel, variables, batch = parity
@@ -433,10 +460,11 @@ def run_steps(parity, n_steps):
     jstep = jax.jit(make_train_step(jmodel, tx, TASKS))
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     jax_states, jax_metrics = [state], []
-    for _ in range(n_steps):
-        state, m = jstep(state, jbatch)
-        jax_states.append(state)
-        jax_metrics.append({k: float(v) for k, v in m.items()})
+    with exact_erf():
+        for _ in range(n_steps):
+            state, m = jstep(state, jbatch)
+            jax_states.append(state)
+            jax_metrics.append({k: float(v) for k, v in m.items()})
 
     port = _port_model(cfg, variables)
     tcfg = optim.train_from_config(cfg)
@@ -529,8 +557,20 @@ def test_step_gradients_match_jax(steps):
     check_first_grads(steps)
 
 
-def check_first_grads(steps):
-    """The body of :func:`test_step_gradients_match_jax`."""
+# The saliency head's prediction bias: its gradient sums 8,192 per-pixel
+# terms that cancel 86-fold (balanced BCE at an untrained head), and the
+# JAX package's own jitted and op-by-op steps give it 1.9e-4 apart on the
+# LN route; each package's fp32 value lies up to 5.6e-5 (port) and 1.7e-4
+# (JAX) from an fp64 run of the same algorithm (measured at the parity
+# weights on all three routes), so two fp32 runs through different kernel
+# routes are held to their sum, 2.3e-4, at 3e-4.
+KERNEL_ROUTE_ROUNDING = {"decoders.sal.last_layer.3.bias": 3e-4}
+
+
+def check_first_grads(steps, rounding=None):
+    """The body of :func:`test_step_gradients_match_jax`; ``rounding``:
+    the bound of named tensors whose fp32 value in either package varies
+    by more than 1e-4 (:data:`KERNEL_ROUTE_ROUNDING`)."""
     params = jax.device_get(steps["jax_states"][0].params)
     want = {k: _np(v) for k, v in _jax_first_grads(steps, params).items()}
     got = {k: _np(v) for k, v in steps["port_grads"][0].items()}
@@ -547,7 +587,7 @@ def check_first_grads(steps):
         if not w.any():     # the last block's shared stream: no head reads it
             assert not g.any(), k
             continue
-        tol = 2e-3 if ".normals." in k else 1e-4
+        tol = 2e-3 if ".normals." in k else (rounding or {}).get(k, 1e-4)
         rel_l2 = np.linalg.norm(g - w) / np.linalg.norm(w)
         rel_max = np.abs(g - w).max() / np.abs(w).max()
         assert rel_l2 <= tol and rel_max <= tol, (k, rel_l2, rel_max)
