@@ -4,7 +4,7 @@
 
 Phases, each printing a line; any failure raises and exits non-zero:
   1. device: a CUDA card must be present; its name and power limit;
-  2. build: the twelve CUDA sources from ops/csrc (one nvcc each, in
+  2. build: the thirteen CUDA sources from ops/csrc (one nvcc each, in
      parallel), with the build time;
   3. forward kernels vs plain, on the card, against their plain PyTorch
      versions on the same tensors, at the batch-32 training step's shapes:
@@ -16,18 +16,26 @@ Phases, each printing a line; any failure raises and exits non-zero:
      dropout(y)) and kernel 5 (adapter MLP tail) at the four stage-tail
      blocks, kernel 6 (factored task merge) at the three merges with
      drop-path coefficients, all with adapter dropout on (rate 0.05, the
-     same seeds); kernel, plain and library-call times and the roofline
-     bound;
+     same seeds); kernel 8 (the LoRA GEMM of TPU.USE_PALLAS_LORA_GEMM) at
+     proj, qkv, fc1 and fc2 of the four stages with one input and with two
+     (the dropped one); kernel 1c (the dense attention cells of
+     MTLORA_ATTN_DENSE) at the four 448 stage shapes, shifted and not, and
+     at stage 3 of the 224 model, also against kernel 1; kernel, plain and
+     library-call times and the roofline bound;
   3b. backward kernels vs plain: the same shapes, every gradient against
-     the plain backward, with the same four numbers;
+     the plain backward (kernel 8: its dx layout; kernel 1c: also against
+     kernel 1b), with the same four numbers;
 then, for the adapter route (TPU.USE_PALLAS_LN and USE_PALLAS_ADAPTER on,
 the JAX package's default and the main path), the LN route without the
-adapter kernels, and the LN-outside route (both off):
+adapter kernels, the LN-outside route (both off), path A (kernel 8 on the
+adapter and the LN-outside routes) and path B (the adapter route at 224
+with kernel 1c), each with its seconds per phase:
   4. serve: the flagship model (bf16, seeded random weights) answers
      requests of 1, 8 and 32 images through ``serve.predict``; shapes,
      finiteness and the exact launches of every kernel per forward;
-  5. cross-check: the 1-image request against the same weights run on the
-     CPU in fp32 through the plain versions;
+  5. cross-check: the 1-image request (path B: the 8-image one, which
+     takes kernel 1c) against the same weights run on the CPU in fp32
+     through the plain versions;
   6. throughput: bf16 forward img/s at batch 32;
   7. train: the flagship at batch 32, full width and depth, adapter
      dropout and drop-path on, 3 steps of ``train.step.train_step``:
@@ -35,9 +43,10 @@ adapter kernels, and the LN-outside route (both off):
      kernel and its backward), frozen weights bit-unchanged, every
      trainable with a gradient changed, BatchNorm running statistics
      moved, peak memory; then the train img/s at batch 32;
-  8. train cross-check: one step at batch 2 at 448 with dropout and
+  8. train cross-check: one step at batch 2 (path B: 8) with dropout and
      drop-path off, on the card in bf16 and on the CPU in fp32 through
-     the plain versions, from the same weights and batch;
+     the plain versions, from the same weights and batch; the card step's
+     exact launches (kernel 8's backward takes its dx layout here);
 then a JSON line of the kernels, and the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -88,6 +97,12 @@ from mtlora_tpu_torch.ops.task_merge import (
     task_merge_fwd,
     task_merge_plain,
 )
+from mtlora_tpu_torch.ops.lora_matmul import (
+    lora_matmul_dx,
+    lora_matmul_dx_plain,
+    lora_matmul_fwd,
+    lora_matmul_plain,
+)
 from mtlora_tpu_torch.ops.ln_mlp import (
     ln_mlp_bwd,
     ln_mlp_bwd_plain,
@@ -101,8 +116,11 @@ from mtlora_tpu_torch.ops.head import (
     head_mlp_plain,
 )
 from mtlora_tpu_torch.ops.window_attn import (
+    dense_applies,
     window_attention_bwd,
     window_attention_bwd_plain,
+    window_attention_dense_bwd,
+    window_attention_dense_fwd,
     window_attention_fwd,
 )
 from mtlora_tpu_torch.serve import (
@@ -128,10 +146,6 @@ TRAIN_STEPS = 3
 TRAIN_TIMED = 5
 CROSS_BATCH = 2
 ITERS_PER_EPOCH = 1000
-# (TPU.USE_PALLAS_LN, TPU.USE_PALLAS_ADAPTER): the adapter route, the JAX
-# package's default and the main path, first; then the LN route without
-# the adapter kernels, and the route with LayerNorm outside the GEMMs
-ROUTES = ((True, True), (True, False), (False, False))
 # published peaks of one H100 SXM (dense bf16 tensor cores, fp32 outside
 # the tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -918,14 +932,221 @@ def check_task_merge(gen) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
-def launches_per_pass(cfg, backward: bool) -> dict:
-    """Exact kernel launches of one forward (or training step): attention
-    in every block, a head per task; on the LN route kernel 2 in every
-    block, kernel 4 in the blocks with no task streams and kernel 3 on the
-    shared and the task streams at every merge; each doubled by the
-    backward."""
+# ---------------------------------------------------------------------------
+# Kernel 8 (TPU.USE_PALLAS_LORA_GEMM) and kernel 1c (MTLORA_ATTN_DENSE).
+# ---------------------------------------------------------------------------
+
+def lora_gemm_sites(cfg, s):
+    """Kernel 8's sites of stage ``s`` in one forward: (name, K, N,
+    launches on the adapter route with the GEMM flag, the main path of
+    kernel 8), proj in the blocks without task streams; qkv, fc1 and fc2
+    run it on the LN-outside route only."""
+    C = cfg.embed_dim * 2 ** s
+    notask = cfg.depths[s] - 1
+    return (("proj", C, C, notask), ("qkv", C, 3 * C, 0),
+            ("fc1", C, 4 * C, 0), ("fc2", 4 * C, C, 0))
+
+
+def lora_gemm_library(x, xd, wt, at, bt, scale):
+    """The same function as a chain of cuBLAS calls: the frozen GEMM, the
+    two rank-64 products, the scaled add."""
+    return torch.addmm(x @ wt.t(), xd @ at.t(), bt.t(), alpha=scale)
+
+
+def check_lora_matmul(gen) -> dict:
+    """Kernel 8 at every site shape of the batch-32 step at 448 (proj,
+    qkv, fc1, fc2 at the four stages), one input and two (adapter dropout
+    0.05 on the same seeds), and its dx layout; weighted by the adapter
+    route's sites, the two-input forward (training) and the dx layout
+    (the dropout-off step's backward)."""
+    fwd, bwd = Tally(), Tally()
+    for s in range(4):
+        cfg, _, _, M = stage_dims(s)
+        st = cfg.stages[s]
+        r, sc, p = st.r_shared, st.shared_scale, st.dropout
+        for name, K, N, n in lora_gemm_sites(cfg, s):
+            x = torch.randn(M, K, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            keep = torch.rand(M, K, generator=gen, device="cuda") >= p
+            xd = torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+            wt = _uniform(gen, (N, K), K ** -0.5)
+            at = _uniform(gen, (r, K), K ** -0.5)
+            bt = _uniform(gen, (N, r), r ** -0.5)
+            dy = torch.randn(M, N, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            w_bytes = 2 * (N * K + r * K + N * r)
+            flops = 2.0 * M * (K * N + K * r + r * N)
+            for two in (False, True):
+                d = xd if two else None
+                y = lora_matmul_fwd(x, d, wt, at, bt, sc)
+                ref = lora_matmul_plain(x, d, wt, at, bt, sc)
+                torch.cuda.synchronize()
+                err, text = check_outputs(
+                    f"lora_matmul {name} stage {s} two {two}", [y], [ref],
+                    ["y"], {0})
+                t_k = median_ms(lambda: lora_matmul_fwd(x, d, wt, at, bt, sc))
+                t_p = median_ms(lambda: lora_matmul_plain(x, d, wt, at, bt,
+                                                          sc), reps=5)
+                t_l = median_ms(lambda: lora_gemm_library(
+                    x, xd if two else x, wt, at, bt, sc))
+                nbytes = 2 * M * (K * (2 if two else 1) + N) + w_bytes
+                print(f"lora_matmul fwd {name} stage {s} x [{M}, {K}] -> {N} "
+                      f"{'two inputs' if two else 'one input'} (x{n}): "
+                      f"{text} kernel {t_k:.4f} ms plain {t_p:.4f} ms "
+                      f"library {t_l:.4f} ms {bound_text(nbytes, flops)}")
+                fwd.add(err, t_k, t_p, t_l, nbytes, flops, n if two else 0)
+                del y, ref
+            dx = lora_matmul_dx(dy, wt, at, bt, sc)
+            ref = lora_matmul_dx_plain(dy, wt, at, bt, sc)
+            torch.cuda.synchronize()
+            err, text = check_outputs(f"lora_matmul dx {name} stage {s}",
+                                      [dx], [ref], ["dx"], {0})
+            t_k = median_ms(lambda: lora_matmul_dx(dy, wt, at, bt, sc))
+            t_p = median_ms(lambda: lora_matmul_dx_plain(dy, wt, at, bt, sc),
+                            reps=5)
+            t_l = median_ms(lambda: torch.addmm(dy @ wt, dy @ bt, at,
+                                                alpha=sc))
+            nbytes = 2 * M * (N + K) + w_bytes
+            print(f"lora_matmul dx {name} stage {s} dy [{M}, {N}] -> {K} "
+                  f"(x{n}): {text} kernel {t_k:.4f} ms plain {t_p:.4f} ms "
+                  f"library {t_l:.4f} ms {bound_text(nbytes, flops)}")
+            bwd.add(err, t_k, t_p, t_l, nbytes, flops, n)
+            del x, xd, keep, dy, dx, ref
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def dense_shapes(gen):
+    """Kernel 1c's shapes: the four Swin-T 448 stages, shifted and not
+    (the op admits every one: their window counts, 256, 64, 16 and 4,
+    tile the 8-window cells), weight 0, and stage 3 at 224 (one window
+    per image, no shift), weight 2: its two blocks, kernel 1c's main
+    path. Per shape: (label, qkv, dO, bias, mask, nH, scale, weight)."""
+    cfg = tiny_448_r64_pertask()
+    for s, shift, qkv, dout, bias, mask, nH, _, scale in attention_shapes(
+            gen):
+        yield (f"448 stage {s} shift {shift}", qkv, dout, bias, mask, nH,
+               scale, 0)
+    C, nH = cfg.embed_dim * 8, cfg.num_heads[3]
+    qkv = torch.randn(KERNEL_BATCH, 49, 3 * C, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    dout = torch.randn(KERNEL_BATCH, 49, C, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    bias = 0.1 * torch.randn(nH, 49, 49, generator=gen, device="cuda")
+    yield ("224 stage 3", qkv, dout, bias, None, nH, (C // nH) ** -0.5,
+           cfg.depths[3])
+
+
+def check_dense_attention(gen) -> dict:
+    """Kernel 1c forward and backward against the plain versions and
+    against kernels 1 and 1b on the same tensors."""
+    fwd, bwd = Tally(), Tally()
+    for label, qkv, dout, bias, mask, nH, scale, n in dense_shapes(gen):
+        Bw, N, C3 = qkv.shape
+        C, hd = C3 // 3, C3 // 3 // nH
+        mb = mask.numel() * 4 if mask is not None else 0
+        out = window_attention_dense_fwd(qkv, nH, bias, mask, scale)
+        ref = window_attention(qkv, nH, bias, mask, scale)
+        k1 = window_attention_fwd(qkv, nH, bias, mask, scale)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        e1 = (out.float() - k1.float()).abs().max().item()
+        assert err <= KERNEL_ATOL and e1 <= KERNEL_ATOL, (label, err, e1)
+        t_k = median_ms(lambda: window_attention_dense_fwd(qkv, nH, bias,
+                                                           mask, scale))
+        t_1 = median_ms(lambda: window_attention_fwd(qkv, nH, bias, mask,
+                                                     scale))
+        q, k, v, am = sdpa_operands(qkv, bias, mask, nH, 1)
+        t_p = median_ms(lambda: window_attention(qkv, nH, bias, mask, scale))
+        t_l = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=am, scale=scale))
+        nbytes = Bw * N * C3 * 2 + nH * N * N * 4 + mb + Bw * N * C * 2
+        flops = 4.0 * Bw * nH * N * N * hd
+        print(f"attention 1c fwd {label} qkv {tuple(qkv.shape)} nH {nH} "
+              f"(x{n}): max_abs_err {err:.3e} vs plain, {e1:.3e} vs kernel 1 "
+              f"(bound {KERNEL_ATOL:.3e}) kernel {t_k:.4f} ms kernel 1 "
+              f"{t_1:.4f} ms plain {t_p:.4f} ms sdpa {t_l:.4f} ms "
+              f"{bound_text(nbytes, flops)}")
+        fwd.add(max(err, e1), t_k, t_p, t_l, nbytes, flops, n)
+        dq, db = window_attention_dense_bwd(qkv, nH, bias, mask, scale, dout)
+        rq, rb = window_attention_bwd_plain(qkv, nH, bias, mask, scale, dout)
+        q1, b1 = window_attention_bwd(qkv, nH, bias, mask, scale, dout)
+        torch.cuda.synchronize()
+        b_q = BWD_BF16_REL * rq.float().abs().max().item()
+        b_b = BWD_FP32_REL * rb.abs().max().item()
+        e_q = (dq.float() - rq.float()).abs().max().item()
+        e_b = (db - rb).abs().max().item()
+        e_q1 = (dq.float() - q1.float()).abs().max().item()
+        e_b1 = (db - b1).abs().max().item()
+        assert max(e_q, e_q1) <= b_q and max(e_b, e_b1) <= b_b, (
+            label, e_q, e_q1, e_b, e_b1)
+        t_k = median_ms(lambda: window_attention_dense_bwd(
+            qkv, nH, bias, mask, scale, dout))
+        t_1 = median_ms(lambda: window_attention_bwd(qkv, nH, bias, mask,
+                                                     scale, dout))
+        for t in (q, k, v):
+            t.requires_grad_(True)
+        y = F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=scale)
+        g = dout.view(Bw, N, nH, hd).transpose(1, 2).contiguous()
+        t_p = median_ms(lambda: window_attention_bwd_plain(
+            qkv, nH, bias, mask, scale, dout))
+        t_l = median_ms(lambda: torch.autograd.grad(
+            y, (q, k, v), g, retain_graph=True))
+        nbytes = (2 * Bw * N * C3 * 2 + Bw * N * C * 2 + 2 * nH * N * N * 4
+                  + mb)
+        flops = 10.0 * Bw * nH * N * N * hd
+        print(f"attention 1c bwd {label}: dqkv max_abs_err {e_q:.3e} vs "
+              f"plain, {e_q1:.3e} vs 1b (bound {b_q:.3e}) dbias {e_b:.3e} "
+              f"vs plain, {e_b1:.3e} vs 1b (bound {b_b:.3e}) kernel "
+              f"{t_k:.4f} ms kernel 1b {t_1:.4f} ms plain {t_p:.4f} ms sdpa "
+              f"backward {t_l:.4f} ms {bound_text(nbytes, flops)}")
+        bwd.add(max(e_q, e_b, e_q1, e_b1), t_k, t_p, t_l, nbytes, flops, n)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def lora_gemm_launches(cfg) -> int:
+    """Kernel 8 launches per forward: every MTLoRALinear with a shared
+    adapter, no task branch and no LN kernel; on the LN routes proj of the
+    blocks without task streams (kernel 2 takes qkv, kernel 4 their MLP),
+    LN outside also qkv of every block and fc1, fc2 of those blocks."""
+    if not cfg.use_pallas_lora_gemm:
+        return 0
     n_blocks, stages = sum(cfg.depths), len(cfg.depths)
-    fwd = {"window_attention": n_blocks, "hrnet_head_mlp": len(cfg.tasks)}
+    notask = n_blocks - stages
+    return notask if cfg.use_pallas_ln else n_blocks + 3 * notask
+
+
+def dense_blocks(cfg, batch: int) -> int:
+    """Blocks whose attention takes kernel 1c at ``batch``: the stages with
+    one window per image (the window clamps, no shift), where
+    ``dense_applies`` says the JAX model takes the dense cells."""
+    if not cfg.attn_dense:
+        return 0
+    n = 0
+    for s, depth in enumerate(cfg.depths):
+        res = cfg.img_size // cfg.patch_size // 2 ** s
+        ws = min(cfg.window_size, res)
+        nw = (res // ws) ** 2
+        if nw == 1 and dense_applies(torch.bfloat16, ws * ws, nw, batch,
+                                     None):
+            n += depth
+    return n
+
+
+def launches_per_pass(cfg, backward: bool, batch: int,
+                      dropout: bool = True) -> dict:
+    """Exact kernel launches of one forward (or training step) at
+    ``batch``: attention in every block (kernel 1c in the blocks of
+    :func:`dense_blocks`), a head per task; on the LN route kernel 2 in
+    every block, kernel 4 in the blocks with no task streams and kernel 3
+    on the shared and the task streams at every merge; kernel 8 at
+    :func:`lora_gemm_launches`; each doubled by the backward, but for
+    kernel 8: its dx layout runs only when nothing is dropped
+    (``dropout`` False), its two-input backward is plain products."""
+    n_blocks, stages = sum(cfg.depths), len(cfg.depths)
+    dense = dense_blocks(cfg, batch)
+    fwd = {"window_attention": n_blocks - dense,
+           "window_attention_dense": dense,
+           "hrnet_head_mlp": len(cfg.tasks)}
     if cfg.use_pallas_ln:
         fwd.update(ln_lora=n_blocks, ln_mlp=n_blocks - stages,
                    patch_merge=2 * (stages - 1))
@@ -939,20 +1160,59 @@ def launches_per_pass(cfg, backward: bool) -> dict:
         want[name] = n
         if backward:
             want[name + "_bwd"] = n
+    want["lora_matmul"] = lora_gemm_launches(cfg)
+    if backward and not dropout:
+        want["lora_matmul_dx"] = want["lora_matmul"]
     return want
+
+
+def routes():
+    """The configurations of phases 4 to 8, each path's first the one whose
+    launches the kernels line reports: the adapter route (TPU.USE_PALLAS_LN
+    and USE_PALLAS_ADAPTER on, the JAX package's default and the main
+    path), the LN route without the adapter kernels and the route with
+    LayerNorm outside the GEMMs; path A, TPU.USE_PALLAS_LORA_GEMM on the
+    adapter and the LN-outside routes; path B, the adapter route at the
+    JAX package's default size, 224, with MTLORA_ATTN_DENSE."""
+    yield tiny_448_r64_pertask()
+    yield tiny_448_r64_pertask(use_pallas_adapter=False)
+    yield tiny_448_r64_pertask(use_pallas_ln=False)
+    yield tiny_448_r64_pertask(use_pallas_lora_gemm=True)
+    yield tiny_448_r64_pertask(use_pallas_ln=False, use_pallas_lora_gemm=True)
+    yield dataclasses.replace(tiny_448_r64_pertask(), img_size=224,
+                              attn_dense=True)
+
+
+def path_of(cfg) -> str:
+    """"A" (kernel 8's path), "B" (kernel 1c's) or "main"."""
+    if cfg.use_pallas_lora_gemm:
+        return "A"
+    return "B" if cfg.attn_dense else "main"
 
 
 def route_name(cfg) -> str:
     if cfg.use_pallas_adapter:
-        return "adapter route (TPU.USE_PALLAS_LN and USE_PALLAS_ADAPTER on)"
-    return ("LN route (TPU.USE_PALLAS_LN on, USE_PALLAS_ADAPTER off)"
-            if cfg.use_pallas_ln
-            else "LN-outside route (TPU.USE_PALLAS_LN off)")
+        name = "adapter route (TPU.USE_PALLAS_LN and USE_PALLAS_ADAPTER on)"
+    elif cfg.use_pallas_ln:
+        name = "LN route (TPU.USE_PALLAS_LN on, USE_PALLAS_ADAPTER off)"
+    else:
+        name = "LN-outside route (TPU.USE_PALLAS_LN off)"
+    if cfg.use_pallas_lora_gemm:
+        name += " + TPU.USE_PALLAS_LORA_GEMM"
+    if cfg.attn_dense:
+        name += " + MTLORA_ATTN_DENSE"
+    return f"{name} at {cfg.img_size}"
+
+
+def cross_request(cfg) -> int:
+    """The request that phase 5 checks on the CPU: the 1-image one, or the
+    8-image one where kernel 1c runs (it needs 8-window cells)."""
+    return 1 if cfg.attn_dense else 0
 
 
 def serve_requests(model, cfg) -> tuple:
-    """Phase 4; returns (launch counts of the run, the 1-image request's
-    images and outputs)."""
+    """Phase 4; returns (launch counts of the run, the images and outputs
+    of the request that phase 5 checks)."""
     counters.reset()
     first = None
     per_forward = []
@@ -963,6 +1223,9 @@ def serve_requests(model, cfg) -> tuple:
         torch.cuda.synchronize()
         after = counters.read()
         per_forward.append({k: after[k] - before[k] for k in after})
+        want = launches_per_pass(cfg, backward=False, batch=batch)
+        assert per_forward[-1] == want, \
+            f"expected {want} launches per forward, got {per_forward[-1]}"
         for task, n in zip(cfg.tasks, cfg.num_outputs):
             y = out[task]
             assert y.shape == (batch, cfg.img_size, cfg.img_size, n), \
@@ -971,13 +1234,9 @@ def serve_requests(model, cfg) -> tuple:
         print(f"serve request {i}: {batch} images -> "
               + ", ".join(f"{t} {tuple(out[t].shape)}" for t in cfg.tasks)
               + f"; launches {per_forward[-1]}")
-        if first is None:
+        if i == cross_request(cfg):
             first = (images, {t: v.float().cpu() for t, v in out.items()})
-    counts = counters.read()
-    want = launches_per_pass(cfg, backward=False)
-    for c in per_forward:
-        assert c == want, f"expected {want} launches per forward, got {c}"
-    return counts, first
+    return counters.read(), first
 
 
 def cross_check(model, cfg, images, card_out):
@@ -1020,7 +1279,7 @@ def train_phase(cfg, card) -> dict:
               if k.endswith("running_mean") or k.endswith("running_var")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    want = launches_per_pass(cfg, backward=True)
+    want = launches_per_pass(cfg, backward=True, batch=TRAIN_BATCH)
     counters.reset()
     had_grad = set()
     for i in range(TRAIN_STEPS):
@@ -1066,8 +1325,11 @@ def train_phase(cfg, card) -> dict:
     return counts
 
 
-def train_cross_check(cfg):
-    """Phase 8: one step on the card in bf16 and on the CPU in fp32."""
+def train_cross_check(cfg) -> dict:
+    """Phase 8: one step on the card in bf16 and on the CPU in fp32, at
+    batch 2, or 8 where kernel 1c runs; returns the card step's exact
+    launches (with dropout off, kernel 8's backward is its dx layout)."""
+    batch_size = 8 if cfg.attn_dense else CROSS_BATCH
     cfg0 = dataclasses.replace(
         cfg, drop_path_rate=0.0,
         stages=tuple(dataclasses.replace(s, dropout=0.0) for s in cfg.stages))
@@ -1075,14 +1337,18 @@ def train_cross_check(cfg):
     cpu = build_mtl_model(dataclasses.replace(cfg0, compute_dtype="float32"),
                           device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
-    tcfg = TrainConfig(batch_size=CROSS_BATCH, warmup_epochs=0)
+    tcfg = TrainConfig(batch_size=batch_size, warmup_epochs=0)
     results = []
     for model, device in ((card, "cuda"), (cpu, "cpu")):
         opt = build_optimizer(model, tcfg)
-        batch = synthetic_batch(CROSS_BATCH, cfg.img_size, SEED + 1, device)
+        batch = synthetic_batch(batch_size, cfg.img_size, SEED + 1, device)
         t0 = time.perf_counter()
+        counters.reset()
         m = train_step(model, opt, build_schedule(tcfg, ITERS_PER_EPOCH),
                        batch, None, clip_grad=tcfg.clip_grad)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            card_counts = counters.read()
         grads = torch.cat([p.grad.detach().float().cpu().flatten()
                            for _, p in sorted(model.named_parameters())
                            if p.requires_grad])
@@ -1105,6 +1371,12 @@ def train_cross_check(cfg):
           f"step took {secs:.1f} s")
     assert rel <= TRAIN_GRAD_NORM_REL, f"grad_norm disagrees: {rel}"
     assert cos >= TRAIN_GRAD_COSINE, f"gradients disagree: cosine {cos}"
+    want = launches_per_pass(cfg0, backward=True, batch=batch_size,
+                             dropout=False)
+    print(f"train cross-check at batch {batch_size}: card launches "
+          f"{card_counts}")
+    assert card_counts == want, f"expected {want}, got {card_counts}"
+    return card_counts
 
 
 def main():
@@ -1127,6 +1399,7 @@ def main():
             print(f"ptxas: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
     attn = check_attention(gen)
     head = check_head(gen)
     ln2 = check_ln_lora(gen)
@@ -1135,16 +1408,22 @@ def main():
     tail = check_ln_lora_tail(gen)
     mid = check_adapter_mid(gen)
     tmerge = check_task_merge(gen)
+    gemm = check_lora_matmul(gen)
+    dense = check_dense_attention(gen)
+    print(f"phases 3 and 3b: {time.perf_counter() - t0:.1f} s")
 
-    train_counts = None
-    for use_ln, use_adapter in ROUTES:
-        cfg = tiny_448_r64_pertask(use_pallas_ln=use_ln,
-                                   use_pallas_adapter=use_adapter)
+    # the launches of each path's checked training steps (phase 7), and of
+    # its dropout-off step (phase 8), by route
+    train_counts, cross_counts = {}, {}
+    for cfg in routes():
         route = route_name(cfg)
         print(f"=== {route}")
+        t0 = time.perf_counter()
         model = random_model(cfg, SEED, "cuda")
         serve_counts, (images1, card_out1) = serve_requests(model, cfg)
+        t1 = time.perf_counter()
         cross_check(model, cfg, images1, card_out1)
+        t2 = time.perf_counter()
         batch = torch.from_numpy(synthetic_images(
             THROUGHPUT_BATCH, cfg.img_size, SEED)).cuda()
         torch.cuda.reset_peak_memory_stats()
@@ -1153,17 +1432,24 @@ def main():
         print(f"throughput ({route}): {rate:.2f} img/s bf16 forward at "
               f"batch {THROUGHPUT_BATCH} (peak {peak:.2f} GiB) on {card}")
         del model, batch
+        t3 = time.perf_counter()
         counts = train_phase(cfg, card)
         print(f"launches ({route}): serve {serve_counts}, train {counts}")
-        train_cross_check(cfg)
-        if train_counts is None:
-            train_counts = counts      # the main path's launches
+        t4 = time.perf_counter()
+        cross = train_cross_check(cfg)
+        t5 = time.perf_counter()
+        print(f"phase seconds ({route}): 4 {t1 - t0:.1f}, 5 {t2 - t1:.1f}, "
+              f"6 {t3 - t2:.1f}, 7 {t4 - t3:.1f}, 8 {t5 - t4:.1f}")
+        train_counts.setdefault(path_of(cfg), counts)
+        cross_counts.setdefault(path_of(cfg), cross)
 
-    def entry(name, source, replaces, tally):
+    def entry(name, source, replaces, tally, path="main", counts=None):
+        launches = (counts or train_counts)[path][name]
+        assert launches > 0, f"{name} never launched on its path"
         return {"name": name, "route": "cuda",
                 "source": f"mtlora_tpu_torch/ops/csrc/{source}",
                 "replaces": f"mtlora_tpu/ops/{replaces}",
-                "launches": train_counts[name], **tally.json()}
+                "launches": launches, **tally.json()}
 
     print(json.dumps({"kernels": [
         entry("window_attention", "window_attn.cu",
@@ -1196,6 +1482,14 @@ def main():
               tmerge["fwd"]),
         entry("task_merge_bwd", "task_merge_bwd.cu",
               "pallas_task_merge.py:115", tmerge["bwd"]),
+        entry("window_attention_dense", "window_attn.cu",
+              "pallas_window_attn.py:420", dense["fwd"], "B"),
+        entry("window_attention_dense_bwd", "window_attn_bwd.cu",
+              "pallas_window_attn.py:450", dense["bwd"], "B"),
+        entry("lora_matmul", "lora_matmul.cu", "pallas_lora_matmul.py:117",
+              gemm["fwd"], "A"),
+        entry("lora_matmul_dx", "lora_matmul.cu",
+              "pallas_lora_matmul.py:117", gemm["bwd"], "A", cross_counts),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,7 @@ machine that runs it has no ``yaml``, and ``mtlora_tpu``'s loader reaches
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Tuple
 
 
@@ -54,6 +55,20 @@ class ModelConfig:
     # task streams stay factored; fc1 in kernel 2's tail mode, the adapter
     # MLP tail (kernel 5), the factored task merge (kernel 6)
     use_pallas_adapter: bool = False
+    # TPU.USE_PALLAS_LORA_GEMM: the frozen GEMM and the shared adapter of
+    # every MTLoRALinear with no task branch and no LN kernel in one pass
+    # (kernel 8)
+    use_pallas_lora_gemm: bool = False
+    # MTLORA_ATTN_DENSE: window attention of a stage with one window per
+    # image, no mask and a batch that fills 8-window cells in kernel 1c
+    attn_dense: bool = False
+
+
+def attn_dense_enabled() -> bool:
+    """The JAX package's switch of the dense attention cells
+    (``pallas_window_attn._dense_enabled``): the environment variable
+    ``MTLORA_ATTN_DENSE`` set to anything but "0"."""
+    return os.environ.get("MTLORA_ATTN_DENSE", "0") != "0"
 
 
 def _unsupported(what: str, item: str):
@@ -66,9 +81,6 @@ def from_config(config) -> ModelConfig:
     """Build from a loaded reference-schema config node (after
     ``normalize_mtlora``), read by attribute only."""
     tpu = config.TPU
-    if bool(tpu.USE_PALLAS_LORA_GEMM):
-        _unsupported("TPU.USE_PALLAS_LORA_GEMM (LoRA GEMM kernel)",
-                     "Queue 2, kernel 8")
     m = config.MODEL.MTLORA
     swin = config.MODEL.SWIN
     use_ln = bool(tpu.USE_PALLAS_LN)
@@ -141,6 +153,8 @@ def from_config(config) -> ModelConfig:
         drop_path_rate=float(config.MODEL.DROP_PATH_RATE),
         use_pallas_ln=use_ln,
         use_pallas_adapter=use_adapter,
+        use_pallas_lora_gemm=bool(tpu.USE_PALLAS_LORA_GEMM),
+        attn_dense=attn_dense_enabled(),
     )
 
 
@@ -160,7 +174,8 @@ def _check_adapter_route(use_ln: bool, use_adapter: bool,
 
 
 def tiny_448_r64_pertask(use_pallas_ln: bool = True,
-                         use_pallas_adapter: bool | None = None
+                         use_pallas_adapter: bool | None = None,
+                         use_pallas_lora_gemm: bool = False
                          ) -> ModelConfig:
     """``configs/mtlora/tiny_448/mtlora_tiny_448_r64_scale4_pertask.yaml``
     with the four PASCAL tasks: Swin-T at 448, shared rank 64 and per-task
@@ -170,7 +185,11 @@ def tiny_448_r64_pertask(use_pallas_ln: bool = True,
     default, as in the YAML; adapter off is the LN route of kernels 2, 3,
     4 with materialized task streams, and both off the route with
     LayerNorm outside the GEMMs. The adapter route needs the LN route, so
-    ``use_pallas_adapter`` defaults to ``use_pallas_ln``."""
+    ``use_pallas_adapter`` defaults to ``use_pallas_ln``.
+    ``use_pallas_lora_gemm`` is ``TPU.USE_PALLAS_LORA_GEMM`` (off, as in
+    the YAML). The JAX package's default size, ``DATA.IMG_SIZE 224``, is
+    ``dataclasses.replace(cfg, img_size=224)``; ``attn_dense``
+    (``MTLORA_ATTN_DENSE``) likewise."""
     if use_pallas_adapter is None:
         use_pallas_adapter = use_pallas_ln
     _check_adapter_route(use_pallas_ln, use_pallas_adapter)
@@ -184,4 +203,5 @@ def tiny_448_r64_pertask(use_pallas_ln: bool = True,
         drop_path_rate=0.2,
         use_pallas_ln=use_pallas_ln,
         use_pallas_adapter=use_pallas_adapter,
+        use_pallas_lora_gemm=use_pallas_lora_gemm,
     )

@@ -27,6 +27,13 @@ adapter as kernel 2 (``ops/ln_lora.py``), its dropout mask hashed in the
 kernel from two seeds drawn from the generator. It has no task branch, as
 ``_ln_fused`` has no materialized-task form.
 
+``use_pallas_gemm`` is ``TPU.USE_PALLAS_LORA_GEMM`` (``lora.py:445-456``):
+a layer with a shared adapter and no task branch runs its frozen GEMM and
+its shared adapter as kernel 8 (``ops/lora_matmul.py``), one input when
+nothing is dropped and two in training with dropout, and adds its bias to
+the kernel's output in the compute dtype. The JAX gate's other terms, a
+frozen W and a static shared scale, hold for every layer of the port.
+
 The ``TPU.USE_PALLAS_ADAPTER`` route keeps the stage-tail blocks' task
 streams in rank space (``lora.py:33``, :575-757): proj returns a
 :class:`FactoredTasks`, the attention task streams stay an implicit
@@ -51,6 +58,7 @@ from mtlora_tpu_torch.ops import dropout as hash_dropout
 from mtlora_tpu_torch.ops.adapter_mlp import fused_adapter_mid
 from mtlora_tpu_torch.ops.attention import dtype_const
 from mtlora_tpu_torch.ops.ln_lora import fused_ln_lora_linear
+from mtlora_tpu_torch.ops.lora_matmul import fused_lora_matmul
 
 NO_TASK_INPUT = ("fc1 with task adapters but no upstream task streams on "
                  "the LN route (_ln_fused's x_tasks None branch, "
@@ -107,8 +115,9 @@ class MTLoRALinear(nn.Module):
                  r_shared: int = 0, shared_scale: float = 1.0,
                  tasks: Sequence[str] = (), r_tasks: Sequence[int] = (),
                  task_scales: Sequence[float] = (), bias: bool = True,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, use_pallas_gemm: bool = False):
         super().__init__()
+        self.use_pallas_gemm = use_pallas_gemm
         self.linear = nn.Linear(in_features, out_features, bias=bias)
         self.linear.requires_grad_(False)
         self.dropout = float(dropout)
@@ -148,6 +157,8 @@ class MTLoRALinear(nn.Module):
         its A-projections come from ``task_factored`` through kernel 5
         when an upstream layer's factored output is given
         (``lora.py:483-516``)."""
+        if self.use_pallas_gemm and self.r_shared > 0 and not self.tasks:
+            return self._lora_gemm(x, generator, x_dropped), None
         dt = x.dtype
         w = self.linear.weight.to(dt)
         b = self.linear.bias.to(dt) if self.linear.bias is not None else None
@@ -194,6 +205,24 @@ class MTLoRALinear(nn.Module):
         update = torch.bmm(mid, b_eff.transpose(1, 2))          # [T, M, out]
         y_tasks = pretrained[None] + update.view(T, *lead, -1)
         return y, y_tasks
+
+    def _lora_gemm(self, x, generator, x_dropped):
+        """``x W^T + s (drop(x) A^T) B^T`` in kernel 8, then ``+ b`` in x's
+        dtype (``lora.py:445-456``); dropout stays outside the kernel, its
+        mask drawn from ``generator`` as on the module path."""
+        dt = x.dtype
+        lead, K = x.shape[:-1], x.shape[-1]
+        xd = None
+        if self.training and self.dropout > 0.0:
+            xd = (x_dropped.to(dt) if x_dropped is not None
+                  else inverted_dropout(x, self.dropout, generator))
+            xd = xd.reshape(-1, K).contiguous()
+        wt, bias, at, bt = self.kernel_operands(dt)
+        y = fused_lora_matmul(x.reshape(-1, K).contiguous(), xd, wt, at, bt,
+                              self.shared_scale)
+        if self.linear.bias is not None:
+            y = y + bias
+        return y.view(*lead, -1)
 
     def masked_task_A(self) -> torch.Tensor:
         """``lora_tasks_A [T, r_max, in]`` with the rank mask applied (the

@@ -22,6 +22,16 @@ package's ``TPU.USE_PALLAS_LN`` and ``TPU.USE_PALLAS_ADAPTER`` switches
     ``Wh % 8`` gate is a TPU tiling constraint); the last stage expands
     them once (``expand_task_streams``).
 Parameters are the same on every route.
+
+``cfg.use_pallas_lora_gemm`` (``TPU.USE_PALLAS_LORA_GEMM``) hands qkv, proj,
+fc1 and fc2 the kernel-8 switch (``swin.py:194,199,377,384``); a layer that
+kernel 2, kernel 4 or the factored tail takes, or one with a task branch,
+never reaches it. ``cfg.attn_dense`` (``MTLORA_ATTN_DENSE``) sends the
+window attention of a stage with one window per image (no shift: the
+window clamps) to kernel 1c when :func:`window_attn.dense_applies` says
+the JAX model's ``_maybe_packed`` would; stages with an even window count
+take the TPU's padded pack-2 route there (``swin.py:402-435``), kernel 1
+here.
 Token layout is ``[B, L, C]`` with L = H*W row-major; the qkv GEMM runs on
 the tokens after the window gather, the proj GEMM after the inverse
 gather, as in the JAX ``WindowAttention``.
@@ -73,7 +83,11 @@ from mtlora_tpu_torch.ops.window import (
 from mtlora_tpu_torch.ops.ln_lora import fused_merge_ln_linear
 from mtlora_tpu_torch.ops.ln_mlp import fused_ln_mlp
 from mtlora_tpu_torch.ops.task_merge import fused_task_merge
-from mtlora_tpu_torch.ops.window_attn import fused_window_attention
+from mtlora_tpu_torch.ops.window_attn import (
+    dense_applies,
+    fused_window_attention,
+    fused_window_attention_dense,
+)
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -105,12 +119,12 @@ def drop_path(x: torch.Tensor, rate: float,
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, lora: StageLoRA,
                  tasks: tuple, fc1_tasks: bool, fc2_tasks: bool,
-                 fc1_lora: bool, fc2_lora: bool):
+                 fc1_lora: bool, fc2_lora: bool, gemm: bool = False):
         super().__init__()
         self.fc1 = _lora_linear(dim, hidden, lora, tasks if fc1_tasks else (),
-                                fc1_lora)
+                                fc1_lora, gemm=gemm)
         self.fc2 = _lora_linear(hidden, dim, lora, tasks if fc2_tasks else (),
-                                fc2_lora)
+                                fc2_lora, gemm=gemm)
 
     def forward(self, x, x_tasks=None, generator=None):
         x, t = self.fc1(x, x_tasks, generator)
@@ -156,13 +170,13 @@ class Mlp(nn.Module):
 
 
 def _lora_linear(cin, cout, lora: StageLoRA, tasks, enabled: bool,
-                 bias: bool = True) -> MTLoRALinear:
+                 bias: bool = True, gemm: bool = False) -> MTLoRALinear:
     if not enabled:
         return MTLoRALinear(cin, cout, bias=bias)
     return MTLoRALinear(cin, cout, r_shared=lora.r_shared,
                         shared_scale=lora.shared_scale, tasks=tasks,
                         r_tasks=lora.r_tasks, task_scales=lora.task_scales,
-                        bias=bias, dropout=lora.dropout)
+                        bias=bias, dropout=lora.dropout, use_pallas_gemm=gemm)
 
 
 class WindowAttention(nn.Module):
@@ -171,9 +185,11 @@ class WindowAttention(nn.Module):
     def __init__(self, dim: int, window_size: int, num_heads: int,
                  lora: StageLoRA, tasks: tuple, proj_tasks: bool,
                  qkv_lora: bool = True, proj_lora: bool = True,
-                 qkv_bias: bool = True, qk_scale: float | None = None):
+                 qkv_bias: bool = True, qk_scale: float | None = None,
+                 gemm: bool = False, dense: bool = False):
         super().__init__()
         self.dim, self.window_size, self.num_heads = dim, window_size, num_heads
+        self.dense = dense
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
@@ -181,9 +197,11 @@ class WindowAttention(nn.Module):
             "relative_position_index",
             torch.from_numpy(relative_position_index(window_size)).long(),
             persistent=False)
-        self.qkv = _lora_linear(dim, 3 * dim, lora, (), qkv_lora, qkv_bias)
+        self.qkv = _lora_linear(dim, 3 * dim, lora, (), qkv_lora, qkv_bias,
+                                gemm=gemm)
         self.proj = _lora_linear(dim, dim, lora,
-                                 tasks if proj_tasks else (), proj_lora)
+                                 tasks if proj_tasks else (), proj_lora,
+                                 gemm=gemm)
 
     def rel_bias(self) -> torch.Tensor:
         N = self.window_size ** 2
@@ -208,10 +226,22 @@ class WindowAttention(nn.Module):
             if norm is not None:
                 xw = layer_norm(xw, norm)
             qkv, _ = self.qkv(xw, None, generator)
-        attn = fused_window_attention(qkv, self.num_heads, self.rel_bias(),
-                                      mask, self.scale)
+        attn = self._core(qkv, B, H, W, mask)
         tok = window_merge_unshift(attn, B, H, W, ws, shift)
         return self.proj(tok, None, generator, factored_tasks=factored_tasks)
+
+    def _core(self, qkv, B: int, H: int, W: int, mask):
+        """Kernel 1c where the JAX model takes ``_fused_windows_dense``:
+        not the padded pack-2 route (an even window count, ``2N <= 128``),
+        and ``_maybe_packed``'s dense decision; kernel 1 elsewhere."""
+        ws = self.window_size
+        nw, N = (H // ws) * (W // ws), ws * ws
+        pad2 = nw % 2 == 0 and 2 * N <= 128
+        fn = (fused_window_attention_dense
+              if self.dense and not pad2
+              and dense_applies(qkv.dtype, N, nw, B, mask)
+              else fused_window_attention)
+        return fn(qkv, self.num_heads, self.rel_bias(), mask, self.scale)
 
 
 class SwinBlock(nn.Module):
@@ -239,12 +269,14 @@ class SwinBlock(nn.Module):
             dim, ws, num_heads, lora, tasks,
             proj_tasks=produce_tasks and cfg.proj_enabled,
             qkv_lora=cfg.qkv_enabled, proj_lora=cfg.proj_enabled,
-            qkv_bias=cfg.qkv_bias, qk_scale=cfg.qk_scale)
+            qkv_bias=cfg.qkv_bias, qk_scale=cfg.qk_scale,
+            gemm=cfg.use_pallas_lora_gemm, dense=cfg.attn_dense)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio), lora, tasks,
                        fc1_tasks=produce_tasks and cfg.fc1_enabled,
                        fc2_tasks=produce_tasks and cfg.fc2_enabled,
-                       fc1_lora=cfg.fc1_enabled, fc2_lora=cfg.fc2_enabled)
+                       fc1_lora=cfg.fc1_enabled, fc2_lora=cfg.fc2_enabled,
+                       gemm=cfg.use_pallas_lora_gemm)
         mask = (torch.from_numpy(shift_attention_mask(
             resolution, resolution, ws, shift)) if shift > 0 else None)
         self.register_buffer("attn_mask", mask, persistent=False)

@@ -33,6 +33,14 @@ SIGNATURES = {
     # qkv, bias, mask, dout, dqkv, dbias_part, dbias, n_windows, N, C,
     # num_heads, mask_windows, group, scale_c, scale, stream
     "mtlora_window_attn_bwd": [_P] * 7 + [_I] * 6 + [_F, _F, _P],
+    # kernel 1c: the same arguments; the backward's group is in cells
+    "mtlora_window_attn_dense_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                     _P],
+    "mtlora_window_attn_dense_bwd": [_P] * 7 + [_I] * 6 + [_F, _F, _P],
+    # x, x_drop (null: one input), wt, at, bt, y, M, K, N, r, scale, stream
+    "mtlora_lora_matmul_fwd": [_P] * 6 + [_I] * 4 + [_F, _P],
+    # dy, wt, at, bt, dx, M, N, K, r, scale, stream
+    "mtlora_lora_matmul_dx": [_P] * 5 + [_I] * 4 + [_F, _P],
     # x, ek_t, eb, mul, add, pk_t, pb, y, M, cin, hidden, n_out, stream
     "mtlora_head_mlp_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _P],

@@ -19,9 +19,12 @@ from mtlora_tpu_torch.ops.ln_lora import (
     merge_ln_fwd,
 )
 from mtlora_tpu_torch.ops.ln_mlp import ln_mlp_bwd, ln_mlp_fwd
+from mtlora_tpu_torch.ops.lora_matmul import lora_matmul_dx, lora_matmul_fwd
 from mtlora_tpu_torch.ops.task_merge import task_merge_bwd, task_merge_fwd
 from mtlora_tpu_torch.ops.window_attn import (
     window_attention_bwd,
+    window_attention_dense_bwd,
+    window_attention_dense_fwd,
     window_attention_fwd,
 )
 
@@ -42,6 +45,10 @@ WRAPPERS = {
     "adapter_mid_bwd": adapter_mid_bwd,
     "task_merge": task_merge_fwd,
     "task_merge_bwd": task_merge_bwd,
+    "window_attention_dense": window_attention_dense_fwd,
+    "window_attention_dense_bwd": window_attention_dense_bwd,
+    "lora_matmul": lora_matmul_fwd,
+    "lora_matmul_dx": lora_matmul_dx,
 }
 
 

@@ -17,6 +17,18 @@
 // products are plain FMA loops. No TPU pack-2 or pad-104 layout: the block
 // reads the plain [B*nW, N, 3C] window order with 16-byte loads. Tensor
 // cores (mma / wgmma) are left for a later version.
+//
+// Kernel 1c, window_attn_dense_fwd_kernel, replaces the dense mode of the
+// same TPU kernel (_fwd_kernel with chunks = 4, launched by _run_fwd_dense
+// from _fused_windows_dense when MTLORA_ATTN_DENSE is set): the TPU packed
+// two windows per 98-row instance and four pairs per 392-row cell, with a
+// block-diagonal -1e9 bias, so that the cells reshape freely from the flat
+// token order. The math per window is kernel 1's (exp(-1e9 - max) is 0
+// exactly), so here a cell is 8 consecutive windows of the plain order for
+// one head: the head's bias, and with a shift mask the tiles of the cell's
+// period positions, are staged in shared memory once per cell instead of
+// being read per window, and the windows run one after another through
+// kernel 1's per-window body.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -26,6 +38,8 @@
 namespace {
 
 constexpr int kThreads = 128;
+// windows per dense cell: four TPU pack-2 pairs, 392 rows at N = 49
+constexpr int kCell = 8;
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -41,15 +55,15 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-__global__ void __launch_bounds__(kThreads)
-window_attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
-                       const float* __restrict__ bias,
-                       const float* __restrict__ mask,
-                       __nv_bfloat16* __restrict__ out,
-                       int N, int C, int hd, int mask_windows, float scale) {
-  extern __shared__ float smem[];
-  const int w = blockIdx.x;
-  const int h = blockIdx.y;
+// One (window, head): q, k, v of head h of window w to shared memory,
+// scores + bias bh + mask mw (null: none), softmax, P @ V to out. The
+// caller orders this call after any earlier use of the shared memory.
+__device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ qkv,
+                                       const float* __restrict__ bh,
+                                       const float* __restrict__ mw,
+                                       __nv_bfloat16* __restrict__ out,
+                                       float* smem, int w, int h, int N,
+                                       int C, int hd, float scale) {
   const int ld = hd + 1;
   const int lds = N + 1;
   float* q = smem;
@@ -78,8 +92,6 @@ window_attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
   __syncthreads();
 
   // ---- scores: fp32 dot + bias + mask -------------------------------------
-  const float* bh = bias + (size_t)h * N * N;
-  const float* mw = mask ? mask + (size_t)(w % mask_windows) * N * N : nullptr;
   for (int i = threadIdx.x; i < N * N; i += blockDim.x) {
     const int r = i / N;
     const int c = i - r * N;
@@ -124,6 +136,56 @@ window_attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
 }
 
+__host__ __device__ size_t attend_smem(int N, int hd) {
+  return sizeof(float) * (3 * (size_t)N * (hd + 1) + (size_t)N * (N + 1));
+}
+
+// Kernel 1: one block per (window, head), bias and mask read in place.
+__global__ void __launch_bounds__(kThreads)
+window_attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ mask,
+                       __nv_bfloat16* __restrict__ out,
+                       int N, int C, int hd, int mask_windows, float scale) {
+  extern __shared__ float smem[];
+  const int w = blockIdx.x;
+  const int h = blockIdx.y;
+  attend(qkv, bias + (size_t)h * N * N,
+         mask ? mask + (size_t)(w % mask_windows) * N * N : nullptr, out,
+         smem, w, h, N, C, hd, scale);
+}
+
+// Kernel 1c (dense cells): one block per (cell of kCell consecutive
+// windows, head). The head's bias, and the mask tiles of the cell's
+// period positions (kCell of them, or nW when nW divides kCell), are
+// staged in shared memory once for the cell's windows.
+__global__ void __launch_bounds__(kThreads)
+window_attn_dense_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
+                             const float* __restrict__ bias,
+                             const float* __restrict__ mask,
+                             __nv_bfloat16* __restrict__ out, int N, int C,
+                             int hd, int mask_windows, float scale) {
+  extern __shared__ float smem[];
+  const int cell = blockIdx.x;
+  const int h = blockIdx.y;
+  const int NN = N * N;
+  const int tiles = mask ? min(kCell, mask_windows) : 0;
+  float* bh = smem + attend_smem(N, hd) / sizeof(float);
+  float* ms = bh + NN;
+  const int base = (cell * kCell) % (mask ? mask_windows : 1);
+  for (int i = threadIdx.x; i < NN; i += blockDim.x)
+    bh[i] = bias[(size_t)h * NN + i];
+  for (int i = threadIdx.x; i < tiles * NN; i += blockDim.x) {
+    const int j = i / NN;
+    ms[i] = mask[(size_t)((base + j) % mask_windows) * NN + (i - j * NN)];
+  }
+  for (int j = 0; j < kCell; ++j) {
+    if (j) __syncthreads();  // the previous window is consumed
+    attend(qkv, bh, mask ? ms + (size_t)(j % tiles) * NN : nullptr, out,
+           smem, cell * kCell + j, h, N, C, hd, scale);
+  }
+}
+
 }  // namespace
 
 extern "C" int mtlora_window_attn_fwd(const void* qkv, const void* bias,
@@ -132,8 +194,7 @@ extern "C" int mtlora_window_attn_fwd(const void* qkv, const void* bias,
                                       int num_heads, int mask_windows,
                                       float scale, void* stream) {
   const int hd = C / num_heads;
-  const size_t smem = sizeof(float) * (3 * (size_t)N * (hd + 1) +
-                                       (size_t)N * (N + 1));
+  const size_t smem = attend_smem(N, hd);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         window_attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -142,6 +203,34 @@ extern "C" int mtlora_window_attn_fwd(const void* qkv, const void* bias,
   }
   dim3 grid(n_windows, num_heads);
   window_attn_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), static_cast<__nv_bfloat16*>(out), N,
+      C, hd, mask_windows > 0 ? mask_windows : 1, scale);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 1c: n_windows a multiple of kCell; with a mask, its nW a multiple
+// of kCell or a divisor of it (the mask period tiles the cells).
+extern "C" int mtlora_window_attn_dense_fwd(const void* qkv, const void* bias,
+                                            const void* mask, void* out,
+                                            int n_windows, int N, int C,
+                                            int num_heads, int mask_windows,
+                                            float scale, void* stream) {
+  if (n_windows % kCell ||
+      (mask && (mask_windows < 1 ||
+                (mask_windows % kCell && kCell % mask_windows))))
+    return (int)cudaErrorInvalidValue;
+  const int hd = C / num_heads;
+  const int tiles = mask ? (mask_windows < kCell ? mask_windows : kCell) : 0;
+  const size_t smem = attend_smem(N, hd) +
+                      sizeof(float) * (size_t)(1 + tiles) * N * N;
+  cudaError_t e = cudaFuncSetAttribute(
+      window_attn_dense_fwd_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(n_windows / kCell, num_heads);
+  window_attn_dense_fwd_kernel<<<grid, kThreads, smem,
+                                 (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(bias),
       static_cast<const float*>(mask), static_cast<__nv_bfloat16*>(out), N,
       C, hd, mask_windows > 0 ? mask_windows : 1, scale);

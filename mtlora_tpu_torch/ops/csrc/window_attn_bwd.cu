@@ -25,6 +25,12 @@
 // [N, N] partial to [n_groups, nH, N, N], and a second kernel sums the
 // groups in a fixed order: the result is deterministic, with no fp32
 // atomics. The mask is indexed by window % nW, as in the forward.
+//
+// Kernel 1c's backward (the dense mode: _bwd_kernel with chunks = 4,
+// launched by _run_bwd_dense) is the same kernel with groups of whole
+// 8-window cells: each cell's mask tiles are staged in shared memory at
+// its first window, the bias once per group as above, and the dbias
+// partials, one per cell group, are summed in group order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,6 +40,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+// windows per dense cell (kernel 1c), as in window_attn.cu
+constexpr int kCell = 8;
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -49,6 +57,10 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// kDense (kernel 1c): groups are whole cells of kCell windows, and the
+// mask tiles of each cell's period positions are staged in shared memory
+// at the cell's first window instead of being read per window.
+template <bool kDense>
 __global__ void __launch_bounds__(kThreads)
 window_attn_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
                        const float* __restrict__ bias,
@@ -74,6 +86,8 @@ window_attn_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
   float* ds = p + N * lds;     // [N][lds] dP, then dS
   float* bh = ds + N * lds;    // [N*N] bias of head h
   float* acc = bh + NN;        // [N*N] dS summed over the group
+  float* ms = acc + NN;        // kDense: the cell's mask tiles
+  const int tiles = (kDense && mask) ? min(kCell, mask_windows) : 0;
 
   const int tid = threadIdx.x;
   for (int i = tid; i < NN; i += blockDim.x) {
@@ -89,6 +103,13 @@ window_attn_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
 
   for (int w = w0; w < w1; ++w) {
     __syncthreads();  // bias staged / previous window consumed
+    if (kDense && tiles && (w - w0) % kCell == 0) {
+      const int pos = w % mask_windows;
+      for (int i = tid; i < tiles * NN; i += blockDim.x) {
+        const int j = i / NN;
+        ms[i] = mask[(size_t)((pos + j) % mask_windows) * NN + (i - j * NN)];
+      }
+    }
 
     // ---- q, k, v of head h and dO, as fp32 ------------------------------
     const __nv_bfloat16* base = qkv + (size_t)w * N * 3 * C + h * hd;
@@ -117,7 +138,10 @@ window_attn_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
     __syncthreads();
 
     // ---- scores (fp32 dot + bias + mask) and dP = dO v^T -----------------
-    const float* mw = mask ? mask + (size_t)(w % mask_windows) * NN : nullptr;
+    const float* mw =
+        !mask ? nullptr
+              : (kDense ? ms + (size_t)(((w - w0) % kCell) % tiles) * NN
+                        : mask + (size_t)(w % mask_windows) * NN);
     for (int i = tid; i < NN; i += blockDim.x) {
       const int r = i / N;
       const int c = i - r * N;
@@ -199,30 +223,27 @@ __global__ void sum_groups_kernel(const float* __restrict__ part,
   out[i] = s;
 }
 
-}  // namespace
-
-extern "C" int mtlora_window_attn_bwd(const void* qkv, const void* bias,
-                                      const void* mask, const void* dout,
-                                      void* dqkv, void* dbias_part,
-                                      void* dbias, int n_windows, int N,
-                                      int C, int num_heads, int mask_windows,
-                                      int group, float scale_c, float scale,
-                                      void* stream) {
+template <bool kDense>
+int launch_bwd(const void* qkv, const void* bias, const void* mask,
+               const void* dout, void* dqkv, void* dbias_part, void* dbias,
+               int n_windows, int N, int C, int num_heads, int mask_windows,
+               int group, float scale_c, float scale, cudaStream_t st) {
   if (group < 1 || N < 1 || num_heads < 1 || C % num_heads ||
       (C / num_heads) % 8)
     return (int)cudaErrorInvalidValue;
   const int hd = C / num_heads;
   const int n_groups = (n_windows + group - 1) / group;
+  const int tiles =
+      (kDense && mask) ? (mask_windows < kCell ? mask_windows : kCell) : 0;
   const size_t smem = sizeof(float) * (5 * (size_t)N * (hd + 1) +
                                        2 * (size_t)N * (N + 1) +
-                                       2 * (size_t)N * N);
+                                       (2 + (size_t)tiles) * N * N);
   cudaError_t e = cudaFuncSetAttribute(
-      window_attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      window_attn_bwd_kernel<kDense>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = (cudaStream_t)stream;
   dim3 grid(n_groups, num_heads);
-  window_attn_bwd_kernel<<<grid, kThreads, smem, st>>>(
+  window_attn_bwd_kernel<kDense><<<grid, kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(bias),
       static_cast<const float*>(mask), static_cast<const __nv_bfloat16*>(dout),
       static_cast<__nv_bfloat16*>(dqkv), static_cast<float*>(dbias_part),
@@ -235,4 +256,36 @@ extern "C" int mtlora_window_attn_bwd(const void* qkv, const void* bias,
       static_cast<const float*>(dbias_part), static_cast<float*>(dbias),
       n_groups, len);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int mtlora_window_attn_bwd(const void* qkv, const void* bias,
+                                      const void* mask, const void* dout,
+                                      void* dqkv, void* dbias_part,
+                                      void* dbias, int n_windows, int N,
+                                      int C, int num_heads, int mask_windows,
+                                      int group, float scale_c, float scale,
+                                      void* stream) {
+  return launch_bwd<false>(qkv, bias, mask, dout, dqkv, dbias_part, dbias,
+                           n_windows, N, C, num_heads, mask_windows, group,
+                           scale_c, scale, (cudaStream_t)stream);
+}
+
+// Kernel 1c's backward: groups of `cells` whole cells; n_windows a
+// multiple of kCell, and the mask period tiling the cells, as in the
+// forward.
+extern "C" int mtlora_window_attn_dense_bwd(
+    const void* qkv, const void* bias, const void* mask, const void* dout,
+    void* dqkv, void* dbias_part, void* dbias, int n_windows, int N, int C,
+    int num_heads, int mask_windows, int cells, float scale_c, float scale,
+    void* stream) {
+  if (n_windows % kCell || cells < 1 ||
+      (mask && (mask_windows < 1 ||
+                (mask_windows % kCell && kCell % mask_windows))))
+    return (int)cudaErrorInvalidValue;
+  return launch_bwd<true>(qkv, bias, mask, dout, dqkv, dbias_part, dbias,
+                          n_windows, N, C, num_heads, mask_windows,
+                          cells * kCell, scale_c, scale,
+                          (cudaStream_t)stream);
 }

@@ -6,6 +6,13 @@ kernel ``csrc/window_attn.cu`` and the backward kernel
 JAX package puts ``_run_fwd`` and ``_run_bwd`` under one ``custom_vjp``.
 Both read the plain window order that ``ops/window.py`` produces,
 ``[B*nW, N, 3C]``, not the TPU's padded pack-2 layout.
+
+Kernel 1c, the dense cells of ``_fused_windows_dense`` (``MTLORA_ATTN_DENSE``),
+is its own pair of launches in the same sources: one block per 8
+consecutive windows (the TPU's four pack-2 pairs, 392 rows at N = 49) and
+head, the bias and mask tiles staged once per cell. Its function is kernel
+1's, so its plain versions are kernel 1's; :func:`dense_applies` is the
+JAX package's decision to take it.
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ from mtlora_tpu_torch.ops.attention import attention_probs, dtype_const
 from mtlora_tpu_torch.ops.attention import window_attention as plain
 
 MAX_N = 64
+# windows per dense cell: four pack-2 pairs (``_DENSE_CHUNKS``)
+DENSE_CELL = 8
 # windows per block of the backward kernel: about 1024 blocks in all, so
 # the [n_groups, nH, N, N] dbias partials stay near 10 MB at batch 32
 BWD_BLOCKS = 1024
@@ -53,7 +62,40 @@ def window_attention_bwd_plain(qkv: torch.Tensor, num_heads: int,
     return dqkv, ds.sum(0)
 
 
-def _check(qkv, num_heads, rel_bias, mask, what):
+def dense_tiles(n_windows: int, mask: torch.Tensor | None) -> bool:
+    """The op-level condition of kernel 1c: whole 8-window cells, and a
+    mask period that tiles them (``_dense_mask``: ``nW/2 % 4 == 0`` or
+    ``4 % (nW/2) == 0``, in windows: nW a multiple or a divisor of 8)."""
+    if n_windows % DENSE_CELL:
+        return False
+    if mask is None:
+        return True
+    nw = mask.shape[0]
+    return nw % DENSE_CELL == 0 or DENSE_CELL % nw == 0
+
+
+def dense_applies(dtype: torch.dtype, N: int, nw: int, batch: int,
+                  mask: torch.Tensor | None) -> bool:
+    """Whether ``_maybe_packed`` (``pallas_window_attn.py:260-291``), with
+    ``MTLORA_ATTN_DENSE`` set, sends ``[batch*nw, N, 3C]`` windows to the
+    dense cells: two windows pack when ``2N <= 128`` and nw is even, or
+    nw is 1 with no mask and an even window count; the pairs go dense for
+    bf16, N = 49, a pair count that is a multiple of 4, and a mask period
+    that tiles the cells (``_dense_mask`` :246-257)."""
+    n_windows = batch * nw
+    if not (2 * N <= 128 and (nw % 2 == 0 or (
+            nw == 1 and mask is None and n_windows % 2 == 0))):
+        return False
+    if not (dtype == torch.bfloat16 and N == 49
+            and (n_windows // 2) % 4 == 0):
+        return False
+    if mask is None:
+        return True
+    nw2 = max(1, nw // 2)
+    return nw2 % 4 == 0 or 4 % nw2 == 0
+
+
+def _check(qkv, num_heads, rel_bias, mask, what, dense=False):
     if qkv.device.type != "cuda":
         raise ValueError(f"window attention {what}: no kernel for "
                          f"{qkv.device}")
@@ -80,10 +122,23 @@ def _check(qkv, num_heads, rel_bias, mask, what):
                              f"dividing {Bw}, got {mask.dtype} "
                              f"{tuple(mask.shape)}")
         tensors.append(mask)
+    if dense and not dense_tiles(Bw, mask):
+        raise ValueError(f"window attention {what} kernel 1c: {Bw} windows "
+                         f"do not fill {DENSE_CELL}-window cells, or the "
+                         "mask period does not tile them")
     for t in tensors:
         if t.device != qkv.device or not t.is_contiguous():
             raise ValueError(f"window attention {what} kernel: operands "
                              "must be contiguous and on one device")
+
+
+def _check_dout(qkv, dout):
+    Bw, N, C3 = qkv.shape
+    if (dout.shape != (Bw, N, C3 // 3) or dout.dtype != qkv.dtype
+            or dout.device != qkv.device or not dout.is_contiguous()):
+        raise ValueError(f"window attention backward kernel: dout must be "
+                         f"contiguous {qkv.dtype} {(Bw, N, C3 // 3)}, got "
+                         f"{dout.dtype} {tuple(dout.shape)}")
 
 
 def window_attention_fwd(qkv: torch.Tensor, num_heads: int,
@@ -119,11 +174,7 @@ def window_attention_bwd(qkv: torch.Tensor, num_heads: int,
                                           scale, dout)
     _check(qkv, num_heads, rel_bias, mask, "backward")
     Bw, N, C3 = qkv.shape
-    if (dout.shape != (Bw, N, C3 // 3) or dout.dtype != qkv.dtype
-            or dout.device != qkv.device or not dout.is_contiguous()):
-        raise ValueError(f"window attention backward kernel: dout must be "
-                         f"contiguous {qkv.dtype} {(Bw, N, C3 // 3)}, got "
-                         f"{dout.dtype} {tuple(dout.shape)}")
+    _check_dout(qkv, dout)
     group = max(1, min(MAX_GROUP, -(-Bw * num_heads // BWD_BLOCKS)))
     n_groups = -(-Bw // group)
     lib = _build.library()
@@ -144,8 +195,67 @@ def window_attention_bwd(qkv: torch.Tensor, num_heads: int,
     return dqkv, dbias
 
 
+def window_attention_dense_fwd(qkv: torch.Tensor, num_heads: int,
+                               rel_bias: torch.Tensor,
+                               mask: torch.Tensor | None,
+                               scale: float) -> torch.Tensor:
+    """Kernel 1c forward, no autograd: kernel 1's plain version for CPU
+    tensors, the dense-cell kernel for CUDA tensors (as kernel 1's, and
+    whole 8-window cells tiled by the mask period)."""
+    if qkv.device.type == "cpu":
+        return plain(qkv, num_heads, rel_bias, mask, scale)
+    _check(qkv, num_heads, rel_bias, mask, "forward", dense=True)
+    Bw, N, C3 = qkv.shape
+    out = torch.empty((Bw, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
+    err = _build.library().mtlora_window_attn_dense_fwd(
+        qkv.data_ptr(), rel_bias.data_ptr(),
+        mask.data_ptr() if mask is not None else None, out.data_ptr(),
+        Bw, N, C3 // 3, num_heads, mask.shape[0] if mask is not None else 0,
+        dtype_const(scale, qkv.dtype),
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(err, "mtlora_window_attn_dense_fwd")
+    window_attention_dense_fwd.launches += 1
+    return out
+
+
+def window_attention_dense_bwd(qkv: torch.Tensor, num_heads: int,
+                               rel_bias: torch.Tensor,
+                               mask: torch.Tensor | None, scale: float,
+                               dout: torch.Tensor):
+    """Kernel 1c backward: ``(dqkv, dbias)`` of
+    :func:`window_attention_bwd_plain` for CPU tensors, and from the
+    dense-cell kernel (groups of whole cells, their dbias partials summed
+    in group order) for CUDA tensors."""
+    if qkv.device.type == "cpu":
+        return window_attention_bwd_plain(qkv, num_heads, rel_bias, mask,
+                                          scale, dout)
+    _check(qkv, num_heads, rel_bias, mask, "backward", dense=True)
+    Bw, N, C3 = qkv.shape
+    _check_dout(qkv, dout)
+    group = max(1, min(MAX_GROUP, -(-Bw * num_heads // BWD_BLOCKS)))
+    cells = -(-group // DENSE_CELL)
+    n_groups = -(-Bw // (cells * DENSE_CELL))
+    dqkv = torch.empty_like(qkv)
+    part = torch.empty((n_groups, num_heads, N, N), dtype=torch.float32,
+                       device=qkv.device)
+    dbias = torch.empty((num_heads, N, N), dtype=torch.float32,
+                        device=qkv.device)
+    err = _build.library().mtlora_window_attn_dense_bwd(
+        qkv.data_ptr(), rel_bias.data_ptr(),
+        mask.data_ptr() if mask is not None else None, dout.data_ptr(),
+        dqkv.data_ptr(), part.data_ptr(), dbias.data_ptr(),
+        Bw, N, C3 // 3, num_heads, mask.shape[0] if mask is not None else 0,
+        cells, dtype_const(scale, qkv.dtype), float(scale),
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(err, "mtlora_window_attn_dense_bwd")
+    window_attention_dense_bwd.launches += 1
+    return dqkv, dbias
+
+
 window_attention_fwd.launches = 0
 window_attention_bwd.launches = 0
+window_attention_dense_fwd.launches = 0
+window_attention_dense_bwd.launches = 0
 
 
 class WindowAttentionFn(torch.autograd.Function):
@@ -176,3 +286,33 @@ def fused_window_attention(qkv: torch.Tensor, num_heads: int,
     CPU tensors take the plain versions; CUDA tensors the kernels, which
     take bf16 only, N <= 64 and a head dim that is a multiple of 8."""
     return WindowAttentionFn.apply(qkv, rel_bias, mask, num_heads, scale)
+
+
+class WindowAttentionDenseFn(torch.autograd.Function):
+    """``custom_vjp`` of ``_fused_windows_dense``: kernel 1c forward and
+    backward; gradients for qkv and the gathered bias, none for the
+    mask."""
+
+    @staticmethod
+    def forward(ctx, qkv, rel_bias, mask, num_heads, scale):
+        ctx.save_for_backward(qkv, rel_bias, mask)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return window_attention_dense_fwd(qkv, num_heads, rel_bias, mask,
+                                          scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, rel_bias, mask = ctx.saved_tensors
+        dqkv, dbias = window_attention_dense_bwd(
+            qkv, ctx.num_heads, rel_bias, mask, ctx.scale, dout.contiguous())
+        return dqkv, dbias.to(rel_bias.dtype), None, None, None
+
+
+def fused_window_attention_dense(qkv: torch.Tensor, num_heads: int,
+                                 rel_bias: torch.Tensor,
+                                 mask: torch.Tensor | None,
+                                 scale: float) -> torch.Tensor:
+    """:func:`fused_window_attention` through kernel 1c: the same function
+    and operands; the windows fill whole 8-window cells and a mask's period
+    tiles them (:func:`dense_tiles`)."""
+    return WindowAttentionDenseFn.apply(qkv, rel_bias, mask, num_heads, scale)

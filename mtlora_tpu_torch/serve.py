@@ -12,6 +12,9 @@ flagship runs the JAX package's default route, ``TPU.USE_PALLAS_LN`` and
 ``TPU.USE_PALLAS_ADAPTER`` on (kernels 2 to 6); ``--no-pallas-adapter``
 keeps the task streams materialized (kernels 2, 3, 4), and
 ``--no-pallas-ln`` also runs LayerNorm outside the GEMMs.
+``--pallas-lora-gemm`` turns ``TPU.USE_PALLAS_LORA_GEMM`` on (kernel 8),
+``--img-size 224`` runs the JAX package's default size, and
+``--attn-dense`` sets ``MTLORA_ATTN_DENSE`` (kernel 1c in stage 3 at 224).
 ``--profile TRACE`` then runs 3 more forwards under ``torch.profiler``,
 writes the Chrome trace to TRACE and prints a second JSON line: device
 ms per forward by kernel class, busy time and idle share.
@@ -20,6 +23,7 @@ ms per forward by kernel class, busy time and idle share.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import numpy as np
@@ -84,12 +88,27 @@ def main(argv=None):
     ap.add_argument("--no-pallas-adapter", action="store_true",
                     help="TPU.USE_PALLAS_ADAPTER off: materialized task "
                     "streams (no kernels 5, 6, nor kernel 2's tail mode)")
+    ap.add_argument("--pallas-lora-gemm", action="store_true",
+                    help="TPU.USE_PALLAS_LORA_GEMM on: every layer with a "
+                    "shared adapter, no task branch and no LN kernel runs "
+                    "kernel 8 (the LoRA GEMM)")
+    ap.add_argument("--attn-dense", action="store_true",
+                    help="MTLORA_ATTN_DENSE: a stage with one window per "
+                    "image runs kernel 1c when the batch fills 8-window "
+                    "cells (at --img-size 224, stage 3)")
+    ap.add_argument("--img-size", type=int, default=448,
+                    help="DATA.IMG_SIZE: 448 (the flagship YAML) or 224 "
+                    "(the JAX package's default)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serve: no CUDA device")
-    cfg = tiny_448_r64_pertask(
-        use_pallas_ln=not args.no_pallas_ln,
-        use_pallas_adapter=not (args.no_pallas_ln or args.no_pallas_adapter))
+    cfg = dataclasses.replace(
+        tiny_448_r64_pertask(
+            use_pallas_ln=not args.no_pallas_ln,
+            use_pallas_adapter=not (args.no_pallas_ln
+                                    or args.no_pallas_adapter),
+            use_pallas_lora_gemm=args.pallas_lora_gemm),
+        img_size=args.img_size, attn_dense=args.attn_dense)
     model = random_model(cfg, args.seed, "cuda")
     images = torch.from_numpy(synthetic_images(
         args.batch_size, cfg.img_size, args.seed)).cuda()
@@ -100,7 +119,9 @@ def main(argv=None):
                       "dtype": cfg.compute_dtype,
                       "use_pallas_ln": cfg.use_pallas_ln,
                       "use_pallas_adapter": cfg.use_pallas_adapter,
-                      "img_per_s": rate}))
+                      "use_pallas_lora_gemm": cfg.use_pallas_lora_gemm,
+                      "attn_dense": cfg.attn_dense,
+                      "img_size": cfg.img_size, "img_per_s": rate}))
     if args.profile:
         from mtlora_tpu_torch.train.profile import breakdown
         forwards = 3

@@ -14,6 +14,9 @@ JAX package's default route, ``TPU.USE_PALLAS_LN`` and
 ``TPU.USE_PALLAS_ADAPTER`` on (kernels 2 to 6 forward and backward);
 ``--no-pallas-adapter`` keeps the task streams materialized (kernels 2, 3,
 4), and ``--no-pallas-ln`` also runs LayerNorm outside the GEMMs.
+``--pallas-lora-gemm`` turns ``TPU.USE_PALLAS_LORA_GEMM`` on (kernel 8),
+``--img-size 224`` runs the JAX package's default size, and
+``--attn-dense`` sets ``MTLORA_ATTN_DENSE`` (kernel 1c in stage 3 at 224).
 
 ``--profile TRACE`` then runs 2 more steps under ``torch.profiler``,
 writes the Chrome trace to TRACE and prints a second JSON line: device ms
@@ -23,6 +26,7 @@ per step by kernel class, busy time and idle share (``train/profile.py``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import torch
@@ -56,12 +60,27 @@ def main(argv=None):
     ap.add_argument("--no-pallas-adapter", action="store_true",
                     help="TPU.USE_PALLAS_ADAPTER off: materialized task "
                     "streams (no kernels 5, 6, nor kernel 2's tail mode)")
+    ap.add_argument("--pallas-lora-gemm", action="store_true",
+                    help="TPU.USE_PALLAS_LORA_GEMM on: every layer with a "
+                    "shared adapter, no task branch and no LN kernel runs "
+                    "kernel 8 (the LoRA GEMM)")
+    ap.add_argument("--attn-dense", action="store_true",
+                    help="MTLORA_ATTN_DENSE: a stage with one window per "
+                    "image runs kernel 1c when the batch fills 8-window "
+                    "cells (at --img-size 224, stage 3)")
+    ap.add_argument("--img-size", type=int, default=448,
+                    help="DATA.IMG_SIZE: 448 (the flagship YAML) or 224 "
+                    "(the JAX package's default)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("train: no CUDA device")
-    cfg = tiny_448_r64_pertask(
-        use_pallas_ln=not args.no_pallas_ln,
-        use_pallas_adapter=not (args.no_pallas_ln or args.no_pallas_adapter))
+    cfg = dataclasses.replace(
+        tiny_448_r64_pertask(
+            use_pallas_ln=not args.no_pallas_ln,
+            use_pallas_adapter=not (args.no_pallas_ln
+                                    or args.no_pallas_adapter),
+            use_pallas_lora_gemm=args.pallas_lora_gemm),
+        img_size=args.img_size, attn_dense=args.attn_dense)
     tcfg = TrainConfig(batch_size=args.batch_size)
     model = random_model(cfg, args.seed, "cuda")
     optimizer = build_optimizer(model, tcfg)
@@ -90,6 +109,8 @@ def main(argv=None):
         "batch_size": args.batch_size, "steps": args.steps,
         "dtype": cfg.compute_dtype, "use_pallas_ln": cfg.use_pallas_ln,
         "use_pallas_adapter": cfg.use_pallas_adapter,
+        "use_pallas_lora_gemm": cfg.use_pallas_lora_gemm,
+        "attn_dense": cfg.attn_dense, "img_size": cfg.img_size,
         "img_per_s": args.batch_size / (ms / 1e3), "step_ms": ms,
         "loss": float(metrics["loss"]),
         "grad_norm": float(metrics["grad_norm"]),

@@ -19,6 +19,9 @@ CLASSES: List[Tuple[str, Tuple[str, ...]]] = [
     # (ln_common.cuh), ahead of the attention backward's own sum_groups
     ("weight-gradient passes of 2b, 3b, 4b, 5b, 6b",
      ("wgrad_kernel", "lnk::sum_")),
+    ("window attention kernel 1c (fwd)", ("window_attn_dense_fwd",)),
+    ("window attention kernel 1c (bwd)", ("window_attn_bwd_kernel<true>",)),
+    ("LoRA GEMM kernel 8", ("lora_matmul",)),
     ("window attention kernel (fwd)", ("window_attn_fwd",)),
     ("window attention kernel (bwd)", ("window_attn_bwd", "sum_groups")),
     ("HRNet head kernel (fwd)", ("head_mlp_fwd",)),

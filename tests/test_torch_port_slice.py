@@ -159,19 +159,33 @@ def test_flagship_ln_preset_equals_yaml_config():
     ("TPU.USE_PALLAS_ADAPTER", "True", ["MODEL.MTLORA.PROJ_ENABLED",
                                         "False"]),
     ("TPU.USE_PALLAS_ADAPTER", "False", []),
-    ("TPU.USE_PALLAS_LORA_GEMM", "False", []),
-], ids=["TPU.USE_PALLAS_ADAPTER-ln", "TPU.USE_PALLAS_ADAPTER",
-        "TPU.USE_PALLAS_LORA_GEMM"])
+], ids=["TPU.USE_PALLAS_ADAPTER-ln", "TPU.USE_PALLAS_ADAPTER"])
 def test_unported_kernel_flags_raise(flag, ln, extra):
     """The routes not ported raise: the adapter kernels with the LN route
     off, and with it on but without proj task adapters (fc1's task
-    projection from the shared LN output); the LoRA GEMM kernel too. The
-    adapter route itself (LN on, proj on) no longer raises."""
+    projection from the shared LN output). The adapter route itself (LN
+    on, proj on) no longer raises, nor the LoRA GEMM kernel
+    (:func:`test_lora_gemm_flag_at_224_equals_preset`)."""
     opts = ["TPU.USE_PALLAS_ADAPTER", "False", "TPU.USE_PALLAS_LN", ln,
             flag, "True"] + extra
     cfg = load_config(CFG, tasks=TASKS, opts=opts)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_config.from_config(cfg)
+
+
+def test_lora_gemm_flag_at_224_equals_preset(monkeypatch):
+    """``TPU.USE_PALLAS_LORA_GEMM`` is read, not refused: the YAML at the
+    JAX package's default size, 224, with the flag on is the preset with
+    ``use_pallas_lora_gemm`` at 224 (``MTLORA_ATTN_DENSE`` unset)."""
+    import dataclasses
+    monkeypatch.delenv("MTLORA_ATTN_DENSE", raising=False)
+    cfg = load_config(CFG, tasks=TASKS, img_size=224,
+                      opts=["TPU.USE_PALLAS_LORA_GEMM", "True"])
+    pcfg = port_config.from_config(cfg)
+    assert pcfg.use_pallas_lora_gemm and not pcfg.attn_dense
+    assert pcfg == dataclasses.replace(
+        port_config.tiny_448_r64_pertask(use_pallas_lora_gemm=True),
+        img_size=224)
 
 
 HYGIENE = r"""
@@ -225,6 +239,16 @@ metrics = train_step(model, build_optimizer(model, tcfg),
                      build_schedule(tcfg, 10), batch,
                      torch.Generator().manual_seed(0))
 assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
+for flags in (dict(use_pallas_lora_gemm=True),
+              dict(use_pallas_lora_gemm=True, use_pallas_ln=True,
+                   use_pallas_adapter=True)):
+    model = random_model(dataclasses.replace(cfg, **flags), 0, "cpu")
+    out = predict(model, synthetic_images(1, 64, 0))
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
+    metrics = train_step(model, build_optimizer(model, tcfg),
+                         build_schedule(tcfg, 10), batch,
+                         torch.Generator().manual_seed(0))
+    assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
 assert not any(counters.read().values())   # the CPU route counts nothing
 assert not any(k.split(".")[0] == "mtlora_tpu" for k in sys.modules)
 print("HYGIENE-OK")
@@ -234,8 +258,8 @@ print("HYGIENE-OK")
 def test_port_imports_no_jax_flax_yaml_cv2():
     """Every port module imports, and a toy forward and a toy training
     step run on the three routes (LN outside the GEMMs; kernels 2, 3, 4;
-    and the adapter route, kernels 2 to 6), with jax, flax, yaml and cv2
-    made unimportable."""
+    and the adapter route, kernels 2 to 6), and with kernel 8 on the first
+    and the last, with jax, flax, yaml and cv2 made unimportable."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
     proc = subprocess.run([sys.executable, "-c", HYGIENE], env=env,
                           cwd=os.path.abspath(ROOT), capture_output=True,
