@@ -4,7 +4,7 @@
 
 Phases, each printing a line; any failure raises and exits non-zero:
   1. device: a CUDA card must be present; its name and power limit;
-  2. build: the thirteen CUDA sources from ops/csrc (one nvcc each, in
+  2. build: the fourteen CUDA sources from ops/csrc (one nvcc each, in
      parallel), with the build time;
   3. forward kernels vs plain, on the card, against their plain PyTorch
      versions on the same tensors, at the batch-32 training step's shapes:
@@ -25,6 +25,18 @@ Phases, each printing a line; any failure raises and exits non-zero:
   3b. backward kernels vs plain: the same shapes, every gradient against
      the plain backward (kernel 8: its dx layout; kernel 1c: also against
      kernel 1b), with the same four numbers;
+  3c. the GELU form: kernels 2-tail, 4, 4b, 5 and 5b at stage 1 against
+     their plain versions, which take the tanh form in bf16 as the JAX
+     kernels do, with the distance to the exact-erf form beside it; the
+     probe kernels of the JAX package's tools/ against their plain
+     versions with the same four numbers, at every shape the probe path
+     gives them: kernel 1's body with a part switched (five modes, the
+     four stage shapes, shifted and not), the quad-operand attention (the
+     four stages), kernels 5 and 5b with a part switched (eight forward,
+     three backward variants, M = 32 * 12544);
+then the probe path: each entry point of mtlora_tpu_torch.tools once at
+its full shapes, with few launches, and the launches of every probe
+kernel in that run;
 then, for the adapter route (TPU.USE_PALLAS_LN and USE_PALLAS_ADAPTER on,
 the JAX package's default and the main path), the LN route without the
 adapter kernels, the LN-outside route (both off), path A (kernel 8 on the
@@ -53,10 +65,9 @@ then a JSON line of the kernels, and the last line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
-import statistics
-import subprocess
 import time
 
 import torch
@@ -135,6 +146,31 @@ from mtlora_tpu_torch.train.optim import (
     build_schedule,
 )
 from mtlora_tpu_torch.train.step import synthetic_batch, train_step
+from mtlora_tpu_torch.ops import adapter_mlp, ln_lora
+from mtlora_tpu_torch.ops.adapter_mlp import (
+    BWD_PROBES,
+    FWD_PROBES,
+    adapter_mid_bwd_probe,
+    adapter_mid_bwd_probe_plain,
+    adapter_mid_probe,
+    adapter_mid_probe_plain,
+)
+from mtlora_tpu_torch.ops.quad_attn import (
+    quad_attention,
+    quad_attention_plain,
+)
+from mtlora_tpu_torch.ops.window_attn import (
+    PROBE_MODES,
+    UNMASKED_MODES,
+    window_attention_probe,
+    window_attention_probe_plain,
+)
+from mtlora_tpu_torch.tools import (
+    adapter_variants,
+    attn_probe,
+    card_line,
+    median_ms,
+)
 
 SEED = 0
 REQUESTS = (1, 8, 32)
@@ -151,11 +187,15 @@ ITERS_PER_EPOCH = 1000
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# fp32 operations counted per element for an exact-erf GELU (CUDA's erff
-# is a polynomial of about 13 fused multiply-adds, plus the GELU's own
-# multiplies and adds) and for GELU with its derivative (one erf, one exp)
-GELU_OPS = 20
-GELU_PAIR_OPS = 30
+# fp32 operations counted per element of an activation form, alone and
+# with its derivative: the exact erf (CUDA's erff is a polynomial of about
+# 13 fused multiply-adds; its derivative adds an exp), the tanh form
+# (tanhf about 12 operations, the form's own 6, the derivative 8 more),
+# the sigmoid form (expf and an exact divide about 14, its own 5, the
+# derivative 8 more); the kernels' GELU is the tanh form
+ACT_OPS = {"erf": (20, 30), "tanh": (18, 26), "sig": (19, 27),
+           "none": (0, 0)}
+GELU_OPS, GELU_PAIR_OPS = ACT_OPS["tanh"]
 # kernel vs plain, both bf16 on the card: outputs agree up to the order of
 # fp32 sums, which can flip a bf16 rounding of P (attention) or of the
 # hidden (head) and of the output. Attention outputs are convex mixes of v
@@ -202,31 +242,6 @@ TRAIN_GRAD_NORM_REL = 5e-2
 TRAIN_GRAD_COSINE = 0.98
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
-
-
-def median_ms(fn, reps: int = 20, rounds: int = 3, warmup: int = 3) -> float:
-    """ms per call: CUDA events around ``reps`` calls back to back (so the
-    host enqueues ahead of the card), the median of ``rounds``."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(rounds):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return statistics.median(times)
-
-
 def ops_seconds(flops, fp32_ops=0.0) -> float:
     """Least time of the operations: the tensor-core products at the bf16
     rate and the fp32 work outside the tensor cores at its rate, the two
@@ -244,11 +259,14 @@ class Tally:
     def add(self, err, ms, plain, lib, nbytes, flops, weight=1, fp32_ops=0.0):
         """``weight``: the launches of this shape per pass (the sites of a
         forward that take it), so that the sums are per pass; ``fp32_ops``:
-        operations on the CUDA cores (GELU, rank-4 products)."""
+        operations on the CUDA cores (GELU, rank-4 products); ``lib`` None
+        where no PyTorch call computes the function (then the sum is
+        None)."""
         self.err = max(self.err, err)
         self.ms += weight * ms
         self.plain += weight * plain
-        self.lib += weight * lib
+        self.lib = (None if lib is None or self.lib is None
+                    else self.lib + weight * lib)
         self.bytes += weight * nbytes
         self.flops += weight * flops
         self.fp32 += weight * fp32_ops
@@ -630,7 +648,7 @@ def ln_mlp_library(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2,
                    s1, s2):
     ln = F.layer_norm(x, (x.shape[1],), gamma, beta, 1e-5)
     h = torch.addmm(bias1, ln, w1.t()) + s1 * ((ln @ a1.t()) @ bb1.t())
-    g = F.gelu(h)
+    g = F.gelu(h, approximate="tanh")
     return torch.addmm(bias2, g, w2.t()) + s2 * ((g @ a2.t()) @ bb2.t())
 
 
@@ -710,7 +728,8 @@ def check_ln_mlp(gen) -> dict:
 def ln_lora_tail_library(x, gamma, beta, wt, bias, at, bt, scale):
     ln = F.layer_norm(x, (x.shape[1],), gamma, beta, 1e-5)
     p = torch.addmm(bias, ln, wt.t())
-    return F.gelu(p + scale * ((ln @ at.t()) @ bt.t())), p
+    return F.gelu(p + scale * ((ln @ at.t()) @ bt.t()),
+                  approximate="tanh"), p
 
 
 def check_ln_lora_tail(gen) -> dict:
@@ -779,9 +798,11 @@ def check_ln_lora_tail(gen) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
-def adapter_library(mid1T, p1, b1, a2T, s):
-    """bmm -> add -> GELU -> bmm, the [T, M, 4C] hidden in device memory."""
-    h = F.gelu(p1[None] + s * torch.bmm(mid1T.transpose(1, 2), b1))
+def adapter_library(mid1T, p1, b1, a2T, s, approximate="tanh"):
+    """bmm -> add -> GELU -> bmm, the [T, M, 4C] hidden in device memory
+    (``approximate``: F.gelu's form, "tanh" as the kernels take it)."""
+    h = F.gelu(p1[None] + s * torch.bmm(mid1T.transpose(1, 2), b1),
+               approximate=approximate)
     return torch.bmm(a2T, h.transpose(1, 2))
 
 
@@ -1103,6 +1124,288 @@ def check_dense_attention(gen) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
+# ---------------------------------------------------------------------------
+# Phase 3c: the probe kernels of the JAX package's tools/ (kernel 1's body
+# with a part switched, kernels 5 and 5b with a part switched, the
+# quad-operand attention) against their plain versions, at every shape the
+# probe path runs them at (the four attention stages, the adapter at M =
+# 32 * 12544); and the GELU form of kernels 2-tail, 4, 4b, 5 and 5b: against
+# the tanh plain version (the bound), with the distance to the exact-erf
+# form printed beside it.
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_form(form: str):
+    """The plain versions on the GELU ``form`` whatever the dtype."""
+    saved = ln_lora.gelu_form, adapter_mlp.gelu_form
+    ln_lora.gelu_form = adapter_mlp.gelu_form = lambda cdt: form
+    try:
+        yield
+    finally:
+        ln_lora.gelu_form, adapter_mlp.gelu_form = saved
+
+
+def bf16_err(label, got, want):
+    """Largest error, asserted within 2^-6 of the largest element."""
+    assert got.shape == want.shape and got.dtype == want.dtype, label
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    assert err <= LN_BF16_REL * top, f"{label}: {err} > 2^-6 of {top}"
+    return err, f"max_abs_err {err:.3e} (bound {LN_BF16_REL * top:.3e})"
+
+
+def rel_rms(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def check_gelu_form(gen):
+    """Kernels 2-tail, 4, 4b, 5 and 5b at stage 1 against the tanh plain
+    versions (the bound of phases 3 and 3b), and the relative RMS distance
+    of one output to the tanh and to the exact-erf plain version: the
+    first must be under half the second (the kernels' own rounding
+    leaves ~1e-4, the form's gap ~1e-3 and more)."""
+    cfg, _, C, M = stage_dims(1)
+    st = cfg.stages[1]
+    O, r, sc, T = 4 * C, st.r_shared, st.shared_scale, len(cfg.tasks)
+    x = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
+    gamma, beta = _ln_params(gen, C)
+    tail = (x, gamma, beta, _uniform(gen, (O, C), C ** -0.5),
+            _uniform(gen, (O,), 0.02), _uniform(gen, (r, C), C ** -0.5),
+            _uniform(gen, (O, r), r ** -0.5), _seed(gen), sc, 0.0)
+    mlp = (x, gamma, beta, _uniform(gen, (O, C), C ** -0.5),
+           _uniform(gen, (O,), 0.02), _uniform(gen, (r, C), C ** -0.5),
+           _uniform(gen, (O, r), r ** -0.5), _uniform(gen, (C, O), O ** -0.5),
+           _uniform(gen, (C,), 0.02), _uniform(gen, (r, O), O ** -0.5),
+           _uniform(gen, (C, r), r ** -0.5), _seed(gen), sc, sc, 0.0)
+    gy = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
+    mid = ((0.5 * torch.randn(T, 4, M, generator=gen, device="cuda")).to(
+        torch.bfloat16), torch.randn(M, O, generator=gen, device="cuda").to(
+        torch.bfloat16), _uniform(gen, (T, 4, O), 0.1),
+        _uniform(gen, (T, 4, O), O ** -0.5), st.task_scales)
+    g = torch.randn(T, 4, M, generator=gen, device="cuda").to(torch.bfloat16)
+    cases = [
+        ("ln_lora_tail y", lambda: ln_lora_tail_fwd(*tail)[0],
+         lambda: ln_lora_tail_plain(*tail)[0]),
+        ("ln_mlp y", lambda: ln_mlp_fwd(*mlp), lambda: ln_mlp_plain(*mlp)),
+        ("ln_mlp_bwd dx", lambda: ln_mlp_bwd(*mlp, gy)[0],
+         lambda: ln_mlp_bwd_plain(*mlp, gy)[0]),
+        ("adapter_mid mid2T", lambda: adapter_mid_fwd(*mid),
+         lambda: adapter_mid_plain(*mid)),
+        ("adapter_mid_bwd dp1", lambda: adapter_mid_bwd(*mid, g)[1],
+         lambda: adapter_mid_bwd_plain(*mid, g)[1]),
+    ]
+    for label, kernel, plain in cases:
+        got = kernel()
+        want = plain()
+        with plain_form("erf"):
+            erf = plain()
+        torch.cuda.synchronize()
+        _, text = bf16_err(f"gelu form {label}", got, want)
+        d_tanh, d_erf = rel_rms(got, want), rel_rms(got, erf)
+        print(f"gelu form stage 1 {label}: vs tanh plain {text}; rel_rms "
+              f"to the tanh plain {d_tanh:.3e}, to the erf plain "
+              f"{d_erf:.3e}")
+        assert d_tanh < 0.5 * d_erf, f"{label} is not the tanh form"
+        del got, want, erf
+
+
+def attn_probe_library(mode, qkv, bias, mask, nH, nW, scale):
+    """One PyTorch call (chain) per mode with one: SDPA for ``full``, bmm
+    chains for ``nosmax`` and ``dots_only``; None for the others."""
+    if mode not in ("full", "nosmax", "dots_only"):
+        return None
+    q, k, v, am = sdpa_operands(qkv, bias, mask, nH, nW)
+    if mode == "full":
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                      scale=scale)
+    Bw, _, N, hd = q.shape
+    q3, k3, v3 = (t.reshape(Bw * nH, N, hd) for t in (q, k, v))
+    qs = q3 * scale
+    if mode == "dots_only":
+        return lambda: torch.bmm(torch.bmm(qs, k3.transpose(1, 2)), v3)
+    am3 = am.reshape(Bw * nH, N, N)
+    return lambda: torch.bmm(torch.baddbmm(am3, qs, k3.transpose(1, 2)), v3)
+
+
+def attn_probe_cost(mode, Bw, N, C, nH, nW, masked):
+    """(bytes, bf16 tensor-core flops, fp32 operations) that a probe mode's
+    output needs. The card reads in 32-byte sectors: ``nodots`` needs the
+    sector of each head's first q and k lane (the head's 32 lanes span two
+    sectors or more) and all of v; ``softmax_only`` the sector of each
+    token's first qkv column; ``dots_only`` no bias and no mask."""
+    hd, sector = C // nH, 32
+    qkv = {"nodots": Bw * N * (2 * C + 2 * nH * sector),
+           "softmax_only": Bw * N * sector}.get(mode, Bw * N * 3 * C * 2)
+    bias = 0 if mode == "dots_only" else nH * N * N * 4
+    nbytes = qkv + bias + (nW * N * N * 4 if masked else 0) + Bw * N * C * 2
+    dots = {"full": 2, "nosmax": 2, "nodots": 1, "dots_only": 2,
+            "softmax_only": 0}[mode]
+    flops = 2.0 * dots * Bw * nH * N * N * hd
+    # the softmax: about 8 operations per score
+    ops32 = (8.0 * Bw * nH * N * N
+             if mode in ("full", "nodots", "softmax_only") else 0.0)
+    return nbytes, flops, ops32
+
+
+def check_attention_probes(gen) -> dict:
+    """Each mode of kernel 1's probe and the quad-operand attention at the
+    four stage shapes of the probe path (batch 32), with and without the
+    shift mask where the mode takes one."""
+    out = {mode: Tally() for mode in (*PROBE_MODES, "quad_pre")}
+    for stage in attn_probe.STAGES:
+        qkv, bias, mask, nH, scale = attn_probe.stage_inputs(stage, gen)
+        Bw, N, C3 = qkv.shape
+        C, nW = C3 // 3, mask.shape[0]
+        for mode in PROBE_MODES:
+            for m in ((None,) if mode in UNMASKED_MODES else (None, mask)):
+                args = (qkv, nH, bias, m, scale, mode)
+                got = window_attention_probe(*args)
+                want = window_attention_probe_plain(*args)
+                torch.cuda.synchronize()
+                err, text = bf16_err(f"attention probe {mode} {stage}", got,
+                                     want)
+                del got, want
+                t_k = median_ms(lambda: window_attention_probe(*args))
+                t_p = median_ms(lambda: window_attention_probe_plain(*args))
+                lib = attn_probe_library(mode, qkv, bias, m, nH, nW, scale)
+                t_l = median_ms(lib) if lib else None
+                cost = attn_probe_cost(mode, Bw, N, C, nH, nW, m is not None)
+                lib_text = f"{t_l:.4f} ms" if t_l is not None else "none"
+                print(f"attention probe {mode} {stage} qkv "
+                      f"{tuple(qkv.shape)} shift {m is not None}: {text} "
+                      f"kernel {t_k:.4f} ms plain {t_p:.4f} ms library "
+                      f"{lib_text} {bound_text(*cost)}")
+                out[mode].add(err, t_k, t_p, t_l, cost[0], cost[1], 1,
+                              cost[2])
+        del qkv, bias, mask
+        qb, kb, qbias = attn_probe.quad_inputs(stage, gen)
+        nq, nH, Rq, D = qb.shape
+        Nk = kb.shape[3]
+        got = quad_attention(qb, kb, qbias)
+        want = quad_attention_plain(qb, kb, qbias)
+        torch.cuda.synchronize()
+        err, text = bf16_err(f"quad_pre attention {stage}", got, want)
+        del want
+        t_k = median_ms(lambda: quad_attention(qb, kb, qbias))
+        t_p = median_ms(lambda: quad_attention_plain(qb, kb, qbias))
+        q3 = qb.reshape(nq * nH, Rq, D)
+        k3 = kb[:, :, 0].reshape(nq * nH, Nk, D)
+        v3 = kb[:, :, 1].reshape(nq * nH, Nk, D)
+        b3 = qbias.to(torch.bfloat16)[None].expand(nq, nH, Rq, Nk).reshape(
+            nq * nH, Rq, Nk)
+
+        def quad_library():
+            p = torch.softmax(torch.baddbmm(b3, q3, k3.transpose(1, 2)), -1)
+            return torch.bmm(p, v3).view(nq, nH, Rq, 4, 32).sum(3)
+
+        t_l = median_ms(quad_library)
+        nbytes = (2 * (qb.numel() + kb.numel()) + 4 * qbias.numel()
+                  + 2 * got.numel())
+        flops = 4.0 * nq * nH * Rq * Nk * D
+        ops32 = 8.0 * nq * nH * Rq * Nk
+        print(f"quad_pre attention {stage} qb {tuple(qb.shape)} kb "
+              f"{tuple(kb.shape)}: {text} kernel {t_k:.4f} ms plain "
+              f"{t_p:.4f} ms library {t_l:.4f} ms "
+              f"{bound_text(nbytes, flops, ops32)}")
+        out["quad_pre"].add(err, t_k, t_p, t_l, nbytes, flops, 1, ops32)
+        del got, qb, kb, qbias, q3, k3, v3, b3
+    return out
+
+
+def adapter_probe_library(name, mid1T, p1, b1, a2T, sv):
+    """A PyTorch chain for the forward probes that F.gelu or no activation
+    computes (base, tanh, noact, nodot1); None for the others."""
+    if name in ("base", "tanh"):
+        form = "none" if name == "base" else "tanh"
+        return lambda: adapter_library(mid1T, p1, b1, a2T, sv, form)
+    if name == "noact":
+        return lambda: torch.bmm(a2T, (p1[None] + sv * torch.bmm(
+            mid1T.transpose(1, 2), b1)).transpose(1, 2))
+    if name == "nodot1":
+        return lambda: torch.bmm(a2T, F.gelu(sv * p1[None]).transpose(1, 2))
+    return None
+
+
+def check_adapter_probes(gen) -> dict:
+    """Each forward and backward probe of kernels 5 and 5b at the probe
+    path's shape: T 4, rank 4, M = 32 * 12544, H4 = 384, bf16 (the probe's
+    inputs)."""
+    M, T, r = adapter_variants.TOKENS, adapter_variants.TASKS, 4
+    H4 = adapter_variants.H4
+    scales = adapter_variants.SCALES
+    mid1T, p1, b1, a2T, g = adapter_variants.inputs(gen, M)
+    mid1N = mid1T.transpose(1, 2).contiguous()
+    sv = torch.tensor(scales, device="cuda").view(T, 1, 1).to(torch.bfloat16)
+    out = {}
+    for name, (_, form, kind) in FWD_PROBES.items():
+        mid = mid1N if kind in ("vpu1", "vpu12") else mid1T
+        args = (mid, p1, b1, a2T, scales, name)
+        got = adapter_mid_probe(*args)
+        want = adapter_mid_probe_plain(*args)
+        torch.cuda.synchronize()
+        err, text = bf16_err(f"adapter probe fwd {name}", got, want)
+        t_k = median_ms(lambda: adapter_mid_probe(*args))
+        t_p = median_ms(lambda: adapter_mid_probe_plain(*args), reps=5)
+        lib = adapter_probe_library(name, mid1T, p1, b1, a2T, sv)
+        t_l = median_ms(lib, reps=5) if lib else None
+        # mid1 and B1 (not read without the rank expansion), p1, A2, out
+        nbytes = 2 * ((T * r * M + T * r * H4 if kind != "nodot1" else 0)
+                      + M * H4 + T * r * H4 + T * r * M)
+        # the activation, the rank-r expansion (one multiply without it)
+        # and the rank-r projection, 2 r operations each
+        ops32 = float(T) * M * H4 * (ACT_OPS[form][0]
+                                     + (2 * r if kind != "nodot1" else 1)
+                                     + 2 * r)
+        lib_text = f"{t_l:.4f} ms" if t_l is not None else "none"
+        print(f"adapter probe fwd {name} T {T} M {M} H4 {H4}: {text} kernel "
+              f"{t_k:.4f} ms plain {t_p:.4f} ms library {lib_text} "
+              f"{bound_text(nbytes, 0.0, ops32)}")
+        out[f"fwd {name}"] = Tally()
+        out[f"fwd {name}"].add(err, t_k, t_p, t_l, nbytes, 0.0, 1, ops32)
+        del got, want
+    for name, (_, form) in BWD_PROBES.items():
+        args = (mid1T, p1, b1, a2T, scales, g, name)
+        got = adapter_mid_bwd_probe(*args)
+        want = adapter_mid_bwd_probe_plain(*args)
+        torch.cuda.synchronize()
+        err, text = check_outputs(f"adapter probe bwd {name}", got, want,
+                                  ("dmid1T", "dp1", "dB1", "dA2T"), {0, 1})
+        del got, want
+        t_k = median_ms(lambda: adapter_mid_bwd_probe(*args), reps=5)
+        t_p = median_ms(lambda: adapter_mid_bwd_probe_plain(*args), reps=3)
+        t_l = None
+        if name != "sig":
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (mid1T, p1, b1, a2T)]
+            yl = adapter_library(*leaves, sv,
+                                 "none" if name == "base" else "tanh")
+            t_l = median_ms(lambda: torch.autograd.grad(
+                yl, leaves, g, retain_graph=True), reps=5)
+            del yl, leaves
+        nbytes = (2 * (3 * T * r * M + 2 * M * H4 + 2 * T * r * H4)
+                  + 4 * 2 * T * r * H4)
+        ops32 = float(T) * M * H4 * (ACT_OPS[form][1] + 10 * r)
+        lib_text = f"{t_l:.4f} ms" if t_l is not None else "none"
+        print(f"adapter probe bwd {name}: {text} kernel {t_k:.4f} ms plain "
+              f"{t_p:.4f} ms library backward {lib_text} "
+              f"{bound_text(nbytes, 0.0, ops32)}")
+        out[f"bwd {name}"] = Tally()
+        out[f"bwd {name}"].add(err, t_k, t_p, t_l, nbytes, 0.0, 1, ops32)
+    return out
+
+
+def probe_path() -> dict:
+    """The probe path: each tools entry point's ``main`` once at its full
+    shapes, with few launches; returns the launches of the run."""
+    counters.reset()
+    args = ["--reps", "2", "--rounds", "1"]
+    attn_probe.main(args)
+    adapter_variants.main(args)
+    torch.cuda.synchronize()
+    return counters.read()
+
+
 def lora_gemm_launches(cfg) -> int:
     """Kernel 8 launches per forward: every MTLoRALinear with a shared
     adapter, no task branch and no LN kernel; on the LN routes proj of the
@@ -1155,7 +1458,7 @@ def launches_per_pass(cfg, backward: bool, batch: int,
         # branch in kernel 5; the merges take the task streams in kernel 6
         fwd.update(ln_lora_tail=stages, adapter_mid=stages,
                    patch_merge=stages - 1, task_merge=stages - 1)
-    want = dict.fromkeys(counters.WRAPPERS, 0)
+    want = dict.fromkeys(counters.read(), 0)
     for name, n in fwd.items():
         want[name] = n
         if backward:
@@ -1411,6 +1714,16 @@ def main():
     gemm = check_lora_matmul(gen)
     dense = check_dense_attention(gen)
     print(f"phases 3 and 3b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_gelu_form(gen)
+    attn_probes = check_attention_probes(gen)
+    adapter_probes = check_adapter_probes(gen)
+    print(f"phase 3c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    probe_counts = {"probe": probe_path()}
+    print(f"probe path: launches "
+          f"{ {k: v for k, v in probe_counts['probe'].items() if v} }, "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # the launches of each path's checked training steps (phase 7), and of
     # its dropout-off step (phase 8), by route
@@ -1443,13 +1756,37 @@ def main():
         train_counts.setdefault(path_of(cfg), counts)
         cross_counts.setdefault(path_of(cfg), cross)
 
-    def entry(name, source, replaces, tally, path="main", counts=None):
+    def entry(name, source, replaces, tally, path="main", counts=None,
+              root="mtlora_tpu/ops/"):
         launches = (counts or train_counts)[path][name]
         assert launches > 0, f"{name} never launched on its path"
         return {"name": name, "route": "cuda",
                 "source": f"mtlora_tpu_torch/ops/csrc/{source}",
-                "replaces": f"mtlora_tpu/ops/{replaces}",
+                "replaces": f"{root}{replaces}",
                 "launches": launches, **tally.json()}
+
+    def probe_entry(name, source, replaces, tally):
+        return entry(name, source, replaces, tally, "probe", probe_counts,
+                     "tools/")
+
+    probes = [
+        probe_entry(f"window_attention_probe.{mode}", "window_attn.cu",
+                    "attn_variants.py:513" if mode in UNMASKED_MODES
+                    else "attn_probe.py:85", attn_probes[mode])
+        for mode in PROBE_MODES]
+    probes.append(probe_entry("quad_pre_attention", "quad_attn.cu",
+                              "attn_variants.py:475",
+                              attn_probes["quad_pre"]))
+    probes += [
+        probe_entry(f"adapter_mid_probe.{name}", "adapter_mlp.cu",
+                    "adapter_variants.py:117" if kind in ("vpu1", "vpu12")
+                    else "adapter_variants.py:191",
+                    adapter_probes[f"fwd {name}"])
+        for name, (_, _, kind) in FWD_PROBES.items()]
+    probes += [
+        probe_entry(f"adapter_mid_bwd_probe.{name}", "adapter_mlp_bwd.cu",
+                    "adapter_variants.py:209", adapter_probes[f"bwd {name}"])
+        for name in BWD_PROBES]
 
     print(json.dumps({"kernels": [
         entry("window_attention", "window_attn.cu",
@@ -1490,6 +1827,7 @@ def main():
               gemm["fwd"], "A"),
         entry("lora_matmul_dx", "lora_matmul.cu",
               "pallas_lora_matmul.py:117", gemm["bwd"], "A", cross_counts),
+        *probes,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

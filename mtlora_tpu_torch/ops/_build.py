@@ -27,9 +27,10 @@ _P, _I, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_uint)
 # C entry points: name -> argument types; each returns a cudaError_t
 SIGNATURES = {
-    # qkv, bias, mask, out, n_windows, N, C, num_heads, mask_windows,
-    # scale, stream
-    "mtlora_window_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # mode, qkv, bias, mask, out, n_windows, N, C, num_heads,
+    # mask_windows, scale, stream
+    "mtlora_window_attn_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                               _P],
     # qkv, bias, mask, dout, dqkv, dbias_part, dbias, n_windows, N, C,
     # num_heads, mask_windows, group, scale_c, scale, stream
     "mtlora_window_attn_bwd": [_P] * 7 + [_I] * 6 + [_F, _F, _P],
@@ -37,6 +38,8 @@ SIGNATURES = {
     "mtlora_window_attn_dense_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                      _P],
     "mtlora_window_attn_dense_bwd": [_P] * 7 + [_I] * 6 + [_F, _F, _P],
+    # qb, kb, bias, out, nq, nH, rows, keys, stream
+    "mtlora_quad_attn_fwd": [_P] * 4 + [_I] * 4 + [_P],
     # x, x_drop (null: one input), wt, at, bt, y, M, K, N, r, scale, stream
     "mtlora_lora_matmul_fwd": [_P] * 6 + [_I] * 4 + [_F, _P],
     # dy, wt, at, bt, dx, M, N, K, r, scale, stream
@@ -67,11 +70,11 @@ SIGNATURES = {
     # stats, lbuf, mbuf, gb, pa, pb, ph, dgb, da1, dh, dbb2, M, C, H4, r,
     # sa, sb, sh, s1, s2, drop threshold, use_drop, inv_keep, stream
     "mtlora_ln_mlp_bwd": [_P] * 31 + [_I] * 7 + [_F, _F, _U, _I, _F, _P],
-    # mid1T, p1, b1, a2T, mid2T, T, M, H4, s0, s1, s2, s3, stream
-    "mtlora_adapter_mid_fwd": [_P] * 5 + [_I] * 3 + [_F] * 4 + [_P],
-    # mid1T, p1, b1, a2T, g, dmid1T, dp1, part, dw, T, M, H4, stripes,
-    # s0, s1, s2, s3, stream
-    "mtlora_adapter_mid_bwd": [_P] * 9 + [_I] * 4 + [_F] * 4 + [_P],
+    # variant, mid1T, p1, b1, a2T, mid2T, T, M, H4, s0, s1, s2, s3, stream
+    "mtlora_adapter_mid_fwd": [_I] + [_P] * 5 + [_I] * 3 + [_F] * 4 + [_P],
+    # activation, mid1T, p1, b1, a2T, g, dmid1T, dp1, part, dw, T, M, H4,
+    # stripes, s0, s1, s2, s3, stream
+    "mtlora_adapter_mid_bwd": [_I] + [_P] * 9 + [_I] * 4 + [_F] * 4 + [_P],
     # base, pre, p2, mid, bs_cs, coef, gamma, beta, wt, y, T, B, H, W, C, O,
     # stream
     "mtlora_task_merge_fwd": [_P] * 10 + [_I] * 6 + [_P],

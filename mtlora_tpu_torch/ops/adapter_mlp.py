@@ -16,8 +16,16 @@ Cast points as ``adapter_mid_reference`` (:335) and ``_bwd_kernel``
 compute dtype before ``h A2`` (fp32 sum, rounded once); backward ``dh =
 g^T A2T`` in fp32, ``dz = bf16(dh gelu'(z))``, ``dp1 = sum_t dz`` in fp32
 in task order, ``dmid1 = s B1 dz`` and the fp32 sums ``dB1 = s mid1 dz``,
-``dA2T = g h``. GELU is exact erf here and in the kernels; the TPU's bf16
-kernel takes the tanh form (ROADMAP Queue 3).
+``dA2T = g h``. GELU is the JAX kernel's (``ln_lora.gelu_form``): the
+tanh form in bf16, the kernels' only dtype, exact erf otherwise.
+
+The probes of ``tools/adapter_variants.py`` are switches on the same two
+kernels, at T = 4 (:data:`FWD_PROBES`, :data:`BWD_PROBES`): the form of
+the activation, the rank expansion left out (``nodot1``), and the ``[T,
+M, r]`` layout of mid1 and the result (``vpu*``), with its own order of
+the expansion's sums. The probe's ``nodot2`` has no counterpart: JAX
+refuses it at the probe's shape (it stores an ``[R, H4]`` hidden into an
+``[R, 1024]`` block).
 """
 
 from __future__ import annotations
@@ -25,10 +33,33 @@ from __future__ import annotations
 import torch
 
 from mtlora_tpu_torch.ops import _build
-from mtlora_tpu_torch.ops.ln_lora import _acc, _stream, _sms, gelu_pair
+from mtlora_tpu_torch.ops.ln_lora import (
+    _acc,
+    _sms,
+    _stream,
+    act_pair,
+    gelu_form,
+)
 
 RANK = 4        # the kernels' per-task rank (r_max of the flagship)
 MAX_TASKS = 4
+# forward probes -> (the CUDA source's FwdId, activation form, variant):
+# make_fwd(_gelu), make_fwd(_tanh_gelu) (here the kernels' tanh algebra:
+# kernel 5), make_fwd(_sig_gelu), make_fwd(None), make_fwd(_gelu,
+# dot1=False), make_fwd_vpu(_sig_gelu), make_fwd_vpu(_sig_gelu,
+# vpu_dot2=True), make_fwd_vpu(None)
+FWD_PROBES = {
+    "base": (0, "erf", "main"), "tanh": (1, "tanh", "main"),
+    "sig": (2, "sig", "main"), "noact": (3, "none", "main"),
+    "nodot1": (4, "erf", "nodot1"), "vpu1sig": (5, "sig", "vpu1"),
+    "vpu12sig": (6, "sig", "vpu12"), "vpu1noac": (7, "none", "vpu1"),
+}
+# backward probes -> (the CUDA source's BwdId, activation form):
+# make_bwd(erf_pair), kernel 5b, make_bwd(sig_pair)
+BWD_PROBES = {"base": (0, "erf"), "tanh": (1, "tanh"), "sig": (2, "sig")}
+# kernels 5 and 5b: the tanh form, at any T <= 4 (kFwdTanh, kBwdTanh)
+KERNEL5_FWD = 1
+KERNEL5B_ACT = 1
 
 
 def _z(mid1T, p1, b1, scales):
@@ -41,8 +72,36 @@ def _z(mid1T, p1, b1, scales):
 
 def adapter_mid_plain(mid1T, p1, b1, a2T, scales):
     """mid2T [T, r2, M] in mid1T's dtype."""
-    cdt, f = mid1T.dtype, _acc(mid1T.dtype)
-    h = gelu_pair(_z(mid1T, p1, b1, scales))[0].to(cdt).to(f)
+    return adapter_mid_probe_plain(mid1T, p1, b1, a2T, scales,
+                                   gelu_form(mid1T.dtype))
+
+
+def adapter_mid_probe_plain(mid1, p1, b1, a2T, scales, probe: str):
+    """A forward probe (a name of :data:`FWD_PROBES`, or a bare activation
+    form for kernel 5's own variant): mid1 and the result ``[T, r, M]``,
+    or ``[T, M, r]`` for the ``vpu*`` probes, in mid1's dtype.
+
+    ``nodot1``: ``z = s_t p1``. ``vpu*``: ``z = p1``, then ``z += (s_t
+    mid[:, r]) B1[r]`` in r order; ``vpu12sig`` projects the fp32 hidden,
+    never rounded."""
+    _, form, kind = FWD_PROBES.get(probe, (None, probe, "main"))
+    cdt, f = mid1.dtype, _acc(mid1.dtype)
+    T, M, H4 = len(scales), p1.shape[0], p1.shape[1]
+    s = torch.tensor(scales, dtype=f, device=p1.device).view(-1, 1, 1)
+    if kind == "nodot1":
+        z = p1.to(f)[None] * s
+    elif kind in ("vpu1", "vpu12"):
+        m, bf = mid1.to(f), b1.to(f)
+        z = p1.to(f)[None].expand(T, M, H4)
+        for r in range(m.shape[2]):
+            z = z + (s * m[:, :, r:r + 1]) * bf[:, r:r + 1, :]
+    else:
+        z = _z(mid1, p1, b1, scales)
+    h = act_pair(z, form)[0]
+    if kind != "vpu12":
+        h = h.to(cdt).to(f)
+    if kind in ("vpu1", "vpu12"):
+        return torch.einsum("tmh,trh->tmr", h, a2T.to(f)).to(cdt)
     return torch.einsum("tmh,trh->trm", h, a2T.to(f)).to(cdt)
 
 
@@ -50,8 +109,16 @@ def adapter_mid_bwd_plain(mid1T, p1, b1, a2T, scales, g):
     """``(dmid1T, dp1, db1, da2T)`` of :func:`adapter_mid_plain` from the
     cotangent ``g [T, r2, M]``: dmid1T and dp1 in the inputs' dtypes, db1
     and da2T in the accumulation dtype."""
+    return adapter_mid_bwd_probe_plain(mid1T, p1, b1, a2T, scales, g,
+                                       gelu_form(mid1T.dtype))
+
+
+def adapter_mid_bwd_probe_plain(mid1T, p1, b1, a2T, scales, g, probe: str):
+    """:func:`adapter_mid_bwd_plain` with the activation of a backward
+    probe (a name of :data:`BWD_PROBES`, or a form)."""
     cdt, f = mid1T.dtype, _acc(mid1T.dtype)
-    gl, dgelu = gelu_pair(_z(mid1T, p1, b1, scales))
+    gl, dgelu = act_pair(_z(mid1T, p1, b1, scales),
+                         BWD_PROBES.get(probe, (None, probe))[1])
     h = gl.to(cdt).to(f)
     gf = g.to(f)
     dz = (torch.einsum("trm,trh->tmh", gf, a2T.to(f)) * dgelu).to(cdt).to(f)
@@ -69,18 +136,20 @@ def adapter_mid_bwd_plain(mid1T, p1, b1, a2T, scales, g):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(name, mid1T, p1, b1, a2T, scales, extra=()):
+def _check(name, mid1T, p1, b1, a2T, scales, extra=(), tmr=False):
+    """``tmr``: mid1 in the ``[T, M, r]`` layout of the ``vpu*`` probes."""
     if mid1T.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {mid1T.device}")
-    T, r1, M = mid1T.shape
-    H4 = p1.shape[1]
+    T, M, H4 = mid1T.shape[0], p1.shape[0], p1.shape[1]
+    r1 = mid1T.shape[2] if tmr else mid1T.shape[1]
     if (T > MAX_TASKS or r1 != RANK or a2T.shape[1] != RANK or H4 % 64
             or len(scales) != T):
         raise ValueError(f"{name} kernel: needs at most {MAX_TASKS} tasks "
                          f"of rank {RANK} and 4C % 64 == 0, got mid1T "
                          f"{tuple(mid1T.shape)}, p1 {tuple(p1.shape)}, a2T "
                          f"{tuple(a2T.shape)}")
-    want = [("mid1T", mid1T, (T, RANK, M)), ("p1", p1, (M, H4)),
+    mid = (T, M, RANK) if tmr else (T, RANK, M)
+    want = [("mid1T", mid1T, mid), ("p1", p1, (M, H4)),
             ("b1", b1, (T, RANK, H4)), ("a2T", a2T, (T, RANK, H4))]
     for label, t, shape in want + list(extra):
         if (t.dtype != torch.bfloat16 or tuple(t.shape) != shape
@@ -95,18 +164,29 @@ def _scales(scales):
     return [float(s) for s in scales] + [0.0] * (MAX_TASKS - len(scales))
 
 
+def _launch_fwd(what, fid, tmr, mid1, p1, b1, a2T, scales):
+    """The forward kernel in variant ``fid`` (an id of :data:`FWD_PROBES`;
+    :data:`KERNEL5_FWD` at up to 4 tasks, the others at 4); ``tmr``: the
+    ``[T, M, r]`` layout."""
+    T, M, H4 = _check(what, mid1, p1, b1, a2T, scales, tmr=tmr)
+    if fid != KERNEL5_FWD and T != MAX_TASKS:
+        raise ValueError(f"{what}: runs at T = {MAX_TASKS}, got {T}")
+    out = torch.empty((T, M, RANK) if tmr else (T, RANK, M),
+                      dtype=mid1.dtype, device=mid1.device)
+    err = _build.library().mtlora_adapter_mid_fwd(
+        fid, mid1.data_ptr(), p1.data_ptr(), b1.data_ptr(), a2T.data_ptr(),
+        out.data_ptr(), T, M, H4, *_scales(scales), _stream(mid1))
+    _build.check(err, "mtlora_adapter_mid_fwd")
+    return out
+
+
 def adapter_mid_fwd(mid1T, p1, b1, a2T, scales):
     """Kernel 5 forward, no autograd: plain for CPU tensors, the kernel for
     CUDA tensors (bf16, rank 4, at most 4 tasks)."""
     if mid1T.device.type == "cpu":
         return adapter_mid_plain(mid1T, p1, b1, a2T, scales)
-    T, M, H4 = _check("adapter MLP tail forward", mid1T, p1, b1, a2T,
-                      scales)
-    out = torch.empty_like(mid1T)
-    err = _build.library().mtlora_adapter_mid_fwd(
-        mid1T.data_ptr(), p1.data_ptr(), b1.data_ptr(), a2T.data_ptr(),
-        out.data_ptr(), T, M, H4, *_scales(scales), _stream(mid1T))
-    _build.check(err, "mtlora_adapter_mid_fwd")
+    out = _launch_fwd("adapter MLP tail forward", KERNEL5_FWD, False,
+                      mid1T, p1, b1, a2T, scales)
     adapter_mid_fwd.launches += 1
     return out
 
@@ -117,15 +197,15 @@ def weight_stripes(device, rows: int, H4: int) -> int:
     return max(1, min(-(-rows // 32), 4 * _sms(device) // -(-H4 // 256)))
 
 
-def adapter_mid_bwd(mid1T, p1, b1, a2T, scales, g):
-    """``(dmid1T, dp1, db1, da2T)`` of :func:`adapter_mid_bwd_plain`: plain
-    for CPU tensors; for CUDA tensors the row kernel (dmid1T, dp1), the
-    weight kernel (fp32 partials of dB1 and dA2T per row stripe) and their
-    fixed-order sum."""
-    if mid1T.device.type == "cpu":
-        return adapter_mid_bwd_plain(mid1T, p1, b1, a2T, scales, g)
-    T, M, H4 = _check("adapter MLP tail backward", mid1T, p1, b1, a2T,
-                      scales, [("g", g, tuple(mid1T.shape))])
+def _launch_bwd(what, act, mid1T, p1, b1, a2T, scales, g):
+    """The row kernel (dmid1T, dp1), the weight kernel (fp32 partials of
+    dB1 and dA2T per row stripe) and their fixed-order sum, with the
+    activation ``act`` (an id of :data:`BWD_PROBES`; :data:`KERNEL5B_ACT`
+    at up to 4 tasks, the others at 4)."""
+    T, M, H4 = _check(what, mid1T, p1, b1, a2T, scales,
+                      [("g", g, tuple(mid1T.shape))])
+    if act != KERNEL5B_ACT and T != MAX_TASKS:
+        raise ValueError(f"{what}: runs at T = {MAX_TASKS}, got {T}")
     stripes = weight_stripes(mid1T.device, M, H4)
     f32 = dict(dtype=torch.float32, device=mid1T.device)
     dmid1 = torch.empty_like(mid1T)
@@ -133,16 +213,57 @@ def adapter_mid_bwd(mid1T, p1, b1, a2T, scales, g):
     part = torch.empty((stripes, 2, T, RANK, H4), **f32)
     dw = torch.empty((2, T, RANK, H4), **f32)
     err = _build.library().mtlora_adapter_mid_bwd(
-        mid1T.data_ptr(), p1.data_ptr(), b1.data_ptr(), a2T.data_ptr(),
+        act, mid1T.data_ptr(), p1.data_ptr(), b1.data_ptr(), a2T.data_ptr(),
         g.data_ptr(), dmid1.data_ptr(), dp1.data_ptr(), part.data_ptr(),
         dw.data_ptr(), T, M, H4, stripes, *_scales(scales), _stream(mid1T))
     _build.check(err, "mtlora_adapter_mid_bwd")
-    adapter_mid_bwd.launches += 1
     return dmid1, dp1, dw[0], dw[1]
+
+
+def adapter_mid_bwd(mid1T, p1, b1, a2T, scales, g):
+    """``(dmid1T, dp1, db1, da2T)`` of :func:`adapter_mid_bwd_plain`: plain
+    for CPU tensors, the kernels of :func:`_launch_bwd` for CUDA
+    tensors."""
+    if mid1T.device.type == "cpu":
+        return adapter_mid_bwd_plain(mid1T, p1, b1, a2T, scales, g)
+    out = _launch_bwd("adapter MLP tail backward", KERNEL5B_ACT, mid1T, p1,
+                      b1, a2T, scales, g)
+    adapter_mid_bwd.launches += 1
+    return out
+
+
+def adapter_mid_probe(mid1, p1, b1, a2T, scales, probe: str):
+    """A forward probe of :data:`FWD_PROBES` at T = 4: plain for CPU
+    tensors (:func:`adapter_mid_probe_plain`), the kernel for CUDA
+    tensors (bf16, rank 4)."""
+    if mid1.device.type == "cpu":
+        return adapter_mid_probe_plain(mid1, p1, b1, a2T, scales, probe)
+    fid, _, kind = FWD_PROBES[probe]
+    out = _launch_fwd(f"adapter MLP tail probe {probe}", fid,
+                      kind in ("vpu1", "vpu12"), mid1, p1, b1, a2T, scales)
+    adapter_mid_probe.launches[probe] += 1
+    return out
+
+
+def adapter_mid_bwd_probe(mid1T, p1, b1, a2T, scales, g, probe: str):
+    """A backward probe of :data:`BWD_PROBES` at T = 4: ``(dmid1T, dp1,
+    db1, da2T)``, plain for CPU tensors, the kernels of
+    :func:`adapter_mid_bwd` with the probe's activation for CUDA
+    tensors."""
+    if mid1T.device.type == "cpu":
+        return adapter_mid_bwd_probe_plain(mid1T, p1, b1, a2T, scales, g,
+                                           probe)
+    out = _launch_bwd(f"adapter MLP tail backward probe {probe}",
+                      BWD_PROBES[probe][0], mid1T, p1, b1, a2T, scales, g)
+    adapter_mid_bwd_probe.launches[probe] += 1
+    return out
 
 
 adapter_mid_fwd.launches = 0
 adapter_mid_bwd.launches = 0
+# launches by probe
+adapter_mid_probe.launches = dict.fromkeys(FWD_PROBES, 0)
+adapter_mid_bwd_probe.launches = dict.fromkeys(BWD_PROBES, 0)
 
 
 class AdapterMidFn(torch.autograd.Function):

@@ -2,13 +2,20 @@
 
 Each kernel wrapper adds one to its own ``launches`` where it launches
 its kernel on the card, and nowhere else; the CPU route counts nothing.
+The probe wrappers count by mode (``launches[mode]``), read here as
+``"<name>.<mode>"``.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-from mtlora_tpu_torch.ops.adapter_mlp import adapter_mid_bwd, adapter_mid_fwd
+from mtlora_tpu_torch.ops.adapter_mlp import (
+    adapter_mid_bwd,
+    adapter_mid_bwd_probe,
+    adapter_mid_fwd,
+    adapter_mid_probe,
+)
 from mtlora_tpu_torch.ops.head import head_mlp_bwd, head_mlp_fwd
 from mtlora_tpu_torch.ops.ln_lora import (
     ln_lora_bwd,
@@ -20,12 +27,14 @@ from mtlora_tpu_torch.ops.ln_lora import (
 )
 from mtlora_tpu_torch.ops.ln_mlp import ln_mlp_bwd, ln_mlp_fwd
 from mtlora_tpu_torch.ops.lora_matmul import lora_matmul_dx, lora_matmul_fwd
+from mtlora_tpu_torch.ops.quad_attn import quad_attention
 from mtlora_tpu_torch.ops.task_merge import task_merge_bwd, task_merge_fwd
 from mtlora_tpu_torch.ops.window_attn import (
     window_attention_bwd,
     window_attention_dense_bwd,
     window_attention_dense_fwd,
     window_attention_fwd,
+    window_attention_probe,
 )
 
 WRAPPERS = {
@@ -49,13 +58,25 @@ WRAPPERS = {
     "window_attention_dense_bwd": window_attention_dense_bwd,
     "lora_matmul": lora_matmul_fwd,
     "lora_matmul_dx": lora_matmul_dx,
+    "quad_pre_attention": quad_attention,
+}
+# wrappers that count by mode
+MODE_WRAPPERS = {
+    "window_attention_probe": window_attention_probe,
+    "adapter_mid_probe": adapter_mid_probe,
+    "adapter_mid_bwd_probe": adapter_mid_bwd_probe,
 }
 
 
 def reset():
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for fn in MODE_WRAPPERS.values():
+        fn.launches = dict.fromkeys(fn.launches, 0)
 
 
 def read() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    out = {name: fn.launches for name, fn in WRAPPERS.items()}
+    for name, fn in MODE_WRAPPERS.items():
+        out.update({f"{name}.{mode}": n for mode, n in fn.launches.items()})
+    return out

@@ -1,15 +1,16 @@
 // Fused MTLoRA adapter MLP tail (forward) for Hopper:
 //   per task t, row m:  z = p1[m] + s_t sum_r mid1[t,r,m] B1[t,r]   fp32
-//                       h = bf16(gelu(z))                            exact erf
+//                       h = bf16(gelu(z))                            tanh form
 //                       mid2[t,j,m] = bf16(sum_h h A2T[t,j,h])       fp32 sum
 //
 // Replaces mtlora_tpu/ops/pallas_adapter_mlp.py: _fwd_kernel, launched by
 // _run_fwd through fused_adapter_mid (fc2's task projection in the four
-// stage-tail blocks, where fc1's task output stays factored).
+// stage-tail blocks, where fc1's task output stays factored). The GELU is
+// the TPU kernel's bf16 form, the tanh form (lnk::kGelu).
 //
 // What bounds it: the rank is 4, so tensor cores buy little; per hidden
 // element and task the work is a rank-4 expansion (4 FMA), the GELU
-// (exact erf, tens of fp32 operations) and a rank-4 contraction (4 FMA).
+// (tens of fp32 operations) and a rank-4 contraction (4 FMA).
 // At stage 0 that is T*M*H4 = 617 M GELUs against 308 MB of p1, so the
 // CUDA cores' fp32 rate bounds it, not the bytes. The TPU kernel's win,
 // kept here: the [T, M, 4C] task hidden never reaches device memory, and
@@ -20,6 +21,16 @@
 // reduces them with shuffles once per row group. mid1 and the results go
 // through shared memory so that their [T, R, M] rows are read and written
 // in runs of 16 tokens.
+//
+// The same template computes the probe variants of
+// tools/adapter_variants.py (make_fwd :56 and make_fwd_vpu :80, launched
+// by make_fwd_fn :191 and make_fwd_fn_vpu :117), at T = 4: the form of
+// the activation (Erf, Tanh, Sig, None) and the variant V:
+//   kMain   kernel 5's function;
+//   kNoDot1 z = s_t p1, no rank expansion (make_fwd(dot1=False));
+//   kVpu1   mid1 and the result in the [T, M, R] layout, z summed as
+//           make_fwd_vpu sums it, h rounded to bf16 before the projection;
+//   kVpu12  the same with the projection from the fp32 h, never rounded.
 
 #include "adapter_mlp.cuh"
 
@@ -27,13 +38,17 @@ namespace {
 
 using namespace adk;
 
-template <int T>
+enum Variant { kMain, kNoDot1, kVpu1, kVpu12 };
+
+template <int T, Act A, int V>
 __global__ void __launch_bounds__(128) adapter_mid_fwd_kernel(Args a) {
+  constexpr bool kTMR = V == kVpu1 || V == kVpu12;
   __shared__ float mids[kMaxT * R * kBlockRows];
   __shared__ float outs[kMaxT * R * kBlockRows];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int m0 = blockIdx.x * kBlockRows, M = a.M, H4 = a.H4;
-  stage_rank_rows(mids, a.mid1, T, M, m0, kBlockRows);
+  if (V != kNoDot1)
+    stage_rank_rows<kTMR>(mids, a.mid1, T, M, m0, kBlockRows);
   __syncthreads();
 
   const int rl0 = warp * kRPW;
@@ -62,12 +77,22 @@ __global__ void __launch_bounds__(128) adapter_mid_fwd_kernel(Args a) {
       }
 #pragma unroll
       for (int i = 0; i < kRPW; ++i) {
-        const float2 z = expand(p[i], mids + t * R * kBlockRows + rl0 + i,
-                                kBlockRows, b, a.s[t]);
-        const float hx = round_bf16(lnk::gelu_exact(z.x));
-        const float hy = round_bf16(lnk::gelu_exact(z.y));
+        const float* mid = mids + t * R * kBlockRows + rl0 + i;
+        float2 z;
+        if constexpr (V == kNoDot1)
+          z = make_float2(p[i].x * a.s[t], p[i].y * a.s[t]);
+        else if constexpr (kTMR)
+          z = expand_seq(p[i], mid, kBlockRows, b, a.s[t]);
+        else
+          z = expand(p[i], mid, kBlockRows, b, a.s[t]);
+        float hx = act_fwd<A>(z.x), hy = act_fwd<A>(z.y);
+        if constexpr (V != kVpu12) {
+          hx = round_bf16(hx);
+          hy = round_bf16(hy);
+        }
 #pragma unroll
-        for (int j = 0; j < R; ++j) acc[i][t][j] += hx * w[j].x + hy * w[j].y;
+        for (int j = 0; j < R; ++j)
+          acc[i][t][j] += hx * w[j].x + hy * w[j].y;
       }
     }
   }
@@ -83,21 +108,16 @@ __global__ void __launch_bounds__(128) adapter_mid_fwd_kernel(Args a) {
   __syncthreads();
   for (int i = threadIdx.x; i < T * R * kBlockRows; i += blockDim.x) {
     const int tr = i / kBlockRows, m = m0 + i - tr * kBlockRows;
-    if (m < M) a.out[(size_t)tr * M + m] = __float2bfloat16(outs[i]);
+    if (m >= M) continue;
+    const size_t at = kTMR ? ((size_t)(tr / R) * M + m) * R + tr % R
+                           : (size_t)tr * M + m;
+    a.out[at] = __float2bfloat16(outs[i]);
   }
 }
 
-}  // namespace
-
-// mid1T [T, 4, M], p1 [M, H4], b1 and a2T [T, 4, H4] (bf16) -> mid2T
-// [T, 4, M]; s0..s3: the per-task scales (T <= 4, H4 % 64 == 0).
-extern "C" int mtlora_adapter_mid_fwd(const void* mid1, const void* p1,
-                                      const void* b1, const void* a2,
-                                      void* out, int T, int M, int H4,
-                                      float s0, float s1, float s2, float s3,
-                                      void* stream) {
-  if (T < 1 || T > kMaxT || M < 1 || H4 < 64 || H4 % 64)
-    return (int)cudaErrorInvalidValue;
+Args make_args(const void* mid1, const void* p1, const void* b1,
+               const void* a2, void* out, int T, int M, int H4, float s0,
+               float s1, float s2, float s3) {
   Args a = {};
   a.mid1 = static_cast<const bf16*>(mid1);
   a.p1 = static_cast<const bf16*>(p1);
@@ -111,10 +131,57 @@ extern "C" int mtlora_adapter_mid_fwd(const void* mid1, const void* p1,
   a.s[1] = s1;
   a.s[2] = s2;
   a.s[3] = s3;
-  void (*kern)(Args) = T == 1   ? adapter_mid_fwd_kernel<1>
-                       : T == 2 ? adapter_mid_fwd_kernel<2>
-                       : T == 3 ? adapter_mid_fwd_kernel<3>
-                                : adapter_mid_fwd_kernel<4>;
+  return a;
+}
+
+// The forward variants' ids, which adapter_mlp.py's FWD_PROBES and
+// KERNEL5_FWD name: kFwdTanh, the bf16 GELU's, is kernel 5 and runs at any
+// T <= 4; the others at T = 4.
+enum FwdId {
+  kFwdBase = 0,      // Erf
+  kFwdTanh = 1,      // kernel 5
+  kFwdSig = 2,
+  kFwdNoAct = 3,
+  kFwdNoDot1 = 4,    // Erf, no rank expansion
+  kFwdVpu1Sig = 5,
+  kFwdVpu12Sig = 6,
+  kFwdVpu1NoAct = 7,
+};
+static_assert(kGelu == Act::Tanh, "kernel 5 is the tanh-form variant");
+
+}  // namespace
+
+// Variant ``id`` (FwdId): mid1T [T, 4, M] ([T, M, 4] for the vpu
+// variants), p1 [M, H4], b1 and a2T [T, 4, H4] (bf16) -> mid2T [T, 4, M]
+// ([T, M, 4] for the vpu variants); s0..s3: the per-task scales.
+// H4 % 64 == 0.
+extern "C" int mtlora_adapter_mid_fwd(int id, const void* mid1,
+                                      const void* p1, const void* b1,
+                                      const void* a2, void* out, int T, int M,
+                                      int H4, float s0, float s1, float s2,
+                                      float s3, void* stream) {
+  constexpr int K = kMaxT;
+  if (T < 1 || T > kMaxT || (id != kFwdTanh && T != kMaxT) || M < 1 ||
+      H4 < 64 || H4 % 64)
+    return (int)cudaErrorInvalidValue;
+  void (*kern)(Args) = nullptr;
+  switch (id) {
+    case kFwdBase: kern = adapter_mid_fwd_kernel<K, Act::Erf, kMain>; break;
+    case kFwdTanh:
+      kern = T == 1   ? adapter_mid_fwd_kernel<1, kGelu, kMain>
+             : T == 2 ? adapter_mid_fwd_kernel<2, kGelu, kMain>
+             : T == 3 ? adapter_mid_fwd_kernel<3, kGelu, kMain>
+                      : adapter_mid_fwd_kernel<4, kGelu, kMain>;
+      break;
+    case kFwdSig: kern = adapter_mid_fwd_kernel<K, Act::Sig, kMain>; break;
+    case kFwdNoAct: kern = adapter_mid_fwd_kernel<K, Act::None, kMain>; break;
+    case kFwdNoDot1: kern = adapter_mid_fwd_kernel<K, Act::Erf, kNoDot1>; break;
+    case kFwdVpu1Sig: kern = adapter_mid_fwd_kernel<K, Act::Sig, kVpu1>; break;
+    case kFwdVpu12Sig: kern = adapter_mid_fwd_kernel<K, Act::Sig, kVpu12>; break;
+    case kFwdVpu1NoAct: kern = adapter_mid_fwd_kernel<K, Act::None, kVpu1>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  const Args a = make_args(mid1, p1, b1, a2, out, T, M, H4, s0, s1, s2, s3);
   kern<<<(M + kBlockRows - 1) / kBlockRows, 128, 0,
          static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();

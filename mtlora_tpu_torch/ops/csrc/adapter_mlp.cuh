@@ -1,14 +1,18 @@
 // Shared pieces of the adapter MLP-tail kernels (adapter_mlp.cu,
-// adapter_mlp_bwd.cu): the arguments and the per-task expansion
-// z = p1 + s_t mid1_t^T B1_t for two hidden columns.
+// adapter_mlp_bwd.cu): the arguments, the staging of rank rows and the
+// per-task expansion z = p1 + s_t mid1_t^T B1_t for two hidden columns.
 #pragma once
 
 #include "ln_common.cuh"
 
 namespace adk {
 
+using lnk::Act;
+using lnk::act_fwd;
+using lnk::act_pair;
 using lnk::bf16;
 using lnk::bf2;
+using lnk::kGelu;
 
 constexpr int R = 4;           // rank of every task (r_max)
 constexpr int kMaxT = 4;       // tasks
@@ -23,14 +27,18 @@ struct Args {
   float s[kMaxT];
 };
 
-// vals[tr][i] = float(src[tr * M + m0 + i]) for tr < T * R, i < rows
-// (zero past M), by all threads of the block.
+// vals[tr][i] = float(mid[t][r][m0 + i]) for tr = t * R + r < T * R, i <
+// rows (zero past M), by all threads of the block; src is [T, R, M], or
+// [T, M, R] with TMR (the probes' make_fwd_vpu layout).
+template <bool TMR = false>
 __device__ __forceinline__ void stage_rank_rows(float* vals, const bf16* src,
                                                 int T, int M, int m0,
                                                 int rows) {
   for (int i = threadIdx.x; i < T * R * rows; i += blockDim.x) {
     const int tr = i / rows, rr = i - tr * rows, m = m0 + rr;
-    vals[i] = m < M ? __bfloat162float(src[(size_t)tr * M + m]) : 0.f;
+    const size_t at = TMR ? ((size_t)(tr / R) * M + m) * R + tr % R
+                          : (size_t)tr * M + m;
+    vals[i] = m < M ? __bfloat162float(src[at]) : 0.f;
   }
 }
 
@@ -46,6 +54,20 @@ __device__ __forceinline__ float2 expand(float2 p, const float* mid,
     uy += mv * b[r].y;
   }
   return make_float2(p.x + s * ux, p.y + s * uy);
+}
+
+// The same as make_fwd_vpu sums it: z = p, then z += (s mid[r]) B1[r] in
+// r order, each product and sum rounded on its own.
+__device__ __forceinline__ float2 expand_seq(float2 p, const float* mid,
+                                             int stride, const float2* b,
+                                             float s) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float sm = __fmul_rn(s, mid[r * stride]);
+    p.x = __fadd_rn(p.x, __fmul_rn(sm, b[r].x));
+    p.y = __fadd_rn(p.y, __fmul_rn(sm, b[r].y));
+  }
+  return p;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

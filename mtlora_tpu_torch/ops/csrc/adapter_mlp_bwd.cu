@@ -1,5 +1,6 @@
 // Fused MTLoRA adapter MLP tail (backward) for Hopper. With z, h = gelu(z)
-// and gelu'(z) recomputed (never stored), the cast points of _bwd_kernel:
+// and gelu'(z) recomputed (never stored; the tanh form, lnk::kGelu), the
+// cast points of _bwd_kernel:
 //   dh  = sum_j g[t,j,m] A2T[t,j]           fp32
 //   dz  = bf16(dh gelu'(z))
 //   dp1 = bf16(sum_t dz)                    fp32 sum in task order
@@ -8,10 +9,13 @@
 //   dA2T[t,j,h]  = sum_m g[t,j,m] bf16(h)[m,h]        fp32
 //
 // Replaces mtlora_tpu/ops/pallas_adapter_mlp.py: _bwd_kernel, launched by
-// _run_bwd from _bwd_rule, the custom VJP of fused_adapter_mid.
+// _run_bwd from _bwd_rule, the custom VJP of fused_adapter_mid; with the
+// activation form a template parameter, also the backward probe of
+// tools/adapter_variants.py (make_bwd :136 through make_bwd_fn :209, with
+// erf_pair :173 or sig_pair :178), at T = 4.
 //
 // What bounds it: as the forward, the fp32 work per hidden element (GELU
-// and GELU' from one erf and one exp, the rank-4 expansions and
+// and GELU' from one tanh, the rank-4 expansions and
 // contractions) at T*M*H4 elements; dp1 doubles the forward's bytes. The
 // TPU grid runs in order and carries dB1 and dA2T from step to step in
 // VMEM; blocks here run in parallel, so:
@@ -31,7 +35,7 @@ namespace {
 
 using namespace adk;
 
-template <int T>
+template <int T, Act A>
 __global__ void __launch_bounds__(128) adapter_mid_bwd_rows(Args a) {
   __shared__ float mids[kMaxT * R * kBlockRows];
   __shared__ float gs[kMaxT * R * kBlockRows];
@@ -73,8 +77,8 @@ __global__ void __launch_bounds__(128) adapter_mid_bwd_rows(Args a) {
         const float2 z = expand(p[i], mids + t * R * kBlockRows + rl,
                                 kBlockRows, b, a.s[t]);
         float gx, gy, dgx, dgy;
-        lnk::gelu_exact_pair(z.x, &gx, &dgx);
-        lnk::gelu_exact_pair(z.y, &gy, &dgy);
+        act_pair<A>(z.x, &gx, &dgx);
+        act_pair<A>(z.y, &gy, &dgy);
         float dhx = 0.f, dhy = 0.f;
 #pragma unroll
         for (int j = 0; j < R; ++j) {
@@ -116,7 +120,7 @@ constexpr int kChunk = 32;     // rows staged at once by the weight kernel
 // One thread per hidden column pair h (blockIdx.x * 256 + 2 threadIdx.x),
 // one stripe of rows per blockIdx.y: part[stripe][0][t][r][h..] = dB1,
 // part[stripe][1][t][j][h..] = dA2T over the stripe's rows.
-template <int T>
+template <int T, Act A>
 __global__ void __launch_bounds__(128) adapter_mid_bwd_weights(Args a) {
   __shared__ float mids[kMaxT * R * kChunk];
   __shared__ float gs[kMaxT * R * kChunk];
@@ -149,8 +153,8 @@ __global__ void __launch_bounds__(128) adapter_mid_bwd_weights(Args a) {
         const float2 z =
             expand(p, mids + t * R * kChunk + i, kChunk, b[t], a.s[t]);
         float gx, gy, dgx, dgy;
-        lnk::gelu_exact_pair(z.x, &gx, &dgx);
-        lnk::gelu_exact_pair(z.y, &gy, &dgy);
+        act_pair<A>(z.x, &gx, &dgx);
+        act_pair<A>(z.y, &gy, &dgy);
         gx = round_bf16(gx);
         gy = round_bf16(gy);
         float dhx = 0.f, dhy = 0.f;
@@ -185,32 +189,23 @@ __global__ void __launch_bounds__(128) adapter_mid_bwd_weights(Args a) {
     }
 }
 
-template <int T>
+template <int T, Act A>
 cudaError_t run(const Args& a, int stripes, float* dw, cudaStream_t st) {
-  adapter_mid_bwd_rows<T><<<(a.M + kBlockRows - 1) / kBlockRows, 128, 0, st>>>(
-      a);
+  adapter_mid_bwd_rows<T, A>
+      <<<(a.M + kBlockRows - 1) / kBlockRows, 128, 0, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  adapter_mid_bwd_weights<T><<<dim3((a.H4 + 255) / 256, stripes), 128, 0,
-                               st>>>(a);
+  adapter_mid_bwd_weights<T, A>
+      <<<dim3((a.H4 + 255) / 256, stripes), 128, 0, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return lnk::sum_parts(a.part, stripes, 2 * (size_t)T * R * a.H4, dw, st);
 }
 
-}  // namespace
-
-// mid1T [T, 4, M], p1 [M, H4], b1, a2T [T, 4, H4], g [T, 4, M] (bf16) ->
-// dmid1T [T, 4, M], dp1 [M, H4] (bf16) and dw [2][T][4][H4] (fp32: dB1,
-// dA2T); part [stripes][2][T][4][H4] fp32 scratch.
-extern "C" int mtlora_adapter_mid_bwd(const void* mid1, const void* p1,
-                                      const void* b1, const void* a2,
-                                      const void* g, void* dmid1, void* dp1,
-                                      void* part, void* dw, int T, int M,
-                                      int H4, int stripes, float s0, float s1,
-                                      float s2, float s3, void* stream) {
-  if (T < 1 || T > kMaxT || M < 1 || H4 < 64 || H4 % 64 || stripes < 1)
-    return (int)cudaErrorInvalidValue;
+Args make_args(const void* mid1, const void* p1, const void* b1,
+               const void* a2, const void* g, void* dmid1, void* dp1,
+               void* part, int T, int M, int H4, int stripes, float s0,
+               float s1, float s2, float s3) {
   Args a = {};
   a.mid1 = static_cast<const bf16*>(mid1);
   a.p1 = static_cast<const bf16*>(p1);
@@ -223,18 +218,50 @@ extern "C" int mtlora_adapter_mid_bwd(const void* mid1, const void* p1,
   a.T = T;
   a.M = M;
   a.H4 = H4;
+  // stripes past the rows (the ceil) still write zero partials
   const int chunks = (M + kChunk - 1) / kChunk;
   a.stripe_rows = (chunks + stripes - 1) / stripes * kChunk;
   a.s[0] = s0;
   a.s[1] = s1;
   a.s[2] = s2;
   a.s[3] = s3;
-  // stripes past the rows (the ceil above) still write zero partials
+  return a;
+}
+
+// The activations' ids, which adapter_mlp.py's BWD_PROBES and KERNEL5B_ACT
+// name: kBwdTanh is kernel 5b and runs at any T <= 4; the probes at T = 4.
+enum BwdId {
+  kBwdErf = 0,    // the probe's erf_pair
+  kBwdTanh = 1,   // kernel 5b
+  kBwdSig = 2,    // sig_pair
+};
+static_assert(kGelu == Act::Tanh, "kernel 5b is the tanh form");
+
+}  // namespace
+
+// mid1T [T, 4, M], p1 [M, H4], b1, a2T [T, 4, H4], g [T, 4, M] (bf16) ->
+// dmid1T [T, 4, M], dp1 [M, H4] (bf16) and dw [2][T][4][H4] (fp32: dB1,
+// dA2T); part [stripes][2][T][4][H4] fp32 scratch; act: a BwdId.
+extern "C" int mtlora_adapter_mid_bwd(int act, const void* mid1,
+                                      const void* p1, const void* b1,
+                                      const void* a2, const void* g,
+                                      void* dmid1, void* dp1, void* part,
+                                      void* dw, int T, int M, int H4,
+                                      int stripes, float s0, float s1,
+                                      float s2, float s3, void* stream) {
+  if ((act != kBwdErf && act != kBwdTanh && act != kBwdSig) || T < 1 ||
+      T > kMaxT || (act != kBwdTanh && T != kMaxT) || M < 1 || H4 < 64 ||
+      H4 % 64 || stripes < 1)
+    return (int)cudaErrorInvalidValue;
+  const Args a = make_args(mid1, p1, b1, a2, g, dmid1, dp1, part, T, M, H4,
+                           stripes, s0, s1, s2, s3);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(dw);
-  cudaError_t e = T == 1   ? run<1>(a, stripes, out, st)
-                  : T == 2 ? run<2>(a, stripes, out, st)
-                  : T == 3 ? run<3>(a, stripes, out, st)
-                           : run<4>(a, stripes, out, st);
+  cudaError_t e = act == kBwdErf ? run<kMaxT, Act::Erf>(a, stripes, out, st)
+                  : act == kBwdSig ? run<kMaxT, Act::Sig>(a, stripes, out, st)
+                  : T == 1       ? run<1, kGelu>(a, stripes, out, st)
+                  : T == 2       ? run<2, kGelu>(a, stripes, out, st)
+                  : T == 3       ? run<3, kGelu>(a, stripes, out, st)
+                                 : run<4, kGelu>(a, stripes, out, st);
   return (int)e;
 }

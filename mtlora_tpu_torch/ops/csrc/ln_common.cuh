@@ -29,16 +29,62 @@ constexpr int kT = 64 + 8;          // row stride of a 64-wide bf16 tile
 
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
 
-// Exact-erf GELU, and with it its derivative, in fp32.
-__device__ __forceinline__ float gelu_exact(float h) {
-  return h * (0.5f * (1.f + erff(h * 0.70710678118654752f)));
+// The activation of the GELU sites, a compile-time form, in fp32:
+//   Erf   exact erf, z Phi(z);
+//   Tanh  the tanh form of the JAX package's bf16 kernels (_gelu_fwd,
+//         _gelu_pair with cheap = True, pallas_adapter_mlp.py:96-115):
+//         0.5 z (1 + tanh(z (c + (c d) z^2))), c = sqrt(2/pi), d = 0.044715,
+//         with tanhf (tanh.approx.f32's error of about 2^-11 would make it
+//         another function);
+//   Sig   the sigmoid form of tools/adapter_variants.py (_sig_gelu :42,
+//         sig_pair :178), z sigma(1.5957691216 z + 0.0713548163 z^3),
+//         with an exact divide where the TPU refines an approximate
+//         reciprocal by one Newton step;
+//   None  the identity.
+// act_pair gives the activation and its derivative from one evaluation.
+// The port's kernels take bf16 operands only, so their GELU is kGelu.
+enum class Act { Erf, Tanh, Sig, None };
+constexpr Act kGelu = Act::Tanh;
+
+constexpr float kGeluC = 0.7978845608028654f;
+constexpr float kGeluCD = 0.7978845608028654f * 0.044715f;
+constexpr float kSigA = 1.5957691216f;
+constexpr float kSigB = 0.0713548163f;
+
+template <Act A>
+__device__ __forceinline__ void act_pair(float z, float* gl, float* dg) {
+  if constexpr (A == Act::Erf) {
+    const float cdf = 0.5f * (1.f + erff(z * 0.70710678118654752f));
+    *gl = z * cdf;
+    *dg = cdf + z * (expf(-0.5f * z * z) * 0.39894228040143268f);
+  } else if constexpr (A == Act::Tanh) {
+    const float z2 = z * z;
+    const float th = tanhf(z * (kGeluC + kGeluCD * z2));
+    *gl = 0.5f * z * (1.f + th);
+    *dg = 0.5f * (1.f + th) +
+          0.5f * z * (1.f - th * th) * (kGeluC + 3.f * kGeluCD * z2);
+  } else if constexpr (A == Act::Sig) {
+    const float z2 = z * z;
+    const float s = 1.f / (1.f + expf(-(z * (kSigA + kSigB * z2))));
+    *gl = z * s;
+    *dg = s + z * s * (1.f - s) * (kSigA + 3.f * kSigB * z2);
+  } else {
+    *gl = z;
+    *dg = 1.f;
+  }
 }
 
-__device__ __forceinline__ void gelu_exact_pair(float h, float* gl,
-                                                float* dg) {
-  const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
-  *gl = h * cdf;
-  *dg = cdf + h * (expf(-0.5f * h * h) * 0.39894228040143268f);
+template <Act A>
+__device__ __forceinline__ float act_fwd(float z) {
+  if constexpr (A == Act::Erf) {
+    return z * (0.5f * (1.f + erff(z * 0.70710678118654752f)));
+  } else if constexpr (A == Act::Tanh) {
+    return 0.5f * z * (1.f + tanhf(z * (kGeluC + kGeluCD * (z * z))));
+  } else if constexpr (A == Act::Sig) {
+    return z * (1.f / (1.f + expf(-(z * (kSigA + kSigB * (z * z))))));
+  } else {
+    return z;
+  }
 }
 
 __device__ __forceinline__ float2 bf2(const bf16* p) {

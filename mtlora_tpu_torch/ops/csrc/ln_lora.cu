@@ -8,7 +8,8 @@
 // stream (concat order k = di + 2 dj), no bias and no adapter.
 //
 // The stage-tail mode (norm2 -> fc1 of the four blocks that carry task
-// streams) takes z = p + s (m B^T) through GELU (exact erf) and writes
+// streams) takes z = p + s (m B^T) through GELU (the tanh form of the
+// TPU kernel's bf16 path, lnk::kGelu) and writes
 // y = bf16(gelu(z)), the frozen pre-activation bf16(p) and, in training,
 // bf16(drop1(gelu(z))) on dropout stream 1 (the next layer's pre-dropped
 // adapter input). Its backward starts here too: mtlora_ln_lora_tail_grad
@@ -128,8 +129,8 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
         if (MODE == kY) {
           st_bf2(a.y + o, z0, z1);
         } else if (MODE == kTail) {
-          const float y0 = a.act ? gelu_exact(z0) : z0;
-          const float y1 = a.act ? gelu_exact(z1) : z1;
+          const float y0 = a.act ? act_fwd<kGelu>(z0) : z0;
+          const float y1 = a.act ? act_fwd<kGelu>(z1) : z1;
           st_bf2(a.y + o, y0, y1);
           st_bf2(a.p + o, p0, p1);
           if (a.d)
@@ -138,8 +139,8 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
         } else {
           float y0, y1, dg0 = 1.f, dg1 = 1.f;
           if (a.act) {
-            gelu_exact_pair(z0, &y0, &dg0);
-            gelu_exact_pair(z1, &y1, &dg1);
+            act_pair<kGelu>(z0, &y0, &dg0);
+            act_pair<kGelu>(z1, &y1, &dg1);
           }
           float2 gv = bf2(a.gy + o);
           if (a.gd) {

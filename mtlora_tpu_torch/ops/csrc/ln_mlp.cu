@@ -2,13 +2,14 @@
 // for Hopper:
 //   ln = LN(x)                                     fp32 statistics
 //   h  = bf16(ln) W1^T + b1 + s1 bf16(bf16(drop1(ln)) A1^T) B1^T
-//   g  = gelu(h)                                   exact erf, fp32
+//   g  = gelu(h)                                   tanh form, fp32
 //   y  = bf16(bf16(g) W2^T + b2 + s2 bf16(bf16(drop2(g)) A2^T) B2^T)
 //
 // Replaces mtlora_tpu/ops/pallas_ln_mlp.py: _fwd_kernel, launched by
 // _run_fwd through fused_ln_mlp (the MLP of the blocks with no task
-// streams). The TPU kernel's GELU is the tanh form in bf16; this one and
-// its plain version take the exact erf form, as the port's unfused MLP.
+// streams). The GELU is the TPU kernel's bf16 form, the tanh form
+// (lnk::kGelu); the port's unfused MLP keeps F.gelu's exact erf, as the
+// JAX package's jnp path does.
 //
 // What bounds it: per row 2 * 2 * C * 4C FLOP of frozen GEMMs (+ the
 // rank-64 adapters) for 4C bytes of x and y: 4C FLOP a byte, far above
@@ -110,7 +111,7 @@ __global__ void __launch_bounds__(128) ln_mlp_fwd_kernel(MlpArgs a) {
           const int col = h0 + nt * 8 + 2 * t + (e & 1);
           const float hv =
               (h[nt][e] + __bfloat162float(a.bias1[col])) + a.s1 * u[nt][e];
-          const float gl = gelu_exact(hv);
+          const float gl = act_fwd<kGelu>(hv);
           h[nt][e] = gl;
           u[nt][e] = d2.apply(gl, m0 + g + 8 * (e >> 1), H4, col);
         }

@@ -4,7 +4,7 @@
 // _bwd_rule, the custom VJP of fused_ln_mlp. With ln, h, g and both masks
 // recomputed (never stored), the cast points of _bwd_kernel:
 //   dm2 = bf16(bf16(s2 gy) B2)        dg  = bf16(gy) W2 + drop2(dm2 A2^T)
-//   dh  = dg gelu'(h)                 dln = bf16(dh) W1 + drop1(dm1 A1^T)
+//   dh  = dg gelu'(h) (tanh form)     dln = bf16(dh) W1 + drop1(dm1 A1^T)
 //   dm1 = bf16(bf16(s1 dh) B1)
 //   dB2^T = bf16(s2 gy)^T m2          dA2^T = dm2^T bf16(drop2(g))
 //   dB1^T = bf16(s1 dh)^T m1          dA1^T = dm1^T bf16(drop1(ln))
@@ -186,7 +186,7 @@ __global__ void __launch_bounds__(128, 3) ln_mlp_bwd_rows(MlpBwdArgs a) {
           const float hv =
               (h[nt][e] + __bfloat162float(a.bias1[col])) + a.s1 * u[nt][e];
           float gl, dgl;
-          gelu_exact_pair(hv, &gl, &dgl);
+          act_pair<kGelu>(hv, &gl, &dgl);
           h[nt][e] = dgl;
           u[nt][e] = d2.apply(gl, m0 + g + 8 * (e >> 1), H4, col);
         }
@@ -362,7 +362,7 @@ ln_mlp_bwd_hidden(MlpBwdArgs a, int stripe_rows, float* __restrict__ part) {
         const int rl = warp * kRows + g + 8 * (e >> 1);
         const int m = rb + rl;
         float gl, dgl;
-        gelu_exact_pair(h[nt][e], &gl, &dgl);
+        act_pair<kGelu>(h[nt][e], &gl, &dgl);
         const bool in = m < r_end;
         gdT[hl * kT + rl] =
             __float2bfloat16(in ? d2.apply(gl, m, H4, h0 + hl) : 0.f);

@@ -27,11 +27,12 @@ compute dtype too, as ``_ln_fused`` casts them. Cast points follow the TPU
 kernel: LN in fp32 with ``var = E[x^2] - E[x]^2``; ``lnc`` rounded;
 ``p = lnc W`` in fp32 plus the bias; ``m = lnd A`` rounded, then
 ``u = m B`` in fp32; ``y = p + s u`` rounded once (tail mode: ``gelu(p +
-s u)``, exact erf, and ``p`` rounded once). The tail mode's backward
-recomputes ``z = p + s u`` and folds the cotangents of y, p and
-``dropout(y)`` through ``gelu'(z)`` into the two rows that kernel 2b reads
-in place of ``gy``: ``gpt = bf16(g + gp)`` and ``du = bf16(s g)`` with
-``g = (gy + drop1(gd)) gelu'(z)`` (``_bwd_kernel`` :159-181).
+s u)`` in the form that :func:`gelu_form` gives, and ``p`` rounded once).
+The tail mode's backward recomputes ``z = p + s u`` and folds the
+cotangents of y, p and ``dropout(y)`` through ``gelu'(z)`` into the two
+rows that kernel 2b reads in place of ``gy``: ``gpt = bf16(g + gp)`` and
+``du = bf16(s g)`` with ``g = (gy + drop1(gd)) gelu'(z)`` (``_bwd_kernel``
+:159-181).
 """
 
 from __future__ import annotations
@@ -53,11 +54,50 @@ def _acc(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def gelu_pair(h):
-    """(gelu(h), gelu'(h)), exact erf form."""
-    cdf = 0.5 * (1.0 + torch.erf(h * (1.0 / math.sqrt(2.0))))
-    return h * cdf, cdf + h * torch.exp(-0.5 * h * h) * (
-        1.0 / math.sqrt(2.0 * math.pi))
+# the tanh form of ``_gelu_fwd``/``_gelu_pair`` (``pallas_adapter_mlp.py``
+# :92-115) and the sigmoid form of ``tools/adapter_variants.py`` (:42, :178)
+GELU_C = 0.7978845608028654
+GELU_D = 0.044715
+SIG_A = 1.5957691216
+SIG_B = 0.0713548163
+ACT_FORMS = ("erf", "tanh", "sig", "none")
+
+
+def gelu_form(cdt: torch.dtype) -> str:
+    """The GELU of the kernels' sites for compute dtype ``cdt``, as the JAX
+    kernels choose it (``cheap = cdt == bfloat16``): the tanh form in bf16,
+    the exact erf otherwise (the JAX fp32 kernels take an
+    Abramowitz-Stegun erf, 1.5e-7 from it)."""
+    return "tanh" if cdt == torch.bfloat16 else "erf"
+
+
+def act_pair(h, form: str):
+    """``(act(h), act'(h))`` of one form of ``ACT_FORMS``: the exact-erf
+    GELU, the tanh form ``0.5 h (1 + tanh(h (c + (c d) h^2)))``, the sigmoid
+    form ``h sigma(h (a + b h^2))`` (an exact divide where the TPU refines
+    an approximate reciprocal; at h below about -10 the TPU's Newton step
+    gives NaN and this 0), or the identity."""
+    if form == "erf":
+        cdf = 0.5 * (1.0 + torch.erf(h * (1.0 / math.sqrt(2.0))))
+        return h * cdf, cdf + h * torch.exp(-0.5 * h * h) * (
+            1.0 / math.sqrt(2.0 * math.pi))
+    h2 = h * h
+    if form == "tanh":
+        th = torch.tanh(h * (GELU_C + (GELU_C * GELU_D) * h2))
+        return 0.5 * h * (1.0 + th), (
+            0.5 * (1.0 + th) + 0.5 * h * (1.0 - th * th)
+            * (GELU_C + (3.0 * GELU_C * GELU_D) * h2))
+    if form == "sig":
+        sg = 1.0 / (1.0 + torch.exp(-(h * (SIG_A + SIG_B * h2))))
+        return h * sg, sg + h * sg * (1.0 - sg) * (SIG_A + 3 * SIG_B * h2)
+    if form == "none":
+        return h, torch.ones_like(h)
+    raise ValueError(f"activation form {form!r} not in {ACT_FORMS}")
+
+
+def gelu_pair(h, cdt: torch.dtype):
+    """``(gelu(h), gelu'(h))`` in the form of compute dtype ``cdt``."""
+    return act_pair(h, gelu_form(cdt))
 
 
 def layer_norm_parts(x, gamma, beta):
@@ -120,12 +160,12 @@ def ln_lora_plain(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
 def ln_lora_tail_plain(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
                        drop: float, act: bool = True, out_drop: bool = False):
     """Kernel 2's tail mode: ``(y, p, d)`` [M, O] in x's dtype with
-    ``y = gelu(z)`` (``z`` itself when not ``act``), the frozen
-    pre-activation ``p`` and ``d = drop1(y)`` on hash stream 1 (None unless
+    ``y = gelu(z)`` (``z`` itself when not ``act``; :func:`gelu_form`),
+    the frozen pre-activation ``p`` and ``d = drop1(y)`` on hash stream 1 (None unless
     ``out_drop``)."""
     *_, p, z = _pre_activation(x, gamma, beta, wt, bias, at, bt, seed,
                                scale, drop)
-    y = gelu_pair(z)[0] if act else z
+    y = gelu_pair(z, x.dtype)[0] if act else z
     d = None
     if out_drop:
         keep = dropout.keep_mask(seed, 1, *y.shape, drop)
@@ -160,7 +200,7 @@ def tail_cotangents(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
         keep = dropout.keep_mask(seed, 1, *g.shape, drop)
         g = g + dropout.apply(gd.to(f), keep, drop)
     if act:
-        g = g * gelu_pair(z)[1]
+        g = g * gelu_pair(z, x.dtype)[1]
     return (g if gp is None else g + gp.to(f)), g
 
 

@@ -6,7 +6,7 @@ backward 4b), for the blocks that carry no task streams:
 
     ln = LN(x)                                   (fp32 statistics)
     h  = lnc W1^T + b1 + s1 (drop1(ln) A1^T) B1^T
-    g  = gelu(h)                                 (exact erf)
+    g  = gelu(h)                                 (tanh form in bf16)
     y  = gc W2^T + b2 + s2 (drop2(g) A2^T) B2^T
 
 The ``[M, 4C]`` hidden never reaches device memory: the kernels walk it
@@ -14,8 +14,9 @@ in chunks, and the backward recomputes ln, h, g and both masks. Weights
 come in the port's module layouts (``fc1.linear.weight [4C, C]``,
 ``fc1.lora_shared_A [r, C]``, ``fc1.lora_shared_B [4C, r]``, and fc2's
 likewise), cast to the compute dtype; the adapters' gradients come back in
-those layouts. GELU is exact erf in the kernels and here, as in the port's
-unfused MLP; the TPU kernel takes the tanh form in bf16 (ROADMAP Queue 3).
+those layouts. GELU is the JAX kernel's: the tanh form in bf16 (the
+kernels' only dtype), exact erf otherwise (``ln_lora.gelu_form``); the
+port's unfused MLP keeps the exact erf, as the JAX jnp path does.
 Cast points as ``ln_mlp_reference`` (:326-349) and ``_bwd_kernel``.
 """
 
@@ -68,7 +69,7 @@ def ln_mlp_plain(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2,
     """y [M, C] of kernel 4 from x [M, C]."""
     cdt, f = x.dtype, _acc(x.dtype)
     *_, h = _hidden(x, gamma, beta, w1, bias1, a1, bb1, seed, s1, drop)
-    gl, _ = gelu_pair(h)
+    gl, _ = gelu_pair(h, cdt)
     y = gl.to(cdt).to(f) @ w2.to(f).t() + bias2.to(f)
     if s2 != 0.0:
         gd, _ = _dropped_g(gl, seed, s2, drop, cdt)
@@ -87,7 +88,7 @@ def ln_mlp_bwd_plain(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2,
     cdt, f = x.dtype, _acc(x.dtype)
     ln, xhat, inv, lnd, keep1, m1, h = _hidden(
         x, gamma, beta, w1, bias1, a1, bb1, seed, s1, drop)
-    gl, dgelu = gelu_pair(h)
+    gl, dgelu = gelu_pair(h, cdt)
     gyf = gy.to(f)
     dg = gyf.to(cdt).to(f) @ w2.to(f)
     zeros = dict(dtype=f, device=x.device)

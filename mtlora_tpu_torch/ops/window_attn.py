@@ -13,6 +13,11 @@ consecutive windows (the TPU's four pack-2 pairs, 392 rows at N = 49) and
 head, the bias and mask tiles staged once per cell. Its function is kernel
 1's, so its plain versions are kernel 1's; :func:`dense_applies` is the
 JAX package's decision to take it.
+
+The probes of ``tools/attn_probe.py`` and ``tools/attn_variants.py`` are
+kernel 1's body with a part switched (:data:`PROBE_MODES`), one more
+launch of the forward source; :func:`window_attention_probe_plain` is
+their function per 49-token window, not on the TPU's pack-2 pairs.
 """
 
 from __future__ import annotations
@@ -30,6 +35,61 @@ DENSE_CELL = 8
 # the [n_groups, nH, N, N] dbias partials stay near 10 MB at batch 32
 BWD_BLOCKS = 1024
 MAX_GROUP = 64
+# the probe modes -> the CUDA source's Mode ids: attn_probe's _kern modes
+# "full" (kernel 1), "nosmax", "nodots", then attn_variants'
+# kern_dots_only and kern_softmax_only
+PROBE_MODES = {"full": 0, "nosmax": 1, "nodots": 2, "dots_only": 3,
+               "softmax_only": 4}
+UNMASKED_MODES = ("dots_only", "softmax_only")
+
+
+def window_attention_probe_plain(qkv: torch.Tensor, num_heads: int,
+                                 rel_bias: torch.Tensor,
+                                 mask: torch.Tensor | None, scale: float,
+                                 mode: str) -> torch.Tensor:
+    """A probe of kernel 1's body per window and head, ``[B*nW, N, C]``
+    in qkv's dtype, with the probes' cast points:
+
+    - ``full``: :func:`attention.window_attention`;
+    - ``nosmax``: ``P = S``, ``S = q*scale k^T + bias + mask`` in fp32,
+      rounded to the working dtype before ``P V``;
+    - ``nodots``: ``S = bf16(q[:, 0] + k[:, 0]^T)`` (unscaled), then bias,
+      mask, softmax and ``P V`` as kernel 1;
+    - ``dots_only``: ``bf16(q*scale k^T) V``, no bias, mask or softmax;
+    - ``softmax_only``: the row sums of ``softmax(x[:, 0] + bias[h])``
+      over the keys, with ``x[:, 0]`` the window's first qkv column, head
+      ``c % nH`` in output column c.
+    """
+    if mode == "full":
+        return plain(qkv, num_heads, rel_bias, mask, scale)
+    if mode not in PROBE_MODES:
+        raise ValueError(f"probe mode {mode!r} not in {list(PROBE_MODES)}")
+    if mode in UNMASKED_MODES and mask is not None:
+        raise ValueError(f"probe mode {mode} takes no mask")
+    Bw, N, C3 = qkv.shape
+    C, dt = C3 // 3, qkv.dtype
+    hd = C // num_heads
+    f = torch.promote_types(dt, torch.float32)
+    if mode == "softmax_only":
+        s = qkv[:, None, :, :1].to(f) + rel_bias.to(f)[None]  # [Bw, nH, N, N]
+        rows = torch.softmax(s, dim=-1).sum(-1)               # [Bw, nH, N]
+        return rows.transpose(1, 2).repeat(1, 1, hd).to(dt)
+    x = qkv.view(Bw, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = x[0], x[1], x[2]
+    if mode == "nodots":
+        s = (q[..., :1] + k[..., :1].transpose(-1, -2)).to(f)
+    else:
+        s = torch.matmul((q * dtype_const(scale, dt)).to(f),
+                         k.to(f).transpose(-1, -2))
+    if mode != "dots_only":
+        s = s + rel_bias.to(f)[None]
+        if mask is not None:
+            nW = mask.shape[0]
+            s = (s.view(Bw // nW, nW, num_heads, N, N)
+                 + mask.to(f)[None, :, None]).view(Bw, num_heads, N, N)
+    p = torch.softmax(s, dim=-1) if mode == "nodots" else s
+    out = torch.matmul(p.to(dt).to(f), v.to(f)).to(dt)
+    return out.transpose(1, 2).reshape(Bw, N, C)
 
 
 def window_attention_bwd_plain(qkv: torch.Tensor, num_heads: int,
@@ -141,6 +201,22 @@ def _check_dout(qkv, dout):
                          f"{dout.dtype} {tuple(dout.shape)}")
 
 
+def _launch_fwd(qkv, num_heads, rel_bias, mask, scale, mode, what):
+    """Kernel 1's forward source in ``mode`` of :data:`PROBE_MODES`
+    (``full``: kernel 1)."""
+    _check(qkv, num_heads, rel_bias, mask, what)
+    Bw, N, C3 = qkv.shape
+    out = torch.empty((Bw, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
+    err = _build.library().mtlora_window_attn_fwd(
+        PROBE_MODES[mode], qkv.data_ptr(), rel_bias.data_ptr(),
+        mask.data_ptr() if mask is not None else None, out.data_ptr(),
+        Bw, N, C3 // 3, num_heads, mask.shape[0] if mask is not None else 0,
+        dtype_const(scale, qkv.dtype),
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(err, "mtlora_window_attn_fwd")
+    return out
+
+
 def window_attention_fwd(qkv: torch.Tensor, num_heads: int,
                          rel_bias: torch.Tensor, mask: torch.Tensor | None,
                          scale: float) -> torch.Tensor:
@@ -148,17 +224,8 @@ def window_attention_fwd(qkv: torch.Tensor, num_heads: int,
     kernel for CUDA tensors (bf16, N <= 64, head dim a multiple of 8)."""
     if qkv.device.type == "cpu":
         return plain(qkv, num_heads, rel_bias, mask, scale)
-    _check(qkv, num_heads, rel_bias, mask, "forward")
-    Bw, N, C3 = qkv.shape
-    lib = _build.library()
-    out = torch.empty((Bw, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
-    err = lib.mtlora_window_attn_fwd(
-        qkv.data_ptr(), rel_bias.data_ptr(),
-        mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        Bw, N, C3 // 3, num_heads, mask.shape[0] if mask is not None else 0,
-        dtype_const(scale, qkv.dtype),
-        torch.cuda.current_stream(qkv.device).cuda_stream)
-    _build.check(err, "mtlora_window_attn_fwd")
+    out = _launch_fwd(qkv, num_heads, rel_bias, mask, scale, "full",
+                      "forward")
     window_attention_fwd.launches += 1
     return out
 
@@ -252,8 +319,32 @@ def window_attention_dense_bwd(qkv: torch.Tensor, num_heads: int,
     return dqkv, dbias
 
 
+def window_attention_probe(qkv: torch.Tensor, num_heads: int,
+                           rel_bias: torch.Tensor, mask: torch.Tensor | None,
+                           scale: float, mode: str) -> torch.Tensor:
+    """A probe mode of :data:`PROBE_MODES`: the plain version for CPU
+    tensors, kernel 1's body with the mode's part switched for CUDA
+    tensors (kernel 1's operands; no mask for ``dots_only`` and
+    ``softmax_only``)."""
+    if qkv.device.type == "cpu":
+        return window_attention_probe_plain(qkv, num_heads, rel_bias, mask,
+                                            scale, mode)
+    if mode not in PROBE_MODES or (mode in UNMASKED_MODES
+                                   and mask is not None):
+        raise ValueError(f"window attention probe: mode {mode!r} (with a "
+                         f"mask: {mask is not None}) is not one of "
+                         f"{list(PROBE_MODES)} (no mask for "
+                         f"{UNMASKED_MODES})")
+    out = _launch_fwd(qkv, num_heads, rel_bias, mask, scale, mode,
+                      f"probe {mode}")
+    window_attention_probe.launches[mode] += 1
+    return out
+
+
 window_attention_fwd.launches = 0
 window_attention_bwd.launches = 0
+# launches by mode
+window_attention_probe.launches = dict.fromkeys(PROBE_MODES, 0)
 window_attention_dense_fwd.launches = 0
 window_attention_dense_bwd.launches = 0
 

@@ -249,6 +249,36 @@ for flags in (dict(use_pallas_lora_gemm=True),
                          build_schedule(tcfg, 10), batch,
                          torch.Generator().manual_seed(0))
     assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
+from mtlora_tpu_torch.ops.adapter_mlp import FWD_PROBES, adapter_mid_probe
+from mtlora_tpu_torch.ops.quad_attn import quad_attention
+from mtlora_tpu_torch.ops.window_attn import (PROBE_MODES,
+                                               window_attention_probe)
+from mtlora_tpu_torch.tools import adapter_variants, attn_probe
+g = torch.Generator().manual_seed(0)
+qkv = torch.randn(2, 49, 3 * 64, generator=g)
+for mode in PROBE_MODES:
+    out = window_attention_probe(qkv, 2, torch.zeros(2, 49, 49), None, 0.2,
+                                 mode)
+    assert out.shape == (2, 49, 64) and bool(torch.isfinite(out).all())
+for name, (_, _, kind) in FWD_PROBES.items():
+    shape = (4, 64, 4) if kind in ("vpu1", "vpu12") else (4, 4, 64)
+    out = adapter_mid_probe(torch.randn(*shape, generator=g),
+                            torch.randn(64, 64, generator=g),
+                            torch.randn(4, 4, 64, generator=g),
+                            torch.randn(4, 4, 64, generator=g), (1.0,) * 4,
+                            name)
+    assert out.shape == shape and bool(torch.isfinite(out).all())
+out = quad_attention(torch.randn(1, 2, 392, 128, generator=g),
+                     torch.randn(1, 2, 2, 98, 128, generator=g),
+                     torch.zeros(2, 392, 98))
+assert out.shape == (1, 392, 64)
+for tool in (attn_probe, adapter_variants):   # the entry points need a card
+    try:
+        tool.main([])
+    except SystemExit as e:
+        assert e.code not in (0, None), e.code
+    else:
+        raise AssertionError(f"{tool.__name__} ran without a CUDA device")
 assert not any(counters.read().values())   # the CPU route counts nothing
 assert not any(k.split(".")[0] == "mtlora_tpu" for k in sys.modules)
 print("HYGIENE-OK")
@@ -256,10 +286,13 @@ print("HYGIENE-OK")
 
 
 def test_port_imports_no_jax_flax_yaml_cv2():
-    """Every port module imports, and a toy forward and a toy training
-    step run on the three routes (LN outside the GEMMs; kernels 2, 3, 4;
-    and the adapter route, kernels 2 to 6), and with kernel 8 on the first
-    and the last, with jax, flax, yaml and cv2 made unimportable."""
+    """Every port module imports, the probe entry points of
+    ``mtlora_tpu_torch.tools`` among them, and a toy forward and a toy
+    training step run on the three routes (LN outside the GEMMs; kernels
+    2, 3, 4; and the adapter route, kernels 2 to 6), and with kernel 8 on
+    the first and the last; the probes' plain versions run, and each
+    probe entry point exits non-zero without a CUDA device; all with jax,
+    flax, yaml and cv2 made unimportable."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
     proc = subprocess.run([sys.executable, "-c", HYGIENE], env=env,
                           cwd=os.path.abspath(ROOT), capture_output=True,
