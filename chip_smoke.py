@@ -24,7 +24,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
      library-call times and the roofline bound;
   3b. backward kernels vs plain: the same shapes, every gradient against
      the plain backward (kernel 8: its dx layout; kernel 1c: also against
-     kernel 1b), with the same four numbers;
+     kernel 1b), with the same four numbers; kernel 4b also with its
+     achieved TFLOP/s, share of the bound and weight-slice rate per stage,
+     and at the ragged 392 rows of stage 3 (phase 8's batch-2 step);
   3c. the GELU form: kernels 2-tail, 4, 4b, 5 and 5b at stage 1 against
      their plain versions, which take the tanh form in bf16 as the JAX
      kernels do, with the distance to the exact-erf form beside it; the
@@ -115,6 +117,7 @@ from mtlora_tpu_torch.ops.lora_matmul import (
     lora_matmul_plain,
 )
 from mtlora_tpu_torch.ops.ln_mlp import (
+    bwd_plan,
     ln_mlp_bwd,
     ln_mlp_bwd_plain,
     ln_mlp_fwd,
@@ -652,29 +655,56 @@ def ln_mlp_library(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2,
     return torch.addmm(bias2, g, w2.t()) + s2 * ((g @ a2.t()) @ bb2.t())
 
 
+def ln_mlp_operands(gen, s, M=None):
+    """Kernel 4's operands at stage s, ``M`` rows (default: the batch-32
+    step's), rank 64, scales 4, dropout 0.05: (args, gy, weights)."""
+    cfg, _, C, M_step = stage_dims(s)
+    M = M_step if M is None else M
+    st = cfg.stages[s]
+    H4, r, sc, p = 4 * C, st.r_shared, st.shared_scale, st.dropout
+    x = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
+    gamma, beta = _ln_params(gen, C)
+    w1 = _uniform(gen, (H4, C), C ** -0.5)
+    bias1 = _uniform(gen, (H4,), 0.02)
+    a1 = _uniform(gen, (r, C), C ** -0.5)
+    bb1 = _uniform(gen, (H4, r), r ** -0.5)
+    w2 = _uniform(gen, (C, H4), H4 ** -0.5)
+    bias2 = _uniform(gen, (C,), 0.02)
+    a2 = _uniform(gen, (r, H4), H4 ** -0.5)
+    bb2 = _uniform(gen, (C, r), r ** -0.5)
+    seed = _seed(gen)
+    gy = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
+    ws = (w1, bias1, a1, bb1, w2, bias2, a2, bb2)
+    return (x, gamma, beta, *ws, seed, sc, sc, p), gy, ws
+
+
+def ln_mlp_bwd_cost(M, C, r):
+    """(bytes, operations) of kernel 4b: x, gy and dx once, the weights
+    and their adapter gradients once; the three frozen products and the
+    rank products."""
+    H4 = 4 * C
+    w_bytes = 2 * (2 * C * H4 + H4 + C + 2 * r * (C + H4) + 2 * C)
+    return (6 * M * C + 2 * w_bytes,
+            2.0 * M * (3 * C * H4 + 6 * r * H4 + 5 * r * C))
+
+
+# phase 8's batch-2 step at stage 3 (and path B's batch 8 at 224): 392 rows,
+# not a multiple of kernel 4b's 32-row blocks
+RAGGED_ROWS = 392
+
+
 def check_ln_mlp(gen) -> dict:
     """Kernel 4 at the no-task blocks' MLPs: per stage x [M, C], hidden 4C,
     rank 64, scales 4, dropout 0.05; weighted by the stage's no-task
-    blocks."""
+    blocks. Kernel 4b also at the ragged stage-3 rows of phase 8 (checked,
+    not in the tally)."""
     fwd, bwd = Tally(), Tally()
     for s in range(4):
         cfg, _, C, M = stage_dims(s)
-        st = cfg.stages[s]
-        H4, r, sc, p = 4 * C, st.r_shared, st.shared_scale, st.dropout
-        x = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
-        gamma, beta = _ln_params(gen, C)
-        w1 = _uniform(gen, (H4, C), C ** -0.5)
-        bias1 = _uniform(gen, (H4,), 0.02)
-        a1 = _uniform(gen, (r, C), C ** -0.5)
-        bb1 = _uniform(gen, (H4, r), r ** -0.5)
-        w2 = _uniform(gen, (C, H4), H4 ** -0.5)
-        bias2 = _uniform(gen, (C,), 0.02)
-        a2 = _uniform(gen, (r, H4), H4 ** -0.5)
-        bb2 = _uniform(gen, (C, r), r ** -0.5)
-        seed = _seed(gen)
-        gy = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
-        ws = (w1, bias1, a1, bb1, w2, bias2, a2, bb2)
-        args = (x, gamma, beta, *ws, seed, sc, sc, p)
+        args, gy, ws = ln_mlp_operands(gen, s)
+        x, gamma, beta = args[:3]
+        w1, bias1, a1, bb1, w2, bias2, a2, bb2 = ws
+        sc, r, H4 = args[-3], a1.shape[0], w1.shape[0]
         n = cfg.depths[s] - 1
         y = ln_mlp_fwd(*args)
         ref = ln_mlp_plain(*args)
@@ -707,13 +737,26 @@ def check_ln_mlp(gen) -> dict:
         t_l = median_ms(lambda: torch.autograd.grad(yl, leaves, gy,
                                                     retain_graph=True),
                         reps=5)
-        nbytes = 6 * M * C + 2 * w_bytes
-        flops = 2.0 * M * (3 * C * H4 + 6 * r * H4 + 5 * r * C)
-        print(f"ln_mlp bwd stage {s}: {text} kernel {t_k:.4f} ms plain "
-              f"{t_p:.4f} ms library backward {t_l:.4f} ms "
-              f"{bound_text(nbytes, flops)}")
+        nbytes, flops = ln_mlp_bwd_cost(M, C, r)
+        t_b = max(nbytes / PEAK_HBM_BYTES, ops_seconds(flops)) * 1e3
+        plan = bwd_plan(M, C, H4, r, ln_lora._sms(x.device))
+        print(f"ln_mlp bwd stage {s}: {text} kernel {t_k:.4f} ms "
+              f"({flops / t_k / 1e9:.2f} TFLOP/s, {t_b / t_k:.4f} of the "
+              f"bound; weight slices {plan.slice_bytes / 1e9:.3f} GB, "
+              f"{plan.slice_bytes / t_k / 1e9:.3f} TB/s) plain {t_p:.4f} ms "
+              f"library backward {t_l:.4f} ms {bound_text(nbytes, flops)}")
         bwd.add(err, t_k, t_p, t_l, nbytes, flops, n)
-        del x, gy, y, ref, got, want, yl, leaves
+        del x, gy, y, ref, got, want, yl, leaves, args, ws
+    # its own generator: the later checks draw the same tensors as before
+    ragged = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    args, gy, _ = ln_mlp_operands(ragged, 3, RAGGED_ROWS)
+    got = ln_mlp_bwd(*args, gy)
+    want = ln_mlp_bwd_plain(*args, gy)
+    torch.cuda.synchronize()
+    _, text = check_outputs(
+        f"ln_mlp bwd ragged x [{RAGGED_ROWS}, {args[0].shape[1]}]", got, want,
+        ("dx", "dgamma", "dbeta", "dA1", "dB1", "dA2", "dB2"), {0})
+    print(f"ln_mlp bwd ragged x [{RAGGED_ROWS}, {args[0].shape[1]}]: {text}")
     return {"fwd": fwd, "bwd": bwd}
 
 

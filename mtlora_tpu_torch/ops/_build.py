@@ -66,10 +66,10 @@ SIGNATURES = {
     # x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed, y,
     # M, C, H4, r, s1, s2, drop threshold, use_drop, inv_keep, stream
     "mtlora_ln_mlp_fwd": [_P] * 13 + [_I] * 4 + [_F, _F, _U, _I, _F, _P],
-    # the forward's 12 operands, w2t, bb2t, a2t, w1t, bb1t, a1t, gy, dx,
-    # stats, lbuf, mbuf, gb, pa, pb, ph, dgb, da1, dh, dbb2, M, C, H4, r,
-    # sa, sb, sh, s1, s2, drop threshold, use_drop, inv_keep, stream
-    "mtlora_ln_mlp_bwd": [_P] * 31 + [_I] * 7 + [_F, _F, _U, _I, _F, _P],
+    # x, gamma, beta, w1, bias1, a1, bb1, w2, a2, bb2, seed, gy, dx, lnd,
+    # mbuf, hbuf, gb, part, dgb, da1, dh, dbb2, M, C, H4, r, bm, keep_w1,
+    # smem, sa, sh, s1, s2, drop threshold, use_drop, inv_keep, stream
+    "mtlora_ln_mlp_bwd": [_P] * 22 + [_I] * 9 + [_F, _F, _U, _I, _F, _P],
     # variant, mid1T, p1, b1, a2T, mid2T, T, M, H4, s0, s1, s2, s3, stream
     "mtlora_adapter_mid_fwd": [_I] + [_P] * 5 + [_I] * 3 + [_F] * 4 + [_P],
     # activation, mid1T, p1, b1, a2T, g, dmid1T, dp1, part, dw, T, M, H4,

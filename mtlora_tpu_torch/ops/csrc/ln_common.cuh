@@ -7,7 +7,8 @@
 // straight from device memory, or accumulator registers; the B operand is
 // a weight in the [n][k] layout (k contiguous) read from device memory
 // through L1/L2 (the weights are at most 4.7 MB and shared by every
-// block). Reductions over rows (weight and LayerNorm-affine gradients)
+// block); ln_mlp_bwd.cu streams its weights through shared memory
+// instead. Reductions over rows (weight and LayerNorm-affine gradients)
 // are written as fp32 partials and summed in a fixed order: no fp32
 // atomics. The kernels defined here are static: every source that
 // includes the header compiles its own copy.
@@ -388,72 +389,75 @@ __device__ __forceinline__ void store_tile(bf16* tile, int ld,
 
 // ---------------------------------------------------------------------------
 // Weight gradients: part[stripe][n][k] = sum over the stripe's rows of
-// P[row][n] Q[row][k]. One block of 4 warps per (64 n, 64 k, stripe);
-// both operands are staged TRANSPOSED in shared memory ([n][row],
-// [k][row]) so the products over rows read 32-bit fragments.
+// P[row][n] Q[row][k]. One block of 4 warps per (64 n, 64 k, stripe); the
+// 64-row tiles of both operands are copied as they lie ([row][n],
+// [row][k]) by cp.async, two tiles deep, and read transposed by
+// ldmatrix.trans (warp w: outputs n0 + 16w..).
 // ---------------------------------------------------------------------------
 
-// bf16 rows of a device array, optionally rounded s * v (du = bf16(s gy)).
+// bf16 rows of a device array (row stride ld % 8 == 0, 16-byte aligned),
+// optionally rounded s * v (du = bf16(s gy)).
 struct MatSrc {
   const bf16* p;
   int ld;
   float s;
   int scaled;
-  __device__ __forceinline__ float2 pair(int m, int c) const {
-    float2 v = bf2(p + (size_t)m * ld + c);
-    if (scaled) {
-      v.x = round_bf16(s * v.x);
-      v.y = round_bf16(s * v.y);
-    }
-    return v;
-  }
 };
-
-// Rows [r0, r1) x columns [c0, c0 + 64) of `src` into dst TRANSPOSED
-// ([col][row], row stride kT), zero-padded; each thread takes two rows of
-// one column pair.
-__device__ __forceinline__ void stage_t(bf16* dst, const MatSrc& src, int r0,
-                                        int r1, int c0, int C) {
-  for (int i = threadIdx.x; i < 32 * 32; i += blockDim.x) {
-    const int rp = 2 * (i >> 5), cp = 2 * (i & 31);
-    const int m = r0 + rp, c = c0 + cp;
-    float2 v0 = make_float2(0.f, 0.f), v1 = v0;
-    if (c < C) {
-      if (m < r1) v0 = src.pair(m, c);
-      if (m + 1 < r1) v1 = src.pair(m + 1, c);
-    }
-    st_bf2(dst + cp * kT + rp, v0.x, v1.x);
-    st_bf2(dst + (cp + 1) * kT + rp, v0.y, v1.y);
-  }
-}
 
 static __global__ void __launch_bounds__(128)
 wgrad_kernel(MatSrc P, MatSrc Q, int rows, int N, int Kq, int stripe_rows,
              float* __restrict__ part) {
-  __shared__ __align__(16) bf16 pt[64 * kT];
-  __shared__ __align__(16) bf16 qt[64 * kT];
+  __shared__ __align__(16) bf16 pt[2][64 * kT];
+  __shared__ __align__(16) bf16 qt[2][64 * kT];
   const int lane = lane_id(), g = lane >> 2, t = lane & 3;
   const int w = threadIdx.x >> 5;
   const int n0 = blockIdx.x * 64, k0 = blockIdx.y * 64;
   const int r_begin = blockIdx.z * stripe_rows;
   const int r_end = min(rows, r_begin + stripe_rows);
+  // rows [rb, rb + 64) of both operands into buffer b, zero outside
+  auto stage = [&](int b, int rb) {
+    for (int i = threadIdx.x; i < 64 * 8; i += blockDim.x) {
+      const int r = i >> 3, c = (i & 7) * 8, m = rb + r;
+      const bool ip = m < r_end && n0 + c < N, iq = m < r_end && k0 + c < Kq;
+      cp_async16(&pt[b][r * kT + c], ip ? P.p + (size_t)m * P.ld + n0 + c : P.p,
+                 ip);
+      cp_async16(&qt[b][r * kT + c], iq ? Q.p + (size_t)m * Q.ld + k0 + c : Q.p,
+                 iq);
+    }
+    cp_async_commit();
+  };
   float acc[8][4];
   zero<8>(acc);
-  for (int rb = r_begin; rb < r_end; rb += 64) {
-    __syncthreads();
-    stage_t(pt, P, rb, r_end, n0, N);
-    stage_t(qt, Q, rb, r_end, k0, Kq);
-    __syncthreads();
+  int b = 0;
+  if (r_begin < r_end) stage(0, r_begin);
+  for (int rb = r_begin; rb < r_end; rb += 64, b ^= 1) {
+    if (rb + 64 < r_end) {
+      stage(b ^ 1, rb + 64);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile b is in shared memory for every thread
 #pragma unroll
     for (int kk = 0; kk < 64; kk += 16) {
       uint32_t af[4];
-      load_a(af, pt + w * 16 * kT + kk, kT, g, t);
+      ldsm_x4_t(af, &pt[b][(kk + (lane & 7) + ((lane >> 4) << 3)) * kT +
+                           16 * w + ((lane >> 3) & 1) * 8]);
+      if (P.scaled)
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const bf16* bp = qt + (nt * 8 + g) * kT + kk + 2 * t;
-        mma_bf16_16816(acc[nt], af, ld32(bp), ld32(bp + 8));
+        for (int e = 0; e < 4; ++e) af[e] = scale_pair(af[e], P.s);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, &qt[b][(kk + (lane & 15)) * kT + 16 * p + (lane >> 4) * 8]);
+        if (Q.scaled)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) bf[e] = scale_pair(bf[e], Q.s);
+        mma_bf16_16816(acc[2 * p], af, bf[0], bf[1]);
+        mma_bf16_16816(acc[2 * p + 1], af, bf[2], bf[3]);
       }
     }
+    __syncthreads();  // tile b is consumed before it is staged again
   }
   float* out = part + (size_t)blockIdx.z * N * Kq;
 #pragma unroll
@@ -507,6 +511,8 @@ inline cudaError_t sum_parts(float* part, int parts, size_t E, float* out,
 inline cudaError_t wgrad(const MatSrc& P, const MatSrc& Q, int rows, int N, int Kq,
                          int stripes, float* part, float* out,
                          cudaStream_t st) {
+  if (P.ld % 8 || Q.ld % 8 || (uintptr_t)P.p % 16 || (uintptr_t)Q.p % 16)
+    return cudaErrorMisalignedAddress;
   const int tiles = (rows + 63) / 64;
   const int stripe_rows = (tiles + stripes - 1) / stripes * 64;
   dim3 grid((N + 63) / 64, (Kq + 63) / 64, stripes);

@@ -1,8 +1,8 @@
 // Fused LayerNorm + whole MLP with shared LoRA (backward) for Hopper.
 //
-// Replaces mtlora_tpu/ops/pallas_ln_mlp.py: _bwd_kernel, launched by
-// _bwd_rule, the custom VJP of fused_ln_mlp. With ln, h, g and both masks
-// recomputed (never stored), the cast points of _bwd_kernel:
+// Replaces mtlora_tpu/ops/pallas_ln_mlp.py: _bwd_kernel (:103), launched by
+// _bwd_rule (:276, call :292), the custom VJP of fused_ln_mlp. With ln, h
+// and g recomputed and both masks re-hashed, the cast points of _bwd_kernel:
 //   dm2 = bf16(bf16(s2 gy) B2)        dg  = bf16(gy) W2 + drop2(dm2 A2^T)
 //   dh  = dg gelu'(h) (tanh form)     dln = bf16(dh) W1 + drop1(dm1 A1^T)
 //   dm1 = bf16(bf16(s1 dh) B1)
@@ -10,26 +10,41 @@
 //   dB1^T = bf16(s1 dh)^T m1          dA1^T = dm1^T bf16(drop1(ln))
 //   dgamma, dbeta, dx: the LayerNorm backward of dln.
 //
-// What bounds it: the frozen products (h and dg recomputed, dln; ~3 of
-// the forward's two), tensor-core work far above the ridge; the [M, 4C]
-// hidden and its gradient never reach device memory. The TPU grid runs in
-// order and carries dgamma, dbeta and the four adapter gradients in VMEM;
-// here:
-//   - a row kernel (a block of 4 warps owns 16 rows) walks the hidden in
-//     groups of 4 chunks of 64 columns, one chunk per warp (the rank
-//     products of gd and du take their A operands from the registers),
-//     and keeps dln in registers, each warp C/4 of its columns; it writes
-//     dx, the 16-row partials of dgamma and dbeta, bf16(drop1(ln)),
-//     bf16(ln) and the four bf16 [M, 64] rank rows m1, dm1, m2, dm2;
-//   - dB1 and dA2 are products over rows of hidden-chunk tensors (du1 and
-//     bf16(drop2(g))): a second kernel, one block per (64-column hidden
-//     chunk, stripe of rows), recomputes the chunk's h, g and dh from the
-//     stored bf16(ln), rank rows and gy, and accumulates both products over
-//     its stripe in registers; fp32 partials per stripe (stripes ~ two
-//     waves / chunks, so ~8 MB at most) are summed in order;
-//   - dA1 and dB2 are products of stored rows (lnk::wgrad), as in
-//     ln_lora_bwd.cu.
-// Deterministic, with no fp32 atomics. mma.sync m16n8k16 throughout.
+// What bounds it: by operations, three frozen products (h recomputed, dg,
+// dln), 24 M C^2 against ~6 M C bytes of activations, far above the
+// card's ridge. In this design it is latency: every block streams the
+// frozen weights (up to 24 C^2 bytes) through shared memory in 8 KB
+// slices, so a call moves up to 24 M C^2 / BM bytes from L2, and the 8
+// warps of a block meet at a barrier per slice (chip_smoke.py prints the
+// slice rate per stage). Design:
+//   - a row kernel: a block of 8 warps owns BM rows (64; 32 where C > 384,
+//     so that the block's dln, BM x C fp32, stays at 96 registers a
+//     thread: the launch plan, ops/ln_mlp.py:bwd_plan, chooses) and keeps
+//     its A operands resident in shared memory:
+//     bf16(drop1(ln)) then bf16(ln), bf16(gy), the rank rows m1 and dm2,
+//     and per 64-column hidden chunk bf16(drop2(g)), du1 = bf16(s1 dh) and
+//     bf16(dh);
+//   - every weight operand streams through a ring of kStages [64 x 64]
+//     slices filled by cp.async, kStages - 1 slices ahead of the one the
+//     warps multiply: A1 (m1) and B2 (dm2) before the chunks; per chunk
+//     B1 (h's LoRA term), W1 (h), A2 (m2 and dgd), W2 (dg), B1 (dm1), W1
+//     (dln, unless the plan keeps the h pass's W1 slices); A1 (dl)
+//     after them. A slice is stored as 8 x 8 core matrices, which
+//     ldmatrix reads either way round without bank conflicts, so every
+//     weight is read in its module layout and no transposed copy exists.
+//     Each staged byte serves BM rows, four times as many as the 16 of the
+//     first port;
+//   - the products: mma.sync m16n8k16 with both operands from ldmatrix
+//     (ldmatrix.trans for the transposed uses of a slice). A warp owns 16
+//     rows and 64 / WN columns of every [64 x 64] product: h, gelu'(h), dg
+//     and the masks of a chunk stay in its registers, m2, dm1 and dln
+//     accumulate there;
+//   - the row kernel writes dx, the per-16-row partials of dgamma and
+//     dbeta, bf16(drop1(ln)), m1, dm1, m2, dm2 and the chunks' du1 and
+//     bf16(drop2(g)) as bf16 [M, 4C] rows: dB1, dA2, dA1 and dB2 are then
+//     products over rows of stored tensors (lnk::wgrad), with no second
+//     recompute of the hidden; fp32 partials per stripe of rows are summed
+//     in a fixed order. Deterministic, no fp32 atomics.
 
 #include "ln_common.cuh"
 
@@ -37,234 +52,411 @@ namespace {
 
 using namespace lnk;
 
-struct MlpBwdArgs {
-  Rows R;
-  const bf16 *gamma, *beta, *w1, *bias1, *a1, *bb1, *a2;
-  const bf16 *w2t, *bb2t, *a2t, *w1t, *bb1t, *a1t, *gy;
-  bf16 *dx, *lbuf, *lnc, *m1, *dm1, *m2, *dm2;
-  float *mu_g, *inv_g, *gb;
-  int H4, r;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kS = 64;               // a slice: 64 x 64 bf16
+constexpr int kLdS = kS + 8;         // row stride of the 64-wide tiles
+constexpr int kSlice = kS * kS;      // elements of one ring slot
+constexpr int kStages = 4;           // ring depth
+constexpr int kRank = 64;
+
+struct Args {
+  Rows R;  // x [M, C]
+  const bf16 *gamma, *beta, *w1, *bias1, *a1, *bb1, *w2, *a2, *bb2, *gy;
+  bf16 *dx, *lnd, *m1, *dm1, *m2, *dm2, *du1, *gd;
+  float* gb;
+  int H4;
+  int keep_w1;  // the chunk's W1 slices kept from h for dln
   float s1, s2;
   DropSpec d1, d2;
 };
 
-// h chunk [16, 64] of rows m0.. at hidden columns h0..: bf16(ln) W1^T + b1
-// + s1 bf16(m1) B1^T, bf16(ln) and m1 from the rows the row kernel wrote.
-__device__ __forceinline__ void hidden_chunk(float (*h)[4],
-                                             const MlpBwdArgs& a, int m0,
-                                             int valid, int h0) {
-  const int C = a.R.K, t = lane_id() & 3;
-  float u[8][4];
-  zero<8>(h);
-  zero<8>(u);
-  mma_rows<8, false, 2>(h, a.lnc + (size_t)m0 * C, C, valid, 1.f, a.w1, C,
-                        C, h0, a.H4);
-  mma_rows<8, false>(u, a.m1 + (size_t)m0 * a.r, a.r, valid, 1.f, a.bb1,
-                     a.r, a.r, h0, a.H4);
+// A [64 x 64] slice of a row-major weight: rows r0.., columns c0.. of src
+// (row stride ld), zero outside [0, rows) x [0, cols). In a ring slot it
+// is stored as 8 x 8 core matrices (element (r, c) at slot_off(r, c)),
+// which ldmatrix reads without bank conflicts.
+struct Slice {
+  const bf16* src;
+  int ld, r0, c0, rows, cols;
+};
+
+__device__ __forceinline__ int slot_off(int r, int c) {
+  return ((r >> 3) * 8 + (c >> 3)) * 64 + (r & 7) * 8 + (c & 7);
+}
+
+// The q-th slice a block multiplies with (ncs slices of 64 columns of C).
+__device__ __forceinline__ Slice slice_of(const Args& a, int q, int ncs) {
+  const int C = a.R.K, H4 = a.H4, per = (a.keep_w1 ? 2 : 3) * ncs + 3;
+  if (q < ncs) return Slice{a.a1, C, 0, kS * q, kRank, C};         // m1
+  q -= ncs;
+  if (q < ncs) return Slice{a.bb2, kRank, kS * q, 0, C, kRank};    // dm2
+  q -= ncs;
+  const int j = q / per;
+  if (j < H4 / kS) {
+    const int h0 = kS * j;
+    int i = q - j * per;
+    if (i == 0) return Slice{a.bb1, kRank, h0, 0, H4, kRank};      // u
+    i -= 1;
+    if (i < ncs) return Slice{a.w1, C, h0, kS * i, H4, C};         // h
+    i -= ncs;
+    if (i == 0) return Slice{a.a2, H4, 0, h0, kRank, H4};          // m2, dgd
+    i -= 1;
+    if (i < ncs) return Slice{a.w2, H4, kS * i, h0, C, H4};        // dg
+    i -= ncs;
+    if (i == 0) return Slice{a.bb1, kRank, h0, 0, H4, kRank};      // dm1
+    return Slice{a.w1, C, h0, kS * (i - 1), H4, C};                // dln
+  }
+  q -= (H4 / kS) * per;
+  return Slice{a.a1, C, 0, kS * q, kRank, C};                      // dl
+}
+
+// The ring of weight slices. Every thread of the block calls next() at the
+// same points: slice q is resident when next() returns it, and slice q +
+// kStages - 1 starts streaming into the slot of slice q - 1, free because
+// every thread passed the barrier after completing its products on it.
+// One cp.async group per slice, empty past the end. A warp copies 8 rows x
+// 64 bytes per step: whole 32-byte sectors from device memory, and 8
+// consecutive lanes fill one core matrix (no bank conflicts).
+struct Ring {
+  bf16* buf;
+  int q, total, ncs;
+
+  __device__ __forceinline__ void load(const Args& a, int i) {
+    if (i < total) {
+      const Slice s = slice_of(a, i, ncs);
+      bf16* dst = buf + (i % kStages) * kSlice;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = h0 + nt * 8 + 2 * t + (e & 1);
-      h[nt][e] = (h[nt][e] + __bfloat162float(a.bias1[col])) + a.s1 * u[nt][e];
+      for (int p = 0; p < kS * kS / 8 / kThreads; ++p) {
+        const int u = (threadIdx.x >> 5) + p * kWarps, l = threadIdx.x & 31;
+        const int row = 8 * (u & 7) + (l & 7);
+        const int col = 8 * (4 * (u >> 3) + (l >> 3));
+        const bool in = s.r0 + row < s.rows && s.c0 + col < s.cols;
+        cp_async16(dst + slot_off(row, col),
+                   in ? s.src + (size_t)(s.r0 + row) * s.ld + s.c0 + col
+                      : s.src,
+                   in);
+      }
     }
+    cp_async_commit();
+  }
+
+  __device__ __forceinline__ void start(const Args& a) {
+    for (int i = 0; i < kStages - 1; ++i) load(a, i);
+  }
+
+  __device__ __forceinline__ const bf16* next(const Args& a) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    load(a, q + kStages - 1);
+    return buf + (q++ % kStages) * kSlice;
+  }
+};
+
+// k-steps of 16 in the C slice cs (C % 32 == 0: 2 or 4).
+__device__ __forceinline__ int ksteps(int C, int cs) {
+  return min(kS, C - kS * cs) / 16;
 }
 
-// dg chunk: bf16(gy) W2 + drop2(bf16(dm2) A2^T), dm2 from device rows.
-__device__ __forceinline__ void dg_chunk(float (*dg)[4], const MlpBwdArgs& a,
-                                         const Drop& d2, int m0, int valid,
-                                         int h0) {
-  const int C = a.R.K, lane = lane_id(), g = lane >> 2, t = lane & 3;
-  float dgd[8][4];
-  zero<8>(dg);
-  zero<8>(dgd);
-  mma_rows<8, false, 2>(dg, a.gy + (size_t)m0 * C, C, valid, 1.f, a.w2t, C,
-                        C, h0, a.H4);
-  mma_rows<8, false>(dgd, a.dm2 + (size_t)m0 * a.r, a.r, valid, 1.f, a.a2t,
-                     a.r, a.r, h0, a.H4);
+// acc[nt] += A B for the warp's 16 rows and the n-tiles n0 + 8 nt
+// (NT even): A [16 x 16 ks] at `a` (row stride lda) through ldmatrix, SC
+// rounding s * A to bf16 first (du2 = bf16(s2 gy)); B a resident slice
+// read as [n][k] (TR false) or [k][n] (TR true), mma.sync m16n8k16.
+template <int NT, bool TR, bool SC = false>
+__device__ __forceinline__ void mma_sl(float (*acc)[4], const bf16* a,
+                                       int lda, const bf16* sl, int n0,
+                                       int ks, float s = 1.f) {
+  const int lane = lane_id();
+  const bf16* pa = a + (lane & 15) * lda + (lane >> 4) * 8;
+  uint32_t af[kS / 16][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int k = 0; k < kS / 16; ++k)
+    if (k < ks) {
+      ldsm_x4(af[k], pa + 16 * k);
+      if (SC)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      dg[nt][e] += d2.apply(dgd[nt][e], m0 + g + 8 * (e >> 1), a.H4,
-                            h0 + nt * 8 + 2 * t + (e & 1));
+        for (int e = 0; e < 4; ++e) af[k][e] = scale_pair(af[k][e], s);
+    }
+#pragma unroll
+  for (int k = 0; k < kS / 16; ++k)
+    if (k < ks)
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {
+        uint32_t b[4];
+        if (TR)
+          ldsm_x4_t(b, sl + slot_off(16 * k + (lane & 15),
+                                     n0 + 16 * p + (lane >> 4) * 8));
+        else
+          ldsm_x4(b, sl + slot_off(n0 + 16 * p + (lane & 7) +
+                                       ((lane >> 4) << 3),
+                                   16 * k + ((lane >> 3) & 1) * 8));
+        mma_bf16_16816(acc[2 * p], af[k], b[0], b[1]);
+        mma_bf16_16816(acc[2 * p + 1], af[k], b[2], b[3]);
+      }
 }
 
-constexpr int kG = 4 * 64 + 8;     // row stride of the 4-chunk hidden tiles
-
-// Shared memory of a block of the row kernel: LN tile [16][C + 8], m1 and
-// dm2 (later dm1) tiles [16][72], m2 tile [16][72], the bf16(dh) tile of
-// one group of 4 hidden chunks [16][264] (bf16); the warps' m2 and dm1
-// partials [2][4][1024] in fragment order, per-warp row sums [2][4][16],
-// mu and inv [16] (fp32).
-inline size_t row_block_bytes(int C) {
-  return sizeof(bf16) * kRows * ((size_t)(C + 8) + 3 * kT + kG) +
-         sizeof(float) * (2 * 4 * 1024 + 2 * 4 * kRows + 2 * kRows);
+// Rows [0, rows) x columns [0, cols) (cols % 8 == 0) of a shared tile (row
+// stride ld) to rows m0 + i < M, columns c0.. of a device array (row
+// stride ldo), 16 bytes a store, by all threads of the block.
+__device__ __forceinline__ void rows_out(bf16* out, int ldo, int c0,
+                                         const bf16* tile, int ld, int m0,
+                                         int M, int rows, int cols) {
+  const int vc = cols / 8;
+  for (int v = threadIdx.x; v < rows * vc; v += kThreads) {
+    const int i = v / vc, c = (v - i * vc) * 8;
+    if (m0 + i < M)
+      *reinterpret_cast<uint4*>(out + (size_t)(m0 + i) * ldo + c0 + c) =
+          *reinterpret_cast<const uint4*>(tile + i * ld + c);
+  }
 }
 
-// YT: n-tiles of 8 of the dln columns a warp owns (C / 4 <= 8 YT). Three
-// blocks per SM (at most 168 registers, a few spilled) beat two blocks
-// without spills on the H100, and four blocks with more spills lose.
-template <int YT>
-__global__ void __launch_bounds__(128, 3) ln_mlp_bwd_rows(MlpBwdArgs a) {
+__device__ __forceinline__ float dropped(float v, bool keep, const Drop& d) {
+  return d.on ? (keep ? v * d.inv_keep : 0.f) : v;
+}
+
+__device__ __forceinline__ unsigned dynamic_smem_bytes() {
+  unsigned n;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(n));
+  return n;
+}
+
+// A block of BM rows (64 or 32) whose dln covers at most NCS slices of 64
+// columns. Where C <= 128 two blocks share an SM (at most 128 registers,
+// a few spilled): the blocks are short there, and one block's LayerNorm
+// and first slices overlap the other's products (faster than one block
+// without spills: tools/ln_mlp_bwd_variants.py, one-block-per-sm).
+template <int BM, int NCS>
+__global__ void __launch_bounds__(kThreads, NCS <= 2 ? 2 : 1)
+    ln_mlp_bwd_rows(Args a) {
+  constexpr int WM = BM / 16, WN = kWarps / WM;
+  constexpr int NT = kS / 8 / WN;   // n-tiles of a warp in a 64-wide product
   extern __shared__ __align__(16) unsigned char smem[];
-  const int C = a.R.K, M = a.R.M, H4 = a.H4, r = a.r, ld = C + 8;
-  const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
-  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * kRows;
-  const int valid = min(kRows, M - m0);
-  const int cw = C / 4, c_lo = warp * cw;
-  bf16* tile = reinterpret_cast<bf16*>(smem);
-  bf16* m1t = tile + kRows * ld;
-  bf16* dmt = m1t + kRows * kT;       // dm2, later dm1
-  bf16* m2t = dmt + kRows * kT;       // m2 at the end
-  bf16* dht = m2t + kRows * kT;       // bf16(dh) of the group
-  float* m2p = reinterpret_cast<float*>(dht + kRows * kG);
-  float* dm1p = m2p + 4 * 1024;
-  float* red = dm1p + 4 * 1024;       // [2][4][16]
-  float* mu = red + 2 * 4 * kRows;
-  float* inv = mu + kRows;
-  const int mine = warp * 1024 + lane * 4;
-  const bf16* gy = a.gy + (size_t)m0 * C;
+  const int C = a.R.K, M = a.R.M, H4 = a.H4, ld = C + 8;
+  const int ncs = (C + kS - 1) / kS, nch = H4 / kS;
+  const int warp = threadIdx.x >> 5, lane = lane_id(), g = lane >> 2,
+            t = lane & 3;
+  const int mi = warp % WM, ni = warp / WM;
+  const int wr = kRows * mi, wc = 8 * NT * ni;   // the warp's rows, columns
+  const int m0 = blockIdx.x * BM;
+  const bool kept_w1 = a.keep_w1;
+  // Dynamic shared memory: the ring, the kept W1 slices, the bf16(ln) and
+  // gy tiles [BM][C + 8], the tiles m1, dm2, g, du1, dh [BM][72] (bf16);
+  // mu, inv [BM] and the row sums of the LayerNorm backward [2][WN][BM]
+  // (fp32). The padded row strides keep ldmatrix free of bank conflicts.
+  Ring ring{reinterpret_cast<bf16*>(smem), 0,
+            3 * ncs + nch * ((kept_w1 ? 2 : 3) * ncs + 3), ncs};
+  bf16* w1k = ring.buf + kStages * kSlice;  // the chunk's W1 slices
+  bf16* lt = w1k + (kept_w1 ? ncs * kSlice : 0);  // bf16(drop1(ln)), bf16(ln)
+  bf16* gt = lt + BM * ld;                  // gy
+  bf16* m1t = gt + BM * ld;
+  bf16* dm2t = m1t + BM * kLdS;
+  bf16* gdt = dm2t + BM * kLdS;             // bf16(drop2(g)), then dm1
+  bf16* dut = gdt + BM * kLdS;              // du1 of the chunk
+  bf16* dht = dut + BM * kLdS;              // bf16(dh) of the chunk
+  float* mu = reinterpret_cast<float*>(dht + BM * kLdS);
+  float* inv = mu + BM;
+  float* red = inv + BM;                    // [2][WN][BM]
+  // the plan's bytes (ops/ln_mlp.py:bwd_plan) must hold this layout
+  if (reinterpret_cast<unsigned char*>(red + 2 * WN * BM) - smem >
+      dynamic_smem_bytes())
+    __trap();
 
-  rows_stats(a.R, m0, mu, inv, warp, warps);
-  __syncthreads();
-  if (threadIdx.x < valid) {
-    a.mu_g[m0 + threadIdx.x] = mu[threadIdx.x];
-    a.inv_g[m0 + threadIdx.x] = inv[threadIdx.x];
-  }
-  const Drop d1 = make_drop(a.d1), d2 = make_drop(a.d2);
-  // bf16(drop1(ln)) -> the dA1 product's rows; m1 = bf16(tile A1^T) and
-  // dm2 = bf16(bf16(s2 gy) B2), 16 columns per warp, to the rank rows
-  rows_ln_tile(tile, ld, a.R, a.gamma, a.beta, m0, mu, inv, d1, warp, warps);
-  __syncthreads();
-  block_tile_to_global(a.lbuf, tile, ld, m0, M, C);
+  // gy and the first slices stream in while the statistics are computed
   {
-    float acc[2][4];
-    zero<2>(acc);
-    mma_tile<2>(acc, tile, ld, a.a1, C, C, 16 * warp, r);
-    store_tile<2>(m1t, kT, acc, 16 * warp);
-    zero<2>(acc);
-    mma_rows<2, true>(acc, gy, C, valid, a.s2, a.bb2t, C, C, 16 * warp, r);
-    store_tile<2>(dmt, kT, acc, 16 * warp);
-  }
-  __syncthreads();
-  block_tile_to_global(a.m1, m1t, kT, m0, M, r);
-  block_tile_to_global(a.dm2, dmt, kT, m0, M, r);
-  if (d1.on) {
-    __syncthreads();
-    rows_ln_tile(tile, ld, a.R, a.gamma, a.beta, m0, mu, inv, no_drop(),
-                 warp, warps);
-  }
-  {
-    float z[8][4];
-    zero<8>(z);
-    store_frag(m2p + mine, z);
-    store_frag(dm1p + mine, z);
-  }
-  __syncthreads();
-  block_tile_to_global(a.lnc, tile, ld, m0, M, C);   // for the dB1/dA2 pass
-
-  // the hidden in groups of 4 chunks of 64: warp w recomputes chunk w's h,
-  // g, the mask and dh, and adds its shares of m2 and dm1; then every warp
-  // adds the group's dh W1[group, :] to the C/4 columns of dln it owns
-  float dln[YT][4];
-  zero<YT>(dln);
-  for (int hg = 0; hg < H4; hg += 4 * 64) {
-    const int h0 = hg + 64 * warp;
-    if (h0 < H4) {
-      float h[8][4], u[8][4], v[8][4];
-      zero<8>(h);
-      zero<8>(u);
-      mma_tile<8, 2>(h, tile, ld, a.w1, C, C, h0, H4);
-      mma_tile<8>(u, m1t, kT, a.bb1, r, r, h0, H4);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = h0 + nt * 8 + 2 * t + (e & 1);
-          const float hv =
-              (h[nt][e] + __bfloat162float(a.bias1[col])) + a.s1 * u[nt][e];
-          float gl, dgl;
-          act_pair<kGelu>(hv, &gl, &dgl);
-          h[nt][e] = dgl;
-          u[nt][e] = d2.apply(gl, m0 + g + 8 * (e >> 1), H4, col);
-        }
-      // m2 share: bf16(drop2(g)) straight from the registers
-      load_frag(v, m2p + mine);
-      mma_frag<8>(v, u, a.a2 + h0, H4, 0, r);
-      store_frag(m2p + mine, v);
-      // dg = bf16(gy) W2 + drop2(dm2 A2^T); dh = dg gelu'(h)
-      zero<8>(u);
-      zero<8>(v);
-      mma_rows<8, false, 2>(u, gy, C, valid, 1.f, a.w2t, C, C, h0, H4);
-      mma_tile<8>(v, dmt, kT, a.a2t, r, r, h0, H4);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float dh =
-              (u[nt][e] + d2.apply(v[nt][e], m0 + g + 8 * (e >> 1), H4,
-                                   h0 + nt * 8 + 2 * t + (e & 1))) *
-              h[nt][e];
-          h[nt][e] = dh;
-          u[nt][e] = a.s1 * dh;
-        }
-      store_tile<8>(dht, kG, h, 64 * warp);
-      // dm1 share: bf16(s1 dh) straight from the registers
-      load_frag(v, dm1p + mine);
-      mma_frag<8>(v, u, a.bb1t + h0, H4, 0, r);
-      store_frag(dm1p + mine, v);
+    const int vc = C / 8;
+    for (int v = threadIdx.x; v < BM * vc; v += kThreads) {
+      const int i = v / vc, c = (v - i * vc) * 8;
+      const bool in = m0 + i < M;
+      cp_async16(gt + i * ld + c, in ? a.gy + (size_t)(m0 + i) * C + c : a.gy,
+                 in);
     }
-    __syncthreads();
-    mma_tile<YT, 2>(dln, dht, kG, a.w1t + hg, H4, min(4 * 64, H4 - hg),
-                    c_lo, c_lo + cw);
-    __syncthreads();
+    cp_async_commit();
+  }
+  ring.start(a);
+  for (int i = 0; i < BM; i += kRows)
+    rows_stats(a.R, m0 + i, mu + i, inv + i, warp, kWarps);
+  __syncthreads();
+  const Drop d1 = make_drop(a.d1), d2 = make_drop(a.d2);
+  for (int i = 0; i < BM; i += kRows)
+    rows_ln_tile(lt + i * ld, ld, a.R, a.gamma, a.beta, m0 + i, mu + i,
+                 inv + i, d1, warp, kWarps);
+
+  // ---- m1 = bf16(bf16(drop1(ln)) A1^T), dm2 = bf16(bf16(s2 gy) B2) -------
+  {
+    float acc[NT][4];
+    zero<NT>(acc);
+    for (int cs = 0; cs < ncs; ++cs)
+      mma_sl<NT, false>(acc, lt + wr * ld + kS * cs, ld, ring.next(a), wc,
+                        ksteps(C, cs));
+    store_tile<NT>(m1t + wr * kLdS, kLdS, acc, wc);
+    zero<NT>(acc);
+    for (int cs = 0; cs < ncs; ++cs)
+      mma_sl<NT, true, true>(acc, gt + wr * ld + kS * cs, ld, ring.next(a),
+                             wc, ksteps(C, cs), a.s2);
+    store_tile<NT>(dm2t + wr * kLdS, kLdS, acc, wc);
+  }
+  // the last read of bf16(drop1(ln)) as an operand was before the barrier
+  // of the dm2 slices
+  rows_out(a.lnd, C, 0, lt, ld, m0, M, BM, C);
+  __syncthreads();
+  if (d1.on)
+    for (int i = 0; i < BM; i += kRows)
+      rows_ln_tile(lt + i * ld, ld, a.R, a.gamma, a.beta, m0 + i, mu + i,
+                   inv + i, no_drop(), warp, kWarps);
+  rows_out(a.m1, kRank, 0, m1t, kLdS, m0, M, BM, kRank);
+  rows_out(a.dm2, kRank, 0, dm2t, kLdS, m0, M, BM, kRank);
+
+  // ---- the hidden in chunks of 64 columns ---------------------------------
+  // Tiles written in a chunk are read after the next ring barrier; every
+  // tile is rewritten only after a ring barrier that follows its last read.
+  float dln[NCS][NT][4], m2a[NT][4], dm1a[NT][4];
+#pragma unroll
+  for (int cs = 0; cs < NCS; ++cs) zero<NT>(dln[cs]);
+  zero<NT>(m2a);
+  zero<NT>(dm1a);
+  for (int j = 0; j < nch; ++j) {
+    const int h0 = kS * j;
+    // h = s1 m1 B1^T + bf16(ln) W1^T + b1; g, gelu'(h), the mask
+    float hc[NT][4];
+    zero<NT>(hc);
+    mma_sl<NT, false>(hc, m1t + wr * kLdS, kLdS, ring.next(a), wc, 4);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hc[nt][e] *= a.s1;
+    for (int cs = 0; cs < ncs; ++cs) {
+      const bf16* sl = ring.next(a);
+      mma_sl<NT, false>(hc, lt + wr * ld + kS * cs, ld, sl, wc, ksteps(C, cs));
+      if (kept_w1)
+        for (int v = threadIdx.x; v < kSlice / 8; v += kThreads)
+          reinterpret_cast<uint4*>(w1k + cs * kSlice)[v] =
+              reinterpret_cast<const uint4*>(sl)[v];
+    }
+    float gd[NT][4];
+    uint32_t keep = 0;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = h0 + wc + 8 * nt + 2 * t + (e & 1);
+        const float hv = hc[nt][e] + __bfloat162float(a.bias1[col]);
+        float gl, dgl;
+        act_pair<kGelu>(hv, &gl, &dgl);
+        const bool k =
+            !d2.on || drop_keep(d2.key, m0 + wr + g + 8 * (e >> 1), H4, col,
+                                d2.thr);
+        keep |= (uint32_t)k << (4 * nt + e);
+        hc[nt][e] = dgl;
+        gd[nt][e] = dropped(gl, k, d2);
+      }
+    store_tile<NT>(gdt + wr * kLdS, kLdS, gd, wc);
+    // m2 += bf16(drop2(g)) A2^T; dg starts at drop2(bf16(dm2) A2^T)
+    float dg[NT][4];
+    {
+      const bf16* sl = ring.next(a);
+      mma_sl<NT, false>(m2a, gdt + wr * kLdS, kLdS, sl, wc, 4);
+      zero<NT>(dg);
+      mma_sl<NT, true>(dg, dm2t + wr * kLdS, kLdS, sl, wc, 4);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dg[nt][e] = dropped(dg[nt][e], (keep >> (4 * nt + e)) & 1u, d2);
+      rows_out(a.gd, H4, h0, gdt, kLdS, m0, M, BM, kS);
+    }
+    // dg += bf16(gy) W2; dh = dg gelu'(h)
+    for (int cs = 0; cs < ncs; ++cs)
+      mma_sl<NT, true>(dg, gt + wr * ld + kS * cs, ld, ring.next(a), wc,
+                       ksteps(C, cs));
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float dh = dg[nt][e] * hc[nt][e];
+        hc[nt][e] = dh;
+        dg[nt][e] = a.s1 * dh;
+      }
+    store_tile<NT>(dht + wr * kLdS, kLdS, hc, wc);
+    store_tile<NT>(dut + wr * kLdS, kLdS, dg, wc);
+    // dm1 += du1 B1; dln += bf16(dh) W1
+    mma_sl<NT, true>(dm1a, dut + wr * kLdS, kLdS, ring.next(a), wc, 4);
+    rows_out(a.du1, H4, h0, dut, kLdS, m0, M, BM, kS);
+#pragma unroll
+    for (int cs = 0; cs < NCS; ++cs)
+      if (cs < ncs) {
+        const bf16* sl = kept_w1 ? w1k + cs * kSlice : ring.next(a);
+        if (kS * cs + wc < C)
+          mma_sl<NT, true>(dln[cs], dht + wr * kLdS, kLdS, sl, wc, 4);
+      }
   }
 
-  // ---- m2, dm1: the warps' shares summed in order ----------------------
-  sum_frags(m2p, warps, m2t, a.m2, m0, M);
-  sum_frags(dm1p, warps, dmt, a.dm1, m0, M);
-  __syncthreads();
+  // ---- m2, dm1 to their rows; dln += drop1(bf16(dm1) A1) ------------------
+  {
+    const int m = m0 + wr + g;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = wc + 8 * nt + 2 * t;
+      if (m < M) {
+        st_bf2(a.m2 + (size_t)m * kRank + c, m2a[nt][0], m2a[nt][1]);
+        st_bf2(a.dm1 + (size_t)m * kRank + c, dm1a[nt][0], dm1a[nt][1]);
+      }
+      if (m + 8 < M) {
+        st_bf2(a.m2 + (size_t)(m + 8) * kRank + c, m2a[nt][2], m2a[nt][3]);
+        st_bf2(a.dm1 + (size_t)(m + 8) * kRank + c, dm1a[nt][2], dm1a[nt][3]);
+      }
+    }
+  }
+  // into the g tile, last read before the W2 slices' barriers (the du1
+  // tile may still be in use: the kept W1 slices need no barrier)
+  store_tile<NT>(gdt + wr * kLdS, kLdS, dm1a, wc);
+#pragma unroll
+  for (int cs = 0; cs < NCS; ++cs)
+    if (cs < ncs) {
+      const bf16* sl = ring.next(a);
+      if (kS * cs + wc < C) {
+        float dl[NT][4];
+        zero<NT>(dl);
+        mma_sl<NT, true>(dl, gdt + wr * kLdS, kLdS, sl, wc, 4);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dln[cs][nt][e] += d1.apply(dl[nt][e], m0 + wr + g + 8 * (e >> 1),
+                                       C, kS * cs + wc + 8 * nt + 2 * t + (e & 1));
+      }
+    }
 
-  // ---- dln += drop1(dm1 A1^T); LayerNorm backward on the warp's columns,
-  // dxhat in place of dln ------------------------------------------------
-  float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
-  float* gb = a.gb + (size_t)blockIdx.x * 2 * C;
+  // ---- LayerNorm backward: dxhat = dln gamma in place of dln; the warp's
+  // 16-row partials of dgamma and dbeta; the rows' sums over the warps ----
+  float rs1[2] = {0.f, 0.f}, rs2[2] = {0.f, 0.f};
+  float* gb = a.gb + ((size_t)blockIdx.x * WM + mi) * 2 * C;
 #pragma unroll
-  for (int j = 0; j < YT; j += 8) {
-    float dl[8][4];
-    zero<8>(dl);
-    mma_tile<8>(dl, dmt, kT, a.a1t, r, r, c_lo + 8 * j, c_lo + cw);
+  for (int cs = 0; cs < NCS; ++cs) {
+    if (cs >= ncs || kS * cs + wc >= C) continue;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      if (8 * (j + nt) >= cw) continue;
-      const int c = c_lo + 8 * (j + nt) + 2 * t;
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = kS * cs + wc + 8 * nt + 2 * t;
       const float2 gm = bf2(a.gamma + c);
       float cg[2] = {0.f, 0.f}, cb[2] = {0.f, 0.f};
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int m = m0 + g + 8 * half;
-        float dh0 = 0.f, dh1 = 0.f;
+        const int rl = wr + g + 8 * half, m = m0 + rl;
+        float v0 = 0.f, v1 = 0.f;
         if (m < M) {
-          const float e0 = dln[j + nt][2 * half] +
-                           d1.apply(dl[nt][2 * half], m, C, c);
-          const float e1 = dln[j + nt][2 * half + 1] +
-                           d1.apply(dl[nt][2 * half + 1], m, C, c + 1);
-          const float2 v = a.R.pair(m, c);
-          const float xh0 = (v.x - mu[g + 8 * half]) * inv[g + 8 * half];
-          const float xh1 = (v.y - mu[g + 8 * half]) * inv[g + 8 * half];
-          dh0 = e0 * gm.x;
-          dh1 = e1 * gm.y;
-          s1[half] += dh0 + dh1;
-          s2[half] += dh0 * xh0 + dh1 * xh1;
+          const float e0 = dln[cs][nt][2 * half], e1 = dln[cs][nt][2 * half + 1];
+          const float2 xv = a.R.pair(m, c);
+          const float xh0 = (xv.x - mu[rl]) * inv[rl];
+          const float xh1 = (xv.y - mu[rl]) * inv[rl];
+          v0 = e0 * gm.x;
+          v1 = e1 * gm.y;
+          rs1[half] += v0 + v1;
+          rs2[half] += v0 * xh0 + v1 * xh1;
           cg[0] += e0 * xh0;
           cg[1] += e1 * xh1;
           cb[0] += e0;
           cb[1] += e1;
         }
-        dln[j + nt][2 * half] = dh0;
-        dln[j + nt][2 * half + 1] = dh1;
+        dln[cs][nt][2 * half] = v0;
+        dln[cs][nt][2 * half + 1] = v1;
       }
 #pragma unroll
       for (int o = 4; o < 32; o <<= 1)
@@ -283,152 +475,87 @@ __global__ void __launch_bounds__(128, 3) ln_mlp_bwd_rows(MlpBwdArgs a) {
   for (int half = 0; half < 2; ++half) {
 #pragma unroll
     for (int o = 1; o < 4; o <<= 1) {
-      s1[half] += __shfl_xor_sync(0xffffffffu, s1[half], o);
-      s2[half] += __shfl_xor_sync(0xffffffffu, s2[half], o);
+      rs1[half] += __shfl_xor_sync(0xffffffffu, rs1[half], o);
+      rs2[half] += __shfl_xor_sync(0xffffffffu, rs2[half], o);
     }
     if (t == 0) {
-      red[warp * kRows + g + 8 * half] = s1[half];
-      red[(4 + warp) * kRows + g + 8 * half] = s2[half];
+      red[ni * BM + wr + g + 8 * half] = rs1[half];
+      red[(WN + ni) * BM + wr + g + 8 * half] = rs2[half];
     }
   }
   __syncthreads();
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int m = m0 + g + 8 * half;
+    const int rl = wr + g + 8 * half, m = m0 + rl;
     float mm1 = 0.f, mm2 = 0.f;
-    for (int w = 0; w < warps; ++w) {
-      mm1 += red[w * kRows + g + 8 * half];
-      mm2 += red[(4 + w) * kRows + g + 8 * half];
+    for (int w = 0; w < WN; ++w) {
+      mm1 += red[w * BM + rl];
+      mm2 += red[(WN + w) * BM + rl];
     }
     mm1 /= C;
     mm2 /= C;
     if (m >= M) continue;
-    const float mn = mu[g + 8 * half], iv = inv[g + 8 * half];
+    const float mn = mu[rl], iv = inv[rl];
 #pragma unroll
-    for (int j = 0; j < YT; ++j) {
-      if (8 * j >= cw) continue;
-      const int c = c_lo + 8 * j + 2 * t;
-      const float2 v = a.R.pair(m, c);
-      const float xh0 = (v.x - mn) * iv, xh1 = (v.y - mn) * iv;
-      st_bf2(a.dx + (size_t)m * C + c,
-             iv * (dln[j][2 * half] - mm1 - xh0 * mm2),
-             iv * (dln[j][2 * half + 1] - mm1 - xh1 * mm2));
+    for (int cs = 0; cs < NCS; ++cs) {
+      if (cs >= ncs || kS * cs + wc >= C) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int c = kS * cs + wc + 8 * nt + 2 * t;
+        const float2 xv = a.R.pair(m, c);
+        const float xh0 = (xv.x - mn) * iv, xh1 = (xv.y - mn) * iv;
+        st_bf2(a.dx + (size_t)m * C + c,
+               iv * (dln[cs][nt][2 * half] - mm1 - xh0 * mm2),
+               iv * (dln[cs][nt][2 * half + 1] - mm1 - xh1 * mm2));
+      }
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// dB1^T [4C, r] and dA2^T [r, 4C]: one block of 4 warps per (64-column
-// hidden chunk, stripe of rows). Per 64 rows each warp recomputes its 16
-// rows' h, g, the mask and dh for the chunk from bf16(ln), m1, gy and dm2
-// (rows the row kernel wrote), and writes du1 = bf16(s1 dh) and
-// bf16(drop2(g)) transposed ([h][row]) beside m1 and dm2 ([j][row]); then
-// warp w accumulates dB1^T rows h0 + 16w.. and dA2^T rows 16w.. over the
-// rows. Partials [stripe][2][4C * r].
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(128, 3)
-ln_mlp_bwd_hidden(MlpBwdArgs a, int stripe_rows, float* __restrict__ part) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int H4 = a.H4, r = a.r;
-  const int warp = threadIdx.x >> 5;
-  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
-  const int h0 = blockIdx.x * 64;
-  const int r_begin = blockIdx.y * stripe_rows;
-  const int r_end = min(a.R.M, r_begin + stripe_rows);
-  bf16* duT = reinterpret_cast<bf16*>(smem);
-  bf16* gdT = duT + 64 * kT;
-  bf16* m1T = gdT + 64 * kT;
-  bf16* dm2T = m1T + 64 * kT;
-  const Drop d2 = make_drop(a.d2);
-  const MatSrc m1src{a.m1, r, 1.f, 0}, dm2src{a.dm2, r, 1.f, 0};
-
-  float acc_b[8][4], acc_a[8][4];
-  zero<8>(acc_b);
-  zero<8>(acc_a);
-  for (int rb = r_begin; rb < r_end; rb += 64) {
-    const int m0 = rb + warp * kRows;
-    const int valid = max(0, min(kRows, r_end - m0));
-    __syncthreads();   // the previous rows' tiles are consumed
-    stage_t(m1T, m1src, rb, r_end, 0, r);
-    stage_t(dm2T, dm2src, rb, r_end, 0, r);
-    float h[8][4], dg[8][4];
-    hidden_chunk(h, a, m0, valid, h0);
-    dg_chunk(dg, a, d2, m0, valid, h0);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hl = nt * 8 + 2 * t + (e & 1);
-        const int rl = warp * kRows + g + 8 * (e >> 1);
-        const int m = rb + rl;
-        float gl, dgl;
-        act_pair<kGelu>(h[nt][e], &gl, &dgl);
-        const bool in = m < r_end;
-        gdT[hl * kT + rl] =
-            __float2bfloat16(in ? d2.apply(gl, m, H4, h0 + hl) : 0.f);
-        duT[hl * kT + rl] =
-            __float2bfloat16(in ? a.s1 * (dg[nt][e] * dgl) : 0.f);
-      }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < 64; kk += 16) {
-      uint32_t fb[4], fa[4];
-      load_a(fb, duT + warp * 16 * kT + kk, kT, g, t);
-      load_a(fa, dm2T + warp * 16 * kT + kk, kT, g, t);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const bf16* pb = m1T + (nt * 8 + g) * kT + kk + 2 * t;
-        const bf16* pa = gdT + (nt * 8 + g) * kT + kk + 2 * t;
-        mma_bf16_16816(acc_b[nt], fb, ld32(pb), ld32(pb + 8));
-        mma_bf16_16816(acc_a[nt], fa, ld32(pa), ld32(pa + 8));
-      }
-    }
-  }
-  float* out_b = part + (size_t)blockIdx.y * 2 * H4 * r;   // dB1^T [4C][r]
-  float* out_a = out_b + (size_t)H4 * r;                     // dA2^T [r][4C]
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = warp * 16 + g + 8 * half, col = nt * 8 + 2 * t;
-      if (col < r) {
-        out_b[(size_t)(h0 + row) * r + col] = acc_b[nt][2 * half];
-        out_b[(size_t)(h0 + row) * r + col + 1] = acc_b[nt][2 * half + 1];
-      }
-      if (row < r) {
-        out_a[(size_t)row * H4 + h0 + col] = acc_a[nt][2 * half];
-        out_a[(size_t)row * H4 + h0 + col + 1] = acc_a[nt][2 * half + 1];
-      }
-    }
+template <int BM, int NCS>
+cudaError_t launch_rows(const Args& a, int blocks, int smem,
+                        cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      ln_mlp_bwd_rows<BM, NCS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return e;
+  ln_mlp_bwd_rows<BM, NCS><<<blocks, kThreads, smem, st>>>(a);
+  return cudaGetLastError();
 }
+
+bool misaligned(const void* p) { return (uintptr_t)p % 16 != 0; }
 
 }  // namespace
 
-// Layouts: the forward's (w1 [4C, C], a1 [r, C], bb1 [4C, r], a2 [r, 4C])
-// and the transposed copies the backward products read: w2t [4C, C],
-// bb2t [r, C], a2t [4C, r], w1t [C, 4C], bb1t [r, 4C], a1t [C, r].
-// Scratch: stats [2, M] fp32, lbuf [2, M, C] (bf16(drop1(ln)), bf16(ln))
-// and mbuf
-// [4, M, r] (m1, dm1, m2, dm2) bf16, gb
-// [ceil(M/16), 2, C], partials pa [sa, r, C], pb [sb, C, r],
-// ph [sh, 2, 4C * r]. Outputs (fp32): dgb [2, C], da1 [r, C],
-// dh [2, 4C * r] (dB1^T [4C, r], then dA2^T [r, 4C]), dbb2 [C, r].
+// Layouts: the forward's (w1 [4C, C], a1 [r, C], bb1 [4C, r], w2 [C, 4C],
+// a2 [r, 4C], bb2 [C, r]), read in place. bm (64 where C <= 384, or 32),
+// keep_w1 and the row kernel's shared-memory bytes smem are the caller's
+// launch plan (ops/ln_mlp.py:bwd_plan); the kernel traps if smem does not
+// hold its layout. Scratch: lnd [M, C], mbuf [4, M, r] (m1, dm1, m2, dm2),
+// hbuf [2, M, 4C] (du1, bf16(drop2(g))) bf16; gb [ceil(M / bm) bm / 16,
+// 2, C] and the weight-gradient partials part (sa stripes of [r, C] or
+// [C, r], sh of [4C, r] or [r, 4C], one product at a time) fp32. Outputs
+// (fp32): dgb [2, C], da1 [r, C], dh [2, 4C * r] (dB1^T [4C, r], then
+// dA2^T [r, 4C]), dbb2 [C, r].
 extern "C" int mtlora_ln_mlp_bwd(
     const void* x, const void* gamma, const void* beta, const void* w1,
     const void* bias1, const void* a1, const void* bb1, const void* w2,
-    const void* bias2, const void* a2, const void* bb2, const void* seed,
-    const void* w2t, const void* bb2t, const void* a2t, const void* w1t,
-    const void* bb1t, const void* a1t, const void* gy, void* dx, void* stats,
-    void* lbuf, void* mbuf, void* gb, void* pa, void* pb, void* ph, void* dgb, void* da1,
-    void* dh, void* dbb2, int M, int C, int H4, int r, int sa, int sb,
-    int sh, float s1, float s2, unsigned thr, int use_drop, float inv_keep,
-    void* stream) {
-  (void)w2;
-  (void)bias2;
-  (void)bb2;
-  if (M < 1 || C % 32 || C > 768 || H4 % 64 || r != 64)
+    const void* a2, const void* bb2, const void* seed, const void* gy,
+    void* dx, void* lnd, void* mbuf, void* hbuf, void* gb, void* part,
+    void* dgb, void* da1, void* dh, void* dbb2, int M, int C, int H4, int r,
+    int bm, int keep_w1, int smem, int sa, int sh, float s1, float s2,
+    unsigned thr, int use_drop, float inv_keep, void* stream) {
+  const int ncs = (C + kS - 1) / kS;
+  if (M < 1 || C < 32 || C % 32 || C > 768 || H4 < 64 || H4 % 64 ||
+      r != kRank || sa < 1 || sh < 1 || !(bm == 32 || (bm == 64 && ncs <= 6)))
     return (int)cudaErrorInvalidValue;
-  MlpBwdArgs a;
+  // 16-byte copies: cp.async of the weights and gy, the tiles' stores
+  if (misaligned(w1) || misaligned(a1) || misaligned(bb1) ||
+      misaligned(w2) || misaligned(a2) || misaligned(bb2) ||
+      misaligned(gy) || misaligned(lnd) || misaligned(mbuf) ||
+      misaligned(hbuf))
+    return (int)cudaErrorMisalignedAddress;
+  Args a;
   a.R.x = static_cast<const bf16*>(x);
   a.R.M = M;
   a.R.K = C;
@@ -440,27 +567,22 @@ extern "C" int mtlora_ln_mlp_bwd(
   a.bias1 = static_cast<const bf16*>(bias1);
   a.a1 = static_cast<const bf16*>(a1);
   a.bb1 = static_cast<const bf16*>(bb1);
+  a.w2 = static_cast<const bf16*>(w2);
   a.a2 = static_cast<const bf16*>(a2);
-  a.w2t = static_cast<const bf16*>(w2t);
-  a.bb2t = static_cast<const bf16*>(bb2t);
-  a.a2t = static_cast<const bf16*>(a2t);
-  a.w1t = static_cast<const bf16*>(w1t);
-  a.bb1t = static_cast<const bf16*>(bb1t);
-  a.a1t = static_cast<const bf16*>(a1t);
+  a.bb2 = static_cast<const bf16*>(bb2);
   a.gy = static_cast<const bf16*>(gy);
   a.dx = static_cast<bf16*>(dx);
-  a.lbuf = static_cast<bf16*>(lbuf);
-  a.lnc = a.lbuf + (size_t)M * C;
+  a.lnd = static_cast<bf16*>(lnd);
   bf16* mb = static_cast<bf16*>(mbuf);
   a.m1 = mb;
   a.dm1 = mb + (size_t)M * r;
   a.m2 = mb + 2 * (size_t)M * r;
   a.dm2 = mb + 3 * (size_t)M * r;
-  a.mu_g = static_cast<float*>(stats);
-  a.inv_g = a.mu_g + M;
+  a.du1 = static_cast<bf16*>(hbuf);
+  a.gd = a.du1 + (size_t)M * H4;
   a.gb = static_cast<float*>(gb);
   a.H4 = H4;
-  a.r = r;
+  a.keep_w1 = keep_w1;
   a.s1 = s1;
   a.s2 = s2;
   for (int s = 0; s < 2; ++s) {
@@ -473,45 +595,29 @@ extern "C" int mtlora_ln_mlp_bwd(
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
-  const size_t smem = row_block_bytes(C);
-  const int tiles = (M + kRows - 1) / kRows;
-  const int yt = C / 32;   // n-tiles of 8 per warp: C / 4 columns
-  void (*rows)(MlpBwdArgs) = yt <= 8    ? ln_mlp_bwd_rows<8>
-                             : yt <= 16 ? ln_mlp_bwd_rows<16>
-                                        : ln_mlp_bwd_rows<24>;
-  cudaError_t e = cudaFuncSetAttribute(
-      rows, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  rows<<<tiles, 128, smem, st>>>(a);
-  e = cudaGetLastError();
+  const int blocks = (M + bm - 1) / bm;
+  cudaError_t e = bm == 32   ? launch_rows<32, 12>(a, blocks, smem, st)
+                  : ncs <= 2 ? launch_rows<64, 2>(a, blocks, smem, st)
+                  : ncs <= 3 ? launch_rows<64, 3>(a, blocks, smem, st)
+                             : launch_rows<64, 6>(a, blocks, smem, st);
   if (e != cudaSuccess) return (int)e;
 
-  // dB1^T and dA2^T over row stripes
-  const int row_tiles = (M + 63) / 64;
-  const int stripe_rows = (row_tiles + sh - 1) / sh * 64;
-  const size_t smem_h = sizeof(bf16) * 4 * 64 * kT;
-  e = cudaFuncSetAttribute(ln_mlp_bwd_hidden,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_h);
+  // dA1^T [r, C] = dm1^T bf16(drop1(ln)); dB2^T [C, r] = bf16(s2 gy)^T m2;
+  // dB1^T [4C, r] = du1^T m1; dA2^T [r, 4C] = dm2^T bf16(drop2(g))
+  float* pp = static_cast<float*>(part);
+  float* dhp = static_cast<float*>(dh);
+  const MatSrc lnds{a.lnd, C, 1.f, 0}, du2{a.gy, C, s2, 1};
+  const MatSrc m1s{a.m1, r, 1.f, 0}, dm1s{a.dm1, r, 1.f, 0};
+  const MatSrc m2s{a.m2, r, 1.f, 0}, dm2s{a.dm2, r, 1.f, 0};
+  const MatSrc du1s{a.du1, H4, 1.f, 0}, gds{a.gd, H4, 1.f, 0};
+  e = wgrad(dm1s, lnds, M, r, C, sa, pp, static_cast<float*>(da1), st);
   if (e != cudaSuccess) return (int)e;
-  ln_mlp_bwd_hidden<<<dim3(H4 / 64, sh), 128, smem_h, st>>>(
-      a, stripe_rows, static_cast<float*>(ph));
-  e = cudaGetLastError();
+  e = wgrad(du2, m2s, M, C, r, sa, pp, static_cast<float*>(dbb2), st);
   if (e != cudaSuccess) return (int)e;
-  e = sum_parts(static_cast<float*>(ph), sh, 2 * (size_t)H4 * r,
-                static_cast<float*>(dh), st);
+  e = wgrad(du1s, m1s, M, H4, r, sh, pp, dhp, st);
   if (e != cudaSuccess) return (int)e;
-
-  // dA1^T [r, C] = dm1^T bf16(drop1(ln)); dB2^T [C, r] = bf16(s2 gy)^T m2
-  MatSrc ln{a.lbuf, C, 1.f, 0};
-  MatSrc dm1src{a.dm1, r, 1.f, 0}, m2src{a.m2, r, 1.f, 0};
-  MatSrc du2{a.gy, C, s2, 1};
-  e = wgrad(dm1src, ln, M, r, C, sa, static_cast<float*>(pa),
-            static_cast<float*>(da1), st);
+  e = wgrad(dm2s, gds, M, r, H4, sh, pp, dhp + (size_t)H4 * r, st);
   if (e != cudaSuccess) return (int)e;
-  e = wgrad(du2, m2src, M, C, r, sb, static_cast<float*>(pb),
-            static_cast<float*>(dbb2), st);
-  if (e != cudaSuccess) return (int)e;
-  return (int)sum_parts(a.gb, tiles, 2 * (size_t)C, static_cast<float*>(dgb),
-                        st);
+  return (int)sum_parts(a.gb, blocks * (bm / kRows), 2 * (size_t)C,
+                        static_cast<float*>(dgb), st);
 }

@@ -52,24 +52,6 @@ constexpr int kWarps = 4;
 constexpr int kLd = kBK + 8;     // row stride of the chunk tiles (bf16)
 constexpr int kLdR = kRMax + 8;  // row stride of the rank tiles (bf16)
 
-// 16 bytes global -> shared without passing through registers; `in`
-// false writes zeros (a source size of 0).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
 // dst[i][j] = src[(r0 + i) * ld + c0 + j] for i < ROWS, j < COLS (a
 // multiple of 8), zero outside [0, rlim) x [0, clim); 16-byte copies,
 // asynchronous: the caller commits and waits.

@@ -1,5 +1,6 @@
 // Tensor-core helpers shared by the port's kernels: mma.sync m16n8k16
-// (bf16 in, fp32 accumulate) and the 32-bit fragment loads that feed it.
+// (bf16 in, fp32 accumulate), the 32-bit and ldmatrix fragment loads that
+// feed it, and the cp.async copies that stage tiles in shared memory.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): a[0] = (g, 2t..2t+1), a[1] = (g+8, 2t..),
@@ -43,4 +44,42 @@ __device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* base,
   a[1] = ld32(base + (g + 8) * ld + 2 * t);
   a[2] = ld32(base + g * ld + 2 * t + 8);
   a[3] = ld32(base + (g + 8) * ld + 2 * t + 8);
+}
+
+// 16 bytes global -> shared without passing through registers; `in`
+// false writes zeros (a source size of 0).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// ldmatrix: four 8 x 8 bf16 matrices from shared memory, lane l giving the
+// address of row l % 8 of matrix l / 8 (16-byte aligned). Without .trans
+// lane l receives row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 of each
+// matrix; with .trans, column l / 4, rows 2 (l % 4) and 2 (l % 4) + 1.
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
 }

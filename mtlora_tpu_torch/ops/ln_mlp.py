@@ -9,8 +9,11 @@ backward 4b), for the blocks that carry no task streams:
     g  = gelu(h)                                 (tanh form in bf16)
     y  = gc W2^T + b2 + s2 (drop2(g) A2^T) B2^T
 
-The ``[M, 4C]`` hidden never reaches device memory: the kernels walk it
-in chunks, and the backward recomputes ln, h, g and both masks. Weights
+The forward never writes the ``[M, 4C]`` hidden: it walks it in chunks.
+The backward recomputes ln, h, g and both masks once, in the same chunks,
+and writes two bf16 ``[M, 4C]`` tensors, du1 = bf16(s1 dh) and
+bf16(drop2(g)), from which the weight-gradient products take dB1 and dA2
+(no second recompute); :func:`bwd_plan` sizes its launch. Weights
 come in the port's module layouts (``fc1.linear.weight [4C, C]``,
 ``fc1.lora_shared_A [r, C]``, ``fc1.lora_shared_B [4C, r]``, and fc2's
 likewise), cast to the compute dtype; the adapters' gradients come back in
@@ -21,6 +24,8 @@ Cast points as ``ln_mlp_reference`` (:326-349) and ``_bwd_kernel``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -35,7 +40,7 @@ from mtlora_tpu_torch.ops.ln_lora import (
     layer_norm_bwd,
     layer_norm_parts,
     require_cuda,
-    wgrad_stripes,
+    stripes_for,
 )
 
 
@@ -121,13 +126,17 @@ def ln_mlp_bwd_plain(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _check_dims(name, C: int, H4: int, r: int):
+    if C % 32 or H4 % 64 or r != 64 or C > 768:
+        raise ValueError(f"{name} kernel: needs C % 32 == 0 and C <= 768 "
+                         f"({C}), 4C % 64 == 0 ({H4}) and r == 64 ({r})")
+
+
 def _shapes(x, w1, a1, name):
     require_cuda(name, x)
     M, C = x.shape
     H4, r = w1.shape[0], a1.shape[0]
-    if C % 32 or H4 % 64 or r != 64 or C > 768:
-        raise ValueError(f"{name} kernel: needs C % 32 == 0 and C <= 768 "
-                         f"({C}), 4C % 64 == 0 ({H4}) and r == 64 ({r})")
+    _check_dims(name, C, H4, r)
     return M, C, H4, r
 
 
@@ -164,52 +173,109 @@ def ln_mlp_fwd(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed,
     return y
 
 
-def hidden_stripes(device, rows: int, H4: int) -> int:
-    """Row stripes of the hidden weight-gradient kernel (dB1, dA2): one
-    block per (64-column hidden chunk, stripe), about two waves."""
-    return max(1, min(-(-rows // 64), 2 * _sms(device) // (H4 // 64)))
+# the constants of csrc/ln_mlp_bwd.cu that the backward's plan sizes its
+# shared memory by (the kernel traps if the plan's bytes do not hold its
+# layout)
+BWD_CHUNK = 64          # hidden chunk and weight-slice width (kS)
+BWD_STAGES = 4          # slices in the cp.async ring (kStages)
+BWD_WARPS = 8           # warps of a row block (kWarps)
+SMEM_LIMIT = 232_448    # shared memory one block can take on the H100
+
+
+class BwdPlan(NamedTuple):
+    """Launch plan of kernel 4b: rows per block, hidden chunk width, ring
+    depth, whether a block keeps its chunk's W1 slices from h for dln,
+    dynamic shared-memory bytes of the row kernel, its blocks, the bytes of
+    weight slices they stream from L2, the row stripes of the
+    weight-gradient products of [r, C] (dA1, dB2) and [4C, r] (dB1, dA2),
+    and the scratch the wrapper allocates: name -> (shape, dtype)."""
+
+    bm: int
+    chunk: int
+    stages: int
+    keep_w1: bool
+    smem: int
+    blocks: int
+    slice_bytes: int
+    sa: int
+    sh: int
+    scratch: dict
+
+
+def bwd_plan(M: int, C: int, H4: int, r: int, sms: int) -> BwdPlan:
+    """Kernel 4b's plan for x [M, C], hidden H4, rank r on a card of
+    ``sms`` SMs: a block owns 64 rows, or 32 where C > 384 so that its fp32
+    dln (rows x C) stays at 96 registers a thread; the last block masks the
+    rows past M. Scratch: bf16(drop1(ln)) ``lnd`` [M, C], the rank rows
+    ``mbuf`` (m1, dm1, m2, dm2) [4, M, r], ``hbuf`` (du1, bf16(drop2(g)))
+    [2, M, H4] in bf16; the per-16-row dgamma/dbeta partials ``gb`` and
+    the weight-gradient stripes ``part`` (the four products one after
+    another) in fp32."""
+    _check_dims("LN+MLP backward", C, H4, r)
+    ncs = -(-C // BWD_CHUNK)
+    bm = 64 if ncs <= 6 else 32
+    wn = BWD_WARPS // (bm // ROW_TILE)
+    # the chunk's W1 slices are kept for the dln products where they fit
+    # beside the 64-row tiles and one block takes an SM (3 <= ncs <= 6)
+    keep_w1 = 3 <= ncs <= 6
+    keep = ncs if keep_w1 else 0
+    smem = (2 * ((BWD_STAGES + keep) * BWD_CHUNK ** 2 + 2 * bm * (C + 8)
+                 + 5 * bm * (BWD_CHUNK + 8))
+            + 4 * (2 * bm + 2 * wn * bm))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"LN+MLP backward kernel: {smem} bytes of shared "
+                         f"memory at C = {C} exceed {SMEM_LIMIT}")
+    blocks = -(-M // bm)
+    # per block: A1 and B2 (m1, dm2), per hidden chunk B1, W1, A2, W2, B1
+    # and (unless kept) W1 again, then A1 (dl); a slice is 64 x 64 bf16
+    slices = 3 * ncs + H4 // BWD_CHUNK * ((2 if keep else 3) * ncs + 3)
+    sa = stripes_for(sms, M, r, C)
+    sh = stripes_for(sms, M, H4, r)
+    bf16, f32 = torch.bfloat16, torch.float32
+    scratch = {
+        "lnd": ((M, C), bf16),
+        "mbuf": ((4, M, r), bf16),
+        "hbuf": ((2, M, H4), bf16),
+        "gb": ((blocks * bm // ROW_TILE, 2, C), f32),
+        "part": ((max(sa * r * C, sh * H4 * r),), f32),
+    }
+    return BwdPlan(bm, BWD_CHUNK, BWD_STAGES, keep_w1, smem, blocks,
+                   blocks * slices * 2 * BWD_CHUNK ** 2, sa, sh, scratch)
+
+
+def bwd_scratch(plan: BwdPlan, device) -> dict:
+    """The scratch tensors of ``plan``, as :func:`ln_mlp_bwd` allocates
+    them."""
+    return {name: torch.empty(shape, dtype=dt, device=device)
+            for name, (shape, dt) in plan.scratch.items()}
 
 
 def ln_mlp_bwd(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed,
                s1: float, s2: float, drop: float, gy):
     """``(dx, dgamma, dbeta, da1, dbb1, da2, dbb2)`` of
     :func:`ln_mlp_bwd_plain`: plain for CPU tensors; for CUDA tensors the
-    row kernel (dx, m1, dm1, m2, dm2, gamma/beta partials), the hidden
-    weight kernel (dB1, dA2 over row stripes), the weight-gradient kernels
-    of dA1 and dB2 and the fixed-order reductions."""
+    row kernel (dx, the rank rows, du1 and bf16(drop2(g)), gamma/beta
+    partials), then the weight-gradient kernels of dA1, dB2, dB1 and dA2 and
+    the fixed-order reductions, all on the weights' module layouts."""
     args = (x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed)
     if x.device.type == "cpu":
         return ln_mlp_bwd_plain(*args, s1, s2, drop, gy)
     M, C, H4, r = _shapes(x, w1, a1, "LN+MLP backward")
     names, shapes = _operands(*args, M, C, H4, r)
     _check("LN+MLP backward", x, names + [("gy", gy)], shapes + [(M, C)])
+    plan = bwd_plan(M, C, H4, r, _sms(x.device))
+    sc = bwd_scratch(plan, x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
-    sa = wgrad_stripes(x.device, M, r, C)
-    sb = wgrad_stripes(x.device, M, C, r)
-    sh = hidden_stripes(x.device, M, H4)
-    stats = torch.empty((2, M), **f32)
-    gb = torch.empty((-(-M // ROW_TILE), 2, C), **f32)
-    pa = torch.empty((sa, r, C), **f32)
-    pb = torch.empty((sb, C, r), **f32)
-    ph = torch.empty((sh, 2, H4 * r), **f32)
-    mbuf = torch.empty((4, M, r), dtype=x.dtype, device=x.device)
-    lbuf = torch.empty((2, M, C), dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
-    dgb = torch.empty((2, C), **f32)
-    da1, dbb2 = torch.empty((r, C), **f32), torch.empty((C, r), **f32)
-    dh = torch.empty((2, H4 * r), **f32)
-    # the layouts the backward products read (n-major, k contiguous)
-    w2_t, bb2_t, a2_t, w1_t, bb1_t, a1_t = (
-        t.t().contiguous() for t in (w2, bb2, a2, w1, bb1, a1))
+    dgb, da1 = torch.empty((2, C), **f32), torch.empty((r, C), **f32)
+    dh, dbb2 = torch.empty((2, H4 * r), **f32), torch.empty((C, r), **f32)
     err = _build.library().mtlora_ln_mlp_bwd(
-        *(t.data_ptr() for t in args),
-        w2_t.data_ptr(), bb2_t.data_ptr(), a2_t.data_ptr(), w1_t.data_ptr(),
-        bb1_t.data_ptr(), a1_t.data_ptr(), gy.data_ptr(), dx.data_ptr(),
-        stats.data_ptr(), lbuf.data_ptr(), mbuf.data_ptr(), gb.data_ptr(),
-        pa.data_ptr(),
-        pb.data_ptr(), ph.data_ptr(), dgb.data_ptr(), da1.data_ptr(),
-        dh.data_ptr(), dbb2.data_ptr(), M, C, H4, r, sa, sb, sh,
-        float(s1), float(s2), *_drop_args(drop), _stream(x))
+        *(t.data_ptr() for t in (x, gamma, beta, w1, bias1, a1, bb1, w2, a2,
+                                 bb2, seed, gy, dx)),
+        *(sc[k].data_ptr() for k in ("lnd", "mbuf", "hbuf", "gb", "part")),
+        dgb.data_ptr(), da1.data_ptr(), dh.data_ptr(), dbb2.data_ptr(),
+        M, C, H4, r, plan.bm, int(plan.keep_w1), plan.smem, plan.sa,
+        plan.sh, float(s1), float(s2), *_drop_args(drop), _stream(x))
     _build.check(err, "mtlora_ln_mlp_bwd")
     ln_mlp_bwd.launches += 1
     return (dx, dgb[0], dgb[1], da1, dh[0].view(H4, r), dh[1].view(r, H4),

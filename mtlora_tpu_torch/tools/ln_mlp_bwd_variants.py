@@ -1,0 +1,291 @@
+"""Kernel 4b on the card against variants of itself and another checkout.
+
+    python -m mtlora_tpu_torch.tools.ln_mlp_bwd_variants
+        [--variants NAME,...] [--against DIR ...] [--checks FUNC,...]
+        [--passes 2]
+
+The trees: this checkout; one copy of its ``mtlora_tpu_torch`` per
+variant, with that variant's edits of ``VARIANTS`` applied (under
+``build/variants/``); each ``--against``, the root of another checkout
+(such as the parent commit, unpacked with ``git archive``), named by its
+directory. Every tree runs in
+a process of its own, with its own package on the path and its own
+kernel library, in the order A B .. B A (``--passes``), so that a drift
+of the card shows as a difference between passes. The libraries build
+first, all at once.
+
+Each process checks kernel 4b (``ops/ln_mlp.py:ln_mlp_bwd``) against
+``ln_mlp_bwd_plain`` at the four stage shapes of the batch-32 step and at
+the ragged 392 rows of stage 3 (bf16 dx within 2^-6 of the largest
+element, fp32 sums at relative RMS <= 2^-7, as ``chip_smoke.py``; a
+stage that misses them is reported and not timed, and the run fails),
+times it per stage (CUDA events, the median of 3 rounds of 10 launches), and
+prints one JSON line: the ms per stage, their sum per training step
+(stage 2 has five no-task blocks), the registers and spills that ptxas
+reported for the row kernel's instances, and the card. With ``--checks``
+it runs those ``check_*`` functions of its tree's ``chip_smoke.py``
+instead (the phase 3/3b rows of other kernels) and prints their sums.
+
+This file imports only torch and the standard library at the top: a
+process of another tree imports that tree's package, never this one's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+VARIANT_DIR = ROOT / "build" / "variants"
+
+# name -> edits (file under mtlora_tpu_torch/, text, replacement); each
+# text occurs exactly once in this checkout
+VARIANTS = {
+    # the dln products stream W1 again instead of keeping the h pass's
+    # slices
+    "no-keep-w1": [("ops/ln_mlp.py", "keep_w1 = 3 <= ncs <= 6",
+                    "keep_w1 = False")],
+    # 32-row blocks at every stage (the plan's 64 reuse each slice twice
+    # as often)
+    "32-row-blocks": [("ops/ln_mlp.py", "bm = 64 if ncs <= 6 else 32",
+                       "bm = 32")],
+    # at C <= 128 one block per SM, with all the registers it wants
+    "one-block-per-sm": [("ops/csrc/ln_mlp_bwd.cu",
+                          "__launch_bounds__(kThreads, NCS <= 2 ? 2 : 1)",
+                          "__launch_bounds__(kThreads, 1)")],
+    # the 64-row blocks in one instance, sized for six slices of C
+    "one-64-row-instance": [
+        ("ops/csrc/ln_mlp_bwd.cu",
+         "                  : ncs <= 2 ? launch_rows<64, 2>(a, blocks, smem, "
+         "st)\n                  : ncs <= 3 ? launch_rows<64, 3>(a, blocks, "
+         "smem, st)\n", "")],
+}
+
+STAGE_WEIGHTS = (1, 1, 5, 1)   # no-task blocks per stage (depths - 1)
+RAGGED_ROWS = 392
+NAMES = ("dx", "dgamma", "dbeta", "dA1", "dB1", "dA2", "dB2")
+
+
+def apply_edits(pkg: Path, edits):
+    for rel, old, new in edits:
+        path = pkg / rel
+        text = path.read_text()
+        if text.count(old) != 1:
+            raise SystemExit(f"variant edit of {rel} does not match once: "
+                             f"{old!r}")
+        path.write_text(text.replace(old, new))
+
+
+def variant_tree(name: str) -> Path:
+    """A copy of this checkout's package and chip_smoke.py with the
+    variant's edits, at build/variants/<name>/ (its kernels build in its
+    own build/)."""
+    root = VARIANT_DIR / name
+    pkg = root / "mtlora_tpu_torch"
+    if pkg.exists():
+        shutil.rmtree(pkg)
+    shutil.copytree(ROOT / "mtlora_tpu_torch", pkg,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "chip_smoke.py", root / "chip_smoke.py")
+    apply_edits(pkg, VARIANTS[name])
+    return root
+
+
+# ---------------------------------------------------------------------------
+# The process of one tree
+# ---------------------------------------------------------------------------
+
+def _operands(gen, s: int, M=None):
+    """Kernel 4's operands at stage s of the batch-32 step (or M rows):
+    rank 64, scales 4, dropout 0.05, as chip_smoke.py draws them."""
+    import torch
+
+    C = 96 * 2 ** s
+    M = 32 * (112 // 2 ** s) ** 2 if M is None else M
+    H4, r = 4 * C, 64
+
+    def uniform(shape, bound):
+        return ((torch.rand(shape, generator=gen, device="cuda") * 2 - 1)
+                * bound).to(torch.bfloat16)
+
+    x = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
+    gamma = (0.9 + 0.2 * torch.rand(C, generator=gen, device="cuda"))
+    beta = 0.02 * torch.randn(C, generator=gen, device="cuda")
+    ws = (uniform((H4, C), C ** -0.5), uniform((H4,), 0.02),
+          uniform((r, C), C ** -0.5), uniform((H4, r), r ** -0.5),
+          uniform((C, H4), H4 ** -0.5), uniform((C,), 0.02),
+          uniform((r, H4), H4 ** -0.5), uniform((C, r), r ** -0.5))
+    seed = torch.randint(0, 2 ** 31 - 1, (2,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    gy = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
+    args = (x, gamma.to(torch.bfloat16), beta.to(torch.bfloat16), *ws, seed,
+            4.0, 4.0, 0.05)
+    return args, gy
+
+
+def _errors(got, want) -> list:
+    """The outputs that miss their bound, with their largest errors."""
+    bad = []
+    for i, (name, a, b) in enumerate(zip(NAMES, got, want)):
+        d = (a.float() - b.float())
+        e, top = d.abs().max().item(), b.float().abs().max().item()
+        if i == 0:
+            ok = e <= 2.0 ** -6 * top
+        else:
+            ok = ((d.norm() / b.float().norm()).item() <= 2.0 ** -7
+                  and e <= 2.0 ** -3 * top)
+        if not ok:
+            bad.append(f"{name}: error {e} (largest {top})")
+    return bad
+
+
+def _ptxas(log: str) -> dict:
+    """Registers and spill bytes of every ln_mlp_bwd_rows instance."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S*ln_mlp_bwd_rows\S*)", line)
+        if m:
+            name = m[1]
+            continue
+        if name and "spill stores" in line:
+            out[name] = {"spill_stores": int(re.search(
+                r"(\d+) bytes spill stores", line)[1])}
+        elif name and "Used" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   line)[1])
+            name = None
+    return out
+
+
+def build():
+    """Builds the tree's kernels; prints the row kernel's ptxas report."""
+    from mtlora_tpu_torch.ops import _build
+
+    _build.library()
+    print(json.dumps(_ptxas(_build.ptxas_log)), flush=True)
+
+
+def worker(tree: str, checks: str):
+    import torch
+    from mtlora_tpu_torch.ops import _build, ln_mlp
+    from mtlora_tpu_torch.tools import card_line, median_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.library()
+    rec = {"tree": tree, "card": card_line()}
+    if checks:
+        import chip_smoke
+        gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+        rec["checks"] = {
+            fn: {k: t.json() for k, t in getattr(chip_smoke, fn)(gen).items()}
+            for fn in checks.split(",")}
+        print(json.dumps(rec), flush=True)
+        return
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ms, bad = [], {}
+    for s in (0, 1, 2, 3, "ragged"):
+        args, gy = (_operands(gen, 3, RAGGED_ROWS) if s == "ragged"
+                    else _operands(gen, s))
+        errors = _errors(ln_mlp.ln_mlp_bwd(*args, gy),
+                         ln_mlp.ln_mlp_bwd_plain(*args, gy))
+        if errors:
+            bad[s] = errors
+        if s != "ragged":
+            # a wrong kernel is not timed
+            ms.append(None if errors else median_ms(
+                lambda: ln_mlp.ln_mlp_bwd(*args, gy), reps=10))
+        del args, gy
+    rec["failed"] = bad
+    rec["stage_ms"] = ms
+    rec["step_ms"] = (None if bad else
+                      sum(w * t for w, t in zip(STAGE_WEIGHTS, ms)))
+    print(json.dumps(rec), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The parent process: every tree in turn
+# ---------------------------------------------------------------------------
+
+def _run(name: str, root: Path, checks: str) -> dict:
+    env = dict(os.environ, PYTHONPATH=str(root))
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--worker", name,
+         *(["--checks", checks] if checks else [])],
+        cwd=root, env=env, capture_output=True, text=True)
+    sys.stdout.write(proc.stdout)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr)
+        raise SystemExit(f"{name}: exit code {proc.returncode}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--variants", default="",
+                    help=f"comma-separated, of {sorted(VARIANTS)}")
+    ap.add_argument("--against", action="append", default=[],
+                    help="root of another checkout (repeatable; named by "
+                         "its directory)")
+    ap.add_argument("--checks", default="",
+                    help="check_* functions of each tree's chip_smoke.py")
+    ap.add_argument("--passes", type=int, default=2)
+    ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--build", action="store_true", help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    if a.build:
+        build()
+        return
+    if a.worker:
+        worker(a.worker, a.checks)
+        return
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("ln_mlp_bwd_variants: no CUDA device")
+    trees = [("this", ROOT)]
+    trees += [(v, variant_tree(v)) for v in a.variants.split(",") if v]
+    trees += [(Path(d).name, Path(d).resolve()) for d in a.against]
+    # build every tree's kernels at once (each build runs its nvcc
+    # processes in parallel too)
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--build"], cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root)), stdout=subprocess.PIPE,
+        text=True) for _, root in trees]
+    ptxas = {}
+    for (name, _), proc in zip(trees, procs):
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise SystemExit(f"{name}: the kernels did not build")
+        ptxas[name] = json.loads(out.strip().splitlines()[-1])
+        print(json.dumps({"tree": name, "ptxas": ptxas[name]}), flush=True)
+    order = []
+    for i in range(a.passes):
+        order += trees if i % 2 == 0 else trees[::-1]
+    results = {}
+    for name, root in order:
+        results.setdefault(name, []).append(_run(name, root, a.checks))
+    summary = {}
+    for name, recs in results.items():
+        if a.checks:
+            summary[name] = {fn: {k: [r["checks"][fn][k]["ms"] for r in recs]
+                                  for k in recs[0]["checks"][fn]}
+                             for fn in recs[0]["checks"]}
+        else:
+            summary[name] = {"stage_ms": [r["stage_ms"] for r in recs],
+                             "step_ms": [r["step_ms"] for r in recs],
+                             "failed": recs[0]["failed"]}
+    print(json.dumps({"summary": summary,
+                      "card": results["this"][0]["card"]}))
+    if not a.checks and any(r["failed"] for recs in results.values()
+                            for r in recs):
+        raise SystemExit("ln_mlp_bwd_variants: a tree's kernel 4b missed "
+                         "its bounds")
+
+
+if __name__ == "__main__":
+    main()

@@ -31,7 +31,7 @@ CLASSES: List[Tuple[str, Tuple[str, ...]]] = [
     ("patch merge kernel 3 (fwd)", ("ln_lora_fwd_kernel<false>",)),
     ("patch merge kernel 3b (bwd rows)", ("ln_lora_bwd_rows<false>",)),
     ("whole-MLP kernel 4 (fwd)", ("ln_mlp_fwd_kernel",)),
-    ("whole-MLP kernel 4b (bwd rows, hidden weights)", ("ln_mlp_bwd_",)),
+    ("whole-MLP kernel 4b (bwd rows)", ("ln_mlp_bwd_",)),
     ("LN+LoRA kernel 2, tail mode (fwd)", ("ln_lora_tail_fwd_kernel",)),
     ("LN+LoRA kernel 2b, tail-mode cotangent prologue",
      ("ln_lora_tail_grad_kernel",)),
