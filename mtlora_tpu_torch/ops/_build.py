@@ -47,9 +47,9 @@ SIGNATURES = {
     # x, ek_t, eb, mul, add, pk_t, pb, y, M, cin, hidden, n_out, stream
     "mtlora_head_mlp_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _P],
-    # x, ek_t, eb, mul, add, pk_t, gy, dx, part, dek_t, deb, dmul, dadd,
-    # dpk_t, dpb, M, cin, hidden, n_out, stripes, stream
-    "mtlora_head_mlp_bwd": [_P] * 15 + [_I] * 5 + [_P],
+    # x, ek_t, eb, mul, add, pk_t, gy, dx, wpad, xpad, gypad, dhc, z, cols,
+    # part, sums, dek_t, dpk_t, M, C, O, n, ng, stages, smem, sw, sp, stream
+    "mtlora_head_mlp_bwd": [_P] * 18 + [_I] * 9 + [_P],
     # x, gamma, beta, wt, bias, at, bt, seed, y, M, K, O, r, merge_wh,
     # scale, drop threshold, use_drop, inv_keep, stream
     "mtlora_ln_lora_fwd": [_P] * 9 + [_I] * 5 + [_F, _U, _I, _F, _P],

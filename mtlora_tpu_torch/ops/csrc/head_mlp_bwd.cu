@@ -1,572 +1,469 @@
 // Fused HRNet decode head (backward) for Hopper.
 //
-// Replaces mtlora_tpu/ops/pallas_head.py: _bwd_kernel, launched by
-// _bwd_rule, the custom VJP of fused_head_mlp. With the forward's
-// hidden recomputed per row block (never stored):
+// Replaces mtlora_tpu/ops/pallas_head.py: _bwd_kernel (:111), launched by
+// _bwd_rule (:210, call :224), the custom VJP of fused_head_mlp. With the
+// forward's hidden recomputed once, the cast points of _bwd_kernel:
 //   hc   = bf16(x We + be)                zpre = bf16(bf16(hc*mul) + add)
 //   z    = relu(zpre)                     dz   = bf16(gy) Wp^T      (fp32)
 //   dzp  = dz where zpre > 0              dh   = dzp * mul          (fp32 mul)
 //   dhc  = bf16(dh)
 //   dx   = dhc We^T     dWe = x^T dhc     dWp = z^T bf16(gy)
 //   dbe  = sum dh       dmul = sum dzp*hc dadd = sum dzp    dbp = sum gy
-// with every product accumulated in fp32, the cast points of _bwd_kernel.
+// with every product accumulated in fp32.
 //
-// What bounds it: five products of M x 270 x 1080 (two recomputing the
-// hidden), ~290 FLOP per byte of x and gy: near the card's ridge, bound
-// by how well mma.sync is fed. The TPU kernel keeps the [M, 1080] hidden
-// out of HBM (217 MB in bf16 at batch 32); this one does too.
-//
-// The TPU grid runs in order and carries dWe [270, 1080], dWp [1080, n]
-// and four row vectors in VMEM from step to step. Blocks on the H100 run
-// in parallel, so the work is split in two kernels that each recompute
-// the hidden:
-//   - dx: one block per 64 rows walks the hidden in 64-column chunks, as
-//     the forward does, and keeps the [64, 270] dx sum in registers: the
-//     sum over chunks stays inside one block, so there is no race;
-//   - weights: one block per (64-column chunk of the hidden, stripe of
-//     rows) computes the chunk's hidden TRANSPOSED ([hidden, rows]), so
-//     dhc and z come out hidden-major, and accumulates its slices of
-//     dWe^T [64, 270], dWp^T [n, 64] and the three vectors in registers
-//     over its stripe; it writes them as fp32 partials [stripes, ...]
-//     (1.2 MB of dWe a stripe; the stripe count is about SMs / chunks,
-//     so the partials stay at ~8 MB at any batch);
-//   - a third, small kernel sums the stripes in a fixed order and casts:
-//     deterministic, with no fp32 atomics.
-// All products are mma.sync m16n8k16 (bf16 in, fp32 accumulate). C = 270
-// and n in {1, 3, 7, 21} are zero-padded in shared memory (to 272 and to
-// a multiple of 16) and the stores are masked. Operands that the product
-// needs transposed are gathered from shared memory two bf16 at a time.
+// What bounds it: three products of M x C x O (h, dx, dWe; dz and dWp are
+// n / C of one), ~290 FLOP per byte of x and gy at C = 270, O = 1080: by
+// operations, on the card's ridge. The TPU kernel runs its grid in order
+// and carries dWe, dWp and the column sums in VMEM from step to step, so
+// the hidden never leaves the chip. Blocks on the H100 run in parallel and
+// nothing carries over between them, so the sums over rows take a second
+// pass; recomputing the hidden there costs a fourth product and a second
+// walk over x and the weights. Design:
+//   - a row kernel: a block of 8 warps owns 64 rows; its x tile [64 x 272]
+//     and bf16(gy) tile [64 x NP] are copied once by cp.async (the block's
+//     rows are one contiguous span each) and stay in shared memory. It
+//     walks the hidden in chunks of 64: h and dz (warp tile 16 x 32), the
+//     ReLU mask and the BN-affine backward in registers, then dx += dhc
+//     We^T (warp tile 16 x 136, 68 fp32 registers a thread). C is padded
+//     to 272 at compile time, so every k loop unrolls;
+//   - the chunk's weights (the rows of We^T, the columns of Wp^T, eb, mul
+//     and add) stream through a ring of 4 stages (3 where n > 32) filled by
+//     cp.async, stages - 1 chunks ahead; one stage (35 KB of We^T) serves
+//     4.5 MFLOP of products between two barriers. h reads the We^T rows
+//     with ldmatrix, dx reads the same rows with ldmatrix.trans: no
+//     transposed copy. Rows of We^T are 540 bytes at C = 270, not 16-byte
+//     aligned, so the launch first copies We^T into a padded bf16 [O, 272]
+//     array (0.59 MB, once per call);
+//   - unlike the TPU kernel, the port writes dhc and z to device memory
+//     (bf16 [M, O] each, 0.43 GB together at batch 32, read once), and x
+//     and bf16(gy) as padded rows: dWe^T = dhc^T x and dWp^T = bf16(gy)^T z
+//     are then products over the rows of stored tensors (lnk::wgrad, fp32
+//     partials per stripe of rows summed in a fixed order), and the hidden
+//     is computed once;
+//   - the column sums (dbe, dmul, dadd from the unrounded values, dbp)
+//     are written per block as fp32 partials and summed in a fixed order
+//     (lnk::sum_parts). Deterministic, no fp32 atomics.
+// The launch plan (ring depth, shared-memory bytes, scratch, stripes) is
+// ops/head.py:bwd_plan; the kernel traps if the bytes do not hold its
+// layout.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "mma.cuh"
+#include "ln_common.cuh"
 
 namespace {
 
-constexpr int kBM = 64;       // rows per tile
-constexpr int kHC = 64;       // hidden columns per chunk
-constexpr int kWarps = 8;
-constexpr int kNMax = 64;     // outputs n
-constexpr int kCMax = 272;    // padded inputs C (34 n-tiles of 8)
-constexpr int kCT = kCMax / 16;  // n-tiles of 8 per warp half: 17
-constexpr int kZld = kHC + 8;
+using namespace lnk;
 
-struct Shapes {
-  int M, cin, hidden, n_out;
-  int Kp, xld, NP, gld;
+constexpr int kBM = 64;          // rows of a block
+constexpr int kHC = 64;          // hidden columns of a chunk
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kNMax = 64;        // outputs n
+constexpr int kKp = 272;         // inputs C <= kKp, padded to kKp
+constexpr int kLdW = kKp + 8;    // row stride of the x and We^T tiles
+constexpr int kCT = kKp / 16;    // dx n-tiles of a warp: 17
+constexpr int kLdT = kHC + 8;    // row stride of the 64-wide tiles
+
+struct Args {
+  const bf16 *x, *wpad, *pk_t, *gy;
+  const float *eb, *mul, *add;
+  bf16 *dx, *xpad, *gypad, *dhc, *z;
+  float* cols;
+  int M, C, O, n, NP, NG;
 };
 
-__device__ __forceinline__ Shapes shapes(int M, int cin, int hidden,
-                                         int n_out) {
-  Shapes s;
-  s.M = M;
-  s.cin = cin;
-  s.hidden = hidden;
-  s.n_out = n_out;
-  s.Kp = (cin + 15) / 16 * 16;
-  s.xld = s.Kp + 8;
-  s.NP = (n_out + 15) / 16 * 16;
-  s.gld = s.NP + 8;
-  return s;
+// Bytes of one ring stage: We^T rows [kHC][kLdW], Wp^T columns
+// [NP][kLdT] (bf16), eb, mul, add [3][kHC] (fp32).
+__host__ __device__ __forceinline__ int stage_bytes(int NP) {
+  return 2 * (kHC * kLdW + NP * kLdT) + 4 * 3 * kHC;
 }
 
-// x rows [r0, r1) of the tile starting at r0, zero-padded to kBM x Kp.
-__device__ __forceinline__ void stage_x(__nv_bfloat16* xs,
-                                        const __nv_bfloat16* x,
-                                        const Shapes& s, int r0, int r1) {
-  const uint32_t* xg = reinterpret_cast<const uint32_t*>(x);
-  const int kw = s.Kp / 2, cw = s.cin / 2;
-  for (int i = threadIdx.x; i < kBM * kw; i += blockDim.x) {
-    const int r = i / kw;
-    const int c = i - r * kw;
-    const int gr = r0 + r;
-    uint32_t val = 0;
-    if (gr < r1 && c < cw) val = xg[(size_t)gr * cw + c];
-    reinterpret_cast<uint32_t*>(xs + r * s.xld)[c] = val;
-  }
-}
+// The ring of hidden chunks. Every thread calls next() at the same points:
+// chunk q is resident when next() returns it, and chunk q + S - 1 starts
+// streaming into the stage of chunk q - 1, free because every thread
+// passed the barrier after its last products on it. One cp.async group per
+// chunk, empty past the end.
+template <int S>
+struct Ring {
+  unsigned char* buf;
+  int bytes, q, total;
 
-// gy rows [r0, r1) as gys[r][o], zero-padded to kBM x NP (n may be odd,
-// so the rows are read element by element).
-__device__ __forceinline__ void stage_gy(__nv_bfloat16* gys,
-                                         const __nv_bfloat16* gy,
-                                         const Shapes& s, int r0, int r1) {
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int i = threadIdx.x; i < kBM * s.NP; i += blockDim.x) {
-    const int r = i / s.NP;
-    const int o = i - r * s.NP;
-    const int gr = r0 + r;
-    gys[r * s.gld + o] = (gr < r1 && o < s.n_out)
-                             ? gy[(size_t)gr * s.n_out + o] : zero;
+  // A warp copies whole rows of We^T (kKp / 8 16-byte pieces each); the
+  // Wp^T columns and the vectors go 8 and 16 pieces a row.
+  __device__ __forceinline__ void load(const Args& a, int i) {
+    if (i < total) {
+      const int j0 = i * kHC;
+      bf16* ws = reinterpret_cast<bf16*>(buf + (i % S) * bytes);
+      bf16* ps = ws + kHC * kLdW;
+      float* vs = reinterpret_cast<float*>(ps + a.NP * kLdT);
+      const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+      for (int r = warp; r < kHC; r += kWarps) {
+        const bool in = j0 + r < a.O;
+        const bf16* src = a.wpad + (size_t)(j0 + r) * kKp;
+        for (int c = 8 * lane; c < kKp; c += 8 * 32)
+          cp_async16(ws + r * kLdW + c, in ? src + c : a.wpad, in);
+      }
+      for (int v = threadIdx.x; v < 8 * a.NP; v += kThreads) {
+        const int o = v >> 3, c = (v & 7) * 8;
+        const bool in = o < a.n && j0 + c < a.O;
+        cp_async16(ps + o * kLdT + c,
+                   in ? a.pk_t + (size_t)o * a.O + j0 + c : a.pk_t, in);
+      }
+      if (threadIdx.x < 3 * kHC / 4) {
+        const int k = threadIdx.x >> 4, c = (threadIdx.x & 15) * 4;
+        const float* src = k == 0 ? a.eb : k == 1 ? a.mul : a.add;
+        const bool in = j0 + c < a.O;
+        cp_async16(vs + k * kHC + c, in ? src + j0 + c : src, in);
+      }
+    }
+    cp_async_commit();
   }
-}
 
-// The chunk's weights: es[j][c] = We^T[j0+j][c], pks[j][o] = Wp^T[o][j0+j],
-// and the vectors eb, bf16(mul), bf16(add), mul.
-__device__ __forceinline__ void stage_chunk(
-    __nv_bfloat16* es, __nv_bfloat16* pks, float* vec,
-    const __nv_bfloat16* ek_t, const __nv_bfloat16* pk_t, const float* eb,
-    const float* mul, const float* add, const Shapes& s, int j0) {
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  const uint32_t* eg = reinterpret_cast<const uint32_t*>(ek_t);
-  const int kw = s.Kp / 2, cw = s.cin / 2;
-  for (int i = threadIdx.x; i < kHC * kw; i += blockDim.x) {
-    const int jr = i / kw;
-    const int c = i - jr * kw;
-    const int gj = j0 + jr;
-    uint32_t val = 0;
-    if (gj < s.hidden && c < cw) val = eg[(size_t)gj * cw + c];
-    reinterpret_cast<uint32_t*>(es + jr * s.xld)[c] = val;
+  __device__ __forceinline__ void start(const Args& a) {
+    for (int i = 0; i < S - 1; ++i) load(a, i);
   }
-  for (int i = threadIdx.x; i < s.NP * kHC; i += blockDim.x) {
-    const int o = i / kHC;
-    const int jr = i - o * kHC;
-    const int gj = j0 + jr;
-    pks[jr * s.gld + o] = (o < s.n_out && gj < s.hidden)
-                              ? pk_t[(size_t)o * s.hidden + gj] : zero;
+
+  __device__ __forceinline__ const unsigned char* next(const Args& a) {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    load(a, q + S - 1);
+    return buf + (q++ % S) * bytes;
   }
-  for (int i = threadIdx.x; i < kHC; i += blockDim.x) {
-    const int gj = j0 + i;
-    const bool in = gj < s.hidden;
-    vec[i] = in ? eb[gj] : 0.f;
-    vec[kHC + i] = in ? round_bf16(mul[gj]) : 0.f;
-    vec[2 * kHC + i] = in ? round_bf16(add[gj]) : 0.f;
-    vec[3 * kHC + i] = in ? mul[gj] : 0.f;
+};
+
+// Warp (wm, wn) = (warp % 4, warp / 4): rows 16 wm.. of the block; hidden
+// columns 32 wn.. of a chunk for h and dz; input columns wn kKp / 2.. for
+// dx.
+template <int S>
+__global__ void __launch_bounds__(kThreads, 1) head_bwd_rows(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int NP = a.NP, gld = NP + 8;
+  const int M = a.M, C = a.C, O = a.O;
+  const size_t E = 3 * (size_t)O + a.n;   // a block's column partials
+  // Dynamic shared memory: the ring; the x tile [kBM][kLdW] (dx at the
+  // end), the bf16(gy) tile [kBM][NP + 8], the chunk's dhc and z tiles
+  // [kBM][kLdT] (bf16); the warps' column sums [4][3][kHC] (fp32). The
+  // padded strides keep ldmatrix free of bank conflicts.
+  Ring<S> ring{smem, stage_bytes(NP), 0, (O + kHC - 1) / kHC};
+  bf16* xs = reinterpret_cast<bf16*>(smem + S * ring.bytes);
+  bf16* gys = xs + kBM * kLdW;
+  bf16* dht = gys + kBM * gld;
+  bf16* zt = dht + kBM * kLdT;
+  float* red = reinterpret_cast<float*>(zt + kBM * kLdT);
+  // the plan's bytes (ops/head.py:bwd_plan) must hold this layout
+  if (reinterpret_cast<unsigned char*>(red + 4 * 3 * kHC) - smem >
+      dynamic_smem_bytes())
+    __trap();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int m0 = blockIdx.x * kBM;
+  const int c0w = wn * kCT * 8;     // the warp's first dx column
+  float* cols = a.cols + blockIdx.x * E;
+
+  // The block's x and gy rows are one contiguous, 16-byte aligned span
+  // each (128 C and 128 n bytes a block): cp.async copies them as they lie
+  // into the ring's last stage, free until the first next(), while the
+  // first chunks stream in; then they are laid out as padded tiles, and
+  // written out as padded rows for the weight-gradient products.
+  const int rows = min(kBM, M - m0);
+  {
+    unsigned char* raw = smem + (S - 1) * ring.bytes;
+    const size_t xb = (size_t)rows * C * 2, gb = (size_t)rows * a.n * 2;
+    const unsigned char* xg =
+        reinterpret_cast<const unsigned char*>(a.x + (size_t)m0 * C);
+    const unsigned char* gg =
+        reinterpret_cast<const unsigned char*>(a.gy + (size_t)m0 * a.n);
+    for (int v = threadIdx.x; v < (int)(xb / 16); v += kThreads)
+      cp_async16(raw + 16 * v, xg + 16 * v, true);
+    for (int v = threadIdx.x; v < (int)(gb / 16); v += kThreads)
+      cp_async16(raw + 128 * C + 16 * v, gg + 16 * v, true);
+    cp_async_commit();
+    // the ragged ends, at most 15 bytes each
+    if (threadIdx.x < 2) {
+      const size_t n = threadIdx.x ? gb : xb, off = threadIdx.x ? 128 * C : 0;
+      const unsigned char* src = threadIdx.x ? gg : xg;
+      for (size_t b = n / 16 * 16; b < n; b += 2)
+        *reinterpret_cast<unsigned short*>(raw + off + b) =
+            *reinterpret_cast<const unsigned short*>(src + b);
+    }
   }
-}
-
-// ---------------------------------------------------------------------------
-// dx: one block per 64 rows, the hidden walked in chunks.
-// Warp (wm, wn): rows wm*16..+16; hidden columns wn*32..+32 of the chunk for
-// h and dz, input columns wn*136..+136 for dx.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kWarps * 32, 1)
-head_bwd_dx_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ ek_t,
-                   const float* __restrict__ eb,
-                   const float* __restrict__ mul,
-                   const float* __restrict__ add,
-                   const __nv_bfloat16* __restrict__ pk_t,
-                   const __nv_bfloat16* __restrict__ gy,
-                   __nv_bfloat16* __restrict__ dx,
-                   int M, int cin, int hidden, int n_out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Shapes s = shapes(M, cin, hidden, n_out);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* es = xs + kBM * s.xld;
-  __nv_bfloat16* ecs = es + kHC * s.xld;      // [Kp][kZld]: We[c][j]
-  __nv_bfloat16* pks = ecs + s.Kp * kZld;
-  __nv_bfloat16* gys = pks + kHC * s.gld;
-  __nv_bfloat16* dhs = gys + kBM * s.gld;     // [kBM][kZld]: dhc[r][j]
-  float* vec = reinterpret_cast<float*>(dhs + kBM * kZld);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int wm = warp & 3;
-  const int wn = warp >> 2;
-  const int row0 = blockIdx.x * kBM;
-  const int NTc = s.Kp / 8;
-
-  stage_x(xs, x, s, row0, M);
-  stage_gy(gys, gy, s, row0, M);
+  ring.start(a);
+  cp_async_wait<S - 1>();
+  __syncthreads();
+  {
+    const unsigned char* raw = smem + (S - 1) * ring.bytes;
+    const uint32_t* xr = reinterpret_cast<const uint32_t*>(raw);
+    const bf16* gr = reinterpret_cast<const bf16*>(raw + 128 * C);
+    uint32_t* xp = reinterpret_cast<uint32_t*>(a.xpad);
+    uint32_t* x32 = reinterpret_cast<uint32_t*>(xs);
+    const int kw = kKp / 2, cw = C / 2;
+    const bf16 zero = __float2bfloat16(0.f);
+    for (int r = warp; r < kBM; r += kWarps) {
+      for (int w = lane; w < kw; w += 32) {
+        const uint32_t val = (r < rows && w < cw) ? xr[r * cw + w] : 0u;
+        x32[r * (kLdW / 2) + w] = val;
+        if (r < rows) xp[(size_t)(m0 + r) * kw + w] = val;
+      }
+      for (int o = lane; o < NP; o += 32) {
+        const bf16 val = (r < rows && o < a.n) ? gr[r * a.n + o] : zero;
+        gys[r * gld + o] = val;
+        if (r < rows && o < a.NG) a.gypad[(size_t)(m0 + r) * a.NG + o] = val;
+      }
+    }
+  }
 
   float dxa[kCT][4];
-#pragma unroll
-  for (int i = 0; i < kCT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dxa[i][e] = 0.f;
+  zero<kCT>(dxa);
+  const bf16* pa = xs + (16 * wm + (lane & 15)) * kLdW + (lane >> 4) * 8;
+  const bf16* ga = gys + (16 * wm + (lane & 15)) * gld + (lane >> 4) * 8;
+  const bf16* da = dht + (16 * wm + (lane & 15)) * kLdT + (lane >> 4) * 8;
+  for (int j0 = 0; j0 < O; j0 += kHC) {
+    const bf16* ws = reinterpret_cast<const bf16*>(ring.next(a));
+    const bf16* ps = ws + kHC * kLdW;
+    const float* vs = reinterpret_cast<const float*>(ps + NP * kLdT);
 
-  for (int j0 = 0; j0 < hidden; j0 += kHC) {
-    __syncthreads();  // previous chunk consumed
-    stage_chunk(es, pks, vec, ek_t, pk_t, eb, mul, add, s, j0);
-    for (int i = tid; i < kHC * s.Kp; i += blockDim.x) {
-      const int jr = i / s.Kp;
-      const int c = i - jr * s.Kp;
-      const int gj = j0 + jr;
-      ecs[c * kZld + jr] = (gj < hidden && c < cin)
-                               ? ek_t[(size_t)gj * cin + c]
-                               : __float2bfloat16(0.f);
-    }
-    __syncthreads();
-
-    // ---- h = x We and dz = gy Wp^T on this warp's 16 x 32 tile ------------
+    // ---- h = x We^T[j0..] and dz = bf16(gy) Wp^T[..j0] (16 x 32) --------
     float ha[4][4], dza[4][4];
+    zero<4>(ha);
+    zero<4>(dza);
+    {
+      const bf16* pb = ws + (32 * wn + (lane & 7) + ((lane >> 4) << 3)) * kLdW +
+                       ((lane >> 3) & 1) * 8;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ha[nt][e] = dza[nt][e] = 0.f;
-    for (int kk = 0; kk < s.Kp; kk += 16) {
-      uint32_t a[4];
-      load_a(a, xs + wm * 16 * s.xld + kk, s.xld, g, t);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const __nv_bfloat16* b = es + (wn * 32 + nt * 8 + g) * s.xld + kk + 2 * t;
-        mma_bf16_16816(ha[nt], a, ld32(b), ld32(b + 8));
+      for (int kk = 0; kk < kKp; kk += 16) {
+        uint32_t af[4], b0[4], b1[4];
+        ldsm_x4(af, pa + kk);
+        ldsm_x4(b0, pb + kk);
+        ldsm_x4(b1, pb + 16 * kLdW + kk);
+        mma_bf16_16816(ha[0], af, b0[0], b0[1]);
+        mma_bf16_16816(ha[1], af, b0[2], b0[3]);
+        mma_bf16_16816(ha[2], af, b1[0], b1[1]);
+        mma_bf16_16816(ha[3], af, b1[2], b1[3]);
       }
-    }
-    for (int kk = 0; kk < s.NP; kk += 16) {
-      uint32_t a[4];
-      load_a(a, gys + wm * 16 * s.gld + kk, s.gld, g, t);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const __nv_bfloat16* b = pks + (wn * 32 + nt * 8 + g) * s.gld + kk + 2 * t;
-        mma_bf16_16816(dza[nt], a, ld32(b), ld32(b + 8));
+      const bf16* pt = ps + (lane & 15) * kLdT + 32 * wn + (lane >> 4) * 8;
+      for (int kk = 0; kk < NP; kk += 16) {
+        uint32_t af[4], b0[4], b1[4];
+        ldsm_x4(af, ga + kk);
+        ldsm_x4_t(b0, pt + kk * kLdT);
+        ldsm_x4_t(b1, pt + kk * kLdT + 16);
+        mma_bf16_16816(dza[0], af, b0[0], b0[1]);
+        mma_bf16_16816(dza[1], af, b0[2], b0[3]);
+        mma_bf16_16816(dza[2], af, b1[0], b1[1]);
+        mma_bf16_16816(dza[3], af, b1[2], b1[3]);
       }
     }
 
-    // ---- ReLU mask and BN-affine backward -> bf16 dhc tile ----------------
+    // ---- ReLU mask, BN-affine backward: the dhc and z tiles; the warp's
+    // column sums over its 16 rows -------------------------------------------
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
+      const int col = 32 * wn + 8 * nt + 2 * t;
+      float s[3][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float ebj = vs[col + e], mf = vs[kHC + col + e];
+        const float mb = round_bf16(mf), ab = round_bf16(vs[2 * kHC + col + e]);
+        s[0][e] = s[1][e] = s[2][e] = 0.f;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float hc = round_bf16(ha[nt][2 * half + e] + ebj);
+          const float zp = round_bf16(round_bf16(hc * mb) + ab);
+          const float dzp = zp > 0.f ? dza[nt][2 * half + e] : 0.f;
+          const float dh = dzp * mf;
+          ha[nt][2 * half + e] = fmaxf(zp, 0.f);   // z
+          dza[nt][2 * half + e] = dh;
+          s[0][e] += dh;
+          s[1][e] += dzp * hc;
+          s[2][e] += dzp;
+        }
+      }
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int r = wm * 16 + g + half * 8;
-        const int col = wn * 32 + nt * 8 + 2 * t;
-        float d[2];
+        const int r = 16 * wm + g + 8 * half;
+        st_bf2(zt + r * kLdT + col, ha[nt][2 * half], ha[nt][2 * half + 1]);
+        st_bf2(dht + r * kLdT + col, dza[nt][2 * half], dza[nt][2 * half + 1]);
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int j = col + e;
-          const float hc = round_bf16(ha[nt][half * 2 + e] + vec[j]);
-          const float zp = round_bf16(round_bf16(hc * vec[kHC + j]) +
-                                      vec[2 * kHC + j]);
-          const float dzp = zp > 0.f ? dza[nt][half * 2 + e] : 0.f;
-          d[e] = dzp * vec[3 * kHC + j];
+          float v = s[k][e];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (g == 0) red[(3 * wm + k) * kHC + col + e] = v;
         }
-        *reinterpret_cast<__nv_bfloat162*>(dhs + r * kZld + col) =
-            __floats2bfloat162_rn(d[0], d[1]);
-      }
     }
-    __syncthreads();
+    __syncthreads();  // the dhc tile is whole
 
-    // ---- dx += dhc We^T ----------------------------------------------------
+    // ---- dx += dhc We^T[j0..]^T ---------------------------------------------
 #pragma unroll
     for (int kk = 0; kk < kHC; kk += 16) {
-      uint32_t a[4];
-      load_a(a, dhs + wm * 16 * kZld + kk, kZld, g, t);
+      uint32_t af[4];
+      ldsm_x4(af, da + kk);
+      const bf16* pb = ws + (kk + (lane & 15)) * kLdW + c0w + (lane >> 4) * 8;
 #pragma unroll
-      for (int nt = 0; nt < kCT; ++nt) {
-        const int ct = wn * kCT + nt;
-        if (ct < NTc) {
-          const __nv_bfloat16* b = ecs + (ct * 8 + g) * kZld + kk + 2 * t;
-          mma_bf16_16816(dxa[nt], a, ld32(b), ld32(b + 8));
+      for (int i = 0; i < kCT; i += 2) {
+        if (i + 1 < kCT) {
+          uint32_t b[4];
+          ldsm_x4_t(b, pb + 8 * i);
+          mma_bf16_16816(dxa[i], af, b[0], b[1]);
+          mma_bf16_16816(dxa[i + 1], af, b[2], b[3]);
+        } else {
+          uint32_t b[2];
+          ldsm_x2_t(b, pb + 8 * i);
+          mma_bf16_16816(dxa[i], af, b[0], b[1]);
         }
       }
     }
-  }
 
-  // ---- dx rows, masked bf16 stores ------------------------------------------
-#pragma unroll
-  for (int nt = 0; nt < kCT; ++nt) {
-    const int col = (wn * kCT + nt) * 8 + 2 * t;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = row0 + wm * 16 + g + half * 8;
-      if (r < M && col < cin)
-        *reinterpret_cast<__nv_bfloat162*>(dx + (size_t)r * cin + col) =
-            __floats2bfloat162_rn(dxa[nt][half * 2], dxa[nt][half * 2 + 1]);
+    // ---- the chunk's dhc and z rows (16-byte stores), its column sums ----
+    for (int v = threadIdx.x; v < 2 * kBM * (kHC / 8); v += kThreads) {
+      const int w = v / (kBM * (kHC / 8)), u = v - w * (kBM * (kHC / 8));
+      const int r = u >> 3, c = (u & 7) * 8, m = m0 + r;
+      if (m < M && j0 + c < O)
+        *reinterpret_cast<uint4*>((w ? a.z : a.dhc) + (size_t)m * O + j0 + c) =
+            *reinterpret_cast<const uint4*>((w ? zt : dht) + r * kLdT + c);
     }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Weight gradients: one block per (chunk of 64 hidden columns, stripe of
-// rows), everything hidden-major. Warp (wm, wn): hidden rows wm*16..+16;
-// tile rows wn*32..+32 for h^T and dz^T, input columns wn*136..+136 for
-// dWe^T; warp w owns hidden columns w*8..+8 of dWp^T.
-// Partials, per stripe, at offsets of E = hidden*cin + n*hidden +
-// 3*hidden + n floats: dWe^T [hidden][cin], dWp^T [n][hidden],
-// (dbe, dmul, dadd) [3][hidden], dbp [n].
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kWarps * 32, 1)
-head_bwd_w_kernel(const __nv_bfloat16* __restrict__ x,
-                  const __nv_bfloat16* __restrict__ ek_t,
-                  const float* __restrict__ eb,
-                  const float* __restrict__ mul,
-                  const float* __restrict__ add,
-                  const __nv_bfloat16* __restrict__ pk_t,
-                  const __nv_bfloat16* __restrict__ gy,
-                  float* __restrict__ part,
-                  int M, int cin, int hidden, int n_out, int stripe_rows) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Shapes s = shapes(M, cin, hidden, n_out);
-  __nv_bfloat16* es = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* pks = es + kHC * s.xld;
-  __nv_bfloat16* xs = pks + kHC * s.gld;
-  __nv_bfloat16* gys = xs + kBM * s.xld;
-  __nv_bfloat16* zT = gys + kBM * s.gld;      // [kHC][kZld]: z[r][j] at [j][r]
-  __nv_bfloat16* dT = zT + kHC * kZld;        // [kHC][kZld]: dhc at [j][r]
-  float* vec = reinterpret_cast<float*>(dT + kHC * kZld);
-  float* red = vec + 4 * kHC;                 // [2][kHC][3]
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int wm = warp & 3;
-  const int wn = warp >> 2;
-  const int j0 = blockIdx.x * kHC;
-  const int stripe = blockIdx.y;
-  const int r_begin = stripe * stripe_rows;
-  const int r_end = min(M, r_begin + stripe_rows);
-  const int NTc = s.Kp / 8;
-  const int MTo = s.NP / 16;
-  const size_t E = (size_t)hidden * cin + (size_t)n_out * hidden +
-                   3 * (size_t)hidden + n_out;
-  float* out = part + (size_t)stripe * E;
-
-  stage_chunk(es, pks, vec, ek_t, pk_t, eb, mul, add, s, j0);
-
-  float dwe[kCT][4], dwp[kNMax / 16][4];
-#pragma unroll
-  for (int i = 0; i < kCT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dwe[i][e] = 0.f;
-#pragma unroll
-  for (int i = 0; i < kNMax / 16; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dwp[i][e] = 0.f;
-  float sums[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-  float dbp = 0.f;
-
-  for (int rb = r_begin; rb < r_end; rb += kBM) {
-    __syncthreads();  // previous tile consumed (and the chunk staged)
-    stage_x(xs, x, s, rb, r_end);
-    stage_gy(gys, gy, s, rb, r_end);
-    __syncthreads();
-
-    // ---- h^T = We^T x^T and dz^T = Wp gy^T on this warp's 16 x 32 tile ----
-    float ha[4][4], dza[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ha[nt][e] = dza[nt][e] = 0.f;
-    for (int kk = 0; kk < s.Kp; kk += 16) {
-      uint32_t a[4];
-      load_a(a, es + wm * 16 * s.xld + kk, s.xld, g, t);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const __nv_bfloat16* b = xs + (wn * 32 + nt * 8 + g) * s.xld + kk + 2 * t;
-        mma_bf16_16816(ha[nt], a, ld32(b), ld32(b + 8));
-      }
-    }
-    for (int kk = 0; kk < s.NP; kk += 16) {
-      uint32_t a[4];
-      load_a(a, pks + wm * 16 * s.gld + kk, s.gld, g, t);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const __nv_bfloat16* b = gys + (wn * 32 + nt * 8 + g) * s.gld + kk + 2 * t;
-        mma_bf16_16816(dza[nt], a, ld32(b), ld32(b + 8));
-      }
-    }
-
-    // ---- z^T, dhc^T and the column sums -----------------------------------
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int j = wm * 16 + g + half * 8;
-      const float ebj = vec[j], mb = vec[kHC + j], ab = vec[2 * kHC + j];
-      const float mf = vec[3 * kHC + j];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int r = wn * 32 + nt * 8 + 2 * t;
-        float z[2], d[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float hc = round_bf16(ha[nt][half * 2 + e] + ebj);
-          const float zp = round_bf16(round_bf16(hc * mb) + ab);
-          const float dzp = zp > 0.f ? dza[nt][half * 2 + e] : 0.f;
-          z[e] = fmaxf(zp, 0.f);
-          d[e] = dzp * mf;
-          sums[half][0] += d[e];
-          sums[half][1] += dzp * hc;
-          sums[half][2] += dzp;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(zT + j * kZld + r) =
-            __floats2bfloat162_rn(z[0], z[1]);
-        *reinterpret_cast<__nv_bfloat162*>(dT + j * kZld + r) =
-            __floats2bfloat162_rn(d[0], d[1]);
-      }
-    }
-    if (blockIdx.x == 0 && tid < n_out)
-      for (int r = 0; r < kBM; ++r) dbp += __bfloat162float(gys[r * s.gld + tid]);
-    __syncthreads();
-
-    // ---- dWe^T[j][c] += dhc^T[j][r] x[r][c] -------------------------------
-#pragma unroll
-    for (int kk = 0; kk < kBM; kk += 16) {
-      uint32_t a[4];
-      load_a(a, dT + wm * 16 * kZld + kk, kZld, g, t);
-#pragma unroll
-      for (int nt = 0; nt < kCT; ++nt) {
-        const int ct = wn * kCT + nt;
-        if (ct < NTc) {
-          const __nv_bfloat16* b = xs + (kk + 2 * t) * s.xld + ct * 8 + g;
-          mma_bf16_16816(dwe[nt], a, ld_pair(b, s.xld),
-                         ld_pair(b + 8 * s.xld, s.xld));
-        }
-      }
-    }
-    // ---- dWp^T[o][j] += gy^T[o][r] z[r][j] --------------------------------
-#pragma unroll
-    for (int kk = 0; kk < kBM; kk += 16) {
-      const __nv_bfloat16* b = zT + (warp * 8 + g) * kZld + kk + 2 * t;
-      const uint32_t b0 = ld32(b), b1 = ld32(b + 8);
-#pragma unroll
-      for (int mt = 0; mt < kNMax / 16; ++mt) {
-        if (mt < MTo) {
-          const __nv_bfloat16* q = gys + (kk + 2 * t) * s.gld + mt * 16 + g;
-          uint32_t a[4];
-          a[0] = ld_pair(q, s.gld);
-          a[1] = ld_pair(q + 8, s.gld);
-          a[2] = ld_pair(q + 8 * s.gld, s.gld);
-          a[3] = ld_pair(q + 8 * s.gld + 8, s.gld);
-          mma_bf16_16816(dwp[mt], a, b0, b1);
-        }
-      }
+    for (int v = threadIdx.x; v < 3 * kHC; v += kThreads) {
+      const int k = v / kHC, j = v - k * kHC;
+      if (j0 + j < O)
+        cols[(size_t)k * O + j0 + j] =
+            ((red[k * kHC + j] + red[(3 + k) * kHC + j]) +
+             red[(6 + k) * kHC + j]) + red[(9 + k) * kHC + j];
     }
   }
 
-  // ---- partials ---------------------------------------------------------------
-#pragma unroll
-  for (int nt = 0; nt < kCT; ++nt) {
-    const int c = (wn * kCT + nt) * 8 + 2 * t;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int gj = j0 + wm * 16 + g + half * 8;
-      if (gj < hidden && c < cin) {
-        out[(size_t)gj * cin + c] = dwe[nt][half * 2];
-        out[(size_t)gj * cin + c + 1] = dwe[nt][half * 2 + 1];
-      }
-    }
+  // ---- dbp's partial; dx through the x tile (last read before the final
+  // chunk's second barrier), 4-byte coalesced stores ------------------------
+  if (threadIdx.x < a.n) {
+    float s = 0.f;
+    for (int r = 0; r < kBM; ++r) s += __bfloat162float(gys[r * gld + threadIdx.x]);
+    cols[3 * (size_t)O + threadIdx.x] = s;
   }
-  float* out_wp = out + (size_t)hidden * cin;
 #pragma unroll
-  for (int mt = 0; mt < kNMax / 16; ++mt) {
+  for (int i = 0; i < kCT; ++i) {
+    const int c = c0w + 8 * i + 2 * t;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int o = mt * 16 + g + (e >= 2 ? 8 : 0);
-      const int gj = j0 + warp * 8 + 2 * t + (e & 1);
-      if (mt < MTo && o < n_out && gj < hidden)
-        out_wp[(size_t)o * hidden + gj] = dwp[mt][e];
-    }
+    for (int half = 0; half < 2; ++half)
+      st_bf2(xs + (16 * wm + g + 8 * half) * kLdW + c, dxa[i][2 * half],
+             dxa[i][2 * half + 1]);
   }
-  // column sums: the 4 lanes of a row group, then the two warp halves
-#pragma unroll
-  for (int half = 0; half < 2; ++half)
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      float v = sums[half][k];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      if (t == 0) red[(wn * kHC + wm * 16 + g + half * 8) * 3 + k] = v;
-    }
   __syncthreads();
-  float* out_vec = out_wp + (size_t)n_out * hidden;
-  for (int i = tid; i < 3 * kHC; i += blockDim.x) {
-    const int k = i / kHC;
-    const int j = i - k * kHC;
-    if (j0 + j < hidden)
-      out_vec[(size_t)k * hidden + j0 + j] =
-          red[j * 3 + k] + red[(kHC + j) * 3 + k];
+  {
+    const uint32_t* x32 = reinterpret_cast<const uint32_t*>(xs);
+    uint32_t* dx = reinterpret_cast<uint32_t*>(a.dx);
+    const int cw = C / 2;
+    for (int v = threadIdx.x; v < kBM * cw; v += kThreads) {
+      const int r = v / cw, w = v - r * cw;
+      if (m0 + r < M) dx[(size_t)(m0 + r) * cw + w] = x32[r * (kLdW / 2) + w];
+    }
   }
-  if (blockIdx.x == 0 && tid < n_out) out_vec[3 * (size_t)hidden + tid] = dbp;
 }
 
-// Sum the stripes in order; cast dWe^T and dWp^T to bf16.
-__global__ void head_bwd_reduce_kernel(const float* __restrict__ part,
-                                       int stripes, int cin, int hidden,
-                                       int n_out,
-                                       __nv_bfloat16* __restrict__ dek_t,
-                                       __nv_bfloat16* __restrict__ dpk_t,
-                                       float* __restrict__ deb,
-                                       float* __restrict__ dmul,
-                                       float* __restrict__ dadd,
-                                       float* __restrict__ dpb) {
-  const size_t E = (size_t)hidden * cin + (size_t)n_out * hidden +
-                   3 * (size_t)hidden + n_out;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= E) return;
-  float v = 0.f;
-  for (int st = 0; st < stripes; ++st) v += part[(size_t)st * E + i];
-  size_t k = i;
-  if (k < (size_t)hidden * cin) { dek_t[k] = __float2bfloat16(v); return; }
-  k -= (size_t)hidden * cin;
-  if (k < (size_t)n_out * hidden) { dpk_t[k] = __float2bfloat16(v); return; }
-  k -= (size_t)n_out * hidden;
-  if (k < (size_t)hidden) { deb[k] = v; return; }
-  if (k < 2 * (size_t)hidden) { dmul[k - hidden] = v; return; }
-  if (k < 3 * (size_t)hidden) { dadd[k - 2 * hidden] = v; return; }
-  dpb[k - 3 * hidden] = v;
+// We^T [O][C] -> [O][kKp], zeros past C.
+__global__ void head_bwd_pad_kernel(const bf16* __restrict__ src, int rows,
+                                    int C, bf16* __restrict__ dst) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * kKp) return;
+  const int r = i / kKp, c = i - r * kKp;
+  dst[i] = c < C ? src[(size_t)r * C + c] : __float2bfloat16(0.f);
 }
+
+// The summed weight gradients, fp32 [n1 + n2], to bf16 d1 [n1], d2 [n2].
+__global__ void head_bwd_cast_kernel(const float* __restrict__ src, int n1,
+                                     int n2, bf16* __restrict__ d1,
+                                     bf16* __restrict__ d2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n1) d1[i] = __float2bfloat16(src[i]);
+  else if (i < n1 + n2) d2[i - n1] = __float2bfloat16(src[i]);
+}
+
+template <int S>
+cudaError_t launch_rows(const Args& a, int blocks, int smem, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      head_bwd_rows<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  head_bwd_rows<S><<<blocks, kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+bool misaligned(const void* p) { return (uintptr_t)p % 16 != 0; }
 
 }  // namespace
 
-extern "C" int mtlora_head_mlp_bwd(const void* x, const void* ek_t,
-                                   const void* eb, const void* mul,
-                                   const void* add, const void* pk_t,
-                                   const void* gy, void* dx, void* part,
-                                   void* dek_t, void* deb, void* dmul,
-                                   void* dadd, void* dpk_t, void* dpb, int M,
-                                   int cin, int hidden, int n_out,
-                                   int stripes, void* stream) {
-  if (n_out < 1 || n_out > kNMax || (cin & 1) || cin > kCMax ||
-      (hidden & 1) || stripes < 1 || M < 1)
+// x [M, C], ek_t (We^T) [O, C], pk_t (Wp^T) [n, O] bf16; eb, mul, add [O]
+// fp32; gy [M, n] bf16. stages, smem, sw and sp are the caller's launch
+// plan (ops/head.py:bwd_plan). Scratch: wpad [O, 272], xpad [M, 272], gypad
+// [M, ng], dhc and z [M, O] bf16; cols [ceil(M / 64), 3 O + n] and the
+// weight-gradient partials part (sw stripes of [O, C] or sp of [n, O], one
+// product at a time) fp32. Outputs: dx [M, C] bf16; sums fp32 [O C + n O
+// + 3 O + n] (dWe^T, dWp^T, dbe, dmul, dadd, dbp); dek_t [O, C] and dpk_t
+// [n, O] bf16.
+extern "C" int mtlora_head_mlp_bwd(
+    const void* x, const void* ek_t, const void* eb, const void* mul,
+    const void* add, const void* pk_t, const void* gy, void* dx, void* wpad,
+    void* xpad, void* gypad, void* dhc, void* z, void* cols, void* part,
+    void* sums, void* dek_t, void* dpk_t, int M, int C, int O, int n, int ng,
+    int stages, int smem, int sw, int sp, void* stream) {
+  const int NP = (n + 15) / 16 * 16;
+  if (M < 1 || C < 2 || (C & 1) || C > kKp || O < 8 || O % 8 || n < 1 ||
+      n > kNMax || ng < n || ng % 8 || ng > NP || sw < 1 || sp < 1 ||
+      !(stages == 3 || stages == 4))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int Kp = (cin + 15) / 16 * 16;
-  const int NP = (n_out + 15) / 16 * 16;
-  const size_t bf = sizeof(__nv_bfloat16);
+  // cp.async of x, gy, We^T, Wp^T and the vectors; 16-byte stores of the
+  // tiles
+  if (misaligned(x) || misaligned(gy) || misaligned(pk_t) ||
+      misaligned(eb) || misaligned(mul) || misaligned(add) ||
+      misaligned(wpad) || misaligned(dhc) || misaligned(z) ||
+      misaligned(xpad) || misaligned(gypad) || (uintptr_t)dx % 4)
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Args a;
+  a.x = static_cast<const bf16*>(x);
+  a.wpad = static_cast<const bf16*>(wpad);
+  a.pk_t = static_cast<const bf16*>(pk_t);
+  a.gy = static_cast<const bf16*>(gy);
+  a.eb = static_cast<const float*>(eb);
+  a.mul = static_cast<const float*>(mul);
+  a.add = static_cast<const float*>(add);
+  a.dx = static_cast<bf16*>(dx);
+  a.xpad = static_cast<bf16*>(xpad);
+  a.gypad = static_cast<bf16*>(gypad);
+  a.dhc = static_cast<bf16*>(dhc);
+  a.z = static_cast<bf16*>(z);
+  a.cols = static_cast<float*>(cols);
+  a.M = M;
+  a.C = C;
+  a.O = O;
+  a.n = n;
+  a.NP = NP;
+  a.NG = ng;
 
-  const size_t smem_dx = bf * ((size_t)(kBM + kHC) * (Kp + 8) +
-                               (size_t)Kp * kZld +
-                               (size_t)(kHC + kBM) * (NP + 8) +
-                               (size_t)kBM * kZld) +
-                         sizeof(float) * 4 * kHC;
-  cudaError_t e = cudaFuncSetAttribute(
-      head_bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_dx);
+  head_bwd_pad_kernel<<<(O * kKp + 255) / 256, 256, 0, st>>>(
+      static_cast<const bf16*>(ek_t), O, C, static_cast<bf16*>(wpad));
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  head_bwd_dx_kernel<<<(M + kBM - 1) / kBM, kWarps * 32, smem_dx, st>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(ek_t), static_cast<const float*>(eb),
-      static_cast<const float*>(mul), static_cast<const float*>(add),
-      static_cast<const __nv_bfloat16*>(pk_t),
-      static_cast<const __nv_bfloat16*>(gy), static_cast<__nv_bfloat16*>(dx),
-      M, cin, hidden, n_out);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  const int tiles = (M + kBM - 1) / kBM;
-  const int stripe_rows = (tiles + stripes - 1) / stripes * kBM;
-  const size_t smem_w = bf * ((size_t)(kHC + kBM) * (Kp + 8) +
-                              (size_t)(kHC + kBM) * (NP + 8) +
-                              2 * (size_t)kHC * kZld) +
-                        sizeof(float) * (4 * kHC + 6 * kHC);
-  e = cudaFuncSetAttribute(head_bwd_w_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_w);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((hidden + kHC - 1) / kHC, stripes);
-  head_bwd_w_kernel<<<grid, kWarps * 32, smem_w, st>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(ek_t), static_cast<const float*>(eb),
-      static_cast<const float*>(mul), static_cast<const float*>(add),
-      static_cast<const __nv_bfloat16*>(pk_t),
-      static_cast<const __nv_bfloat16*>(gy), static_cast<float*>(part), M,
-      cin, hidden, n_out, stripe_rows);
-  e = cudaGetLastError();
+  const int blocks = (M + kBM - 1) / kBM;
+  e = stages == 4 ? launch_rows<4>(a, blocks, smem, st)
+                  : launch_rows<3>(a, blocks, smem, st);
   if (e != cudaSuccess) return (int)e;
 
-  const size_t E = (size_t)hidden * cin + (size_t)n_out * hidden +
-                   3 * (size_t)hidden + n_out;
-  head_bwd_reduce_kernel<<<(unsigned)((E + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(part), stripes, cin, hidden, n_out,
-      static_cast<__nv_bfloat16*>(dek_t), static_cast<__nv_bfloat16*>(dpk_t),
-      static_cast<float*>(deb), static_cast<float*>(dmul),
-      static_cast<float*>(dadd), static_cast<float*>(dpb));
+  // dWe^T [O, C] = dhc^T x; dWp^T [n, O] = bf16(gy)^T z; the column sums
+  float* pp = static_cast<float*>(part);
+  float* out = static_cast<float*>(sums);
+  const MatSrc dhs{a.dhc, O, 1.f, 0}, xs{a.xpad, kKp, 1.f, 0};
+  const MatSrc gs{a.gypad, ng, 1.f, 0}, zs{a.z, O, 1.f, 0};
+  e = wgrad(dhs, xs, M, O, C, sw, pp, out, st);
+  if (e != cudaSuccess) return (int)e;
+  e = wgrad(gs, zs, M, n, O, sp, pp, out + (size_t)O * C, st);
+  if (e != cudaSuccess) return (int)e;
+  e = sum_parts(a.cols, blocks, 3 * (size_t)O + n,
+                out + (size_t)O * C + (size_t)n * O, st);
+  if (e != cudaSuccess) return (int)e;
+  head_bwd_cast_kernel<<<(O * C + n * O + 255) / 256, 256, 0, st>>>(
+      out, O * C, n * O, static_cast<bf16*>(dek_t),
+      static_cast<bf16*>(dpk_t));
   return (int)cudaGetLastError();
 }

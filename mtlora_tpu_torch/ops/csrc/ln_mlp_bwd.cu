@@ -213,12 +213,6 @@ __device__ __forceinline__ float dropped(float v, bool keep, const Drop& d) {
   return d.on ? (keep ? v * d.inv_keep : 0.f) : v;
 }
 
-__device__ __forceinline__ unsigned dynamic_smem_bytes() {
-  unsigned n;
-  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(n));
-  return n;
-}
-
 // A block of BM rows (64 or 32) whose dln covers at most NCS slices of 64
 // columns. Where C <= 128 two blocks share an SM (at most 128 registers,
 // a few spilled): the blocks are short there, and one block's LayerNorm

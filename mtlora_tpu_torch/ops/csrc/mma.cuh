@@ -83,3 +83,19 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
 }
+
+// Two matrices, transposed: lanes 0-15 give the row addresses.
+__device__ __forceinline__ void ldsm_x2_t(uint32_t* r, const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(a));
+}
+
+// Bytes of dynamic shared memory the block was launched with.
+__device__ __forceinline__ unsigned dynamic_smem_bytes() {
+  unsigned n;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(n));
+  return n;
+}

@@ -1,24 +1,42 @@
 """Fused HRNet head MLP: the CUDA kernels, their plain versions, counters.
 
 Counterpart of ``mtlora_tpu/ops/pallas_head.py``: the forward kernel
-``csrc/head_mlp.cu`` and the backward kernel ``csrc/head_mlp_bwd.cu``
-under one ``torch.autograd.Function`` (the ``custom_vjp`` of
-``fused_head_mlp``), and :func:`bn_stats_from_x`, the exact batch moments
-of the hidden from the input covariance, in plain differentiable torch.
-The BN affine (``mul``, ``add``) is computed by the caller, from the
-running statistics at eval and from :func:`bn_stats_from_x` in training,
-so the gradient through the batch statistics composes with the kernel's
-row-wise backward.
+``csrc/head_mlp.cu`` and the backward ``csrc/head_mlp_bwd.cu`` under one
+``torch.autograd.Function`` (the ``custom_vjp`` of ``fused_head_mlp``),
+and :func:`bn_stats_from_x`, the exact batch moments of the hidden from
+the input covariance, in plain differentiable torch. The BN affine
+(``mul``, ``add``) is computed by the caller, from the running statistics
+at eval and from :func:`bn_stats_from_x` in training, so the gradient
+through the batch statistics composes with the kernel's row-wise backward.
+
+The backward is a row pass and two products over rows. The TPU kernel
+carries the weight gradients from grid step to grid step and never writes
+the hidden; blocks on the card run in parallel, so the row kernel
+computes the hidden once, writes dhc = bf16(dh) and z = relu(zpre) as bf16
+``[M, O]`` scratch with dx and per-block column sums
+(:func:`head_bwd_rows_plain`), and dWe and dWp are products over those
+rows (:func:`head_bwd_weights_plain`). :func:`bwd_plan` sizes the launch.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from mtlora_tpu_torch.ops import _build
+from mtlora_tpu_torch.ops.ln_lora import _sms, stripes_for
 
 MAX_OUT = 64
 MAX_C_BWD = 272
+# the constants of csrc/head_mlp_bwd.cu that the backward's plan sizes its
+# shared memory by (the kernel traps if the plan's bytes do not hold its
+# layout)
+BWD_ROWS = 64           # rows of a block (kBM)
+BWD_CHUNK = 64          # hidden columns of a ring stage (kHC)
+BWD_WARPS = 8           # warps of a block (kWarps)
+SMEM_LIMIT = 232_448    # shared memory one block can take on the H100
+WGRAD_PER_SM = 12       # weight-gradient blocks per SM in a call: 2 waves
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -62,31 +80,49 @@ def head_mlp_plain(x, ek, eb, mul, add, pk, pb):
     return (y + pb.to(f)).to(cdt)
 
 
-def head_mlp_bwd_plain(x, ek, eb, mul, add, pk, pb, gy):
-    """The seven gradients of :func:`head_mlp_plain` with the cast points of
-    the JAX backward kernel (``_bwd_kernel``): the hidden recomputed,
-    ``gy`` rounded to x's dtype for both products, ``dh = dzp * mul`` with
-    the fp32 mul, rounded to x's dtype before ``dek`` and ``dx``; fp32
-    accumulation everywhere. Returns ``(dx, dek, deb, dmul, dadd, dpk,
-    dpb)`` cast as ``_bwd_rule`` casts them: dx in x's dtype, dek and dpk
-    in the weights' dtype, the rest fp32 ``[1, O]`` / ``[1, n]``."""
+def head_bwd_rows_plain(x, ek, eb, mul, add, pk, gy):
+    """The row pass of the backward, with the cast points of the JAX
+    backward kernel (``_bwd_kernel``): the hidden recomputed, ``gy``
+    rounded to x's dtype, ``dh = dzp * mul`` with the fp32 mul, rounded to
+    x's dtype (dhc) before ``dx``. Returns ``(dx, dhc, z, deb, dmul, dadd,
+    dpb)``: dx, dhc and z ``[M, O]`` in x's dtype (dx's products in fp32),
+    the column sums fp32 ``[1, O]`` / ``[1, n]`` of the unrounded
+    values."""
     cdt, f = x.dtype, _acc(x.dtype)
     hc = (torch.matmul(x.to(f), ek.to(f)) + eb.to(f)).to(cdt)
     zpre = hc * mul.to(cdt) + add.to(cdt)
     z = torch.relu(zpre)
-    gyf = gy.to(f)
     gyc = gy.to(cdt).to(f)
-    dpb = gyf.sum(0, keepdim=True)
-    dpk = torch.matmul(z.to(f).t(), gyc)
+    dpb = gy.to(f).sum(0, keepdim=True)
     dz = torch.matmul(gyc, pk.to(f).t())
     dzp = torch.where(zpre.to(f) > 0, dz, torch.zeros_like(dz))
     dadd = dzp.sum(0, keepdim=True)
     dmul = (dzp * hc.to(f)).sum(0, keepdim=True)
     dh = dzp * mul.to(f)
     deb = dh.sum(0, keepdim=True)
-    dhc = dh.to(cdt).to(f)
-    dek = torch.matmul(x.to(f).t(), dhc)
-    dx = torch.matmul(dhc, ek.to(f).t())
+    dhc = dh.to(cdt)
+    dx = torch.matmul(dhc.to(f), ek.to(f).t())
+    return dx.to(cdt), dhc, z, deb, dmul, dadd, dpb
+
+
+def head_bwd_weights_plain(x, gy, dhc, z):
+    """``(dek, dpk)`` from the row pass's outputs: ``x^T dhc`` and
+    ``z^T bf16(gy)``, fp32 accumulation, in fp32 (fp64 for fp64)."""
+    f = _acc(x.dtype)
+    gyc = gy.to(x.dtype).to(f)
+    return (torch.matmul(x.to(f).t(), dhc.to(f)),
+            torch.matmul(z.to(f).t(), gyc))
+
+
+def head_mlp_bwd_plain(x, ek, eb, mul, add, pk, pb, gy):
+    """The seven gradients of :func:`head_mlp_plain`:
+    :func:`head_bwd_rows_plain`, then :func:`head_bwd_weights_plain`.
+    Returns ``(dx, dek, deb, dmul, dadd, dpk, dpb)`` cast as ``_bwd_rule``
+    casts them: dx in x's dtype, dek and dpk in the weights' dtype, the
+    rest fp32 ``[1, O]`` / ``[1, n]``."""
+    dx, dhc, z, deb, dmul, dadd, dpb = head_bwd_rows_plain(
+        x, ek, eb, mul, add, pk, gy)
+    dek, dpk = head_bwd_weights_plain(x, gy, dhc, z)
     return (dx.to(x.dtype), dek.to(ek.dtype), deb.to(eb.dtype),
             dmul.to(mul.dtype), dadd.to(add.dtype), dpk.to(pk.dtype),
             dpb.to(pb.dtype))
@@ -144,50 +180,131 @@ def head_mlp_fwd(x, ek, eb, mul, add, pk, pb):
     return y
 
 
-def _stripes(device, hidden: int) -> int:
-    """Row stripes of the weight-gradient kernel: one block per (hidden
-    chunk of 64, stripe), about one wave of the card's SMs."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, sms // -(-hidden // 64))
+class BwdPlan(NamedTuple):
+    """Launch plan of kernel 7b: rows per block, hidden columns per ring
+    stage, ring depth, dynamic shared-memory bytes of the row kernel, its
+    blocks (the last masks the rows past M), the padded widths of gy in
+    shared memory (np) and in the scratch (ng; x and We^T are padded to
+    ``MAX_C_BWD`` whatever C), the row stripes of the weight-gradient
+    products dWe^T [O, C] (sw) and dWp^T [n, O] (sp), and the scratch the
+    wrapper allocates: name -> (shape, dtype)."""
+
+    bm: int
+    chunk: int
+    stages: int
+    smem: int
+    blocks: int
+    np: int
+    ng: int
+    sw: int
+    sp: int
+    scratch: dict
 
 
-def head_mlp_bwd(x, ek, eb, mul, add, pk, pb, gy):
-    """``(dx, dek, deb, dmul, dadd, dpk, dpb)`` of
-    :func:`head_mlp_bwd_plain`: the plain version for CPU tensors, the
-    kernel (dx pass, weight-gradient pass and its deterministic reduction)
-    for CUDA tensors. ``dek`` and ``dpk`` come back as transposed views of
-    ``[O, C]`` and ``[n, O]`` tensors, the layout of the conv weights."""
-    if x.device.type == "cpu":
-        return head_mlp_bwd_plain(x, ek, eb, mul, add, pk, pb, gy)
+def _row_smem(stages: int, np_: int) -> int:
+    """Bytes of the row kernel's layout: the ring (We^T rows [64][280],
+    Wp^T columns [np][72], eb, mul, add [3][64] fp32 a stage), the x and
+    gy tiles, the dhc and z tiles, the warps' column sums."""
+    t = BWD_CHUNK + 8
+    ld = MAX_C_BWD + 8
+    stage = 2 * (BWD_CHUNK * ld + np_ * t) + 4 * 3 * BWD_CHUNK
+    return (stages * stage
+            + 2 * BWD_ROWS * (ld + (np_ + 8) + 2 * t)
+            + 4 * 4 * 3 * BWD_CHUNK)
+
+
+def bwd_plan(M: int, C: int, O: int, n: int, sms: int) -> BwdPlan:
+    """Kernel 7b's plan for x [M, C], hidden O, n outputs on a card of
+    ``sms`` SMs: 64-row blocks, a ring of 4 hidden chunks where they fit
+    in shared memory, else 3. Scratch: the padded bf16 copy of We^T
+    ``wpad`` [O, 272], x and bf16(gy) as padded rows ``xpad`` [M, 272] and
+    ``gypad`` [M, ng], ``dhc`` and ``z`` [M, O] (bf16); the blocks' column
+    partials ``cols`` [blocks, 3 O + n], the weight-gradient stripes
+    ``part`` (the two products one after the other) and their sums
+    ``sums`` [O C + n O + 3 O + n] (fp32)."""
+    if C % 2 or O % 8 or not 0 < n <= MAX_OUT or C > MAX_C_BWD:
+        raise ValueError(f"head MLP backward kernel: needs even C <= "
+                         f"{MAX_C_BWD} ({C}), O % 8 == 0 ({O}) and "
+                         f"1 <= n <= {MAX_OUT} ({n})")
+    np_, ng = -(-n // 16) * 16, -(-n // 8) * 8
+    stages = 4 if _row_smem(4, np_) <= SMEM_LIMIT else 3
+    smem = _row_smem(stages, np_)
+    blocks = -(-M // BWD_ROWS)
+    # two whole waves of the weight-gradient blocks (six fit on an SM)
+    sw = stripes_for(sms, M, O, C, WGRAD_PER_SM)
+    sp = stripes_for(sms, M, n, O, WGRAD_PER_SM)
+    bf16, f32 = torch.bfloat16, torch.float32
+    scratch = {
+        "wpad": ((O, MAX_C_BWD), bf16),
+        "xpad": ((M, MAX_C_BWD), bf16),
+        "gypad": ((M, ng), bf16),
+        "dhc": ((M, O), bf16),
+        "z": ((M, O), bf16),
+        "cols": ((blocks, 3 * O + n), f32),
+        "part": ((max(sw * O * C, sp * n * O),), f32),
+        "sums": ((O * C + n * O + 3 * O + n,), f32),
+    }
+    return BwdPlan(BWD_ROWS, BWD_CHUNK, stages, smem, blocks, np_, ng, sw,
+                   sp, scratch)
+
+
+def bwd_scratch(plan: BwdPlan, device) -> dict:
+    """The scratch tensors of ``plan``, as :func:`head_mlp_bwd` allocates
+    them."""
+    return {name: torch.empty(shape, dtype=dt, device=device)
+            for name, (shape, dt) in plan.scratch.items()}
+
+
+def head_mlp_bwd_kernel(x, ek, eb, mul, add, pk, pb, gy, scratch=None):
+    """The CUDA route of :func:`head_mlp_bwd`; raises for anything it does
+    not take (a CPU tensor included). ``scratch``: the tensors of
+    :func:`bwd_scratch` to use (the row pass leaves dhc and z there), or
+    None to allocate them."""
     _check(x, ek, eb, mul, add, pk, pb, "backward")
     M, C = x.shape
     O, n = ek.shape[1], pk.shape[1]
-    if C > MAX_C_BWD:
-        raise ValueError(f"head MLP backward kernel: C={C} above "
-                         f"{MAX_C_BWD}")
     if (gy.shape != (M, n) or gy.dtype != x.dtype or gy.device != x.device
             or not gy.is_contiguous()):
         raise ValueError(f"head MLP backward kernel: gy must be contiguous "
                          f"{x.dtype} {(M, n)}, got {gy.dtype} "
                          f"{tuple(gy.shape)}")
-    stripes = _stripes(x.device, O)
-    lib = _build.library()
-    f32 = dict(dtype=torch.float32, device=x.device)
+    for name, t in (("x", x), ("gy", gy)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"head MLP backward kernel: {name} must start "
+                             "16-byte aligned")
+    plan = bwd_plan(M, C, O, n, _sms(x.device))
+    sc = bwd_scratch(plan, x.device) if scratch is None else scratch
+    if {k: (tuple(v.shape), v.dtype) for k, v in sc.items()} != plan.scratch:
+        raise ValueError("head MLP backward kernel: scratch does not match "
+                         "the plan")
     dx = torch.empty_like(x)
-    part = torch.empty((stripes, O * C + n * O + 3 * O + n), **f32)
     dek_t = torch.empty((O, C), dtype=ek.dtype, device=x.device)
     dpk_t = torch.empty((n, O), dtype=pk.dtype, device=x.device)
-    deb, dmul, dadd = (torch.empty((1, O), **f32) for _ in range(3))
-    dpb = torch.empty((1, n), **f32)
-    err = lib.mtlora_head_mlp_bwd(
-        x.data_ptr(), ek.t().data_ptr(), eb.data_ptr(), mul.data_ptr(),
-        add.data_ptr(), pk.t().data_ptr(), gy.data_ptr(), dx.data_ptr(),
-        part.data_ptr(), dek_t.data_ptr(), deb.data_ptr(), dmul.data_ptr(),
-        dadd.data_ptr(), dpk_t.data_ptr(), dpb.data_ptr(), M, C, O, n,
-        stripes, torch.cuda.current_stream(x.device).cuda_stream)
+    err = _build.library().mtlora_head_mlp_bwd(
+        *(t.data_ptr() for t in (x, ek.t(), eb, mul, add, pk.t(), gy, dx)),
+        *(sc[k].data_ptr() for k in ("wpad", "xpad", "gypad", "dhc", "z",
+                                     "cols", "part", "sums")),
+        dek_t.data_ptr(), dpk_t.data_ptr(), M, C, O, n, plan.ng,
+        plan.stages, plan.smem, plan.sw, plan.sp,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "mtlora_head_mlp_bwd")
     head_mlp_bwd.launches += 1
-    return dx, dek_t.t(), deb, dmul, dadd, dpk_t.t(), dpb
+    tail = sc["sums"][O * C + n * O:]
+    deb, dmul, dadd = (tail[k * O:(k + 1) * O].view(1, O) for k in range(3))
+    return (dx, dek_t.t(), deb, dmul, dadd, dpk_t.t(),
+            tail[3 * O:].view(1, n))
+
+
+def head_mlp_bwd(x, ek, eb, mul, add, pk, pb, gy):
+    """``(dx, dek, deb, dmul, dadd, dpk, dpb)`` of
+    :func:`head_mlp_bwd_plain`: the plain version for CPU tensors; for
+    CUDA tensors the row kernel (dx, dhc, z, the column partials), the
+    weight-gradient products of dWe and dWp and the fixed-order sums.
+    ``dek`` and ``dpk`` come back as transposed views of ``[O, C]`` and
+    ``[n, O]`` tensors, the layout of the conv weights."""
+    if x.device.type == "cpu":
+        return head_mlp_bwd_plain(x, ek, eb, mul, add, pk, pb, gy)
+    return head_mlp_bwd_kernel(x, ek, eb, mul, add, pk, pb, gy)
 
 
 head_mlp_fwd.launches = 0

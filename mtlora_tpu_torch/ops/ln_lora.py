@@ -308,13 +308,13 @@ def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def stripes_for(sms: int, rows: int, n: int, k: int) -> int:
+def stripes_for(sms: int, rows: int, n: int, k: int, per_sm: int = 8) -> int:
     """Row stripes of a weight-gradient product ``[n, k]`` summed over
-    ``rows`` on a card of ``sms`` SMs: about eight blocks of 64 x 64
+    ``rows`` on a card of ``sms`` SMs: about ``per_sm`` blocks of 64 x 64
     outputs per SM, and the fp32 partials at most 64 MB."""
     tiles = -(-n // 64) * -(-k // 64)
     cap = max(1, (64 << 20) // (4 * n * k))
-    return max(1, min(-(-rows // 64), 8 * sms // tiles, cap))
+    return max(1, min(-(-rows // 64), per_sm * sms // tiles, cap))
 
 
 def wgrad_stripes(device, rows: int, n: int, k: int) -> int:

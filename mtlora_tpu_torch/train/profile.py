@@ -15,9 +15,10 @@ from typing import Dict, List, Tuple
 
 # first match wins; matched against the lower-cased kernel name
 CLASSES: List[Tuple[str, Tuple[str, ...]]] = [
-    # the LN-family kernels' products over rows and fixed-order sums
-    # (ln_common.cuh), ahead of the attention backward's own sum_groups
-    ("weight-gradient passes of 2b, 3b, 4b, 5b, 6b",
+    # the products over rows and fixed-order sums of ln_common.cuh (the
+    # LN-family kernels and the head backward 7b), ahead of the attention
+    # backward's own sum_groups
+    ("weight-gradient passes of 2b, 3b, 4b, 5b, 6b, 7b",
      ("wgrad_kernel", "lnk::sum_")),
     ("window attention kernel 1c (fwd)", ("window_attn_dense_fwd",)),
     ("window attention kernel 1c (bwd)", ("window_attn_bwd_kernel<true>",)),

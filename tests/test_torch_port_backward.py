@@ -20,6 +20,8 @@ from mtlora_tpu_torch.ops import attention
 from mtlora_tpu_torch.ops.head import (
     HeadMLPFn,
     bn_stats_from_x,
+    head_bwd_rows_plain,
+    head_bwd_weights_plain,
     head_mlp_bwd_plain,
 )
 from mtlora_tpu_torch.ops.window_attn import (
@@ -127,6 +129,87 @@ def test_head_bwd_plain_matches_jax(n):
         assert g.shape == ref.shape, name
         assert g.dtype == torch.float32, name
         np.testing.assert_allclose(_np(g), np.asarray(ref), atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
+
+
+def _head_bwd_formula(x, ek, eb, mul, add, pk, pb, gy):
+    """The head backward as one formula (the plain version before it was
+    split into its row pass and weight products)."""
+    cdt, f = x.dtype, torch.float32
+    hc = (torch.matmul(x.to(f), ek.to(f)) + eb.to(f)).to(cdt)
+    zpre = hc * mul.to(cdt) + add.to(cdt)
+    z = torch.relu(zpre)
+    gyf = gy.to(f)
+    gyc = gy.to(cdt).to(f)
+    dpb = gyf.sum(0, keepdim=True)
+    dpk = torch.matmul(z.to(f).t(), gyc)
+    dz = torch.matmul(gyc, pk.to(f).t())
+    dzp = torch.where(zpre.to(f) > 0, dz, torch.zeros_like(dz))
+    dadd = dzp.sum(0, keepdim=True)
+    dmul = (dzp * hc.to(f)).sum(0, keepdim=True)
+    dh = dzp * mul.to(f)
+    deb = dh.sum(0, keepdim=True)
+    dhc = dh.to(cdt).to(f)
+    dek = torch.matmul(x.to(f).t(), dhc)
+    dx = torch.matmul(dhc, ek.to(f).t())
+    return (dx.to(x.dtype), dek.to(ek.dtype), deb.to(eb.dtype),
+            dmul.to(mul.dtype), dadd.to(add.dtype), dpk.to(pk.dtype),
+            dpb.to(pb.dtype))
+
+
+def _head_torch(args, gy, dtype):
+    """The numpy inputs as torch: x, ek, pk and gy in ``dtype`` (the
+    kernel's operands), eb, mul, add, pb fp32."""
+    ts = [torch.from_numpy(a) for a in args]
+    for i in (0, 1, 5):
+        ts[i] = ts[i].to(dtype)
+    return ts, torch.from_numpy(gy).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [128, 100])
+@pytest.mark.parametrize("n", [1, 3, 7, 21])
+def test_head_bwd_split_is_the_formula_bit_for_bit(n, M, dtype):
+    """The row pass then the weight products give the one-formula
+    backward's bits; the row pass's dhc and z are its rounded values."""
+    ts, gy = _head_torch(*_head_inputs(n, seed=n, M=M), dtype)
+    want = _head_bwd_formula(*ts, gy)
+    for name, g, w in zip(("dx", "dek", "deb", "dmul", "dadd", "dpk", "dpb"),
+                          head_mlp_bwd_plain(*ts, gy), want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    x, ek, eb, mul, add, pk, _ = ts
+    dx, dhc, z, *_ = head_bwd_rows_plain(x, ek, eb, mul, add, pk, gy)
+    assert dhc.dtype == z.dtype == dx.dtype == dtype
+    assert dhc.shape == z.shape == (M, ek.shape[1])
+    zpre = ((x.float() @ ek.float() + eb).to(dtype) * mul.to(dtype)
+            + add.to(dtype))
+    assert torch.equal(z, torch.relu(zpre))
+    dek, dpk = head_bwd_weights_plain(x, gy, dhc, z)
+    assert torch.equal(dek.to(dtype), want[1])
+    assert torch.equal(dpk.to(dtype), want[5])
+
+
+# the Pallas head takes M % 8 == 0: 104 rows, not a multiple of the
+# kernel's 64-row blocks, is the ragged case
+@pytest.mark.parametrize("M", [128, 104])
+@pytest.mark.parametrize("n", [1, 3, 7, 21])
+def test_head_bwd_split_matches_jax(n, M):
+    """The row pass and the weight products against the Pallas head's VJP
+    (interpret), fp32."""
+    args, gy = _head_inputs(n, seed=10 + n, M=M)
+    _, vjp = jax.vjp(lambda *a: fused_head_mlp(*a, interpret=True),
+                     *[jnp.asarray(a) for a in args])
+    refs = vjp(jnp.asarray(gy))
+    x, ek, eb, mul, add, pk, _ = (torch.from_numpy(a) for a in args)
+    g = torch.from_numpy(gy)
+    dx, dhc, z, deb, dmul, dadd, dpb = head_bwd_rows_plain(x, ek, eb, mul,
+                                                           add, pk, g)
+    dek, dpk = head_bwd_weights_plain(x, g, dhc, z)
+    names = ("dx", "dek", "deb", "dmul", "dadd", "dpk", "dpb")
+    for name, t, ref in zip(names, (dx, dek, deb, dmul, dadd, dpk, dpb),
+                            refs):
+        assert t.shape == ref.shape, name
+        np.testing.assert_allclose(_np(t), np.asarray(ref), atol=1e-4,
                                    rtol=1e-4, err_msg=name)
 
 
