@@ -4,7 +4,7 @@
 
 Phases, each printing a line; any failure raises and exits non-zero:
   1. device: a CUDA card must be present; its name and power limit;
-  2. build: the fourteen CUDA sources from ops/csrc (one nvcc each, in
+  2. build: the fifteen CUDA sources from ops/csrc (one nvcc each, in
      parallel), with the build time;
   3. forward kernels vs plain, on the card, against their plain PyTorch
      versions on the same tensors, at the batch-32 training step's shapes:
@@ -30,6 +30,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
      kernel 7b also with its achieved TFLOP/s and share of the bound per
      task width, its row pass's dhc and z against their plain version,
      and at the ragged 784 rows of one 224-px image for n = 21 and 1;
+     kernel 2b's tail mode also with its achieved TFLOP/s, share of the
+     bound and weight-slice rate per stage, its row kernel's stored rows
+     (lnd, m, dm, du) against their plain version, and at the ragged 392
+     rows of stage 3;
   3c. the GELU form: kernels 2-tail, 4, 4b, 5 and 5b at stage 1 against
      their plain versions, which take the tanh form in bf16 as the JAX
      kernels do, with the distance to the exact-erf form beside it; the
@@ -98,13 +102,17 @@ from mtlora_tpu_torch.ops.ln_lora import (
     ln_lora_fwd,
     ln_lora_plain,
     ln_lora_tail_bwd,
+    ln_lora_tail_bwd_kernel,
     ln_lora_tail_bwd_plain,
+    ln_lora_tail_bwd_rows_plain,
     ln_lora_tail_fwd,
     ln_lora_tail_plain,
     merge_ln_bwd,
     merge_ln_bwd_plain,
     merge_ln_fwd,
     merge_ln_plain,
+    tail_bwd_plan,
+    tail_bwd_scratch,
 )
 from mtlora_tpu_torch.ops.task_merge import (
     rank_operands,
@@ -844,25 +852,69 @@ def ln_lora_tail_library(x, gamma, beta, wt, bias, at, bt, scale):
                   approximate="tanh"), p
 
 
+def tail_operands(gen, s, M=None):
+    """Kernel 2's tail-mode operands at the fc1 site of stage s, ``M``
+    rows (default: the batch-32 step's), O = 4C, rank 64, scale 4, dropout
+    0.05, and the cotangents of y, p and d: (args, (gy, gp, gd))."""
+    cfg, _, C, M_step = stage_dims(s)
+    M = M_step if M is None else M
+    st = cfg.stages[s]
+    O, r, sc, p = 4 * C, st.r_shared, st.shared_scale, st.dropout
+    x = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
+    gamma, beta = _ln_params(gen, C)
+    wt = _uniform(gen, (O, C), C ** -0.5)
+    bias = _uniform(gen, (O,), 0.02)
+    at = _uniform(gen, (r, C), C ** -0.5)
+    bt = _uniform(gen, (O, r), r ** -0.5)
+    seed = _seed(gen)
+    cots = tuple(torch.randn(M, O, generator=gen, device="cuda")
+                 .to(torch.bfloat16) for _ in range(3))
+    return (x, gamma, beta, wt, bias, at, bt, seed, sc, p), cots
+
+
+def check_tail_rows(label, args, cots):
+    """Kernel 2b's tail mode against its plain versions: the whole
+    backward against ``ln_lora_tail_bwd_plain`` and the row kernel's
+    stored rows (lnd, m, dm, du; bf16, within 2^-6 of the largest
+    element) against ``ln_lora_tail_bwd_rows_plain``. Returns (worst
+    error of the backward, text)."""
+    x, wt, at = args[0], args[3], args[5]
+    plan = tail_bwd_plan(x.shape[0], x.shape[1], wt.shape[0], at.shape[0],
+                         ln_lora._sms(x.device))
+    sc = tail_bwd_scratch(plan, x.device)
+    got = ln_lora_tail_bwd_kernel(*args, *cots, True, scratch=sc)
+    want = ln_lora_tail_bwd_plain(*args, *cots, True)
+    torch.cuda.synchronize()
+    err, text = check_outputs(label, got, want,
+                              ("dx", "dgamma", "dbeta", "dA", "dB"), {0})
+    del got, want
+    rows = (sc["lnd"], sc["mbuf"][0], sc["mbuf"][1], sc["du"])
+    want = ln_lora_tail_bwd_rows_plain(*args, *cots, True)[3:]
+    _, rtext = check_outputs(f"{label} rows", rows, want,
+                             ("lnd", "m", "dm", "du"), {0, 1, 2, 3})
+    return err, f"{text}; rows {rtext}"
+
+
+def tail_bwd_cost(M, C, O, r, w_bytes):
+    """(bytes, operations) of kernel 2b's tail mode: x, gy, gp, gd and dx
+    once, the weights and their adapter gradients once; z's frozen
+    product, dln, and the rank products m, u, dm, dl, dA, dB."""
+    return (2 * M * (2 * C + 3 * O) + 2 * w_bytes,
+            2.0 * M * (2 * O * C + 3 * C * r + 3 * O * r))
+
+
 def check_ln_lora_tail(gen) -> dict:
     """Kernel 2's tail mode at the four fc1 sites: x [M, C] -> y =
     gelu(z), p and dropout(y) [M, 4C], rank 64, scale 4, dropout 0.05;
-    the backward from the cotangents of all three."""
+    the backward from the cotangents of all three, also with its stored
+    rows, and at the ragged 392 rows of stage 3 (checked, not in the
+    tally)."""
     fwd, bwd = Tally(), Tally()
     for s in range(4):
-        cfg, _, C, M = stage_dims(s)
-        st = cfg.stages[s]
-        O, r, sc, p = 4 * C, st.r_shared, st.shared_scale, st.dropout
-        x = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
-        gamma, beta = _ln_params(gen, C)
-        wt = _uniform(gen, (O, C), C ** -0.5)
-        bias = _uniform(gen, (O,), 0.02)
-        at = _uniform(gen, (r, C), C ** -0.5)
-        bt = _uniform(gen, (O, r), r ** -0.5)
-        seed = _seed(gen)
-        gy, gp, gd = (torch.randn(M, O, generator=gen, device="cuda")
-                      .to(torch.bfloat16) for _ in range(3))
-        args = (x, gamma, beta, wt, bias, at, bt, seed, sc, p)
+        args, (gy, gp, gd) = tail_operands(gen, s)
+        x, gamma, beta, wt, bias, at, bt, seed, sc, p = args
+        M, C = x.shape
+        O, r = wt.shape[0], at.shape[0]
         got = ln_lora_tail_fwd(*args, True, True)
         want = ln_lora_tail_plain(*args, True, True)
         torch.cuda.synchronize()
@@ -881,12 +933,8 @@ def check_ln_lora_tail(gen) -> dict:
               f"{bound_text(nbytes, flops, ops32)}")
         fwd.add(err, t_k, t_p, t_l, nbytes, flops, 1, ops32)
         del got, want
-        got = ln_lora_tail_bwd(*args, gy, gp, gd, True)
-        want = ln_lora_tail_bwd_plain(*args, gy, gp, gd, True)
-        torch.cuda.synchronize()
-        err, text = check_outputs(f"ln_lora_tail bwd stage {s}", got, want,
-                                  ("dx", "dgamma", "dbeta", "dA", "dB"), {0})
-        del got, want
+        err, text = check_tail_rows(f"ln_lora_tail bwd stage {s}", args,
+                                    (gy, gp, gd))
         leaves = [t.detach().requires_grad_(True) for t in (x, gamma, beta,
                                                             at, bt)]
         yl, pl = ln_lora_tail_library(leaves[0], leaves[1], leaves[2], wt,
@@ -897,16 +945,23 @@ def check_ln_lora_tail(gen) -> dict:
                                                        True), reps=5)
         t_l = median_ms(lambda: torch.autograd.grad(
             (yl, pl), leaves, (gy, gp), retain_graph=True), reps=10)
-        nbytes = 2 * M * (2 * C + 3 * O) + 2 * w_bytes
-        # z recomputed (the frozen product and the adapter), dln, the
-        # adapter's backward products
-        flops = 2.0 * M * (2 * O * C + 4 * C * r + 3 * O * r)
+        nbytes, flops = tail_bwd_cost(M, C, O, r, w_bytes)
         ops32 = float(GELU_PAIR_OPS) * M * O
-        print(f"ln_lora_tail bwd stage {s}: {text} kernel {t_k:.4f} ms plain "
-              f"{t_p:.4f} ms library backward {t_l:.4f} ms "
+        t_b = max(nbytes / PEAK_HBM_BYTES, ops_seconds(flops, ops32)) * 1e3
+        plan = tail_bwd_plan(M, C, O, r, ln_lora._sms(x.device))
+        print(f"ln_lora_tail bwd stage {s}: {text} kernel {t_k:.4f} ms "
+              f"({flops / t_k / 1e9:.2f} TFLOP/s, {t_b / t_k:.4f} of the "
+              f"bound; weight slices {plan.slice_bytes / 1e9:.3f} GB, "
+              f"{plan.slice_bytes / t_k / 1e9:.3f} TB/s) plain {t_p:.4f} ms "
+              f"library backward {t_l:.4f} ms "
               f"{bound_text(nbytes, flops, ops32)}")
         bwd.add(err, t_k, t_p, t_l, nbytes, flops, 1, ops32)
-        del x, gy, gp, gd, yl, pl, leaves
+        del x, gy, gp, gd, yl, pl, leaves, args
+    # its own generator: the later checks draw the same tensors as before
+    ragged = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    args, cots = tail_operands(ragged, 3, RAGGED_ROWS)
+    label = f"ln_lora_tail bwd ragged x [{RAGGED_ROWS}, {args[0].shape[1]}]"
+    print(f"{label}: {check_tail_rows(label, args, cots)[1]}")
     return {"fwd": fwd, "bwd": bwd}
 
 
@@ -1921,7 +1976,8 @@ def main():
               mlp["bwd"]),
         entry("ln_lora_tail", "ln_lora.cu", "pallas_ln_lora.py:74",
               tail["fwd"]),
-        entry("ln_lora_tail_bwd", "ln_lora_bwd.cu", "pallas_ln_lora.py:124",
+        entry("ln_lora_tail_bwd", "ln_lora_tail_bwd.cu",
+              "pallas_ln_lora.py:124",
               tail["bwd"]),
         entry("adapter_mid", "adapter_mlp.cu", "pallas_adapter_mlp.py:129",
               mid["fwd"]),

@@ -56,13 +56,14 @@ SIGNATURES = {
     # x, gamma, beta, wt, bias, at, bt, seed, y, p, d, M, K, O, r, act,
     # scale, drop threshold, use_drop, inv_keep, stream
     "mtlora_ln_lora_tail_fwd": [_P] * 11 + [_I] * 5 + [_F, _U, _I, _F, _P],
-    # x, gamma, beta, wt, bias, at, bt, seed, gy, gp, gd, gpt, du, M, K, O,
-    # r, act, scale, drop threshold, use_drop, inv_keep, stream
-    "mtlora_ln_lora_tail_grad": [_P] * 13 + [_I] * 5 + [_F, _U, _I, _F, _P],
-    # x, gamma, beta, w_ko, at, a_kr, b_ro, seed, gy, du, dx, stats, work,
+    # x, gamma, beta, wt, bias, at, bt, seed, gy, gp, gd, dx, lnd, mbuf, du,
+    # gb, part, xfer, dgb, dat, dbt, M, C, O, r, act, bm, split, smem, sa,
+    # sb, scale, drop threshold, use_drop, inv_keep, stream
+    "mtlora_ln_lora_tail_bwd": [_P] * 21 + [_I] * 10 + [_F, _U, _I, _F, _P],
+    # x, gamma, beta, w_ko, at, a_kr, b_ro, seed, gy, dx, stats, work,
     # lbuf, mbuf, gb, pa, pb, pw, dgb, dat, dbt, dwt, M, K, O, r, merge_wh,
     # sa, sb, sw, scale, drop threshold, use_drop, inv_keep, stream
-    "mtlora_ln_lora_bwd": [_P] * 23 + [_I] * 8 + [_F, _U, _I, _F, _P],
+    "mtlora_ln_lora_bwd": [_P] * 22 + [_I] * 8 + [_F, _U, _I, _F, _P],
     # x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed, y,
     # M, C, H4, r, s1, s2, drop threshold, use_drop, inv_keep, stream
     "mtlora_ln_mlp_fwd": [_P] * 13 + [_I] * 4 + [_F, _F, _U, _I, _F, _P],

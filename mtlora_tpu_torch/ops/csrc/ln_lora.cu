@@ -12,18 +12,12 @@
 // TPU kernel's bf16 path, lnk::kGelu) and writes
 // y = bf16(gelu(z)), the frozen pre-activation bf16(p) and, in training,
 // bf16(drop1(gelu(z))) on dropout stream 1 (the next layer's pre-dropped
-// adapter input). Its backward starts here too: mtlora_ln_lora_tail_grad
-// recomputes z as the forward does and folds the cotangents into the two
-// bf16 rows the kernel-2 backward reads (ln_lora_bwd.cu):
-//   g   = (gy + drop1(gd)) gelu'(z)    fp32
-//   gpt = bf16(g + gp)                 the frozen path's cotangent
-//   du  = bf16(s g)                    the adapter's
+// adapter input); its backward is ln_lora_tail_bwd.cu.
 //
 // Replaces mtlora_tpu/ops/pallas_ln_lora.py: _fwd_kernel (launched by
 // _run_fwd through fused_ln_lora_linear: the y-only mode and the out_p,
-// out_act, out_drop modes), the gelu-recompute part of _bwd_kernel
-// (:159-181), and _merge_fwd_kernel (launched by _merge_run_fwd through
-// fused_merge_ln_linear).
+// out_act, out_drop modes) and _merge_fwd_kernel (launched by
+// _merge_run_fwd through fused_merge_ln_linear).
 //
 // What bounds it: at the flagship's qkv shapes a row of K = C inputs makes
 // 3C outputs, 2*C*3C + 2*r*(C + 3C) FLOP for 2*(C + 3C) bytes: 96-768
@@ -49,20 +43,16 @@ namespace {
 
 using namespace lnk;
 
-enum Mode { kY = 0, kTail = 1, kTailGrad = 2 };
+enum Mode { kY = 0, kTail = 1 };
 
 struct FwdArgs {
   Rows R;
   const bf16 *gamma, *beta, *wt, *bias, *at, *bt;
   bf16* y;
-  int O, r, act;   // act: GELU on z (tail modes)
+  int O, r, act;   // act: GELU on z (tail mode)
   float scale;
   DropSpec drop, drop1;
-  // tail mode: p and d (d may be null); tail grad: gy, gp, gd (gp, gd
-  // may be null) in, gpt and du out
-  bf16 *p, *d;
-  const bf16 *gy, *gp, *gd;
-  bf16 *gpt, *du;
+  bf16 *p, *d;     // tail mode: p and d (d may be null)
 };
 
 // Shared memory of a block: LN tile [16][K + 8] and m tile [16][72]
@@ -128,7 +118,7 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
         const size_t o = (size_t)m * a.O + c;
         if (MODE == kY) {
           st_bf2(a.y + o, z0, z1);
-        } else if (MODE == kTail) {
+        } else {
           const float y0 = a.act ? act_fwd<kGelu>(z0) : z0;
           const float y1 = a.act ? act_fwd<kGelu>(z1) : z1;
           st_bf2(a.y + o, y0, y1);
@@ -136,23 +126,6 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
           if (a.d)
             st_bf2(a.d + o, d1.apply(y0, m, a.O, c),
                    d1.apply(y1, m, a.O, c + 1));
-        } else {
-          float y0, y1, dg0 = 1.f, dg1 = 1.f;
-          if (a.act) {
-            act_pair<kGelu>(z0, &y0, &dg0);
-            act_pair<kGelu>(z1, &y1, &dg1);
-          }
-          float2 gv = bf2(a.gy + o);
-          if (a.gd) {
-            const float2 dv = bf2(a.gd + o);
-            gv.x += d1.apply(dv.x, m, a.O, c);
-            gv.y += d1.apply(dv.y, m, a.O, c + 1);
-          }
-          gv.x *= dg0;
-          gv.y *= dg1;
-          const float2 pv = a.gp ? bf2(a.gp + o) : make_float2(0.f, 0.f);
-          st_bf2(a.gpt + o, gv.x + pv.x, gv.y + pv.y);
-          st_bf2(a.du + o, a.scale * gv.x, a.scale * gv.y);
         }
       }
     }
@@ -166,10 +139,6 @@ __global__ void __launch_bounds__(128) ln_lora_fwd_kernel(FwdArgs a) {
 
 __global__ void __launch_bounds__(128) ln_lora_tail_fwd_kernel(FwdArgs a) {
   fwd_body<true, kTail>(a);
-}
-
-__global__ void __launch_bounds__(128) ln_lora_tail_grad_kernel(FwdArgs a) {
-  fwd_body<true, kTailGrad>(a);
 }
 
 FwdArgs make_args(const void* x, const void* gamma, const void* beta,
@@ -255,25 +224,4 @@ extern "C" int mtlora_ln_lora_tail_fwd(
   a.p = static_cast<bf16*>(p);
   a.d = static_cast<bf16*>(d);
   return (int)launch(ln_lora_tail_fwd_kernel, a, stream);
-}
-
-// Tail mode's backward prologue: from the cotangents gy of y, gp of p and
-// gd of d ([M, O] each; gp, gd may be null) the rows gpt and du [M, O].
-extern "C" int mtlora_ln_lora_tail_grad(
-    const void* x, const void* gamma, const void* beta, const void* wt,
-    const void* bias, const void* at, const void* bt, const void* seed,
-    const void* gy, const void* gp, const void* gd, void* gpt, void* du,
-    int M, int K, int O, int r, int act, float scale, unsigned thr,
-    int use_drop, float inv_keep, void* stream) {
-  if (bad_shape(M, K, O, r, 0) || r == 0 || (gd && !use_drop))
-    return (int)cudaErrorInvalidValue;
-  FwdArgs a = make_args(x, gamma, beta, wt, bias, at, bt, seed, M, K, O, r,
-                        0, scale, thr, use_drop, inv_keep);
-  a.act = act;
-  a.gy = static_cast<const bf16*>(gy);
-  a.gp = static_cast<const bf16*>(gp);
-  a.gd = static_cast<const bf16*>(gd);
-  a.gpt = static_cast<bf16*>(gpt);
-  a.du = static_cast<bf16*>(du);
-  return (int)launch(ln_lora_tail_grad_kernel, a, stream);
 }

@@ -9,10 +9,8 @@
 //   dm   = bf16(du B)                    dln += drop(dm A^T)
 //   dB^T = du^T m    dA^T = dm^T bf16(drop(ln))    (kernel 2)
 //   dW^T = bf16(gy)^T bf16(ln)                       (kernel 3)
-// In kernel 2's stage-tail mode (GELU on y, the outputs p and drop1(y))
-// mtlora_ln_lora_tail_grad (ln_lora.cu) first folds the three cotangents
-// through gelu'(z), z recomputed, into two bf16 rows: gpt takes the place
-// of gy in dln, du (already scaled) the place of bf16(s gy).
+// Kernel 2's stage-tail mode (GELU on y, the outputs p and drop1(y)) has
+// its own backward, ln_lora_tail_bwd.cu.
 //   dgamma = sum dln xhat, dbeta = sum dln,
 //   dx = inv (dxhat - mean(dxhat) - xhat mean(dxhat xhat)), dxhat = dln g
 // with the cast points of the JAX kernels and fp32 accumulation.
@@ -48,8 +46,6 @@ using namespace lnk;
 struct BwdArgs {
   Rows R;
   const bf16 *gamma, *beta, *w_ko, *at, *a_kr, *b_ro, *gy;
-  const bf16* du;      // rows of the adapter's cotangent, bf16(du_scale v)
-  float du_scale;
   bf16 *dx, *lbuf, *mbuf, *dmbuf;
   float *mu_g, *inv_g, *work, *gb;
   int O, r;
@@ -101,8 +97,8 @@ __global__ void __launch_bounds__(128) ln_lora_bwd_rows(BwdArgs a) {
     block_tile_to_global(a.mbuf, ms, kT, m0, M, a.r);
     __syncthreads();
     zero<2>(acc);
-    mma_rows<2, true>(acc, a.du + (size_t)m0 * O, O, valid, a.du_scale,
-                      a.b_ro, O, O, 16 * warp, a.r);
+    mma_rows<2, true>(acc, gy, O, valid, a.scale, a.b_ro, O, O, 16 * warp,
+                      a.r);
     store_tile<2>(ms, kT, acc, 16 * warp);
     __syncthreads();
     block_tile_to_global(a.dmbuf, ms, kT, m0, M, a.r);
@@ -221,13 +217,11 @@ __global__ void __launch_bounds__(128) ln_lora_bwd_rows(BwdArgs a) {
 // a_kr = A [K, r], b_ro = B [r, O]. Scratch: stats [2, M], work [M, K]
 // fp32, lbuf [M, K] and mbuf [2, M, r] bf16, gb [ceil(M/16), 2, K], partials pa
 // [sa, r, K], pb [sb, O, r], pw [sw, O, K]. Outputs: dx, dgb [2, K],
-// dat [r, K], dbt [O, r], dwt [O, K] (fp32). du: the rows of the adapter's
-// cotangent, already scaled (the tail mode), or null for bf16(s gy).
+// dat [r, K], dbt [O, r], dwt [O, K] (fp32).
 extern "C" int mtlora_ln_lora_bwd(
     const void* x, const void* gamma, const void* beta, const void* w_ko,
     const void* at, const void* a_kr, const void* b_ro, const void* seed,
-    const void* gy, const void* du, void* dx, void* stats, void* work,
-    void* lbuf,
+    const void* gy, void* dx, void* stats, void* work, void* lbuf,
     void* mbuf, void* gb,
     void* pa, void* pb, void* pw, void* dgb, void* dat, void* dbt, void* dwt,
     int M, int K, int O, int r, int merge_wh, int sa, int sb, int sw,
@@ -249,8 +243,6 @@ extern "C" int mtlora_ln_lora_bwd(
   a.a_kr = static_cast<const bf16*>(a_kr);
   a.b_ro = static_cast<const bf16*>(b_ro);
   a.gy = static_cast<const bf16*>(gy);
-  a.du = du ? static_cast<const bf16*>(du) : a.gy;
-  a.du_scale = du ? 1.f : scale;
   a.dx = static_cast<bf16*>(dx);
   a.lbuf = static_cast<bf16*>(lbuf);
   a.mbuf = static_cast<bf16*>(mbuf);
@@ -283,7 +275,7 @@ extern "C" int mtlora_ln_lora_bwd(
   if (lora) {
     // dA^T [r, K] = dm^T bf16(drop(ln)); dB^T [O, r] = bf16(s gy)^T m
     MatSrc dm{a.dmbuf, r, 1.f, 0}, m{a.mbuf, r, 1.f, 0};
-    MatSrc dus{a.du, O, a.du_scale, 1};
+    MatSrc dus{a.gy, O, scale, 1};
     e = wgrad(dm, ln, M, r, K, sa, static_cast<float*>(pa),
               static_cast<float*>(dat), st);
     if (e != cudaSuccess) return (int)e;

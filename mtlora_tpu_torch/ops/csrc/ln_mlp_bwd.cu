@@ -46,7 +46,7 @@
 //     recompute of the hidden; fp32 partials per stripe of rows are summed
 //     in a fixed order. Deterministic, no fp32 atomics.
 
-#include "ln_common.cuh"
+#include "slice_ring.cuh"
 
 namespace {
 
@@ -59,6 +59,7 @@ constexpr int kLdS = kS + 8;         // row stride of the 64-wide tiles
 constexpr int kSlice = kS * kS;      // elements of one ring slot
 constexpr int kStages = 4;           // ring depth
 constexpr int kRank = 64;
+static_assert(kS == kSliceW && kSlice == kSliceElems, "slice_ring.cuh");
 
 struct Args {
   Rows R;  // x [M, C]
@@ -70,19 +71,6 @@ struct Args {
   float s1, s2;
   DropSpec d1, d2;
 };
-
-// A [64 x 64] slice of a row-major weight: rows r0.., columns c0.. of src
-// (row stride ld), zero outside [0, rows) x [0, cols). In a ring slot it
-// is stored as 8 x 8 core matrices (element (r, c) at slot_off(r, c)),
-// which ldmatrix reads without bank conflicts.
-struct Slice {
-  const bf16* src;
-  int ld, r0, c0, rows, cols;
-};
-
-__device__ __forceinline__ int slot_off(int r, int c) {
-  return ((r >> 3) * 8 + (c >> 3)) * 64 + (r & 7) * 8 + (c & 7);
-}
 
 // The q-th slice a block multiplies with (ncs slices of 64 columns of C).
 __device__ __forceinline__ Slice slice_of(const Args& a, int q, int ncs) {
@@ -108,105 +96,6 @@ __device__ __forceinline__ Slice slice_of(const Args& a, int q, int ncs) {
   }
   q -= (H4 / kS) * per;
   return Slice{a.a1, C, 0, kS * q, kRank, C};                      // dl
-}
-
-// The ring of weight slices. Every thread of the block calls next() at the
-// same points: slice q is resident when next() returns it, and slice q +
-// kStages - 1 starts streaming into the slot of slice q - 1, free because
-// every thread passed the barrier after completing its products on it.
-// One cp.async group per slice, empty past the end. A warp copies 8 rows x
-// 64 bytes per step: whole 32-byte sectors from device memory, and 8
-// consecutive lanes fill one core matrix (no bank conflicts).
-struct Ring {
-  bf16* buf;
-  int q, total, ncs;
-
-  __device__ __forceinline__ void load(const Args& a, int i) {
-    if (i < total) {
-      const Slice s = slice_of(a, i, ncs);
-      bf16* dst = buf + (i % kStages) * kSlice;
-#pragma unroll
-      for (int p = 0; p < kS * kS / 8 / kThreads; ++p) {
-        const int u = (threadIdx.x >> 5) + p * kWarps, l = threadIdx.x & 31;
-        const int row = 8 * (u & 7) + (l & 7);
-        const int col = 8 * (4 * (u >> 3) + (l >> 3));
-        const bool in = s.r0 + row < s.rows && s.c0 + col < s.cols;
-        cp_async16(dst + slot_off(row, col),
-                   in ? s.src + (size_t)(s.r0 + row) * s.ld + s.c0 + col
-                      : s.src,
-                   in);
-      }
-    }
-    cp_async_commit();
-  }
-
-  __device__ __forceinline__ void start(const Args& a) {
-    for (int i = 0; i < kStages - 1; ++i) load(a, i);
-  }
-
-  __device__ __forceinline__ const bf16* next(const Args& a) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    load(a, q + kStages - 1);
-    return buf + (q++ % kStages) * kSlice;
-  }
-};
-
-// k-steps of 16 in the C slice cs (C % 32 == 0: 2 or 4).
-__device__ __forceinline__ int ksteps(int C, int cs) {
-  return min(kS, C - kS * cs) / 16;
-}
-
-// acc[nt] += A B for the warp's 16 rows and the n-tiles n0 + 8 nt
-// (NT even): A [16 x 16 ks] at `a` (row stride lda) through ldmatrix, SC
-// rounding s * A to bf16 first (du2 = bf16(s2 gy)); B a resident slice
-// read as [n][k] (TR false) or [k][n] (TR true), mma.sync m16n8k16.
-template <int NT, bool TR, bool SC = false>
-__device__ __forceinline__ void mma_sl(float (*acc)[4], const bf16* a,
-                                       int lda, const bf16* sl, int n0,
-                                       int ks, float s = 1.f) {
-  const int lane = lane_id();
-  const bf16* pa = a + (lane & 15) * lda + (lane >> 4) * 8;
-  uint32_t af[kS / 16][4];
-#pragma unroll
-  for (int k = 0; k < kS / 16; ++k)
-    if (k < ks) {
-      ldsm_x4(af[k], pa + 16 * k);
-      if (SC)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) af[k][e] = scale_pair(af[k][e], s);
-    }
-#pragma unroll
-  for (int k = 0; k < kS / 16; ++k)
-    if (k < ks)
-#pragma unroll
-      for (int p = 0; p < NT / 2; ++p) {
-        uint32_t b[4];
-        if (TR)
-          ldsm_x4_t(b, sl + slot_off(16 * k + (lane & 15),
-                                     n0 + 16 * p + (lane >> 4) * 8));
-        else
-          ldsm_x4(b, sl + slot_off(n0 + 16 * p + (lane & 7) +
-                                       ((lane >> 4) << 3),
-                                   16 * k + ((lane >> 3) & 1) * 8));
-        mma_bf16_16816(acc[2 * p], af[k], b[0], b[1]);
-        mma_bf16_16816(acc[2 * p + 1], af[k], b[2], b[3]);
-      }
-}
-
-// Rows [0, rows) x columns [0, cols) (cols % 8 == 0) of a shared tile (row
-// stride ld) to rows m0 + i < M, columns c0.. of a device array (row
-// stride ldo), 16 bytes a store, by all threads of the block.
-__device__ __forceinline__ void rows_out(bf16* out, int ldo, int c0,
-                                         const bf16* tile, int ld, int m0,
-                                         int M, int rows, int cols) {
-  const int vc = cols / 8;
-  for (int v = threadIdx.x; v < rows * vc; v += kThreads) {
-    const int i = v / vc, c = (v - i * vc) * 8;
-    if (m0 + i < M)
-      *reinterpret_cast<uint4*>(out + (size_t)(m0 + i) * ldo + c0 + c) =
-          *reinterpret_cast<const uint4*>(tile + i * ld + c);
-  }
 }
 
 __device__ __forceinline__ float dropped(float v, bool keep, const Drop& d) {
@@ -236,7 +125,7 @@ __global__ void __launch_bounds__(kThreads, NCS <= 2 ? 2 : 1)
   // gy tiles [BM][C + 8], the tiles m1, dm2, g, du1, dh [BM][72] (bf16);
   // mu, inv [BM] and the row sums of the LayerNorm backward [2][WN][BM]
   // (fp32). The padded row strides keep ldmatrix free of bank conflicts.
-  Ring ring{reinterpret_cast<bf16*>(smem), 0,
+  SliceRing<Args, kThreads, kStages> ring{reinterpret_cast<bf16*>(smem), 0,
             3 * ncs + nch * ((kept_w1 ? 2 : 3) * ncs + 3), ncs};
   bf16* w1k = ring.buf + kStages * kSlice;  // the chunk's W1 slices
   bf16* lt = w1k + (kept_w1 ? ncs * kSlice : 0);  // bf16(drop1(ln)), bf16(ln)
@@ -290,14 +179,14 @@ __global__ void __launch_bounds__(kThreads, NCS <= 2 ? 2 : 1)
   }
   // the last read of bf16(drop1(ln)) as an operand was before the barrier
   // of the dm2 slices
-  rows_out(a.lnd, C, 0, lt, ld, m0, M, BM, C);
+  rows_out<kThreads>(a.lnd, C, 0, lt, ld, m0, M, BM, C);
   __syncthreads();
   if (d1.on)
     for (int i = 0; i < BM; i += kRows)
       rows_ln_tile(lt + i * ld, ld, a.R, a.gamma, a.beta, m0 + i, mu + i,
                    inv + i, no_drop(), warp, kWarps);
-  rows_out(a.m1, kRank, 0, m1t, kLdS, m0, M, BM, kRank);
-  rows_out(a.dm2, kRank, 0, dm2t, kLdS, m0, M, BM, kRank);
+  rows_out<kThreads>(a.m1, kRank, 0, m1t, kLdS, m0, M, BM, kRank);
+  rows_out<kThreads>(a.dm2, kRank, 0, dm2t, kLdS, m0, M, BM, kRank);
 
   // ---- the hidden in chunks of 64 columns ---------------------------------
   // Tiles written in a chunk are read after the next ring barrier; every
@@ -355,7 +244,7 @@ __global__ void __launch_bounds__(kThreads, NCS <= 2 ? 2 : 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           dg[nt][e] = dropped(dg[nt][e], (keep >> (4 * nt + e)) & 1u, d2);
-      rows_out(a.gd, H4, h0, gdt, kLdS, m0, M, BM, kS);
+      rows_out<kThreads>(a.gd, H4, h0, gdt, kLdS, m0, M, BM, kS);
     }
     // dg += bf16(gy) W2; dh = dg gelu'(h)
     for (int cs = 0; cs < ncs; ++cs)
@@ -373,7 +262,7 @@ __global__ void __launch_bounds__(kThreads, NCS <= 2 ? 2 : 1)
     store_tile<NT>(dut + wr * kLdS, kLdS, dg, wc);
     // dm1 += du1 B1; dln += bf16(dh) W1
     mma_sl<NT, true>(dm1a, dut + wr * kLdS, kLdS, ring.next(a), wc, 4);
-    rows_out(a.du1, H4, h0, dut, kLdS, m0, M, BM, kS);
+    rows_out<kThreads>(a.du1, H4, h0, dut, kLdS, m0, M, BM, kS);
 #pragma unroll
     for (int cs = 0; cs < NCS; ++cs)
       if (cs < ncs) {

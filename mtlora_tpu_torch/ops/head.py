@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from mtlora_tpu_torch.ops import _build
-from mtlora_tpu_torch.ops.ln_lora import _sms, stripes_for
+from mtlora_tpu_torch.ops.ln_lora import SMEM_LIMIT, _sms, stripes_for
 
 MAX_OUT = 64
 MAX_C_BWD = 272
@@ -35,7 +35,6 @@ MAX_C_BWD = 272
 BWD_ROWS = 64           # rows of a block (kBM)
 BWD_CHUNK = 64          # hidden columns of a ring stage (kHC)
 BWD_WARPS = 8           # warps of a block (kWarps)
-SMEM_LIMIT = 232_448    # shared memory one block can take on the H100
 WGRAD_PER_SM = 12       # weight-gradient blocks per SM in a call: 2 waves
 
 

@@ -28,16 +28,17 @@ kernel: LN in fp32 with ``var = E[x^2] - E[x]^2``; ``lnc`` rounded;
 ``p = lnc W`` in fp32 plus the bias; ``m = lnd A`` rounded, then
 ``u = m B`` in fp32; ``y = p + s u`` rounded once (tail mode: ``gelu(p +
 s u)`` in the form that :func:`gelu_form` gives, and ``p`` rounded once).
-The tail mode's backward recomputes ``z = p + s u`` and folds the
-cotangents of y, p and ``dropout(y)`` through ``gelu'(z)`` into the two
-rows that kernel 2b reads in place of ``gy``: ``gpt = bf16(g + gp)`` and
-``du = bf16(s g)`` with ``g = (gy + drop1(gd)) gelu'(z)`` (``_bwd_kernel``
-:159-181).
+The tail mode's backward (``csrc/ln_lora_tail_bwd.cu``) recomputes ``z =
+p + s u`` and folds the cotangents of y, p and ``dropout(y)`` through
+``gelu'(z)``: ``g = (gy + drop1(gd)) gelu'(z)``, ``gpt = bf16(g + gp)``
+takes the place of ``gy`` in dln and ``du = bf16(s g)`` that of ``bf16(s
+gy)`` (``_bwd_kernel`` :159-181).
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -181,53 +182,15 @@ def ln_lora_bwd_plain(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
     rounded, ``dB = m^T du``, ``dA = lnd^T dm``, the mask applied to
     ``dm A^T``. dx in x's dtype; the rest in the accumulation dtype, dat
     ``[r, K]`` and dbt ``[O, r]`` in the adapters' layouts."""
-    gyf = gy.to(_acc(x.dtype))
-    return _lora_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale, drop,
-                     gyf, gyf)
-
-
-def tail_cotangents(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
-                    drop: float, gy, gp=None, gd=None, act: bool = True):
-    """``(gpt, g)`` of the tail mode in the accumulation dtype:
-    ``g = (gy + drop1(gd)) gelu'(z)`` (no ``gelu'`` without ``act``) and
-    ``gpt = g + gp``; the kernel rounds ``gpt`` and ``s g`` to the compute
-    dtype."""
-    f = _acc(x.dtype)
-    *_, z = _pre_activation(x, gamma, beta, wt, bias, at, bt, seed, scale,
-                            drop)
-    g = gy.to(f)
-    if gd is not None:
-        keep = dropout.keep_mask(seed, 1, *g.shape, drop)
-        g = g + dropout.apply(gd.to(f), keep, drop)
-    if act:
-        g = g * gelu_pair(z, x.dtype)[1]
-    return (g if gp is None else g + gp.to(f)), g
-
-
-def ln_lora_tail_bwd_plain(x, gamma, beta, wt, bias, at, bt, seed,
-                           scale: float, drop: float, gy, gp=None, gd=None,
-                           act: bool = True):
-    """``(dx, dgamma, dbeta, dat, dbt)`` of :func:`ln_lora_tail_plain`
-    from the cotangents of y, p and d (gp, gd may be None), with the cast
-    points of ``_bwd_kernel``."""
-    gpt, g = tail_cotangents(x, gamma, beta, wt, bias, at, bt, seed, scale,
-                             drop, gy, gp, gd, act)
-    return _lora_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale, drop,
-                     gpt, g)
-
-
-def _lora_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
-              drop: float, gpt, g):
-    """Kernel 2b from the frozen path's cotangent ``gpt`` and the
-    adapter's ``g`` (both ``gy`` in the y-only mode), accumulation dtype."""
     cdt, f = x.dtype, _acc(x.dtype)
     ln, xhat, inv = layer_norm_parts(x, gamma, beta)
-    dln = gpt.to(cdt).to(f) @ wt.to(f)
+    gyf = gy.to(f)
+    dln = gyf.to(cdt).to(f) @ wt.to(f)
     if scale != 0.0:
         lnd, keep = _dropped(ln, seed, drop)
         lnd = lnd.to(cdt).to(f)
         m = (lnd @ at.to(f).t()).to(cdt).to(f)
-        du = (scale * g).to(cdt).to(f)
+        du = (scale * gyf).to(cdt).to(f)
         dm = (du @ bt.to(f)).to(cdt).to(f)
         dbt = du.t() @ m
         dat = dm.t() @ lnd
@@ -238,6 +201,60 @@ def _lora_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
         dbt = torch.zeros(bt.shape, dtype=f, device=x.device)
     dx, dg, db = layer_norm_bwd(dln, xhat, inv, gamma)
     return dx.to(x.dtype), dg, db, dat, dbt
+
+
+def ln_lora_tail_bwd_rows_plain(x, gamma, beta, wt, bias, at, bt, seed,
+                                scale: float, drop: float, gy, gp=None,
+                                gd=None, act: bool = True):
+    """What the tail mode's backward row kernel stores, with the cast
+    points of ``_bwd_kernel``: ``(dx, dgamma, dbeta, lnd, m, dm, du)``.
+    ``g = (gy + drop1(gd)) gelu'(z)`` (no ``gelu'`` without ``act``),
+    ``gpt = bf16(g + gp)``, ``du = bf16(s g)``, ``dm = bf16(du B)``, ``dln
+    = gpt W + drop0(dm A)`` and its LayerNorm backward (gp, gd may be
+    None). dx and the rows ``lnd = bf16(drop0(ln))`` [M, K], m, dm [M, r]
+    and du [M, O] in x's dtype, dgamma and dbeta in the accumulation
+    dtype."""
+    cdt, f = x.dtype, _acc(x.dtype)
+    ln, xhat, inv = layer_norm_parts(x, gamma, beta)
+    lnd, keep = _dropped(ln, seed, drop)
+    lnd = lnd.to(cdt).to(f)
+    m = (lnd @ at.to(f).t()).to(cdt).to(f)
+    g = gy.to(f)
+    if gd is not None:
+        keep1 = dropout.keep_mask(seed, 1, *g.shape, drop)
+        g = g + dropout.apply(gd.to(f), keep1, drop)
+    if act:
+        z = (ln.to(cdt).to(f) @ wt.to(f).t() + bias.to(f)
+             + scale * (m @ bt.to(f).t()))
+        g = g * gelu_pair(z, cdt)[1]
+    gpt = (g if gp is None else g + gp.to(f)).to(cdt).to(f)
+    du = (scale * g).to(cdt).to(f)
+    dm = (du @ bt.to(f)).to(cdt).to(f)
+    dlnd = dm @ at.to(f)
+    dln = gpt @ wt.to(f) + (dlnd if keep is None
+                            else dropout.apply(dlnd, keep, drop))
+    dx, dg, db = layer_norm_bwd(dln, xhat, inv, gamma)
+    return (dx.to(cdt), dg, db) + tuple(t.to(cdt) for t in (lnd, m, dm, du))
+
+
+def ln_lora_tail_bwd_weights_plain(lnd, m, dm, du):
+    """``(dat, dbt)`` from the row kernel's rows, as the weight passes
+    compute them: ``dA^T = dm^T lnd`` [r, K], ``dB^T = du^T m`` [O, r],
+    in the accumulation dtype."""
+    f = _acc(lnd.dtype)
+    return dm.to(f).t() @ lnd.to(f), du.to(f).t() @ m.to(f)
+
+
+def ln_lora_tail_bwd_plain(x, gamma, beta, wt, bias, at, bt, seed,
+                           scale: float, drop: float, gy, gp=None, gd=None,
+                           act: bool = True):
+    """``(dx, dgamma, dbeta, dat, dbt)`` of :func:`ln_lora_tail_plain`
+    from the cotangents of y, p and d (gp, gd may be None): the rows of
+    :func:`ln_lora_tail_bwd_rows_plain`, then
+    :func:`ln_lora_tail_bwd_weights_plain` on them."""
+    dx, dg, db, *rows = ln_lora_tail_bwd_rows_plain(
+        x, gamma, beta, wt, bias, at, bt, seed, scale, drop, gy, gp, gd, act)
+    return (dx, dg, db) + ln_lora_tail_bwd_weights_plain(*rows)
 
 
 def merge_rows(x, H: int, W: int):
@@ -384,16 +401,6 @@ def ln_lora_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
            [("x", x), ("gamma", gamma), ("beta", beta), ("wt", wt),
             ("at", at), ("bt", bt), ("seed", seed), ("gy", gy)],
            [(M, K), (K,), (K,), (O, K), (r, K), (O, r), (2,), (M, O)])
-    out = _launch_bwd(x, gamma, beta, wt, at, bt, seed, scale, drop, gy, None)
-    ln_lora_bwd.launches += 1
-    return out
-
-
-def _launch_bwd(x, gamma, beta, wt, at, bt, seed, scale, drop, gy, du):
-    """Kernel 2b on the card; ``du``: the adapter's cotangent rows (tail
-    mode), or None for ``bf16(s gy)``."""
-    M, K = x.shape
-    O, r = wt.shape[0], at.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
     sa = wgrad_stripes(x.device, M, r, K)
     sb = wgrad_stripes(x.device, M, O, r)
@@ -411,7 +418,7 @@ def _launch_bwd(x, gamma, beta, wt, at, bt, seed, scale, drop, gy, du):
     err = _build.library().mtlora_ln_lora_bwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_ko.data_ptr(),
         at.data_ptr(), a_kr.data_ptr(), b_ro.data_ptr(), seed.data_ptr(),
-        gy.data_ptr(), None if du is None else du.data_ptr(), dx.data_ptr(),
+        gy.data_ptr(), dx.data_ptr(),
         stats.data_ptr(), work.data_ptr(), lbuf.data_ptr(), mbuf.data_ptr(),
         gb.data_ptr(), pa.data_ptr(),
         pb.data_ptr(), None,
@@ -420,6 +427,7 @@ def _launch_bwd(x, gamma, beta, wt, at, bt, seed, scale, drop, gy, du):
         dropout.threshold(drop) if use_drop else 0, use_drop,
         dropout.inv_keep(drop) if use_drop else 1.0, _stream(x))
     _build.check(err, "mtlora_ln_lora_bwd")
+    ln_lora_bwd.launches += 1
     return dx, dgb[0], dgb[1], dat, dbt
 
 
@@ -461,30 +469,152 @@ def ln_lora_tail_fwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
     return y, p, d
 
 
+# the constants of csrc/ln_lora_tail_bwd.cu that its plan sizes shared
+# memory by (the kernel traps if the plan's bytes do not hold its layout)
+TAIL_CHUNK = 64         # hidden chunk and weight-slice width (kS)
+TAIL_STAGES = 4         # slices in the cp.async ring (kStages)
+TAIL_WARPS = 8          # warps of a row block (kWarps)
+TAIL_TILE = TAIL_CHUNK + 8   # row stride of the 64-wide tiles (kLdS)
+SMEM_LIMIT = 232_448    # shared memory one block can take on the H100
+
+
+class TailBwdPlan(NamedTuple):
+    """Launch plan of kernel 2b's tail mode: rows per block, hidden chunk
+    width, ring depth, the weight slices a block keeps per chunk (W's
+    and B's), the blocks of a cluster that share a row block's hidden
+    chunks, dynamic shared-memory bytes of the row kernel, its row blocks,
+    the bytes of weight slices they stream from L2, the row stripes of
+    the weight-gradient products dA [r, C] and dB [O, r], and the scratch
+    the wrapper allocates: name -> (shape, dtype)."""
+
+    bm: int
+    chunk: int
+    stages: int
+    kept: int
+    split: int
+    smem: int
+    blocks: int
+    slice_bytes: int
+    sa: int
+    sb: int
+    scratch: dict
+
+
+def _tail_dims(C: int, O: int, r: int):
+    if C % 32 or not TAIL_CHUNK < C <= 768 or O % TAIL_CHUNK or r != 64:
+        raise ValueError(f"LN+LoRA tail backward kernel: needs C % 32 == 0 "
+                         f"and 64 < C <= 768 ({C}), O % 64 == 0 ({O}) and "
+                         f"r == 64 ({r})")
+
+
+def tail_bwd_plan(M: int, C: int, O: int, r: int, sms: int) -> TailBwdPlan:
+    """The tail backward's plan for x [M, C], O hidden columns, rank r on a
+    card of ``sms`` SMs: a row block of 64 rows, or 32 where C > 384 so
+    that its fp32 dln (rows x C) stays at 96 registers a thread, or 128
+    at C = 192 (96 registers too, a warp's 64 columns whole slices; faster
+    there on the H100, slower at C = 96); the last block masks the rows
+    past M. Per chunk it keeps W's ceil(C / 64) slices and B's one. The
+    32-row blocks, few (196 at stage 3, 1.5 waves of 132 SMs), split their
+    hidden chunks between the two blocks of a cluster, the second handing
+    its dln and dm partials to the first. Scratch: bf16(drop0(ln)) ``lnd``
+    [M, C], the rank rows ``mbuf`` (m, dm) [2, M, r] and ``du`` [M, O] in
+    bf16; the per-block dgamma/dbeta partials ``gb``, the weight-gradient
+    stripes ``part`` (dA's, then dB's) and, with a split, the partials
+    ``xfer`` in fp32."""
+    _tail_dims(C, O, r)
+    ncs = -(-C // TAIL_CHUNK)
+    bm = 128 if C == 192 else 64 if ncs <= 6 else 32
+    wn = max(1, TAIL_WARPS // (bm // ROW_TILE))
+    kept = ncs + 1
+    split = 2 if bm == 32 and O // TAIL_CHUNK % 2 == 0 else 1
+    # the ring and the kept slices; the bf16(ln) tile; the m / dm, du and
+    # gpt tiles; mu, inv and the LayerNorm row sums; stream 0's mask bytes
+    smem = (2 * ((TAIL_STAGES + kept) * TAIL_CHUNK ** 2 + bm * (C + 8)
+                 + 3 * bm * TAIL_TILE)
+            + 4 * (2 * bm + 2 * wn * bm) + bm * C)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"LN+LoRA tail backward kernel: {smem} bytes of "
+                         f"shared memory at C = {C} exceed {SMEM_LIMIT}")
+    blocks = -(-M // bm)
+    # per row block: A (m, in each block of a split), per hidden chunk B
+    # and W, then A (dl)
+    slices = (split + 1) * ncs + O // TAIL_CHUNK * kept
+    sa = stripes_for(sms, M, r, C)
+    sb = stripes_for(sms, M, O, r)
+    bf16, f32 = torch.bfloat16, torch.float32
+    scratch = {
+        "lnd": ((M, C), bf16),
+        "mbuf": ((2, M, r), bf16),
+        "du": ((M, O), bf16),
+        "gb": ((blocks, 2, C), f32),
+        "part": ((max(sa * r * C, sb * O * r),), f32),
+    }
+    if split == 2:
+        # per row block, thread and n-tile of its dln slices and dm
+        nt = TAIL_CHUNK // 8 // wn
+        scratch["xfer"] = ((blocks * (ncs + 1) * nt * 4 * 32 * TAIL_WARPS,),
+                           f32)
+    return TailBwdPlan(bm, TAIL_CHUNK, TAIL_STAGES, kept, split, smem,
+                       blocks, blocks * slices * 2 * TAIL_CHUNK ** 2, sa, sb,
+                       scratch)
+
+
+def tail_bwd_scratch(plan: TailBwdPlan, device) -> dict:
+    """The scratch tensors of ``plan``, as :func:`ln_lora_tail_bwd`
+    allocates them."""
+    return {name: torch.empty(shape, dtype=dt, device=device)
+            for name, (shape, dt) in plan.scratch.items()}
+
+
+def ln_lora_tail_bwd_kernel(x, gamma, beta, wt, bias, at, bt, seed,
+                            scale: float, drop: float, gy, gp=None, gd=None,
+                            act: bool = True, scratch=None):
+    """The CUDA route of :func:`ln_lora_tail_bwd`: the fused row kernel
+    (dx, the rows lnd, m, dm, du, gamma/beta partials), then the
+    weight-gradient kernels of dA and dB and the fixed-order reductions,
+    all on the weights' module layouts; raises for anything it does not
+    take (a CPU tensor included). ``scratch``: the tensors of
+    :func:`tail_bwd_scratch` to use (the row kernel leaves its rows there),
+    or None to allocate them."""
+    ptrs = _tail_args("LN+LoRA tail backward", x, gamma, beta, wt, bias, at,
+                      bt, seed, [("gy", gy), ("gp", gp), ("gd", gd)])
+    M, C = x.shape
+    O, r = wt.shape[0], at.shape[0]
+    plan = tail_bwd_plan(M, C, O, r, _sms(x.device))
+    sc = tail_bwd_scratch(plan, x.device) if scratch is None else scratch
+    if {k: (tuple(v.shape), v.dtype) for k, v in sc.items()} != plan.scratch:
+        raise ValueError("LN+LoRA tail backward kernel: scratch does not "
+                         "match the plan")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dgb = torch.empty((2, C), **f32)
+    dat = torch.empty((r, C), **f32)
+    dbt = torch.empty((O, r), **f32)
+    use_drop = int(drop > 0.0)
+    err = _build.library().mtlora_ln_lora_tail_bwd(
+        *ptrs, gy.data_ptr(), None if gp is None else gp.data_ptr(),
+        None if gd is None else gd.data_ptr(), dx.data_ptr(),
+        *(sc[k].data_ptr() for k in ("lnd", "mbuf", "du", "gb", "part")),
+        sc["xfer"].data_ptr() if "xfer" in sc else None, dgb.data_ptr(),
+        dat.data_ptr(), dbt.data_ptr(), M, C, O, r, int(act), plan.bm,
+        plan.split, plan.smem, plan.sa, plan.sb, float(scale),
+        dropout.threshold(drop) if use_drop else 0, use_drop,
+        dropout.inv_keep(drop) if use_drop else 1.0, _stream(x))
+    _build.check(err, "mtlora_ln_lora_tail_bwd")
+    ln_lora_tail_bwd.launches += 1
+    return dx, dgb[0], dgb[1], dat, dbt
+
+
 def ln_lora_tail_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
                      drop: float, gy, gp=None, gd=None, act: bool = True):
     """``(dx, dgamma, dbeta, dat, dbt)`` of :func:`ln_lora_tail_bwd_plain`:
-    plain for CPU tensors; for CUDA tensors the prologue kernel (z
-    recomputed, the rows gpt and du), then kernel 2b on them."""
+    plain for CPU tensors, :func:`ln_lora_tail_bwd_kernel` for CUDA
+    tensors."""
     if x.device.type == "cpu":
         return ln_lora_tail_bwd_plain(x, gamma, beta, wt, bias, at, bt, seed,
                                       scale, drop, gy, gp, gd, act)
-    ptrs = _tail_args("LN+LoRA tail backward", x, gamma, beta, wt, bias, at,
-                      bt, seed, [("gy", gy), ("gp", gp), ("gd", gd)])
-    M, O = x.shape[0], wt.shape[0]
-    gpt = torch.empty((M, O), dtype=x.dtype, device=x.device)
-    du = torch.empty_like(gpt)
-    use_drop = int(drop > 0.0 or gd is not None)
-    err = _build.library().mtlora_ln_lora_tail_grad(
-        *ptrs, gy.data_ptr(), None if gp is None else gp.data_ptr(),
-        None if gd is None else gd.data_ptr(), gpt.data_ptr(), du.data_ptr(),
-        M, x.shape[1], O, at.shape[0], int(act), float(scale),
-        dropout.threshold(drop) if use_drop else 0, use_drop,
-        dropout.inv_keep(drop) if use_drop else 1.0, _stream(x))
-    _build.check(err, "mtlora_ln_lora_tail_grad")
-    out = _launch_bwd(x, gamma, beta, wt, at, bt, seed, scale, drop, gpt, du)
-    ln_lora_tail_bwd.launches += 1
-    return out
+    return ln_lora_tail_bwd_kernel(x, gamma, beta, wt, bias, at, bt, seed,
+                                   scale, drop, gy, gp, gd, act)
 
 
 def _merge_shapes(x, wt, H, W):
@@ -538,7 +668,7 @@ def merge_ln_bwd(x, gamma, beta, wt, H: int, W: int, gy):
     w_ko = wt.t().contiguous()
     err = _build.library().mtlora_ln_lora_bwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_ko.data_ptr(),
-        None, None, None, None, gy.data_ptr(), None, dx.data_ptr(),
+        None, None, None, None, gy.data_ptr(), dx.data_ptr(),
         stats.data_ptr(), work.data_ptr(), lbuf.data_ptr(), None,
         gb.data_ptr(), None, None, pw.data_ptr(), dgb.data_ptr(), None, None,
         dwt.data_ptr(),

@@ -32,6 +32,7 @@ import torch
 from mtlora_tpu_torch.ops import _build, dropout
 from mtlora_tpu_torch.ops.ln_lora import (
     ROW_TILE,
+    SMEM_LIMIT,
     _acc,
     _check,
     _stream,
@@ -179,7 +180,6 @@ def ln_mlp_fwd(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed,
 BWD_CHUNK = 64          # hidden chunk and weight-slice width (kS)
 BWD_STAGES = 4          # slices in the cp.async ring (kStages)
 BWD_WARPS = 8           # warps of a row block (kWarps)
-SMEM_LIMIT = 232_448    # shared memory one block can take on the H100
 
 
 class BwdPlan(NamedTuple):

@@ -13,8 +13,11 @@ here: the card's name and power limit, and the timing of a kernel.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
+import sys
+from pathlib import Path
 
 import torch
 
@@ -63,3 +66,18 @@ def timed(fields: dict, kernel, plain, reps: int, rounds: int, card: str,
 def require_cuda(name: str):
     if not torch.cuda.is_available():
         raise SystemExit(f"{name}: no CUDA device")
+
+
+def run_in_trees(script: Path, root: Path, against) -> None:
+    """``python script --worker NAME`` in a process of its own per tree,
+    with that tree's package on the path, in the order this checkout
+    (``root``, named "this"), each of ``against`` (the root of another
+    checkout, named by its directory), this checkout again; exits on a
+    worker's failure."""
+    trees = [(Path(d).name, Path(d).resolve()) for d in against]
+    for name, tree in [("this", root), *trees, ("this", root)]:
+        proc = subprocess.run(
+            [sys.executable, str(script), "--worker", name], cwd=tree,
+            env=dict(os.environ, PYTHONPATH=str(tree)))
+        if proc.returncode != 0:
+            raise SystemExit(f"{name}: exit code {proc.returncode}")

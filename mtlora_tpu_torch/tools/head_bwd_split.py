@@ -19,9 +19,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -68,14 +65,6 @@ def worker(tree: str):
                           "kernel_ms": kernels, "card": card}), flush=True)
 
 
-def _run(name: str, root: Path):
-    proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--worker", name],
-        cwd=root, env=dict(os.environ, PYTHONPATH=str(root)))
-    if proc.returncode != 0:
-        raise SystemExit(f"{name}: exit code {proc.returncode}")
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", action="append", default=[],
@@ -86,11 +75,10 @@ def main():
         worker(a.worker)
         return
     import torch
+    from mtlora_tpu_torch.tools import run_in_trees
     if not torch.cuda.is_available():
         raise SystemExit("head_bwd_split: no CUDA device")
-    trees = [(Path(d).name, Path(d).resolve()) for d in a.against]
-    for name, root in [("this", ROOT), *trees, ("this", ROOT)]:
-        _run(name, root)
+    run_in_trees(Path(__file__).resolve(), ROOT, a.against)
 
 
 if __name__ == "__main__":

@@ -28,14 +28,14 @@ CLASSES: List[Tuple[str, Tuple[str, ...]]] = [
     ("HRNet head kernel (fwd)", ("head_mlp_fwd",)),
     ("HRNet head kernel (bwd)", ("head_bwd_",)),
     ("LN+LoRA kernel 2 (fwd)", ("ln_lora_fwd_kernel<true>",)),
-    ("LN+LoRA kernel 2b (bwd rows)", ("ln_lora_bwd_rows<true>",)),
+    ("LN+LoRA kernel 2b, qkv sites (bwd rows)", ("ln_lora_bwd_rows<true>",)),
     ("patch merge kernel 3 (fwd)", ("ln_lora_fwd_kernel<false>",)),
     ("patch merge kernel 3b (bwd rows)", ("ln_lora_bwd_rows<false>",)),
     ("whole-MLP kernel 4 (fwd)", ("ln_mlp_fwd_kernel",)),
     ("whole-MLP kernel 4b (bwd rows)", ("ln_mlp_bwd_",)),
     ("LN+LoRA kernel 2, tail mode (fwd)", ("ln_lora_tail_fwd_kernel",)),
-    ("LN+LoRA kernel 2b, tail-mode cotangent prologue",
-     ("ln_lora_tail_grad_kernel",)),
+    ("LN+LoRA kernel 2b, tail mode (fused rows)",
+     ("ln_lora_tail_bwd_rows",)),
     ("adapter MLP-tail kernel 5 (fwd)", ("adapter_mid_fwd",)),
     ("adapter MLP-tail kernel 5b (bwd rows, weights)", ("adapter_mid_bwd",)),
     ("task-merge kernel 6 (fwd)", ("task_merge_fwd",)),
