@@ -344,10 +344,15 @@ def sdpa_operands(qkv, bias, mask, nH, nW):
 
 
 def check_attention(gen) -> dict:
+    """Kernels 1 and 1b against their plain versions at the four stage
+    shapes, shifted and not; each shape weighted by its blocks (half the
+    stage's depth), so that the sums are per pass over the 12 blocks."""
     fwd, bwd = Tally(), Tally()
+    depths = tiny_448_r64_pertask().depths
     for s, shift, qkv, dout, bias, mask, nH, nW, scale in attention_shapes(gen):
         Bw, N, C3 = qkv.shape
         C, hd = C3 // 3, C3 // 3 // nH
+        sites = depths[s] // 2
         mb = nW * N * N * 4 if mask is not None else 0
         # forward
         out = window_attention_fwd(qkv, nH, bias, mask, scale)
@@ -368,7 +373,7 @@ def check_attention(gen) -> dict:
               f"{KERNEL_ATOL:.3e}) kernel {t_k:.4f} ms plain {t_p:.4f} ms "
               f"sdpa {t_l:.4f} ms {bound_text(nbytes, flops)}")
         assert err <= KERNEL_ATOL, f"attention disagrees: {err}"
-        fwd.add(err, t_k, t_p, t_l, nbytes, flops)
+        fwd.add(err, t_k, t_p, t_l, nbytes, flops, sites)
         # backward
         dq, db = window_attention_bwd(qkv, nH, bias, mask, scale, dout)
         rq, rb = window_attention_bwd_plain(qkv, nH, bias, mask, scale, dout)
@@ -398,7 +403,7 @@ def check_attention(gen) -> dict:
               f"(bound {b_b:.3e}) kernel {t_k:.4f} ms plain {t_p:.4f} ms "
               f"sdpa backward {t_l:.4f} ms {bound_text(nbytes, flops)}")
         assert e_q <= b_q and e_b <= b_b, "attention backward disagrees"
-        bwd.add(max(e_q, e_b), t_k, t_p, t_l, nbytes, flops)
+        bwd.add(max(e_q, e_b), t_k, t_p, t_l, nbytes, flops, sites)
     return {"fwd": fwd, "bwd": bwd}
 
 

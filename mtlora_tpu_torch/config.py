@@ -79,10 +79,23 @@ def _unsupported(what: str, item: str):
 
 def from_config(config) -> ModelConfig:
     """Build from a loaded reference-schema config node (after
-    ``normalize_mtlora``), read by attribute only."""
+    ``normalize_mtlora``), read by attribute; ``TPU.USE_PALLAS`` and
+    ``TPU.REMAT`` by ``get`` with the JAX package's defaults, as it reads
+    them."""
     tpu = config.TPU
     m = config.MODEL.MTLORA
     swin = config.MODEL.SWIN
+    # read as the JAX package reads them (models/build.py, models/mtl.py)
+    if config.MODEL.TYPE != "swin":
+        _unsupported(f"MODEL.TYPE {config.MODEL.TYPE!r} (the reference "
+                     "builds only 'swin')", "Queue 1, item 10")
+    if not bool(config.get("TPU", {}).get("USE_PALLAS", True)):
+        _unsupported("TPU.USE_PALLAS False (every kernel off, exact-erf "
+                     "GELU)", "Queue 1, item 7")
+    if (bool(config.get("TPU", {}).get("REMAT", False))
+            or bool(config.TRAIN.USE_CHECKPOINT)):
+        _unsupported("TRAIN.USE_CHECKPOINT / TPU.REMAT (rematerialized "
+                     "Swin blocks)", "Queue 1, item 10")
     use_ln = bool(tpu.USE_PALLAS_LN)
     use_adapter = bool(tpu.USE_PALLAS_ADAPTER)
     _check_adapter_route(use_ln, use_adapter, bool(m.PROJ_ENABLED))
@@ -90,7 +103,7 @@ def from_config(config) -> ModelConfig:
                        and bool(m.FC2_ENABLED)):
         _unsupported("TPU.USE_PALLAS_LN with qkv, fc1 or fc2 adapters off "
                      "(kernel 2's GELU and dropped-output modes)",
-                     "Queue 2, kernel 2")
+                     "Queue 1, item 9")
     if not bool(m.ENABLED):
         _unsupported("MODEL.MTLORA.ENABLED False", "Queue 1, item 9")
     if not bool(m.FREEZE_PRETRAINED):

@@ -32,12 +32,12 @@ SIGNATURES = {
     "mtlora_window_attn_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                _P],
     # qkv, bias, mask, dout, dqkv, dbias_part, dbias, n_windows, N, C,
-    # num_heads, mask_windows, group, scale_c, scale, stream
-    "mtlora_window_attn_bwd": [_P] * 7 + [_I] * 6 + [_F, _F, _P],
-    # kernel 1c: the same arguments; the backward's group is in cells
+    # num_heads, mask_windows, group, smem, scale_c, scale, stream
+    "mtlora_window_attn_bwd": [_P] * 7 + [_I] * 7 + [_F, _F, _P],
+    # kernel 1c: the same arguments; the backward's group is whole cells
     "mtlora_window_attn_dense_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                      _P],
-    "mtlora_window_attn_dense_bwd": [_P] * 7 + [_I] * 6 + [_F, _F, _P],
+    "mtlora_window_attn_dense_bwd": [_P] * 7 + [_I] * 7 + [_F, _F, _P],
     # qb, kb, bias, out, nq, nH, rows, keys, stream
     "mtlora_quad_attn_fwd": [_P] * 4 + [_I] * 4 + [_P],
     # x, x_drop (null: one input), wt, at, bt, y, M, K, N, r, scale, stream

@@ -46,13 +46,20 @@ __device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* base,
   a[3] = ld32(base + (g + 8) * ld + 2 * t + 8);
 }
 
-// 16 bytes global -> shared without passing through registers; `in`
-// false writes zeros (a source size of 0).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
+// 16 bytes global -> shared without passing through registers, of which
+// the first `bytes` (0..16) are read and the rest written as zeros (a
+// copy that ends inside an array's last chunk).
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src,
+                                             int bytes) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 16 : 0));
+               "l"(src), "r"(bytes));
+}
+
+// The same, whole (`in`) or all zeros (a source size of 0).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  cp_async16_n(dst, src, in ? 16 : 0);
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -1,215 +1,420 @@
-// Window attention core (backward) for Hopper.
+// Window attention core (backward) for Hopper, on tensor cores.
 //
-// Replaces mtlora_tpu/ops/pallas_window_attn.py: _bwd_kernel, launched by
-// _run_bwd through the custom VJP of _fused_windows. Per window w and
-// head h, P is recomputed exactly as the forward computes it (q*scale
-// rounded to bf16 with the bf16 scale, fp32 scores + bias + mask, fp32
-// softmax), kept in fp32, and
+// Replaces mtlora_tpu/ops/pallas_window_attn.py: _bwd_kernel (:119),
+// launched by _run_bwd (:327) through the custom VJP of _fused_windows, and
+// in its dense mode (chunks = 4) by _run_bwd_dense (:435). Per window w and
+// head h, P is recomputed as the forward computes it (q*scale rounded to
+// bf16 with the bf16 scale, fp32 scores + bias + mask, fp32 softmax), and
 //   dv = P^T dO,  dP = dO v^T,  dS = P * (dP - rowsum(dP * P)),
-//   dq = (dS k) * scale,  dk = dS^T (q * scale)   (fp32 q, fp32 scale),
-//   dbias[h] = sum over every window of dS.
+//   dq = (dS k) * scale,  dk = (dS^T q) * scale,
+//   dbias[h] = sum over every window of dS (fp32).
 //
-// What bounds it: per (window, head) five 49 x 49 x 32 products against
-// 12.5 KB of bf16 in and 9.4 KB out, ~60 FLOP per byte, below the card's
-// ridge; at these sizes the kernel is bound by latency and FMA issue
-// rather than by either roof. The TPU kernel's win, kept here, is that
-// the [windows, heads, 49, 49] P and dS never reach HBM.
+// Numerics: the TPU kernel issues every product with precision _prec(dtype)
+// (:53), None for bf16 input, which is Mosaic's single bf16 pass: the fp32
+// operands P, dS and q*scale are rounded to bf16 for each product and the
+// sums run in fp32. mma.sync m16n8k16 with bf16 operands and fp32
+// accumulation computes that function. S = bf16(q*scale_c) k^T and
+// dP = dO v^T take bf16 operands as they are; P and dS are rounded to bf16
+// for dv, dq and dk. For dk the port takes q as stored (exact in bf16) and
+// applies the fp32 scale after the product, where the TPU rounded q*scale
+// to bf16: one rounding fewer, nearer the fp32 plain version. dbias is the
+// fp32 sum of the fp32 dS.
 //
-// Design: one block per (group of windows, head). The head's bias is
-// staged once in shared memory; for each window of the group, q (rounded
-// and unrounded), k, v and dO go to shared memory in fp32 (rows padded to
-// hd + 1), scores and dP are formed by one pass of FMA loops, softmax and
-// dS run one warp per row, and dq, dk, dv come from one more pass. dS is
-// summed over the group's windows in shared memory; every (row, column)
-// is owned by one thread, so the sum has no race. Each block writes its
-// [N, N] partial to [n_groups, nH, N, N], and a second kernel sums the
-// groups in a fixed order: the result is deterministic, with no fp32
-// atomics. The mask is indexed by window % nW, as in the forward.
+// What bounds it: per (window, head) pair 12.5 KB of bf16 in (q, k, v, dO)
+// and 9.4 KB out (dq, dk, dv), against five 49 x 49 x 32 products (five
+// 64 x 64 x 32 on the tensor cores, 1.3 MFLOP): about 60 FLOP a byte, far
+// below the card's ridge of ~295, so the kernel is bound by bytes. As on
+// the TPU, the [windows, heads, N, N] P and dS never reach device memory.
 //
-// Kernel 1c's backward (the dense mode: _bwd_kernel with chunks = 4,
-// launched by _run_bwd_dense) is the same kernel with groups of whole
-// 8-window cells: each cell's mask tiles are staged in shared memory at
-// its first window, the bias once per group as above, and the dbias
-// partials, one per cell group, are summed in group order.
+// Design: one block of 4 warps per (group of windows, head); the head dim is
+// 32 and N <= 64 is padded to 64 rows. Each window's q, k, v and dO tiles
+// (64 x 32 bf16, rows >= N zero, 16-byte chunks XOR-swizzled so that
+// ldmatrix reads are free of bank conflicts) arrive by cp.async into one of
+// two buffers while the block computes the window before. The head's bias
+// is staged once per block (fp32, rows padded to kBiasLd); the mask tile
+// of the window (kernel 1c: the tiles of its 8-window cell) is copied by
+// cp.async in 16-byte chunks of the mask array as it lies, after the
+// window before has finished its softmax. Warp i owns query rows
+// 16i..16i+15: S and dP as 16 x 64 fp32 register tiles (ldmatrix
+// fragments, mma.sync), bias and mask added, columns >= N at -inf, the row
+// max, sums and rowsum(dP * P) by quad shuffles; dS = P (dP - rowsum) is
+// summed into the thread's dbias registers, and dq = dS k comes from dS's
+// fragments repacked as bf16 A operands, k by ldmatrix.trans. P and dS go
+// to shared memory once as bf16; then warp i computes dk and dv for key
+// rows 16i..16i+15 from dS^T q and P^T dO (both operands by
+// ldmatrix.trans). dq, dk and dv are staged by rows in shared memory and
+// leave as 16-byte stores of dqkv rows. Each block writes its dbias
+// partial once; a second kernel sums the groups' partials in group order:
+// deterministic, with no fp32 atomics. The launch plan (windows per block,
+// blocks, shared-memory bytes) is ops/window_attn.py:bwd_plan; the kernel
+// traps if the bytes do not hold its layout.
+//
+// Kernel 1c's backward (kDense) is the same body with groups of whole
+// 8-window cells: a cell's mask tiles (min(8, nW) of them) are staged once
+// at its first window, and the dbias partials, one per cell group, are
+// summed in group order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-// windows per dense cell (kernel 1c), as in window_attn.cu
-constexpr int kCell = 8;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+// blocks an SM: the plan's assumption, and the register cap it sets
+constexpr int kBlocksPerSm = 3;
+constexpr int kHd = 32;         // head dim
+constexpr int kRows = 64;       // N padded
+constexpr int kCell = 8;        // windows per dense cell (kernel 1c)
+constexpr int kBiasLd = 72;     // fp32 row stride of the staged bias
+constexpr int kOutLd = 104;     // bf16 row stride of the staged output
+constexpr int kTile = kRows * kHd;            // elements of a q/k/v/dO tile
+constexpr int kBufBytes = 4 * kTile * 2;      // one window's four tiles
+constexpr int kPsBytes = 2 * kRows * kRows * 2;  // P and dS, bf16
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+static_assert(kWarps * 16 * kOutLd * 2 <= kPsBytes,
+              "the staged output rows alias P and dS");
+
+// 16-byte chunks of a mask tile's copy: the tile starts up to 3 floats
+// into its first chunk
+__host__ __device__ constexpr int mask_chunks(int N) { return (N * N + 6) / 4; }
+
+// The shared-memory layout's bytes: two windows' tiles, P and dS, the
+// bias, the mask tiles.
+__host__ __device__ constexpr size_t smem_bytes(int N, int tiles) {
+  return 2 * (size_t)kBufBytes + kPsBytes + (size_t)N * kBiasLd * 4 +
+         (size_t)tiles * mask_chunks(N) * 16;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// Element offset of 16-byte chunk c (0..3) of row r of a [64][32] tile,
+// and of chunk c (0..7) of row r of a [64][64] tile: the chunk index XOR
+// the row bits, so that 8 consecutive rows of one chunk hit 8 distinct
+// bank groups.
+__device__ __forceinline__ int sw32(int r, int c) {
+  return r * kHd + ((c ^ ((r >> 1) & 3)) << 3);
+}
+__device__ __forceinline__ int sw64(int r, int c) {
+  return r * kRows + ((c ^ (r & 7)) << 3);
 }
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
 }
 
-// kDense (kernel 1c): groups are whole cells of kCell windows, and the
-// mask tiles of each cell's period positions are staged in shared memory
-// at the cell's first window instead of being read per window.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// q, k, v of head h and dO of window w, rows < N, into a buffer's tiles.
+__device__ __forceinline__ void load_window(__nv_bfloat16* buf,
+                                            const __nv_bfloat16* qkv,
+                                            const __nv_bfloat16* dout, int w,
+                                            int h, int N, int C) {
+  const __nv_bfloat16* base = qkv + (size_t)w * N * 3 * C + h * kHd;
+  const __nv_bfloat16* dbase = dout + (size_t)w * N * C + h * kHd;
+  for (int i = threadIdx.x; i < N * 16; i += kThreads) {
+    const int r = i >> 4, part = (i >> 2) & 3, c = i & 3;
+    const __nv_bfloat16* src =
+        part < 3 ? base + (size_t)r * 3 * C + part * C + c * 8
+                 : dbase + (size_t)r * C + c * 8;
+    cp_async16(buf + part * kTile + sw32(r, c), src, true);
+  }
+}
+
+// Mask tile mi as it lies in the mask array (16-byte aligned at its
+// start), from the 16-byte chunk that holds its first element: element
+// (r, c) lands at slot[(mi * N * N) % 4 + r * N + c]. The last chunk of
+// the array is read only up to the array's end.
+__device__ __forceinline__ void load_mask(float* slot, const float* mask,
+                                          int mi, int NN, const float* end) {
+  const float* start = mask + (size_t)mi * NN;
+  const float* a0 = start - ((size_t)mi * NN & 3);
+  const int n = ((int)(start - a0) + NN + 3) >> 2;
+  for (int k = threadIdx.x; k < n; k += kThreads) {
+    const float* src = a0 + 4 * k;
+    const long left = (long)(end - src) * 4;
+    cp_async16_n(slot + 4 * k, src, left < 16 ? (int)left : 16);
+  }
+}
+
 template <bool kDense>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 window_attn_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
                        const float* __restrict__ bias,
                        const float* __restrict__ mask,
                        const __nv_bfloat16* __restrict__ dout,
                        __nv_bfloat16* __restrict__ dqkv,
-                       float* __restrict__ dbias_part,
-                       int n_windows, int group, int N, int C, int hd,
-                       int mask_windows, float scale_c, float scale) {
-  extern __shared__ float smem[];
-  const int grp = blockIdx.x;
-  const int h = blockIdx.y;
-  const int nH = gridDim.y;
-  const int ld = hd + 1;
-  const int lds = N + 1;
-  const int NN = N * N;
-  float* qs = smem;            // bf16(q * bf16 scale): the scores' q
-  float* qf = qs + N * ld;     // q * scale in fp32: dk's q
-  float* k = qf + N * ld;
-  float* v = k + N * ld;
-  float* dO = v + N * ld;
-  float* p = dO + N * ld;      // [N][lds] scores, then P
-  float* ds = p + N * lds;     // [N][lds] dP, then dS
-  float* bh = ds + N * lds;    // [N*N] bias of head h
-  float* acc = bh + NN;        // [N*N] dS summed over the group
-  float* ms = acc + NN;        // kDense: the cell's mask tiles
-  const int tiles = (kDense && mask) ? min(kCell, mask_windows) : 0;
+                       float* __restrict__ dbias_part, int n_windows,
+                       int group, int N, int C, int mask_windows, int tiles,
+                       float scale_c, float scale) {
+  if (smem_bytes(N, tiles) > dynamic_smem_bytes()) __trap();
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* bufs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(smem + 2 * kBufBytes);
+  float* bs = reinterpret_cast<float*>(smem + 2 * kBufBytes + kPsBytes);
+  float* ms = bs + N * kBiasLd;
+  const int mslot = 4 * mask_chunks(N);   // floats per mask tile
 
-  const int tid = threadIdx.x;
-  for (int i = tid; i < NN; i += blockDim.x) {
-    bh[i] = bias[(size_t)h * NN + i];
-    acc[i] = 0.f;
-  }
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int nwarps = blockDim.x / 32;
-  const int vecs = hd / 8;  // 16-byte vectors per row and part
+  const int grp = blockIdx.x, h = blockIdx.y, nH = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int NN = N * N, C3 = 3 * C;
   const int w0 = grp * group;
   const int w1 = min(w0 + group, n_windows);
+  const float* mend = mask ? mask + (size_t)mask_windows * NN : nullptr;
+
+  // the first window's tiles and mask tiles in flight while the bias is
+  // staged and the pad rows of both buffers are zeroed
+  load_window(bufs, qkv, dout, w0, h, N, C);
+  for (int j = 0; j < tiles; ++j)
+    load_mask(ms + j * mslot, mask, (w0 + j) % mask_windows, NN, mend);
+  cp_async_commit();
+  for (int i = tid; i < NN; i += kThreads) {
+    const int r = i / N;
+    bs[r * kBiasLd + i - r * N] = bias[(size_t)h * NN + i];
+  }
+  for (int i = tid; i < 8 * (kRows - N) * 4; i += kThreads) {
+    const int tile = i / ((kRows - N) * 4), rem = i - tile * (kRows - N) * 4;
+    const int r = N + (rem >> 2);
+    *reinterpret_cast<uint4*>(bufs + tile * kTile + sw32(r, rem & 3)) =
+        make_uint4(0, 0, 0, 0);
+  }
+
+  float dbacc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dbacc[j][e] = 0.f;
+  const int r0 = warp * 16;
 
   for (int w = w0; w < w1; ++w) {
-    __syncthreads();  // bias staged / previous window consumed
-    if (kDense && tiles && (w - w0) % kCell == 0) {
-      const int pos = w % mask_windows;
-      for (int i = tid; i < tiles * NN; i += blockDim.x) {
-        const int j = i / NN;
-        ms[i] = mask[(size_t)((pos + j) % mask_windows) * NN + (i - j * NN)];
+    const int i = w - w0;
+    const __nv_bfloat16* qs = bufs + (i & 1) * 4 * kTile;
+    const __nv_bfloat16* ks = qs + kTile;
+    const __nv_bfloat16* vs = ks + kTile;
+    const __nv_bfloat16* os = vs + kTile;
+    // the next window's tiles go to the other buffer, whose last reader
+    // (the window before) has passed the barrier ahead of its output
+    if (w + 1 < w1)
+      load_window(bufs + ((i + 1) & 1) * 4 * kTile, qkv, dout, w + 1, h, N,
+                  C);
+    cp_async_commit();
+    cp_async_wait<1>();   // this window's tiles and mask tiles
+    __syncthreads();
+
+    // ---- S = bf16(q scale_c) k^T and dP = dO v^T: rows r0..r0+15 --------
+    uint32_t qa[2][4], oa[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int row = r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      const int ch = 2 * kk + (lane >> 4);
+      ldsm_x4(qa[kk], qs + sw32(row, ch));
+      ldsm_x4(oa[kk], os + sw32(row, ch));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 v =
+            *reinterpret_cast<const __nv_bfloat162*>(&qa[kk][e]);
+        qa[kk][e] = pack_bf16(__low2float(v) * scale_c,
+                              __high2float(v) * scale_c);
+      }
+    }
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int key = 16 * p + (lane & 7) + (lane >> 4) * 8;
+        const int ch = 2 * kk + ((lane >> 3) & 1);
+        uint32_t kb[4], vb[4];
+        ldsm_x4(kb, ks + sw32(key, ch));
+        ldsm_x4(vb, vs + sw32(key, ch));
+        mma_bf16_16816(s[2 * p], qa[kk], kb[0], kb[1]);
+        mma_bf16_16816(s[2 * p + 1], qa[kk], kb[2], kb[3]);
+        mma_bf16_16816(dp[2 * p], oa[kk], vb[0], vb[1]);
+        mma_bf16_16816(dp[2 * p + 1], oa[kk], vb[2], vb[3]);
       }
     }
 
-    // ---- q, k, v of head h and dO, as fp32 ------------------------------
-    const __nv_bfloat16* base = qkv + (size_t)w * N * 3 * C + h * hd;
-    const __nv_bfloat16* dbase = dout + (size_t)w * N * C + h * hd;
-    for (int i = tid; i < N * 4 * vecs; i += blockDim.x) {
-      const int row = i / (4 * vecs);
-      const int rem = i - row * 4 * vecs;
-      const int part = rem / vecs;
-      const int c = rem - part * vecs;
-      const uint4 u = *reinterpret_cast<const uint4*>(
-          part < 3 ? base + (size_t)row * 3 * C + part * C + c * 8
-                   : dbase + (size_t)row * C + c * 8);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
-      const int o = row * ld + c * 8;
+    // ---- bias, mask, softmax, dS (rows g and g + 8 of the warp's 16) ----
+    const float* mw = nullptr;
+    if (tiles) {
+      const int mi = w % mask_windows;
+      mw = ms + (kDense ? (i % kCell) % tiles : 0) * mslot +
+           ((size_t)mi * NN & 3);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + g + 8 * half;
+      const bool rok = row < N;
+      float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float f = __bfloat162float(e[j]);
-        if (part == 0) {
-          qs[o + j] = round_bf16(f * scale_c);
-          qf[o + j] = f * scale;
-        } else {
-          (part == 1 ? k : (part == 2 ? v : dO))[o + j] = f;
+        const int c = 8 * j + 2 * t;
+        float2 b = make_float2(0.f, 0.f);
+        if (rok) b = *reinterpret_cast<const float2*>(bs + row * kBiasLd + c);
+        float v0 = s[j][2 * half] + b.x, v1 = s[j][2 * half + 1] + b.y;
+        if (mw && rok) {
+          if (c < N) v0 += mw[row * N + c];
+          if (c + 1 < N) v1 += mw[row * N + c + 1];
         }
+        v0 = (rok && c < N) ? v0 : -INFINITY;
+        v1 = (rok && c + 1 < N) ? v1 : -INFINITY;
+        s[j][2 * half] = v0;
+        s[j][2 * half + 1] = v1;
+        mx = fmaxf(mx, fmaxf(v0, v1));
       }
-    }
-    __syncthreads();
-
-    // ---- scores (fp32 dot + bias + mask) and dP = dO v^T -----------------
-    const float* mw =
-        !mask ? nullptr
-              : (kDense ? ms + (size_t)(((w - w0) % kCell) % tiles) * NN
-                        : mask + (size_t)(w % mask_windows) * NN);
-    for (int i = tid; i < NN; i += blockDim.x) {
-      const int r = i / N;
-      const int c = i - r * N;
-      const float* qr = qs + r * ld;
-      const float* kc = k + c * ld;
-      const float* gr = dO + r * ld;
-      const float* vc = v + c * ld;
-      float s = 0.f, dp = 0.f;
-      for (int d = 0; d < hd; ++d) {
-        s = fmaf(qr[d], kc[d], s);
-        dp = fmaf(gr[d], vc[d], dp);
-      }
-      s += bh[i];
-      if (mw) s += mw[i];
-      p[r * lds + c] = s;
-      ds[r * lds + c] = dp;
-    }
-    __syncthreads();
-
-    // ---- fp32 softmax and dS, one warp per row ----------------------------
-    for (int r = warp; r < N; r += nwarps) {
-      float* pr = p + r * lds;
-      float* dr = ds + r * lds;
-      float m = -INFINITY;
-      for (int c = lane; c < N; c += 32) m = fmaxf(m, pr[c]);
-      m = warp_max(m);
+      mx = quad_max(mx);
       float sum = 0.f;
-      for (int c = lane; c < N; c += 32) {
-        const float e = expf(pr[c] - m);
-        pr[c] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = rok ? __expf(s[j][2 * half + e] - mx) : 0.f;
+          s[j][2 * half + e] = p;
+          sum += p;
+        }
+      sum = quad_sum(sum);
+      const float inv = rok ? 1.f / sum : 0.f;
       float rs = 0.f;
-      for (int c = lane; c < N; c += 32) {
-        const float pv = pr[c] / sum;
-        pr[c] = pv;
-        rs = fmaf(dr[c], pv, rs);
-      }
-      rs = warp_sum(rs);
-      for (int c = lane; c < N; c += 32) {
-        const float dsv = pr[c] * (dr[c] - rs);
-        dr[c] = dsv;
-        acc[r * N + c] += dsv;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = s[j][2 * half + e] * inv;
+          s[j][2 * half + e] = p;
+          rs = fmaf(dp[j][2 * half + e], p, rs);
+        }
+      rs = quad_sum(rs);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float d = s[j][2 * half + e] * (dp[j][2 * half + e] - rs);
+          dp[j][2 * half + e] = d;
+          dbacc[j][2 * half + e] += d;
+        }
+        const int off = sw64(row, j) + 2 * t;
+        *reinterpret_cast<uint32_t*>(ps + off) =
+            pack_bf16(s[j][2 * half], s[j][2 * half + 1]);
+        *reinterpret_cast<uint32_t*>(ps + kRows * kRows + off) =
+            pack_bf16(dp[j][2 * half], dp[j][2 * half + 1]);
       }
     }
-    __syncthreads();
 
-    // ---- dq = dS k * scale, dk = dS^T (q*scale), dv = P^T dO -------------
-    __nv_bfloat16* ob = dqkv + (size_t)w * N * 3 * C + h * hd;
-    for (int i = tid; i < N * hd; i += blockDim.x) {
-      const int r = i / hd;
-      const int d = i - r * hd;
-      float dq = 0.f, dk = 0.f, dv = 0.f;
-      for (int j = 0; j < N; ++j) {
-        dq = fmaf(ds[r * lds + j], k[j * ld + d], dq);
-        dk = fmaf(ds[j * lds + r], qf[j * ld + d], dk);
-        dv = fmaf(p[j * lds + r], dO[j * ld + d], dv);
+    // ---- dq = bf16(dS) k: dS's C fragments as A fragments ---------------
+    float dq[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t a[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+                             pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+                             pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                             pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int n0 = 0; n0 < 4; n0 += 2) {
+        const int key = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+        uint32_t b[4];
+        ldsm_x4_t(b, ks + sw32(key, n0 + (lane >> 4)));
+        mma_bf16_16816(dq[n0], a, b[0], b[1]);
+        mma_bf16_16816(dq[n0 + 1], a, b[2], b[3]);
       }
-      __nv_bfloat16* o = ob + (size_t)r * 3 * C + d;
-      o[0] = __float2bfloat16(dq * scale);
-      o[C] = __float2bfloat16(dk);
-      o[2 * C] = __float2bfloat16(dv);
+    }
+    __syncthreads();   // P and dS whole; this window's mask reads done
+
+    // the next window's mask tile (kernel 1c: the next cell's tiles)
+    if (tiles && w + 1 < w1 && (!kDense || (i + 1) % kCell == 0)) {
+      for (int j = 0; j < (kDense ? tiles : 1); ++j)
+        load_mask(ms + j * mslot, mask, (w + 1 + j) % mask_windows, NN,
+                  mend);
+    }
+    cp_async_commit();
+
+    // ---- dk = bf16(dS)^T q, dv = bf16(P)^T dO: key rows r0..r0+15 -------
+    float dk[4][4], dv[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int qrow = 16 * kk + (lane & 7) + (lane >> 4) * 8;
+      const int kch = 2 * warp + ((lane >> 3) & 1);
+      uint32_t da[4], pa[4];
+      ldsm_x4_t(da, ps + kRows * kRows + sw64(qrow, kch));
+      ldsm_x4_t(pa, ps + sw64(qrow, kch));
+#pragma unroll
+      for (int n0 = 0; n0 < 4; n0 += 2) {
+        const int row = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int ch = n0 + (lane >> 4);
+        uint32_t qb[4], ob[4];
+        ldsm_x4_t(qb, qs + sw32(row, ch));
+        ldsm_x4_t(ob, os + sw32(row, ch));
+        mma_bf16_16816(dk[n0], da, qb[0], qb[1]);
+        mma_bf16_16816(dk[n0 + 1], da, qb[2], qb[3]);
+        mma_bf16_16816(dv[n0], pa, ob[0], ob[1]);
+        mma_bf16_16816(dv[n0 + 1], pa, ob[2], ob[3]);
+      }
+    }
+    __syncthreads();   // every read of P and dS done: their space is free
+
+    // ---- dq | dk | dv rows r0..r0+15, staged, as 16-byte stores --------
+    __nv_bfloat16* st = ps + warp * 16 * kOutLd;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        __nv_bfloat16* o = st + (g + 8 * half) * kOutLd + 8 * n + 2 * t;
+        const int e = 2 * half;
+        *reinterpret_cast<uint32_t*>(o) =
+            pack_bf16(dq[n][e] * scale, dq[n][e + 1] * scale);
+        *reinterpret_cast<uint32_t*>(o + kHd) =
+            pack_bf16(dk[n][e] * scale, dk[n][e + 1] * scale);
+        *reinterpret_cast<uint32_t*>(o + 2 * kHd) =
+            pack_bf16(dv[n][e], dv[n][e + 1]);
+      }
+    __syncwarp();
+    __nv_bfloat16* ob = dqkv + (size_t)w * N * C3 + h * kHd;
+    for (int k = lane; k < 16 * 12; k += 32) {
+      const int r = k / 12, c = k - r * 12;
+      if (r0 + r < N)
+        *reinterpret_cast<uint4*>(ob + (size_t)(r0 + r) * C3 + (c >> 2) * C +
+                                  (c & 3) * 8) =
+            *reinterpret_cast<const uint4*>(st + r * kOutLd + c * 8);
     }
   }
-  __syncthreads();
+
+  // ---- the block's dbias partial, each element from its one thread -----
   float* out = dbias_part + ((size_t)grp * nH + h) * NN;
-  for (int i = tid; i < NN; i += blockDim.x) out[i] = acc[i];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + g + 8 * half;
+    if (row >= N) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t + e;
+        if (c < N) out[row * N + c] = dbacc[j][2 * half + e];
+      }
+  }
 }
 
 // dbias[i] = sum over groups of the partials, in group order.
@@ -223,32 +428,32 @@ __global__ void sum_groups_kernel(const float* __restrict__ part,
   out[i] = s;
 }
 
+// group: windows per block (kDense: a multiple of kCell); smem: the plan's
+// shared-memory bytes.
 template <bool kDense>
 int launch_bwd(const void* qkv, const void* bias, const void* mask,
                const void* dout, void* dqkv, void* dbias_part, void* dbias,
                int n_windows, int N, int C, int num_heads, int mask_windows,
-               int group, float scale_c, float scale, cudaStream_t st) {
-  if (group < 1 || N < 1 || num_heads < 1 || C % num_heads ||
-      (C / num_heads) % 8)
+               int group, int smem, float scale_c, float scale,
+               cudaStream_t st) {
+  if (n_windows < 1 || group < 1 || N < 1 || N > kRows || num_heads < 1 ||
+      C != num_heads * kHd || (kDense && group % kCell) ||
+      (mask && (mask_windows < 1 || n_windows % mask_windows ||
+                (reinterpret_cast<uintptr_t>(mask) & 15))))
     return (int)cudaErrorInvalidValue;
-  const int hd = C / num_heads;
-  const int n_groups = (n_windows + group - 1) / group;
   const int tiles =
-      (kDense && mask) ? (mask_windows < kCell ? mask_windows : kCell) : 0;
-  const size_t smem = sizeof(float) * (5 * (size_t)N * (hd + 1) +
-                                       2 * (size_t)N * (N + 1) +
-                                       (2 + (size_t)tiles) * N * N);
+      !mask ? 0 : (kDense ? (mask_windows < kCell ? mask_windows : kCell) : 1);
+  const int n_groups = (n_windows + group - 1) / group;
   cudaError_t e = cudaFuncSetAttribute(
       window_attn_bwd_kernel<kDense>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(n_groups, num_heads);
   window_attn_bwd_kernel<kDense><<<grid, kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(bias),
       static_cast<const float*>(mask), static_cast<const __nv_bfloat16*>(dout),
       static_cast<__nv_bfloat16*>(dqkv), static_cast<float*>(dbias_part),
-      n_windows, group, N, C, hd, mask_windows > 0 ? mask_windows : 1,
-      scale_c, scale);
+      n_windows, group, N, C, mask ? mask_windows : 1, tiles, scale_c, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int len = num_heads * N * N;
@@ -265,27 +470,25 @@ extern "C" int mtlora_window_attn_bwd(const void* qkv, const void* bias,
                                       void* dqkv, void* dbias_part,
                                       void* dbias, int n_windows, int N,
                                       int C, int num_heads, int mask_windows,
-                                      int group, float scale_c, float scale,
-                                      void* stream) {
+                                      int group, int smem, float scale_c,
+                                      float scale, void* stream) {
   return launch_bwd<false>(qkv, bias, mask, dout, dqkv, dbias_part, dbias,
                            n_windows, N, C, num_heads, mask_windows, group,
-                           scale_c, scale, (cudaStream_t)stream);
+                           smem, scale_c, scale, (cudaStream_t)stream);
 }
 
-// Kernel 1c's backward: groups of `cells` whole cells; n_windows a
-// multiple of kCell, and the mask period tiling the cells, as in the
-// forward.
+// Kernel 1c's backward: groups of whole cells; n_windows a multiple of
+// kCell, and the mask period tiling the cells, as in the forward.
 extern "C" int mtlora_window_attn_dense_bwd(
     const void* qkv, const void* bias, const void* mask, const void* dout,
     void* dqkv, void* dbias_part, void* dbias, int n_windows, int N, int C,
-    int num_heads, int mask_windows, int cells, float scale_c, float scale,
-    void* stream) {
-  if (n_windows % kCell || cells < 1 ||
+    int num_heads, int mask_windows, int group, int smem, float scale_c,
+    float scale, void* stream) {
+  if (n_windows % kCell ||
       (mask && (mask_windows < 1 ||
                 (mask_windows % kCell && kCell % mask_windows))))
     return (int)cudaErrorInvalidValue;
   return launch_bwd<true>(qkv, bias, mask, dout, dqkv, dbias_part, dbias,
-                          n_windows, N, C, num_heads, mask_windows,
-                          cells * kCell, scale_c, scale,
-                          (cudaStream_t)stream);
+                          n_windows, N, C, num_heads, mask_windows, group,
+                          smem, scale_c, scale, (cudaStream_t)stream);
 }

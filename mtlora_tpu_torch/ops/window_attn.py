@@ -22,6 +22,8 @@ their function per 49-token window, not on the TPU's pack-2 pairs.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from mtlora_tpu_torch.ops import _build
@@ -31,10 +33,15 @@ from mtlora_tpu_torch.ops.attention import window_attention as plain
 MAX_N = 64
 # windows per dense cell: four pack-2 pairs (``_DENSE_CHUNKS``)
 DENSE_CELL = 8
-# windows per block of the backward kernel: about 1024 blocks in all, so
-# the [n_groups, nH, N, N] dbias partials stay near 10 MB at batch 32
-BWD_BLOCKS = 1024
-MAX_GROUP = 64
+# the backward kernel (``csrc/window_attn_bwd.cu``, N padded to MAX_N
+# rows): head dim, blocks an SM (its ``__launch_bounds__``), the fp32 row
+# stride of the staged bias; shared memory of one SM and of one block on
+# the H100 (1 KB of an SM is reserved for each block)
+BWD_HEAD_DIM = 32
+BWD_BLOCKS_PER_SM = 3
+BWD_BIAS_LD = 72
+SM_SMEM = 233_472
+SMEM_LIMIT = 232_448
 # the probe modes -> the CUDA source's Mode ids: attn_probe's _kern modes
 # "full" (kernel 1), "nosmax", "nodots", then attn_variants'
 # kern_dots_only and kern_softmax_only
@@ -155,6 +162,57 @@ def dense_applies(dtype: torch.dtype, N: int, nw: int, batch: int,
     return nw2 % 4 == 0 or 4 % nw2 == 0
 
 
+class BwdPlan(NamedTuple):
+    """Launch plan of the backward kernel: windows per block (kernel 1c:
+    whole cells), window groups, blocks (groups x heads), mask tiles staged
+    per block, shared-memory bytes, resident blocks an SM, and the shape of
+    the fp32 dbias partials (one per group and head)."""
+    group: int
+    n_groups: int
+    blocks: int
+    tiles: int
+    smem: int
+    per_sm: int
+    part: tuple
+
+
+def bwd_plan(n_windows: int, N: int, num_heads: int, mask_windows: int,
+             dense: bool, sms: int) -> BwdPlan:
+    """The backward's plan for ``n_windows`` windows of N tokens and
+    ``num_heads`` heads (a mask of ``mask_windows`` tiles, 0 for none) on a
+    card of ``sms`` SMs. One wave: the resident blocks (``per_sm`` an SM,
+    as many as shared memory and the kernel's register cap allow) are
+    shared among the heads, and each head's windows are cut into that many
+    groups of consecutive windows; a block walks its group one window after
+    another, the next window's tiles loading while it computes this one.
+    Kernel 1c (``dense``) rounds a group up to whole 8-window cells and
+    stages a cell's mask tiles (``min(8, nW)``) at once; kernel 1b stages
+    one tile per window."""
+    if not (0 < N <= MAX_N and n_windows > 0 and num_heads > 0):
+        raise ValueError(f"window attention backward kernel: {n_windows} "
+                         f"windows of N={N} (at most {MAX_N}), "
+                         f"{num_heads} heads")
+    tiles = (0 if not mask_windows
+             else min(DENSE_CELL, mask_windows) if dense else 1)
+    # two windows' q, k, v and dO tiles (MAX_N x 32 bf16 each), P and dS
+    # (MAX_N x MAX_N bf16 each; the staged output rows reuse them), the
+    # bias (N rows of BWD_BIAS_LD fp32), and the mask tiles, each copied
+    # from the 16-byte chunk that holds its first element
+    smem = (2 * 4 * MAX_N * BWD_HEAD_DIM * 2 + 2 * MAX_N * MAX_N * 2
+            + N * BWD_BIAS_LD * 4 + tiles * 16 * ((N * N + 6) // 4))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"window attention backward kernel: {smem} bytes "
+                         f"of shared memory exceed {SMEM_LIMIT}")
+    per_sm = min(BWD_BLOCKS_PER_SM, SM_SMEM // (smem + 1024))
+    slots = max(1, sms * per_sm // num_heads)
+    group = -(-n_windows // slots)
+    if dense:
+        group = -(-group // DENSE_CELL) * DENSE_CELL
+    n_groups = -(-n_windows // group)
+    return BwdPlan(group, n_groups, n_groups * num_heads, tiles, smem,
+                   per_sm, (n_groups, num_heads, N, N))
+
+
 def _check(qkv, num_heads, rel_bias, mask, what, dense=False):
     if qkv.device.type != "cuda":
         raise ValueError(f"window attention {what}: no kernel for "
@@ -201,6 +259,43 @@ def _check_dout(qkv, dout):
                          f"{dout.dtype} {tuple(dout.shape)}")
 
 
+def _launch_bwd(qkv, num_heads, rel_bias, mask, scale, dout, dense):
+    """Kernel 1b (``dense``: 1c's backward) under :func:`bwd_plan`. Its
+    operands: kernel 1's, a head dim of 32 (every Swin config of the repo:
+    96 / 3 heads, 128 / 4; the kernel's tiles are specialised to it), dout
+    of the forward output's shape, and the mask 16-byte aligned (its tiles
+    are copied in 16-byte chunks)."""
+    hd = qkv.shape[2] // 3 // num_heads
+    if hd != BWD_HEAD_DIM:
+        raise ValueError(f"window attention backward kernel: head dim {hd}; "
+                         f"the kernel's tiles take {BWD_HEAD_DIM} only")
+    _check(qkv, num_heads, rel_bias, mask, "backward", dense)
+    if mask is not None and mask.data_ptr() % 16:
+        raise ValueError("window attention backward kernel: the mask must "
+                         "start on a 16-byte boundary")
+    _check_dout(qkv, dout)
+    Bw, N, C3 = qkv.shape
+    n_mask = mask.shape[0] if mask is not None else 0
+    plan = bwd_plan(Bw, N, num_heads, n_mask, dense,
+                    torch.cuda.get_device_properties(
+                        qkv.device).multi_processor_count)
+    dqkv = torch.empty_like(qkv)
+    part = torch.empty(plan.part, dtype=torch.float32, device=qkv.device)
+    dbias = torch.empty((num_heads, N, N), dtype=torch.float32,
+                        device=qkv.device)
+    name = ("mtlora_window_attn_dense_bwd" if dense
+            else "mtlora_window_attn_bwd")
+    err = getattr(_build.library(), name)(
+        qkv.data_ptr(), rel_bias.data_ptr(),
+        mask.data_ptr() if mask is not None else None, dout.data_ptr(),
+        dqkv.data_ptr(), part.data_ptr(), dbias.data_ptr(),
+        Bw, N, C3 // 3, num_heads, n_mask, plan.group, plan.smem,
+        dtype_const(scale, qkv.dtype), float(scale),
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(err, name)
+    return dqkv, dbias
+
+
 def _launch_fwd(qkv, num_heads, rel_bias, mask, scale, mode, what):
     """Kernel 1's forward source in ``mode`` of :data:`PROBE_MODES`
     (``full``: kernel 1)."""
@@ -239,27 +334,9 @@ def window_attention_bwd(qkv: torch.Tensor, num_heads: int,
     if qkv.device.type == "cpu":
         return window_attention_bwd_plain(qkv, num_heads, rel_bias, mask,
                                           scale, dout)
-    _check(qkv, num_heads, rel_bias, mask, "backward")
-    Bw, N, C3 = qkv.shape
-    _check_dout(qkv, dout)
-    group = max(1, min(MAX_GROUP, -(-Bw * num_heads // BWD_BLOCKS)))
-    n_groups = -(-Bw // group)
-    lib = _build.library()
-    dqkv = torch.empty_like(qkv)
-    part = torch.empty((n_groups, num_heads, N, N), dtype=torch.float32,
-                       device=qkv.device)
-    dbias = torch.empty((num_heads, N, N), dtype=torch.float32,
-                        device=qkv.device)
-    err = lib.mtlora_window_attn_bwd(
-        qkv.data_ptr(), rel_bias.data_ptr(),
-        mask.data_ptr() if mask is not None else None, dout.data_ptr(),
-        dqkv.data_ptr(), part.data_ptr(), dbias.data_ptr(),
-        Bw, N, C3 // 3, num_heads, mask.shape[0] if mask is not None else 0,
-        group, dtype_const(scale, qkv.dtype), float(scale),
-        torch.cuda.current_stream(qkv.device).cuda_stream)
-    _build.check(err, "mtlora_window_attn_bwd")
+    out = _launch_bwd(qkv, num_heads, rel_bias, mask, scale, dout, False)
     window_attention_bwd.launches += 1
-    return dqkv, dbias
+    return out
 
 
 def window_attention_dense_fwd(qkv: torch.Tensor, num_heads: int,
@@ -296,27 +373,9 @@ def window_attention_dense_bwd(qkv: torch.Tensor, num_heads: int,
     if qkv.device.type == "cpu":
         return window_attention_bwd_plain(qkv, num_heads, rel_bias, mask,
                                           scale, dout)
-    _check(qkv, num_heads, rel_bias, mask, "backward", dense=True)
-    Bw, N, C3 = qkv.shape
-    _check_dout(qkv, dout)
-    group = max(1, min(MAX_GROUP, -(-Bw * num_heads // BWD_BLOCKS)))
-    cells = -(-group // DENSE_CELL)
-    n_groups = -(-Bw // (cells * DENSE_CELL))
-    dqkv = torch.empty_like(qkv)
-    part = torch.empty((n_groups, num_heads, N, N), dtype=torch.float32,
-                       device=qkv.device)
-    dbias = torch.empty((num_heads, N, N), dtype=torch.float32,
-                        device=qkv.device)
-    err = _build.library().mtlora_window_attn_dense_bwd(
-        qkv.data_ptr(), rel_bias.data_ptr(),
-        mask.data_ptr() if mask is not None else None, dout.data_ptr(),
-        dqkv.data_ptr(), part.data_ptr(), dbias.data_ptr(),
-        Bw, N, C3 // 3, num_heads, mask.shape[0] if mask is not None else 0,
-        cells, dtype_const(scale, qkv.dtype), float(scale),
-        torch.cuda.current_stream(qkv.device).cuda_stream)
-    _build.check(err, "mtlora_window_attn_dense_bwd")
+    out = _launch_bwd(qkv, num_heads, rel_bias, mask, scale, dout, True)
     window_attention_dense_bwd.launches += 1
-    return dqkv, dbias
+    return out
 
 
 def window_attention_probe(qkv: torch.Tensor, num_heads: int,

@@ -21,10 +21,12 @@ element, fp32 sums at relative RMS <= 2^-7, as ``chip_smoke.py``; a
 stage that misses them is reported and not timed, and the run fails),
 times it per stage (CUDA events, the median of 3 rounds of 10 launches), and
 prints one JSON line: the ms per stage, their sum per training step
-(stage 2 has five no-task blocks), the registers and spills that ptxas
-reported for the row kernel's instances, and the card. With ``--checks``
-it runs those ``check_*`` functions of its tree's ``chip_smoke.py``
-instead (the phase 3/3b rows of other kernels) and prints their sums.
+(stage 2 has five no-task blocks) and the card; each tree's build prints
+the registers and spills that ptxas reported for the row kernel's
+instances and for the attention backward's (kernels 1b and 1c). With
+``--checks`` it runs those ``check_*`` functions of its tree's
+``chip_smoke.py`` instead (the phase 3/3b rows of other kernels) and
+prints their sums.
 
 This file imports only torch and the standard library at the top: a
 process of another tree imports that tree's package, never this one's.
@@ -65,6 +67,18 @@ VARIANTS = {
          "                  : ncs <= 2 ? launch_rows<64, 2>(a, blocks, smem, "
          "st)\n                  : ncs <= 3 ? launch_rows<64, 3>(a, blocks, "
          "smem, st)\n", "")],
+    # kernel 1b: two blocks an SM (up to 255 registers a thread, 264
+    # blocks in a wave) in place of three
+    "attn-bwd-2-per-sm": [
+        ("ops/csrc/window_attn_bwd.cu", "constexpr int kBlocksPerSm = 3;",
+         "constexpr int kBlocksPerSm = 2;"),
+        ("ops/window_attn.py", "BWD_BLOCKS_PER_SM = 3",
+         "BWD_BLOCKS_PER_SM = 2")],
+    # kernel 1b: four waves of blocks with a quarter of the windows each
+    # in place of one
+    "attn-bwd-4-waves": [
+        ("ops/window_attn.py", "slots = max(1, sms * per_sm // num_heads)",
+         "slots = max(1, 4 * sms * per_sm // num_heads)")],
 }
 
 STAGE_WEIGHTS = (1, 1, 5, 1)   # no-task blocks per stage (depths - 1)
@@ -146,10 +160,13 @@ def _errors(got, want) -> list:
 
 
 def _ptxas(log: str) -> dict:
-    """Registers and spill bytes of every ln_mlp_bwd_rows instance."""
+    """Registers and spill bytes of every instance of kernel 4b's row
+    kernel and of the attention backward (kernels 1b and 1c's)."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Function properties for (\S*ln_mlp_bwd_rows\S*)", line)
+        m = re.search(r"Function properties for "
+                      r"(\S*(?:ln_mlp_bwd_rows|window_attn_bwd_kernel)\S*)",
+                      line)
         if m:
             name = m[1]
             continue

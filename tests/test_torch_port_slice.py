@@ -173,6 +173,26 @@ def test_unported_kernel_flags_raise(flag, ln, extra):
         port_config.from_config(cfg)
 
 
+@pytest.mark.parametrize("opts,item", [
+    (["TPU.USE_PALLAS", "False"], "Queue 1, item 7"),
+    (["MODEL.TYPE", "swinv2"], "Queue 1, item 10"),
+    (["TRAIN.USE_CHECKPOINT", "True"], "Queue 1, item 10"),
+    (["TPU.REMAT", "True"], "Queue 1, item 10"),
+    (["MODEL.MTLORA.FC1_ENABLED", "False"], "Queue 1, item 9"),
+], ids=["TPU.USE_PALLAS", "MODEL.TYPE", "TRAIN.USE_CHECKPOINT", "TPU.REMAT",
+        "TPU.USE_PALLAS_LN-fc1-off"])
+def test_config_keys_the_port_does_not_run_raise(opts, item):
+    """Keys the JAX package acts on and the port does not run raise and
+    name their ROADMAP item: ``TPU.USE_PALLAS`` False (every kernel off
+    and the exact-erf GELU, the fp32 eval clone's switch), a model type
+    the reference does not build, rematerialization by either key, and
+    the LN route with an adapter off (kernel 2's other modes)."""
+    cfg = load_config(CFG, tasks=TASKS, opts=opts)
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md, {item}\\)"):
+        port_config.from_config(cfg)
+
+
 def test_lora_gemm_flag_at_224_equals_preset(monkeypatch):
     """``TPU.USE_PALLAS_LORA_GEMM`` is read, not refused: the YAML at the
     JAX package's default size, 224, with the flag on is the preset with
