@@ -129,6 +129,7 @@ from mtlora_tpu_torch.ops.lora_matmul import (
 )
 from mtlora_tpu_torch.ops.ln_mlp import (
     bwd_plan,
+    fwd_plan,
     ln_mlp_bwd,
     ln_mlp_bwd_plain,
     ln_mlp_fwd,
@@ -778,8 +779,8 @@ RAGGED_ROWS = 392
 def check_ln_mlp(gen) -> dict:
     """Kernel 4 at the no-task blocks' MLPs: per stage x [M, C], hidden 4C,
     rank 64, scales 4, dropout 0.05; weighted by the stage's no-task
-    blocks. Kernel 4b also at the ragged stage-3 rows of phase 8 (checked,
-    not in the tally)."""
+    blocks. Kernels 4 and 4b also at the ragged stage-3 rows of phase 8
+    (checked, not in the tally)."""
     fwd, bwd = Tally(), Tally()
     for s in range(4):
         cfg, _, C, M = stage_dims(s)
@@ -799,9 +800,14 @@ def check_ln_mlp(gen) -> dict:
         w_bytes = 2 * (2 * C * H4 + H4 + C + 2 * r * (C + H4) + 2 * C)
         nbytes = 4 * M * C + w_bytes
         flops = 2.0 * M * (2 * C * H4 + 2 * r * (C + H4))
+        t_b = max(nbytes / PEAK_HBM_BYTES, ops_seconds(flops)) * 1e3
+        plan = fwd_plan(M, C, H4, r)
         print(f"ln_mlp fwd stage {s} x [{M}, {C}] hidden {H4} (x{n}): {text} "
-              f"kernel {t_k:.4f} ms plain {t_p:.4f} ms library {t_l:.4f} ms "
-              f"{bound_text(nbytes, flops)}")
+              f"kernel {t_k:.4f} ms ({flops / t_k / 1e9:.2f} TFLOP/s, "
+              f"{t_b / t_k:.4f} of the bound; {plan.bm}-row blocks, weight "
+              f"slices {plan.slice_bytes / 1e9:.3f} GB, "
+              f"{plan.slice_bytes / t_k / 1e9:.3f} TB/s) plain {t_p:.4f} ms "
+              f"library {t_l:.4f} ms {bound_text(nbytes, flops)}")
         fwd.add(err, t_k, t_p, t_l, nbytes, flops, n)
         got = ln_mlp_bwd(*args, gy)
         want = ln_mlp_bwd_plain(*args, gy)
@@ -832,6 +838,13 @@ def check_ln_mlp(gen) -> dict:
     # its own generator: the later checks draw the same tensors as before
     ragged = torch.Generator(device="cuda").manual_seed(SEED + 1)
     args, gy, _ = ln_mlp_operands(ragged, 3, RAGGED_ROWS)
+    y = ln_mlp_fwd(*args)
+    ref = ln_mlp_plain(*args)
+    torch.cuda.synchronize()
+    _, text = check_outputs(
+        f"ln_mlp fwd ragged x [{RAGGED_ROWS}, {args[0].shape[1]}]", [y], [ref],
+        ["y"], {0})
+    print(f"ln_mlp fwd ragged x [{RAGGED_ROWS}, {args[0].shape[1]}]: {text}")
     got = ln_mlp_bwd(*args, gy)
     want = ln_mlp_bwd_plain(*args, gy)
     torch.cuda.synchronize()

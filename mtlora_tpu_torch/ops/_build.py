@@ -65,8 +65,9 @@ SIGNATURES = {
     # sa, sb, sw, scale, drop threshold, use_drop, inv_keep, stream
     "mtlora_ln_lora_bwd": [_P] * 22 + [_I] * 8 + [_F, _U, _I, _F, _P],
     # x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed, y,
-    # M, C, H4, r, s1, s2, drop threshold, use_drop, inv_keep, stream
-    "mtlora_ln_mlp_fwd": [_P] * 13 + [_I] * 4 + [_F, _F, _U, _I, _F, _P],
+    # M, C, H4, r, bm, smem, s1, s2, drop threshold, use_drop, inv_keep,
+    # stream
+    "mtlora_ln_mlp_fwd": [_P] * 13 + [_I] * 6 + [_F, _F, _U, _I, _F, _P],
     # x, gamma, beta, w1, bias1, a1, bb1, w2, a2, bb2, seed, gy, dx, lnd,
     # mbuf, hbuf, gb, part, dgb, da1, dh, dbb2, M, C, H4, r, bm, keep_w1,
     # smem, sa, sh, s1, s2, drop threshold, use_drop, inv_keep, stream

@@ -7,8 +7,8 @@
 // straight from device memory, or accumulator registers; the B operand is
 // a weight in the [n][k] layout (k contiguous) read from device memory
 // through L1/L2 (the weights are at most 4.7 MB and shared by every
-// block); ln_mlp_bwd.cu streams its weights through shared memory
-// instead. Reductions over rows (weight and LayerNorm-affine gradients)
+// block); ln_mlp.cu (by TMA) and ln_mlp_bwd.cu (by cp.async) stream their
+// weights through shared memory instead. Reductions over rows (weight and LayerNorm-affine gradients)
 // are written as fp32 partials and summed in a fixed order: no fp32
 // atomics. The kernels defined here are static: every source that
 // includes the header compiles its own copy.

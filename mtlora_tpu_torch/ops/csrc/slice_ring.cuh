@@ -1,6 +1,7 @@
 // Weight slices streamed through shared memory and the products on them:
 // the parts that the row kernels of ln_mlp_bwd.cu (kernel 4b) and
-// ln_lora_tail_bwd.cu (kernel 2b, tail mode) share. Both give a block of
+// ln_lora_tail_bwd.cu (kernel 2b, tail mode) share (ln_mlp.cu, kernel 4,
+// takes a_frags and ksteps). Both give a block of
 // kThreads threads BM rows; a warp owns 16 rows and a column span of every
 // [64 x 64] product. (Their LayerNorm backward in registers stays in each
 // kernel: as a function here it took 4b four more registers and 12 more

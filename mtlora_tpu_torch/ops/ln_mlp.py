@@ -9,7 +9,9 @@ backward 4b), for the blocks that carry no task streams:
     g  = gelu(h)                                 (tanh form in bf16)
     y  = gc W2^T + b2 + s2 (drop2(g) A2^T) B2^T
 
-The forward never writes the ``[M, 4C]`` hidden: it walks it in chunks.
+The forward never writes the ``[M, 4C]`` hidden: it walks it in chunks,
+the weights streaming through shared memory; :func:`fwd_plan` sizes its
+launch.
 The backward recomputes ln, h, g and both masks once, in the same chunks,
 and writes two bf16 ``[M, 4C]`` tensors, du1 = bf16(s1 dh) and
 bf16(drop2(g)), from which the weight-gradient products take dB1 and dA2
@@ -156,19 +158,76 @@ def _drop_args(drop):
             dropout.inv_keep(drop) if use else 1.0)
 
 
+# the constants of csrc/ln_mlp.cu that the forward's plan sizes its shared
+# memory by (the kernel traps if the plan's bytes do not hold its layout)
+FWD_CHUNK = 64          # a warp's hidden chunk and the slice width (kS)
+FWD_STAGES = 16         # slots in the TMA ring (kStages)
+FWD_GROUP = 8           # slots a ring barrier (kGroup)
+FWD_WARPS = 8           # warps of a row block (kWarps)
+FWD_WIDTHS = (96, 128, 192)   # y columns of a warp: the kernel's instances
+
+
+class FwdPlan(NamedTuple):
+    """Launch plan of kernel 4: rows per block, warps that share a row
+    group (splitting its y columns), ring depth and slices a barrier,
+    dynamic shared-memory bytes, blocks, and the bytes of weight slices
+    they stream from L2."""
+
+    bm: int
+    wn: int
+    stages: int
+    group: int
+    smem: int
+    blocks: int
+    slice_bytes: int
+
+
+def fwd_plan(M: int, C: int, H4: int, r: int) -> FwdPlan:
+    """Kernel 4's plan for x [M, C], hidden H4, rank r: WN warps share 16
+    rows so that a warp's y tile (16 x C / WN fp32) stays at most 96
+    registers a thread: WN = 1 at C <= 192, 2 at C <= 384, else 4; a block
+    of 8 warps then owns 128 / WN rows, and the last block masks the rows
+    past M. Shared memory: up to 1023 bytes to the ring's 1024-byte
+    alignment, the ring, the bf16(ln) tile, and where WN > 1 the m1 tile
+    and each row group's two g tiles (bf16); mu and inv (fp32); an
+    mbarrier per group of the ring."""
+    _check_dims("LN+MLP forward", C, H4, r)
+    wn = 1 if C <= 192 else 2 if C <= 384 else 4
+    if C % wn or C // wn not in FWD_WIDTHS or H4 % (FWD_CHUNK * wn):
+        raise ValueError(
+            f"LN+MLP forward kernel: needs C / WN in {FWD_WIDTHS} ({C} / "
+            f"{wn}) and 4C % {FWD_CHUNK * wn} == 0 ({H4})")
+    bm = ROW_TILE * FWD_WARPS // wn
+    shared = (bm * (FWD_CHUNK + 8) + 2 * bm * (FWD_CHUNK * wn + 8)
+              if wn > 1 else 0)
+    smem = (1024 + 2 * (FWD_STAGES * FWD_CHUNK ** 2 + bm * (C + 8) + shared)
+            + 4 * 2 * bm + 8 * (FWD_STAGES // FWD_GROUP))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"LN+MLP forward kernel: {smem} bytes of shared "
+                         f"memory at C = {C} exceed {SMEM_LIMIT}")
+    blocks = -(-M // bm)
+    # per block: A1 and B2, per super-chunk of wn x 64 hidden columns B1,
+    # W1, A2 and W2; a slice is 64 x 64 bf16
+    ncs = -(-C // FWD_CHUNK)
+    slices = 2 * ncs + H4 // (FWD_CHUNK * wn) * 2 * wn * (ncs + 1)
+    return FwdPlan(bm, wn, FWD_STAGES, FWD_GROUP, smem, blocks,
+                   blocks * slices * 2 * FWD_CHUNK ** 2)
+
+
 def ln_mlp_fwd(x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed,
                s1: float, s2: float, drop: float):
     """Kernel 4 forward, no autograd: plain for CPU tensors, the kernel for
-    CUDA tensors (bf16, int32 seed)."""
+    CUDA tensors (bf16, int32 seed) at the launch of :func:`fwd_plan`."""
     args = (x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed)
     if x.device.type == "cpu":
         return ln_mlp_plain(*args, s1, s2, drop)
     M, C, H4, r = _shapes(x, w1, a1, "LN+MLP forward")
     _check("LN+MLP forward", x, *_operands(*args, M, C, H4, r))
+    plan = fwd_plan(M, C, H4, r)
     y = torch.empty_like(x)
     err = _build.library().mtlora_ln_mlp_fwd(
-        *(t.data_ptr() for t in args), y.data_ptr(), M, C, H4, r,
-        float(s1), float(s2), *_drop_args(drop), _stream(x))
+        *(t.data_ptr() for t in args), y.data_ptr(), M, C, H4, r, plan.bm,
+        plan.smem, float(s1), float(s2), *_drop_args(drop), _stream(x))
     _build.check(err, "mtlora_ln_mlp_fwd")
     ln_mlp_fwd.launches += 1
     return y

@@ -1,4 +1,5 @@
-"""Kernel 4b on the card against variants of itself and another checkout.
+"""Kernels 4 and 4b on the card against variants of themselves and other
+checkouts.
 
     python -m mtlora_tpu_torch.tools.ln_mlp_bwd_variants
         [--variants NAME,...] [--against DIR ...] [--checks FUNC,...]
@@ -14,16 +15,19 @@ kernel library, in the order A B .. B A (``--passes``), so that a drift
 of the card shows as a difference between passes. The libraries build
 first, all at once.
 
-Each process checks kernel 4b (``ops/ln_mlp.py:ln_mlp_bwd``) against
+Each process checks kernel 4 (``ops/ln_mlp.py:ln_mlp_fwd``) against
+``ln_mlp_plain`` and kernel 4b (``ln_mlp_bwd``) against
 ``ln_mlp_bwd_plain`` at the four stage shapes of the batch-32 step and at
-the ragged 392 rows of stage 3 (bf16 dx within 2^-6 of the largest
+the ragged 392 rows of stage 3 (bf16 y and dx within 2^-6 of the largest
 element, fp32 sums at relative RMS <= 2^-7, as ``chip_smoke.py``; a
 stage that misses them is reported and not timed, and the run fails),
-times it per stage (CUDA events, the median of 3 rounds of 10 launches), and
-prints one JSON line: the ms per stage, their sum per training step
-(stage 2 has five no-task blocks) and the card; each tree's build prints
-the registers and spills that ptxas reported for the row kernel's
-instances and for the attention backward's (kernels 1b and 1c). With
+times both per stage (CUDA events, the median of 3 rounds of 10
+launches), and prints one JSON line: the ms per stage, their sums per
+pass (stage 2 has five no-task blocks) and the card; each tree's build
+prints the registers and spills that ptxas reported for the instances of
+kernel 4, of 4b's row kernel and of the attention backward (kernels 1b
+and 1c). The edits of ``VARIANTS`` reach either kernel's source and
+plan. With
 ``--checks`` it runs those ``check_*`` functions of its tree's
 ``chip_smoke.py`` instead (the phase 3/3b rows of other kernels) and
 prints their sums.
@@ -49,6 +53,30 @@ VARIANT_DIR = ROOT / "build" / "variants"
 # name -> edits (file under mtlora_tpu_torch/, text, replacement); each
 # text occurs exactly once in this checkout
 VARIANTS = {
+    # kernel 4: a ring of 8 slots in groups of 4 (half the shared memory,
+    # half the MMAs between barriers)
+    "fwd-ring-8": [("ops/csrc/ln_mlp.cu", "constexpr int kStages = 16;",
+                    "constexpr int kStages = 8;"),
+                   ("ops/csrc/ln_mlp.cu", "constexpr int kGroup = 8;",
+                    "constexpr int kGroup = 4;"),
+                   ("ops/ln_mlp.py", "FWD_STAGES = 16", "FWD_STAGES = 8"),
+                   ("ops/ln_mlp.py", "FWD_GROUP = 8 ", "FWD_GROUP = 4 ")],
+    # kernel 4: blocks of 4 warps (half the rows) with 8 slots in groups of
+    # 4, two blocks an SM in place of one
+    "fwd-two-blocks-an-sm": [
+        ("ops/csrc/ln_mlp.cu", "constexpr int kWarps = 8;",
+         "constexpr int kWarps = 4;"),
+        ("ops/csrc/ln_mlp.cu", "constexpr int kStages = 16;",
+         "constexpr int kStages = 8;"),
+        ("ops/csrc/ln_mlp.cu", "constexpr int kGroup = 8;",
+         "constexpr int kGroup = 4;"),
+        ("ops/ln_mlp.py", "FWD_WARPS = 8 ", "FWD_WARPS = 4 "),
+        ("ops/ln_mlp.py", "FWD_STAGES = 16", "FWD_STAGES = 8"),
+        ("ops/ln_mlp.py", "FWD_GROUP = 8 ", "FWD_GROUP = 4 ")],
+    # kernel 4: the same 16 slots in groups of 4 (three groups in flight)
+    "fwd-group-4": [("ops/csrc/ln_mlp.cu", "constexpr int kGroup = 8;",
+                     "constexpr int kGroup = 4;"),
+                    ("ops/ln_mlp.py", "FWD_GROUP = 8 ", "FWD_GROUP = 4 ")],
     # the dln products stream W1 again instead of keeping the h pass's
     # slices
     "no-keep-w1": [("ops/ln_mlp.py", "keep_w1 = 3 <= ncs <= 6",
@@ -84,6 +112,7 @@ VARIANTS = {
 STAGE_WEIGHTS = (1, 1, 5, 1)   # no-task blocks per stage (depths - 1)
 RAGGED_ROWS = 392
 NAMES = ("dx", "dgamma", "dbeta", "dA1", "dB1", "dA2", "dB2")
+FWD_NAMES = ("y",)
 
 
 def apply_edits(pkg: Path, edits):
@@ -143,10 +172,10 @@ def _operands(gen, s: int, M=None):
     return args, gy
 
 
-def _errors(got, want) -> list:
+def _errors(got, want, names=NAMES) -> list:
     """The outputs that miss their bound, with their largest errors."""
     bad = []
-    for i, (name, a, b) in enumerate(zip(NAMES, got, want)):
+    for i, (name, a, b) in enumerate(zip(names, got, want)):
         d = (a.float() - b.float())
         e, top = d.abs().max().item(), b.float().abs().max().item()
         if i == 0:
@@ -160,13 +189,12 @@ def _errors(got, want) -> list:
 
 
 def _ptxas(log: str) -> dict:
-    """Registers and spill bytes of every instance of kernel 4b's row
-    kernel and of the attention backward (kernels 1b and 1c's)."""
+    """Registers and spill bytes of every instance of kernel 4, of kernel
+    4b's row kernel and of the attention backward (kernels 1b and 1c's)."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Function properties for "
-                      r"(\S*(?:ln_mlp_bwd_rows|window_attn_bwd_kernel)\S*)",
-                      line)
+        m = re.search(r"Function properties for (\S*(?:ln_mlp_fwd_kernel|"
+                      r"ln_mlp_bwd_rows|window_attn_bwd_kernel)\S*)", line)
         if m:
             name = m[1]
             continue
@@ -205,20 +233,27 @@ def worker(tree: str, checks: str):
         print(json.dumps(rec), flush=True)
         return
     gen = torch.Generator(device="cuda").manual_seed(0)
-    ms, bad = [], {}
+    ms, fwd_ms, bad = [], [], {}
     for s in (0, 1, 2, 3, "ragged"):
         args, gy = (_operands(gen, 3, RAGGED_ROWS) if s == "ragged"
                     else _operands(gen, s))
-        errors = _errors(ln_mlp.ln_mlp_bwd(*args, gy),
-                         ln_mlp.ln_mlp_bwd_plain(*args, gy))
+        errors = _errors([ln_mlp.ln_mlp_fwd(*args)],
+                         [ln_mlp.ln_mlp_plain(*args)], FWD_NAMES)
+        errors += _errors(ln_mlp.ln_mlp_bwd(*args, gy),
+                          ln_mlp.ln_mlp_bwd_plain(*args, gy))
         if errors:
             bad[s] = errors
         if s != "ragged":
             # a wrong kernel is not timed
+            fwd_ms.append(None if errors else median_ms(
+                lambda: ln_mlp.ln_mlp_fwd(*args), reps=10))
             ms.append(None if errors else median_ms(
                 lambda: ln_mlp.ln_mlp_bwd(*args, gy), reps=10))
         del args, gy
     rec["failed"] = bad
+    rec["fwd_stage_ms"] = fwd_ms
+    rec["fwd_pass_ms"] = (None if bad else
+                          sum(w * t for w, t in zip(STAGE_WEIGHTS, fwd_ms)))
     rec["stage_ms"] = ms
     rec["step_ms"] = (None if bad else
                       sum(w * t for w, t in zip(STAGE_WEIGHTS, ms)))
@@ -293,15 +328,18 @@ def main():
                                   for k in recs[0]["checks"][fn]}
                              for fn in recs[0]["checks"]}
         else:
-            summary[name] = {"stage_ms": [r["stage_ms"] for r in recs],
-                             "step_ms": [r["step_ms"] for r in recs],
-                             "failed": recs[0]["failed"]}
+            summary[name] = {
+                "fwd_stage_ms": [r["fwd_stage_ms"] for r in recs],
+                "fwd_pass_ms": [r["fwd_pass_ms"] for r in recs],
+                "stage_ms": [r["stage_ms"] for r in recs],
+                "step_ms": [r["step_ms"] for r in recs],
+                "failed": recs[0]["failed"]}
     print(json.dumps({"summary": summary,
                       "card": results["this"][0]["card"]}))
     if not a.checks and any(r["failed"] for recs in results.values()
                             for r in recs):
-        raise SystemExit("ln_mlp_bwd_variants: a tree's kernel 4b missed "
-                         "its bounds")
+        raise SystemExit("ln_mlp_bwd_variants: a tree's kernel 4 or 4b "
+                         "missed its bounds")
 
 
 if __name__ == "__main__":
