@@ -4,7 +4,7 @@
 
 Phases, each printing a line; any failure raises and exits non-zero:
   1. device: a CUDA card must be present; its name and power limit;
-  2. build: the fifteen CUDA sources from ops/csrc (one nvcc each, in
+  2. build: the sixteen CUDA sources from ops/csrc (one nvcc each, in
      parallel), with the build time;
   3. forward kernels vs plain, on the card, against their plain PyTorch
      versions on the same tensors, at the batch-32 training step's shapes:
@@ -30,9 +30,11 @@ Phases, each printing a line; any failure raises and exits non-zero:
      kernel 7b also with its achieved TFLOP/s and share of the bound per
      task width, its row pass's dhc and z against their plain version,
      and at the ragged 784 rows of one 224-px image for n = 21 and 1;
-     kernel 2b's tail mode also with its achieved TFLOP/s, share of the
-     bound and weight-slice rate per stage, its row kernel's stored rows
-     (lnd, m, dm, du) against their plain version, and at the ragged 392
+     kernel 2b (both modes) also with its achieved TFLOP/s, share of the
+     bound and weight-slice rate per stage, and its row kernel's stored
+     rows (lnd, m, dm; the tail's du) against their plain version; y-only
+     also at the ragged 392 rows of stage 3, rank 16, Swin-B's
+     [6272, 1024] -> 3072 and scale 3, the tail mode at the ragged 392
      rows of stage 3;
   3c. the GELU form: kernels 2-tail, 4, 4b, 5 and 5b at stage 1 against
      their plain versions, which take the tanh form in bf16 as the JAX
@@ -98,7 +100,9 @@ from mtlora_tpu_torch.ops.adapter_mlp import (
 )
 from mtlora_tpu_torch.ops.ln_lora import (
     ln_lora_bwd,
+    ln_lora_bwd_kernel,
     ln_lora_bwd_plain,
+    ln_lora_bwd_rows_plain,
     ln_lora_fwd,
     ln_lora_plain,
     ln_lora_tail_bwd,
@@ -111,6 +115,8 @@ from mtlora_tpu_torch.ops.ln_lora import (
     merge_ln_bwd_plain,
     merge_ln_fwd,
     merge_ln_plain,
+    qkv_bwd_plan,
+    qkv_bwd_scratch,
     tail_bwd_plan,
     tail_bwd_scratch,
 )
@@ -599,23 +605,72 @@ def ln_lora_library(x, gamma, beta, wt, bias, at, bt, scale):
     return torch.addmm(bias, ln, wt.t()) + scale * ((ln @ at.t()) @ bt.t())
 
 
+def qkv_operands(gen, M, C, r, sc, p):
+    """Kernel 2's operands at a qkv site: x [M, C] -> 3C, rank r, scale sc,
+    dropout p, and gy: (args, gy)."""
+    O = 3 * C
+    x = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
+    gamma, beta = _ln_params(gen, C)
+    wt = _uniform(gen, (O, C), C ** -0.5)
+    bias = _uniform(gen, (O,), 0.02)
+    at = _uniform(gen, (r, C), C ** -0.5)
+    bt = _uniform(gen, (O, r), r ** -0.5)
+    seed = _seed(gen)
+    gy = torch.randn(M, O, generator=gen, device="cuda").to(torch.bfloat16)
+    return (x, gamma, beta, wt, bias, at, bt, seed, sc, p), gy
+
+
+def check_qkv_rows(label, args, gy):
+    """Kernel 2b (y-only) against its plain versions: the whole backward
+    against ``ln_lora_bwd_plain`` and the row kernel's stored rows (lnd,
+    m, dm; bf16, within 2^-6 of the largest element) against
+    ``ln_lora_bwd_rows_plain``. Returns (worst error of the backward,
+    text)."""
+    x, wt, at = args[0], args[3], args[5]
+    plan = qkv_bwd_plan(x.shape[0], x.shape[1], wt.shape[0], at.shape[0],
+                        ln_lora._sms(x.device))
+    sc = qkv_bwd_scratch(plan, x.device)
+    got = ln_lora_bwd_kernel(*args, gy, scratch=sc)
+    want = ln_lora_bwd_plain(*args, gy)
+    torch.cuda.synchronize()
+    err, text = check_outputs(label, got, want,
+                              ("dx", "dgamma", "dbeta", "dA", "dB"), {0})
+    del got, want
+    rows = (sc["lnd"], sc["mbuf"][0], sc["mbuf"][1])
+    want = ln_lora_bwd_rows_plain(*args, gy)[3:]
+    _, rtext = check_outputs(f"{label} rows", rows, want, ("lnd", "m", "dm"),
+                             {0, 1, 2})
+    return err, f"{text}; rows {rtext}"
+
+
+# phase 8's batch-2 step at stage 3 (and path B's batch 8 at 224): 392 rows,
+# not a multiple of kernel 4b's 32-row blocks
+RAGGED_ROWS = 392
+
+
+# kernel 2b's coverage (checked, not in the tally): (label, M, C, r, scale)
+# -- the ragged 392 rows of stage 3 (the batch-2 step), rank 16 (the r16
+# YAMLs) at stage 0's width, Swin-B's last stage (mtlora_base_448's qkv,
+# [6272, 1024] -> 3072), and a scale that is not a power of two
+QKV_COVERAGE = (("ragged", RAGGED_ROWS, 768, 64, 4.0),
+                ("r16", 50176, 96, 16, 4.0),
+                ("swin-b stage 3", 6272, 1024, 64, 4.0),
+                ("scale 3", 6272, 768, 64, 3.0))
+
+
 def check_ln_lora(gen) -> dict:
     """Kernel 2 at the qkv sites: per stage x [M, C] -> [M, 3C], rank 64,
-    scale 4, dropout 0.05; weighted by the stage's blocks."""
+    scale 4, dropout 0.05; weighted by the stage's blocks. The backward
+    (2b) also with its stored rows, its achieved TFLOP/s, share of the
+    bound and weight-slice rate per stage, and at ``QKV_COVERAGE``."""
     fwd, bwd = Tally(), Tally()
     for s in range(4):
         cfg, _, C, M = stage_dims(s)
         st = cfg.stages[s]
-        O, r, sc, p = 3 * C, st.r_shared, st.shared_scale, st.dropout
-        x = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
-        gamma, beta = _ln_params(gen, C)
-        wt = _uniform(gen, (O, C), C ** -0.5)
-        bias = _uniform(gen, (O,), 0.02)
-        at = _uniform(gen, (r, C), C ** -0.5)
-        bt = _uniform(gen, (O, r), r ** -0.5)
-        seed = _seed(gen)
-        gy = torch.randn(M, O, generator=gen, device="cuda").to(torch.bfloat16)
-        args = (x, gamma, beta, wt, bias, at, bt, seed, sc, p)
+        args, gy = qkv_operands(gen, M, C, st.r_shared, st.shared_scale,
+                                st.dropout)
+        x, gamma, beta, wt, bias, at, bt, seed, sc, p = args
+        O, r = wt.shape[0], at.shape[0]
         lib_args = (x, gamma, beta, wt, bias, at, bt, sc)
         n = cfg.depths[s]
         y = ln_lora_fwd(*args)
@@ -633,11 +688,8 @@ def check_ln_lora(gen) -> dict:
               f"kernel {t_k:.4f} ms plain {t_p:.4f} ms library {t_l:.4f} ms "
               f"{bound_text(nbytes, flops)}")
         fwd.add(err, t_k, t_p, t_l, nbytes, flops, n)
-        got = ln_lora_bwd(*args, gy)
-        want = ln_lora_bwd_plain(*args, gy)
-        torch.cuda.synchronize()
-        err, text = check_outputs(f"ln_lora bwd stage {s}", got, want,
-                                  ("dx", "dgamma", "dbeta", "dA", "dB"), {0})
+        del y, ref
+        err, text = check_qkv_rows(f"ln_lora bwd stage {s}", args, gy)
         leaves = [t.detach().requires_grad_(True) for t in (x, gamma, beta,
                                                             at, bt)]
         yl = ln_lora_library(leaves[0], leaves[1], leaves[2], wt, bias,
@@ -648,11 +700,23 @@ def check_ln_lora(gen) -> dict:
                                                     retain_graph=True))
         nbytes = 2 * M * (2 * C + O) + 2 * w_bytes
         flops = 2.0 * M * (O * C + 3 * C * r + 2 * O * r)
-        print(f"ln_lora bwd stage {s}: {text} kernel {t_k:.4f} ms plain "
-              f"{t_p:.4f} ms library backward {t_l:.4f} ms "
-              f"{bound_text(nbytes, flops)}")
+        t_b = max(nbytes / PEAK_HBM_BYTES, ops_seconds(flops)) * 1e3
+        plan = qkv_bwd_plan(M, C, O, r, ln_lora._sms(x.device))
+        print(f"ln_lora bwd stage {s}: {text} kernel {t_k:.4f} ms "
+              f"({flops / t_k / 1e9:.2f} TFLOP/s, {t_b / t_k:.4f} of the "
+              f"bound; {plan.bm}-row blocks, weight slices "
+              f"{plan.slice_bytes / 1e9:.3f} GB, "
+              f"{plan.slice_bytes / t_k / 1e9:.3f} TB/s) plain {t_p:.4f} ms "
+              f"library backward {t_l:.4f} ms {bound_text(nbytes, flops)}")
         bwd.add(err, t_k, t_p, t_l, nbytes, flops, n)
-        del x, gy, y, ref, got, want, yl, leaves
+        del x, gy, yl, leaves, args
+    # its own generator: the later checks draw the same tensors as before
+    cover = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    for label, M, C, r, sc in QKV_COVERAGE:
+        args, gy = qkv_operands(cover, M, C, r, sc, 0.05)
+        label = f"ln_lora bwd {label} x [{M}, {C}] -> {3 * C}, r {r}, s {sc}"
+        print(f"{label}: {check_qkv_rows(label, args, gy)[1]}")
+        del args, gy
     return {"fwd": fwd, "bwd": bwd}
 
 
@@ -769,11 +833,6 @@ def ln_mlp_bwd_cost(M, C, r):
     w_bytes = 2 * (2 * C * H4 + H4 + C + 2 * r * (C + H4) + 2 * C)
     return (6 * M * C + 2 * w_bytes,
             2.0 * M * (3 * C * H4 + 6 * r * H4 + 5 * r * C))
-
-
-# phase 8's batch-2 step at stage 3 (and path B's batch 8 at 224): 392 rows,
-# not a multiple of kernel 4b's 32-row blocks
-RAGGED_ROWS = 392
 
 
 def check_ln_mlp(gen) -> dict:
@@ -1983,7 +2042,7 @@ def main():
         entry("hrnet_head_mlp_bwd", "head_mlp_bwd.cu", "pallas_head.py:111",
               head["bwd"]),
         entry("ln_lora", "ln_lora.cu", "pallas_ln_lora.py:74", ln2["fwd"]),
-        entry("ln_lora_bwd", "ln_lora_bwd.cu", "pallas_ln_lora.py:124",
+        entry("ln_lora_bwd", "ln_lora_qkv_bwd.cu", "pallas_ln_lora.py:124",
               ln2["bwd"]),
         entry("patch_merge", "ln_lora.cu", "pallas_ln_lora.py:465",
               merge["fwd"]),

@@ -60,10 +60,13 @@ SIGNATURES = {
     # gb, part, xfer, dgb, dat, dbt, M, C, O, r, act, bm, split, smem, sa,
     # sb, scale, drop threshold, use_drop, inv_keep, stream
     "mtlora_ln_lora_tail_bwd": [_P] * 21 + [_I] * 10 + [_F, _U, _I, _F, _P],
-    # x, gamma, beta, w_ko, at, a_kr, b_ro, seed, gy, dx, stats, work,
-    # lbuf, mbuf, gb, pa, pb, pw, dgb, dat, dbt, dwt, M, K, O, r, merge_wh,
-    # sa, sb, sw, scale, drop threshold, use_drop, inv_keep, stream
-    "mtlora_ln_lora_bwd": [_P] * 22 + [_I] * 8 + [_F, _U, _I, _F, _P],
+    # x, gamma, beta, wt, at, bt, seed, gy, dx, lnd, mbuf, gb, part, xfer,
+    # dgb, dat, dbt, M, C, O, r, bm, split, stages, group, smem, sa, sb,
+    # scale, drop threshold, use_drop, inv_keep, stream
+    "mtlora_ln_lora_qkv_bwd": [_P] * 17 + [_I] * 11 + [_F, _U, _I, _F, _P],
+    # x, gamma, beta, w_ko, gy, dx, stats, work, lbuf, gb, pw, dgb, dwt, M,
+    # K, O, merge_wh, sw, stream
+    "mtlora_ln_lora_bwd": [_P] * 13 + [_I] * 5 + [_P],
     # x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed, y,
     # M, C, H4, r, bm, smem, s1, s2, drop threshold, use_drop, inv_keep,
     # stream

@@ -14,10 +14,14 @@ kernels:
     ``[.., H, W, C]`` stream, ``LN(4C)`` and the ``4C -> 2C`` reduction,
     no bias and no LoRA, with a gradient for the reduction weight.
 
-One forward source (``csrc/ln_lora.cu``) and one backward source
-(``csrc/ln_lora_bwd.cu``) serve both: the row loader reads rows plainly
-or gathers them 2x2 (concat order ``k = di + 2 dj``, ``merge_ln_reference``
-:663-679), and the LoRA epilogue is on for kernel 2 and off for kernel 3.
+One forward source (``csrc/ln_lora.cu``) serves both: the row loader
+reads rows plainly or gathers them 2x2 (concat order ``k = di + 2 dj``,
+``merge_ln_reference`` :663-679), and the LoRA epilogue is on for kernel 2
+and off for kernel 3. Kernel 3b is ``csrc/ln_lora_bwd.cu``. Kernel 2b is a
+fused row kernel then the weight passes of dA and dB in each mode:
+``csrc/ln_lora_qkv_bwd.cu`` (y-only, the qkv sites; its plan
+:func:`qkv_bwd_plan`) and ``csrc/ln_lora_tail_bwd.cu`` (the tail mode; its
+plan :func:`tail_bwd_plan`), sharing ``csrc/row_block.cuh``.
 
 Weights are passed in the port's module layouts (``nn.Linear.weight``
 ``wt [O, K]``, ``lora_shared_A`` ``at [r, K]``, ``lora_shared_B``
@@ -203,6 +207,38 @@ def ln_lora_bwd_plain(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
     return dx.to(x.dtype), dg, db, dat, dbt
 
 
+def ln_lora_bwd_rows_plain(x, gamma, beta, wt, bias, at, bt, seed,
+                           scale: float, drop: float, gy):
+    """What the y-only backward's row kernel stores, with the cast points
+    of ``_bwd_kernel``: ``(dx, dgamma, dbeta, lnd, m, dm)``. ``du =
+    bf16(s gy)``, ``dm = bf16(du B)``, ``dln = bf16(gy) W + drop0(dm A)``
+    and its LayerNorm backward; the kernel draws no mask where ``scale`` is
+    0 (dm is then 0). dx and the rows ``lnd = bf16(drop0(ln))`` [M, K], m,
+    dm [M, r] in x's dtype, dgamma and dbeta in the accumulation dtype."""
+    cdt, f = x.dtype, _acc(x.dtype)
+    ln, xhat, inv = layer_norm_parts(x, gamma, beta)
+    lnd, keep = _dropped(ln, seed, drop if scale != 0.0 else 0.0)
+    lnd = lnd.to(cdt).to(f)
+    m = (lnd @ at.to(f).t()).to(cdt).to(f)
+    gyf = gy.to(f)
+    du = (scale * gyf).to(cdt).to(f)
+    dm = (du @ bt.to(f)).to(cdt).to(f)
+    dlnd = dm @ at.to(f)
+    dln = gyf.to(cdt).to(f) @ wt.to(f) + (
+        dlnd if keep is None else dropout.apply(dlnd, keep, drop))
+    dx, dg, db = layer_norm_bwd(dln, xhat, inv, gamma)
+    return (dx.to(cdt), dg, db) + tuple(t.to(cdt) for t in (lnd, m, dm))
+
+
+def ln_lora_bwd_weights_plain(lnd, m, dm, gy, scale: float):
+    """``(dat, dbt)`` from the y-only row kernel's rows and gy, as the
+    weight passes compute them: ``dA^T = dm^T lnd`` [r, K], ``dB^T =
+    bf16(s gy)^T m`` [O, r], in the accumulation dtype."""
+    f = _acc(lnd.dtype)
+    du = (scale * gy.to(f)).to(gy.dtype).to(f)
+    return dm.to(f).t() @ lnd.to(f), du.t() @ m.to(f)
+
+
 def ln_lora_tail_bwd_rows_plain(x, gamma, beta, wt, bias, at, bt, seed,
                                 scale: float, drop: float, gy, gp=None,
                                 gd=None, act: bool = True):
@@ -378,57 +414,178 @@ ROW_TILE = 16     # rows of one warp of the backward row kernels
 
 
 def bwd_scratch(x, M, K):
-    """The row kernel's scratch: row statistics [2, M], the dxhat rows
-    [M, K] and the per-16-row gamma/beta partials (fp32), and the bf16 LN
-    rows [M, K] the weight products read."""
+    """Kernel 3b's scratch: row statistics [2, M], the dxhat rows [M, K]
+    and the per-16-row gamma/beta partials (fp32), and the bf16 LN rows
+    [M, K] the weight product reads."""
     f32 = dict(dtype=torch.float32, device=x.device)
     return (torch.empty((2, M), **f32), torch.empty((M, K), **f32),
             torch.empty((-(-M // ROW_TILE), 2, K), **f32),
             torch.empty((M, K), dtype=x.dtype, device=x.device))
 
 
-def ln_lora_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
-                drop: float, gy):
-    """``(dx, dgamma, dbeta, dat, dbt)`` of :func:`ln_lora_bwd_plain`: the
-    plain version for CPU tensors, for CUDA tensors the row kernel (dx,
-    the row statistics, m and dm, gamma/beta partials), the weight-gradient
-    kernels over row stripes and their reductions in a fixed order."""
-    if x.device.type == "cpu":
-        return ln_lora_bwd_plain(x, gamma, beta, wt, bias, at, bt, seed,
-                                 scale, drop, gy)
+# the constants of csrc/ln_lora_qkv_bwd.cu that its plan sizes shared
+# memory by (the kernel traps if the plan's bytes do not hold its layout)
+QKV_CHUNK = 64          # hidden chunk and slot width (kS)
+QKV_WARPS = 8           # warps of a row block (kWarps)
+QKV_TILE = QKV_CHUNK + 8     # row stride of the 64-wide tiles (kLdS)
+QKV_GROUP = 4           # slots a ring group (at most kGroupMax)
+QKV_MAX_STAGES = 12     # slots in the TMA ring, at most
+SMEM_LIMIT = 232_448    # shared memory one block can take on the H100
+SM_SMEM = 233_472       # shared memory of an SM, 1 KB of it reserved a block
+
+
+class QkvBwdPlan(NamedTuple):
+    """Launch plan of kernel 2b at the qkv sites (y-only): rows per block,
+    hidden chunk width, the TMA ring's slots and slots a group, the blocks
+    of a cluster that share a row block's hidden chunks, blocks an SM,
+    dynamic shared-memory bytes of the row kernel, its row blocks, the
+    bytes of weight slots they stream from L2, the row stripes of the
+    weight-gradient products dA [r, C] and dB [O, r], and the scratch the
+    wrapper allocates: name -> (shape, dtype)."""
+
+    bm: int
+    chunk: int
+    stages: int
+    group: int
+    split: int
+    per_sm: int
+    smem: int
+    blocks: int
+    slice_bytes: int
+    sa: int
+    sb: int
+    scratch: dict
+
+
+def qkv_bwd_plan(M: int, C: int, O: int, r: int, sms: int) -> QkvBwdPlan:
+    """Kernel 2b's plan at a qkv site, x [M, C], O = 3C hidden columns (any
+    O % 16 == 0), rank r (a multiple of 16 up to 64, zero-filled to one
+    64-wide slot) on a card of ``sms`` SMs. Rows a block: 64 up to C =
+    192, 32 above. Up to C = 384 two blocks share an SM, each with its
+    fp32 dln (rows x C) at 48 registers a thread (faster on the H100 than
+    one block of twice the rows at C = 192 and 384); above, one block an
+    SM, dln at 96 registers (128 at C = 1024, where 32 rows is the least).
+    The last block masks the rows past M. The 32-row blocks alone on an
+    SM, few (196 at C = 768, 1.5 waves of 132 SMs), split their hidden
+    chunks between the two blocks of a cluster where the chunks pair up.
+    The ring takes what
+    shared memory leaves, in groups of 4 slots (2 where fewer than 8 fit),
+    at most 12. Scratch: bf16(drop0(ln)) ``lnd`` [M, C] and the rank rows
+    ``mbuf`` (m, dm) [2, M, r] in bf16; the per-block dgamma/dbeta
+    partials ``gb``, the weight-gradient stripes ``part`` (dA's, then
+    dB's) and, with a split, the partials ``xfer`` in fp32."""
+    if (C % 32 or not QKV_CHUNK < C <= 1024 or O % 16 or not O
+            or r % 16 or not 16 <= r <= 64):
+        raise ValueError(f"LN+LoRA backward kernel: needs C % 32 == 0 and "
+                         f"64 < C <= 1024 ({C}), O % 16 == 0 ({O}) and r a "
+                         f"multiple of 16 up to 64 ({r})")
+    ncs, nch = -(-C // QKV_CHUNK), -(-O // QKV_CHUNK)
+    bm = 64 if C <= 192 else 32
+    wn = QKV_WARPS // (bm // ROW_TILE)
+    # the slices of C of the kernel's instance (the C entry's choice), and
+    # two blocks an SM where its launch bounds ask for them
+    inst = {32: (6, 12, 16), 64: (2, 3)}[bm]
+    per_sm = 2 if bm * min(n for n in inst if n >= ncs) <= 192 else 1
+    split = 2 if bm == 32 and per_sm == 1 and nch % 2 == 0 else 1
+    slot = 2 * QKV_CHUNK ** 2
+    # up to 1023 bytes to the ring's 1024-byte alignment; the
+    # bf16(drop0(ln)) tile, the m / dm tile, the rows of x, gamma and beta;
+    # mu, inv and the LayerNorm row sums; stream 0's mask bytes (the ring
+    # and its mbarriers below)
+    fixed = (1024 + 2 * (2 * bm * (C + 8) + bm * QKV_TILE + 2 * C)
+             + 4 * (2 * bm + 2 * wn * bm) + bm * C)
+    limit = min(SMEM_LIMIT, SM_SMEM // per_sm - 1024)
+
+    def ring_bytes(stages, group):   # the slots and a mbarrier a group
+        return stages * slot + 8 * (stages // group)
+
+    group = QKV_GROUP if fixed + ring_bytes(8, QKV_GROUP) <= limit else 2
+    stages = QKV_MAX_STAGES // group * group
+    while stages >= 2 * group and fixed + ring_bytes(stages, group) > limit:
+        stages -= group
+    if stages < 2 * group:
+        raise ValueError(f"LN+LoRA backward kernel: {fixed} bytes of shared "
+                         f"memory at C = {C} leave no ring within {limit}")
+    smem = fixed + ring_bytes(stages, group)
+    # the dgamma/dbeta partials of the block's 16-row tiles in the ring
+    assert (bm // ROW_TILE) * 2 * C * 4 <= stages * slot
+    blocks = -(-M // bm)
+    # per row block: A (m, in each block of a split), per hidden chunk B
+    # and W, then A (dl); gy's boxes are not weights
+    slices = (split + 1) * ncs + nch * (ncs + 1)
+    sa = stripes_for(sms, M, r, C)
+    sb = stripes_for(sms, M, O, r)
+    bf16, f32 = torch.bfloat16, torch.float32
+    scratch = {
+        "lnd": ((M, C), bf16),
+        "mbuf": ((2, M, r), bf16),
+        "gb": ((blocks, 2, C), f32),
+        "part": ((max(sa * r * C, sb * O * r),), f32),
+    }
+    if split == 2:
+        # per row block, thread and n-tile of its dln slices and dm
+        nt = QKV_CHUNK // 8 // wn
+        scratch["xfer"] = ((blocks * (ncs + 1) * nt * 4 * 32 * QKV_WARPS,),
+                           f32)
+    return QkvBwdPlan(bm, QKV_CHUNK, stages, group, split, per_sm, smem,
+                      blocks, blocks * slices * slot, sa, sb, scratch)
+
+
+def qkv_bwd_scratch(plan: QkvBwdPlan, device) -> dict:
+    """The scratch tensors of ``plan``, as :func:`ln_lora_bwd_kernel`
+    allocates them."""
+    return {name: torch.empty(shape, dtype=dt, device=device)
+            for name, (shape, dt) in plan.scratch.items()}
+
+
+def ln_lora_bwd_kernel(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
+                       drop: float, gy, scratch=None):
+    """The CUDA route of :func:`ln_lora_bwd`: the fused row kernel in
+    y-only mode (dx, the rows lnd, m, dm, gamma/beta partials), then the
+    weight-gradient kernels of dA and dB (over gy itself) and the
+    fixed-order reductions, all on the weights' module layouts; raises for
+    anything it does not take (a CPU tensor included). ``scratch``: the
+    tensors of :func:`qkv_bwd_scratch` to use (the row kernel leaves its
+    rows there), or None to allocate them."""
     M, K, O, r = _kernel2_shapes(x, wt, at, bt)
     _check("LN+LoRA backward", x,
            [("x", x), ("gamma", gamma), ("beta", beta), ("wt", wt),
             ("at", at), ("bt", bt), ("seed", seed), ("gy", gy)],
            [(M, K), (K,), (K,), (O, K), (r, K), (O, r), (2,), (M, O)])
+    plan = qkv_bwd_plan(M, K, O, r, _sms(x.device))
+    sc = qkv_bwd_scratch(plan, x.device) if scratch is None else scratch
+    if {k: (tuple(v.shape), v.dtype) for k, v in sc.items()} != plan.scratch:
+        raise ValueError("LN+LoRA backward kernel: scratch does not match "
+                         "the plan")
     f32 = dict(dtype=torch.float32, device=x.device)
-    sa = wgrad_stripes(x.device, M, r, K)
-    sb = wgrad_stripes(x.device, M, O, r)
-    stats, work, gb, lbuf = bwd_scratch(x, M, K)
-    pa = torch.empty((sa, r, K), **f32)
-    pb = torch.empty((sb, O, r), **f32)
-    mbuf = torch.empty((2, M, r), dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
     dgb = torch.empty((2, K), **f32)
     dat = torch.empty((r, K), **f32)
     dbt = torch.empty((O, r), **f32)
     use_drop = int(drop > 0.0 and scale != 0.0)
-    # the layouts the backward products read: W [K, O], A [K, r], B [r, O]
-    w_ko, a_kr, b_ro = (t.t().contiguous() for t in (wt, at, bt))
-    err = _build.library().mtlora_ln_lora_bwd(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_ko.data_ptr(),
-        at.data_ptr(), a_kr.data_ptr(), b_ro.data_ptr(), seed.data_ptr(),
-        gy.data_ptr(), dx.data_ptr(),
-        stats.data_ptr(), work.data_ptr(), lbuf.data_ptr(), mbuf.data_ptr(),
-        gb.data_ptr(), pa.data_ptr(),
-        pb.data_ptr(), None,
-        dgb.data_ptr(), dat.data_ptr(), dbt.data_ptr(), None,
-        M, K, O, r, 0, sa, sb, 0, float(scale),
+    err = _build.library().mtlora_ln_lora_qkv_bwd(
+        *(t.data_ptr() for t in (x, gamma, beta, wt, at, bt, seed, gy, dx)),
+        *(sc[k].data_ptr() for k in ("lnd", "mbuf", "gb", "part")),
+        sc["xfer"].data_ptr() if "xfer" in sc else None, dgb.data_ptr(),
+        dat.data_ptr(), dbt.data_ptr(), M, K, O, r, plan.bm, plan.split,
+        plan.stages, plan.group, plan.smem, plan.sa, plan.sb, float(scale),
         dropout.threshold(drop) if use_drop else 0, use_drop,
         dropout.inv_keep(drop) if use_drop else 1.0, _stream(x))
-    _build.check(err, "mtlora_ln_lora_bwd")
+    _build.check(err, "mtlora_ln_lora_qkv_bwd")
     ln_lora_bwd.launches += 1
     return dx, dgb[0], dgb[1], dat, dbt
+
+
+def ln_lora_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
+                drop: float, gy):
+    """``(dx, dgamma, dbeta, dat, dbt)`` of :func:`ln_lora_bwd_plain`: the
+    plain version for CPU tensors, :func:`ln_lora_bwd_kernel` for CUDA
+    tensors."""
+    if x.device.type == "cpu":
+        return ln_lora_bwd_plain(x, gamma, beta, wt, bias, at, bt, seed,
+                                 scale, drop, gy)
+    return ln_lora_bwd_kernel(x, gamma, beta, wt, bias, at, bt, seed, scale,
+                              drop, gy)
 
 
 def _tail_args(name, x, gamma, beta, wt, bias, at, bt, seed, cots=()):
@@ -475,7 +632,6 @@ TAIL_CHUNK = 64         # hidden chunk and weight-slice width (kS)
 TAIL_STAGES = 4         # slices in the cp.async ring (kStages)
 TAIL_WARPS = 8          # warps of a row block (kWarps)
 TAIL_TILE = TAIL_CHUNK + 8   # row stride of the 64-wide tiles (kLdS)
-SMEM_LIMIT = 232_448    # shared memory one block can take on the H100
 
 
 class TailBwdPlan(NamedTuple):
@@ -667,12 +823,9 @@ def merge_ln_bwd(x, gamma, beta, wt, H: int, W: int, gy):
     dwt = torch.empty((O, K), **f32)
     w_ko = wt.t().contiguous()
     err = _build.library().mtlora_ln_lora_bwd(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_ko.data_ptr(),
-        None, None, None, None, gy.data_ptr(), dx.data_ptr(),
-        stats.data_ptr(), work.data_ptr(), lbuf.data_ptr(), None,
-        gb.data_ptr(), None, None, pw.data_ptr(), dgb.data_ptr(), None, None,
-        dwt.data_ptr(),
-        M, K, O, 0, W // 2, 0, 0, sw, 0.0, 0, 0, 1.0, _stream(x))
+        *(t.data_ptr() for t in (x, gamma, beta, w_ko, gy, dx, stats, work,
+                                 lbuf, gb, pw, dgb, dwt)),
+        M, K, O, W // 2, sw, _stream(x))
     _build.check(err, "mtlora_ln_lora_bwd (merge)")
     merge_ln_bwd.launches += 1
     return dx, dgb[0], dgb[1], dwt

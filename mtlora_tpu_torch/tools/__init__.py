@@ -68,16 +68,16 @@ def require_cuda(name: str):
         raise SystemExit(f"{name}: no CUDA device")
 
 
-def run_in_trees(script: Path, root: Path, against) -> None:
-    """``python script --worker NAME`` in a process of its own per tree,
-    with that tree's package on the path, in the order this checkout
+def run_in_trees(script: Path, root: Path, against, args=()) -> None:
+    """``python script --worker NAME *args`` in a process of its own per
+    tree, with that tree's package on the path, in the order this checkout
     (``root``, named "this"), each of ``against`` (the root of another
     checkout, named by its directory), this checkout again; exits on a
     worker's failure."""
     trees = [(Path(d).name, Path(d).resolve()) for d in against]
     for name, tree in [("this", root), *trees, ("this", root)]:
         proc = subprocess.run(
-            [sys.executable, str(script), "--worker", name], cwd=tree,
+            [sys.executable, str(script), "--worker", name, *args], cwd=tree,
             env=dict(os.environ, PYTHONPATH=str(tree)))
         if proc.returncode != 0:
             raise SystemExit(f"{name}: exit code {proc.returncode}")

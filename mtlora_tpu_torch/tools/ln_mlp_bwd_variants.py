@@ -1,5 +1,6 @@
 """Kernels 4 and 4b on the card against variants of themselves and other
-checkouts.
+checkouts (and, with ``--checks``, any kernel: kernel 2b's variants,
+``qkv-*``, run with ``--checks check_ln_lora``).
 
     python -m mtlora_tpu_torch.tools.ln_mlp_bwd_variants
         [--variants NAME,...] [--against DIR ...] [--checks FUNC,...]
@@ -25,8 +26,8 @@ times both per stage (CUDA events, the median of 3 rounds of 10
 launches), and prints one JSON line: the ms per stage, their sums per
 pass (stage 2 has five no-task blocks) and the card; each tree's build
 prints the registers and spills that ptxas reported for the instances of
-kernel 4, of 4b's row kernel and of the attention backward (kernels 1b
-and 1c). The edits of ``VARIANTS`` reach either kernel's source and
+kernel 4, of the LN-family backward row kernels (4b, 2b, 3b) and of the
+attention backward (kernels 1b and 1c). The edits of ``VARIANTS`` reach either kernel's source and
 plan. With
 ``--checks`` it runs those ``check_*`` functions of its tree's
 ``chip_smoke.py`` instead (the phase 3/3b rows of other kernels) and
@@ -107,6 +108,89 @@ VARIANTS = {
     "attn-bwd-4-waves": [
         ("ops/window_attn.py", "slots = max(1, sms * per_sm // num_heads)",
          "slots = max(1, 4 * sms * per_sm // num_heads)")],
+    # kernel 2b (y-only): each thread loads its A fragments of the chunk's
+    # gy from device memory into registers, in place of gy's boxes through
+    # the TMA ring
+    "qkv-gy-registers": [
+        ("ops/csrc/ln_lora_qkv_bwd.cu", "  a.per = 2 + ncs;",
+         "  a.per = 1 + ncs;"),
+        ("ops/csrc/ln_lora_qkv_bwd.cu", "i = q - j * a.per;",
+         "i = q - j * a.per + 1;"),
+        ("ops/csrc/ln_lora_qkv_bwd.cu",
+         "    a_frags_slot(af, ring.next(p), wr, ks);\n",
+         "#pragma unroll\n"
+         "    for (int k = 0; k < kS / 16; ++k)\n"
+         "      if (k < ks)\n"
+         "#pragma unroll\n"
+         "        for (int e = 0; e < 4; ++e) {\n"
+         "          const int m = m0 + wr + g + 8 * (e & 1);\n"
+         "          af[k][e] = m < M ? __ldg(reinterpret_cast<const unsigned*>"
+         "(a.gy + (size_t)m * O + kS * (ch.j0 + j) + 16 * k + 8 * (e >> 1)"
+         " + 2 * t)) : 0u;\n"
+         "        }\n"),
+        ("ops/csrc/ln_lora_qkv_bwd.cu", "  const bf16 *gamma, *beta;\n",
+         "  const bf16 *gamma, *beta, *gy;\n"),
+        ("ops/csrc/ln_lora_qkv_bwd.cu",
+         "  a.beta = static_cast<const bf16*>(beta);\n  a.dx",
+         "  a.beta = static_cast<const bf16*>(beta);\n"
+         "  a.gy = static_cast<const bf16*>(gy);\n  a.dx")],
+    # kernel 2b (y-only): thread 0 starts a group's TMA boxes one after
+    # another, in place of one lane of warp 0 each
+    "qkv-issue-one-thread": [
+        ("ops/csrc/ln_lora_qkv_bwd.cu",
+         "    if (threadIdx.x >= 32 || n <= 0) return;\n"
+         "    const int k = threadIdx.x;\n"
+         "    Box b{0, 0, 0};\n"
+         "    int bytes = 0;\n"
+         "    if (k < n) {\n"
+         "      b = box_of(a, first + k, ncs);\n"
+         "      bytes = b.map == kGy ? a.gy_bytes : kSlice * (int)sizeof(bf16);\n"
+         "    }\n"
+         "#pragma unroll\n"
+         "    for (int o = 16; o; o >>= 1)\n"
+         "      bytes += __shfl_xor_sync(0xffffffffu, bytes, o);\n"
+         "    uint64_t* bar = bars + gi % nbar;\n"
+         "    if (k == 0) mbar_expect(bar, bytes);\n"
+         "    __syncwarp();\n"
+         "    if (k < n)\n"
+         "      tma_box(buf + ((first + k) % a.stages) * kSlice, &p.maps[b.map], bar,\n"
+         "              b.c0, b.r0);\n",
+         "    if (threadIdx.x != 0 || n <= 0) return;\n"
+         "    int bytes = 0;\n"
+         "    for (int k = 0; k < n; ++k)\n"
+         "      bytes += box_of(a, first + k, ncs).map == kGy\n"
+         "                   ? a.gy_bytes\n"
+         "                   : kSlice * (int)sizeof(bf16);\n"
+         "    uint64_t* bar = bars + gi % nbar;\n"
+         "    mbar_expect(bar, bytes);\n"
+         "    for (int k = 0; k < n; ++k) {\n"
+         "      const Box b = box_of(a, first + k, ncs);\n"
+         "      tma_box(buf + ((first + k) % a.stages) * kSlice, &p.maps[b.map], bar,\n"
+         "              b.c0, b.r0);\n"
+         "    }\n")],
+    # kernel 2b (y-only): at most 8 ring slots (16 where they fit) in place
+    # of 12
+    "qkv-ring-8": [("ops/ln_lora.py", "QKV_MAX_STAGES = 12 ",
+                    "QKV_MAX_STAGES = 8 ")],
+    "qkv-ring-16": [("ops/ln_lora.py", "QKV_MAX_STAGES = 12 ",
+                     "QKV_MAX_STAGES = 16 ")],
+    # kernel 2b (y-only): groups of 2 slots a barrier in place of 4
+    "qkv-group-2": [("ops/ln_lora.py", "QKV_GROUP = 4 ", "QKV_GROUP = 2 ")],
+    # kernel 2b (y-only): one block of 64 rows an SM at C = 384 (dln at
+    # 96 registers a thread) in place of two of 32
+    "qkv-rows-64-at-384": [
+        ("ops/ln_lora.py", "    bm = 64 if C <= 192 else 32\n",
+         "    bm = 64 if C <= 384 else 32\n"),
+        ("ops/ln_lora.py", "64: (2, 3)}[bm]", "64: (2, 3, 6)}[bm]"),
+        ("ops/csrc/ln_lora_qkv_bwd.cu", "(bm == 64 && ncs <= 3)",
+         "(bm == 64 && ncs <= 6)"),
+        ("ops/csrc/ln_lora_qkv_bwd.cu",
+         "                              : launch_rows<64, 3>(p, blocks, "
+         "smem, st))\n",
+         "                  : ncs <= 3 ? launch_rows<64, 3>(p, blocks, smem, "
+         "st)\n"
+         "                             : launch_rows<64, 6>(p, blocks, smem, "
+         "st))\n")],
 }
 
 STAGE_WEIGHTS = (1, 1, 5, 1)   # no-task blocks per stage (depths - 1)
@@ -189,12 +273,14 @@ def _errors(got, want, names=NAMES) -> list:
 
 
 def _ptxas(log: str) -> dict:
-    """Registers and spill bytes of every instance of kernel 4, of kernel
-    4b's row kernel and of the attention backward (kernels 1b and 1c's)."""
+    """Registers and spill bytes of every instance of kernel 4, of the
+    LN-family backward row kernels (4b, 2b in both modes, 3b) and of the
+    attention backward (kernels 1b and 1c's)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S*(?:ln_mlp_fwd_kernel|"
-                      r"ln_mlp_bwd_rows|window_attn_bwd_kernel)\S*)", line)
+                      r"ln_mlp_bwd_rows|window_attn_bwd_kernel|ln_lora_\w*"
+                      r"bwd_rows|merge_ln_bwd_rows)\S*)", line)
         if m:
             name = m[1]
             continue

@@ -1,18 +1,22 @@
-"""Kernel 2b's tail mode (the stage-tail LN + LoRA backward): its device
-time, kernel by kernel, on the card.
+"""Kernel 2b (the LN + LoRA backward): its device time, kernel by kernel,
+on the card, at the stage-tail fc1 sites or at the qkv sites.
 
-    python -m mtlora_tpu_torch.tools.tail_bwd_split [--against DIR ...]
+    python -m mtlora_tpu_torch.tools.tail_bwd_split [--sites tail|qkv]
+        [--against DIR ...]
 
-At the four fc1 sites of the batch-32 step (x [32 * 112^2 / 4^s, 96 * 2^s],
-O = 4C, rank 64, scale 4, dropout 0.05, the cotangents of y, p and
-dropout(y)), operands drawn as ``chip_smoke.py`` draws them: the ms per
-call of ``ops/ln_lora.py:ln_lora_tail_bwd`` (CUDA events, the median of 3
-rounds of 10 calls) and the device ms per call of every kernel it
-launches (a ``torch.profiler`` trace of 5 calls); one JSON line per tree
-and stage, with the card. Each ``--against`` (the root of another
-checkout, such as the parent commit unpacked with ``git archive``) runs
-the same in a process of its own, which imports that tree's package, in
-the order this, others, this.
+At the four sites of the batch-32 step (x [32 * 112^2 / 4^s, 96 * 2^s],
+rank 64, scale 4, dropout 0.05): ``--sites tail`` (the default) the fc1
+sites of the stage-tail mode, O = 4C, with the cotangents of y, p and
+dropout(y), through ``ops/ln_lora.py:ln_lora_tail_bwd``; ``--sites qkv``
+the qkv sites of y-only mode, O = 3C, through ``ln_lora_bwd``. Operands
+drawn as ``chip_smoke.py`` draws them: the ms per call (CUDA events, the
+median of 3 rounds of 10 calls) and the device ms per call of every
+kernel it launches (the row kernel, the weight-gradient passes, the sums;
+a ``torch.profiler`` trace of 5 calls); one JSON line per tree and stage,
+with the card. Each ``--against`` (the root of another checkout, such as
+the parent commit unpacked with ``git archive``) runs the same in a
+process of its own, which imports that tree's package, in the order this,
+others, this.
 
 This file imports only torch and the standard library at the top.
 """
@@ -27,7 +31,7 @@ ROOT = Path(__file__).resolve().parents[2]
 CALLS = 5
 
 
-def worker(tree: str):
+def worker(tree: str, sites: str):
     import torch
     from mtlora_tpu_torch.ops import _build, ln_lora
     from mtlora_tpu_torch.tools import card_line, median_ms
@@ -42,9 +46,10 @@ def worker(tree: str):
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    tail = sites == "tail"
     for s in range(4):
         C = 96 * 2 ** s
-        M, O, r = 32 * (112 // 2 ** s) ** 2, 4 * C, 64
+        M, O, r = 32 * (112 // 2 ** s) ** 2, (4 if tail else 3) * C, 64
         x = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
         gamma = (0.9 + 0.2 * torch.rand(C, generator=gen, device="cuda"))
         beta = 0.02 * torch.randn(C, generator=gen, device="cuda")
@@ -53,39 +58,43 @@ def worker(tree: str):
         seed = torch.randint(0, 2 ** 31 - 1, (2,), generator=gen,
                              device="cuda", dtype=torch.int32)
         cots = [torch.randn(M, O, generator=gen, device="cuda")
-                .to(torch.bfloat16) for _ in range(3)]
+                .to(torch.bfloat16) for _ in range(3 if tail else 1)]
         args = (x, gamma.to(torch.bfloat16), beta.to(torch.bfloat16), wt,
-                bias, at, bt, seed, 4.0, 0.05, *cots, True)
-        ms = median_ms(lambda: ln_lora.ln_lora_tail_bwd(*args), reps=10)
+                bias, at, bt, seed, 4.0, 0.05, *cots) + ((True,) if tail
+                                                          else ())
+        fn = ln_lora.ln_lora_tail_bwd if tail else ln_lora.ln_lora_bwd
+        ms = median_ms(lambda: fn(*args), reps=10)
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(CALLS):
-                ln_lora.ln_lora_tail_bwd(*args)
+                fn(*args)
             torch.cuda.synchronize()
         kernels = {}
         for e in prof.events():
             if str(e.device_type).endswith("CUDA"):
                 kernels[e.name] = (kernels.get(e.name, 0.0)
                                    + e.time_range.elapsed_us() / 1e3 / CALLS)
-        print(json.dumps({"tree": tree, "stage": s, "M": M, "C": C,
-                          "ms": ms, "kernel_ms": kernels, "card": card}),
-              flush=True)
+        print(json.dumps({"tree": tree, "sites": sites, "stage": s, "M": M,
+                          "C": C, "ms": ms, "kernel_ms": kernels,
+                          "card": card}), flush=True)
         del x, cots, args
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sites", choices=("tail", "qkv"), default="tail")
     ap.add_argument("--against", action="append", default=[],
                     help="root of another checkout (repeatable)")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.worker:
-        worker(a.worker)
+        worker(a.worker, a.sites)
         return
     import torch
     from mtlora_tpu_torch.tools import run_in_trees
     if not torch.cuda.is_available():
         raise SystemExit("tail_bwd_split: no CUDA device")
-    run_in_trees(Path(__file__).resolve(), ROOT, a.against)
+    run_in_trees(Path(__file__).resolve(), ROOT, a.against,
+                 ("--sites", a.sites))
 
 
 if __name__ == "__main__":
