@@ -4,7 +4,7 @@
 
 Phases, each printing a line; any failure raises and exits non-zero:
   1. device: a CUDA card must be present; its name and power limit;
-  2. build: the sixteen CUDA sources from ops/csrc (one nvcc each, in
+  2. build: the seventeen CUDA sources from ops/csrc (one nvcc each, in
      parallel), with the build time;
   3. forward kernels vs plain, on the card, against their plain PyTorch
      versions on the same tensors, at the batch-32 training step's shapes:
@@ -35,7 +35,11 @@ Phases, each printing a line; any failure raises and exits non-zero:
      rows (lnd, m, dm; the tail's du) against their plain version; y-only
      also at the ragged 392 rows of stage 3, rank 16, Swin-B's
      [6272, 1024] -> 3072 and scale 3, the tail mode at the ragged 392
-     rows of stage 3;
+     rows of stage 3, ranks 16 and 32 and Swin-B's [6272, 1024] -> 4096;
+     kernel 2's tail mode also with its share of the byte bound and its
+     output TB/s per stage, and at the ragged 392 rows, with GELU off,
+     without dropout(y) (the serve form), ranks 16 and 32 and Swin-B's
+     [6272, 1024] -> 4096;
   3c. the GELU form: kernels 2-tail, 4, 4b, 5 and 5b at stage 1 against
      their plain versions, which take the tanh form in bf16 as the JAX
      kernels do, with the distance to the exact-erf form beside it; the
@@ -119,6 +123,7 @@ from mtlora_tpu_torch.ops.ln_lora import (
     qkv_bwd_scratch,
     tail_bwd_plan,
     tail_bwd_scratch,
+    tail_fwd_plan,
 )
 from mtlora_tpu_torch.ops.task_merge import (
     rank_operands,
@@ -929,14 +934,17 @@ def ln_lora_tail_library(x, gamma, beta, wt, bias, at, bt, scale):
                   approximate="tanh"), p
 
 
-def tail_operands(gen, s, M=None):
+def tail_operands(gen, s, M=None, C=None, r=None):
     """Kernel 2's tail-mode operands at the fc1 site of stage s, ``M``
-    rows (default: the batch-32 step's), O = 4C, rank 64, scale 4, dropout
-    0.05, and the cotangents of y, p and d: (args, (gy, gp, gd))."""
-    cfg, _, C, M_step = stage_dims(s)
+    rows (default: the batch-32 step's), width ``C`` (default the stage's),
+    O = 4C, rank ``r`` (default 64), scale 4, dropout 0.05, and the
+    cotangents of y, p and d: (args, (gy, gp, gd))."""
+    cfg, _, C_step, M_step = stage_dims(s)
     M = M_step if M is None else M
+    C = C_step if C is None else C
     st = cfg.stages[s]
-    O, r, sc, p = 4 * C, st.r_shared, st.shared_scale, st.dropout
+    O, sc, p = 4 * C, st.shared_scale, st.dropout
+    r = st.r_shared if r is None else r
     x = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
     gamma, beta = _ln_params(gen, C)
     wt = _uniform(gen, (O, C), C ** -0.5)
@@ -980,23 +988,47 @@ def tail_bwd_cost(M, C, O, r, w_bytes):
             2.0 * M * (2 * O * C + 3 * C * r + 3 * O * r))
 
 
+def check_tail_fwd(label, args, act=True, out_drop=True):
+    """Kernel 2's tail mode against ``ln_lora_tail_plain``: y, p and (with
+    ``out_drop``) d, bf16, within 2^-6 of the largest element. Returns
+    (worst error, text)."""
+    got = ln_lora_tail_fwd(*args, act, out_drop)
+    want = ln_lora_tail_plain(*args, act, out_drop)
+    torch.cuda.synchronize()
+    n = 3 if out_drop else 2
+    return check_outputs(label, got[:n], want[:n], ("y", "p", "d")[:n],
+                         set(range(n)))
+
+
+# kernel 2-tail's coverage (checked, not in the tally): (label, stage, M,
+# C, r, act, out_drop, dropout) -- the ragged 392 rows of stage 3 (the
+# batch-2 step), GELU off, the serve form (no dropout(y), no dropout),
+# ranks 16 and 32 (the r16 and r32 YAMLs), Swin-B's last stage
+# (mtlora_base_448's fc1, [6272, 1024] -> 4096); 2b-tail also at the last
+# three (with its stored rows)
+TAIL_COVERAGE = (("ragged", 3, RAGGED_ROWS, None, 64, True, True, 0.05),
+                 ("act off", 1, None, None, 64, False, True, 0.05),
+                 ("serve", 0, None, None, 64, True, False, 0.0),
+                 ("r16", 0, None, None, 16, True, True, 0.05),
+                 ("r32", 2, None, None, 32, True, True, 0.05),
+                 ("swin-b stage 3", 3, None, 1024, 64, True, True, 0.05))
+TAIL_BWD_COVERAGE = ("r16", "r32", "swin-b stage 3")
+
+
 def check_ln_lora_tail(gen) -> dict:
     """Kernel 2's tail mode at the four fc1 sites: x [M, C] -> y =
-    gelu(z), p and dropout(y) [M, 4C], rank 64, scale 4, dropout 0.05;
-    the backward from the cotangents of all three, also with its stored
-    rows, and at the ragged 392 rows of stage 3 (checked, not in the
-    tally)."""
+    gelu(z), p and dropout(y) [M, 4C], rank 64, scale 4, dropout 0.05,
+    with its share of the byte bound and output TB/s; the backward from
+    the cotangents of all three, also with its stored rows; both at
+    ``TAIL_COVERAGE`` (checked, not in the tally), and 2b-tail at the
+    ragged 392 rows of stage 3."""
     fwd, bwd = Tally(), Tally()
     for s in range(4):
         args, (gy, gp, gd) = tail_operands(gen, s)
         x, gamma, beta, wt, bias, at, bt, seed, sc, p = args
         M, C = x.shape
         O, r = wt.shape[0], at.shape[0]
-        got = ln_lora_tail_fwd(*args, True, True)
-        want = ln_lora_tail_plain(*args, True, True)
-        torch.cuda.synchronize()
-        err, text = check_outputs(f"ln_lora_tail fwd stage {s}", got, want,
-                                  ("y", "p", "d"), {0, 1, 2})
+        err, text = check_tail_fwd(f"ln_lora_tail fwd stage {s}", args)
         t_k = median_ms(lambda: ln_lora_tail_fwd(*args, True, True))
         t_p = median_ms(lambda: ln_lora_tail_plain(*args, True, True))
         t_l = median_ms(lambda: ln_lora_tail_library(x, gamma, beta, wt, bias,
@@ -1005,11 +1037,16 @@ def check_ln_lora_tail(gen) -> dict:
         nbytes = 2 * M * (C + 3 * O) + w_bytes
         flops = 2.0 * M * (C * O + C * r + r * O)
         ops32 = float(GELU_OPS) * M * O
+        t_b = max(nbytes / PEAK_HBM_BYTES, ops_seconds(flops, ops32)) * 1e3
+        plan = tail_fwd_plan(M, C, O, r, ln_lora._sms(x.device))
         print(f"ln_lora_tail fwd stage {s} x [{M}, {C}] -> {O}: {text} "
-              f"kernel {t_k:.4f} ms plain {t_p:.4f} ms library {t_l:.4f} ms "
+              f"kernel {t_k:.4f} ms ({t_b / t_k:.4f} of the bound, outputs "
+              f"{6 * M * O / t_k / 1e9:.3f} TB/s; {plan.bm}-row blocks, "
+              f"{plan.splits} items a row block, {plan.per_sm} blocks an SM, "
+              f"ring {plan.stages}) plain "
+              f"{t_p:.4f} ms library {t_l:.4f} ms "
               f"{bound_text(nbytes, flops, ops32)}")
         fwd.add(err, t_k, t_p, t_l, nbytes, flops, 1, ops32)
-        del got, want
         err, text = check_tail_rows(f"ln_lora_tail bwd stage {s}", args,
                                     (gy, gp, gd))
         leaves = [t.detach().requires_grad_(True) for t in (x, gamma, beta,
@@ -1039,6 +1076,20 @@ def check_ln_lora_tail(gen) -> dict:
     args, cots = tail_operands(ragged, 3, RAGGED_ROWS)
     label = f"ln_lora_tail bwd ragged x [{RAGGED_ROWS}, {args[0].shape[1]}]"
     print(f"{label}: {check_tail_rows(label, args, cots)[1]}")
+    del args, cots
+    cover = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    for label, s, M, C, r, act, out_drop, drop in TAIL_COVERAGE:
+        args, cots = tail_operands(cover, s, M, C, r)
+        args = args[:-1] + (drop,)
+        M, C = args[0].shape
+        shape = f"x [{M}, {C}] -> {4 * C}, r {r}"
+        text = check_tail_fwd(f"ln_lora_tail fwd {label}", args, act,
+                              out_drop)[1]
+        print(f"ln_lora_tail fwd {label} {shape}: {text}")
+        if label in TAIL_BWD_COVERAGE:
+            full = f"ln_lora_tail bwd {label} {shape}"
+            print(f"{full}: {check_tail_rows(full, args, cots)[1]}")
+        del args, cots
     return {"fwd": fwd, "bwd": bwd}
 
 
@@ -2051,7 +2102,7 @@ def main():
         entry("ln_mlp", "ln_mlp.cu", "pallas_ln_mlp.py:54", mlp["fwd"]),
         entry("ln_mlp_bwd", "ln_mlp_bwd.cu", "pallas_ln_mlp.py:103",
               mlp["bwd"]),
-        entry("ln_lora_tail", "ln_lora.cu", "pallas_ln_lora.py:74",
+        entry("ln_lora_tail", "ln_lora_tail_fwd.cu", "pallas_ln_lora.py:74",
               tail["fwd"]),
         entry("ln_lora_tail_bwd", "ln_lora_tail_bwd.cu",
               "pallas_ln_lora.py:124",

@@ -53,9 +53,11 @@ SIGNATURES = {
     # x, gamma, beta, wt, bias, at, bt, seed, y, M, K, O, r, merge_wh,
     # scale, drop threshold, use_drop, inv_keep, stream
     "mtlora_ln_lora_fwd": [_P] * 9 + [_I] * 5 + [_F, _U, _I, _F, _P],
-    # x, gamma, beta, wt, bias, at, bt, seed, y, p, d, M, K, O, r, act,
-    # scale, drop threshold, use_drop, inv_keep, stream
-    "mtlora_ln_lora_tail_fwd": [_P] * 11 + [_I] * 5 + [_F, _U, _I, _F, _P],
+    # x, gamma, beta, wt, bias, at, bt, seed, y, p, d, M, C, O, r, act, bm,
+    # splits, per_sm, blocks, stages, group, smem, scale, drop threshold,
+    # use_drop, inv_keep, stream
+    "mtlora_ln_lora_tail_fwd": [_P] * 11 + [_I] * 12 + [_F, _U, _I, _F,
+                                                         _P],
     # x, gamma, beta, wt, bias, at, bt, seed, gy, gp, gd, dx, lnd, mbuf, du,
     # gb, part, xfer, dgb, dat, dbt, M, C, O, r, act, bm, split, smem, sa,
     # sb, scale, drop threshold, use_drop, inv_keep, stream

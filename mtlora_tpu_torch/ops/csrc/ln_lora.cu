@@ -5,34 +5,27 @@
 //   m   = bf16(bf16(drop(ln)) A^T)     shared adapter, rank r <= 64
 //   y   = bf16(p + s * (m B^T))        rounded once
 // Kernel 3 is the same with the rows gathered 2x2 from a [.., H, W, C]
-// stream (concat order k = di + 2 dj), no bias and no adapter.
-//
-// The stage-tail mode (norm2 -> fc1 of the four blocks that carry task
-// streams) takes z = p + s (m B^T) through GELU (the tanh form of the
-// TPU kernel's bf16 path, lnk::kGelu) and writes
-// y = bf16(gelu(z)), the frozen pre-activation bf16(p) and, in training,
-// bf16(drop1(gelu(z))) on dropout stream 1 (the next layer's pre-dropped
-// adapter input); its backward is ln_lora_tail_bwd.cu.
+// stream (concat order k = di + 2 dj), no bias and no adapter. (The
+// stage-tail mode is ln_lora_tail_fwd.cu.)
 //
 // Replaces mtlora_tpu/ops/pallas_ln_lora.py: _fwd_kernel (launched by
-// _run_fwd through fused_ln_lora_linear: the y-only mode and the out_p,
-// out_act, out_drop modes) and _merge_fwd_kernel (launched by
-// _merge_run_fwd through fused_merge_ln_linear).
+// _run_fwd through fused_ln_lora_linear) in y-only mode and
+// _merge_fwd_kernel (launched by _merge_run_fwd through
+// fused_merge_ln_linear).
 //
 // What bounds it: at the flagship's qkv shapes a row of K = C inputs makes
 // 3C outputs, 2*C*3C + 2*r*(C + 3C) FLOP for 2*(C + 3C) bytes: 96-768
 // FLOP per byte, near or above the card's ~295 ridge, so the kernel wants
-// to be bound by the tensor cores; the tail mode writes three [M, 4C]
-// outputs and is bound by those bytes at every stage. The TPU kernel's
-// win, kept here, is that the normalised activations and the rank-r
-// intermediate never reach device memory. Design: a block of 4 warps owns
+// to be bound by the tensor cores. The TPU kernel's win, kept here, is
+// that the normalised activations and the rank-r intermediate never reach
+// device memory. Design: a block of 4 warps owns
 // 16 rows (so that the 6,272 rows of the last stage still make 392
 // blocks); the warps split the rows' statistics and the bf16(drop(ln))
 // tile in shared memory, then the 64 columns of m = tile A (bf16, held on
 // chip, once per row block), rewrite the tile as bf16(ln), and take the
 // 64-column output chunks round robin, accumulating p and u with mma.sync
-// m16n8k16 and writing the epilogue of the mode. Dropout masks are a hash
-// of the element index (dropout.cuh): nothing is stored for the backward.
+// m16n8k16 and writing y. Dropout masks are a hash of the element index
+// (dropout.cuh): nothing is stored for the backward.
 // The weights are read in their nn.Linear layouts ([O, K], [r, K], [O, r]:
 // k contiguous, the mma B layout) straight from device memory through
 // L1/L2. No TMA, wgmma or pipelining yet.
@@ -43,16 +36,13 @@ namespace {
 
 using namespace lnk;
 
-enum Mode { kY = 0, kTail = 1 };
-
 struct FwdArgs {
   Rows R;
   const bf16 *gamma, *beta, *wt, *bias, *at, *bt;
   bf16* y;
-  int O, r, act;   // act: GELU on z (tail mode)
+  int O, r;
   float scale;
-  DropSpec drop, drop1;
-  bf16 *p, *d;     // tail mode: p and d (d may be null)
+  DropSpec drop;
 };
 
 // Shared memory of a block: LN tile [16][K + 8] and m tile [16][72]
@@ -62,7 +52,7 @@ inline size_t block_bytes(int K) {
          2 * kRows * sizeof(float);
 }
 
-template <bool LORA, int MODE>
+template <bool LORA>
 __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int K = a.R.K, M = a.R.M, ld = K + 8;
@@ -77,7 +67,6 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
   rows_stats(a.R, m0, mu, inv, warp, warps);
   __syncthreads();
   const Drop d = LORA ? make_drop(a.drop) : no_drop();
-  const Drop d1 = MODE != kY ? make_drop(a.drop1) : no_drop();
   rows_ln_tile(tile, ld, a.R, a.gamma, a.beta, m0, mu, inv, d, warp, warps);
   __syncthreads();
   if (LORA) {
@@ -115,18 +104,7 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
         const float p1 = acc[nt][2 * half + 1] + b.y;
         const float z0 = p0 + a.scale * u[nt][2 * half];
         const float z1 = p1 + a.scale * u[nt][2 * half + 1];
-        const size_t o = (size_t)m * a.O + c;
-        if (MODE == kY) {
-          st_bf2(a.y + o, z0, z1);
-        } else {
-          const float y0 = a.act ? act_fwd<kGelu>(z0) : z0;
-          const float y1 = a.act ? act_fwd<kGelu>(z1) : z1;
-          st_bf2(a.y + o, y0, y1);
-          st_bf2(a.p + o, p0, p1);
-          if (a.d)
-            st_bf2(a.d + o, d1.apply(y0, m, a.O, c),
-                   d1.apply(y1, m, a.O, c + 1));
-        }
+        st_bf2(a.y + (size_t)m * a.O + c, z0, z1);
       }
     }
   }
@@ -134,11 +112,7 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
 
 template <bool LORA>
 __global__ void __launch_bounds__(128) ln_lora_fwd_kernel(FwdArgs a) {
-  fwd_body<LORA, kY>(a);
-}
-
-__global__ void __launch_bounds__(128) ln_lora_tail_fwd_kernel(FwdArgs a) {
-  fwd_body<true, kTail>(a);
+  fwd_body<LORA>(a);
 }
 
 FwdArgs make_args(const void* x, const void* gamma, const void* beta,
@@ -161,14 +135,11 @@ FwdArgs make_args(const void* x, const void* gamma, const void* beta,
   a.O = O;
   a.r = r;
   a.scale = scale;
-  for (int s = 0; s < 2; ++s) {
-    DropSpec& d = s ? a.drop1 : a.drop;
-    d.seed = static_cast<const int*>(seed);
-    d.stream = s;
-    d.on = use_drop;
-    d.thr = thr;
-    d.inv_keep = inv_keep;
-  }
+  a.drop.seed = static_cast<const int*>(seed);
+  a.drop.stream = 0;
+  a.drop.on = use_drop;
+  a.drop.thr = thr;
+  a.drop.inv_keep = inv_keep;
   return a;
 }
 
@@ -205,23 +176,4 @@ extern "C" int mtlora_ln_lora_fwd(const void* x, const void* gamma,
   const bool lora = r > 0 && scale != 0.f;
   return (int)launch(lora ? ln_lora_fwd_kernel<true> : ln_lora_fwd_kernel<false>,
                      a, stream);
-}
-
-// Tail mode: x [M, K] -> y = bf16(gelu(z)) [M, O] (z without act),
-// p = bf16(LN(x) W^T + b) and d = bf16(drop1(y)) [M, O] (d may be null;
-// d needs use_drop).
-extern "C" int mtlora_ln_lora_tail_fwd(
-    const void* x, const void* gamma, const void* beta, const void* wt,
-    const void* bias, const void* at, const void* bt, const void* seed,
-    void* y, void* p, void* d, int M, int K, int O, int r, int act,
-    float scale, unsigned thr, int use_drop, float inv_keep, void* stream) {
-  if (bad_shape(M, K, O, r, 0) || r == 0 || !p || (d && !use_drop))
-    return (int)cudaErrorInvalidValue;
-  FwdArgs a = make_args(x, gamma, beta, wt, bias, at, bt, seed, M, K, O, r,
-                        0, scale, thr, use_drop, inv_keep);
-  a.y = static_cast<bf16*>(y);
-  a.act = act;
-  a.p = static_cast<bf16*>(p);
-  a.d = static_cast<bf16*>(d);
-  return (int)launch(ln_lora_tail_fwd_kernel, a, stream);
 }

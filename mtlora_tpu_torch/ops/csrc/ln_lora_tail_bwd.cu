@@ -25,7 +25,8 @@
 //   - a block of 8 warps owns BM rows, so that its dln (BM x C fp32)
 //     stays at 96 registers a thread or below: 64, 128 at C = 192 (a
 //     warp's 64 columns, more products per fragment), 32 where C > 384
-//     (the launch plan, ops/ln_lora.py:tail_bwd_plan, chooses). Where
+//     (128 registers at C = 1024; the launch plan,
+//     ops/ln_lora.py:tail_bwd_plan, chooses). Where
 //     C <= 128 two blocks share an SM, so that one's LayerNorm, hashing
 //     and barriers overlap the other's products. The 32-row blocks are few
 //     (1.5 waves at stage 3): the two blocks of a cluster share one row
@@ -43,7 +44,12 @@
 //     barrier (A's slices before and after the chunks); z = s m B^T +
 //     bf16(ln) W^T accumulates in the warps' registers, and the slices are
 //     kept in shared memory for the chunk's dm += du B and dln += gpt W:
-//     every weight byte is staged once per block. Each thread loads its
+//     every weight byte is staged once per block. Above C = 768 W's
+//     slices do not fit beside the bf16(ln) tile: they stream through
+//     the ring again for dln (B's slice is still kept). A rank r < 64 is
+//     zero-filled to 64 (A's rows and B's columns past r read as zero, so
+//     m, u, dm and dl take no part of them), and m and dm go to their rows
+//     at r's stride. Each thread loads its
 //     elements of the chunk's gy, gp and gd into registers as the chunk
 //     starts, to use them after its z products (bulk copies of 128-byte
 //     rows to shared memory, and a lead of a whole chunk, cost more than
@@ -71,7 +77,7 @@ constexpr int kS = 64;               // a slice and a hidden chunk: 64 wide
 constexpr int kLdS = kS + 8;         // row stride of the 64-wide tiles
 constexpr int kStages = 4;           // ring depth
 constexpr int kGroup = 2;            // slices per ring barrier
-constexpr int kRank = 64;
+constexpr int kRank = 64;           // the rank's slice (r <= 64)
 static_assert(kS == kSliceW, "slice_ring.cuh");
 
 struct Args {
@@ -80,9 +86,11 @@ struct Args {
   bf16 *dx, *lnd, *m, *dm, *du;
   float* gb;
   float* xfer;  // split 2: the second block's dln and dm partials
-  int O, act;
+  int O, r, act;
   int split2;   // 1: the two blocks of a cluster share a row block
-  int per_mul;  // ceil(2^16 / (ncs + 1)): q / (ncs + 1) = q per_mul >> 16
+  int per;      // slices a hidden chunk: B and W's ncs (2 ncs + 1 where W
+                // streams again for dln)
+  int per_mul;  // ceil(2^16 / per): q / per = q per_mul >> 16
   float s;
   DropSpec d0, d1;
 };
@@ -99,20 +107,23 @@ __device__ __forceinline__ Chunks chunks_of(const Args& a) {
 }
 
 // The q-th slice a block multiplies with (ncs slices of 64 columns of C):
-// A for m; per hidden chunk B (u, then dm), W (z, then dln); A for dl.
+// A for m; per hidden chunk B (u, then dm), W (z, then dln; streamed a
+// second time for dln where per = 2 ncs + 1); A for dl. A's rows and B's
+// columns past r read as zero.
 __device__ __forceinline__ Slice slice_of(const Args& a, int q, int ncs) {
-  const int C = a.R.K, per = ncs + 1;
+  const int C = a.R.K;
   const Chunks ch = chunks_of(a);
-  if (q < ncs) return Slice{a.at, C, 0, kS * q, kRank, C};       // m
+  if (q < ncs) return Slice{a.at, C, 0, kS * q, a.r, C};         // m
   q -= ncs;
   const int j = (q * a.per_mul) >> 16;   // q / per, exact for q < 2^16 / per
   if (j < ch.nch) {
-    const int h0 = kS * (ch.j0 + j), i = q - j * per;
-    if (i == 0) return Slice{a.bt, kRank, h0, 0, a.O, kRank};    // u, dm
-    return Slice{a.wt, C, h0, kS * (i - 1), a.O, C};             // z, dln
+    const int h0 = kS * (ch.j0 + j), i = q - j * a.per;
+    if (i == 0) return Slice{a.bt, a.r, h0, 0, a.O, a.r};        // u, dm
+    const int cs = i - 1 < ncs ? i - 1 : i - 1 - ncs;
+    return Slice{a.wt, C, h0, kS * cs, a.O, C};                  // z, dln
   }
-  q -= ch.nch * per;
-  return Slice{a.at, C, 0, kS * q, kRank, C};                    // dl
+  q -= ch.nch * a.per;
+  return Slice{a.at, C, 0, kS * q, a.r, C};                      // dl
 }
 
 // A warp's elements of a chunk's [M, O] cotangent in the accumulator
@@ -154,16 +165,18 @@ __device__ __forceinline__ float2 unpack_bf2(uint32_t v) {
 // A block of BM rows (128, 64 or 32) whose dln covers at most NCS slices
 // of 64 columns. Where C <= 128 two blocks share an SM (at most 128
 // registers, a few spilled), so that one block's LayerNorm and mask
-// hashing overlap the other's products.
+// hashing overlap the other's products. Above 12 slices (C > 768) the
+// block keeps no W slices: they stream again for dln.
 template <int BM, int NCS>
 __global__ void __launch_bounds__(kThreads, NCS <= 2 ? 2 : 1)
     ln_lora_tail_bwd_rows(Args a) {
   constexpr int WM = BM / 16, WN = kWarps / WM;
   constexpr int NT = kS / 8 / WN;   // n-tiles of a warp in a 64-wide product
   constexpr int kTile = BM * kLdS;
+  constexpr bool kKeepW = NCS <= 12;
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = a.R.K, M = a.R.M, O = a.O, ld = C + 8;
-  const int ncs = (C + kS - 1) / kS, per = ncs + 1;
+  const int ncs = (C + kS - 1) / kS;
   const Chunks ch = chunks_of(a);
   const int nch = ch.nch, rank = blockIdx.x & a.split2;
   const int warp = threadIdx.x >> 5, lane = lane_id(), g = lane >> 2,
@@ -172,20 +185,22 @@ __global__ void __launch_bounds__(kThreads, NCS <= 2 ? 2 : 1)
   const int wr = kRows * mi, wc = 8 * NT * ni;   // the warp's rows, columns
   const int m0 = (blockIdx.x >> a.split2) * BM;
   // Dynamic shared memory: the ring, the bf16(ln) tile [BM][C + 8], the
-  // m / dm tile [BM][72], the chunk's kept W slices and B slice, its du
-  // and gpt tiles [BM][72] (bf16; before and after the chunks the span
-  // from the W slices on holds the block's rows of x, [BM][C + 8]); mu,
-  // inv [BM] and the row sums of the LayerNorm backward [2][WN][BM]
-  // (fp32). The padded row strides keep ldmatrix free of bank conflicts.
+  // m / dm tile [BM][72], the chunk's kept W slices (none above C = 768)
+  // and B slice, its du and gpt tiles [BM][72] (bf16; before and after
+  // the chunks the span from the W slices on, at least [BM][C + 8], holds
+  // the block's rows of x); mu, inv [BM] and the row sums of the
+  // LayerNorm backward [2][WN][BM] (fp32). The padded row strides keep
+  // ldmatrix free of bank conflicts.
   SliceRing<Args, kThreads, kStages, kGroup> ring{
-      reinterpret_cast<bf16*>(smem), 0, 2 * ncs + nch * per, ncs};
+      reinterpret_cast<bf16*>(smem), 0, 2 * ncs + nch * a.per, ncs};
   bf16* lt = ring.buf + kStages * kSliceElems;   // bf16(drop0(ln)), bf16(ln)
   bf16* mt = lt + BM * ld;                       // m, then dm
   bf16* wk = mt + kTile;                         // W slices of the chunk
-  bf16* bk = wk + ncs * kSliceElems;             // B slice of the chunk
+  bf16* bk = wk + (kKeepW ? ncs : 0) * kSliceElems;   // B slice of the chunk
   bf16* dut = bk + kSliceElems;                  // du of the chunk
   bf16* gpt = dut + kTile;                       // gpt of the chunk
-  float* mu = reinterpret_cast<float*>(gpt + kTile);
+  float* mu = reinterpret_cast<float*>(
+      gpt + kTile < wk + BM * ld ? wk + BM * ld : gpt + kTile);
   float* inv = mu + BM;
   float* red = inv + BM;                         // [2][WN][BM]
   // stream 0's mask over the block's ln [BM][C], 1 where kept
@@ -245,7 +260,7 @@ __global__ void __launch_bounds__(kThreads, NCS <= 2 ? 2 : 1)
     for (int i = 0; i < BM; i += kRows)
       rows_ln_tile(lt + i * ld, ld, xs, a.gamma, a.beta, m0 + i, mu + i,
                    inv + i, no_drop(), warp, kWarps);
-  if (rank == 0) rows_out<kThreads>(a.m, kRank, 0, mt, kLdS, m0, M, BM, kRank);
+  if (rank == 0) rows_out<kThreads>(a.m, a.r, 0, mt, kLdS, m0, M, BM, a.r);
 
   // ---- the hidden in chunks of 64 columns ---------------------------------
   float dln[NCS][NT][4], dma[NT][4];
@@ -278,9 +293,10 @@ __global__ void __launch_bounds__(kThreads, NCS <= 2 ? 2 : 1)
     for (int cs = 0; cs < ncs; ++cs) {
       const bf16* sl = ring.next(a);
       mma_sl<NT, false>(zc, lt + wr * ld + kS * cs, ld, sl, wc, ksteps(C, cs));
-      for (int v = threadIdx.x; v < kSliceElems / 8; v += kThreads)
-        reinterpret_cast<uint4*>(wk + cs * kSliceElems)[v] =
-            reinterpret_cast<const uint4*>(sl)[v];
+      if constexpr (kKeepW)
+        for (int v = threadIdx.x; v < kSliceElems / 8; v += kThreads)
+          reinterpret_cast<uint4*>(wk + cs * kSliceElems)[v] =
+              reinterpret_cast<const uint4*>(sl)[v];
     }
     // g = (gy + drop1(gd)) gelu'(z); gpt = bf16(g + gp), du = bf16(s g)
 #pragma unroll
@@ -314,10 +330,19 @@ __global__ void __launch_bounds__(kThreads, NCS <= 2 ? 2 : 1)
     mma_sl<NT, true>(dma, dut + wr * kLdS, kLdS, bk, wc, 4);
     uint32_t af[kS / 16][4];
     a_frags(af, gpt + wr * kLdS, kLdS, 4);
+    if constexpr (kKeepW) {
 #pragma unroll
-    for (int cs = 0; cs < NCS; ++cs)
-      if (cs < ncs && kS * cs + wc < C)
-        mma_frags<NT, true>(dln[cs], af, wk + cs * kSliceElems, wc, 4);
+      for (int cs = 0; cs < NCS; ++cs)
+        if (cs < ncs && kS * cs + wc < C)
+          mma_frags<NT, true>(dln[cs], af, wk + cs * kSliceElems, wc, 4);
+    } else {
+#pragma unroll
+      for (int cs = 0; cs < NCS; ++cs)
+        if (cs < ncs) {
+          const bf16* sl = ring.next(a);
+          if (kS * cs + wc < C) mma_frags<NT, true>(dln[cs], af, sl, wc, 4);
+        }
+    }
   }
 
   // ---- a split-2 cluster: the second block's dln and dm partials to the
@@ -359,9 +384,10 @@ __global__ void __launch_bounds__(kThreads, NCS <= 2 ? 2 : 1)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int c = wc + 8 * nt + 2 * t;
-      if (m < M) st_bf2(a.dm + (size_t)m * kRank + c, dma[nt][0], dma[nt][1]);
+      if (c >= a.r) continue;
+      if (m < M) st_bf2(a.dm + (size_t)m * a.r + c, dma[nt][0], dma[nt][1]);
       if (m + 8 < M)
-        st_bf2(a.dm + (size_t)(m + 8) * kRank + c, dma[nt][2], dma[nt][3]);
+        st_bf2(a.dm + (size_t)(m + 8) * a.r + c, dma[nt][2], dma[nt][3]);
     }
   }
   store_tile<NT>(mt + wr * kLdS, kLdS, dma, wc);
@@ -438,9 +464,10 @@ bool misaligned(const void* p) { return (uintptr_t)p % 16 != 0; }
 
 }  // namespace
 
-// Layouts: the forward's (wt [O, C], bias [O], at [r, C], bt [O, r]), read
-// in place; gy, gp, gd [M, O] (gp, gd may be null: no cotangent). bm (128
-// where C = 192, 64 up to C = 384, or 32), split (the blocks
+// Layouts: the forward's (wt [O, C], bias [O], at [r, C], bt [O, r]; r 16,
+// 32, 48 or 64), read in place; gy, gp, gd [M, O] (gp, gd may be null: no
+// cotangent). bm (128 where C = 192, 64 up to C = 384, or 32), split (the
+// blocks
 // of a cluster that share a row block's hidden chunks: 2 where bm = 32,
 // or 1) and the row kernel's shared-memory bytes smem are the caller's
 // launch plan (ops/ln_lora.py:tail_bwd_plan); the kernel traps if smem
@@ -459,8 +486,8 @@ extern "C" int mtlora_ln_lora_tail_bwd(
     int split, int smem, int sa, int sb, float scale, unsigned thr,
     int use_drop, float inv_keep, void* stream) {
   const int ncs = (C + kS - 1) / kS;
-  if (M < 1 || C <= kS || C % 32 || C > 768 || O < kS || O % kS ||
-      r != kRank || sa < 1 || sb < 1 ||
+  if (M < 1 || C <= kS || C % 32 || C > 1024 || O < kS || O % kS ||
+      r < 16 || r % 16 || r > kRank || sa < 1 || sb < 1 ||
       !(bm == 32 || (bm == 64 && ncs <= 6) || (bm == 128 && C == 192)) ||
       !(split == 1 || (split == 2 && bm == 32 && O / kS % 2 == 0 && xfer)))
     return (int)cudaErrorInvalidValue;
@@ -492,8 +519,10 @@ extern "C" int mtlora_ln_lora_tail_bwd(
   a.gb = static_cast<float*>(gb);
   a.xfer = static_cast<float*>(xfer);
   a.split2 = split == 2;
-  a.per_mul = (65536 + ncs) / (ncs + 1);
+  a.per = ncs <= 12 ? ncs + 1 : 2 * ncs + 1;   // the instances' kKeepW
+  a.per_mul = (65536 + a.per - 1) / a.per;
   a.O = O;
+  a.r = r;
   a.act = act;
   a.s = scale;
   for (int s = 0; s < 2; ++s) {
@@ -507,7 +536,9 @@ extern "C" int mtlora_ln_lora_tail_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   const int blocks = (M + bm - 1) / bm;
-  cudaError_t e = bm == 32    ? launch_rows<32, 12>(a, blocks, smem, st)
+  cudaError_t e = bm == 32    ? (ncs <= 12
+                                     ? launch_rows<32, 12>(a, blocks, smem, st)
+                                     : launch_rows<32, 16>(a, blocks, smem, st))
                   : bm == 128 ? launch_rows<128, 3>(a, blocks, smem, st)
                   : ncs <= 2  ? launch_rows<64, 2>(a, blocks, smem, st)
                   : ncs <= 3  ? launch_rows<64, 3>(a, blocks, smem, st)

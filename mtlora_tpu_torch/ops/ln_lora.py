@@ -14,10 +14,12 @@ kernels:
     ``[.., H, W, C]`` stream, ``LN(4C)`` and the ``4C -> 2C`` reduction,
     no bias and no LoRA, with a gradient for the reduction weight.
 
-One forward source (``csrc/ln_lora.cu``) serves both: the row loader
-reads rows plainly or gathers them 2x2 (concat order ``k = di + 2 dj``,
-``merge_ln_reference`` :663-679), and the LoRA epilogue is on for kernel 2
-and off for kernel 3. Kernel 3b is ``csrc/ln_lora_bwd.cu``. Kernel 2b is a
+One forward source (``csrc/ln_lora.cu``) serves kernel 2 in y-only mode
+and kernel 3: the row loader reads rows plainly or gathers them 2x2
+(concat order ``k = di + 2 dj``, ``merge_ln_reference`` :663-679), and the
+LoRA epilogue is on for kernel 2 and off for kernel 3. Kernel 2's tail
+mode is ``csrc/ln_lora_tail_fwd.cu`` (its plan :func:`tail_fwd_plan`).
+Kernel 3b is ``csrc/ln_lora_bwd.cu``. Kernel 2b is a
 fused row kernel then the weight passes of dA and dB in each mode:
 ``csrc/ln_lora_qkv_bwd.cu`` (y-only, the qkv sites; its plan
 :func:`qkv_bwd_plan`) and ``csrc/ln_lora_tail_bwd.cu`` (the tail mode; its
@@ -601,29 +603,138 @@ def _tail_args(name, x, gamma, beta, wt, bias, at, bt, seed, cots=()):
     return [t.data_ptr() for t in (x, gamma, beta, wt, bias, at, bt, seed)]
 
 
-def ln_lora_tail_fwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
-                     drop: float, act: bool = True, out_drop: bool = False):
-    """Kernel 2's tail mode forward, no autograd: ``(y, p, d)`` (d None
-    unless ``out_drop``), plain for CPU tensors, the kernel for CUDA
-    tensors."""
-    if x.device.type == "cpu":
-        return ln_lora_tail_plain(x, gamma, beta, wt, bias, at, bt, seed,
-                                  scale, drop, act, out_drop)
+# the constants of csrc/ln_lora_tail_fwd.cu that its plan sizes shared
+# memory by (the kernel traps if the plan's bytes do not hold its layout)
+TAIL_FWD_CHUNK = 64     # output chunk and slot width (kS)
+TAIL_FWD_WARPS = 8      # warps of a row block (kWarps)
+TAIL_FWD_TILE = TAIL_FWD_CHUNK + 8   # row stride of the staging tiles (kLdS)
+TAIL_FWD_GROUP = 4      # slots a ring group (at most kGroupMax)
+TAIL_FWD_MAX_STAGES = 16     # slots in the TMA ring, at most
+TAIL_FWD_WIDE = 384     # C above which two warps share 16 rows (kWide)
+TAIL_FWD_MAX_C = 1024   # the widest C the kernel takes
+TAIL_FWD_ITEM_COST = 1  # an item's rows, statistics and m, in super-chunks
+
+
+class TailFwdPlan(NamedTuple):
+    """Launch plan of kernel 2's tail mode: rows per block, warps that
+    share 16 rows (each on its own 64-column chunk), the items of a row
+    block that split its chunks, the items (row blocks x splits), blocks
+    an SM, the TMA ring's slots and slots a group, dynamic shared-memory
+    bytes, blocks (each taking items in turn), and the bytes of weight
+    slots they stream from L2."""
+
+    bm: int
+    wn: int
+    splits: int
+    items: int
+    per_sm: int
+    stages: int
+    group: int
+    smem: int
+    blocks: int
+    slice_bytes: int
+
+
+def tail_fwd_plan(M: int, C: int, O: int, r: int, sms: int) -> TailFwdPlan:
+    """Kernel 2's tail-mode plan for x [M, C] -> [M, O], rank r (a multiple
+    of 16 up to 64, zero-filled to one 64-wide slot) on a card of ``sms``
+    SMs. A block of 8 warps owns 128 rows up to C = 384 (a warp 16 rows
+    and one 64-column chunk at a time); above, where that bf16(ln) tile
+    would take most of the shared memory, 64 rows, two warps on the same
+    16 rows taking two chunks side by side; the last row block masks the
+    rows past M. An item is a row block and one split of its super-chunks
+    (of ``wn`` chunks): where the row blocks are few they split evenly,
+    the split, among those that divide them, that takes the fewest rounds
+    of items over the SMs times super-chunks an item (plus
+    ``TAIL_FWD_ITEM_COST`` for its rows, statistics and m). The blocks
+    take the items in turn: two an SM where, with one staging tile a
+    warp, a ring of 4 slots fits twice in an SM (WN = 1, C up to 192), else
+    one, with two staging tiles a warp. The ring takes what shared memory
+    leaves, in groups of 4 slots (2 where fewer than 8 fit), at most 16."""
+    if (C % 16 or not 16 <= C <= TAIL_FWD_MAX_C or O % 8 or not O
+            or r % 16 or not 16 <= r <= 64):
+        raise ValueError(f"LN+LoRA tail forward kernel: needs C % 16 == 0 "
+                         f"and 16 <= C <= {TAIL_FWD_MAX_C} ({C}), O % 8 == "
+                         f"0 ({O}) and r a multiple of 16 up to 64 ({r})")
+    wn = 1 if C <= TAIL_FWD_WIDE else 2
+    bm = ROW_TILE * TAIL_FWD_WARPS // wn
+    ncs = -(-C // TAIL_FWD_CHUNK)
+    nsc = -(-(-(-O // TAIL_FWD_CHUNK)) // wn)
+    slot = 2 * TAIL_FWD_CHUNK ** 2
+
+    def fixed_bytes(per_sm):
+        # up to 1023 bytes to the ring's 1024-byte alignment; the x /
+        # bf16(ln) tile, gamma and beta, 3 - per_sm staging tiles a warp
+        # (bf16); the ring, its mbarriers and counts below
+        return 1024 + 2 * (bm * (C + 8) + 2 * C + TAIL_FWD_WARPS
+                           * (3 - per_sm) * ROW_TILE * TAIL_FWD_TILE)
+
+    def ring_bytes(stages, group):   # the slots; a mbarrier, a count a group
+        return stages * slot + 12 * (stages // group)
+
+    two = wn == 1 and fixed_bytes(2) + ring_bytes(4, 2) <= SM_SMEM // 2 - 1024
+    per_sm = 2 if two else 1
+    fixed = fixed_bytes(per_sm)
+    limit = SM_SMEM // 2 - 1024 if two else SMEM_LIMIT
+    group = (TAIL_FWD_GROUP
+             if fixed + ring_bytes(2 * TAIL_FWD_GROUP, TAIL_FWD_GROUP)
+             <= limit else 2)
+    stages = TAIL_FWD_MAX_STAGES // group * group
+    while stages >= 2 * group and fixed + ring_bytes(stages, group) > limit:
+        stages -= group
+    if stages < 2 * group:
+        raise ValueError(f"LN+LoRA tail forward kernel: {fixed} bytes of "
+                         f"shared memory at C = {C} leave no ring within "
+                         f"{limit}")
+    rows = -(-M // bm)
+    splits = min((-(-rows * s // (per_sm * sms))
+                  * (nsc // s + TAIL_FWD_ITEM_COST), s)
+                 for s in range(1, nsc + 1) if nsc % s == 0)[1]
+    items = rows * splits
+    smem = fixed + ring_bytes(stages, group)
+    # per item: A (m), then per super-chunk W's slices and B of each chunk
+    slices = ncs + nsc // splits * wn * (ncs + 1)
+    return TailFwdPlan(bm, wn, splits, items, per_sm, stages, group, smem,
+                       min(items, per_sm * sms), items * slices * slot)
+
+
+def ln_lora_tail_fwd_kernel(x, gamma, beta, wt, bias, at, bt, seed,
+                            scale: float, drop: float, act: bool = True,
+                            out_drop: bool = False):
+    """The CUDA route of :func:`ln_lora_tail_fwd` at the launch of
+    :func:`tail_fwd_plan`; raises for anything it does not take (a CPU
+    tensor included)."""
     ptrs = _tail_args("LN+LoRA tail forward", x, gamma, beta, wt, bias, at,
                       bt, seed)
-    M, O = x.shape[0], wt.shape[0]
+    M, C = x.shape
+    O, r = wt.shape[0], at.shape[0]
+    plan = tail_fwd_plan(M, C, O, r, _sms(x.device))
     y = torch.empty((M, O), dtype=x.dtype, device=x.device)
     p = torch.empty_like(y)
     d = torch.empty_like(y) if out_drop else None
     use_drop = int(drop > 0.0 or out_drop)
     err = _build.library().mtlora_ln_lora_tail_fwd(
         *ptrs, y.data_ptr(), p.data_ptr(),
-        None if d is None else d.data_ptr(), M, x.shape[1], O, at.shape[0],
-        int(act), float(scale), dropout.threshold(drop) if use_drop else 0,
-        use_drop, dropout.inv_keep(drop) if use_drop else 1.0, _stream(x))
+        None if d is None else d.data_ptr(), M, C, O, r, int(act), plan.bm,
+        plan.splits, plan.per_sm, plan.blocks, plan.stages, plan.group,
+        plan.smem, float(scale),
+        dropout.threshold(drop) if use_drop else 0, use_drop,
+        dropout.inv_keep(drop) if use_drop else 1.0, _stream(x))
     _build.check(err, "mtlora_ln_lora_tail_fwd")
     ln_lora_tail_fwd.launches += 1
     return y, p, d
+
+
+def ln_lora_tail_fwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
+                     drop: float, act: bool = True, out_drop: bool = False):
+    """Kernel 2's tail mode forward, no autograd: ``(y, p, d)`` (d None
+    unless ``out_drop``), plain for CPU tensors,
+    :func:`ln_lora_tail_fwd_kernel` for CUDA tensors."""
+    if x.device.type == "cpu":
+        return ln_lora_tail_plain(x, gamma, beta, wt, bias, at, bt, seed,
+                                  scale, drop, act, out_drop)
+    return ln_lora_tail_fwd_kernel(x, gamma, beta, wt, bias, at, bt, seed,
+                                   scale, drop, act, out_drop)
 
 
 # the constants of csrc/ln_lora_tail_bwd.cu that its plan sizes shared
@@ -632,6 +743,8 @@ TAIL_CHUNK = 64         # hidden chunk and weight-slice width (kS)
 TAIL_STAGES = 4         # slices in the cp.async ring (kStages)
 TAIL_WARPS = 8          # warps of a row block (kWarps)
 TAIL_TILE = TAIL_CHUNK + 8   # row stride of the 64-wide tiles (kLdS)
+TAIL_KEEP_SLICES = 12   # W slices a block keeps per chunk, at most (kKeepW)
+TAIL_RANKS = (16, 32, 48, 64)   # zero-filled to one 64-wide slice (kRank)
 
 
 class TailBwdPlan(NamedTuple):
@@ -657,19 +770,23 @@ class TailBwdPlan(NamedTuple):
 
 
 def _tail_dims(C: int, O: int, r: int):
-    if C % 32 or not TAIL_CHUNK < C <= 768 or O % TAIL_CHUNK or r != 64:
+    if (C % 32 or not TAIL_CHUNK < C <= 1024 or O % TAIL_CHUNK
+            or r not in TAIL_RANKS):
         raise ValueError(f"LN+LoRA tail backward kernel: needs C % 32 == 0 "
-                         f"and 64 < C <= 768 ({C}), O % 64 == 0 ({O}) and "
-                         f"r == 64 ({r})")
+                         f"and 64 < C <= 1024 ({C}), O % 64 == 0 ({O}) and "
+                         f"r in {TAIL_RANKS} ({r})")
 
 
 def tail_bwd_plan(M: int, C: int, O: int, r: int, sms: int) -> TailBwdPlan:
-    """The tail backward's plan for x [M, C], O hidden columns, rank r on a
-    card of ``sms`` SMs: a row block of 64 rows, or 32 where C > 384 so
-    that its fp32 dln (rows x C) stays at 96 registers a thread, or 128
+    """The tail backward's plan for x [M, C], O hidden columns, rank r (16,
+    32, 48 or 64, zero-filled to one 64-wide slice) on a card of ``sms``
+    SMs: a row block of 64 rows, or 32 where C > 384 so that its fp32 dln
+    (rows x C) stays at 96 registers a thread (128 at C = 1024), or 128
     at C = 192 (96 registers too, a warp's 64 columns whole slices; faster
     there on the H100, slower at C = 96); the last block masks the rows
-    past M. Per chunk it keeps W's ceil(C / 64) slices and B's one. The
+    past M. Per chunk it keeps W's ceil(C / 64) slices and B's one; above
+    C = 768 W's slices do not fit beside the bf16(ln) tile, and stream a
+    second time for dln (B's one still kept). The
     32-row blocks, few (196 at stage 3, 1.5 waves of 132 SMs), split their
     hidden chunks between the two blocks of a cluster, the second handing
     its dln and dm partials to the first. Scratch: bf16(drop0(ln)) ``lnd``
@@ -681,20 +798,25 @@ def tail_bwd_plan(M: int, C: int, O: int, r: int, sms: int) -> TailBwdPlan:
     ncs = -(-C // TAIL_CHUNK)
     bm = 128 if C == 192 else 64 if ncs <= 6 else 32
     wn = max(1, TAIL_WARPS // (bm // ROW_TILE))
-    kept = ncs + 1
+    keep_w = ncs <= TAIL_KEEP_SLICES
+    kept = (ncs if keep_w else 0) + 1
     split = 2 if bm == 32 and O // TAIL_CHUNK % 2 == 0 else 1
-    # the ring and the kept slices; the bf16(ln) tile; the m / dm, du and
-    # gpt tiles; mu, inv and the LayerNorm row sums; stream 0's mask bytes
-    smem = (2 * ((TAIL_STAGES + kept) * TAIL_CHUNK ** 2 + bm * (C + 8)
-                 + 3 * bm * TAIL_TILE)
+    # the ring; the bf16(ln) tile; the m / dm tile; the kept slices, du and
+    # gpt tiles, a span that holds the block's rows of x before and after
+    # the chunks; mu, inv and the LayerNorm row sums; stream 0's mask bytes
+    chunk_span = max(kept * TAIL_CHUNK ** 2 + 2 * bm * TAIL_TILE,
+                     bm * (C + 8))
+    smem = (2 * (TAIL_STAGES * TAIL_CHUNK ** 2 + bm * (C + 8)
+                 + bm * TAIL_TILE + chunk_span)
             + 4 * (2 * bm + 2 * wn * bm) + bm * C)
     if smem > SMEM_LIMIT:
         raise ValueError(f"LN+LoRA tail backward kernel: {smem} bytes of "
                          f"shared memory at C = {C} exceed {SMEM_LIMIT}")
     blocks = -(-M // bm)
     # per row block: A (m, in each block of a split), per hidden chunk B
-    # and W, then A (dl)
-    slices = (split + 1) * ncs + O // TAIL_CHUNK * kept
+    # and W (twice where it is not kept), then A (dl)
+    slices = (split + 1) * ncs + O // TAIL_CHUNK * (
+        ncs + 1 if keep_w else 2 * ncs + 1)
     sa = stripes_for(sms, M, r, C)
     sb = stripes_for(sms, M, O, r)
     bf16, f32 = torch.bfloat16, torch.float32

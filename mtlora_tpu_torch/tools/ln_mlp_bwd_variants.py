@@ -1,6 +1,7 @@
 """Kernels 4 and 4b on the card against variants of themselves and other
 checkouts (and, with ``--checks``, any kernel: kernel 2b's variants,
-``qkv-*``, run with ``--checks check_ln_lora``).
+``qkv-*``, run with ``--checks check_ln_lora``, kernel 2-tail's,
+``tail-fwd-*``, with ``--checks check_ln_lora_tail``).
 
     python -m mtlora_tpu_torch.tools.ln_mlp_bwd_variants
         [--variants NAME,...] [--against DIR ...] [--checks FUNC,...]
@@ -31,7 +32,9 @@ attention backward (kernels 1b and 1c). The edits of ``VARIANTS`` reach either k
 plan. With
 ``--checks`` it runs those ``check_*`` functions of its tree's
 ``chip_smoke.py`` instead (the phase 3/3b rows of other kernels) and
-prints their sums.
+prints their sums and, per line of theirs that names a kernel time
+(``<label>: ... kernel <ms> ms``), that time by label: the per-stage
+comparison of those checks between the trees.
 
 This file imports only torch and the standard library at the top: a
 process of another tree imports that tree's package, never this one's.
@@ -40,6 +43,8 @@ process of another tree imports that tree's package, never this one's.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import re
@@ -191,6 +196,50 @@ VARIANTS = {
          "st)\n"
          "                             : launch_rows<64, 6>(p, blocks, smem, "
          "st))\n")],
+    # kernel 2-tail: 64-row blocks (two warps on the same 16 rows, two
+    # chunks side by side, one block an SM) at every width, in place of
+    # 128 up to C = 384
+    "tail-fwd-rows-64": [
+        ("ops/ln_lora.py", "TAIL_FWD_WIDE = 384 ", "TAIL_FWD_WIDE = 0 "),
+        ("ops/csrc/ln_lora_tail_fwd.cu", "constexpr int kWide = 384;",
+         "constexpr int kWide = 0;")],
+    # kernel 2-tail: one block an SM at every width, with two staging
+    # tiles a warp and the deeper ring that leaves, in place of two blocks
+    # an SM at stages 0 and 1
+    "tail-fwd-one-block-an-sm": [
+        ("ops/ln_lora.py", "    two = wn == 1 and fixed_bytes(2)",
+         "    two = False and fixed_bytes(2)")],
+    # kernel 2-tail: at most 8 ring slots in place of 16 (where one block
+    # an SM has room for more)
+    "tail-fwd-ring-8": [("ops/ln_lora.py", "TAIL_FWD_MAX_STAGES = 16 ",
+                         "TAIL_FWD_MAX_STAGES = 8 ")],
+    # kernel 2-tail: one item a row block, however few the row blocks
+    "tail-fwd-no-split": [
+        ("ops/ln_lora.py", "for s in range(1, nsc + 1) if nsc % s == 0)[1]",
+         "for s in (1,))[1]")],
+    # kernel 2-tail: the GELU by tanhf (lnk::act_fwd), in place of z
+    # sigma(2u) by ex2.approx and a fast divide
+    "tail-fwd-tanhf": [
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "  return __fdividef(z, 1.f + e);",
+         "  (void)e;\n  return act_fwd<kGelu>(z);")],
+    # kernel 2-tail: the staged rows written 4 bytes a lane (a warp a
+    # 128-byte row segment at a time), in place of 16
+    "tail-fwd-store-4b": [
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "#pragma unroll\n"
+         "  for (int k = 0; k < kRows / 4; ++k, o += step)\n"
+         "    if (whole || (row0 + i0 + 4 * k < M && n0 + c < O))\n"
+         "      *reinterpret_cast<uint4*>(o) =\n"
+         "          *reinterpret_cast<const uint4*>(sb + (i0 + 4 * k) * kLdS + c);\n",
+         "  (void)o;\n"
+         "  (void)step;\n"
+         "#pragma unroll\n"
+         "  for (int i = 0; i < kRows; ++i)\n"
+         "    if (whole || (row0 + i < M && n0 + 2 * lane < O))\n"
+         "      *reinterpret_cast<uint32_t*>(out + (size_t)(row0 + i) * O +\n"
+         "                                   n0 + 2 * lane) =\n"
+         "          *reinterpret_cast<const uint32_t*>(sb + i * kLdS + 2 * lane);\n")],
 }
 
 STAGE_WEIGHTS = (1, 1, 5, 1)   # no-task blocks per stage (depths - 1)
@@ -274,13 +323,15 @@ def _errors(got, want, names=NAMES) -> list:
 
 def _ptxas(log: str) -> dict:
     """Registers and spill bytes of every instance of kernel 4, of the
-    LN-family backward row kernels (4b, 2b in both modes, 3b) and of the
-    attention backward (kernels 1b and 1c's)."""
+    LN-family forward kernels (2 and 3, 2-tail) and backward row kernels
+    (4b, 2b in both modes, 3b) and of the attention backward (kernels 1b
+    and 1c's)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S*(?:ln_mlp_fwd_kernel|"
                       r"ln_mlp_bwd_rows|window_attn_bwd_kernel|ln_lora_\w*"
-                      r"bwd_rows|merge_ln_bwd_rows)\S*)", line)
+                      r"bwd_rows|merge_ln_bwd_rows|ln_lora_\w*fwd_kernel)"
+                      r"\S*)", line)
         if m:
             name = m[1]
             continue
@@ -292,6 +343,12 @@ def _ptxas(log: str) -> dict:
                                                    line)[1])
             name = None
     return out
+
+
+def kernel_lines(text: str) -> dict:
+    """label -> kernel ms of each ``<label>: ... kernel <ms> ms`` line."""
+    return {m[1]: float(m[2]) for m in re.finditer(
+        r"^(.*?): .*?\bkernel ([0-9.]+) ms", text, re.M)}
 
 
 def build():
@@ -313,9 +370,14 @@ def worker(tree: str, checks: str):
     if checks:
         import chip_smoke
         gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
-        rec["checks"] = {
-            fn: {k: t.json() for k, t in getattr(chip_smoke, fn)(gen).items()}
-            for fn in checks.split(",")}
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rec["checks"] = {
+                fn: {k: t.json()
+                     for k, t in getattr(chip_smoke, fn)(gen).items()}
+                for fn in checks.split(",")}
+        sys.stdout.write(out.getvalue())
+        rec["lines"] = kernel_lines(out.getvalue())
         print(json.dumps(rec), flush=True)
         return
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -413,6 +475,8 @@ def main():
             summary[name] = {fn: {k: [r["checks"][fn][k]["ms"] for r in recs]
                                   for k in recs[0]["checks"][fn]}
                              for fn in recs[0]["checks"]}
+            summary[name]["lines"] = {k: [r["lines"].get(k) for r in recs]
+                                      for k in recs[0]["lines"]}
         else:
             summary[name] = {
                 "fwd_stage_ms": [r["fwd_stage_ms"] for r in recs],

@@ -283,12 +283,18 @@ def _port_tail_args(x, gamma, beta, w, b, A, B):
     return [_t(a) for a in (x, gamma, beta, w.T, b, A.T, B.T)]
 
 
-def test_ln_lora_tail_matches_jax_kernel():
+# (K, O, r): the first shape, then ranks 16 and 32 at widths that are not
+# a multiple of 64 (kernel 2-tail's half slices)
+TAIL_SHAPES = [(16, 64, 16), (96, 384, 16), (160, 640, 32)]
+
+
+@pytest.mark.parametrize("K,O,r", TAIL_SHAPES)
+def test_ln_lora_tail_matches_jax_kernel(K, O, r):
     """``out_p`` and ``out_act``: forward (y, p) and the VJP (dx, dgamma,
     dbeta, dA, dB) from the cotangents of y and p, against the
     interpret-mode kernel, no dropout; 2e-5 of the largest element (its
     fp32 GELU takes the A&S erf)."""
-    (x, gamma, beta, w, b, A, B), (gy, gp, _) = _tail_inputs()
+    (x, gamma, beta, w, b, A, B), (gy, gp, _) = _tail_inputs(K=K, O=O, r=r)
     seed = jnp.zeros((2,), jnp.int32)
 
     def f(x, g, be, A, B):

@@ -2,14 +2,16 @@
 its launch plan and its plain split.
 
 The plan (``ops/ln_lora.py:tail_bwd_plan``) at the four fc1 sites of the
-batch-32 step (M = 32 * 112^2 / 4^s, C = 96 * 2^s, O = 4C, r = 64) and at
-the ragged 392 rows of stage 3 (the batch-2 step): rows per block, ring
-depth, kept slices, the two-block split of the 32-row blocks, shared
-memory against the H100's 232,448 bytes a block (and two blocks an SM
-where C <= 128), blocks with the ragged one counted, and the scratch the
-wrapper allocates; the constants of ``csrc/ln_lora_tail_bwd.cu`` that the
-plan sizes shared memory by; the refusals of shapes outside the kernel
-and of a CPU tensor on the kernel route.
+batch-32 step (M = 32 * 112^2 / 4^s, C = 96 * 2^s, O = 4C), at the ragged
+392 rows of stage 3 (the batch-2 step) and at Swin-B's last stage (C =
+1024), each at ranks 64, 32 and 16: rows per block, ring depth, kept
+slices (none of W's above C = 768), the two-block split of the 32-row
+blocks, shared memory against the H100's 232,448 bytes a block (and two
+blocks an SM where C <= 128), blocks with the ragged one counted, and the
+scratch the wrapper allocates; the flagship's plans, pinned; the
+constants of ``csrc/ln_lora_tail_bwd.cu`` that the plan sizes shared
+memory by; the refusals of shapes outside the kernel and of a CPU tensor
+on the kernel route.
 
 The plain split: ``ln_lora_tail_bwd_rows_plain`` (what the row kernel
 stores) then ``ln_lora_tail_bwd_weights_plain`` (dA, dB from those rows)
@@ -44,25 +46,29 @@ from mtlora_tpu_torch.ops.ln_lora import (
 torch.set_num_threads(2)
 SMS = 132   # the H100's SMs
 R = 64
-# (M, C): rows and width of the four fc1 sites at batch 32, and stage 3
-# at batch 2
+# (M, C): rows and width of the four fc1 sites at batch 32, stage 3 at
+# batch 2, and Swin-B's last stage at batch 32
 SHAPES = [(401408, 96), (100352, 192), (25088, 384), (6272, 768),
-          (392, 768)]
+          (392, 768), (6272, 1024)]
+RANKS = [64, 32, 16]
 SEED = np.array([123, 456], np.int32)
 REL = 2e-5
 
 
+@pytest.mark.parametrize("r", RANKS)
 @pytest.mark.parametrize("M,C", SHAPES)
-def test_plan_rows_ring_and_shared_memory(M, C):
-    plan = ln_lora.tail_bwd_plan(M, C, 4 * C, R, SMS)
+def test_plan_rows_ring_and_shared_memory(M, C, r):
+    plan = ln_lora.tail_bwd_plan(M, C, 4 * C, r, SMS)
     ncs = -(-C // 64)
-    # dln (rows x C fp32) at 96 registers a thread at most: 128 rows at
-    # C = 192, 64 up to C = 384, 32 above
-    assert plan.bm == {96: 64, 192: 128, 384: 64, 768: 32}[C]
-    assert plan.bm * C <= 128 * 192
+    keep = ncs <= 12
+    # dln (rows x C fp32) at 96 registers a thread at most (128 at C =
+    # 1024): 128 rows at C = 192, 64 up to C = 384, 32 above
+    assert plan.bm == {96: 64, 192: 128, 384: 64, 768: 32, 1024: 32}[C]
+    assert plan.bm * C <= 128 * (192 if keep else 256)
     assert plan.chunk == 64 and plan.stages >= 3
-    # the chunk's W slices and its B slice, kept for dln and dm
-    assert plan.kept == ncs + 1
+    # the chunk's W slices (up to C = 768) and its B slice, kept for dln
+    # and dm
+    assert plan.kept == (ncs if keep else 0) + 1
     # the 32-row blocks, few, share a row block's hidden chunks in pairs
     assert plan.split == (2 if plan.bm == 32 else 1)
     assert plan.smem <= ln_lora.SMEM_LIMIT == 232_448
@@ -74,9 +80,30 @@ def test_plan_rows_ring_and_shared_memory(M, C):
     assert (plan.blocks - 1) * plan.bm < M <= plan.blocks * plan.bm
     assert 1 <= plan.sa <= -(-M // 64) and 1 <= plan.sb <= -(-M // 64)
     # every weight slice is staged once per row block: A for m (in each
-    # block of a split) and for dl, B and W per hidden chunk
+    # block of a split) and for dl, B and W per hidden chunk (W twice
+    # where it is not kept)
+    per = ncs + 1 if keep else 2 * ncs + 1
     assert plan.slice_bytes == plan.blocks * ((plan.split + 1) * ncs + 4 * C
-                                              // 64 * (ncs + 1)) * 2 * 64 * 64
+                                              // 64 * per) * 2 * 64 * 64
+
+
+# the flagship's plans (r = 64) at SHAPES[:5]: (rows a block, kept slices,
+# split, shared-memory bytes, blocks, bytes of weight slices)
+FLAGSHIP_PLANS = [(64, 3, 1, 105_984, 6272, 1_130_364_928),
+                  (128, 4, 1, 198_656, 784, 346_816_512),
+                  (64, 7, 1, 194_048, 392, 578_027_520),
+                  (32, 13, 2, 228_608, 196, 1_059_717_120),
+                  (32, 13, 2, 228_608, 13, 70_287_360)]
+
+
+@pytest.mark.parametrize("shape,want", zip(SHAPES, FLAGSHIP_PLANS))
+def test_flagship_plans_are_unchanged(shape, want):
+    """The ranks and widths that the kernel took besides r = 64 and C <=
+    768 leave the flagship's launches as they were."""
+    M, C = shape
+    plan = ln_lora.tail_bwd_plan(M, C, 4 * C, R, SMS)
+    assert (plan.bm, plan.kept, plan.split, plan.smem, plan.blocks,
+            plan.slice_bytes) == want
 
 
 def test_plan_ragged_rows_take_one_more_block():
@@ -85,16 +112,17 @@ def test_plan_ragged_rows_take_one_more_block():
     assert plan.bm == 32 and plan.blocks == 13 and 392 % plan.bm == 8
 
 
+@pytest.mark.parametrize("r", RANKS)
 @pytest.mark.parametrize("M,C", SHAPES)
-def test_plan_scratch_is_what_the_wrapper_allocates(M, C):
-    plan = ln_lora.tail_bwd_plan(M, C, 4 * C, R, SMS)
+def test_plan_scratch_is_what_the_wrapper_allocates(M, C, r):
+    plan = ln_lora.tail_bwd_plan(M, C, 4 * C, r, SMS)
     bf16, f32 = torch.bfloat16, torch.float32
     want = {
         "lnd": ((M, C), bf16),
-        "mbuf": ((2, M, R), bf16),
+        "mbuf": ((2, M, r), bf16),
         "du": ((M, 4 * C), bf16),
         "gb": ((plan.blocks, 2, C), f32),
-        "part": ((max(plan.sa * R * C, plan.sb * 4 * C * R),), f32),
+        "part": ((max(plan.sa * r * C, plan.sb * 4 * C * r),), f32),
     }
     if plan.split == 2:
         # per row block, the second block's dln slices and dm, by thread
@@ -102,7 +130,7 @@ def test_plan_scratch_is_what_the_wrapper_allocates(M, C):
         want["xfer"] = ((plan.blocks * (C // 64 + 1) * 2 * 4 * 256,), f32)
     assert plan.scratch == want
     # small rows allocate the same layout for real
-    small = ln_lora.tail_bwd_plan(40, C, 4 * C, R, SMS)
+    small = ln_lora.tail_bwd_plan(40, C, 4 * C, r, SMS)
     got = ln_lora.tail_bwd_scratch(small, "cpu")
     assert {k: (tuple(v.shape), v.dtype) for k, v in got.items()} == {
         k: (tuple(s), dt) for k, (s, dt) in small.scratch.items()}
@@ -120,22 +148,31 @@ def test_plan_constants_match_the_cuda_source():
     assert const("kGroup") >= 1 and ln_lora.TAIL_STAGES % const("kGroup") == 0
     pad = int(re.search(r"constexpr int kLdS = kS \+ (\d+);", src)[1])
     assert ln_lora.TAIL_CHUNK + pad == ln_lora.TAIL_TILE
+    assert const("kRank") == max(ln_lora.TAIL_RANKS) == 64
+    # the instances keep W's slices up to the plan's count, and the C entry
+    # streams them twice above it
+    keep = ln_lora.TAIL_KEEP_SLICES
+    assert f"constexpr bool kKeepW = NCS <= {keep};" in src
+    assert f"a.per = ncs <= {keep} ? ncs + 1 : 2 * ncs + 1;" in src
     # the C entry point refuses what the plan refuses
-    assert "C <= kS || C % 32 || C > 768" in src
-    assert "r != kRank" in src and "constexpr int kRank = 64;" in src
+    assert "C <= kS || C % 32 || C > 1024" in src
+    assert "r < 16 || r % 16 || r > kRank" in src
     assert "(bm == 128 && C == 192)" in src and "split == 2 && bm == 32" in src
 
 
 # (C, O, r): C of one slice (the kernel is built and checked for two or
-# more, the fc1 sites' least), then each bound
-REFUSED = [(64, 256, 64), (96, 384, 32), (100, 400, 64), (800, 3200, 64),
-           (96, 360, 64)]
+# more, the fc1 sites' least), then each bound: a rank that is not a
+# multiple of 16, or above 64; C not a multiple of 32, or above 1024; O
+# not whole chunks
+REFUSED = [(64, 256, 64), (96, 384, 8), (96, 384, 80), (100, 400, 64),
+           (1056, 4224, 64), (96, 360, 64)]
 
 
 @pytest.mark.parametrize("C,O,r", REFUSED)
 def test_plan_refuses_shapes_outside_the_kernel(C, O, r):
     msg = (f"LN+LoRA tail backward kernel: needs C % 32 == 0 and 64 < C <= "
-           f"768 ({C}), O % 64 == 0 ({O}) and r == 64 ({r})")
+           f"1024 ({C}), O % 64 == 0 ({O}) and r in (16, 32, 48, 64) "
+           f"({r})")
     with pytest.raises(ValueError) as err:
         ln_lora.tail_bwd_plan(64, C, O, r, SMS)
     assert str(err.value) == msg
@@ -208,11 +245,12 @@ def test_rows_then_weights_is_the_plain_backward(has_gp, has_gd, drop,
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+@pytest.mark.parametrize("r", [16, 32])
 @pytest.mark.parametrize("has_gp", [True, False])
-def test_split_matches_the_jax_kernel_without_dropout(has_gp):
+def test_split_matches_the_jax_kernel_without_dropout(has_gp, r):
     """``out_act`` (and ``out_p`` where p has a cotangent) against the
-    interpret-mode kernel's VJP."""
-    params, (gy, gp, _) = _inputs(seed=4)
+    interpret-mode kernel's VJP, at ranks 16 and 32."""
+    params, (gy, gp, _) = _inputs(seed=4, r=r)
     x, gamma, beta, w, b, A, B = params
     zs = jnp.zeros((2,), jnp.int32)
 
