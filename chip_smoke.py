@@ -36,6 +36,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
      also at the ragged 392 rows of stage 3, rank 16, Swin-B's
      [6272, 1024] -> 3072 and scale 3, the tail mode at the ragged 392
      rows of stage 3, ranks 16 and 32 and Swin-B's [6272, 1024] -> 4096;
+     kernel 3b also with its stored rows (lnd) against their plain
+     version, its share of the bound and W's slot rate per merge, and at
+     Swin-B's last merge [6272, 2048] -> 1024, path B's 14 -> 7 merge (odd
+     Wh) and the ragged 392 rows of the batch-2 step's last merge;
      kernel 2's tail mode also with its share of the byte bound and its
      output TB/s per stage, and at the ragged 392 rows, with GELU off,
      without dropout(y) (the serve form), ranks 16 and 32 and Swin-B's
@@ -115,8 +119,12 @@ from mtlora_tpu_torch.ops.ln_lora import (
     ln_lora_tail_bwd_rows_plain,
     ln_lora_tail_fwd,
     ln_lora_tail_plain,
+    merge_bwd_plan,
+    merge_bwd_scratch,
     merge_ln_bwd,
+    merge_ln_bwd_kernel,
     merge_ln_bwd_plain,
+    merge_ln_bwd_rows_plain,
     merge_ln_fwd,
     merge_ln_plain,
     qkv_bwd_plan,
@@ -742,11 +750,57 @@ def merge_index(H, W, device):
     return torch.stack(idx, -1).reshape(-1).to(device)
 
 
+def check_merge_rows(label, args, gy):
+    """Kernel 3b against its plain versions: the whole backward against
+    ``merge_ln_bwd_plain`` and the row kernel's stored rows (lnd, bf16,
+    within 2^-6 of the largest element) against
+    ``merge_ln_bwd_rows_plain``. Returns (worst error of the backward,
+    plan, text)."""
+    x, wt, W = args[0], args[3], args[5]
+    M, K, O = x.shape[0] * x.shape[1] // 4, 4 * x.shape[2], wt.shape[0]
+    plan = merge_bwd_plan(M, K, O, W // 2, ln_lora._sms(x.device))
+    sc = merge_bwd_scratch(plan, x.device)
+    got = merge_ln_bwd_kernel(*args, gy, scratch=sc)
+    want = merge_ln_bwd_plain(*args, gy)
+    torch.cuda.synchronize()
+    err, text = check_outputs(label, got, want,
+                              ("dx", "dgamma", "dbeta", "dW"), {0})
+    del got, want
+    want = merge_ln_bwd_rows_plain(*args, gy)[3]
+    _, rtext = check_outputs(f"{label} rows", [sc["lnd"]], [want], ["lnd"],
+                             {0})
+    return err, plan, f"{text}; rows {rtext}"
+
+
+def merge_operands(gen, L, res, C):
+    """Kernel 3's operands at a merge of x [L, res^2, C] -> [L, res^2 / 4,
+    2C]: (args, gy)."""
+    K, O = 4 * C, 2 * C
+    gamma, beta = _ln_params(gen, K)
+    wt = _uniform(gen, (O, K), K ** -0.5)
+    x = torch.randn(L, res * res, C, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    gy = torch.randn(L, res * res // 4, O, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    return (x, gamma, beta, wt, res, res), gy
+
+
+# kernel 3b's coverage (checked and timed, not in the tally): (label, L,
+# res, C) -- Swin-B's last merge (mtlora_base_448's [6272, 2048] -> 1024),
+# path B's 14 -> 7 merge at 224 px (Wh = 7, odd) and the ragged 392 rows
+# of the batch-2 step's 28 -> 14 merge (phase 8)
+MERGE_COVERAGE = (("swin-b 28->14", KERNEL_BATCH, 28, 512),
+                  ("path B 14->7", KERNEL_BATCH, 14, 384),
+                  ("ragged 28->14", CROSS_BATCH, 28, 384))
+
+
 def check_merge(gen) -> dict:
     """Kernel 3 at the three merges, for the shared stream (B rows) and the
     flattened task streams (T*B rows); the sums count the shared stream's
     shapes only, the main path's (the adapter route merges the task
-    streams in kernel 6)."""
+    streams in kernel 6). The backward (3b) also with its stored rows, its
+    plan, share of the bound and W's slot rate per merge, and at
+    ``MERGE_COVERAGE``."""
     fwd, bwd = Tally(), Tally()
     for s in range(3):
         cfg, res, C, _ = stage_dims(s)
@@ -776,11 +830,8 @@ def check_merge(gen) -> dict:
                   f"{t_l:.4f} ms {bound_text(nbytes, flops)}")
             main = int(L == KERNEL_BATCH)
             fwd.add(err, t_k, t_p, t_l, nbytes, flops, main)
-            got = merge_ln_bwd(*args, gy)
-            want = merge_ln_bwd_plain(*args, gy)
-            torch.cuda.synchronize()
-            err, text = check_outputs(f"merge bwd {s} L {L}", got, want,
-                                      ("dx", "dgamma", "dbeta", "dW"), {0})
+            err, plan, text = check_merge_rows(f"merge bwd {s} L {L}",
+                                               args, gy)
             leaves = [t.detach().requires_grad_(True)
                       for t in (x, gamma, beta, wt)]
             yl = merge_library(*leaves, idx).reshape(gy.shape)
@@ -791,11 +842,28 @@ def check_merge(gen) -> dict:
             nbytes = 2 * (2 * M * K + M * O + O * K + 2 * K) + 4 * (O * K
                                                                 + 2 * K)
             flops = 4.0 * M * K * O
+            t_b = max(nbytes / PEAK_HBM_BYTES, ops_seconds(flops)) * 1e3
             print(f"merge bwd {res}->{res // 2} L {L}: {text} kernel "
-                  f"{t_k:.4f} ms plain {t_p:.4f} ms library backward "
-                  f"{t_l:.4f} ms {bound_text(nbytes, flops)}")
+                  f"{t_k:.4f} ms ({t_b / t_k:.4f} of the bound; "
+                  f"{plan.bm}-row blocks in clusters of {plan.split}, W's "
+                  f"slots {plan.slice_bytes / 1e9:.3f} GB, "
+                  f"{plan.slice_bytes / t_k / 1e9:.3f} TB/s) plain "
+                  f"{t_p:.4f} ms library backward {t_l:.4f} ms "
+                  f"{bound_text(nbytes, flops)}")
             bwd.add(err, t_k, t_p, t_l, nbytes, flops, main)
-            del x, gy, y, ref, got, want, yl, leaves
+            del x, gy, y, ref, yl, leaves
+    # its own generator: the later checks draw the same tensors as before
+    cover = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    for label, L, res, C in MERGE_COVERAGE:
+        args, gy = merge_operands(cover, L, res, C)
+        M = L * res * res // 4
+        label = (f"merge bwd {label} x [{M}, {4 * C}] -> {2 * C}, "
+                 f"Wh {res // 2}")
+        _, plan, text = check_merge_rows(label, args, gy)
+        t_k = median_ms(lambda: merge_ln_bwd(*args, gy))
+        print(f"{label}: {text} kernel {t_k:.4f} ms ({plan.bm}-row blocks "
+              f"in clusters of {plan.split})")
+        del args, gy
     return {"fwd": fwd, "bwd": bwd}
 
 
@@ -2097,7 +2165,7 @@ def main():
               ln2["bwd"]),
         entry("patch_merge", "ln_lora.cu", "pallas_ln_lora.py:465",
               merge["fwd"]),
-        entry("patch_merge_bwd", "ln_lora_bwd.cu", "pallas_ln_lora.py:492",
+        entry("patch_merge_bwd", "merge_ln_bwd.cu", "pallas_ln_lora.py:492",
               merge["bwd"]),
         entry("ln_mlp", "ln_mlp.cu", "pallas_ln_mlp.py:54", mlp["fwd"]),
         entry("ln_mlp_bwd", "ln_mlp_bwd.cu", "pallas_ln_mlp.py:103",

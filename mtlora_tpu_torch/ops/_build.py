@@ -66,9 +66,9 @@ SIGNATURES = {
     # dgb, dat, dbt, M, C, O, r, bm, split, stages, group, smem, sa, sb,
     # scale, drop threshold, use_drop, inv_keep, stream
     "mtlora_ln_lora_qkv_bwd": [_P] * 17 + [_I] * 11 + [_F, _U, _I, _F, _P],
-    # x, gamma, beta, w_ko, gy, dx, stats, work, lbuf, gb, pw, dgb, dwt, M,
-    # K, O, merge_wh, sw, stream
-    "mtlora_ln_lora_bwd": [_P] * 13 + [_I] * 5 + [_P],
+    # x, gamma, beta, wt, gy, dx, lnd, gb, part, dgb, dwt, M, C, O,
+    # merge_wh, bm, split, stages, group, smem, sw, stream
+    "mtlora_merge_ln_bwd": [_P] * 11 + [_I] * 10 + [_P],
     # x, gamma, beta, w1, bias1, a1, bb1, w2, bias2, a2, bb2, seed, y,
     # M, C, H4, r, bm, smem, s1, s2, drop threshold, use_drop, inv_keep,
     # stream

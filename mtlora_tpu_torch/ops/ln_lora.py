@@ -19,7 +19,9 @@ and kernel 3: the row loader reads rows plainly or gathers them 2x2
 (concat order ``k = di + 2 dj``, ``merge_ln_reference`` :663-679), and the
 LoRA epilogue is on for kernel 2 and off for kernel 3. Kernel 2's tail
 mode is ``csrc/ln_lora_tail_fwd.cu`` (its plan :func:`tail_fwd_plan`).
-Kernel 3b is ``csrc/ln_lora_bwd.cu``. Kernel 2b is a
+Kernel 3b is ``csrc/merge_ln_bwd.cu``, a row kernel whose blocks of a
+cluster split the merged rows' columns (its plan :func:`merge_bwd_plan`),
+then the weight product. Kernel 2b is a
 fused row kernel then the weight passes of dA and dB in each mode:
 ``csrc/ln_lora_qkv_bwd.cu`` (y-only, the qkv sites; its plan
 :func:`qkv_bwd_plan`) and ``csrc/ln_lora_tail_bwd.cu`` (the tail mode; its
@@ -333,6 +335,27 @@ def merge_ln_bwd_plain(x, gamma, beta, wt, H: int, W: int, gy):
     return (unmerge_rows(dx, x.shape[0], H, W).to(x.dtype), dg, db, dwt)
 
 
+def merge_ln_bwd_rows_plain(x, gamma, beta, wt, H: int, W: int, gy):
+    """What kernel 3b's row kernel stores, with the cast points of
+    ``_merge_bwd_kernel``: ``(dx, dgamma, dbeta, lnd)``, ``dln = bf16(gy)
+    wt`` and its LayerNorm backward on the merged rows; dx [L, H*W, C] and
+    the rows ``lnd = bf16(ln)`` [M, 4C] in x's dtype, dgamma and dbeta in
+    the accumulation dtype."""
+    cdt, f = x.dtype, _acc(x.dtype)
+    ln, xhat, inv = layer_norm_parts(merge_rows(x, H, W), gamma, beta)
+    gp = gy.reshape(-1, gy.shape[-1]).to(cdt).to(f)
+    dx, dg, db = layer_norm_bwd(gp @ wt.to(f), xhat, inv, gamma)
+    return (unmerge_rows(dx, x.shape[0], H, W).to(cdt), dg, db, ln.to(cdt))
+
+
+def merge_ln_bwd_weights_plain(lnd, gy):
+    """``dwt = bf16(gy)^T lnd`` [O, 4C] from the row kernel's rows and gy,
+    as the weight product computes it, in the accumulation dtype."""
+    f = _acc(lnd.dtype)
+    gp = gy.reshape(-1, gy.shape[-1]).to(lnd.dtype).to(f)
+    return gp.t() @ lnd.to(f)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -413,16 +436,6 @@ def ln_lora_fwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
 
 
 ROW_TILE = 16     # rows of one warp of the backward row kernels
-
-
-def bwd_scratch(x, M, K):
-    """Kernel 3b's scratch: row statistics [2, M], the dxhat rows [M, K]
-    and the per-16-row gamma/beta partials (fp32), and the bf16 LN rows
-    [M, K] the weight product reads."""
-    f32 = dict(dtype=torch.float32, device=x.device)
-    return (torch.empty((2, M), **f32), torch.empty((M, K), **f32),
-            torch.empty((-(-M // ROW_TILE), 2, K), **f32),
-            torch.empty((M, K), dtype=x.dtype, device=x.device))
 
 
 # the constants of csrc/ln_lora_qkv_bwd.cu that its plan sizes shared
@@ -896,13 +909,13 @@ def ln_lora_tail_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
 
 
 def _merge_shapes(x, wt, H, W):
-    require_cuda("patch merge", x)
     L, HW, C = x.shape
     O = wt.shape[0]
     if HW != H * W or H % 2 or W % 2 or C % 4 or O % 8:
         raise ValueError(f"patch merge kernel: needs x [L, H*W, C] with "
                          f"even H ({H}), W ({W}), C % 4 == 0 ({C}) and "
                          f"O % 8 == 0 ({O})")
+    require_cuda("patch merge", x)
     return L * (H // 2) * (W // 2), 4 * C, O
 
 
@@ -926,31 +939,158 @@ def merge_ln_fwd(x, gamma, beta, wt, H: int, W: int):
     return y
 
 
-def merge_ln_bwd(x, gamma, beta, wt, H: int, W: int, gy):
-    """``(dx, dgamma, dbeta, dwt)`` of :func:`merge_ln_bwd_plain`: plain
-    for CPU tensors, the kernels for CUDA tensors."""
-    if x.device.type == "cpu":
-        return merge_ln_bwd_plain(x, gamma, beta, wt, H, W, gy)
+# the constants of csrc/merge_ln_bwd.cu that its plan sizes shared memory
+# by (the kernel traps if the plan's bytes do not hold its layout)
+MERGE_CHUNK = 64        # hidden chunk and slot width (kS)
+MERGE_WARPS = 8         # warps of a row block (kWarps)
+MERGE_GROUP = 4         # slots a ring group (at most kGroupMax)
+MERGE_MAX_STAGES = 16   # slots in the TMA ring, at most
+MERGE_SPLITS = (1, 2, 4, 8)   # blocks of a cluster that split K (kSplitMax)
+# rows a block -> the slices of 64 columns of K of its kernel's instances
+MERGE_INSTANCES = {64: (3,), 32: (6, 8)}
+MERGE_MAX_K = 4096      # the widest merged row the instances take
+
+
+class MergeBwdPlan(NamedTuple):
+    """Launch plan of kernel 3b: rows per block, the blocks of a cluster
+    that split the merged rows' K columns, the columns a block takes,
+    blocks an SM, the TMA ring's slots and slots a group, dynamic
+    shared-memory bytes of the row kernel, its row blocks and blocks (row
+    blocks x split), the bytes of W's slots they stream from L2, the row
+    stripes of the weight product dW [O, K], and the scratch the wrapper
+    allocates: name -> (shape, dtype)."""
+
+    bm: int
+    split: int
+    ks: int
+    per_sm: int
+    stages: int
+    group: int
+    smem: int
+    blocks: int
+    ctas: int
+    slice_bytes: int
+    sw: int
+    scratch: dict
+
+
+def merge_bwd_plan(M: int, K: int, O: int, Wh: int, sms: int
+                   ) -> MergeBwdPlan:
+    """Kernel 3b's plan for M merged rows of K = 4C columns (x's rows
+    gathered 2x2, Wh merged rows a row of the merged grid) -> O on a card
+    of ``sms`` SMs. A block of 8 warps owns 64 rows, or 32, and the blocks
+    of a cluster of 1, 2, 4 or 8 split K, so that a block's dln (rows x
+    its columns, fp32) stays at 48 registers a thread and two blocks share
+    an SM: the first of 64 then 32 rows and the fewest blocks a cluster
+    that do so (32 rows at 64 registers, one block an SM, where none
+    does: K = 4096). The columns of a warp's share of a slot (32 or 16)
+    divide a block's columns. The last row block masks the rows past M.
+    The ring takes what shared memory leaves, in groups of 4 slots (2
+    where fewer than 8 fit), at most 16. Scratch: the bf16(ln) rows
+    ``lnd`` [M, K] (bf16), the per-row-block dgamma/dbeta partials ``gb``
+    and the weight-gradient stripes ``part`` (fp32)."""
+    if (K % 32 or not 32 <= K <= MERGE_MAX_K or O % 16 or O < 16
+            or Wh < 1 or M < 1 or M % Wh):
+        raise ValueError(f"patch merge backward kernel: needs C % 8 == 0 "
+                         f"and K = 4C <= {MERGE_MAX_K} ({K}), O % 16 == 0 "
+                         f"({O}) and whole rows of Wh = {Wh} merged "
+                         f"tokens ({M} rows)")
+    slot = 2 * MERGE_CHUNK ** 2
+
+    def ring_bytes(stages, group):   # the slots; a mbarrier, a count a group
+        return stages * slot + 12 * (stages // group)
+
+    for least in (2, 1):
+        for bm in (64, 32):
+            wn = MERGE_WARPS // (bm // ROW_TILE)
+            for split in MERGE_SPLITS:
+                ks = K // split
+                if K % split or ks % (MERGE_CHUNK // wn):
+                    continue
+                ncs = -(-ks // MERGE_CHUNK)
+                inst = [n for n in MERGE_INSTANCES[bm] if n >= ncs]
+                per_sm = 2 if inst and bm * inst[0] <= 192 else 1
+                if not inst or per_sm < least:
+                    continue
+                # up to 1023 bytes to the ring's 1024-byte alignment; the
+                # rows of x, gamma and beta (bf16); mu, inv, the means,
+                # the row sums and the exchanged pairs (fp32); the ring,
+                # its mbarriers and counts
+                fixed = (1024 + 2 * (bm * (ks + 8) + 2 * ks)
+                         + 4 * bm * (8 + 2 * wn))
+                limit = min(SMEM_LIMIT, SM_SMEM // per_sm - 1024)
+                group = (MERGE_GROUP if fixed + ring_bytes(
+                    2 * MERGE_GROUP, MERGE_GROUP) <= limit else 2)
+                stages = MERGE_MAX_STAGES // group * group
+                while (stages >= 2 * group
+                       and fixed + ring_bytes(stages, group) > limit):
+                    stages -= group
+                # the dgamma/dbeta partials of the 16-row tiles in the ring
+                if (stages < 2 * group
+                        or (bm // ROW_TILE) * 2 * ks * 4 > stages * slot):
+                    continue
+                blocks = -(-M // bm)
+                nch = -(-O // MERGE_CHUNK)
+                sw = stripes_for(sms, M, O, K)
+                bf16, f32 = torch.bfloat16, torch.float32
+                scratch = {
+                    "lnd": ((M, K), bf16),
+                    "gb": ((blocks, 2, K), f32),
+                    "part": ((sw * O * K,), f32),
+                }
+                return MergeBwdPlan(
+                    bm, split, ks, per_sm, stages, group,
+                    fixed + ring_bytes(stages, group), blocks,
+                    blocks * split, blocks * split * nch * ncs * slot, sw,
+                    scratch)
+    raise ValueError(f"patch merge backward kernel: no plan for K = {K}")
+
+
+def merge_bwd_scratch(plan: MergeBwdPlan, device) -> dict:
+    """The scratch tensors of ``plan``, as :func:`merge_ln_bwd_kernel`
+    allocates them."""
+    return {name: torch.empty(shape, dtype=dt, device=device)
+            for name, (shape, dt) in plan.scratch.items()}
+
+
+def merge_ln_bwd_kernel(x, gamma, beta, wt, H: int, W: int, gy,
+                        scratch=None):
+    """The CUDA route of :func:`merge_ln_bwd`: the row kernel (dx, the rows
+    lnd, gamma/beta partials), then the weight product dW and the
+    fixed-order reductions, W read in its module layout; raises for
+    anything it does not take (a CPU tensor included). ``scratch``: the
+    tensors of :func:`merge_bwd_scratch` to use (the row kernel leaves its
+    rows there), or None to allocate them."""
     M, K, O = _merge_shapes(x, wt, H, W)
     _check("patch merge backward", x,
            [("x", x), ("gamma", gamma), ("beta", beta), ("wt", wt),
             ("gy", gy)],
            [x.shape, (K,), (K,), (O, K), (x.shape[0], M // x.shape[0], O)])
+    plan = merge_bwd_plan(M, K, O, W // 2, _sms(x.device))
+    sc = merge_bwd_scratch(plan, x.device) if scratch is None else scratch
+    if {k: (tuple(v.shape), v.dtype) for k, v in sc.items()} != plan.scratch:
+        raise ValueError("patch merge backward kernel: scratch does not "
+                         "match the plan")
     f32 = dict(dtype=torch.float32, device=x.device)
-    sw = wgrad_stripes(x.device, M, O, K)
-    stats, work, gb, lbuf = bwd_scratch(x, M, K)
-    pw = torch.empty((sw, O, K), **f32)
     dx = torch.empty_like(x)
     dgb = torch.empty((2, K), **f32)
     dwt = torch.empty((O, K), **f32)
-    w_ko = wt.t().contiguous()
-    err = _build.library().mtlora_ln_lora_bwd(
-        *(t.data_ptr() for t in (x, gamma, beta, w_ko, gy, dx, stats, work,
-                                 lbuf, gb, pw, dgb, dwt)),
-        M, K, O, W // 2, sw, _stream(x))
-    _build.check(err, "mtlora_ln_lora_bwd (merge)")
+    err = _build.library().mtlora_merge_ln_bwd(
+        *(t.data_ptr() for t in (x, gamma, beta, wt, gy, dx)),
+        *(sc[k].data_ptr() for k in ("lnd", "gb", "part")), dgb.data_ptr(),
+        dwt.data_ptr(), M, K // 4, O, W // 2, plan.bm, plan.split,
+        plan.stages, plan.group, plan.smem, plan.sw, _stream(x))
+    _build.check(err, "mtlora_merge_ln_bwd")
     merge_ln_bwd.launches += 1
     return dx, dgb[0], dgb[1], dwt
+
+
+def merge_ln_bwd(x, gamma, beta, wt, H: int, W: int, gy):
+    """``(dx, dgamma, dbeta, dwt)`` of :func:`merge_ln_bwd_plain`: plain
+    for CPU tensors, :func:`merge_ln_bwd_kernel` for CUDA tensors."""
+    if x.device.type == "cpu":
+        return merge_ln_bwd_plain(x, gamma, beta, wt, H, W, gy)
+    return merge_ln_bwd_kernel(x, gamma, beta, wt, H, W, gy)
 
 
 ln_lora_fwd.launches = 0

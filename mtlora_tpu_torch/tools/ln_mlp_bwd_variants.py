@@ -27,9 +27,9 @@ times both per stage (CUDA events, the median of 3 rounds of 10
 launches), and prints one JSON line: the ms per stage, their sums per
 pass (stage 2 has five no-task blocks) and the card; each tree's build
 prints the registers and spills that ptxas reported for the instances of
-kernel 4, of the LN-family backward row kernels (4b, 2b, 3b) and of the
-attention backward (kernels 1b and 1c). The edits of ``VARIANTS`` reach either kernel's source and
-plan. With
+kernel 4, of the LN-family backward row kernels (4b, 2b, 3b, 6b) and of
+the attention backward (kernels 1b and 1c). The edits of ``VARIANTS``
+reach either kernel's source and plan (and 2b's, 2-tail's, 3b's). With
 ``--checks`` it runs those ``check_*`` functions of its tree's
 ``chip_smoke.py`` instead (the phase 3/3b rows of other kernels) and
 prints their sums and, per line of theirs that names a kernel time
@@ -196,6 +196,33 @@ VARIANTS = {
          "st)\n"
          "                             : launch_rows<64, 6>(p, blocks, smem, "
          "st))\n")],
+    # kernel 3b: groups of 2 ring slots in place of 4 (more groups in
+    # flight: 10 slots where two blocks share an SM)
+    "merge-group-2": [("ops/ln_lora.py", "MERGE_GROUP = 4 ",
+                       "MERGE_GROUP = 2 ")],
+    # kernel 3b: one block an SM at every merge (64 rows, dln at 96
+    # registers a thread, clusters of 1, 2, 4), in place of two
+    "merge-one-block-an-sm": [
+        ("ops/ln_lora.py", "    for least in (2, 1):\n",
+         "    for least in (1,):\n"),
+        ("ops/ln_lora.py", "MERGE_INSTANCES = {64: (3,),",
+         "MERGE_INSTANCES = {64: (3, 6),"),
+        ("ops/csrc/merge_ln_bwd.cu", "ncs > (bm == 64 ? 3 : 8)",
+         "ncs > (bm == 64 ? 6 : 8)"),
+        ("ops/csrc/merge_ln_bwd.cu",
+         "      bm == 64   ? launch_rows<64, 3>(p, blocks, smem, st)\n",
+         "      bm == 64   ? (ncs <= 3 ? launch_rows<64, 3>(p, blocks, smem, "
+         "st)\n                             : launch_rows<64, 6>(p, blocks, "
+         "smem, st))\n")],
+    # kernel 3b: 32-row blocks at every merge (clusters of 1, 2, 4 at the
+    # flagship's merges), in place of 64
+    "merge-rows-32": [("ops/ln_lora.py", "        for bm in (64, 32):\n",
+                       "        for bm in (32,):\n")],
+    # kernel 3b: clusters of 4 at most (32 rows at the last merge), in
+    # place of 8
+    "merge-splits-to-4": [("ops/ln_lora.py",
+                           "MERGE_SPLITS = (1, 2, 4, 8)",
+                           "MERGE_SPLITS = (1, 2, 4)")],
     # kernel 2-tail: 64-row blocks (two warps on the same 16 rows, two
     # chunks side by side, one block an SM) at every width, in place of
     # 128 up to C = 384
@@ -324,13 +351,14 @@ def _errors(got, want, names=NAMES) -> list:
 def _ptxas(log: str) -> dict:
     """Registers and spill bytes of every instance of kernel 4, of the
     LN-family forward kernels (2 and 3, 2-tail) and backward row kernels
-    (4b, 2b in both modes, 3b) and of the attention backward (kernels 1b
-    and 1c's)."""
+    (4b, 2b in both modes, 3b: ``patch_merge_bwd_rows``, and
+    ``merge_ln_bwd_rows`` in checkouts before it; 6b) and of the attention
+    backward (kernels 1b and 1c's)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S*(?:ln_mlp_fwd_kernel|"
                       r"ln_mlp_bwd_rows|window_attn_bwd_kernel|ln_lora_\w*"
-                      r"bwd_rows|merge_ln_bwd_rows|ln_lora_\w*fwd_kernel)"
+                      r"bwd_rows|merge_\w*bwd_rows|ln_lora_\w*fwd_kernel)"
                       r"\S*)", line)
         if m:
             name = m[1]

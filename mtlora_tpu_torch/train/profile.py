@@ -30,7 +30,7 @@ CLASSES: List[Tuple[str, Tuple[str, ...]]] = [
     ("LN+LoRA kernel 2 (fwd)", ("ln_lora_fwd_kernel<true>",)),
     ("LN+LoRA kernel 2b, qkv sites (bwd rows)", ("ln_lora_qkv_bwd_rows",)),
     ("patch merge kernel 3 (fwd)", ("ln_lora_fwd_kernel<false>",)),
-    ("patch merge kernel 3b (bwd rows)", ("merge_ln_bwd_rows",)),
+    ("patch merge kernel 3b (bwd rows)", ("patch_merge_bwd_rows",)),
     ("whole-MLP kernel 4 (fwd)", ("ln_mlp_fwd_kernel",)),
     ("whole-MLP kernel 4b (bwd rows)", ("ln_mlp_bwd_",)),
     ("LN+LoRA kernel 2, tail mode (fwd)", ("ln_lora_tail_fwd_kernel",)),

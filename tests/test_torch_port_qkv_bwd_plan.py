@@ -313,5 +313,5 @@ def test_profile_classes_name_each_row_kernel():
         "LN+LoRA kernel 2b, qkv sites (bwd rows)")
     assert classify(pre + "ln_lora_tail_bwd_rows<32, 12>(Args)") == (
         "LN+LoRA kernel 2b, tail mode (fused rows)")
-    assert classify(pre + "merge_ln_bwd_rows(BwdArgs)") == (
+    assert classify(pre + "patch_merge_bwd_rows<64, 3>(Params)") == (
         "patch merge kernel 3b (bwd rows)")
