@@ -136,7 +136,11 @@ from mtlora_tpu_torch.ops.ln_lora import (
 from mtlora_tpu_torch.ops.task_merge import (
     rank_operands,
     task_merge_bwd,
+    task_merge_bwd_kernel,
     task_merge_bwd_plain,
+    task_merge_bwd_plan,
+    task_merge_bwd_rows_plain,
+    task_merge_bwd_scratch,
     task_merge_fwd,
     task_merge_plain,
 )
@@ -299,29 +303,35 @@ class Tally:
 
     def __init__(self):
         self.err = self.ms = self.plain = self.lib = 0.0
-        self.bytes = self.flops = self.fp32 = 0.0
+        self.bound = {"bytes": 0.0, "operations": 0.0}
 
     def add(self, err, ms, plain, lib, nbytes, flops, weight=1, fp32_ops=0.0):
         """``weight``: the launches of this shape per pass (the sites of a
         forward that take it), so that the sums are per pass; ``fp32_ops``:
         operations on the CUDA cores (GELU, rank-4 products); ``lib`` None
         where no PyTorch call computes the function (then the sum is
-        None)."""
+        None). The pass's bound is the sum of each shape's own bound
+        (:func:`bound_text`): the least time of its shapes run one after
+        another."""
         self.err = max(self.err, err)
         self.ms += weight * ms
         self.plain += weight * plain
         self.lib = (None if lib is None or self.lib is None
                     else self.lib + weight * lib)
-        self.bytes += weight * nbytes
-        self.flops += weight * flops
-        self.fp32 += weight * fp32_ops
+        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        t_ops = ops_seconds(flops, fp32_ops) * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        self.bound[by] += weight * max(t_bytes, t_ops)
 
     def json(self) -> dict:
-        t_bytes = self.bytes / PEAK_HBM_BYTES * 1e3
-        t_ops = ops_seconds(self.flops, self.fp32) * 1e3
+        """``bound_by``: the term that bounds the shapes that take most of
+        the bound."""
+        b = self.bound
         return {"max_abs_err": self.err, "ms": self.ms,
-                "plain_ms": self.plain, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "plain_ms": self.plain,
+                "bound_ms": b["bytes"] + b["operations"],
+                "bound_by": ("bytes" if b["bytes"] >= b["operations"]
+                             else "operations"),
                 "library_ms": self.lib}
 
 
@@ -1240,10 +1250,75 @@ def task_merge_library(base, pre, p2, midc, bs, k1, k2, gamma, beta, wt,
     return F.layer_norm(xc, (4 * C,), gamma, beta, 1e-5) @ wt.t()
 
 
+TM_BWD_NAMES = ("dbase", "dpre", "dp2", "dmid1T", "dB1", "dmid2T", "dB2",
+                "dgamma", "dbeta", "dW")
+
+
+def task_merge_operands(gen, gcpu, T, B, res, C, rate, sc):
+    """Kernel 6's operands at a merge of T task streams [B, res^2, C] ->
+    [B, res^2 / 4, 2C]: r1 = r2 = 4, drop-path coefficients drawn at
+    ``rate``, scales ``sc``: (args, gy)."""
+    r, L, K, O = 4, res * res, 4 * C, 2 * C
+    base, pre, p2 = (torch.randn(B, L, C, generator=gen, device="cuda")
+                     .to(torch.bfloat16) for _ in range(3))
+    mid1T, mid2T = ((0.5 * torch.randn(T, r, B * L, generator=gen,
+                                       device="cuda")).to(torch.bfloat16)
+                    for _ in range(2))
+    b1, b2 = (_uniform(gen, (T, r, C), 0.1) for _ in range(2))
+    c1, c2 = (droppath_coef(rate, T, B, gcpu, "cpu").cuda()
+              for _ in range(2))
+    gamma, beta = _ln_params(gen, K)
+    wt = _uniform(gen, (O, K), K ** -0.5)
+    gy = torch.randn(T, B, L // 4, O, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    return (base, pre, p2, mid1T, b1, mid2T, b2, c1, c2, sc, sc, gamma,
+            beta, wt, res, res), gy
+
+
+def check_task_merge_rows(label, args, gy):
+    """Kernel 6b against its plain versions: the whole backward against
+    ``task_merge_bwd_plain``, the row kernel's stored rows (lnd, bf16,
+    within 2^-6 of the largest element) against
+    ``task_merge_bwd_rows_plain``, and a second launch on the same inputs
+    bit for bit against the first. Returns (worst error of the backward,
+    plan, text)."""
+    base, wt, H, W = args[0], args[13], args[14], args[15]
+    T, (Bn, L, C), O = args[3].shape[0], base.shape, wt.shape[0]
+    plan = task_merge_bwd_plan(T, Bn * L // 4, 4 * C, O, W // 2,
+                               (H // 2) * (W // 2), ln_lora._sms(base.device))
+    sc = task_merge_bwd_scratch(plan, base.device)
+    got = task_merge_bwd_kernel(*args, gy, scratch=sc)
+    again = task_merge_bwd_kernel(*args, gy)
+    want = task_merge_bwd_plain(*args, gy)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    assert same, f"{label}: two launches differ"
+    err, text = check_outputs(label, got, want, TM_BWD_NAMES,
+                              {0, 1, 2, 3, 5})
+    del got, again, want
+    want = task_merge_bwd_rows_plain(*args, gy)[9]
+    _, rtext = check_outputs(f"{label} rows", [sc["lnd"]], [want], ["lnd"],
+                             {0})
+    return err, plan, f"{text}; rows {rtext}; two launches bit-identical"
+
+
+# kernel 6b's coverage (checked and timed, not in the tally): (label, T,
+# batch, res, C) -- path B's 14 -> 7 merge at 224 px (Wh = 7, odd: 49
+# merged rows a sample, so that blocks straddle samples), Swin-B's last
+# merge (C = 512, K = 2048), the batch-2 step's 28 -> 14 merge (392
+# rows, phase 8) and a merge of six tasks
+TASK_MERGE_COVERAGE = (("path B 14->7", 4, KERNEL_BATCH, 14, 384),
+                       ("swin-b 28->14", 4, KERNEL_BATCH, 28, 512),
+                       ("ragged 28->14", 4, CROSS_BATCH, 28, 384),
+                       ("T 6 28->14", 6, KERNEL_BATCH, 28, 384))
+
+
 def check_task_merge(gen) -> dict:
     """Kernel 6 at the three merges: T 4, r1 = r2 = 4, batch 32, drop-path
     coefficients drawn at the rate of the merging block (both non-trivial),
-    scales 4; the reduction trains."""
+    scales 4; the reduction trains. The backward (6b) also with its stored
+    rows, two launches bit for bit, its plan, share of the bound and W's
+    slot bytes per merge, and at ``TASK_MERGE_COVERAGE``."""
     fwd, bwd = Tally(), Tally()
     gcpu = torch.Generator().manual_seed(SEED)
     for s in range(3):
@@ -1251,21 +1326,10 @@ def check_task_merge(gen) -> dict:
         T, r, B, L = len(cfg.tasks), 4, KERNEL_BATCH, res * res
         K, O, Mm = 4 * C, 2 * C, KERNEL_BATCH * res * res // 4
         rate = 0.2 * (sum(cfg.depths[:s + 1]) - 1) / (sum(cfg.depths) - 1)
-        base, pre, p2 = (torch.randn(B, L, C, generator=gen, device="cuda")
-                         .to(torch.bfloat16) for _ in range(3))
-        mid1T, mid2T = ((0.5 * torch.randn(T, r, B * L, generator=gen,
-                                           device="cuda")).to(torch.bfloat16)
-                        for _ in range(2))
-        b1, b2 = (_uniform(gen, (T, r, C), 0.1) for _ in range(2))
-        c1, c2 = (droppath_coef(rate, T, B, gcpu, "cpu").cuda()
-                  for _ in range(2))
-        sc = cfg.stages[s].task_scales
-        gamma, beta = _ln_params(gen, K)
-        wt = _uniform(gen, (O, K), K ** -0.5)
-        gy = torch.randn(T, B, L // 4, O, generator=gen,
-                         device="cuda").to(torch.bfloat16)
-        args = (base, pre, p2, mid1T, b1, mid2T, b2, c1, c2, sc, sc, gamma,
-                beta, wt, res, res)
+        args, gy = task_merge_operands(gen, gcpu, T, B, res, C, rate,
+                                       cfg.stages[s].task_scales)
+        (base, pre, p2, mid1T, b1, mid2T, b2, c1, c2, sc, _, gamma, beta,
+         wt) = args[:14]
         y = task_merge_fwd(*args)
         ref = task_merge_plain(*args)
         torch.cuda.synchronize()
@@ -1287,14 +1351,8 @@ def check_task_merge(gen) -> dict:
               f"{text} kernel {t_k:.4f} ms plain {t_p:.4f} ms library "
               f"{t_l:.4f} ms {bound_text(nbytes, flops, ops32)}")
         fwd.add(err, t_k, t_p, t_l, nbytes, flops, 1, ops32)
-        got = task_merge_bwd(*args, gy)
-        want = task_merge_bwd_plain(*args, gy)
-        torch.cuda.synchronize()
-        err, text = check_outputs(
-            f"task_merge bwd {s}", got, want,
-            ("dbase", "dpre", "dp2", "dmid1T", "dB1", "dmid2T", "dB2",
-             "dgamma", "dbeta", "dW"), {0, 1, 2, 3, 5})
-        del got, want
+        err, plan, text = check_task_merge_rows(f"task_merge bwd {s}", args,
+                                                gy)
         leaves = [t.detach().requires_grad_(True)
                   for t in (base, pre, p2, midc, bs, gamma, beta, wt)]
         yl = task_merge_library(*leaves[:5], k1, k2, *leaves[5:], idx)
@@ -1308,11 +1366,31 @@ def check_task_merge(gen) -> dict:
         # dln, dW, the streams' expansion recomputed, dmid and dB
         flops = 4.0 * T * Mm * K * O
         ops32 = 3 * 2.0 * T * B * L * C * 2 * r
+        t_b = max(nbytes / PEAK_HBM_BYTES, ops_seconds(flops, ops32)) * 1e3
         print(f"task_merge bwd {res}->{res // 2}: {text} kernel {t_k:.4f} ms "
-              f"plain {t_p:.4f} ms library backward {t_l:.4f} ms "
+              f"({t_b / t_k:.4f} of the bound; 32-row blocks in clusters of "
+              f"{plan.split}, {plan.ks} columns, tasks in {plan.groups} "
+              f"group(s) of {plan.tg}, W's slots "
+              f"{plan.slice_bytes / 1e9:.3f} GB, "
+              f"{plan.slice_bytes / t_k / 1e9:.3f} TB/s) plain {t_p:.4f} ms "
+              f"library backward {t_l:.4f} ms "
               f"{bound_text(nbytes, flops, ops32)}")
         bwd.add(err, t_k, t_p, t_l, nbytes, flops, 1, ops32)
-        del base, pre, p2, mid1T, mid2T, gy, y, ref, yl, leaves
+        del args, base, pre, p2, mid1T, mid2T, gy, y, ref, yl, leaves
+    # its own generators: the later checks draw the same tensors as before
+    cover = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    ccpu = torch.Generator().manual_seed(SEED + 6)
+    for label, T, B, res, C in TASK_MERGE_COVERAGE:
+        args, gy = task_merge_operands(cover, ccpu, T, B, res, C, 0.1,
+                                       (4.0,) * T)
+        label = (f"task_merge bwd {label} T {T} x [{B * res * res // 4}, "
+                 f"{4 * C}] -> {2 * C}, Wh {res // 2}")
+        _, plan, text = check_task_merge_rows(label, args, gy)
+        t_k = median_ms(lambda: task_merge_bwd(*args, gy), reps=5)
+        print(f"{label}: {text} kernel {t_k:.4f} ms (32-row blocks in "
+              f"clusters of {plan.split}, tasks in {plan.groups} group(s) "
+              f"of {plan.tg})")
+        del args, gy
     return {"fwd": fwd, "bwd": bwd}
 
 

@@ -139,6 +139,7 @@ def from_config(config) -> ModelConfig:
             shared_scale=float(m.SHARED_SCALE[i]),
             task_scales=tuple(float(s_map[t]) for t in tasks),
             dropout=float(m.DROPOUT[i])))
+    _check_kernel_ranks(use_ln, use_adapter, tuple(stages))
     amp = bool(config.AMP_ENABLE)
     compute = ("bfloat16" if amp and str(tpu.COMPUTE_DTYPE) == "bfloat16"
                else "float32")
@@ -184,6 +185,27 @@ def _check_adapter_route(use_ln: bool, use_adapter: bool,
         _unsupported("TPU.USE_PALLAS_ADAPTER with MTLORA.PROJ_ENABLED off "
                      "(fc1's task projection from the shared LN output)",
                      "Queue 1, item 9")
+
+
+def _check_kernel_ranks(use_ln: bool, use_adapter: bool, stages):
+    """Ranks and task counts the task-stream kernels do not take: the
+    shared rank of kernels 2, 2b, 2-tail and 2b-tail (a multiple of 16 up
+    to 64) on the LN routes; on the adapter route the per-task rank 4 and
+    at most 4 tasks of kernels 5 and 5b, whose r1 + r2 == 8 kernels 6 and
+    6b take too."""
+    if use_ln:
+        for st in stages:
+            if st.r_shared % 16 or not 16 <= st.r_shared <= 64:
+                _unsupported(f"shared rank {st.r_shared} on the LN routes "
+                             "(kernels 2, 2b, 2-tail and 2b-tail take a "
+                             "multiple of 16 up to 64)", "Queue 1, item 9")
+    if use_adapter:
+        ranks = sorted({r for st in stages for r in st.r_tasks})
+        tasks = len(stages[0].r_tasks)
+        if tasks > 4 or ranks != [4]:
+            _unsupported(f"TPU.USE_PALLAS_ADAPTER with {tasks} tasks of "
+                         f"per-task ranks {ranks} (kernels 5, 5b, 6 and 6b "
+                         "take at most 4 tasks of rank 4)", "Queue 1, item 9")
 
 
 def tiny_448_r64_pertask(use_pallas_ln: bool = True,

@@ -85,10 +85,10 @@ SIGNATURES = {
     # base, pre, p2, mid, bs_cs, coef, gamma, beta, wt, y, T, B, H, W, C, O,
     # stream
     "mtlora_task_merge_fwd": [_P] * 10 + [_I] * 6 + [_P],
-    # base, pre, p2, mid, bs_cs, bs_sc, coef, gamma, beta, w_ko, gy, stats,
-    # work, lbuf, gb, du, dmid, pb, pw, dbase, dpre, dp2, dbs, dgb, dwt, T,
-    # B, H, W, C, O, sb, sw, stream
-    "mtlora_task_merge_bwd": [_P] * 25 + [_I] * 8 + [_P],
+    # base, pre, p2, mid, bs_cs, coef, gamma, beta, wt, gy, lnd, gb, pbs,
+    # part, dbase, dpre, dp2, dmid, dbs, dgb, dwt, T, B, H, W, C, O, split,
+    # tg, stages, smem, sw, stream
+    "mtlora_task_merge_bwd": [_P] * 21 + [_I] * 11 + [_P],
 }
 
 _lib = None

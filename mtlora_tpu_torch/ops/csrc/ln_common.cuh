@@ -222,20 +222,6 @@ __device__ __forceinline__ void rows_ln_tile(bf16* tile, int ld,
   __syncwarp();
 }
 
-// The first `cols` columns of a 16-row bf16 tile to rows [m0, M) of a
-// device array [M][cols], by all threads of the block.
-__device__ __forceinline__ void block_tile_to_global(bf16* out,
-                                                     const bf16* tile, int ld,
-                                                     int m0, int M, int cols) {
-  const int pairs = cols / 2;
-  for (int i = threadIdx.x; i < kRows * pairs; i += blockDim.x) {
-    const int r = i / pairs, c = 2 * (i - r * pairs);
-    if (m0 + r < M)
-      *reinterpret_cast<uint32_t*>(out + (size_t)(m0 + r) * cols + c) =
-          ld32(tile + r * ld + c);
-  }
-}
-
 template <int NT>
 __device__ __forceinline__ void zero(float (*acc)[4]) {
 #pragma unroll
@@ -274,37 +260,6 @@ __device__ __forceinline__ uint32_t scale_pair(uint32_t v, float s) {
   const float2 f = __bfloat1622float2(h);
   h = __floats2bfloat162_rn(s * f.x, s * f.y);
   return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// As mma_tile, with A = rows [m0, m0 + 16) of a device array (row stride
-// lda) whose rows from `valid` on are read as zero; SCALED rounds
-// s * a to bf16 first (du = bf16(s gy)).
-template <int NT, bool SCALED, int U = 1>
-__device__ __forceinline__ void mma_rows(float (*acc)[4], const bf16* a,
-                                         int lda, int valid, float s,
-                                         const bf16* b, int ldb, int kdim,
-                                         int n0, int N) {
-  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
-  const bool r0 = g < valid, r1 = g + 8 < valid;
-#pragma unroll U
-  for (int kk = 0; kk < kdim; kk += 16) {
-    const bf16* p = a + kk + 2 * t;
-    uint32_t af[4];
-    af[0] = r0 ? ld32(p + (size_t)g * lda) : 0u;
-    af[1] = r1 ? ld32(p + (size_t)(g + 8) * lda) : 0u;
-    af[2] = r0 ? ld32(p + (size_t)g * lda + 8) : 0u;
-    af[3] = r1 ? ld32(p + (size_t)(g + 8) * lda + 8) : 0u;
-    if (SCALED)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) af[e] = scale_pair(af[e], s);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      if (n0 + nt * 8 < N) {
-        const bf16* bp = b + (size_t)(n0 + nt * 8 + g) * ldb + kk + 2 * t;
-        mma_bf16_16816(acc[nt], af, ld32(bp), ld32(bp + 8));
-      }
-    }
-  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf2(float a, float b) {

@@ -27,8 +27,8 @@ times both per stage (CUDA events, the median of 3 rounds of 10
 launches), and prints one JSON line: the ms per stage, their sums per
 pass (stage 2 has five no-task blocks) and the card; each tree's build
 prints the registers and spills that ptxas reported for the instances of
-kernel 4, of the LN-family backward row kernels (4b, 2b, 3b, 6b) and of
-the attention backward (kernels 1b and 1c). The edits of ``VARIANTS``
+kernel 4, of the LN-family backward row kernels (4b, 2b, 3b, 6b), of
+kernel 6's forward and of the attention backward (kernels 1b and 1c). The edits of ``VARIANTS``
 reach either kernel's source and plan (and 2b's, 2-tail's, 3b's). With
 ``--checks`` it runs those ``check_*`` functions of its tree's
 ``chip_smoke.py`` instead (the phase 3/3b rows of other kernels) and
@@ -352,13 +352,14 @@ def _ptxas(log: str) -> dict:
     """Registers and spill bytes of every instance of kernel 4, of the
     LN-family forward kernels (2 and 3, 2-tail) and backward row kernels
     (4b, 2b in both modes, 3b: ``patch_merge_bwd_rows``, and
-    ``merge_ln_bwd_rows`` in checkouts before it; 6b) and of the attention
-    backward (kernels 1b and 1c's)."""
+    ``merge_ln_bwd_rows`` in checkouts before it; 6b), of kernel 6's
+    forward and of the attention backward (kernels 1b and 1c's)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S*(?:ln_mlp_fwd_kernel|"
                       r"ln_mlp_bwd_rows|window_attn_bwd_kernel|ln_lora_\w*"
-                      r"bwd_rows|merge_\w*bwd_rows|ln_lora_\w*fwd_kernel)"
+                      r"bwd_rows|merge_\w*bwd_rows|ln_lora_\w*fwd_kernel|"
+                      r"task_merge_fwd_kernel)"
                       r"\S*)", line)
         if m:
             name = m[1]

@@ -305,5 +305,5 @@ def test_profile_class_names_the_row_kernel():
         assert classify(f"{pre}patch_merge_bwd_rows{inst}(Params)") == (
             "patch merge kernel 3b (bwd rows)")
     # 6b's row kernel keeps its own class
-    assert classify(f"{pre}task_merge_bwd_rows(RowArgs)") == (
-        "task-merge kernel 6b (bwd rows, combine, dmid)")
+    assert classify(f"{pre}task_merge_bwd_rows<2>(Params)") == (
+        "task-merge kernel 6b (bwd rows)")

@@ -179,15 +179,30 @@ def test_unported_kernel_flags_raise(flag, ln, extra):
     (["TRAIN.USE_CHECKPOINT", "True"], "Queue 1, item 10"),
     (["TPU.REMAT", "True"], "Queue 1, item 10"),
     (["MODEL.MTLORA.FC1_ENABLED", "False"], "Queue 1, item 9"),
+    (["MODEL.MTLORA.R_PER_TASK.shared", "[8]"], "Queue 1, item 9"),
+    (["MODEL.MTLORA.R_PER_TASK.shared", "[24]"], "Queue 1, item 9"),
+    (["MODEL.MTLORA.R_PER_TASK.shared", "[128]", "TPU.USE_PALLAS_ADAPTER",
+      "False"], "Queue 1, item 9"),
+    (["MODEL.MTLORA.R_PER_TASK.semseg", "[8]"], "Queue 1, item 9"),
+    ("tasks", "Queue 1, item 9"),
 ], ids=["TPU.USE_PALLAS", "MODEL.TYPE", "TRAIN.USE_CHECKPOINT", "TPU.REMAT",
-        "TPU.USE_PALLAS_LN-fc1-off"])
+        "TPU.USE_PALLAS_LN-fc1-off", "shared-rank-8", "shared-rank-24",
+        "shared-rank-128-ln-route", "task-rank-8-adapter-route",
+        "five-tasks-adapter-route"])
 def test_config_keys_the_port_does_not_run_raise(opts, item):
     """Keys the JAX package acts on and the port does not run raise and
     name their ROADMAP item: ``TPU.USE_PALLAS`` False (every kernel off
     and the exact-erf GELU, the fp32 eval clone's switch), a model type
-    the reference does not build, rematerialization by either key, and
-    the LN route with an adapter off (kernel 2's other modes)."""
-    cfg = load_config(CFG, tasks=TASKS, opts=opts)
+    the reference does not build, rematerialization by either key, the
+    LN route with an adapter off (kernel 2's other modes), a shared rank
+    that kernels 2, 2b, 2-tail and 2b-tail do not take on the LN routes
+    (a multiple of 16 up to 64), and on the adapter route a per-task
+    rank other than 4 or more than 4 tasks (kernels 5, 5b, 6 and 6b)."""
+    if opts == "tasks":
+        cfg = load_config(CFG, tasks=TASKS + ["edge"], opts=[])
+        assert len(cfg.TASKS) == 5 and cfg.TPU.USE_PALLAS_ADAPTER
+    else:
+        cfg = load_config(CFG, tasks=TASKS, opts=opts)
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md, {item}\\)"):
         port_config.from_config(cfg)
