@@ -21,7 +21,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
      (the dropped one); kernel 1c (the dense attention cells of
      MTLORA_ATTN_DENSE) at the four 448 stage shapes, shifted and not, and
      at stage 3 of the 224 model, also against kernel 1; kernel, plain and
-     library-call times and the roofline bound;
+     library-call times and the roofline bound; kernel 2 also with its
+     plan, achieved TFLOP/s, share of the bound and weight-slot rate per
+     stage, and at the ragged 392 rows of stage 3, rank 16, Swin-B's
+     [6272, 1024] -> 3072, scale 3, scale 0 and dropout off;
   3b. backward kernels vs plain: the same shapes, every gradient against
      the plain backward (kernel 8: its dx layout; kernel 1c: also against
      kernel 1b), with the same four numbers; kernel 4b also with its
@@ -129,6 +132,7 @@ from mtlora_tpu_torch.ops.ln_lora import (
     merge_ln_plain,
     qkv_bwd_plan,
     qkv_bwd_scratch,
+    qkv_fwd_plan,
     tail_bwd_plan,
     tail_bwd_scratch,
     tail_fwd_plan,
@@ -671,21 +675,37 @@ def check_qkv_rows(label, args, gy):
 RAGGED_ROWS = 392
 
 
-# kernel 2b's coverage (checked, not in the tally): (label, M, C, r, scale)
-# -- the ragged 392 rows of stage 3 (the batch-2 step), rank 16 (the r16
-# YAMLs) at stage 0's width, Swin-B's last stage (mtlora_base_448's qkv,
-# [6272, 1024] -> 3072), and a scale that is not a power of two
+# kernel 2's and 2b's coverage (checked, not in the tally): (label, M, C,
+# r, scale) -- the ragged 392 rows of stage 3 (the batch-2 step), rank 16
+# (the r16 YAMLs) at stage 0's width (O = 288: a half-filled last chunk),
+# Swin-B's last stage (mtlora_base_448's qkv, [6272, 1024] -> 3072), and a
+# scale that is not a power of two, all at dropout 0.05
 QKV_COVERAGE = (("ragged", RAGGED_ROWS, 768, 64, 4.0),
                 ("r16", 50176, 96, 16, 4.0),
                 ("swin-b stage 3", 6272, 1024, 64, 4.0),
                 ("scale 3", 6272, 768, 64, 3.0))
+# kernel 2's alone: (label, M, C, r, scale, dropout) -- scale 0 (z = p: no
+# mask drawn) where two warps share rows, dropout off at stage 0's width
+QKV_FWD_COVERAGE = (("scale 0", 6272, 768, 64, 0.0, 0.05),
+                    ("dropout 0", 50176, 96, 64, 4.0, 0.0))
+
+
+def check_qkv_fwd(label, args):
+    """Kernel 2 (the qkv mode) against ``ln_lora_plain``: y, bf16, within
+    2^-6 of the largest element. Returns (worst error, text)."""
+    y = ln_lora_fwd(*args)
+    ref = ln_lora_plain(*args)
+    torch.cuda.synchronize()
+    return check_outputs(label, [y], [ref], ["y"], {0})
 
 
 def check_ln_lora(gen) -> dict:
     """Kernel 2 at the qkv sites: per stage x [M, C] -> [M, 3C], rank 64,
-    scale 4, dropout 0.05; weighted by the stage's blocks. The backward
-    (2b) also with its stored rows, its achieved TFLOP/s, share of the
-    bound and weight-slice rate per stage, and at ``QKV_COVERAGE``."""
+    scale 4, dropout 0.05; weighted by the stage's blocks. Both directions
+    with their plan, achieved TFLOP/s, share of the bound and weight-slot
+    rate per stage, the backward (2b) also with its stored rows; both at
+    ``QKV_COVERAGE``, the forward also at ``QKV_FWD_COVERAGE`` (checked,
+    not in the tally)."""
     fwd, bwd = Tally(), Tally()
     for s in range(4):
         cfg, _, C, M = stage_dims(s)
@@ -696,22 +716,24 @@ def check_ln_lora(gen) -> dict:
         O, r = wt.shape[0], at.shape[0]
         lib_args = (x, gamma, beta, wt, bias, at, bt, sc)
         n = cfg.depths[s]
-        y = ln_lora_fwd(*args)
-        ref = ln_lora_plain(*args)
-        torch.cuda.synchronize()
-        err, text = check_outputs(f"ln_lora fwd stage {s}", [y], [ref], ["y"],
-                                  {0})
+        err, text = check_qkv_fwd(f"ln_lora fwd stage {s}", args)
         t_k = median_ms(lambda: ln_lora_fwd(*args))
         t_p = median_ms(lambda: ln_lora_plain(*args))
         t_l = median_ms(lambda: ln_lora_library(*lib_args))
         w_bytes = 2 * (O * C + O + r * C + O * r + 2 * C)
         nbytes = 2 * M * (C + O) + w_bytes
         flops = 2.0 * M * (C * O + C * r + r * O)
+        t_b = max(nbytes / PEAK_HBM_BYTES, ops_seconds(flops)) * 1e3
+        plan = qkv_fwd_plan(M, C, O, r, ln_lora._sms(x.device))
         print(f"ln_lora fwd stage {s} x [{M}, {C}] -> {O} (x{n}): {text} "
-              f"kernel {t_k:.4f} ms plain {t_p:.4f} ms library {t_l:.4f} ms "
-              f"{bound_text(nbytes, flops)}")
+              f"kernel {t_k:.4f} ms ({flops / t_k / 1e9:.2f} TFLOP/s, "
+              f"{t_b / t_k:.4f} of the bound; {plan.bm}-row blocks, "
+              f"{plan.splits} items a row block, {plan.per_sm} blocks an SM, "
+              f"ring {plan.stages}, weight slots "
+              f"{plan.slice_bytes / 1e9:.3f} GB, "
+              f"{plan.slice_bytes / t_k / 1e9:.3f} TB/s) plain {t_p:.4f} ms "
+              f"library {t_l:.4f} ms {bound_text(nbytes, flops)}")
         fwd.add(err, t_k, t_p, t_l, nbytes, flops, n)
-        del y, ref
         err, text = check_qkv_rows(f"ln_lora bwd stage {s}", args, gy)
         leaves = [t.detach().requires_grad_(True) for t in (x, gamma, beta,
                                                             at, bt)]
@@ -737,9 +759,18 @@ def check_ln_lora(gen) -> dict:
     cover = torch.Generator(device="cuda").manual_seed(SEED + 3)
     for label, M, C, r, sc in QKV_COVERAGE:
         args, gy = qkv_operands(cover, M, C, r, sc, 0.05)
-        label = f"ln_lora bwd {label} x [{M}, {C}] -> {3 * C}, r {r}, s {sc}"
-        print(f"{label}: {check_qkv_rows(label, args, gy)[1]}")
+        shape = f"{label} x [{M}, {C}] -> {3 * C}, r {r}, s {sc}"
+        print(f"ln_lora fwd {shape}: "
+              f"{check_qkv_fwd(f'ln_lora fwd {shape}', args)[1]}")
+        print(f"ln_lora bwd {shape}: "
+              f"{check_qkv_rows(f'ln_lora bwd {shape}', args, gy)[1]}")
         del args, gy
+    for label, M, C, r, sc, p in QKV_FWD_COVERAGE:
+        args, _ = qkv_operands(cover, M, C, r, sc, p)
+        shape = f"{label} x [{M}, {C}] -> {3 * C}, r {r}, s {sc}, p {p}"
+        print(f"ln_lora fwd {shape}: "
+              f"{check_qkv_fwd(f'ln_lora fwd {shape}', args)[1]}")
+        del args
     return {"fwd": fwd, "bwd": bwd}
 
 
@@ -2238,7 +2269,8 @@ def main():
               head["fwd"]),
         entry("hrnet_head_mlp_bwd", "head_mlp_bwd.cu", "pallas_head.py:111",
               head["bwd"]),
-        entry("ln_lora", "ln_lora.cu", "pallas_ln_lora.py:74", ln2["fwd"]),
+        entry("ln_lora", "ln_lora_tail_fwd.cu", "pallas_ln_lora.py:74",
+              ln2["fwd"]),
         entry("ln_lora_bwd", "ln_lora_qkv_bwd.cu", "pallas_ln_lora.py:124",
               ln2["bwd"]),
         entry("patch_merge", "ln_lora.cu", "pallas_ln_lora.py:465",

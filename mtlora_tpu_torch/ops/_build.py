@@ -50,9 +50,12 @@ SIGNATURES = {
     # x, ek_t, eb, mul, add, pk_t, gy, dx, wpad, xpad, gypad, dhc, z, cols,
     # part, sums, dek_t, dpk_t, M, C, O, n, ng, stages, smem, sw, sp, stream
     "mtlora_head_mlp_bwd": [_P] * 18 + [_I] * 9 + [_P],
-    # x, gamma, beta, wt, bias, at, bt, seed, y, M, K, O, r, merge_wh,
-    # scale, drop threshold, use_drop, inv_keep, stream
-    "mtlora_ln_lora_fwd": [_P] * 9 + [_I] * 5 + [_F, _U, _I, _F, _P],
+    # kernel 3: x, gamma, beta, wt, y, M, K, O, merge_wh, stream
+    "mtlora_ln_lora_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    # kernel 2 at the qkv sites: x, gamma, beta, wt, bias, at, bt, seed, y,
+    # M, C, O, r, bm, splits, per_sm, blocks, stages, group, smem, scale,
+    # drop threshold, use_drop, inv_keep, stream
+    "mtlora_ln_lora_qkv_fwd": [_P] * 9 + [_I] * 11 + [_F, _U, _I, _F, _P],
     # x, gamma, beta, wt, bias, at, bt, seed, y, p, d, M, C, O, r, act, bm,
     # splits, per_sm, blocks, stages, group, smem, scale, drop threshold,
     # use_drop, inv_keep, stream

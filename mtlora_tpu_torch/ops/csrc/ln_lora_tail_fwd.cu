@@ -1,28 +1,36 @@
-// Fused LayerNorm + frozen GEMM + shared LoRA in the stage-tail mode
-// (forward) for Hopper, at norm2 -> fc1 of the four blocks that carry task
-// streams:
+// Fused LayerNorm + frozen GEMM + shared LoRA (forward) for Hopper, in two
+// compile-time modes of one kernel body:
 //   ln = LN(x)                        fp32 statistics, var = E[x^2] - mu^2
 //   p  = bf16(ln) W^T + b             fp32 accumulate, bf16 bias
 //   m  = bf16(bf16(drop0(ln)) A^T)    shared adapter, rank r <= 64
 //   z  = p + s m B^T
-//   y  = bf16(gelu(z))                the tanh form (lnk::kGelu); z without
-//                                     act
-// with p written as bf16(p) and, in training, d = bf16(drop1(gelu(z))) on
-// hash stream 1 (the next layer's pre-dropped adapter input). Its backward
-// is ln_lora_tail_bwd.cu.
+// The qkv mode (ln_lora_qkv_fwd_kernel, kernel 2 at norm1 -> qkv of every
+// block) writes y = bf16(z) alone. The stage-tail mode
+// (ln_lora_tail_fwd_kernel, norm2 -> fc1 of the four blocks that carry
+// task streams) writes y = bf16(gelu(z)) in the tanh form (lnk::kGelu; z
+// without act), p as bf16(p) and, in training, d = bf16(drop1(gelu(z))) on
+// hash stream 1 (the next layer's pre-dropped adapter input). Their
+// backwards are ln_lora_qkv_bwd.cu and ln_lora_tail_bwd.cu.
 //
-// Replaces mtlora_tpu/ops/pallas_ln_lora.py: _fwd_kernel (:74) with out_p,
-// out_act and out_drop (:106-118), launched by _run_fwd (:270, call :303)
-// through fused_ln_lora_linear.
+// Replaces mtlora_tpu/ops/pallas_ln_lora.py: _fwd_kernel (:74), launched
+// by _run_fwd (:270, call :303) through fused_ln_lora_linear, with out_p,
+// out_act and out_drop all False (the qkv mode) and with them (:106-118,
+// the tail mode).
 //
-// What bounds it: a row of C inputs makes three rows of O = 4C bf16
-// outputs, 2 M (C O + C r + r O) FLOP for 2 M (C + 3 O) bytes, about 87
-// FLOP a byte, under the card's ~295 ridge: the output bytes bound it, and
-// beside them the epilogue of every output element (its GELU and, in
-// training, the mask hash: 19 dependent integer steps). The first port (4
-// warps on 16 rows, the weights read from L2 inside the MMA loop, 4-byte
-// stores from the fragment layout, output chunks round robin over the
-// warps) reached 9% of the byte bound. Design:
+// What bounds it: a row of C inputs makes O = 3C outputs (the qkv mode)
+// or three rows of O = 4C (the tail mode), 2 M (C O + C r + r O) FLOP for
+// 2 M (C + O) or 2 M (C + 3 O) bytes: 87-768 FLOP a byte, about the
+// card's ~295 ridge. The output bytes bound the narrow stages and the
+// products the wide ones; beside them, the epilogue of every output
+// element (in the tail mode its GELU and, in training, the mask hash: 19
+// dependent integer steps). The first ports (4 warps on 16 rows, the
+// weights read from L2 inside the MMA loop, 4-byte stores from the
+// fragment layout, output chunks round robin over the warps) reached 9%
+// (tail) and 5% (qkv) of the bound. In the qkv mode the products take a
+// fifth to a quarter of the time and the ring's delivery of its slots most
+// of the rest: a group each 2-3 thousand cycles an SM whatever its size
+// or the ring's depth, and no faster with the slots multicast to two
+// blocks of a cluster (PERF.md §6). Design:
 //   - a block of 8 warps; a warp owns 16 rows and one 64-column output
 //     chunk at a time, the WN warps of a row group taking WN chunks side by
 //     side: WN = 1 (128 rows a block) up to C = 384, WN = 2 (64 rows) above,
@@ -35,9 +43,10 @@
 //     most 128 registers a thread and one staging tile a warp: the second
 //     block's warps hide the first's latencies, which 8 warps could not
 //     (the variant tail-fwd-one-block-an-sm, PERF.md §6). The launch plan
-//     (ops/ln_lora.py:tail_fwd_plan) owns rows, splits, blocks an SM, ring
-//     depth and shared-memory bytes; the kernel traps if the bytes do not
-//     hold its layout; the last row block masks its rows past M;
+//     (ops/ln_lora.py:tail_fwd_plan, qkv_fwd_plan) owns rows, splits,
+//     blocks an SM, ring depth and shared-memory bytes; the kernel traps if
+//     the bytes do not hold its layout; the last row block masks its rows
+//     past M;
 //   - a row group works on its own: it loads its rows of x by cp.async,
 //     takes their statistics (in registers), m = bf16(bf16(drop0(ln)) A^T)
 //     (its WN warps take A's slices in turn and sum their shares, so that
@@ -53,22 +62,25 @@
 //     weight byte serves the block's rows. The warps walk the ring without
 //     block barriers, the last warp done with a group refilling it, so that
 //     they drift apart by up to the ring's depth;
-//   - the products: mma.sync m16n8k16 on ldmatrix fragments. With p staged,
-//     the u products accumulate onto p / s and z = s (p / s + m B^T), so
-//     that u takes no registers of its own; p's stores run meanwhile;
+//   - the products: mma.sync m16n8k16 on ldmatrix fragments. The u
+//     products accumulate onto p / s and z = s (p / s + m B^T), so that u
+//     takes no registers of its own; in the tail mode p, staged first,
+//     goes to its rows meanwhile;
 //   - the epilogue, one output at a time: the warp rounds its 16 x 64 tile
 //     to bf16 into a staging tile of its own (stmatrix) and writes it out
 //     as whole 128-byte row segments, 16 bytes a lane (st.global.v4); the
 //     stores drain while the warp goes on. With two staging tiles a warp
-//     (one block an SM) the next output takes the other while the lanes'
-//     reads of the last finish. The GELU is z sigma(2u), u = z (c + c d
-//     z^2): the tanh form's 0.5 z (1 + tanh u), by ex2.approx and a fast
-//     divide (within about 1e-7 of tanhf's, as the backward's gelu'). The
-//     masks are the hashes of dropout.cuh, bit for bit. The epilogue's
-//     loops hold no branch (act and the streams are decided outside them):
-//     a branch per element had cut them into blocks of one or two chains
-//     each, the GELU and the hashes waiting on one dependent step after
-//     another.
+//     (the tail mode at one block an SM) the next output takes the other
+//     while the lanes' reads of the last finish; the qkv mode, one output a
+//     chunk, stages in one (two where WN = 2: m's shares) and gives the
+//     shared memory it saves to the ring. The GELU is z sigma(2u), u =
+//     z (c + c d z^2): the tanh form's 0.5 z (1 + tanh u), by ex2.approx
+//     and a fast divide (within about 1e-7 of tanhf's, as the backward's
+//     gelu'). The masks are the hashes of dropout.cuh, bit for bit. The
+//     epilogue's loops hold no branch (act, the streams and the mode are
+//     decided outside them): a branch per element had cut them into blocks
+//     of one or two chains each, the GELU and the hashes waiting on one
+//     dependent step after another.
 
 #include "tma.cuh"
 
@@ -93,7 +105,7 @@ enum { kW, kA, kB, kMaps };
 
 struct Args {
   const bf16 *x, *gamma, *beta, *bias;
-  bf16 *y, *p, *d;    // d may be null
+  bf16 *y, *p, *d;    // p null in the qkv mode; d may be null
   int M, C, O, r, act;
   int wn;             // warps on the same 16 rows (chunks side by side)
   int splits;         // items of a row block, splitting its super-chunks
@@ -358,6 +370,36 @@ __device__ __forceinline__ void stage4(bf16* sb, int nt,
       : "memory");
 }
 
+// A warp's 16 x 64 fp32 tile, rounded to bf16, into its staging tile.
+__device__ __forceinline__ void stage_tile(bf16* sb, const float (*c)[4]) {
+#pragma unroll
+  for (int nt = 0; nt < 8; nt += 2) {
+    uint32_t v[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        v[i][h] = pack_bf2(c[nt + i][2 * h], c[nt + i][2 * h + 1]);
+    stage4(sb, nt, v);
+  }
+}
+
+// c += the bias of columns n0.. (zero past O).
+__device__ __forceinline__ void add_bias(float (*c)[4], const bf16* bias,
+                                         int n0, int O) {
+  const int t = lane_id() & 3;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int col = n0 + 8 * nt + 2 * t;
+    const float2 b = col < O ? bf2(bias + col) : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      c[nt][2 * h] += b.x;
+      c[nt][2 * h + 1] += b.y;
+    }
+  }
+}
+
 // The warp's staging tile (its rows row0.., columns n0..) to out [M, O]:
 // lane l moves 16 bytes of row l / 8 + 4 k, so that 8 lanes write a row's
 // whole 128-byte segment; rows past M and columns past O are not written
@@ -379,6 +421,7 @@ __device__ __forceinline__ void tile_out(bf16* out, const bf16* sb, int row0,
   if (NBUF == 1) __syncwarp();
 }
 
+// The body of both modes (TAIL: the stage-tail mode, else the qkv mode).
 // PER_SM blocks an SM, persistent: a block takes items blockIdx.x, +
 // gridDim.x, .. (an item: the BM rows of a row block and one split of its
 // super-chunks). Its row groups (WN warps on 16 rows) work on their own: a
@@ -387,11 +430,12 @@ __device__ __forceinline__ void tile_out(bf16* out, const bf16* sb, int row0,
 // block share only the ring. Two blocks an SM (at most 128 registers a
 // thread, one staging tile a warp) overlap one's phases with the other's
 // where a block's shared memory allows it.
-template <int WN, int PER_SM>
-__global__ void __launch_bounds__(kThreads, PER_SM)
-    ln_lora_tail_fwd_kernel(const __grid_constant__ Params p) {
+template <int WN, int PER_SM, bool TAIL>
+__device__ __forceinline__ void fwd_body(const Params& p) {
   constexpr int BM = kRows * kWarps / WN;
-  constexpr int NBUF = 3 - PER_SM;   // staging tiles a warp
+  // staging tiles a warp: the tail mode's three outputs take turns in two
+  // where one block an SM leaves room; y alone needs one, m's shares two
+  constexpr int NBUF = TAIL ? 3 - PER_SM : WN;
   static_assert(NBUF == 2 || WN == 1, "m's shares take two staging tiles");
   extern __shared__ __align__(1024) unsigned char smem[];
   const Args& a = p.a;
@@ -419,7 +463,7 @@ __global__ void __launch_bounds__(kThreads, PER_SM)
   Ring ring{reinterpret_cast<bf16*>(base), bars,
             reinterpret_cast<int*>(bars + nbar),
             nitems * item_slots(a, ncs), ncs, nbar};
-  // the plan's bytes (ops/ln_lora.py:tail_fwd_plan) must hold this layout
+  // the plan's bytes (ops/ln_lora.py:_fwd_plan) must hold this layout
   if (reinterpret_cast<unsigned char*>(ring.held + nbar) - smem >
           dynamic_smem_bytes() ||
       a.group > kGroupMax || nbar < 2 || a.wn != WN)
@@ -537,27 +581,10 @@ __global__ void __launch_bounds__(kThreads, PER_SM)
       }
       const bool live = n0 < O;   // false past the last chunk (WN = 2)
 
-      // p = acc + b to the staging tile
+      // p = acc + b, staged in the tail mode
+      add_bias(pc, a.bias, n0, O);
       bf16* tb = sb + (NBUF == 2 ? buf : 0) * kRows * kLdS;
-      if (live)
-#pragma unroll
-        for (int nt = 0; nt < 8; nt += 2) {
-          uint32_t v[2][2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int col = n0 + 8 * (nt + i) + 2 * t;
-            const float2 b =
-                col < O ? bf2(a.bias + col) : make_float2(0.f, 0.f);
-            float* c = pc[nt + i];
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              c[2 * h] += b.x;
-              c[2 * h + 1] += b.y;
-              v[i][h] = pack_bf2(c[2 * h], c[2 * h + 1]);
-            }
-          }
-          stage4(tb, nt, v);
-        }
+      if (TAIL && live) stage_tile(tb, pc);
       // z = p + s m B^T as s (p / s + m B^T): the u products accumulate
       // onto p / s, so that u takes no registers of its own (s = 0: z =
       // p); p goes to its rows while they run
@@ -572,8 +599,10 @@ __global__ void __launch_bounds__(kThreads, PER_SM)
         if (i == ni && s != 0.f) mma_slot<8>(pc, mf, sl, 0, 4);
       }
       if (!live) continue;
-      tile_out<NBUF>(a.p, tb, row0, n0, M, O);
-      buf ^= 1;
+      if constexpr (TAIL) {
+        tile_out<NBUF>(a.p, tb, row0, n0, M, O);
+        buf ^= 1;
+      }
       // y = gelu(z) (z without act) to its rows, kept in fp32 for d (the
       // branches outside the loops: their 32 elements interleave)
       if (s != 0.f)
@@ -581,27 +610,18 @@ __global__ void __launch_bounds__(kThreads, PER_SM)
         for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) pc[nt][e] *= s;
-      if (a.act)
+      if (TAIL && a.act)
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) pc[nt][e] = gelu_tanh(pc[nt][e]);
       tb = sb + (NBUF == 2 ? buf : 0) * kRows * kLdS;
-#pragma unroll
-      for (int nt = 0; nt < 8; nt += 2) {
-        uint32_t v[2][2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            v[i][h] = pack_bf2(pc[nt + i][2 * h], pc[nt + i][2 * h + 1]);
-        stage4(tb, nt, v);
-      }
+      stage_tile(tb, pc);
       tile_out<NBUF>(a.y, tb, row0, n0, M, O);
       buf ^= 1;
       // d = drop1(y) to its rows (d is written only with stream 1 on):
       // element (m, col) of [M, O] is hashed at m O + col
-      if (a.d) {
+      if (TAIL && a.d) {
         tb = sb + (NBUF == 2 ? buf : 0) * kRows * kLdS;
         const uint32_t e0 = (uint32_t)(row0 + g) * O + n0 + 2 * t;
         const uint32_t e1 = e0 + 8 * (uint32_t)O;
@@ -631,9 +651,25 @@ __global__ void __launch_bounds__(kThreads, PER_SM)
   }
 }
 
+// The two modes' kernels: their own symbols, so that a trace tells them
+// apart (train/profile.py classifies kernels by name).
 template <int WN, int PER_SM>
-cudaError_t launch(const Params& p, int blocks, int smem, cudaStream_t st) {
-  auto kern = ln_lora_tail_fwd_kernel<WN, PER_SM>;
+__global__ void __launch_bounds__(kThreads, PER_SM)
+    ln_lora_tail_fwd_kernel(const __grid_constant__ Params p) {
+  fwd_body<WN, PER_SM, true>(p);
+}
+
+template <int WN, int PER_SM>
+__global__ void __launch_bounds__(kThreads, PER_SM)
+    ln_lora_qkv_fwd_kernel(const __grid_constant__ Params p) {
+  fwd_body<WN, PER_SM, false>(p);
+}
+
+template <int WN, int PER_SM>
+cudaError_t launch(const Params& p, bool tail, int blocks, int smem,
+                   cudaStream_t st) {
+  auto kern = tail ? ln_lora_tail_fwd_kernel<WN, PER_SM>
+                   : ln_lora_qkv_fwd_kernel<WN, PER_SM>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -643,26 +679,13 @@ cudaError_t launch(const Params& p, int blocks, int smem, cudaStream_t st) {
 
 bool misaligned(const void* p) { return (uintptr_t)p % 16 != 0; }
 
-}  // namespace
-
-// x [M, C] -> y = bf16(gelu(z)) [M, O] (z without act), p = bf16(LN(x) W^T
-// + b) and d = bf16(drop1(y)) [M, O] (d may be null; d needs use_drop).
-// Weights in the module layouts, read in place by TMA: wt [O, C], at
-// [r, C], bt [O, r]; bf16 gamma, beta, bias. C % 16 == 0 up to 1024, O % 8
-// == 0, r 16, 32, 48 or 64. bm (128 up to C = 384, WN = 1; else 64, WN =
-// 2), splits (the items of a row block, dividing its ceil(ceil(O / 64) /
-// WN) super-chunks), per_sm (the blocks an SM: 1, or 2 with WN = 1),
-// blocks (at most the items: ceil(M / bm) splits), the
-// ring's stages and group, and the shared-memory bytes smem are the
-// caller's launch plan (ops/ln_lora.py:tail_fwd_plan); the kernel traps if
-// smem does not hold its layout. use_drop: both hash streams at threshold
-// thr.
-extern "C" int mtlora_ln_lora_tail_fwd(
-    const void* x, const void* gamma, const void* beta, const void* wt,
-    const void* bias, const void* at, const void* bt, const void* seed,
-    void* y, void* p, void* d, int M, int C, int O, int r, int act, int bm,
-    int splits, int per_sm, int blocks, int stages, int group, int smem,
-    float scale, unsigned thr, int use_drop, float inv_keep, void* stream) {
+// The checks and the launch of either mode (p null: the qkv mode).
+int run(const void* x, const void* gamma, const void* beta, const void* wt,
+        const void* bias, const void* at, const void* bt, const void* seed,
+        void* y, void* p, void* d, int M, int C, int O, int r, int act,
+        int bm, int splits, int per_sm, int blocks, int stages, int group,
+        int smem, float scale, unsigned thr, int use_drop, float inv_keep,
+        void* stream) {
   const int wn = C <= kWide ? 1 : 2;
   const int nsc = ((O + kS - 1) / kS + wn - 1) / wn;
   const int items = (M + bm - 1) / bm * splits;
@@ -670,14 +693,14 @@ extern "C" int mtlora_ln_lora_tail_fwd(
       r % 16 || r > kRank || bm != kRows * kWarps / wn || splits < 1 ||
       nsc % splits || !(per_sm == 1 || (per_sm == 2 && wn == 1)) ||
       blocks < 1 || blocks > items || group < 1 ||
-      group > kGroupMax || stages % group || stages < 2 * group || !p ||
-      (d && !use_drop))
+      group > kGroupMax || stages % group || stages < 2 * group ||
+      (!p && (d || act)) || (d && !use_drop))
     return (int)cudaErrorInvalidValue;
   // 16-byte copies of x, gamma, beta and stores of the outputs, TMA boxes
   // of the weights
   if (misaligned(x) || misaligned(gamma) || misaligned(beta) ||
       misaligned(wt) || misaligned(at) || misaligned(bt) || misaligned(y) ||
-      misaligned(p) || (d && misaligned(d)))
+      (p && misaligned(p)) || (d && misaligned(d)))
     return (int)cudaErrorMisalignedAddress;
   Params pr;
   Args& a = pr.a;
@@ -713,7 +736,47 @@ extern "C" int mtlora_ln_lora_tail_fwd(
       !box_map(&pr.maps[kB], bt, O, r))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(wn == 2        ? launch<2, 1>(pr, blocks, smem, st)
-               : per_sm == 1 ? launch<1, 1>(pr, blocks, smem, st)
-                             : launch<1, 2>(pr, blocks, smem, st));
+  const bool tail = p != nullptr;
+  return (int)(wn == 2        ? launch<2, 1>(pr, tail, blocks, smem, st)
+               : per_sm == 1 ? launch<1, 1>(pr, tail, blocks, smem, st)
+                             : launch<1, 2>(pr, tail, blocks, smem, st));
+}
+
+}  // namespace
+
+// The tail mode: x [M, C] -> y = bf16(gelu(z)) [M, O] (z without act), p =
+// bf16(LN(x) W^T + b) and d = bf16(drop1(y)) [M, O] (d may be null; d needs
+// use_drop). Weights in the module layouts, read in place by TMA: wt [O, C],
+// at [r, C], bt [O, r]; bf16 gamma, beta, bias. C % 16 == 0 up to 1024, O %
+// 8 == 0, r 16, 32, 48 or 64. bm (128 up to C = 384, WN = 1; else 64, WN =
+// 2), splits (the items of a row block, dividing its ceil(ceil(O / 64) /
+// WN) super-chunks), per_sm (the blocks an SM: 1, or 2 with WN = 1),
+// blocks (at most the items: ceil(M / bm) splits), the ring's stages and
+// group, and the shared-memory bytes smem are the caller's launch plan
+// (ops/ln_lora.py:tail_fwd_plan); the kernel traps if smem does not hold
+// its layout. use_drop: both hash streams at threshold thr.
+extern "C" int mtlora_ln_lora_tail_fwd(
+    const void* x, const void* gamma, const void* beta, const void* wt,
+    const void* bias, const void* at, const void* bt, const void* seed,
+    void* y, void* p, void* d, int M, int C, int O, int r, int act, int bm,
+    int splits, int per_sm, int blocks, int stages, int group, int smem,
+    float scale, unsigned thr, int use_drop, float inv_keep, void* stream) {
+  if (!p) return (int)cudaErrorInvalidValue;
+  return run(x, gamma, beta, wt, bias, at, bt, seed, y, p, d, M, C, O, r,
+             act, bm, splits, per_sm, blocks, stages, group, smem, scale,
+             thr, use_drop, inv_keep, stream);
+}
+
+// The qkv mode (kernel 2 at the qkv sites): x [M, C] -> y = bf16(z) [M, O]
+// alone, with the operands, shapes and launch plan of the tail mode
+// (ops/ln_lora.py:qkv_fwd_plan). use_drop: hash stream 0 at threshold thr.
+extern "C" int mtlora_ln_lora_qkv_fwd(
+    const void* x, const void* gamma, const void* beta, const void* wt,
+    const void* bias, const void* at, const void* bt, const void* seed,
+    void* y, int M, int C, int O, int r, int bm, int splits, int per_sm,
+    int blocks, int stages, int group, int smem, float scale, unsigned thr,
+    int use_drop, float inv_keep, void* stream) {
+  return run(x, gamma, beta, wt, bias, at, bt, seed, y, nullptr, nullptr, M,
+             C, O, r, 0, bm, splits, per_sm, blocks, stages, group, smem,
+             scale, thr, use_drop, inv_keep, stream);
 }

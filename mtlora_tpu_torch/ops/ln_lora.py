@@ -14,15 +14,15 @@ kernels:
     ``[.., H, W, C]`` stream, ``LN(4C)`` and the ``4C -> 2C`` reduction,
     no bias and no LoRA, with a gradient for the reduction weight.
 
-One forward source (``csrc/ln_lora.cu``) serves kernel 2 in y-only mode
-and kernel 3: the row loader reads rows plainly or gathers them 2x2
-(concat order ``k = di + 2 dj``, ``merge_ln_reference`` :663-679), and the
-LoRA epilogue is on for kernel 2 and off for kernel 3. Kernel 2's tail
-mode is ``csrc/ln_lora_tail_fwd.cu`` (its plan :func:`tail_fwd_plan`).
-Kernel 3b is ``csrc/merge_ln_bwd.cu``, a row kernel whose blocks of a
-cluster split the merged rows' columns (its plan :func:`merge_bwd_plan`),
-then the weight product. Kernel 2b is a
-fused row kernel then the weight passes of dA and dB in each mode:
+Kernel 2's forward is one source, ``csrc/ln_lora_tail_fwd.cu``, in two
+compile-time modes: the qkv mode (y only; its plan :func:`qkv_fwd_plan`)
+and the tail mode (its plan :func:`tail_fwd_plan`). Kernel 3's forward is
+``csrc/ln_lora.cu``: its row loader gathers the rows 2x2 (concat order
+``k = di + 2 dj``, ``merge_ln_reference`` :663-679). Kernel 3b is
+``csrc/merge_ln_bwd.cu``, a row kernel whose blocks of a cluster split
+the merged rows' columns (its plan :func:`merge_bwd_plan`), then the
+weight product. Kernel 2b is a fused row kernel then the weight passes
+of dA and dB in each mode:
 ``csrc/ln_lora_qkv_bwd.cu`` (y-only, the qkv sites; its plan
 :func:`qkv_bwd_plan`) and ``csrc/ln_lora_tail_bwd.cu`` (the tail mode; its
 plan :func:`tail_bwd_plan`), sharing ``csrc/row_block.cuh``.
@@ -410,29 +410,51 @@ def _kernel2_shapes(x, wt, at, bt):
     return M, K, O, r
 
 
+def _kernel2_args(name, x, gamma, beta, wt, bias, at, bt, seed, cots=()):
+    """Checks of a kernel-2 launch (either mode, forward or backward); the
+    operands' pointers."""
+    M, K, O, r = _kernel2_shapes(x, wt, at, bt)
+    _check(name, x,
+           [("x", x), ("gamma", gamma), ("beta", beta), ("wt", wt),
+            ("bias", bias), ("at", at), ("bt", bt), ("seed", seed)]
+           + [(n, c) for n, c in cots if c is not None],
+           [(M, K), (K,), (K,), (O, K), (O,), (r, K), (O, r), (2,)]
+           + [(M, O) for _, c in cots if c is not None])
+    return [t.data_ptr() for t in (x, gamma, beta, wt, bias, at, bt, seed)]
+
+
+def ln_lora_fwd_kernel(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
+                       drop: float):
+    """The CUDA route of :func:`ln_lora_fwd`: the qkv mode of
+    ``csrc/ln_lora_tail_fwd.cu`` at the launch of :func:`qkv_fwd_plan`;
+    raises for anything it does not take (a CPU tensor included)."""
+    ptrs = _kernel2_args("LN+LoRA forward", x, gamma, beta, wt, bias, at,
+                         bt, seed)
+    M, C = x.shape
+    O, r = wt.shape[0], at.shape[0]
+    plan = qkv_fwd_plan(M, C, O, r, _sms(x.device))
+    y = torch.empty((M, O), dtype=x.dtype, device=x.device)
+    use_drop = int(drop > 0.0 and scale != 0.0)
+    err = _build.library().mtlora_ln_lora_qkv_fwd(
+        *ptrs, y.data_ptr(), M, C, O, r, plan.bm, plan.splits, plan.per_sm,
+        plan.blocks, plan.stages, plan.group, plan.smem, float(scale),
+        dropout.threshold(drop) if use_drop else 0, use_drop,
+        dropout.inv_keep(drop) if use_drop else 1.0, _stream(x))
+    _build.check(err, "mtlora_ln_lora_qkv_fwd")
+    ln_lora_fwd.launches += 1
+    return y
+
+
 def ln_lora_fwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
                 drop: float):
     """Kernel 2 forward, no autograd: the plain version for CPU tensors,
-    the kernel for CUDA tensors (all bf16 but the int32 seed)."""
+    :func:`ln_lora_fwd_kernel` for CUDA tensors (all bf16 but the int32
+    seed)."""
     if x.device.type == "cpu":
         return ln_lora_plain(x, gamma, beta, wt, bias, at, bt, seed, scale,
                              drop)
-    M, K, O, r = _kernel2_shapes(x, wt, at, bt)
-    _check("LN+LoRA forward", x,
-           [("x", x), ("gamma", gamma), ("beta", beta), ("wt", wt),
-            ("bias", bias), ("at", at), ("bt", bt), ("seed", seed)],
-           [(M, K), (K,), (K,), (O, K), (O,), (r, K), (O, r), (2,)])
-    y = torch.empty((M, O), dtype=x.dtype, device=x.device)
-    use_drop = int(drop > 0.0 and scale != 0.0)
-    err = _build.library().mtlora_ln_lora_fwd(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.data_ptr(),
-        bias.data_ptr(), at.data_ptr(), bt.data_ptr(), seed.data_ptr(),
-        y.data_ptr(), M, K, O, r, 0, float(scale),
-        dropout.threshold(drop) if use_drop else 0, use_drop,
-        dropout.inv_keep(drop) if use_drop else 1.0, _stream(x))
-    _build.check(err, "mtlora_ln_lora_fwd")
-    ln_lora_fwd.launches += 1
-    return y
+    return ln_lora_fwd_kernel(x, gamma, beta, wt, bias, at, bt, seed, scale,
+                              drop)
 
 
 ROW_TILE = 16     # rows of one warp of the backward row kernels
@@ -603,20 +625,7 @@ def ln_lora_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
                               drop, gy)
 
 
-def _tail_args(name, x, gamma, beta, wt, bias, at, bt, seed, cots=()):
-    """Checks of a tail-mode launch; the operands' pointers and the
-    sizes."""
-    M, K, O, r = _kernel2_shapes(x, wt, at, bt)
-    _check(name, x,
-           [("x", x), ("gamma", gamma), ("beta", beta), ("wt", wt),
-            ("bias", bias), ("at", at), ("bt", bt), ("seed", seed)]
-           + [(n, c) for n, c in cots if c is not None],
-           [(M, K), (K,), (K,), (O, K), (O,), (r, K), (O, r), (2,)]
-           + [(M, O) for _, c in cots if c is not None])
-    return [t.data_ptr() for t in (x, gamma, beta, wt, bias, at, bt, seed)]
-
-
-# the constants of csrc/ln_lora_tail_fwd.cu that its plan sizes shared
+# the constants of csrc/ln_lora_tail_fwd.cu that its plans size shared
 # memory by (the kernel traps if the plan's bytes do not hold its layout)
 TAIL_FWD_CHUNK = 64     # output chunk and slot width (kS)
 TAIL_FWD_WARPS = 8      # warps of a row block (kWarps)
@@ -629,12 +638,13 @@ TAIL_FWD_ITEM_COST = 1  # an item's rows, statistics and m, in super-chunks
 
 
 class TailFwdPlan(NamedTuple):
-    """Launch plan of kernel 2's tail mode: rows per block, warps that
-    share 16 rows (each on its own 64-column chunk), the items of a row
-    block that split its chunks, the items (row blocks x splits), blocks
-    an SM, the TMA ring's slots and slots a group, dynamic shared-memory
-    bytes, blocks (each taking items in turn), and the bytes of weight
-    slots they stream from L2."""
+    """Launch plan of kernel 2's forward (either mode of
+    ``csrc/ln_lora_tail_fwd.cu``): rows per block, warps that share 16 rows
+    (each on its own 64-column chunk), the items of a row block that split
+    its chunks, the items (row blocks x splits), blocks an SM, the TMA
+    ring's slots and slots a group, dynamic shared-memory bytes, blocks
+    (each taking items in turn), and the bytes of weight slots they stream
+    from L2."""
 
     bm: int
     wn: int
@@ -646,6 +656,55 @@ class TailFwdPlan(NamedTuple):
     smem: int
     blocks: int
     slice_bytes: int
+
+
+def _fwd_plan(M: int, C: int, O: int, r: int, sms: int, tail: bool,
+              name: str) -> TailFwdPlan:
+    if (C % 16 or not 16 <= C <= TAIL_FWD_MAX_C or O % 8 or not O
+            or r % 16 or not 16 <= r <= 64):
+        raise ValueError(f"{name}: needs C % 16 == 0 and 16 <= C <= "
+                         f"{TAIL_FWD_MAX_C} ({C}), O % 8 == 0 ({O}) and r a "
+                         f"multiple of 16 up to 64 ({r})")
+    wn = 1 if C <= TAIL_FWD_WIDE else 2
+    bm = ROW_TILE * TAIL_FWD_WARPS // wn
+    ncs = -(-C // TAIL_FWD_CHUNK)
+    nsc = -(-(-(-O // TAIL_FWD_CHUNK)) // wn)
+    slot = 2 * TAIL_FWD_CHUNK ** 2
+
+    def fixed_bytes(per_sm):
+        # up to 1023 bytes to the ring's 1024-byte alignment; the x /
+        # bf16(ln) tile, gamma and beta, the staging tiles a warp (bf16:
+        # the kernel's NBUF); the ring, its mbarriers and counts below
+        nbuf = 3 - per_sm if tail else wn
+        return 1024 + 2 * (bm * (C + 8) + 2 * C + TAIL_FWD_WARPS
+                           * nbuf * ROW_TILE * TAIL_FWD_TILE)
+
+    def ring_bytes(stages, group):   # the slots; a mbarrier, a count a group
+        return stages * slot + 12 * (stages // group)
+
+    two = wn == 1 and fixed_bytes(2) + ring_bytes(4, 2) <= SM_SMEM // 2 - 1024
+    per_sm = 2 if two else 1
+    fixed = fixed_bytes(per_sm)
+    limit = SM_SMEM // 2 - 1024 if two else SMEM_LIMIT
+    group = (TAIL_FWD_GROUP
+             if fixed + ring_bytes(2 * TAIL_FWD_GROUP, TAIL_FWD_GROUP)
+             <= limit else 2)
+    stages = TAIL_FWD_MAX_STAGES // group * group
+    while stages >= 2 * group and fixed + ring_bytes(stages, group) > limit:
+        stages -= group
+    if stages < 2 * group:
+        raise ValueError(f"{name}: {fixed} bytes of shared memory at C = "
+                         f"{C} leave no ring within {limit}")
+    rows = -(-M // bm)
+    splits = min((-(-rows * s // (per_sm * sms))
+                  * (nsc // s + TAIL_FWD_ITEM_COST), s)
+                 for s in range(1, nsc + 1) if nsc % s == 0)[1]
+    items = rows * splits
+    smem = fixed + ring_bytes(stages, group)
+    # per item: A (m), then per super-chunk W's slices and B of each chunk
+    slices = ncs + nsc // splits * wn * (ncs + 1)
+    return TailFwdPlan(bm, wn, splits, items, per_sm, stages, group, smem,
+                       min(items, per_sm * sms), items * slices * slot)
 
 
 def tail_fwd_plan(M: int, C: int, O: int, r: int, sms: int) -> TailFwdPlan:
@@ -664,51 +723,16 @@ def tail_fwd_plan(M: int, C: int, O: int, r: int, sms: int) -> TailFwdPlan:
     warp, a ring of 4 slots fits twice in an SM (WN = 1, C up to 192), else
     one, with two staging tiles a warp. The ring takes what shared memory
     leaves, in groups of 4 slots (2 where fewer than 8 fit), at most 16."""
-    if (C % 16 or not 16 <= C <= TAIL_FWD_MAX_C or O % 8 or not O
-            or r % 16 or not 16 <= r <= 64):
-        raise ValueError(f"LN+LoRA tail forward kernel: needs C % 16 == 0 "
-                         f"and 16 <= C <= {TAIL_FWD_MAX_C} ({C}), O % 8 == "
-                         f"0 ({O}) and r a multiple of 16 up to 64 ({r})")
-    wn = 1 if C <= TAIL_FWD_WIDE else 2
-    bm = ROW_TILE * TAIL_FWD_WARPS // wn
-    ncs = -(-C // TAIL_FWD_CHUNK)
-    nsc = -(-(-(-O // TAIL_FWD_CHUNK)) // wn)
-    slot = 2 * TAIL_FWD_CHUNK ** 2
+    return _fwd_plan(M, C, O, r, sms, True, "LN+LoRA tail forward kernel")
 
-    def fixed_bytes(per_sm):
-        # up to 1023 bytes to the ring's 1024-byte alignment; the x /
-        # bf16(ln) tile, gamma and beta, 3 - per_sm staging tiles a warp
-        # (bf16); the ring, its mbarriers and counts below
-        return 1024 + 2 * (bm * (C + 8) + 2 * C + TAIL_FWD_WARPS
-                           * (3 - per_sm) * ROW_TILE * TAIL_FWD_TILE)
 
-    def ring_bytes(stages, group):   # the slots; a mbarrier, a count a group
-        return stages * slot + 12 * (stages // group)
-
-    two = wn == 1 and fixed_bytes(2) + ring_bytes(4, 2) <= SM_SMEM // 2 - 1024
-    per_sm = 2 if two else 1
-    fixed = fixed_bytes(per_sm)
-    limit = SM_SMEM // 2 - 1024 if two else SMEM_LIMIT
-    group = (TAIL_FWD_GROUP
-             if fixed + ring_bytes(2 * TAIL_FWD_GROUP, TAIL_FWD_GROUP)
-             <= limit else 2)
-    stages = TAIL_FWD_MAX_STAGES // group * group
-    while stages >= 2 * group and fixed + ring_bytes(stages, group) > limit:
-        stages -= group
-    if stages < 2 * group:
-        raise ValueError(f"LN+LoRA tail forward kernel: {fixed} bytes of "
-                         f"shared memory at C = {C} leave no ring within "
-                         f"{limit}")
-    rows = -(-M // bm)
-    splits = min((-(-rows * s // (per_sm * sms))
-                  * (nsc // s + TAIL_FWD_ITEM_COST), s)
-                 for s in range(1, nsc + 1) if nsc % s == 0)[1]
-    items = rows * splits
-    smem = fixed + ring_bytes(stages, group)
-    # per item: A (m), then per super-chunk W's slices and B of each chunk
-    slices = ncs + nsc // splits * wn * (ncs + 1)
-    return TailFwdPlan(bm, wn, splits, items, per_sm, stages, group, smem,
-                       min(items, per_sm * sms), items * slices * slot)
+def qkv_fwd_plan(M: int, C: int, O: int, r: int, sms: int) -> TailFwdPlan:
+    """Kernel 2's plan at a qkv site (y only), x [M, C] -> [M, O]: the
+    tail mode's rows, warps, splits and blocks an SM, with one staging tile
+    a warp (two where two warps share 16 rows: m's shares), so that one
+    block an SM (C above 192) has room for a deeper ring. Refuses r = 0
+    (``ln_fused`` does too) and C above 1024 (the widest YAML's)."""
+    return _fwd_plan(M, C, O, r, sms, False, "LN+LoRA qkv forward kernel")
 
 
 def ln_lora_tail_fwd_kernel(x, gamma, beta, wt, bias, at, bt, seed,
@@ -717,8 +741,8 @@ def ln_lora_tail_fwd_kernel(x, gamma, beta, wt, bias, at, bt, seed,
     """The CUDA route of :func:`ln_lora_tail_fwd` at the launch of
     :func:`tail_fwd_plan`; raises for anything it does not take (a CPU
     tensor included)."""
-    ptrs = _tail_args("LN+LoRA tail forward", x, gamma, beta, wt, bias, at,
-                      bt, seed)
+    ptrs = _kernel2_args("LN+LoRA tail forward", x, gamma, beta, wt, bias,
+                         at, bt, seed)
     M, C = x.shape
     O, r = wt.shape[0], at.shape[0]
     plan = tail_fwd_plan(M, C, O, r, _sms(x.device))
@@ -867,8 +891,8 @@ def ln_lora_tail_bwd_kernel(x, gamma, beta, wt, bias, at, bt, seed,
     take (a CPU tensor included). ``scratch``: the tensors of
     :func:`tail_bwd_scratch` to use (the row kernel leaves its rows there),
     or None to allocate them."""
-    ptrs = _tail_args("LN+LoRA tail backward", x, gamma, beta, wt, bias, at,
-                      bt, seed, [("gy", gy), ("gp", gp), ("gd", gd)])
+    ptrs = _kernel2_args("LN+LoRA tail backward", x, gamma, beta, wt, bias,
+                         at, bt, seed, [("gy", gy), ("gp", gp), ("gd", gd)])
     M, C = x.shape
     O, r = wt.shape[0], at.shape[0]
     plan = tail_bwd_plan(M, C, O, r, _sms(x.device))
@@ -908,15 +932,23 @@ def ln_lora_tail_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
                                    scale, drop, gy, gp, gd, act)
 
 
+# the widest merged row K = 4C whose bf16(ln) tile kernel 3 holds in a
+# block's shared memory (kMaxK of csrc/ln_lora.cu)
+MERGE_FWD_MAX_K = 7248
+
+
 def _merge_shapes(x, wt, H, W):
     L, HW, C = x.shape
     O = wt.shape[0]
-    if HW != H * W or H % 2 or W % 2 or C % 4 or O % 8:
+    M = L * (H // 2) * (W // 2)
+    if (HW != H * W or H % 2 or W % 2 or C % 4 or O % 8 or M < 1 or O < 8
+            or 4 * C > MERGE_FWD_MAX_K):
         raise ValueError(f"patch merge kernel: needs x [L, H*W, C] with "
-                         f"even H ({H}), W ({W}), C % 4 == 0 ({C}) and "
-                         f"O % 8 == 0 ({O})")
+                         f"even H ({H}), W ({W}), C % 4 == 0 and 4C <= "
+                         f"{MERGE_FWD_MAX_K} ({C}), O % 8 == 0 and O >= 8 "
+                         f"({O}), and a merged row ({M})")
     require_cuda("patch merge", x)
-    return L * (H // 2) * (W // 2), 4 * C, O
+    return M, 4 * C, O
 
 
 def merge_ln_fwd(x, gamma, beta, wt, H: int, W: int):
@@ -932,8 +964,7 @@ def merge_ln_fwd(x, gamma, beta, wt, H: int, W: int):
                     device=x.device)
     err = _build.library().mtlora_ln_lora_fwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.data_ptr(),
-        None, None, None, None, y.data_ptr(), M, K, O, 0, W // 2, 0.0, 0, 0,
-        1.0, _stream(x))
+        y.data_ptr(), M, K, O, W // 2, _stream(x))
     _build.check(err, "mtlora_ln_lora_fwd (merge)")
     merge_ln_fwd.launches += 1
     return y

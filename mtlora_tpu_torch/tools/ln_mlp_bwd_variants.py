@@ -1,11 +1,12 @@
 """Kernels 4 and 4b on the card against variants of themselves and other
-checkouts (and, with ``--checks``, any kernel: kernel 2b's variants,
-``qkv-*``, run with ``--checks check_ln_lora``, kernel 2-tail's,
-``tail-fwd-*``, with ``--checks check_ln_lora_tail``).
+checkouts (and, with ``--checks``, any kernel: kernel 2's and 2b's
+variants at the qkv sites, ``qkv-fwd-*`` and ``qkv-*``, run with
+``--checks check_ln_lora``, kernel 2-tail's, ``tail-fwd-*``, with
+``--checks check_ln_lora_tail``).
 
     python -m mtlora_tpu_torch.tools.ln_mlp_bwd_variants
         [--variants NAME,...] [--against DIR ...] [--checks FUNC,...]
-        [--passes 2]
+        [--time-qkv] [--passes 2]
 
 The trees: this checkout; one copy of its ``mtlora_tpu_torch`` per
 variant, with that variant's edits of ``VARIANTS`` applied (under
@@ -35,6 +36,12 @@ reach either kernel's source and plan (and 2b's, 2-tail's, 3b's). With
 prints their sums and, per line of theirs that names a kernel time
 (``<label>: ... kernel <ms> ms``), that time by label: the per-stage
 comparison of those checks between the trees.
+
+With ``--time-qkv`` each tree instead times kernel 2 at the four qkv
+sites (the tree's ``ln_lora_fwd``, dropout 0.05 and off) and the tail
+mode without GELU and d at the same shapes, unchecked, so that the trees
+of ``PARTS`` (kernel 2's qkv mode with a part of its work taken out) run
+beside it: where the time of a stage goes.
 
 This file imports only torch and the standard library at the top: a
 process of another tree imports that tree's package, never this one's.
@@ -223,6 +230,430 @@ VARIANTS = {
     "merge-splits-to-4": [("ops/ln_lora.py",
                            "MERGE_SPLITS = (1, 2, 4, 8)",
                            "MERGE_SPLITS = (1, 2, 4)")],
+    # kernel 2 at the qkv sites: at most 8 ring slots in place of 16 (12
+    # fit at stage 2)
+    "qkv-fwd-ring-8": [
+        ("ops/ln_lora.py",
+         "    stages = TAIL_FWD_MAX_STAGES // group * group\n",
+         "    stages = (TAIL_FWD_MAX_STAGES if tail else 8) // group\n"
+         "    stages *= group\n")],
+    # kernel 2 at the qkv sites: 64-row blocks (two warps on the same 16
+    # rows, one block an SM) at every width, in place of 128 up to C = 384
+    # (the tail mode's too)
+    "qkv-fwd-rows-64": [
+        ("ops/ln_lora.py", "TAIL_FWD_WIDE = 384 ", "TAIL_FWD_WIDE = 0 "),
+        ("ops/csrc/ln_lora_tail_fwd.cu", "constexpr int kWide = 384;",
+         "constexpr int kWide = 0;")],
+    # kernel 2 at the qkv sites: one block an SM at every width (a ring of
+    # 16 slots at stages 0 and 1), in place of two at stages 0 and 1
+    "qkv-fwd-one-block-an-sm": [
+        ("ops/ln_lora.py", "    two = wn == 1 and fixed_bytes(2)",
+         "    two = tail and wn == 1 and fixed_bytes(2)")],
+    # kernel 2 at the qkv sites: the blocks in clusters of two on
+    # neighbouring row blocks, each box of the ring started once for both
+    # by TMA multicast (a group refilled when the last warp of the second
+    # block to be done with it has counted itself on rank 0's pair count),
+    # in place of single blocks that each take every slot from L2
+    "qkv-fwd-multicast": [
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "  int stages, group;  // ring slots and slots a group\n"
+         "  float s;\n",
+         "  int stages, group;  // ring slots and slots a group\n"
+         "  int cl;             // blocks of a cluster (1 or 2), on ne"
+         "ighbouring rows\n"
+         "  float s;\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "  q -= ncs;\n"
+         "  const int item = (int)blockIdx.x + k * (int)gridDim.x;\n"
+         "  const int per = a.wn * (ncs + 1), j = q / per;\n",
+         "  q -= ncs;\n"
+         "  const int item = ((int)blockIdx.x + k * (int)gridDim.x) / "
+         "a.cl;\n"
+         "  const int per = a.wn * (ncs + 1), j = q / per;\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "  if (i < a.wn * ncs)\n"
+         "    return Box{kW, kS * (i / a.wn), kS * (chunk + i % a.wn)}"
+         ";      // p\n"
+         "  return Box{kB, 0, kS * (chunk + i - a.wn * ncs)};         "
+         "       // u\n"
+         "}\n"
+         "\n"
+         "// The ring of slots of a block: a.stages slots in groups of"
+         " a.group, one\n",
+         "  if (i < a.wn * ncs)\n"
+         "    return Box{kW, kS * (i / a.wn), kS * (chunk + i % a.wn)}"
+         ";      // p\n"
+         "  return Box{kB, 0, kS * (chunk + i - a.wn * ncs)};         "
+         "       // u\n"
+         "}\n"
+         "\n"
+         "// Box (c0.., r0..) of a tensor map into the shared memory o"
+         "f the blocks of\n"
+         "// mask in the cluster, at dst's offset in each; its bytes c"
+         "omplete on the\n"
+         "// mbarrier at bar's offset in each.\n"
+         "__device__ __forceinline__ void tma_box_mc(void* dst, const "
+         "CUtensorMap* map,\n"
+         "                                           uint64_t* bar, in"
+         "t c0, int r0,\n"
+         "                                           uint16_t mask) {\n"
+         "  asm volatile(\n"
+         "      \"cp.async.bulk.tensor.2d.shared::cluster.global.mbarri"
+         "er::complete_tx\"\n"
+         "      \"::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4]"
+         ", %5;\\n\" ::\"r\"(\n"
+         "          smem_u32(dst)),\n"
+         "      \"l\"(reinterpret_cast<uint64_t>(map)), \"r\"(c0), \"r\"(r0)"
+         ",\n"
+         "      \"r\"(smem_u32(bar)), \"h\"(mask)\n"
+         "      : \"memory\");\n"
+         "}\n"
+         "\n"
+         "// Every thread of the cluster's blocks arrives, and waits f"
+         "or the others.\n"
+         "__device__ __forceinline__ void cluster_barrier() {\n"
+         "  asm volatile(\n"
+         "      \"barrier.cluster.arrive.release.aligned;\\n\"\n"
+         "      \"barrier.cluster.wait.acquire.aligned;\\n\" ::: \"memory\""
+         ");\n"
+         "}\n"
+         "\n"
+         "// *p += v in block rank's shared memory (p: this block's co"
+         "py); the old\n"
+         "// value.\n"
+         "__device__ __forceinline__ int cluster_add(int* p, int rank,"
+         " int v) {\n"
+         "  unsigned ra;\n"
+         "  int old;\n"
+         "  asm volatile(\"mapa.shared::cluster.u32 %0, %1, %2;\\n\"\n"
+         "               : \"=r\"(ra)\n"
+         "               : \"r\"(smem_u32(p)), \"r\"(rank));\n"
+         "  asm volatile(\"atom.acq_rel.cluster.shared::cluster.add.u32"
+         " %0, [%1], %2;\\n\"\n"
+         "               : \"=r\"(old)\n"
+         "               : \"r\"(ra), \"r\"(v)\n"
+         "               : \"memory\");\n"
+         "  return old;\n"
+         "}\n"
+         "\n"
+         "// The ring of slots of a block: a.stages slots in groups of"
+         " a.group, one\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "  int total, ncs, nbar;\n"
+         "  int g = 0, qg = 0, slot = 0;   // group, slot in the group"
+         ", ring slot\n",
+         "  int* pair;       // stages / group (cl 2): the blocks' han"
+         "d-backs, rank 0's\n"
+         "  int total, ncs, nbar, cl, rank;\n"
+         "  int g = 0, qg = 0, slot = 0;   // group, slot in the group"
+         ", ring slot\n"
+         "\n"
+         "  // Lane 0 posts group gi's bytes on this block's mbarrier."
+         "\n"
+         "  __device__ __forceinline__ void arm(const Params& p, int g"
+         "i) {\n"
+         "    const int n = min(p.a.group, total - gi * p.a.group);\n"
+         "    if (n > 0 && lane_id() == 0)\n"
+         "      mbar_expect(bars + gi % nbar, n * kSlice * (int)sizeof"
+         "(bf16));\n"
+         "  }\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "    if (n <= 0) return;\n"
+         "    const int k = lane_id();\n"
+         "    uint64_t* bar = bars + gi % nbar;\n"
+         "    if (k == 0) mbar_expect(bar, n * kSlice * (int)sizeof(bf"
+         "16));\n"
+         "    __syncwarp();\n"
+         "    if (k < n) {\n"
+         "      const Box b = box_of(a, first + k, ncs);\n"
+         "      tma_box(buf + ((first + k) % a.stages) * kSlice, &p.ma"
+         "ps[b.map], bar,\n"
+         "              b.c0, b.r0);\n"
+         "    }\n",
+         "    const int k = lane_id();\n"
+         "    if (k >= n) return;\n"
+         "    const Box b = box_of(a, first + k, ncs);\n"
+         "    bf16* dst = buf + ((first + k) % a.stages) * kSlice;\n"
+         "    if (cl == 1)\n"
+         "      tma_box(dst, &p.maps[b.map], bars + gi % nbar, b.c0, b"
+         ".r0);\n"
+         "    else\n"
+         "      tma_box_mc(dst, &p.maps[b.map], bars + gi % nbar, b.c0"
+         ", b.r0,\n"
+         "                 (uint16_t)((1 << cl) - 1));\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "      }\n"
+         "    if (threadIdx.x < 32)\n"
+         "      for (int k = 0; k < nbar; ++k) issue(p, k);\n",
+         "        if (cl > 1) pair[k] = 0;\n"
+         "      }\n"
+         "    if (cl > 1) cluster_barrier();\n"
+         "    if (threadIdx.x < 32)\n"
+         "      for (int k = 0; k < nbar; ++k) {\n"
+         "        arm(p, k);\n"
+         "        __syncwarp();\n"
+         "        if (rank == 0) issue(p, k);\n"
+         "      }\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "    if (__shfl_sync(0xffffffffu, last, 0)) {\n"
+         "      asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: \"m"
+         "emory\");\n"
+         "      issue(p, gi + nbar);\n"
+         "    }\n",
+         "    if (!__shfl_sync(0xffffffffu, last, 0)) return;\n"
+         "    arm(p, gi + nbar);\n"
+         "    if (cl > 1) {\n"
+         "      int both = 0;\n"
+         "      if (lane_id() == 0)\n"
+         "        both = cluster_add(pair + gi % nbar, 0, 1) == cl * ("
+         "gi / nbar + 1) - 1;\n"
+         "      if (!__shfl_sync(0xffffffffu, both, 0)) return;\n"
+         "    }\n"
+         "    asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: \"mem"
+         "ory\");\n"
+         "    __syncwarp();\n"
+         "    issue(p, gi + nbar);\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "  const int nitems = (a.items - (int)blockIdx.x + (int)gridD"
+         "im.x - 1) /\n"
+         "                     (int)gridDim.x;\n",
+         "  // the block's cluster (cl blocks on neighbouring row bloc"
+         "ks), its rank\n"
+         "  // there, and the clusters: the cluster's items are cid, +"
+         " ncl, ..\n"
+         "  const int cl = a.cl, rank = (int)blockIdx.x % cl;\n"
+         "  const int cid = (int)blockIdx.x / cl, ncl = (int)gridDim.x"
+         " / cl;\n"
+         "  const int nitems = (a.items / cl - cid + ncl - 1) / ncl;\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "  // mbarriers and counts. The padded row strides keep ldmat"
+         "rix, the\n"
+         "  // statistics and the staging free of bank conflicts.\n",
+         "  // mbarriers and counts (and, in a cluster, pair counts). "
+         "The padded row\n"
+         "  // strides keep ldmatrix, the statistics and the staging f"
+         "ree of bank\n"
+         "  // conflicts.\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "  Ring ring{reinterpret_cast<bf16*>(base), bars,\n"
+         "            reinterpret_cast<int*>(bars + nbar),\n"
+         "            nitems * item_slots(a, ncs), ncs, nbar};\n"
+         "  // the plan's bytes (ops/ln_lora.py:_fwd_plan) must hold t"
+         "his layout\n"
+         "  if (reinterpret_cast<unsigned char*>(ring.held + nbar) - s"
+         "mem >\n",
+         "  int* held = reinterpret_cast<int*>(bars + nbar);\n"
+         "  Ring ring{reinterpret_cast<bf16*>(base), bars, held, held "
+         "+ nbar,\n"
+         "            nitems * item_slots(a, ncs), ncs, nbar, cl, rank"
+         "};\n"
+         "  // the plan's bytes (ops/ln_lora.py:_fwd_plan) must hold t"
+         "his layout\n"
+         "  if (reinterpret_cast<unsigned char*>(held + (cl > 1 ? 2 : "
+         "1) * nbar) -\n"
+         "              smem >\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "    const int item = (int)blockIdx.x + k * (int)gridDim.x;\n"
+         "    const int m0 = item / a.splits * BM, row0 = m0 + wr;\n",
+         "    const int item = cid + k * ncl;\n"
+         "    const int m0 = (item / a.splits * cl + rank) * BM, row0 "
+         "= m0 + wr;\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "      }\n"
+         "    }\n"
+         "  }\n"
+         "}\n"
+         "\n"
+         "// The two modes' kernels: their own symbols, so that a trac"
+         "e tells them\n",
+         "      }\n"
+         "    }\n"
+         "  }\n"
+         "  // no block of a cluster leaves while the other may count "
+         "on its pair\n"
+         "  // counts\n"
+         "  if (cl > 1) cluster_barrier();\n"
+         "}\n"
+         "\n"
+         "// The two modes' kernels: their own symbols, so that a trac"
+         "e tells them\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "  if (e != cudaSuccess) return e;\n"
+         "  kern<<<blocks, kThreads, smem, st>>>(p);\n"
+         "  return cudaGetLastError();\n",
+         "  if (e != cudaSuccess) return e;\n"
+         "  if (p.a.cl == 1) {\n"
+         "    kern<<<blocks, kThreads, smem, st>>>(p);\n"
+         "    return cudaGetLastError();\n"
+         "  }\n"
+         "  cudaLaunchConfig_t cfg = {};\n"
+         "  cfg.gridDim = dim3(blocks);\n"
+         "  cfg.blockDim = dim3(kThreads);\n"
+         "  cfg.dynamicSmemBytes = smem;\n"
+         "  cfg.stream = st;\n"
+         "  cudaLaunchAttribute cluster[1];\n"
+         "  cluster[0].id = cudaLaunchAttributeClusterDimension;\n"
+         "  cluster[0].val.clusterDim.x = p.a.cl;\n"
+         "  cluster[0].val.clusterDim.y = 1;\n"
+         "  cluster[0].val.clusterDim.z = 1;\n"
+         "  cfg.attrs = cluster;\n"
+         "  cfg.numAttrs = 1;\n"
+         "  e = cudaLaunchKernelEx(&cfg, kern, p);\n"
+         "  if (e != cudaSuccess) return e;\n"
+         "  return cudaGetLastError();\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "        int bm, int splits, int per_sm, int blocks, int stag"
+         "es, int group,\n"
+         "        int smem, float scale, unsigned thr, int use_drop, f"
+         "loat inv_keep,\n"
+         "        void* stream) {\n",
+         "        int bm, int splits, int per_sm, int cl, int blocks, "
+         "int stages,\n"
+         "        int group, int smem, float scale, unsigned thr, int "
+         "use_drop,\n"
+         "        float inv_keep, void* stream) {\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "  const int items = (M + bm - 1) / bm * splits;\n",
+         "  if (cl != 1 && cl != 2) return (int)cudaErrorInvalidValue;"
+         "\n"
+         "  // the row blocks, cl a cluster item (the last cluster's p"
+         "ast M masked)\n"
+         "  const int items = ((M + bm - 1) / bm + cl - 1) / cl * cl *"
+         " splits;\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "      blocks < 1 || blocks > items || group < 1 ||\n",
+         "      blocks < 1 || blocks > items || blocks % cl || group <"
+         " 1 ||\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "  a.group = group;\n"
+         "  a.s = scale;\n",
+         "  a.group = group;\n"
+         "  a.cl = cl;\n"
+         "  a.s = scale;\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "             act, bm, splits, per_sm, blocks, stages, group,"
+         " smem, scale,\n",
+         "             act, bm, splits, per_sm, 1, blocks, stages, gro"
+         "up, smem, scale,\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "// (ops/ln_lora.py:qkv_fwd_plan). use_drop: hash stream 0 at"
+         " threshold thr.\n",
+         "// (ops/ln_lora.py:qkv_fwd_plan) and cl, the blocks of a clu"
+         "ster (1 or 2:\n"
+         "// two neighbouring row blocks that take each weight box onc"
+         "e from L2, by\n"
+         "// multicast; blocks a multiple of cl). use_drop: hash strea"
+         "m 0 at\n"
+         "// threshold thr.\n"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "    int blocks, int stages, int group, int smem, float scale"
+         ", unsigned thr,\n"
+         "    int use_drop, float inv_keep, void* stream) {\n"
+         "  return run(x, gamma, beta, wt, bias, at, bt, seed, y, null"
+         "ptr, nullptr, M,\n"
+         "             C, O, r, 0, bm, splits, per_sm, blocks, stages,"
+         " group, smem,\n",
+         "    int cl, int blocks, int stages, int group, int smem, flo"
+         "at scale,\n"
+         "    unsigned thr, int use_drop, float inv_keep, void* stream"
+         ") {\n"
+         "  return run(x, gamma, beta, wt, bias, at, bt, seed, y, null"
+         "ptr, nullptr, M,\n"
+         "             C, O, r, 0, bm, splits, per_sm, cl, blocks, sta"
+         "ges, group, smem,\n"),
+        ("ops/ln_lora.py",
+         "        plan.blocks, plan.stages, plan.group, plan.smem, flo"
+         "at(scale),\n",
+         "        plan.cl, plan.blocks, plan.stages, plan.group, plan."
+         "smem,\n"
+         "        float(scale),\n"),
+        ("ops/ln_lora.py",
+         "TAIL_FWD_MAX_STAGES = 16     # slots in the TMA ring, at mos"
+         "t\n"
+         "TAIL_FWD_WIDE = 384     # C above which two warps share 16 r"
+         "ows (kWide)\n",
+         "TAIL_FWD_MAX_STAGES = 16     # slots in the TMA ring, at mos"
+         "t\n"
+         "QKV_FWD_CLUSTER = 2     # blocks of a cluster in the qkv mod"
+         "e (multicast)\n"
+         "TAIL_FWD_WIDE = 384     # C above which two warps share 16 r"
+         "ows (kWide)\n"),
+        ("ops/ln_lora.py",
+         "    slice_bytes: int\n"
+         "\n",
+         "    slice_bytes: int\n"
+         "    cl: int\n"
+         "\n"),
+        ("ops/ln_lora.py",
+         "                           * nbuf * ROW_TILE * TAIL_FWD_TILE"
+         ")\n"
+         "\n"
+         "    def ring_bytes(stages, group):   # the slots; a mbarrier"
+         ", a count a group\n"
+         "        return stages * slot + 12 * (stages // group)\n"
+         "\n"
+         "    two = wn == 1 and fixed_bytes(2) + ring_bytes(4, 2) <= S"
+         "M_SMEM // 2 - 1024\n",
+         "                           * nbuf * ROW_TILE * TAIL_FWD_TILE"
+         ")\n"
+         "\n"
+         "    # blocks of a cluster: two in the qkv mode, one in the t"
+         "ail mode\n"
+         "    cl = 1 if tail else QKV_FWD_CLUSTER\n"
+         "\n"
+         "    def ring_bytes(stages, group):\n"
+         "        # the slots; a mbarrier and a count a group (and a p"
+         "air count in a\n"
+         "        # cluster)\n"
+         "        return stages * slot + (12 + 4 * (cl > 1)) * (stages"
+         " // group)\n"
+         "\n"
+         "    two = wn == 1 and fixed_bytes(2) + ring_bytes(4, 2) <= S"
+         "M_SMEM // 2 - 1024\n"),
+        ("ops/ln_lora.py",
+         "    rows = -(-M // bm)\n"
+         "    splits = min((-(-rows * s // (per_sm * sms))\n"
+         "                  * (nsc // s + TAIL_FWD_ITEM_COST), s)\n",
+         "    # cluster items (cl row blocks, the last cluster's past "
+         "M masked), and\n"
+         "    # the clusters in flight\n"
+         "    rows = -(-(-(-M // bm)) // cl)\n"
+         "    units = per_sm * sms // cl\n"
+         "    splits = min((-(-rows * s // units) * (nsc // s + TAIL_F"
+         "WD_ITEM_COST), s)\n"),
+        ("ops/ln_lora.py",
+         "    return TailFwdPlan(bm, wn, splits, items, per_sm, stages"
+         ", group, smem,\n"
+         "                       min(items, per_sm * sms), items * sli"
+         "ces * slot)\n",
+         "    return TailFwdPlan(bm, wn, splits, items * cl, per_sm, s"
+         "tages, group,\n"
+         "                       smem, min(items, units) * cl, items *"
+         " slices * slot,\n"
+         "                       cl)\n"),
+        ("ops/_build.py",
+         "    # M, C, O, r, bm, splits, per_sm, blocks, stages, group,"
+         " smem, scale,\n"
+         "    # drop threshold, use_drop, inv_keep, stream\n"
+         "    \"mtlora_ln_lora_qkv_fwd\": [_P] * 9 + [_I] * 11 + [_F, _U"
+         ", _I, _F, _P],\n",
+         "    # M, C, O, r, bm, splits, per_sm, cl, blocks, stages, gr"
+         "oup, smem,\n"
+         "    # scale, drop threshold, use_drop, inv_keep, stream\n"
+         "    \"mtlora_ln_lora_qkv_fwd\": [_P] * 9 + [_I] * 12 + [_F, _U"
+         ", _I, _F, _P],\n")],
+    # kernel 2 at the qkv sites: ring groups of 2 slots in place of 4 (more
+    # groups in flight, each refilled sooner)
+    "qkv-fwd-group-2": [
+        ("ops/ln_lora.py",
+         "    group = (TAIL_FWD_GROUP\n             if fixed",
+         "    group = (TAIL_FWD_GROUP\n             if tail and fixed")],
+    # kernel 2 at the qkv sites: where the row blocks leave SMs idle (98 at
+    # stage 3), two items a row block, so that every SM takes one
+    "qkv-fwd-split-fill": [
+        ("ops/ln_lora.py", "    items = rows * splits\n",
+         "    if not tail and rows * splits < per_sm * sms and nsc % 2 == 0:\n"
+         "        splits = 2\n    items = splits * rows\n")],
     # kernel 2-tail: 64-row blocks (two warps on the same 16 rows, two
     # chunks side by side, one block an SM) at every width, in place of
     # 128 up to C = 384
@@ -269,6 +700,52 @@ VARIANTS = {
          "          *reinterpret_cast<const uint32_t*>(sb + i * kLdS + 2 * lane);\n")],
 }
 
+# name -> edits that take a part of kernel 2's qkv mode out (its output is
+# then wrong by design): run with --time-qkv, which times and never checks
+PARTS = {
+    # the chunk products (W's and B's MMAs and their B fragments)
+    "qkv-fwd-without-products": [
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "          if (i == ni) mma_slot<8>(pc, af, sl, 0, ks);",
+         "          if (i == ni && a.M < 0) mma_slot<8>(pc, af, sl, 0, ks);")],
+    # y's stores
+    "qkv-fwd-without-stores": [
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "      tile_out<NBUF>(a.y, tb, row0, n0, M, O);",
+         "      if (a.M < 0) tile_out<NBUF>(a.y, tb, row0, n0, M, O);")],
+    # the B fragments of every slot product (ldmatrix): register values
+    "qkv-fwd-without-b-fragments": [
+        ("ops/csrc/tma.cuh",
+         "        ldsm_x4(b, sl + swz(n0 + 16 * p + (lane & 7) + "
+         "((lane >> 4) << 3),\n"
+         "                            16 * k + ((lane >> 3) & 1) * 8));",
+         "        b[0] = lane + k; b[1] = lane ^ p; b[2] = lane * 3; "
+         "b[3] = k + p;\n        (void)sl; (void)n0;")],
+    # the chunk products and the epilogue (staging and stores): the ring,
+    # the rows' prologue and m alone
+    "qkv-fwd-without-products-epilogue": [
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "          if (i == ni) mma_slot<8>(pc, af, sl, 0, ks);",
+         "          if (i == ni && a.M < 0) mma_slot<8>(pc, af, sl, 0, ks);"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "      stage_tile(tb, pc);\n"
+         "      tile_out<NBUF>(a.y, tb, row0, n0, M, O);",
+         "      if (a.M < 0) {\n        stage_tile(tb, pc);\n"
+         "        tile_out<NBUF>(a.y, tb, row0, n0, M, O);\n      }")],
+    # each block walks its item's chunks from its own offset, so that no
+    # two SMs read the same slot at once
+    "qkv-fwd-rotated-chunks": [
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "  const int chunk = (item % a.splits * a.per_split + j) * a.wn;",
+         "  const int chunk = (item % a.splits * a.per_split +\n"
+         "                     (j + (int)blockIdx.x) % a.per_split) * a.wn;"),
+        ("ops/csrc/ln_lora_tail_fwd.cu",
+         "      const int n0 = kS * ((j0 + j) * WN + ni);",
+         "      const int n0 =\n"
+         "          kS * ((j0 + (j + (int)blockIdx.x) % a.per_split) * WN "
+         "+ ni);")],
+}
+
 STAGE_WEIGHTS = (1, 1, 5, 1)   # no-task blocks per stage (depths - 1)
 RAGGED_ROWS = 392
 NAMES = ("dx", "dgamma", "dbeta", "dA1", "dB1", "dA2", "dB2")
@@ -296,7 +773,7 @@ def variant_tree(name: str) -> Path:
     shutil.copytree(ROOT / "mtlora_tpu_torch", pkg,
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(ROOT / "chip_smoke.py", root / "chip_smoke.py")
-    apply_edits(pkg, VARIANTS[name])
+    apply_edits(pkg, VARIANTS[name] if name in VARIANTS else PARTS[name])
     return root
 
 
@@ -388,7 +865,49 @@ def build():
     print(json.dumps(_ptxas(_build.ptxas_log)), flush=True)
 
 
-def worker(tree: str, checks: str):
+QKV_STAGES = ((401408, 96), (100352, 192), (25088, 384), (6272, 768))
+
+
+def time_qkv(rec: dict):
+    """Kernel 2 at the four qkv sites of the batch-32 step (rank 64, scale
+    4), ms per stage with dropout 0.05 and 0 (no checks: a tree of PARTS
+    computes a wrong y), and the tail mode without GELU and d at the same
+    shapes (it also writes p), with its plan's weight-slot GB."""
+    import torch
+    from mtlora_tpu_torch.ops import ln_lora
+    from mtlora_tpu_torch.tools import median_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for key in ("qkv_ms", "qkv_ms_no_dropout", "tail_mode_ms", "slot_gb"):
+        rec[key] = []
+    for M, C in QKV_STAGES:
+        O, r = 3 * C, 64
+
+        def uniform(shape, bound):
+            return ((torch.rand(shape, generator=gen, device="cuda") * 2 - 1)
+                    * bound).to(torch.bfloat16)
+
+        x = torch.randn(M, C, generator=gen, device="cuda").to(torch.bfloat16)
+        gamma = (0.9 + 0.2 * torch.rand(C, generator=gen, device="cuda"))
+        beta = 0.02 * torch.randn(C, generator=gen, device="cuda")
+        ops = (x, gamma.to(torch.bfloat16), beta.to(torch.bfloat16),
+               uniform((O, C), C ** -0.5), uniform((O,), 0.02),
+               uniform((r, C), C ** -0.5), uniform((O, r), r ** -0.5),
+               torch.randint(0, 2 ** 31 - 1, (2,), generator=gen,
+                             device="cuda", dtype=torch.int32), 4.0)
+        rec["qkv_ms"].append(median_ms(
+            lambda: ln_lora.ln_lora_fwd(*ops, 0.05)))
+        rec["qkv_ms_no_dropout"].append(median_ms(
+            lambda: ln_lora.ln_lora_fwd(*ops, 0.0)))
+        rec["tail_mode_ms"].append(median_ms(
+            lambda: ln_lora.ln_lora_tail_fwd_kernel(*ops, 0.05, False,
+                                                    False)))
+        rec["slot_gb"].append(ln_lora.tail_fwd_plan(
+            M, C, O, r, ln_lora._sms(x.device)).slice_bytes / 1e9)
+        del x, ops
+
+
+def worker(tree: str, checks: str, qkv: bool = False):
     import torch
     from mtlora_tpu_torch.ops import _build, ln_mlp
     from mtlora_tpu_torch.tools import card_line, median_ms
@@ -396,6 +915,10 @@ def worker(tree: str, checks: str):
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.library()
     rec = {"tree": tree, "card": card_line()}
+    if qkv:
+        time_qkv(rec)
+        print(json.dumps(rec), flush=True)
+        return
     if checks:
         import chip_smoke
         gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
@@ -441,11 +964,12 @@ def worker(tree: str, checks: str):
 # The parent process: every tree in turn
 # ---------------------------------------------------------------------------
 
-def _run(name: str, root: Path, checks: str) -> dict:
+def _run(name: str, root: Path, checks: str, qkv: bool) -> dict:
     env = dict(os.environ, PYTHONPATH=str(root))
     proc = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), "--worker", name,
-         *(["--checks", checks] if checks else [])],
+         *(["--checks", checks] if checks else []),
+         *(["--time-qkv"] if qkv else [])],
         cwd=root, env=env, capture_output=True, text=True)
     sys.stdout.write(proc.stdout)
     if proc.returncode != 0:
@@ -457,12 +981,16 @@ def _run(name: str, root: Path, checks: str) -> dict:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", default="",
-                    help=f"comma-separated, of {sorted(VARIANTS)}")
+                    help=f"comma-separated, of {sorted(VARIANTS)} (and, "
+                         f"with --time-qkv, of {sorted(PARTS)})")
     ap.add_argument("--against", action="append", default=[],
                     help="root of another checkout (repeatable; named by "
                          "its directory)")
     ap.add_argument("--checks", default="",
                     help="check_* functions of each tree's chip_smoke.py")
+    ap.add_argument("--time-qkv", action="store_true",
+                    help="time kernel 2 at the qkv sites in each tree, "
+                         "unchecked (the trees of PARTS)")
     ap.add_argument("--passes", type=int, default=2)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--build", action="store_true", help=argparse.SUPPRESS)
@@ -471,7 +999,7 @@ def main():
         build()
         return
     if a.worker:
-        worker(a.worker, a.checks)
+        worker(a.worker, a.checks, a.time_qkv)
         return
     import torch
     if not torch.cuda.is_available():
@@ -497,10 +1025,14 @@ def main():
         order += trees if i % 2 == 0 else trees[::-1]
     results = {}
     for name, root in order:
-        results.setdefault(name, []).append(_run(name, root, a.checks))
+        results.setdefault(name, []).append(_run(name, root, a.checks,
+                                                 a.time_qkv))
     summary = {}
     for name, recs in results.items():
-        if a.checks:
+        if a.time_qkv:
+            summary[name] = {k: [r[k] for r in recs] for k in (
+                "qkv_ms", "qkv_ms_no_dropout", "tail_mode_ms")}
+        elif a.checks:
             summary[name] = {fn: {k: [r["checks"][fn][k]["ms"] for r in recs]
                                   for k in recs[0]["checks"][fn]}
                              for fn in recs[0]["checks"]}
@@ -515,8 +1047,8 @@ def main():
                 "failed": recs[0]["failed"]}
     print(json.dumps({"summary": summary,
                       "card": results["this"][0]["card"]}))
-    if not a.checks and any(r["failed"] for recs in results.values()
-                            for r in recs):
+    if not (a.checks or a.time_qkv) and any(
+            r["failed"] for recs in results.values() for r in recs):
         raise SystemExit("ln_mlp_bwd_variants: a tree's kernel 4 or 4b "
                          "missed its bounds")
 

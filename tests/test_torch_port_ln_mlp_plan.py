@@ -90,12 +90,15 @@ def test_plan_constants_match_the_cuda_source():
     assert const("kWarps") == ln_mlp.BWD_WARPS
 
 
-@pytest.mark.parametrize("name", sorted(ln_mlp_bwd_variants.VARIANTS))
+@pytest.mark.parametrize("name", sorted(ln_mlp_bwd_variants.VARIANTS)
+                         + sorted(ln_mlp_bwd_variants.PARTS))
 def test_variant_probe_edits_apply_to_the_sources(name, tmp_path):
+    edits = {**ln_mlp_bwd_variants.VARIANTS,
+             **ln_mlp_bwd_variants.PARTS}[name]
     pkg = tmp_path / "mtlora_tpu_torch"
     shutil.copytree(ln_mlp_bwd_variants.ROOT / "mtlora_tpu_torch", pkg)
-    ln_mlp_bwd_variants.apply_edits(pkg, ln_mlp_bwd_variants.VARIANTS[name])
-    for rel, old, new in ln_mlp_bwd_variants.VARIANTS[name]:
+    ln_mlp_bwd_variants.apply_edits(pkg, edits)
+    for rel, old, new in edits:
         text = (pkg / rel).read_text()
         assert old not in text and (new == "" or new in text)
 

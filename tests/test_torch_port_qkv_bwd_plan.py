@@ -305,7 +305,9 @@ def test_split_matches_the_jax_kernel_without_dropout():
 
 def test_profile_classes_name_each_row_kernel():
     """The trace names of kernel 2b's row kernels (qkv sites, stage tails)
-    and of kernel 3b's go to their own classes."""
+    and of kernel 3b's go to their own classes, and so do the forward
+    kernels of 2 (the qkv mode), 2-tail (the tail mode of the same body)
+    and 3."""
     from mtlora_tpu_torch.train.profile import classify
 
     pre = "void (anonymous namespace)::"
@@ -315,3 +317,9 @@ def test_profile_classes_name_each_row_kernel():
         "LN+LoRA kernel 2b, tail mode (fused rows)")
     assert classify(pre + "patch_merge_bwd_rows<64, 3>(Params)") == (
         "patch merge kernel 3b (bwd rows)")
+    assert classify(pre + "ln_lora_qkv_fwd_kernel<1, 2>(Params)") == (
+        "LN+LoRA kernel 2, qkv sites (fwd)")
+    assert classify(pre + "ln_lora_tail_fwd_kernel<2, 1>(Params)") == (
+        "LN+LoRA kernel 2, tail mode (fwd)")
+    assert classify(pre + "patch_merge_fwd_kernel(MergeArgs)") == (
+        "patch merge kernel 3 (fwd)")

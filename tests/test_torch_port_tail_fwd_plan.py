@@ -160,11 +160,11 @@ def test_plan_constants_match_the_cuda_source():
     assert "blocks < 1 || blocks > items" in src
     assert "group > kGroupMax || stages % group || stages < 2 * group" in src
     # the three instances: (WN, blocks an SM), 3 - blocks an SM staging
-    # tiles a warp
+    # tiles a warp in the tail mode (the qkv mode shares the body)
     assert set(re.findall(r"launch<(\d), (\d)>\(pr,", src)) == {
         ("2", "1"), ("1", "1"), ("1", "2")}
     assert "__launch_bounds__(kThreads, PER_SM)" in src
-    assert "constexpr int NBUF = 3 - PER_SM;" in src
+    assert "constexpr int NBUF = TAIL ? 3 - PER_SM : WN;" in src
 
 
 # (C, O, r): C not a multiple of 16, or past Swin-B's 1024; O % 8; a rank
