@@ -124,6 +124,7 @@ from mtlora_tpu_torch.ops.ln_lora import (
     ln_lora_tail_plain,
     merge_bwd_plan,
     merge_bwd_scratch,
+    merge_fwd_plan,
     merge_ln_bwd,
     merge_ln_bwd_kernel,
     merge_ln_bwd_plain,
@@ -826,8 +827,9 @@ def merge_operands(gen, L, res, C):
     return (x, gamma, beta, wt, res, res), gy
 
 
-# kernel 3b's coverage (checked and timed, not in the tally): (label, L,
-# res, C) -- Swin-B's last merge (mtlora_base_448's [6272, 2048] -> 1024),
+# kernels 3's and 3b's coverage (checked and timed, not in the tally):
+# (label, L, res, C) -- Swin-B's last merge (mtlora_base_448's [6272, 2048]
+# -> 1024),
 # path B's 14 -> 7 merge at 224 px (Wh = 7, odd) and the ragged 392 rows
 # of the batch-2 step's 28 -> 14 merge (phase 8)
 MERGE_COVERAGE = (("swin-b 28->14", KERNEL_BATCH, 28, 512),
@@ -835,14 +837,37 @@ MERGE_COVERAGE = (("swin-b 28->14", KERNEL_BATCH, 28, 512),
                   ("ragged 28->14", CROSS_BATCH, 28, 384))
 
 
+def check_merge_fwd(label, args):
+    """Kernel 3 against ``merge_ln_plain``: y, bf16, within 2^-6 of the
+    largest element. Returns (worst error, plan, text)."""
+    x, wt, W = args[0], args[3], args[5]
+    M, K, O = x.shape[0] * x.shape[1] // 4, 4 * x.shape[2], wt.shape[0]
+    plan = merge_fwd_plan(M, K, O, W // 2, ln_lora._sms(x.device))
+    y = merge_ln_fwd(*args)
+    ref = merge_ln_plain(*args)
+    torch.cuda.synchronize()
+    err, text = check_outputs(label, [y], [ref], ["y"], {0})
+    return err, plan, text
+
+
+def plan_text(plan, t_k) -> str:
+    """Kernel 3's plan and the rate of W's slots in ``t_k`` ms."""
+    return (f"{plan.bm}-row blocks, {plan.splits} items a row block, "
+            f"{plan.per_sm} blocks an SM, ring {plan.stages}, W's slots "
+            f"{plan.slice_bytes / 1e9:.3f} GB, "
+            f"{plan.slice_bytes / t_k / 1e9:.3f} TB/s")
+
+
 def check_merge(gen) -> dict:
     """Kernel 3 at the three merges, for the shared stream (B rows) and the
     flattened task streams (T*B rows); the sums count the shared stream's
     shapes only, the main path's (the adapter route merges the task
-    streams in kernel 6). The backward (3b) also with its stored rows, its
-    plan, share of the bound and W's slot rate per merge, and at
-    ``MERGE_COVERAGE``."""
+    streams in kernel 6), and a line gives the task streams' sums (the LN
+    route's merges of them). Both directions with their plan, share of the
+    bound and W's slot rate per merge, the backward (3b) also with its
+    stored rows; both at ``MERGE_COVERAGE``."""
     fwd, bwd = Tally(), Tally()
+    streams = {"kernel": 0.0, "library": 0.0, "bound": 0.0}
     for s in range(3):
         cfg, res, C, _ = stage_dims(s)
         K, O = 4 * C, 2 * C
@@ -856,21 +881,24 @@ def check_merge(gen) -> dict:
                              device="cuda").to(torch.bfloat16)
             M = L * res * res // 4
             args = (x, gamma, beta, wt, res, res)
-            y = merge_ln_fwd(*args)
-            ref = merge_ln_plain(*args)
-            torch.cuda.synchronize()
-            err, text = check_outputs(f"merge fwd {s} L {L}", [y], [ref],
-                                      ["y"], {0})
+            err, plan, text = check_merge_fwd(f"merge fwd {s} L {L}", args)
             t_k = median_ms(lambda: merge_ln_fwd(*args))
             t_p = median_ms(lambda: merge_ln_plain(*args))
             t_l = median_ms(lambda: merge_library(x, gamma, beta, wt, idx))
             nbytes = 2 * (M * K + M * O + O * K + 2 * K)
             flops = 2.0 * M * K * O
+            t_b = max(nbytes / PEAK_HBM_BYTES, ops_seconds(flops)) * 1e3
             print(f"merge fwd {res}->{res // 2} L {L} x [{M}, {K}] -> {O}: "
-                  f"{text} kernel {t_k:.4f} ms plain {t_p:.4f} ms library "
+                  f"{text} kernel {t_k:.4f} ms ({flops / t_k / 1e9:.2f} "
+                  f"TFLOP/s, {t_b / t_k:.4f} of the bound; "
+                  f"{plan_text(plan, t_k)}) plain {t_p:.4f} ms library "
                   f"{t_l:.4f} ms {bound_text(nbytes, flops)}")
             main = int(L == KERNEL_BATCH)
             fwd.add(err, t_k, t_p, t_l, nbytes, flops, main)
+            if not main:
+                for key, v in (("kernel", t_k), ("library", t_l),
+                               ("bound", t_b)):
+                    streams[key] += v
             err, plan, text = check_merge_rows(f"merge bwd {s} L {L}",
                                                args, gy)
             leaves = [t.detach().requires_grad_(True)
@@ -892,14 +920,22 @@ def check_merge(gen) -> dict:
                   f"{t_p:.4f} ms library backward {t_l:.4f} ms "
                   f"{bound_text(nbytes, flops)}")
             bwd.add(err, t_k, t_p, t_l, nbytes, flops, main)
-            del x, gy, y, ref, yl, leaves
+            del x, gy, yl, leaves
+    print(f"merge fwd L {len(cfg.tasks) * KERNEL_BATCH} sum of the three "
+          f"merges (the LN route's task streams): kernel "
+          f"{streams['kernel']:.4f} ms library {streams['library']:.4f} ms "
+          f"bound {streams['bound']:.4f} ms")
     # its own generator: the later checks draw the same tensors as before
     cover = torch.Generator(device="cuda").manual_seed(SEED + 4)
     for label, L, res, C in MERGE_COVERAGE:
         args, gy = merge_operands(cover, L, res, C)
         M = L * res * res // 4
-        label = (f"merge bwd {label} x [{M}, {4 * C}] -> {2 * C}, "
-                 f"Wh {res // 2}")
+        shape = f"{label} x [{M}, {4 * C}] -> {2 * C}, Wh {res // 2}"
+        _, plan, text = check_merge_fwd(f"merge fwd {shape}", args)
+        t_k = median_ms(lambda: merge_ln_fwd(*args))
+        print(f"merge fwd {shape}: {text} kernel {t_k:.4f} ms "
+              f"({plan_text(plan, t_k)})")
+        label = f"merge bwd {shape}"
         _, plan, text = check_merge_rows(label, args, gy)
         t_k = median_ms(lambda: merge_ln_bwd(*args, gy))
         print(f"{label}: {text} kernel {t_k:.4f} ms ({plan.bm}-row blocks "
@@ -2273,7 +2309,7 @@ def main():
               ln2["fwd"]),
         entry("ln_lora_bwd", "ln_lora_qkv_bwd.cu", "pallas_ln_lora.py:124",
               ln2["bwd"]),
-        entry("patch_merge", "ln_lora.cu", "pallas_ln_lora.py:465",
+        entry("patch_merge", "merge_ln_fwd.cu", "pallas_ln_lora.py:465",
               merge["fwd"]),
         entry("patch_merge_bwd", "merge_ln_bwd.cu", "pallas_ln_lora.py:492",
               merge["bwd"]),

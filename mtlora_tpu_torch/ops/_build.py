@@ -50,8 +50,9 @@ SIGNATURES = {
     # x, ek_t, eb, mul, add, pk_t, gy, dx, wpad, xpad, gypad, dhc, z, cols,
     # part, sums, dek_t, dpk_t, M, C, O, n, ng, stages, smem, sw, sp, stream
     "mtlora_head_mlp_bwd": [_P] * 18 + [_I] * 9 + [_P],
-    # kernel 3: x, gamma, beta, wt, y, M, K, O, merge_wh, stream
-    "mtlora_ln_lora_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    # kernel 3: x, gamma, beta, wt, y, M, C, O, merge_wh, bm, splits,
+    # blocks, stages, group, smem, stream
+    "mtlora_merge_ln_fwd": [_P] * 5 + [_I] * 10 + [_P],
     # kernel 2 at the qkv sites: x, gamma, beta, wt, bias, at, bt, seed, y,
     # M, C, O, r, bm, splits, per_sm, blocks, stages, group, smem, scale,
     # drop threshold, use_drop, inv_keep, stream

@@ -15,8 +15,8 @@
 // reach device memory. Its pair-split rank layout and block-diagonal B
 // exist to fit the TPU's (8, 128) tiles; here each source value takes its
 // token's 8 rank values (one 16-byte load) and its column's 8 scaled B
-// values (another) and sums them in fp32. Design: kernel 3's (ln_lora.cu),
-// with this row source: a block of 4 warps owns 16 merged rows of one task
+// values (another) and sums them in fp32. Design: the first port of kernel
+// 3's, with this row source: a block of 4 warps owns 16 merged rows of one task
 // (blockIdx.y), splits their statistics and the bf16 LN tile in shared
 // memory, then takes the 64-column output chunks round robin with
 // mma.sync m16n8k16. No gate on W/2 % 8 (the TPU's sublane tiling): every

@@ -17,11 +17,12 @@ kernels:
 Kernel 2's forward is one source, ``csrc/ln_lora_tail_fwd.cu``, in two
 compile-time modes: the qkv mode (y only; its plan :func:`qkv_fwd_plan`)
 and the tail mode (its plan :func:`tail_fwd_plan`). Kernel 3's forward is
-``csrc/ln_lora.cu``: its row loader gathers the rows 2x2 (concat order
-``k = di + 2 dj``, ``merge_ln_reference`` :663-679). Kernel 3b is
-``csrc/merge_ln_bwd.cu``, a row kernel whose blocks of a cluster split
-the merged rows' columns (its plan :func:`merge_bwd_plan`), then the
-weight product. Kernel 2b is a fused row kernel then the weight passes
+``csrc/merge_ln_fwd.cu``: persistent blocks that gather their merged rows
+2x2 (concat order ``k = di + 2 dj``, ``merge_ln_reference`` :663-679) into
+a bf16(ln) tile in shared memory and stream W through a TMA ring (its plan
+:func:`merge_fwd_plan`). Kernel 3b is ``csrc/merge_ln_bwd.cu``, a row
+kernel whose blocks of a cluster split the merged rows' columns (its plan
+:func:`merge_bwd_plan`), then the weight product. Kernel 2b is a fused row kernel then the weight passes
 of dA and dB in each mode:
 ``csrc/ln_lora_qkv_bwd.cu`` (y-only, the qkv sites; its plan
 :func:`qkv_bwd_plan`) and ``csrc/ln_lora_tail_bwd.cu`` (the tail mode; its
@@ -932,42 +933,131 @@ def ln_lora_tail_bwd(x, gamma, beta, wt, bias, at, bt, seed, scale: float,
                                    scale, drop, gy, gp, gd, act)
 
 
-# the widest merged row K = 4C whose bf16(ln) tile kernel 3 holds in a
-# block's shared memory (kMaxK of csrc/ln_lora.cu)
-MERGE_FWD_MAX_K = 7248
-
-
 def _merge_shapes(x, wt, H, W):
+    """(M, K, O) of a merge of x [L, H*W, C] by ``wt [O, 4C]``; the shapes
+    of the 2x2 gather, then the device (the plans refuse what their kernels
+    do not take)."""
     L, HW, C = x.shape
     O = wt.shape[0]
     M = L * (H // 2) * (W // 2)
-    if (HW != H * W or H % 2 or W % 2 or C % 4 or O % 8 or M < 1 or O < 8
-            or 4 * C > MERGE_FWD_MAX_K):
+    if HW != H * W or H % 2 or W % 2 or M < 1:
         raise ValueError(f"patch merge kernel: needs x [L, H*W, C] with "
-                         f"even H ({H}), W ({W}), C % 4 == 0 and 4C <= "
-                         f"{MERGE_FWD_MAX_K} ({C}), O % 8 == 0 and O >= 8 "
-                         f"({O}), and a merged row ({M})")
+                         f"even H ({H}), W ({W}) and a merged row ({M})")
     require_cuda("patch merge", x)
     return M, 4 * C, O
 
 
-def merge_ln_fwd(x, gamma, beta, wt, H: int, W: int):
-    """Kernel 3 forward, no autograd: plain for CPU tensors, the kernel for
-    CUDA tensors."""
-    if x.device.type == "cpu":
-        return merge_ln_plain(x, gamma, beta, wt, H, W)
+# the constants of csrc/merge_ln_fwd.cu that its plan sizes shared memory by
+# (the kernel traps if the plan's bytes do not hold its layout)
+MERGE_FWD_CHUNK = 64     # output chunk, slot and slice of K: 64 wide (kS)
+MERGE_FWD_WARPS = 8      # consumer warps of a block (kWarps)
+MERGE_FWD_GROUP = 4      # slots a group of the refill ring (kGroupMax)
+MERGE_FWD_MAX_STAGES = 16   # slots in the TMA ring, at most
+MERGE_FWD_MIN_STAGES = 4    # the fewest slots a plan takes rows for
+# rows a block of the kernel's instances, the most first, and the warps of
+# a row group (32 rows; 16 at 16 rows a block)
+MERGE_FWD_ROWS = {128: 2, 64: 4, 32: 8, 16: 8}
+MERGE_FWD_MAX_K = 4096   # the widest merged row (kMaxK)
+MERGE_FWD_ITEM_COST = 2  # an item's rows, statistics and bf16(ln), in chunks
+
+
+class MergeFwdPlan(NamedTuple):
+    """Launch plan of kernel 3 (``csrc/merge_ln_fwd.cu``): rows per block,
+    the warps of a row group (each taking 64 / wn columns of each chunk),
+    the items of a row block that split its 64-column output chunks, the
+    items (row blocks x splits), blocks an SM, the TMA ring's slots and
+    slots a group, dynamic shared-memory bytes, the bytes of W's slots the
+    blocks stream from L2, and the blocks (each taking items in turn)."""
+
+    bm: int
+    wn: int
+    splits: int
+    items: int
+    per_sm: int
+    stages: int
+    group: int
+    smem: int
+    slice_bytes: int
+    blocks: int
+
+
+def merge_fwd_plan(M: int, K: int, O: int, Wh: int, sms: int
+                   ) -> MergeFwdPlan:
+    """Kernel 3's plan for M merged rows of K = 4C columns (x's rows
+    gathered 2x2, Wh merged rows a row of the merged grid) -> O on a card
+    of ``sms`` SMs. A block keeps its rows' bf16(ln) [bm][K] (K rounded up
+    to 64) in shared memory and streams W's 64 x 64 slots through a TMA
+    ring beside it: the most rows of ``MERGE_FWD_ROWS`` that leave the ring
+    ``MERGE_FWD_MIN_STAGES`` slots (each W slot then serves them all); the
+    ring takes what is left, in groups of 4 slots (2 where fewer than 8
+    fit), at most 16. One block an SM (a ninth warp issues the ring). An
+    item is a row block and one split of its chunks: where the row blocks
+    are few they split evenly, the split, among those that divide the
+    chunks, that takes the fewest rounds of items over the SMs times chunks
+    an item (plus ``MERGE_FWD_ITEM_COST`` for its rows). The last row block
+    masks the rows past M."""
+    if (K % 32 or not 32 <= K <= MERGE_FWD_MAX_K or O % 16 or O < 16
+            or Wh < 1 or M < 1 or M % Wh):
+        raise ValueError(f"patch merge forward kernel: needs C % 8 == 0 "
+                         f"and K = 4C <= {MERGE_FWD_MAX_K} ({K}), O % 16 == "
+                         f"0 ({O}) and whole rows of Wh = {Wh} merged "
+                         f"tokens ({M} rows)")
+    slot = 2 * MERGE_FWD_CHUNK ** 2
+    kp = -(-K // MERGE_FWD_CHUNK) * MERGE_FWD_CHUNK
+
+    def ring_bytes(stages):   # the slots; two mbarriers a slot
+        return stages * (slot + 16)
+
+    for bm, wn in MERGE_FWD_ROWS.items():
+        # up to 1023 bytes to the ring's 1024-byte alignment; the tile
+        fixed = 1024 + 2 * bm * kp
+        group = (MERGE_FWD_GROUP
+                 if fixed + ring_bytes(2 * MERGE_FWD_GROUP) <= SMEM_LIMIT
+                 else 2)
+        stages = MERGE_FWD_MAX_STAGES // group * group
+        while (stages >= MERGE_FWD_MIN_STAGES
+               and fixed + ring_bytes(stages) > SMEM_LIMIT):
+            stages -= group
+        if stages >= max(MERGE_FWD_MIN_STAGES, 2 * group):
+            break
+    else:
+        raise ValueError(f"patch merge forward kernel: no plan for K = {K}")
+    nch = -(-O // MERGE_FWD_CHUNK)
+    ncs = kp // MERGE_FWD_CHUNK
+    rows = -(-M // bm)
+    splits = min((-(-rows * s // sms) * (nch // s + MERGE_FWD_ITEM_COST), s)
+                 for s in range(1, nch + 1) if nch % s == 0)[1]
+    return MergeFwdPlan(bm, wn, splits, rows * splits, 1, stages, group,
+                        fixed + ring_bytes(stages), rows * nch * ncs * slot,
+                        min(rows * splits, sms))
+
+
+def merge_ln_fwd_kernel(x, gamma, beta, wt, H: int, W: int):
+    """The CUDA route of :func:`merge_ln_fwd` at the launch of
+    :func:`merge_fwd_plan`, W read in its module layout; raises for
+    anything it does not take (a CPU tensor included)."""
     M, K, O = _merge_shapes(x, wt, H, W)
     _check("patch merge forward", x,
            [("x", x), ("gamma", gamma), ("beta", beta), ("wt", wt)],
            [x.shape, (K,), (K,), (O, K)])
+    plan = merge_fwd_plan(M, K, O, W // 2, _sms(x.device))
     y = torch.empty((x.shape[0], M // x.shape[0], O), dtype=x.dtype,
                     device=x.device)
-    err = _build.library().mtlora_ln_lora_fwd(
+    err = _build.library().mtlora_merge_ln_fwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.data_ptr(),
-        y.data_ptr(), M, K, O, W // 2, _stream(x))
-    _build.check(err, "mtlora_ln_lora_fwd (merge)")
+        y.data_ptr(), M, K // 4, O, W // 2, plan.bm, plan.splits,
+        plan.blocks, plan.stages, plan.group, plan.smem, _stream(x))
+    _build.check(err, "mtlora_merge_ln_fwd")
     merge_ln_fwd.launches += 1
     return y
+
+
+def merge_ln_fwd(x, gamma, beta, wt, H: int, W: int):
+    """Kernel 3 forward, no autograd: plain for CPU tensors,
+    :func:`merge_ln_fwd_kernel` for CUDA tensors."""
+    if x.device.type == "cpu":
+        return merge_ln_plain(x, gamma, beta, wt, H, W)
+    return merge_ln_fwd_kernel(x, gamma, beta, wt, H, W)
 
 
 # the constants of csrc/merge_ln_bwd.cu that its plan sizes shared memory

@@ -2,11 +2,12 @@
 checkouts (and, with ``--checks``, any kernel: kernel 2's and 2b's
 variants at the qkv sites, ``qkv-fwd-*`` and ``qkv-*``, run with
 ``--checks check_ln_lora``, kernel 2-tail's, ``tail-fwd-*``, with
-``--checks check_ln_lora_tail``).
+``--checks check_ln_lora_tail``, kernels 3's and 3b's, ``merge-fwd-*`` and
+``merge-*``, with ``--checks check_merge``).
 
     python -m mtlora_tpu_torch.tools.ln_mlp_bwd_variants
         [--variants NAME,...] [--against DIR ...] [--checks FUNC,...]
-        [--time-qkv] [--passes 2]
+        [--time-qkv | --time-merge] [--passes 2]
 
 The trees: this checkout; one copy of its ``mtlora_tpu_torch`` per
 variant, with that variant's edits of ``VARIANTS`` applied (under
@@ -30,7 +31,7 @@ pass (stage 2 has five no-task blocks) and the card; each tree's build
 prints the registers and spills that ptxas reported for the instances of
 kernel 4, of the LN-family backward row kernels (4b, 2b, 3b, 6b), of
 kernel 6's forward and of the attention backward (kernels 1b and 1c). The edits of ``VARIANTS``
-reach either kernel's source and plan (and 2b's, 2-tail's, 3b's). With
+reach either kernel's source and plan (and 2b's, 2-tail's, 3's, 3b's). With
 ``--checks`` it runs those ``check_*`` functions of its tree's
 ``chip_smoke.py`` instead (the phase 3/3b rows of other kernels) and
 prints their sums and, per line of theirs that names a kernel time
@@ -41,7 +42,10 @@ With ``--time-qkv`` each tree instead times kernel 2 at the four qkv
 sites (the tree's ``ln_lora_fwd``, dropout 0.05 and off) and the tail
 mode without GELU and d at the same shapes, unchecked, so that the trees
 of ``PARTS`` (kernel 2's qkv mode with a part of its work taken out) run
-beside it: where the time of a stage goes.
+beside it: where the time of a stage goes. With ``--time-merge`` each
+tree times kernel 3 at the three merges for L = 32 and 128, unchecked, so
+that the trees of ``PARTS`` with a part of kernel 3 taken out run beside
+it.
 
 This file imports only torch and the standard library at the top: a
 process of another tree imports that tree's package, never this one's.
@@ -62,6 +66,103 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 VARIANT_DIR = ROOT / "build" / "variants"
+
+# kernel 3's variant merge-fwd-refill-ring: 2-tail's ring (ln_lora_tail_fwd.cu),
+# adapted to kernel 3's walk of its items
+MERGE_REFILL_RING = r"""// 2-tail's ring (ln_lora_tail_fwd.cu): a.stages slots in groups of
+// a.group, one mbarrier a group that its boxes complete, one count a group
+// of the warps done with it. Where a slot starts a group, next() first
+// hands back the warp's group before: the last of the kWarps warps to hand
+// a group back starts the group nbar ahead into its slots (its lanes a box
+// each). Then it waits on the group's mbarrier.
+struct RefillRing {
+  bf16* buf;       // 1024-byte aligned
+  uint64_t* bars;  // stages / group
+  int* held;       // stages / group: the warps' hand-backs, counted up
+  int nbar;
+  int g = 0, qg = 0, slot = 0;   // group, slot in the group, ring slot
+
+  __device__ __forceinline__ RefillRing(bf16* b, uint64_t* bs, int stages,
+                                        int group)
+      : buf(b), bars(bs), held(reinterpret_cast<int*>(bs + stages / group)),
+        nbar(stages / group) {}
+
+  __device__ __forceinline__ unsigned char* end(int) const {
+    return reinterpret_cast<unsigned char*>(held + nbar);
+  }
+
+  __device__ __forceinline__ void init(int) const {
+    for (int i = 0; i < nbar; ++i) {
+      mbar_init(bars + i);
+      held[i] = 0;
+    }
+  }
+
+  template <int WN>
+  __device__ __forceinline__ void produce(const Params&, const Walk&) {}
+
+  // The calling warp starts group gi: lane j box j, lane 0 first posting
+  // the group's bytes.
+  template <int WN>
+  __device__ __forceinline__ void issue(const Params& p, const Walk& w,
+                                        int gi) {
+    const Args& a = p.a;
+    const int per = w.nci * w.ncs, first = gi * a.group;
+    const int n = min(a.group, w.nitems * per - first);
+    if (n <= 0) return;
+    const int j = lane_id();
+    uint64_t* bar = bars + gi % nbar;
+    if (j == 0) mbar_expect(bar, n * kSlice * (int)sizeof(bf16));
+    __syncwarp();
+    if (j < n) {
+      const int qq = first + j, kk = qq / per;
+      const int c0 = w.item(kk) % a.splits * w.nci;
+      const int2 b = slot_box<WN>(qq - kk * per, c0, w.nci, w.ncs);
+      tma_box(buf + (qq % a.stages) * kSlice, &p.w, bar, b.x, b.y);
+    }
+  }
+
+  // warp 0 starts the first nbar groups (after the block's one barrier)
+  template <int WN>
+  __device__ __forceinline__ void begin(const Params& p, const Walk& w) {
+    for (int i = 0; i < nbar; ++i) issue<WN>(p, w, i);
+  }
+
+  template <int WN>
+  __device__ __forceinline__ void release(const Params& p, const Walk& w,
+                                          int gi) {
+    __syncwarp();
+    int last = 0;
+    if (lane_id() == 0) {
+      __threadfence_block();
+      last = atomicAdd(held + gi % nbar, 1) == kWarps * (gi / nbar + 1) - 1;
+    }
+    if (__shfl_sync(0xffffffffu, last, 0)) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      issue<WN>(p, w, gi + nbar);
+    }
+  }
+
+  template <int WN>
+  __device__ __forceinline__ const bf16* next(const Params& p,
+                                              const Walk& w) {
+    if (qg == 0) {
+      if (g > 0) release<WN>(p, w, g - 1);
+      mbar_wait(bars + g % nbar, (g / nbar) & 1);
+    }
+    return buf + slot * kSlice;
+  }
+
+  __device__ __forceinline__ void done(const Params& p) {
+    if (++slot == p.a.stages) slot = 0;
+    if (++qg == p.a.group) {
+      qg = 0;
+      ++g;
+    }
+  }
+};
+
+"""
 
 # name -> edits (file under mtlora_tpu_torch/, text, replacement); each
 # text occurs exactly once in this checkout
@@ -230,6 +331,88 @@ VARIANTS = {
     "merge-splits-to-4": [("ops/ln_lora.py",
                            "MERGE_SPLITS = (1, 2, 4, 8)",
                            "MERGE_SPLITS = (1, 2, 4)")],
+    # kernel 3: the last of the 8 warps done with a group of slots refills
+    # it (2-tail's ring, 256 threads), in place of a producer warp with
+    # full and empty mbarriers a slot
+    "merge-fwd-refill-ring": [
+        ("ops/csrc/merge_ln_fwd.cu",
+         "// The WN warps of row group mi meet (named barrier 1 + mi).",
+         MERGE_REFILL_RING
+         + "// The WN warps of a row group meet (named barrier 1 + mi)."),
+        ("ops/csrc/merge_ln_fwd.cu",
+         "constexpr int kThreads = 32 * (kWarps + 4);",
+         "constexpr int kThreads = 32 * kWarps;"),
+        ("ops/csrc/merge_ln_fwd.cu",
+         "  Ring ring(reinterpret_cast<bf16*>(base), bars, a.stages);",
+         "  RefillRing ring(reinterpret_cast<bf16*>(base), bars, a.stages,\n"
+         "                  a.group);"),
+        ("ops/csrc/merge_ln_fwd.cu",
+         "  if (warp >= kWarps) {   // the producer warpgroup: its first warp "
+         "issues\n"
+         "    asm volatile(\"setmaxnreg.dec.sync.aligned.u32 %0;\\n\" ::\"n\"(\n"
+         "        kProducerRegs));\n"
+         "    if (warp == kWarps) ring.produce<WN>(p, w);\n"
+         "    return;\n"
+         "  }\n"
+         "  asm volatile(\"setmaxnreg.inc.sync.aligned.u32 %0;\\n\" ::\"n\"(\n"
+         "      kConsumerRegs));\n",
+         "  if (warp == 0) ring.begin<WN>(p, w);\n")],
+    # kernel 3: nine warps (the producer warp alone), each thread at the
+    # 168 registers they leave, in place of a producer warpgroup whose
+    # registers the consumer warps take by setmaxnreg (232 a thread)
+    "merge-fwd-nine-warps": [
+        ("ops/csrc/merge_ln_fwd.cu",
+         "constexpr int kThreads = 32 * (kWarps + 4);",
+         "constexpr int kThreads = 32 * (kWarps + 1);"),
+        ("ops/csrc/merge_ln_fwd.cu",
+         "    asm volatile(\"setmaxnreg.dec.sync.aligned.u32 %0;\\n\" ::\"n\"(\n"
+         "        kProducerRegs));\n", ""),
+        ("ops/csrc/merge_ln_fwd.cu",
+         "  asm volatile(\"setmaxnreg.inc.sync.aligned.u32 %0;\\n\" ::\"n\"(\n"
+         "      kConsumerRegs));\n", "")],
+    # kernel 3: the LayerNorm pass on two rows at a time, in place of four
+    # (up to K = 1536)
+    "merge-fwd-ln-rows-2": [
+        ("ops/csrc/merge_ln_fwd.cu",
+         "constexpr int UR = ur_of(BM), RB = UR <= 6 ? 4 : 1;",
+         "constexpr int UR = ur_of(BM), RB = UR <= 6 ? 2 : 1;")],
+    # kernel 3: the LayerNorm pass on one row at a time
+    "merge-fwd-ln-rows-1": [
+        ("ops/csrc/merge_ln_fwd.cu",
+         "constexpr int UR = ur_of(BM), RB = UR <= 6 ? 4 : 1;",
+         "constexpr int UR = ur_of(BM), RB = 1;")],
+    # kernel 3: 64 rows a block at most (W's slots stream twice as often;
+    # a deeper ring at the first two merges), in place of 128
+    "merge-fwd-rows-64": [
+        ("ops/ln_lora.py", "MERGE_FWD_ROWS = {128: 2, 64: 4, 32: 8, 16: 8}",
+         "MERGE_FWD_ROWS = {64: 4, 32: 8, 16: 8}")],
+    # kernel 3: 32 rows a block at most
+    "merge-fwd-rows-32": [
+        ("ops/ln_lora.py", "MERGE_FWD_ROWS = {128: 2, 64: 4, 32: 8, 16: 8}",
+         "MERGE_FWD_ROWS = {32: 8, 16: 8}")],
+    # kernel 3: the most rows that leave the ring 8 slots (64 rows at the
+    # second merge, 32 at the third), in place of 4
+    "merge-fwd-ring-8": [
+        ("ops/ln_lora.py", "MERGE_FWD_MIN_STAGES = 4 ",
+         "MERGE_FWD_MIN_STAGES = 8 ")],
+    # kernel 3: each block walks the slices of K from its own offset, so
+    # that the SMs do not all ask L2 for the same slot at once (each block's
+    # sums then run in its own order)
+    "merge-fwd-rotated-slices": [
+        ("ops/csrc/merge_ln_fwd.cu",
+         "  return make_int2(kS * cs, kS * (c0 + pp * WN + i));",
+         "  return make_int2(kS * ((cs + (int)blockIdx.x) % ncs),\n"
+         "                   kS * (c0 + pp * WN + i));"),
+        ("ops/csrc/merge_ln_fwd.cu",
+         "      for (int cs = 0; cs < w.ncs; ++cs) {\n"
+         "        if (ksteps(K, cs) == 4)",
+         "      for (int cs0 = 0; cs0 < w.ncs; ++cs0) {\n"
+         "        const int cs = (cs0 + (int)blockIdx.x) % w.ncs;\n"
+         "        if (ksteps(K, cs) == 4)")],
+    # kernel 3: one item a row block, however few the row blocks
+    "merge-fwd-no-split": [
+        ("ops/ln_lora.py", "for s in range(1, nch + 1) if nch % s == 0)[1]",
+         "for s in (1,))[1]")],
     # kernel 2 at the qkv sites: at most 8 ring slots in place of 16 (12
     # fit at stage 2)
     "qkv-fwd-ring-8": [
@@ -700,9 +883,78 @@ VARIANTS = {
          "          *reinterpret_cast<const uint32_t*>(sb + i * kLdS + 2 * lane);\n")],
 }
 
-# name -> edits that take a part of kernel 2's qkv mode out (its output is
-# then wrong by design): run with --time-qkv, which times and never checks
+# name -> edits that take a part of kernel 2's qkv mode (run with
+# --time-qkv) or of kernel 3 (--time-merge) out, its output then wrong by
+# design: those modes time and never check
 PARTS = {
+    # kernel 3: the products (the slots still arrive and are handed back)
+    "merge-fwd-without-products": [
+        ("ops/csrc/merge_ln_fwd.cu",
+         "ring.next<WN>(p, w);\n            slot_mma<MT, NT, KS>",
+         "ring.next<WN>(p, w);\n            if (a.M < 0) slot_mma<MT, NT, KS>")],
+    # kernel 3: the rows of x (no copies; the tile holds what it held)
+    "merge-fwd-without-x": [
+        ("ops/csrc/merge_ln_fwd.cu",
+         "        if (pc < P)\n          cp_async16(",
+         "        if (pc < P && a.M < 0)\n          cp_async16(")],
+    # kernel 3: the statistics and bf16(ln) pass
+    "merge-fwd-without-ln": [
+        ("ops/csrc/merge_ln_fwd.cu",
+         "    for (int r = ni; r < RW; r += RB * WN) {",
+         "    for (int r = ni; r < RW && a.M < 0; r += RB * WN) {")],
+    # kernel 3: y's stores
+    "merge-fwd-without-stores": [
+        ("ops/csrc/merge_ln_fwd.cu",
+         "              if (row >= M) continue;",
+         "              if (row >= M || a.M > 0) continue;")],
+    # kernel 3: the ring alone (no x, LayerNorm, products or stores)
+    "merge-fwd-ring-only": [
+        ("ops/csrc/merge_ln_fwd.cu",
+         "        if (pc < P)\n          cp_async16(",
+         "        if (pc < P && a.M < 0)\n          cp_async16("),
+        ("ops/csrc/merge_ln_fwd.cu",
+         "    for (int r = ni; r < RW; r += RB * WN) {",
+         "    for (int r = ni; r < RW && a.M < 0; r += RB * WN) {"),
+        ("ops/csrc/merge_ln_fwd.cu",
+         "ring.next<WN>(p, w);\n            slot_mma<MT, NT, KS>",
+         "ring.next<WN>(p, w);\n            if (a.M < 0) slot_mma<MT, NT, KS>"),
+        ("ops/csrc/merge_ln_fwd.cu",
+         "              if (row >= M) continue;",
+         "              if (row >= M || a.M > 0) continue;")],
+    # kernel 3: the products alone, on slots never filled or waited for (no
+    # x, LayerNorm, ring or stores)
+    "merge-fwd-products-only": [
+        ("ops/csrc/merge_ln_fwd.cu",
+         "        if (pc < P)\n          cp_async16(",
+         "        if (pc < P && a.M < 0)\n          cp_async16("),
+        ("ops/csrc/merge_ln_fwd.cu",
+         "    for (int r = ni; r < RW; r += RB * WN) {",
+         "    for (int r = ni; r < RW && a.M < 0; r += RB * WN) {"),
+        ("ops/csrc/merge_ln_fwd.cu",
+         "              if (row >= M) continue;",
+         "              if (row >= M || a.M > 0) continue;"),
+        ("ops/csrc/merge_ln_fwd.cu",
+         "    if (lane_id() != 0) return;\n    int s = 0, ph = 0;",
+         "    if (lane_id() != 0 || a.M > 0) return;\n    int s = 0, ph = 0;"),
+        ("ops/csrc/merge_ln_fwd.cu",
+         "next(const Params&, const Walk&) {\n    mbar_wait(full + slot, phase);",
+         "next(const Params& p, const Walk&) {\n"
+         "    if (p.a.M < 0) mbar_wait(full + slot, phase);"),
+        ("ops/csrc/merge_ln_fwd.cu",
+         "    if (lane_id() == 0) mbar_arrive(empty + slot);",
+         "    if (lane_id() == 0 && p.a.M < 0) mbar_arrive(empty + slot);")],
+    # kernel 3: the ring and the products alone (no x, no LayerNorm, no
+    # stores)
+    "merge-fwd-ring-and-products": [
+        ("ops/csrc/merge_ln_fwd.cu",
+         "        if (pc < P)\n          cp_async16(",
+         "        if (pc < P && a.M < 0)\n          cp_async16("),
+        ("ops/csrc/merge_ln_fwd.cu",
+         "    for (int r = ni; r < RW; r += RB * WN) {",
+         "    for (int r = ni; r < RW && a.M < 0; r += RB * WN) {"),
+        ("ops/csrc/merge_ln_fwd.cu",
+         "              if (row >= M) continue;",
+         "              if (row >= M || a.M > 0) continue;")],
     # the chunk products (W's and B's MMAs and their B fragments)
     "qkv-fwd-without-products": [
         ("ops/csrc/ln_lora_tail_fwd.cu",
@@ -827,7 +1079,8 @@ def _errors(got, want, names=NAMES) -> list:
 
 def _ptxas(log: str) -> dict:
     """Registers and spill bytes of every instance of kernel 4, of the
-    LN-family forward kernels (2 and 3, 2-tail) and backward row kernels
+    LN-family forward kernels (2, 2-tail and 3: ``patch_merge_fwd_rows``)
+    and backward row kernels
     (4b, 2b in both modes, 3b: ``patch_merge_bwd_rows``, and
     ``merge_ln_bwd_rows`` in checkouts before it; 6b), of kernel 6's
     forward and of the attention backward (kernels 1b and 1c's)."""
@@ -836,7 +1089,7 @@ def _ptxas(log: str) -> dict:
         m = re.search(r"Function properties for (\S*(?:ln_mlp_fwd_kernel|"
                       r"ln_mlp_bwd_rows|window_attn_bwd_kernel|ln_lora_\w*"
                       r"bwd_rows|merge_\w*bwd_rows|ln_lora_\w*fwd_kernel|"
-                      r"task_merge_fwd_kernel)"
+                      r"patch_merge_fwd_rows|task_merge_fwd_kernel)"
                       r"\S*)", line)
         if m:
             name = m[1]
@@ -866,6 +1119,10 @@ def build():
 
 
 QKV_STAGES = ((401408, 96), (100352, 192), (25088, 384), (6272, 768))
+# kernel 3's merges of the batch-32 step: (L, res, C) of x [L, res^2, C],
+# the shared stream (L = 32) then the LN route's four task streams
+MERGE_SHAPES = tuple((L, 112 // 2 ** s, 96 * 2 ** s) for L in (32, 128)
+                     for s in range(3))
 
 
 def time_qkv(rec: dict):
@@ -907,7 +1164,30 @@ def time_qkv(rec: dict):
         del x, ops
 
 
-def worker(tree: str, checks: str, qkv: bool = False):
+def time_merge(rec: dict):
+    """Kernel 3 at ``MERGE_SHAPES``, ms a merge (the tree's
+    ``merge_ln_fwd``; no checks: a tree of PARTS computes a wrong y)."""
+    import torch
+    from mtlora_tpu_torch.ops import ln_lora
+    from mtlora_tpu_torch.tools import median_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rec["merge_ms"] = []
+    for L, res, C in MERGE_SHAPES:
+        K, O = 4 * C, 2 * C
+        x = torch.randn(L, res * res, C, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        gamma = (0.9 + 0.2 * torch.rand(K, generator=gen, device="cuda"))
+        beta = 0.02 * torch.randn(K, generator=gen, device="cuda")
+        wt = ((torch.rand(O, K, generator=gen, device="cuda") * 2 - 1)
+              * K ** -0.5).to(torch.bfloat16)
+        ops = (x, gamma.to(torch.bfloat16), beta.to(torch.bfloat16), wt, res,
+               res)
+        rec["merge_ms"].append(median_ms(lambda: ln_lora.merge_ln_fwd(*ops)))
+        del x, ops
+
+
+def worker(tree: str, checks: str, qkv: bool = False, merge: bool = False):
     import torch
     from mtlora_tpu_torch.ops import _build, ln_mlp
     from mtlora_tpu_torch.tools import card_line, median_ms
@@ -915,8 +1195,8 @@ def worker(tree: str, checks: str, qkv: bool = False):
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.library()
     rec = {"tree": tree, "card": card_line()}
-    if qkv:
-        time_qkv(rec)
+    if qkv or merge:
+        (time_qkv if qkv else time_merge)(rec)
         print(json.dumps(rec), flush=True)
         return
     if checks:
@@ -964,12 +1244,14 @@ def worker(tree: str, checks: str, qkv: bool = False):
 # The parent process: every tree in turn
 # ---------------------------------------------------------------------------
 
-def _run(name: str, root: Path, checks: str, qkv: bool) -> dict:
+def _run(name: str, root: Path, checks: str, qkv: bool,
+         merge: bool) -> dict:
     env = dict(os.environ, PYTHONPATH=str(root))
     proc = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), "--worker", name,
          *(["--checks", checks] if checks else []),
-         *(["--time-qkv"] if qkv else [])],
+         *(["--time-qkv"] if qkv else []),
+         *(["--time-merge"] if merge else [])],
         cwd=root, env=env, capture_output=True, text=True)
     sys.stdout.write(proc.stdout)
     if proc.returncode != 0:
@@ -982,7 +1264,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", default="",
                     help=f"comma-separated, of {sorted(VARIANTS)} (and, "
-                         f"with --time-qkv, of {sorted(PARTS)})")
+                         f"with --time-qkv or --time-merge, of "
+                         f"{sorted(PARTS)})")
     ap.add_argument("--against", action="append", default=[],
                     help="root of another checkout (repeatable; named by "
                          "its directory)")
@@ -990,6 +1273,9 @@ def main():
                     help="check_* functions of each tree's chip_smoke.py")
     ap.add_argument("--time-qkv", action="store_true",
                     help="time kernel 2 at the qkv sites in each tree, "
+                         "unchecked (the trees of PARTS)")
+    ap.add_argument("--time-merge", action="store_true",
+                    help="time kernel 3 at the merges in each tree, "
                          "unchecked (the trees of PARTS)")
     ap.add_argument("--passes", type=int, default=2)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
@@ -999,7 +1285,7 @@ def main():
         build()
         return
     if a.worker:
-        worker(a.worker, a.checks, a.time_qkv)
+        worker(a.worker, a.checks, a.time_qkv, a.time_merge)
         return
     import torch
     if not torch.cuda.is_available():
@@ -1026,12 +1312,14 @@ def main():
     results = {}
     for name, root in order:
         results.setdefault(name, []).append(_run(name, root, a.checks,
-                                                 a.time_qkv))
+                                                 a.time_qkv, a.time_merge))
     summary = {}
     for name, recs in results.items():
         if a.time_qkv:
             summary[name] = {k: [r[k] for r in recs] for k in (
                 "qkv_ms", "qkv_ms_no_dropout", "tail_mode_ms")}
+        elif a.time_merge:
+            summary[name] = {"merge_ms": [r["merge_ms"] for r in recs]}
         elif a.checks:
             summary[name] = {fn: {k: [r["checks"][fn][k]["ms"] for r in recs]
                                   for k in recs[0]["checks"][fn]}
@@ -1047,7 +1335,7 @@ def main():
                 "failed": recs[0]["failed"]}
     print(json.dumps({"summary": summary,
                       "card": results["this"][0]["card"]}))
-    if not (a.checks or a.time_qkv) and any(
+    if not (a.checks or a.time_qkv or a.time_merge) and any(
             r["failed"] for recs in results.values() for r in recs):
         raise SystemExit("ln_mlp_bwd_variants: a tree's kernel 4 or 4b "
                          "missed its bounds")

@@ -29,7 +29,7 @@ CLASSES: List[Tuple[str, Tuple[str, ...]]] = [
     ("HRNet head kernel (bwd)", ("head_bwd_",)),
     ("LN+LoRA kernel 2, qkv sites (fwd)", ("ln_lora_qkv_fwd_kernel",)),
     ("LN+LoRA kernel 2b, qkv sites (bwd rows)", ("ln_lora_qkv_bwd_rows",)),
-    ("patch merge kernel 3 (fwd)", ("patch_merge_fwd_kernel",)),
+    ("patch merge kernel 3 (fwd)", ("patch_merge_fwd_rows",)),
     ("patch merge kernel 3b (bwd rows)", ("patch_merge_bwd_rows",)),
     ("whole-MLP kernel 4 (fwd)", ("ln_mlp_fwd_kernel",)),
     ("whole-MLP kernel 4b (bwd rows)", ("ln_mlp_bwd_",)),

@@ -321,5 +321,5 @@ def test_profile_classes_name_each_row_kernel():
         "LN+LoRA kernel 2, qkv sites (fwd)")
     assert classify(pre + "ln_lora_tail_fwd_kernel<2, 1>(Params)") == (
         "LN+LoRA kernel 2, tail mode (fwd)")
-    assert classify(pre + "patch_merge_fwd_kernel(MergeArgs)") == (
+    assert classify(pre + "patch_merge_fwd_rows<2, 2>(Params)") == (
         "patch merge kernel 3 (fwd)")

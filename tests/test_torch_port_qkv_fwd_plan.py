@@ -1,6 +1,5 @@
 """Kernel 2 at the qkv sites (the y-only LN + LoRA forward, the qkv mode
-of ``csrc/ln_lora_tail_fwd.cu``) on the CPU: its launch plan, and kernel
-3's forward shapes in ``csrc/ln_lora.cu``, which now holds kernel 3 alone.
+of ``csrc/ln_lora_tail_fwd.cu``) on the CPU: its launch plan.
 
 The plan (``ops/ln_lora.py:qkv_fwd_plan``) at the four qkv sites of the
 batch-32 step (M = 32 * 112^2 / 4^s, C = 96 * 2^s, O = 3C, r = 64): rows
@@ -13,8 +12,7 @@ batch-2 step; every (C, r) of the YAMLs under ``configs/mtlora/`` (O =
 3C) and every rank a multiple of 16 up to 64; the constants of the CUDA
 source; the refusals of r = 0, C above 1024 and a CPU tensor. The plain
 version: the tail mode's without GELU is kernel 2's y-only function, bit
-for bit, so that one kernel body serves both. Kernel 3's C entry and its
-wrapper take the same shapes.
+for bit, so that one kernel body serves both.
 """
 
 import re
@@ -212,57 +210,3 @@ def test_tail_mode_without_act_is_the_qkv_forward(dtype, drop):
     got = ln_lora_tail_plain(*args, 4.0, drop, act=False)[0]
     want = ln_lora_plain(*args, 4.0, drop)
     assert got.dtype == want.dtype == dtype and torch.equal(got, want)
-
-
-# kernel 3 (the patch merge) in csrc/ln_lora.cu: its C entry refuses what
-# its wrapper refuses
-MERGE_SRC = _build.CSRC / "ln_lora.cu"
-
-
-def test_merge_forward_bounds_match_the_cuda_source():
-    src = MERGE_SRC.read_text()
-    kmax = int(re.search(r"constexpr int kMaxK = (\d+);", src)[1])
-    assert kmax == ln_lora.MERGE_FWD_MAX_K
-    # the block's bf16(ln) tile [16][K + 8] and mu, inv [16] fit up to kMaxK
-    # and not one 16-column step further
-    def block_bytes(K):
-        return 2 * 16 * (K + 8) + 2 * 16 * 4
-
-    assert block_bytes(kmax) <= ln_lora.SMEM_LIMIT < block_bytes(kmax + 16)
-    assert ("if (M < 1 || K % 16 || K > kMaxK || O < 8 || O % 8 || "
-            "merge_wh < 1 ||") in src
-    # kernel 2's half is gone: no adapter, no dropout, one kernel
-    for gone in ("LORA", "DropSpec", "scale", "ln_lora_fwd_kernel"):
-        assert gone not in src
-    assert src.count("__global__") == 1
-
-
-def _merge_operands(L, H, W, C, O):
-    x = torch.zeros(L, H * W, C, dtype=torch.bfloat16)
-    return x, torch.zeros(4 * C), torch.zeros(4 * C), torch.zeros(O, 4 * C)
-
-
-# (L, H, W, C, O): K = 4C one step past kMaxK, O below 8, no merged row;
-# then the widest and narrowest taken
-MERGE_REFUSED = [(1, 2, 2, 1816, 16), (1, 2, 2, 96, 0), (0, 2, 2, 96, 16),
-                 (2, 0, 0, 96, 16)]
-MERGE_TAKEN = [(1, 2, 2, 1812, 16), (1, 2, 2, 4, 8), (2, 14, 14, 384, 768)]
-
-
-@pytest.mark.parametrize("L,H,W,C,O", MERGE_REFUSED)
-def test_merge_wrapper_refuses_what_the_c_entry_refuses(L, H, W, C, O):
-    x, g, b, w = _merge_operands(L, H, W, C, O)
-    with pytest.raises(ValueError, match="patch merge kernel: needs"):
-        ln_lora._merge_shapes(x, w, H, W)
-
-
-@pytest.mark.parametrize("L,H,W,C,O", MERGE_TAKEN)
-def test_merge_wrapper_takes_what_the_c_entry_takes(L, H, W, C, O):
-    """Shapes within the C entry's bounds pass the wrapper's checks and
-    stop only at the device (a CPU tensor has no kernel)."""
-    x, g, b, w = _merge_operands(L, H, W, C, O)
-    M, K = L * (H // 2) * (W // 2), 4 * C
-    assert M >= 1 and K % 16 == 0 and K <= ln_lora.MERGE_FWD_MAX_K
-    assert O >= 8 and O % 8 == 0
-    with pytest.raises(ValueError, match="patch merge: no kernel for cpu"):
-        ln_lora._merge_shapes(x, w, H, W)
