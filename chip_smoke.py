@@ -147,6 +147,7 @@ from mtlora_tpu_torch.ops.task_merge import (
     task_merge_bwd_rows_plain,
     task_merge_bwd_scratch,
     task_merge_fwd,
+    task_merge_fwd_plan,
     task_merge_plain,
 )
 from mtlora_tpu_torch.ops.lora_matmul import (
@@ -1369,11 +1370,47 @@ def check_task_merge_rows(label, args, gy):
     return err, plan, f"{text}; rows {rtext}; two launches bit-identical"
 
 
+def check_task_merge_fwd(label, args):
+    """Kernel 6 against ``task_merge_plain`` (y, bf16, within 2^-6 of the
+    largest element) and a second launch on the same inputs bit for bit
+    against the first. Returns (worst error, plan, text)."""
+    base, wt, H, W = args[0], args[13], args[14], args[15]
+    T, (Bn, L, C), O = args[3].shape[0], base.shape, wt.shape[0]
+    plan = task_merge_fwd_plan(T, Bn * L // 4, 4 * C, O, W // 2,
+                               (H // 2) * (W // 2), ln_lora._sms(base.device))
+    y = task_merge_fwd(*args)
+    again = task_merge_fwd(*args)
+    ref = task_merge_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again), f"{label}: two launches differ"
+    err, text = check_outputs(label, [y], [ref], ["y"], {0})
+    return err, plan, f"{text}; two launches bit-identical"
+
+
+def task_merge_fwd_cost(T, B, res, C):
+    """(bytes, bf16 FLOP, fp32 operations) of kernel 6 at a merge of T task
+    streams [B, res^2, C]: the shared rows, the rank rows and Bs, W, gamma
+    and beta read once, y written once; the products; the streams' rank
+    term (8 multiply-adds a source value and task)."""
+    r, L, K, O = 4, res * res, 4 * C, 2 * C
+    Mm = B * L // 4
+    nbytes = 2 * (3 * B * L * C + T * B * L * 2 * r + 2 * T * r * C
+                  + T * Mm * O + O * K + 2 * K)
+    return nbytes, 2.0 * T * Mm * K * O, 2.0 * T * B * L * C * 2 * r
+
+
+def fwd_rate_text(plan, t_k, nbytes, flops, ops32) -> str:
+    """Kernel 6's TFLOP/s, share of the bound and plan in ``t_k`` ms."""
+    t_b = max(nbytes / PEAK_HBM_BYTES, ops_seconds(flops, ops32)) * 1e3
+    return (f"{flops / t_k / 1e9:.2f} TFLOP/s, {t_b / t_k:.4f} of the bound; "
+            f"{plan_text(plan, t_k)}")
+
+
 # kernel 6b's coverage (checked and timed, not in the tally): (label, T,
 # batch, res, C) -- path B's 14 -> 7 merge at 224 px (Wh = 7, odd: 49
 # merged rows a sample, so that blocks straddle samples), Swin-B's last
 # merge (C = 512, K = 2048), the batch-2 step's 28 -> 14 merge (392
-# rows, phase 8) and a merge of six tasks
+# rows, phase 8) and a merge of six tasks; kernel 6's too
 TASK_MERGE_COVERAGE = (("path B 14->7", 4, KERNEL_BATCH, 14, 384),
                        ("swin-b 28->14", 4, KERNEL_BATCH, 28, 512),
                        ("ragged 28->14", 4, CROSS_BATCH, 28, 384),
@@ -1383,9 +1420,10 @@ TASK_MERGE_COVERAGE = (("path B 14->7", 4, KERNEL_BATCH, 14, 384),
 def check_task_merge(gen) -> dict:
     """Kernel 6 at the three merges: T 4, r1 = r2 = 4, batch 32, drop-path
     coefficients drawn at the rate of the merging block (both non-trivial),
-    scales 4; the reduction trains. The backward (6b) also with its stored
-    rows, two launches bit for bit, its plan, share of the bound and W's
-    slot bytes per merge, and at ``TASK_MERGE_COVERAGE``."""
+    scales 4; the reduction trains. Both directions with two launches bit
+    for bit, their plan, share of the bound and W's slot bytes per merge,
+    and at ``TASK_MERGE_COVERAGE``; the backward (6b) also with its stored
+    rows."""
     fwd, bwd = Tally(), Tally()
     gcpu = torch.Generator().manual_seed(SEED)
     for s in range(3):
@@ -1397,11 +1435,7 @@ def check_task_merge(gen) -> dict:
                                        cfg.stages[s].task_scales)
         (base, pre, p2, mid1T, b1, mid2T, b2, c1, c2, sc, _, gamma, beta,
          wt) = args[:14]
-        y = task_merge_fwd(*args)
-        ref = task_merge_plain(*args)
-        torch.cuda.synchronize()
-        err, text = check_outputs(f"task_merge fwd {s}", [y], [ref], ["y"],
-                                  {0})
+        err, plan, text = check_task_merge_fwd(f"task_merge fwd {s}", args)
         midc, bs = rank_operands(mid1T, b1, mid2T, b2, c1, c2, sc, sc, B, L)
         k1, k2 = (c.to(torch.bfloat16).view(T, B, 1, 1) for c in (c1, c2))
         idx = merge_index(res, res, "cuda")
@@ -1410,13 +1444,12 @@ def check_task_merge(gen) -> dict:
         t_p = median_ms(lambda: task_merge_plain(*args), reps=5)
         t_l = median_ms(lambda: task_merge_library(*lib), reps=5)
         w_bytes = 2 * (O * K + 2 * K)
-        nbytes = 2 * (3 * B * L * C + T * B * L * 2 * r + 2 * T * r * C
-                      + T * Mm * O) + w_bytes
-        flops = 2.0 * T * Mm * K * O
-        ops32 = 2.0 * T * B * L * C * 2 * r
+        nbytes, flops, ops32 = task_merge_fwd_cost(T, B, res, C)
         print(f"task_merge fwd {res}->{res // 2} T {T} B {B} C {C} -> {O}: "
-              f"{text} kernel {t_k:.4f} ms plain {t_p:.4f} ms library "
-              f"{t_l:.4f} ms {bound_text(nbytes, flops, ops32)}")
+              f"{text} kernel {t_k:.4f} ms "
+              f"({fwd_rate_text(plan, t_k, nbytes, flops, ops32)}) plain "
+              f"{t_p:.4f} ms library {t_l:.4f} ms "
+              f"{bound_text(nbytes, flops, ops32)}")
         fwd.add(err, t_k, t_p, t_l, nbytes, flops, 1, ops32)
         err, plan, text = check_task_merge_rows(f"task_merge bwd {s}", args,
                                                 gy)
@@ -1443,15 +1476,21 @@ def check_task_merge(gen) -> dict:
               f"library backward {t_l:.4f} ms "
               f"{bound_text(nbytes, flops, ops32)}")
         bwd.add(err, t_k, t_p, t_l, nbytes, flops, 1, ops32)
-        del args, base, pre, p2, mid1T, mid2T, gy, y, ref, yl, leaves
+        del args, base, pre, p2, mid1T, mid2T, gy, yl, leaves
     # its own generators: the later checks draw the same tensors as before
     cover = torch.Generator(device="cuda").manual_seed(SEED + 6)
     ccpu = torch.Generator().manual_seed(SEED + 6)
     for label, T, B, res, C in TASK_MERGE_COVERAGE:
         args, gy = task_merge_operands(cover, ccpu, T, B, res, C, 0.1,
                                        (4.0,) * T)
-        label = (f"task_merge bwd {label} T {T} x [{B * res * res // 4}, "
-                 f"{4 * C}] -> {2 * C}, Wh {res // 2}")
+        shape = (f"{label} T {T} x [{B * res * res // 4}, {4 * C}] -> "
+                 f"{2 * C}, Wh {res // 2}")
+        _, plan, text = check_task_merge_fwd(f"task_merge fwd {shape}", args)
+        t_k = median_ms(lambda: task_merge_fwd(*args))
+        cost = task_merge_fwd_cost(T, B, res, C)
+        print(f"task_merge fwd {shape}: {text} kernel {t_k:.4f} ms "
+              f"({fwd_rate_text(plan, t_k, *cost)})")
+        label = f"task_merge bwd {shape}"
         _, plan, text = check_task_merge_rows(label, args, gy)
         t_k = median_ms(lambda: task_merge_bwd(*args, gy), reps=5)
         print(f"{label}: {text} kernel {t_k:.4f} ms (32-row blocks in "
@@ -2325,7 +2364,7 @@ def main():
               mid["fwd"]),
         entry("adapter_mid_bwd", "adapter_mlp_bwd.cu",
               "pallas_adapter_mlp.py:146", mid["bwd"]),
-        entry("task_merge", "task_merge.cu", "pallas_task_merge.py:70",
+        entry("task_merge", "merge_ln_fwd.cu", "pallas_task_merge.py:70",
               tmerge["fwd"]),
         entry("task_merge_bwd", "task_merge_bwd.cu",
               "pallas_task_merge.py:115", tmerge["bwd"]),

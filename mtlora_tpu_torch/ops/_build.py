@@ -86,9 +86,9 @@ SIGNATURES = {
     # activation, mid1T, p1, b1, a2T, g, dmid1T, dp1, part, dw, T, M, H4,
     # stripes, s0, s1, s2, s3, stream
     "mtlora_adapter_mid_bwd": [_I] + [_P] * 9 + [_I] * 4 + [_F] * 4 + [_P],
-    # base, pre, p2, mid, bs_cs, coef, gamma, beta, wt, y, T, B, H, W, C, O,
-    # stream
-    "mtlora_task_merge_fwd": [_P] * 10 + [_I] * 6 + [_P],
+    # kernel 6: base, pre, p2, mid, bs_cs, coef, gamma, beta, wt, y, T, B,
+    # H, W, C, O, bm, splits, blocks, stages, group, smem, stream
+    "mtlora_task_merge_fwd": [_P] * 10 + [_I] * 12 + [_P],
     # base, pre, p2, mid, bs_cs, coef, gamma, beta, wt, gy, lnd, gb, pbs,
     # part, dbase, dpre, dp2, dmid, dbs, dgb, dwt, T, B, H, W, C, O, split,
     # tg, stages, smem, sw, stream

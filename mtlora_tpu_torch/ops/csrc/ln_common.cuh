@@ -230,31 +230,6 @@ __device__ __forceinline__ void zero(float (*acc)[4]) {
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 }
 
-// acc[nt] += A[16 x kdim] * B^T for the n-tiles n0 + 8 nt < N: A at `a`
-// (row stride lda, shared or device memory, all 16 rows readable), B an
-// [n][k] array in device memory (row stride ldb). kdim % 16 == 0. U: the
-// k steps unrolled, so that more fragment loads are in flight (2 pays in
-// the MLP backward, whose chunks are long; elsewhere the registers it
-// takes cost more than it gains).
-template <int NT, int U = 1>
-__device__ __forceinline__ void mma_tile(float (*acc)[4], const bf16* a,
-                                         int lda, const bf16* b, int ldb,
-                                         int kdim, int n0, int N) {
-  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
-#pragma unroll U
-  for (int kk = 0; kk < kdim; kk += 16) {
-    uint32_t af[4];
-    load_a(af, a + kk, lda, g, t);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      if (n0 + nt * 8 < N) {
-        const bf16* bp = b + (size_t)(n0 + nt * 8 + g) * ldb + kk + 2 * t;
-        mma_bf16_16816(acc[nt], af, ld32(bp), ld32(bp + 8));
-      }
-    }
-  }
-}
-
 __device__ __forceinline__ uint32_t scale_pair(uint32_t v, float s) {
   __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
   const float2 f = __bfloat1622float2(h);
@@ -270,7 +245,8 @@ __device__ __forceinline__ uint32_t pack_bf2(float a, float b) {
 // acc[nt] += A[16 x 64] * B^T where A is the bf16 rounding of eight
 // accumulator tiles c[0..8) of one warp (16 rows x 64 columns): two
 // adjacent n8 accumulator tiles hold exactly the registers of one k16 A
-// fragment, so A never goes through shared memory. B as in mma_tile.
+// fragment, so A never goes through shared memory. B an [n][k] array in
+// device memory (row stride ldb).
 template <int NT>
 __device__ __forceinline__ void mma_frag(float (*acc)[4], const float (*c)[4],
                                          const bf16* b, int ldb, int n0,

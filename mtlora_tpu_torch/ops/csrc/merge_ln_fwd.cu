@@ -56,9 +56,35 @@
 // On an H100 (700 W) the products take about half of a merge and the
 // statistics and bf16(ln) pass most of the rest; W's ring runs under the
 // products (tools/ln_mlp_bwd_variants.py --time-merge, PARTS).
+//
+// The task mode (kernel 6, task_merge_fwd_rows: its own symbol, the same
+// body) is the factored per-task merge's forward. It replaces
+// mtlora_tpu/ops/pallas_task_merge.py: _tm_fwd_kernel (:70), launched by
+// _tm_run_fwd (:255, call :264) through task_merge_ln_linear from
+// task_merge_down. Task t's rows are never in device memory: per element
+//   y_t = ((base + c1_t pre) + c2_t p2) + midc_t Bs_t      (fp32)
+// of the 2x2 gather (the operands of task_merge.cuh; its sum of the rank
+// term is 6b's), then LN and the product as above, y [T][M][O]. What
+// bounds it: the products (2 T M K O FLOP) and the bytes of the shared
+// rows (base, pre, p2: 6 bytes a source value, against T outputs of 2C a
+// merged row). The first port read W from L2 for every 16 rows of a task
+// (3.7 GB a merge) and formed each value twice with four divisions a pair.
+// Here an item is a row block of one task, the tasks of a row block
+// adjacent in the walk, so that the T blocks that read a row block's
+// shared rows run at once and take them from HBM once; W's slots serve BM
+// task rows, as kernel 3's at T B streams. A row group's LayerNorm pass
+// forms its rows' y once, straight into registers (16-byte loads at each
+// lane's column offsets, kept; a row's first token from one division),
+// takes the statistics and writes bf16(ln) into the tile. Bs_t [C][8]
+// (4K bytes: the tile's last two rows of the group, its columns swizzled
+// so that the lanes' 16-byte reads meet no bank twice) is staged by
+// cp.async where kernel 3 stages the next item's rows; the group meets
+// once more before the pass writes those two rows. K up to kMaxKTask: y
+// of a row takes 8 K / 256 registers a lane.
 
 #include <type_traits>
 
+#include "task_merge.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -84,6 +110,16 @@ constexpr int kMaxK = 4096;          // the widest merged row
 __host__ __device__ constexpr int ur_of(int bm) {
   return bm == 128 ? 3 : bm == 64 ? 6 : bm == 32 ? 12 : kMaxK / 256;
 }
+// The task mode's: the same rows a block, rows of at most kMaxKTask, and
+// the pieces of a row a lane takes (its instances: 2 or 3 at 128 rows, 4 or
+// 6 at 64, 8 at 32), a compile-time count so that no branch splits the
+// pass's unrolled loops
+constexpr int kMaxKTask = 2048;      // 6b's widest row
+__host__ __device__ constexpr int ut_of(int bm, int K) {
+  return bm == 128  ? (K <= 512 ? 2 : 3)
+         : bm == 64 ? (K <= 1024 ? 4 : 6)
+                    : kMaxKTask / 256;
+}
 static_assert(kS == kSliceW, "tma.cuh: swz");
 
 struct Args {
@@ -92,8 +128,13 @@ struct Args {
   int M, C, K, O, Wh;
   int bm;              // rows a block
   int splits;          // items of a row block, splitting its chunks
-  int items;           // row blocks x splits
+  int items;           // row blocks (of every task) x splits
   int stages, group;   // ring slots; slots a group (the plan's)
+  // the task mode: x is the shared rows base; M merged rows a task
+  const bf16 *pre, *p2;   // [B*L][C], as base
+  const bf16 *mid, *bs;   // [T][B*L][8] rank rows, [T][C][8] scaled B
+  const float* coef;      // [T][B][2] drop-path coefficients (c1, c2)
+  int T, B, per_sample;   // tasks (1 in kernel 3), samples, rows a sample
 };
 
 struct Params {
@@ -269,17 +310,227 @@ __device__ __forceinline__ void slot_mma(float (*acc)[NT][4],
   }
 }
 
+// Kernel 3's LayerNorm pass: statistics and bf16(ln) in x's place, in one
+// pass: the warp's rows ni, ni + WN, .., RB at a time, a lane the 16-byte
+// pieces lane + 32 u of each, held in registers (a piece that no lane of
+// the warp holds is skipped as a whole).
+template <int RW, int RB, int UR, int WN>
+__device__ __forceinline__ void merge_ln(const Args& a, bf16* xt, int kp,
+                                         int ni) {
+  const int lane = lane_id(), K = a.K, P = K / 8;
+#pragma unroll 1
+  for (int r = ni; r < RW; r += RB * WN) {
+    uint4 v[RB][UR];
+    float mu[RB], inv[RB];
+#pragma unroll
+    for (int h = 0; h < RB; ++h) {
+      float s = 0.f, q = 0.f;
+#pragma unroll
+      for (int u = 0; u < UR; ++u) {
+        if (32 * u >= P) break;
+        const int pc = lane + 32 * u;
+        v[h][u] = make_uint4(0u, 0u, 0u, 0u);
+        if (pc < P)
+          v[h][u] = *reinterpret_cast<const uint4*>(
+              xt + tsw(r + WN * h, kp, 8 * pc));
+        const uint32_t e[4] = {v[h][u].x, v[h][u].y, v[h][u].z, v[h][u].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = unpack_bf2(e[j]);
+          s += f.x + f.y;
+          q += f.x * f.x + f.y * f.y;
+        }
+      }
+#pragma unroll
+      for (int o = 16; o; o >>= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+        q += __shfl_xor_sync(0xffffffffu, q, o);
+      }
+      mu[h] = s / K;
+      inv[h] = rsqrtf(q / K - mu[h] * mu[h] + kEps);
+    }
+#pragma unroll
+    for (int u = 0; u < UR; ++u) {
+      if (32 * u >= P) break;
+      const int pc = lane + 32 * u;
+      if (pc >= P) continue;
+      const uint4 gv = *reinterpret_cast<const uint4*>(a.gamma + 8 * pc);
+      const uint4 bv = *reinterpret_cast<const uint4*>(a.beta + 8 * pc);
+      const uint32_t ge[4] = {gv.x, gv.y, gv.z, gv.w};
+      const uint32_t be[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int h = 0; h < RB; ++h) {
+        uint32_t e[4] = {v[h][u].x, v[h][u].y, v[h][u].z, v[h][u].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = unpack_bf2(e[j]), gm = unpack_bf2(ge[j]),
+                       bt = unpack_bf2(be[j]);
+          e[j] = pack_bf2(ln_val(f.x, mu[h], inv[h], gm.x, bt.x),
+                          ln_val(f.y, mu[h], inv[h], gm.y, bt.y));
+        }
+        *reinterpret_cast<uint4*>(xt + tsw(r + WN * h, kp, 8 * pc)) =
+            make_uint4(e[0], e[1], e[2], e[3]);
+      }
+    }
+  }
+}
+
+// The task mode's LayerNorm pass: task t's rows row0 + r formed once, in
+// fp32, in the order of the plain version (task_streams; the rank term
+// summed over s in order, as 6b's dot8), from the shared rows, the rank
+// rows of their tokens and Bs_t staged at bs, and kept in registers for
+// the statistics and bf16(ln): the warp's rows ni, ni + WN, .., RB at a
+// time, a lane the pieces lane + 32 u (u < UT) of each (dt, cb: their
+// tokens from the row's first and columns of C). The loads of UC pieces of
+// the RB rows are issued before the first is used; a row past M reads row
+// M - 1, a piece past P piece P - 1, and both count as zero, so that no
+// branch splits the loops. Bs_t lies in the tile's last two rows of the
+// group: its warps meet before the last rows are written.
+template <int RW, int RB, int UT, int UC, int WN>
+__device__ __forceinline__ void task_ln(const Args& a, bf16* xt,
+                                        const bf16* bs, int t, int row0,
+                                        int mi, int ni, int kp,
+                                        const int (&dt)[UT],
+                                        const int (&cb)[UT]) {
+  static_assert(UT % UC == 0, "the pieces, UC at a time");
+  const int lane = lane_id(), K = a.K, C = a.C, M = a.M, P = K / 8;
+  const bf16* mid = a.mid + (size_t)t * 4 * M * tmk::S;   // B L = 4 M tokens
+  const float2* cf = reinterpret_cast<const float2*>(a.coef) + t * a.B;
+#pragma unroll 1
+  for (int r = ni; r < RW; r += RB * WN) {
+    float y[RB][UT][8], s[RB], q[RB];
+    float2 c[RB];
+    int tok0[RB];
+    bool in[RB];
+#pragma unroll
+    for (int h = 0; h < RB; ++h) {
+      // the row's first token 2 (2 rr Wh + j), m = rr Wh + j, and its
+      // sample's coefficients
+      const int m = row0 + r + WN * h, mc = min(m, M - 1);
+      in[h] = m < M;
+      tok0[h] = 2 * (mc / a.Wh * a.Wh + mc);
+      c[h] = cf[mc / a.per_sample];
+      s[h] = q[h] = 0.f;
+    }
+#pragma unroll
+    for (int u0 = 0; u0 < UT; u0 += UC) {
+      // base, pre, p2 and the rank row of each piece
+      uint4 v[RB][UC][4];
+#pragma unroll
+      for (int h = 0; h < RB; ++h)
+#pragma unroll
+        for (int j = 0; j < UC; ++j) {
+          const int tok = tok0[h] + dt[u0 + j];
+          const size_t o = (size_t)tok * C + cb[u0 + j];
+          v[h][j][0] = tmk::ld16(a.x + o);
+          v[h][j][1] = tmk::ld16(a.pre + o);
+          v[h][j][2] = tmk::ld16(a.p2 + o);
+          v[h][j][3] = tmk::ld16(mid + (size_t)tok * tmk::S);
+        }
+#pragma unroll
+      for (int h = 0; h < RB; ++h)
+#pragma unroll
+        for (int j = 0; j < UC; ++j) {
+          const int u = u0 + j, sw = cb[u] >> 3 & 7;
+          const bool on = in[h] && lane + 32 * u < P;
+          const uint32_t ev[4][4] = {
+              {v[h][j][0].x, v[h][j][0].y, v[h][j][0].z, v[h][j][0].w},
+              {v[h][j][1].x, v[h][j][1].y, v[h][j][1].z, v[h][j][1].w},
+              {v[h][j][2].x, v[h][j][2].y, v[h][j][2].z, v[h][j][2].w},
+              {v[h][j][3].x, v[h][j][3].y, v[h][j][3].z, v[h][j][3].w}};
+          float mf[tmk::S];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = unpack_bf2(ev[3][e]);
+            mf[2 * e] = f.x;
+            mf[2 * e + 1] = f.y;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 b = unpack_bf2(ev[0][e]), pp = unpack_bf2(ev[1][e]),
+                         qq = unpack_bf2(ev[2][e]);
+            float uu[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const uint4 bv =
+                  tmk::ld16(bs + tmk::S * (cb[u] + ((2 * e + i) ^ sw)));
+              const uint32_t be[4] = {bv.x, bv.y, bv.z, bv.w};
+              float acc = 0.f;
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const float2 f = unpack_bf2(be[k]);
+                acc += mf[2 * k] * f.x;
+                acc += mf[2 * k + 1] * f.y;
+              }
+              uu[i] = acc;
+            }
+            const float y0 = ((b.x + c[h].x * pp.x) + c[h].y * qq.x) + uu[0];
+            const float y1 = ((b.y + c[h].x * pp.y) + c[h].y * qq.y) + uu[1];
+            y[h][u][2 * e] = on ? y0 : 0.f;
+            y[h][u][2 * e + 1] = on ? y1 : 0.f;
+            s[h] += y[h][u][2 * e] + y[h][u][2 * e + 1];
+            q[h] += y[h][u][2 * e] * y[h][u][2 * e] +
+                    y[h][u][2 * e + 1] * y[h][u][2 * e + 1];
+          }
+        }
+    }
+    float mu[RB], inv[RB];
+#pragma unroll
+    for (int o = 16; o; o >>= 1)
+#pragma unroll
+      for (int h = 0; h < RB; ++h) {
+        s[h] += __shfl_xor_sync(0xffffffffu, s[h], o);
+        q[h] += __shfl_xor_sync(0xffffffffu, q[h], o);
+      }
+#pragma unroll
+    for (int h = 0; h < RB; ++h) {
+      mu[h] = s[h] / K;
+      inv[h] = rsqrtf(q[h] / K - mu[h] * mu[h] + kEps);
+    }
+    if (r + RB * WN >= RW) group_sync<WN>(mi);   // Bs_t is read
+#pragma unroll
+    for (int u = 0; u < UT; ++u) {
+      const int pc = lane + 32 * u, pcc = min(pc, P - 1);
+      const uint4 gv = *reinterpret_cast<const uint4*>(a.gamma + 8 * pcc);
+      const uint4 bv = *reinterpret_cast<const uint4*>(a.beta + 8 * pcc);
+      const uint32_t ge[4] = {gv.x, gv.y, gv.z, gv.w};
+      const uint32_t be[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int h = 0; h < RB; ++h) {
+        uint32_t e[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 gm = unpack_bf2(ge[j]), bt = unpack_bf2(be[j]);
+          e[j] = pack_bf2(
+              ln_val(y[h][u][2 * j], mu[h], inv[h], gm.x, bt.x),
+              ln_val(y[h][u][2 * j + 1], mu[h], inv[h], gm.y, bt.y));
+        }
+        if (pc < P)
+          *reinterpret_cast<uint4*>(xt + tsw(r + WN * h, kp, 8 * pc)) =
+              make_uint4(e[0], e[1], e[2], e[3]);
+      }
+    }
+  }
+}
+
 // MT m-tiles of 16 rows a warp (32 rows; 16 at BM = 16), WN warps a row
 // group: BM = 16 MT kWarps / WN rows a block; a warp takes 64 / WN columns
-// of each chunk, NT = 8 / WN n-tiles.
-template <int MT, int WN>
-__global__ void __launch_bounds__(kThreads, 1)
-    patch_merge_fwd_rows(const __grid_constant__ Params p) {
+// of each chunk, NT = 8 / WN n-tiles. UT > 0: kernel 6's rows (the task
+// mode, UT pieces of a row a lane), else kernel 3's.
+template <int MT, int WN, int UT>
+__device__ __forceinline__ void fwd_rows(const Params& p) {
   constexpr int RW = 16 * MT, NG = kWarps / WN, BM = RW * NG, NT = 8 / WN;
+  constexpr bool TASK = UT > 0;
   // the LayerNorm pass: pieces of a row a lane, rows at a time
   constexpr int UR = ur_of(BM), RB = UR <= 6 ? 4 : 1;
+  // the task mode's, whose rows' y a lane holds in fp32: rows at a time
+  // (as many as 168 registers a thread hold), pieces whose loads are
+  // issued together
+  constexpr int RT = UT <= 2 ? 4 : UT <= 3 ? 2 : 1, UC = 1;
+  constexpr int UA = TASK ? UT : 1;
   static_assert(NT >= 1 && 8 % WN == 0, "a warp's columns of a chunk");
   static_assert(RW % (RB * WN) == 0, "a warp's rows, RB at a time");
+  static_assert(!TASK || RW % (RT * WN) == 0, "task rows, RT at a time");
   extern __shared__ __align__(1024) unsigned char smem[];
   const Args& a = p.a;
   const int K = a.K, M = a.M, O = a.O, C = a.C;
@@ -295,7 +546,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // the plan's bytes (ops/ln_lora.py:merge_fwd_plan) must hold this layout
   if (ring.end(a.stages) - smem > (long)dynamic_smem_bytes() ||
       a.bm != BM || a.stages < 2 || a.group > kGroupMax ||
-      a.stages % a.group)
+      a.stages % a.group || (TASK && (K / 8 > 32 * UT || UT != ut_of(BM, K))))
     __trap();
   if (threadIdx.x == 0) ring.init(a.stages);
   __syncthreads();   // the block's one barrier: the mbarriers are set
@@ -344,76 +595,47 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     cp_async_commit();
   };
-  if (w.nitems > 0) load_rows(0);
+  // The task mode: item `it`'s Bs_t [C][8] into the row group's last two
+  // tile rows by cp.async, column c's 8 values at 16-byte position c ^
+  // (c / 8 % 8). Its LayerNorm pass: lane pieces lane + 32 u of a row, at
+  // dt[u] tokens from the row's first token and column cb[u] of C.
+  bf16* bsg = xt + (RW - 2) * kp;
+  auto load_bs = [&](int it) {
+    const int tk = w.item(it) / a.splits % a.T;
+    const bf16* src = a.bs + (size_t)tk * C * tmk::S;
+    for (int c = tau; c < C; c += 32 * WN)
+      cp_async16(bsg + tmk::S * (c ^ (c >> 3 & 7)), src + tmk::S * c, true);
+    cp_async_commit();
+  };
+  int dt[UA], cb[UA];
+#pragma unroll
+  for (int u = 0; u < UA; ++u) {
+    const int k = 8 * min(lane + 32 * u, P - 1), q = k / C;
+    dt[u] = (q & 1) * 2 * a.Wh + (q >> 1);
+    cb[u] = k - q * C;
+  }
+  auto load = [&](int it) {
+    if constexpr (TASK)
+      load_bs(it);
+    else
+      load_rows(it);
+  };
+  if (w.nitems > 0) load(0);
 
 #pragma unroll 1
   for (int it = 0; it < w.nitems; ++it) {
     const int item = w.item(it);
-    const int row0 = item / a.splits * BM + wr;
+    // the task mode's items: the T tasks of a row block, one after another
+    const int rbt = item / a.splits, tk = TASK ? rbt % a.T : 0;
+    const int row0 = (TASK ? rbt / a.T : rbt) * BM + wr;
     const int c0 = item % a.splits * w.nci;
     cp_async_wait<0>();
-    group_sync<WN>(mi);   // the group's rows are in
+    group_sync<WN>(mi);   // the group's rows (or Bs_t) are in
 
-    // ---- statistics and bf16(ln) in x's place, in one pass: the warp's
-    // rows ni, ni + WN, .., RB at a time, a lane the 16-byte pieces lane +
-    // 32 u of each, held in registers (a piece that no lane of the warp
-    // holds is skipped as a whole) -----------------------------------------
-#pragma unroll 1
-    for (int r = ni; r < RW; r += RB * WN) {
-      uint4 v[RB][UR];
-      float mu[RB], inv[RB];
-#pragma unroll
-      for (int h = 0; h < RB; ++h) {
-        float s = 0.f, q = 0.f;
-#pragma unroll
-        for (int u = 0; u < UR; ++u) {
-          if (32 * u >= P) break;
-          const int pc = lane + 32 * u;
-          v[h][u] = make_uint4(0u, 0u, 0u, 0u);
-          if (pc < P)
-            v[h][u] = *reinterpret_cast<const uint4*>(
-                xt + tsw(r + WN * h, kp, 8 * pc));
-          const uint32_t e[4] = {v[h][u].x, v[h][u].y, v[h][u].z,
-                                 v[h][u].w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float2 f = unpack_bf2(e[j]);
-            s += f.x + f.y;
-            q += f.x * f.x + f.y * f.y;
-          }
-        }
-#pragma unroll
-        for (int o = 16; o; o >>= 1) {
-          s += __shfl_xor_sync(0xffffffffu, s, o);
-          q += __shfl_xor_sync(0xffffffffu, q, o);
-        }
-        mu[h] = s / K;
-        inv[h] = rsqrtf(q / K - mu[h] * mu[h] + kEps);
-      }
-#pragma unroll
-      for (int u = 0; u < UR; ++u) {
-        if (32 * u >= P) break;
-        const int pc = lane + 32 * u;
-        if (pc >= P) continue;
-        const uint4 gv = *reinterpret_cast<const uint4*>(a.gamma + 8 * pc);
-        const uint4 bv = *reinterpret_cast<const uint4*>(a.beta + 8 * pc);
-        const uint32_t ge[4] = {gv.x, gv.y, gv.z, gv.w};
-        const uint32_t be[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int h = 0; h < RB; ++h) {
-          uint32_t e[4] = {v[h][u].x, v[h][u].y, v[h][u].z, v[h][u].w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float2 f = unpack_bf2(e[j]), gm = unpack_bf2(ge[j]),
-                         bt = unpack_bf2(be[j]);
-            e[j] = pack_bf2(ln_val(f.x, mu[h], inv[h], gm.x, bt.x),
-                            ln_val(f.y, mu[h], inv[h], gm.y, bt.y));
-          }
-          *reinterpret_cast<uint4*>(xt + tsw(r + WN * h, kp, 8 * pc)) =
-              make_uint4(e[0], e[1], e[2], e[3]);
-        }
-      }
-    }
+    if constexpr (TASK)
+      task_ln<RW, RT, UA, UC, WN>(a, xt, bsg, tk, row0, mi, ni, kp, dt, cb);
+    else
+      merge_ln<RW, RB, UR, WN>(a, xt, kp, ni);
     group_sync<WN>(mi);   // bf16(ln) whole
 
     // ---- passes of up to WN chunks: per slice of K the warp's A
@@ -454,7 +676,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       if (c1 + WN >= w.nci) {   // the item's tile is read
         group_sync<WN>(mi);
-        if (it + 1 < w.nitems) load_rows(it + 1);
+        if (it + 1 < w.nitems) load(it + 1);
       }
       // y to its rows, 4 bytes a lane (rows past M, columns past O not)
 #pragma unroll
@@ -467,7 +689,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             for (int h = 0; h < 2; ++h) {
               const int row = row0 + 16 * mt + g + 8 * h;
               if (row >= M) continue;
-              bf16* out = a.y + (size_t)row * O;
+              bf16* out = a.y + ((size_t)tk * M + row) * O;
 #pragma unroll
               for (int nt = 0; nt < NT; ++nt)
                 if (col0 + 8 * nt < O)
@@ -479,9 +701,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// The two modes' kernels: their own symbols, so that a trace tells them
+// apart (train/profile.py classifies kernels by name).
 template <int MT, int WN>
+__global__ void __launch_bounds__(kThreads, 1)
+    patch_merge_fwd_rows(const __grid_constant__ Params p) {
+  fwd_rows<MT, WN, 0>(p);
+}
+
+template <int MT, int WN, int UT>
+__global__ void __launch_bounds__(kThreads, 1)
+    task_merge_fwd_rows(const __grid_constant__ Params p) {
+  fwd_rows<MT, WN, UT>(p);
+}
+
+template <int MT, int WN, int UT = 0>
 cudaError_t launch(const Params& p, int blocks, int smem, cudaStream_t st) {
-  auto kern = patch_merge_fwd_rows<MT, WN>;
+  const auto kern = [] {
+    if constexpr (UT > 0)
+      return task_merge_fwd_rows<MT, WN, UT>;
+    else
+      return patch_merge_fwd_rows<MT, WN>;
+  }();
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -523,7 +764,7 @@ extern "C" int mtlora_merge_ln_fwd(const void* x, const void* gamma,
   if (misaligned(x) || misaligned(wt) || misaligned(gamma) ||
       misaligned(beta) || (uintptr_t)y % 4)
     return (int)cudaErrorMisalignedAddress;
-  Params p;
+  Params p{};
   Args& a = p.a;
   a.x = static_cast<const bf16*>(x);
   a.gamma = static_cast<const bf16*>(gamma);
@@ -539,6 +780,7 @@ extern "C" int mtlora_merge_ln_fwd(const void* x, const void* gamma,
   a.items = items;
   a.stages = stages;
   a.group = group;
+  a.T = 1;
   if (!encode_tiled()) return (int)cudaErrorNotSupported;
   if (!box_map(&p.w, wt, O, K)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -546,4 +788,75 @@ extern "C" int mtlora_merge_ln_fwd(const void* x, const void* gamma,
                : bm == 64 ? launch<2, 4>(p, blocks, smem, st)
                : bm == 32 ? launch<2, 8>(p, blocks, smem, st)
                           : launch<1, 8>(p, blocks, smem, st));
+}
+
+// Kernel 6, the task mode: base, pre, p2 [B*H*W, C] the shared rows; mid
+// [T, B*H*W, 8] the rank rows, their coefficients folded in; bs_cs [T, C,
+// 8] the scaled rank matrices (bf16); coef [T, B, 2] the drop-path
+// coefficients (fp32); gamma, beta [4C]; wt = W [O, 4C] in its module
+// layout -> y [T, B*H/2*W/2, O]. C % 16 == 0 and K = 4C up to kMaxKTask,
+// O % 16 == 0, even H and W. bm (128, 64 or 32 rows a block), splits,
+// blocks (at most the items: T ceil(M / bm) splits), stages, group and
+// smem are the caller's launch plan (ops/task_merge.py:
+// task_merge_fwd_plan, kernel 3's at those rows); the kernel traps if smem
+// does not hold its layout.
+extern "C" int mtlora_task_merge_fwd(const void* base, const void* pre,
+                                     const void* p2, const void* mid,
+                                     const void* bs_cs, const void* coef,
+                                     const void* gamma, const void* beta,
+                                     const void* wt, void* y, int T, int B,
+                                     int H, int W, int C, int O, int bm,
+                                     int splits, int blocks, int stages,
+                                     int group, int smem, void* stream) {
+  const int K = 4 * C, nch = (O + kS - 1) / kS;
+  const int per_sample = (H / 2) * (W / 2), M = B * per_sample;
+  const bool rows = bm == 128 || bm == 64 || bm == 32;
+  const int items = rows ? (M + bm - 1) / bm * T * splits : 0;
+  if (T < 1 || B < 1 || H < 2 || H % 2 || W < 2 || W % 2 || C < 16 ||
+      C % 16 || K > kMaxKTask || O < 16 || O % 16 || !rows ||
+      K / 8 > 32 * ut_of(bm, K) || splits < 1 || nch % splits ||
+      blocks < 1 || blocks > items || group < 1 || group > kGroupMax ||
+      stages % group || stages < 2 * group)
+    return (int)cudaErrorInvalidValue;
+  // 16-byte loads of the shared and rank rows, copies of Bs, TMA boxes of
+  // W, 16-byte reads of gamma and beta, 8-byte reads of the coefficients,
+  // 4-byte stores of y
+  if (misaligned(base) || misaligned(pre) || misaligned(p2) ||
+      misaligned(mid) || misaligned(bs_cs) || (uintptr_t)coef % 8 ||
+      misaligned(wt) || misaligned(gamma) || misaligned(beta) ||
+      (uintptr_t)y % 4)
+    return (int)cudaErrorMisalignedAddress;
+  Params p{};
+  Args& a = p.a;
+  a.x = static_cast<const bf16*>(base);
+  a.pre = static_cast<const bf16*>(pre);
+  a.p2 = static_cast<const bf16*>(p2);
+  a.mid = static_cast<const bf16*>(mid);
+  a.bs = static_cast<const bf16*>(bs_cs);
+  a.coef = static_cast<const float*>(coef);
+  a.gamma = static_cast<const bf16*>(gamma);
+  a.beta = static_cast<const bf16*>(beta);
+  a.y = static_cast<bf16*>(y);
+  a.M = M;
+  a.C = C;
+  a.K = K;
+  a.O = O;
+  a.Wh = W / 2;
+  a.bm = bm;
+  a.splits = splits;
+  a.items = items;
+  a.stages = stages;
+  a.group = group;
+  a.T = T;
+  a.B = B;
+  a.per_sample = per_sample;
+  if (!encode_tiled()) return (int)cudaErrorNotSupported;
+  if (!box_map(&p.w, wt, O, K)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ut = ut_of(bm, K);
+  return (int)(ut == 2   ? launch<2, 2, 2>(p, blocks, smem, st)
+               : ut == 3 ? launch<2, 2, 3>(p, blocks, smem, st)
+               : ut == 4 ? launch<2, 4, 4>(p, blocks, smem, st)
+               : ut == 6 ? launch<2, 4, 6>(p, blocks, smem, st)
+                         : launch<2, 8, 8>(p, blocks, smem, st));
 }

@@ -962,12 +962,14 @@ MERGE_FWD_ITEM_COST = 2  # an item's rows, statistics and bf16(ln), in chunks
 
 
 class MergeFwdPlan(NamedTuple):
-    """Launch plan of kernel 3 (``csrc/merge_ln_fwd.cu``): rows per block,
-    the warps of a row group (each taking 64 / wn columns of each chunk),
-    the items of a row block that split its 64-column output chunks, the
-    items (row blocks x splits), blocks an SM, the TMA ring's slots and
-    slots a group, dynamic shared-memory bytes, the bytes of W's slots the
-    blocks stream from L2, and the blocks (each taking items in turn)."""
+    """Launch plan of kernel 3 (``csrc/merge_ln_fwd.cu``; also of its task
+    mode, kernel 6: ``ops/task_merge.py:task_merge_fwd_plan``): rows per
+    block, the warps of a row group (each taking 64 / wn columns of each
+    chunk), the items of a row block that split its 64-column output
+    chunks, the items (row blocks x splits), blocks an SM, the TMA ring's
+    slots and slots a group, dynamic shared-memory bytes, the bytes of W's
+    slots the blocks stream from L2, and the blocks (each taking items in
+    turn)."""
 
     bm: int
     wn: int
@@ -1022,14 +1024,26 @@ def merge_fwd_plan(M: int, K: int, O: int, Wh: int, sms: int
             break
     else:
         raise ValueError(f"patch merge forward kernel: no plan for K = {K}")
+    return merge_fwd_items(MergeFwdPlan(bm, wn, 0, 0, 1, stages, group,
+                                        fixed + ring_bytes(stages), 0, 0),
+                           -(-M // bm), K, O, sms)
+
+
+def merge_fwd_items(layout: MergeFwdPlan, rows: int, K: int, O: int,
+                    sms: int) -> MergeFwdPlan:
+    """``layout`` (rows a block, the ring, shared memory) with its items
+    for ``rows`` row blocks: the split of a row block's chunks that takes
+    the fewest rounds of items over the SMs times chunks an item (plus
+    ``MERGE_FWD_ITEM_COST``), the bytes of W's slots (each item streams its
+    chunks' slices of K once) and the persistent blocks."""
     nch = -(-O // MERGE_FWD_CHUNK)
-    ncs = kp // MERGE_FWD_CHUNK
-    rows = -(-M // bm)
+    ncs = -(-K // MERGE_FWD_CHUNK)
     splits = min((-(-rows * s // sms) * (nch // s + MERGE_FWD_ITEM_COST), s)
                  for s in range(1, nch + 1) if nch % s == 0)[1]
-    return MergeFwdPlan(bm, wn, splits, rows * splits, 1, stages, group,
-                        fixed + ring_bytes(stages), rows * nch * ncs * slot,
-                        min(rows * splits, sms))
+    return layout._replace(
+        splits=splits, items=rows * splits,
+        slice_bytes=rows * nch * ncs * 2 * MERGE_FWD_CHUNK ** 2,
+        blocks=min(rows * splits, sms))
 
 
 def merge_ln_fwd_kernel(x, gamma, beta, wt, H: int, W: int):

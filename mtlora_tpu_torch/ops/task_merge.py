@@ -28,6 +28,12 @@ coefficients take no gradient; the chain rule back through ``midc`` and
 ``Bs`` is plain torch, as the JAX package leaves it to XLA. Every output is
 in the compute dtype (the dtype of ``base``), as on the expand-then-merge
 route.
+
+Kernel 6 is the task mode of kernel 3's forward (``csrc/merge_ln_fwd.cu``,
+its own symbol ``task_merge_fwd_rows``; its plan
+:func:`task_merge_fwd_plan`); kernel 6b is ``csrc/task_merge_bwd.cu``
+(:func:`task_merge_bwd_plan`). Both form each task's rows from the shared
+rows on the chip (``csrc/task_merge.cuh``).
 """
 
 from __future__ import annotations
@@ -41,11 +47,14 @@ from mtlora_tpu_torch.ops.ln_lora import (
     ROW_TILE,
     SM_SMEM,
     SMEM_LIMIT,
+    MergeFwdPlan,
     _acc,
     _sms,
     _stream,
     layer_norm_bwd,
     layer_norm_parts,
+    merge_fwd_items,
+    merge_fwd_plan,
     merge_rows,
     stripes_for,
     unmerge_rows,
@@ -227,25 +236,66 @@ def _kernel_operands(name, base, pre, p2, mid1T, b1, mid2T, b2, c1, c2, s1,
             bs.transpose(1, 2).contiguous(), coef, T, Bn, L, C, O)
 
 
+# the task mode of csrc/merge_ln_fwd.cu (kernel 6): its widest merged row
+# (kMaxKTask), whose y a lane holds in fp32, and the rows a block it takes
+# of kernel 3's plans
+TM_FWD_MAX_K = 2048
+TM_FWD_ROWS = (128, 64, 32)
+
+
+def task_merge_fwd_plan(T: int, Mm: int, K: int, O: int, Wh: int,
+                        per_sample: int, sms: int) -> MergeFwdPlan:
+    """Kernel 6's plan for T tasks of Mm merged rows of K = 4C columns (the
+    shared rows gathered 2x2, Wh merged rows a row of the merged grid,
+    ``per_sample`` merged rows a sample) -> O on a card of ``sms`` SMs:
+    kernel 3's layout at K (:func:`merge_fwd_plan`: rows a block, the TMA
+    ring and the shared-memory bytes, Bs_t staged in the tile), its items
+    a row block of one task, the T tasks of a row block adjacent, so that
+    each W slot serves a block's rows of one task. The last row block of
+    each task masks the rows past Mm."""
+    if (T < 1 or K % 64 or not 64 <= K <= TM_FWD_MAX_K or O % 16 or O < 16
+            or Wh < 1 or per_sample < 1 or per_sample % Wh or Mm < 1
+            or Mm % per_sample):
+        raise ValueError(f"task merge forward kernel: needs T >= 1 ({T}), "
+                         f"C % 16 == 0 and K = 4C <= {TM_FWD_MAX_K} ({K}), "
+                         f"O % 16 == 0 ({O}) and whole samples of "
+                         f"{per_sample} merged rows in rows of Wh = {Wh} "
+                         f"({Mm} rows)")
+    layout = merge_fwd_plan(Mm, K, O, Wh, sms)
+    assert layout.bm in TM_FWD_ROWS
+    return merge_fwd_items(layout, T * -(-Mm // layout.bm), K, O, sms)
+
+
+def task_merge_fwd_kernel(base, pre, p2, mid1T, b1, mid2T, b2, c1, c2, s1,
+                          s2, gamma, beta, wt, H: int, W: int):
+    """The CUDA route of :func:`task_merge_fwd` at the launch of
+    :func:`task_merge_fwd_plan`, W read in its module layout; raises for
+    anything it does not take (a CPU tensor included)."""
+    mid_tok, bs_cs, coef, T, Bn, L, C, O = _kernel_operands(
+        "task merge forward", base, pre, p2, mid1T, b1, mid2T, b2, c1, c2,
+        s1, s2, gamma, beta, wt, H, W)
+    plan = task_merge_fwd_plan(T, Bn * L // 4, 4 * C, O, W // 2,
+                               (H // 2) * (W // 2), _sms(base.device))
+    y = torch.empty((T, Bn, L // 4, O), dtype=base.dtype, device=base.device)
+    err = _build.library().mtlora_task_merge_fwd(
+        *(t.data_ptr() for t in (base, pre, p2, mid_tok, bs_cs, coef, gamma,
+                                 beta, wt, y)),
+        T, Bn, H, W, C, O, plan.bm, plan.splits, plan.blocks, plan.stages,
+        plan.group, plan.smem, _stream(base))
+    _build.check(err, "mtlora_task_merge_fwd")
+    task_merge_fwd.launches += 1
+    return y
+
+
 def task_merge_fwd(base, pre, p2, mid1T, b1, mid2T, b2, c1, c2, s1, s2,
                    gamma, beta, wt, H: int, W: int):
-    """Kernel 6 forward, no autograd: plain for CPU tensors, the kernel for
-    CUDA tensors (bf16, r1 + r2 == 8)."""
+    """Kernel 6 forward, no autograd: plain for CPU tensors,
+    :func:`task_merge_fwd_kernel` for CUDA tensors."""
     args = (base, pre, p2, mid1T, b1, mid2T, b2, c1, c2, s1, s2, gamma,
             beta, wt, H, W)
     if base.device.type == "cpu":
         return task_merge_plain(*args)
-    mid_tok, bs_cs, coef, T, Bn, L, C, O = _kernel_operands(
-        "task merge forward", *args)
-    y = torch.empty((T, Bn, L // 4, O), dtype=base.dtype, device=base.device)
-    err = _build.library().mtlora_task_merge_fwd(
-        base.data_ptr(), pre.data_ptr(), p2.data_ptr(), mid_tok.data_ptr(),
-        bs_cs.data_ptr(), coef.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), wt.data_ptr(), y.data_ptr(), T, Bn, H, W, C, O,
-        _stream(base))
-    _build.check(err, "mtlora_task_merge_fwd")
-    task_merge_fwd.launches += 1
-    return y
+    return task_merge_fwd_kernel(*args)
 
 
 # the constants of csrc/task_merge_bwd.cu that its plan sizes shared

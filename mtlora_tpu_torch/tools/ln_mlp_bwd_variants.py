@@ -3,11 +3,12 @@ checkouts (and, with ``--checks``, any kernel: kernel 2's and 2b's
 variants at the qkv sites, ``qkv-fwd-*`` and ``qkv-*``, run with
 ``--checks check_ln_lora``, kernel 2-tail's, ``tail-fwd-*``, with
 ``--checks check_ln_lora_tail``, kernels 3's and 3b's, ``merge-fwd-*`` and
-``merge-*``, with ``--checks check_merge``).
+``merge-*``, with ``--checks check_merge``, kernel 6's, ``task-merge-fwd-*``,
+with ``--checks check_task_merge``).
 
     python -m mtlora_tpu_torch.tools.ln_mlp_bwd_variants
         [--variants NAME,...] [--against DIR ...] [--checks FUNC,...]
-        [--time-qkv | --time-merge] [--passes 2]
+        [--time-qkv | --time-merge | --time-task-merge] [--passes 2]
 
 The trees: this checkout; one copy of its ``mtlora_tpu_torch`` per
 variant, with that variant's edits of ``VARIANTS`` applied (under
@@ -30,8 +31,9 @@ launches), and prints one JSON line: the ms per stage, their sums per
 pass (stage 2 has five no-task blocks) and the card; each tree's build
 prints the registers and spills that ptxas reported for the instances of
 kernel 4, of the LN-family backward row kernels (4b, 2b, 3b, 6b), of
-kernel 6's forward and of the attention backward (kernels 1b and 1c). The edits of ``VARIANTS``
-reach either kernel's source and plan (and 2b's, 2-tail's, 3's, 3b's). With
+kernels 3 and 6 (one body) and of the attention backward (kernels 1b and
+1c). The edits of ``VARIANTS`` reach either kernel's source and plan (and
+2b's, 2-tail's, 3's, 3b's, 6's). With
 ``--checks`` it runs those ``check_*`` functions of its tree's
 ``chip_smoke.py`` instead (the phase 3/3b rows of other kernels) and
 prints their sums and, per line of theirs that names a kernel time
@@ -45,7 +47,9 @@ of ``PARTS`` (kernel 2's qkv mode with a part of its work taken out) run
 beside it: where the time of a stage goes. With ``--time-merge`` each
 tree times kernel 3 at the three merges for L = 32 and 128, unchecked, so
 that the trees of ``PARTS`` with a part of kernel 3 taken out run beside
-it.
+it; with ``--time-task-merge``, kernel 6 at its three merges (four tasks,
+batch 32) and at ``chip_smoke.py``'s coverage shapes, beside the trees of
+``PARTS`` with a part of kernel 6 taken out.
 
 This file imports only torch and the standard library at the top: a
 process of another tree imports that tree's package, never this one's.
@@ -163,6 +167,29 @@ struct RefillRing {
 };
 
 """
+
+# the first lines of kernel 3's LayerNorm pass (merge_ln) and of its task
+# mode's (task_ln, kernel 6)
+MERGE_LN_LOOP = ("K = a.K, P = K / 8;\n#pragma unroll 1\n"
+                 "  for (int r = ni; r < RW; r += RB * WN) {")
+TASK_LN_LOOP = ("M = a.M, P = K / 8;\n"
+                "  const bf16* mid = a.mid")
+TASK_LN_OFF = (TASK_LN_LOOP, TASK_LN_LOOP.replace(
+    "  const bf16* mid", "  if (a.M > 0) return;\n  const bf16* mid"))
+# kernel 6: the rows a warp forms at a time in its LayerNorm pass
+TASK_RT = "RT = UT <= 2 ? 4 : UT <= 3 ? 2 : 1,"
+# kernel 6: the loads of a row's shared and rank rows
+TASK_ROWS = "          const int tok = tok0[h] + dt[u0 + j];"
+# the products and the stores of kernels 3 and 6 (one body)
+PRODUCTS = ("ring.next<WN>(p, w);\n            slot_mma<MT, NT, KS>",
+            "ring.next<WN>(p, w);\n            if (a.M < 0) slot_mma<MT, NT, KS>")
+STORES = ("              if (row >= M) continue;",
+          "              if (row >= M || a.M > 0) continue;")
+
+
+def _fwd(*edits):
+    return [("ops/csrc/merge_ln_fwd.cu", old, new) for old, new in edits]
+
 
 # name -> edits (file under mtlora_tpu_torch/, text, replacement); each
 # text occurs exactly once in this checkout
@@ -409,6 +436,35 @@ VARIANTS = {
          "      for (int cs0 = 0; cs0 < w.ncs; ++cs0) {\n"
          "        const int cs = (cs0 + (int)blockIdx.x) % w.ncs;\n"
          "        if (ksteps(K, cs) == 4)")],
+    # kernel 6: the rows' y of two rows a warp at a time in the LayerNorm
+    # pass at two or three pieces a lane (K up to 768), in place of four
+    # and two
+    "task-merge-fwd-ln-rows-2": _fwd((TASK_RT, "RT = UT <= 3 ? 2 : 1,")),
+    # kernel 6: one row at a time
+    "task-merge-fwd-ln-rows-1": _fwd((TASK_RT, "RT = 1,")),
+    # kernel 6: two rows at a time up to six pieces a lane (K up to 1536)
+    "task-merge-fwd-ln-rows-2-wide": _fwd(
+        (TASK_RT, "RT = UT <= 2 ? 4 : UT <= 6 ? 2 : 1,")),
+    # kernel 6: the loads of up to four pieces of the rows issued at once,
+    # in place of one piece's
+    "task-merge-fwd-loads-all": _fwd(
+        ("UC = 1;", "UC = UT <= 4 ? UT : UT / 2;")),
+    # kernel 6: the items task by task (every row block of task 0, then of
+    # task 1, ..), in place of the T tasks of a row block one after another
+    # (a row block's shared rows then come from HBM T times at stage 0)
+    "task-merge-fwd-task-major": _fwd(
+        ("    const int tk = w.item(it) / a.splits % a.T;",
+         "    const int tk = w.item(it) / a.splits / ((M + BM - 1) / BM);"),
+        ("    const int rbt = item / a.splits, tk = TASK ? rbt % a.T : 0;\n"
+         "    const int row0 = (TASK ? rbt / a.T : rbt) * BM + wr;",
+         "    const int nrb = (M + BM - 1) / BM, rbt = item / a.splits;\n"
+         "    const int tk = TASK ? rbt / nrb : 0;\n"
+         "    const int row0 = (TASK ? rbt % nrb : rbt) * BM + wr;")),
+    # kernel 6 (and 3): 64 rows a block at most, W's slots streamed twice
+    # as often at the first two merges
+    "task-merge-fwd-rows-64": [
+        ("ops/ln_lora.py", "MERGE_FWD_ROWS = {128: 2, 64: 4, 32: 8, 16: 8}",
+         "MERGE_FWD_ROWS = {64: 4, 32: 8, 16: 8}")],
     # kernel 3: one item a row block, however few the row blocks
     "merge-fwd-no-split": [
         ("ops/ln_lora.py", "for s in range(1, nch + 1) if nch % s == 0)[1]",
@@ -884,8 +940,8 @@ VARIANTS = {
 }
 
 # name -> edits that take a part of kernel 2's qkv mode (run with
-# --time-qkv) or of kernel 3 (--time-merge) out, its output then wrong by
-# design: those modes time and never check
+# --time-qkv), of kernel 3 (--time-merge) or of kernel 6 (--time-task-merge)
+# out, its output then wrong by design: those modes time and never check
 PARTS = {
     # kernel 3: the products (the slots still arrive and are handed back)
     "merge-fwd-without-products": [
@@ -899,9 +955,8 @@ PARTS = {
          "        if (pc < P && a.M < 0)\n          cp_async16(")],
     # kernel 3: the statistics and bf16(ln) pass
     "merge-fwd-without-ln": [
-        ("ops/csrc/merge_ln_fwd.cu",
-         "    for (int r = ni; r < RW; r += RB * WN) {",
-         "    for (int r = ni; r < RW && a.M < 0; r += RB * WN) {")],
+        ("ops/csrc/merge_ln_fwd.cu", MERGE_LN_LOOP,
+         MERGE_LN_LOOP.replace("r < RW;", "r < RW && a.M < 0;"))],
     # kernel 3: y's stores
     "merge-fwd-without-stores": [
         ("ops/csrc/merge_ln_fwd.cu",
@@ -912,9 +967,8 @@ PARTS = {
         ("ops/csrc/merge_ln_fwd.cu",
          "        if (pc < P)\n          cp_async16(",
          "        if (pc < P && a.M < 0)\n          cp_async16("),
-        ("ops/csrc/merge_ln_fwd.cu",
-         "    for (int r = ni; r < RW; r += RB * WN) {",
-         "    for (int r = ni; r < RW && a.M < 0; r += RB * WN) {"),
+        ("ops/csrc/merge_ln_fwd.cu", MERGE_LN_LOOP,
+         MERGE_LN_LOOP.replace("r < RW;", "r < RW && a.M < 0;")),
         ("ops/csrc/merge_ln_fwd.cu",
          "ring.next<WN>(p, w);\n            slot_mma<MT, NT, KS>",
          "ring.next<WN>(p, w);\n            if (a.M < 0) slot_mma<MT, NT, KS>"),
@@ -927,9 +981,8 @@ PARTS = {
         ("ops/csrc/merge_ln_fwd.cu",
          "        if (pc < P)\n          cp_async16(",
          "        if (pc < P && a.M < 0)\n          cp_async16("),
-        ("ops/csrc/merge_ln_fwd.cu",
-         "    for (int r = ni; r < RW; r += RB * WN) {",
-         "    for (int r = ni; r < RW && a.M < 0; r += RB * WN) {"),
+        ("ops/csrc/merge_ln_fwd.cu", MERGE_LN_LOOP,
+         MERGE_LN_LOOP.replace("r < RW;", "r < RW && a.M < 0;")),
         ("ops/csrc/merge_ln_fwd.cu",
          "              if (row >= M) continue;",
          "              if (row >= M || a.M > 0) continue;"),
@@ -949,12 +1002,24 @@ PARTS = {
         ("ops/csrc/merge_ln_fwd.cu",
          "        if (pc < P)\n          cp_async16(",
          "        if (pc < P && a.M < 0)\n          cp_async16("),
-        ("ops/csrc/merge_ln_fwd.cu",
-         "    for (int r = ni; r < RW; r += RB * WN) {",
-         "    for (int r = ni; r < RW && a.M < 0; r += RB * WN) {"),
+        ("ops/csrc/merge_ln_fwd.cu", MERGE_LN_LOOP,
+         MERGE_LN_LOOP.replace("r < RW;", "r < RW && a.M < 0;")),
         ("ops/csrc/merge_ln_fwd.cu",
          "              if (row >= M) continue;",
          "              if (row >= M || a.M > 0) continue;")],
+    # kernel 6: the products (the slots still arrive and are handed back)
+    "task-merge-fwd-without-products": _fwd(PRODUCTS),
+    # kernel 6: the loads of the rows' shared and rank rows (y formed from
+    # whatever the registers hold, its statistics and bf16(ln) still taken)
+    "task-merge-fwd-without-rows": _fwd(
+        (TASK_ROWS, "          if (a.M > 0) continue;\n"
+                    "          const int tok = dt[u0 + j] + tok0[h];")),
+    # kernel 6: the whole LayerNorm pass (rows, statistics, bf16(ln))
+    "task-merge-fwd-without-ln": _fwd(TASK_LN_OFF),
+    # kernel 6: y's stores
+    "task-merge-fwd-without-stores": _fwd(STORES),
+    # kernel 6: the ring alone (no LayerNorm pass, products or stores)
+    "task-merge-fwd-ring-only": _fwd(TASK_LN_OFF, PRODUCTS, STORES),
     # the chunk products (W's and B's MMAs and their B fragments)
     "qkv-fwd-without-products": [
         ("ops/csrc/ln_lora_tail_fwd.cu",
@@ -1079,17 +1144,17 @@ def _errors(got, want, names=NAMES) -> list:
 
 def _ptxas(log: str) -> dict:
     """Registers and spill bytes of every instance of kernel 4, of the
-    LN-family forward kernels (2, 2-tail and 3: ``patch_merge_fwd_rows``)
-    and backward row kernels
-    (4b, 2b in both modes, 3b: ``patch_merge_bwd_rows``, and
-    ``merge_ln_bwd_rows`` in checkouts before it; 6b), of kernel 6's
-    forward and of the attention backward (kernels 1b and 1c's)."""
+    LN-family forward kernels (2, 2-tail, 3: ``patch_merge_fwd_rows``, and
+    its task mode, kernel 6: ``task_merge_fwd_rows``) and backward row
+    kernels (4b, 2b in both modes, 3b: ``patch_merge_bwd_rows``, and
+    ``merge_ln_bwd_rows`` in checkouts before it; 6b) and of the attention
+    backward (kernels 1b and 1c's)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S*(?:ln_mlp_fwd_kernel|"
                       r"ln_mlp_bwd_rows|window_attn_bwd_kernel|ln_lora_\w*"
                       r"bwd_rows|merge_\w*bwd_rows|ln_lora_\w*fwd_kernel|"
-                      r"patch_merge_fwd_rows|task_merge_fwd_kernel)"
+                      r"patch_merge_fwd_rows|task_merge_fwd_rows)"
                       r"\S*)", line)
         if m:
             name = m[1]
@@ -1187,7 +1252,98 @@ def time_merge(rec: dict):
         del x, ops
 
 
-def worker(tree: str, checks: str, qkv: bool = False, merge: bool = False):
+# kernel 6's merges of the batch-32 step, then chip_smoke.py's coverage
+# shapes (path B's 14 -> 7, Swin-B's K = 2048, the batch-2 step's ragged
+# 392 rows, six tasks): (T, B, res, C) of the task streams [T, B, res^2, C]
+TASK_MERGE_SHAPES = (tuple((4, 32, 112 // 2 ** s, 96 * 2 ** s)
+                           for s in range(3))
+                     + ((4, 32, 14, 384), (4, 32, 28, 512), (4, 2, 28, 384),
+                        (6, 32, 28, 384)))
+
+
+def device_ms(fn, key: str, calls: int = 5) -> float:
+    """Device ms a call of ``fn`` in the kernels whose name holds ``key``,
+    from a ``torch.profiler`` trace of ``calls`` calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if str(e.device_type).endswith("CUDA") and key in e.name
+               ) / 1e3 / calls
+
+
+def host_ms(fn, calls: int = 20) -> float:
+    """Host ms a call of ``fn``: the time to enqueue ``calls`` calls on an
+    idle card (the card's work queues, the host does not wait on it)."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
+def time_task_merge(rec: dict):
+    """Kernel 6 at ``TASK_MERGE_SHAPES``: ms a merge of the tree's
+    ``task_merge_fwd`` (CUDA events, its operand preparation and host time
+    included), the kernel's own device ms and the wrapper's host ms
+    (drop-path coefficients on, scales 4; no checks: a tree of PARTS
+    computes a wrong y)."""
+    import torch
+    from mtlora_tpu_torch.ops import task_merge
+    from mtlora_tpu_torch.tools import median_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for key in ("task_merge_ms", "task_merge_device_ms",
+                "task_merge_host_ms"):
+        rec[key] = []
+
+    def uniform(shape, bound):
+        return ((torch.rand(shape, generator=gen, device="cuda") * 2 - 1)
+                * bound).to(torch.bfloat16)
+
+    for T, B, res, C in TASK_MERGE_SHAPES:
+        L, K, O = res * res, 4 * C, 2 * C
+        base, pre, p2 = (torch.randn(B, L, C, generator=gen, device="cuda")
+                         .to(torch.bfloat16) for _ in range(3))
+        mid1T, mid2T = ((0.5 * torch.randn(T, 4, B * L, generator=gen,
+                                           device="cuda")).to(torch.bfloat16)
+                        for _ in range(2))
+        b1, b2 = uniform((T, 4, C), 0.1), uniform((T, 4, C), 0.1)
+        c1, c2 = ((torch.rand(T, B, generator=gen, device="cuda") < 0.9)
+                  .float() / 0.9 for _ in range(2))
+        gamma = (0.9 + 0.2 * torch.rand(K, generator=gen, device="cuda"))
+        beta = 0.02 * torch.randn(K, generator=gen, device="cuda")
+        args = (base, pre, p2, mid1T, b1, mid2T, b2, c1, c2, (4.0,) * T,
+                (4.0,) * T, gamma.to(torch.bfloat16), beta.to(torch.bfloat16),
+                uniform((O, K), K ** -0.5), res, res)
+        rec["task_merge_ms"].append(median_ms(
+            lambda: task_merge.task_merge_fwd(*args)))
+        rec["task_merge_device_ms"].append(device_ms(
+            lambda: task_merge.task_merge_fwd(*args), "task_merge_fwd"))
+        rec["task_merge_host_ms"].append(host_ms(
+            lambda: task_merge.task_merge_fwd(*args)))
+        del base, pre, p2, mid1T, mid2T, args
+
+
+TIMERS = {"qkv": time_qkv, "merge": time_merge,
+          "task_merge": time_task_merge}
+
+
+def worker(tree: str, checks: str, timer: str = ""):
     import torch
     from mtlora_tpu_torch.ops import _build, ln_mlp
     from mtlora_tpu_torch.tools import card_line, median_ms
@@ -1195,8 +1351,8 @@ def worker(tree: str, checks: str, qkv: bool = False, merge: bool = False):
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.library()
     rec = {"tree": tree, "card": card_line()}
-    if qkv or merge:
-        (time_qkv if qkv else time_merge)(rec)
+    if timer:
+        TIMERS[timer](rec)
         print(json.dumps(rec), flush=True)
         return
     if checks:
@@ -1244,14 +1400,12 @@ def worker(tree: str, checks: str, qkv: bool = False, merge: bool = False):
 # The parent process: every tree in turn
 # ---------------------------------------------------------------------------
 
-def _run(name: str, root: Path, checks: str, qkv: bool,
-         merge: bool) -> dict:
+def _run(name: str, root: Path, checks: str, timer: str) -> dict:
     env = dict(os.environ, PYTHONPATH=str(root))
     proc = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), "--worker", name,
          *(["--checks", checks] if checks else []),
-         *(["--time-qkv"] if qkv else []),
-         *(["--time-merge"] if merge else [])],
+         *([f"--time-{timer.replace('_', '-')}"] if timer else [])],
         cwd=root, env=env, capture_output=True, text=True)
     sys.stdout.write(proc.stdout)
     if proc.returncode != 0:
@@ -1264,8 +1418,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", default="",
                     help=f"comma-separated, of {sorted(VARIANTS)} (and, "
-                         f"with --time-qkv or --time-merge, of "
-                         f"{sorted(PARTS)})")
+                         f"with --time-qkv, --time-merge or "
+                         f"--time-task-merge, of {sorted(PARTS)})")
     ap.add_argument("--against", action="append", default=[],
                     help="root of another checkout (repeatable; named by "
                          "its directory)")
@@ -1277,6 +1431,9 @@ def main():
     ap.add_argument("--time-merge", action="store_true",
                     help="time kernel 3 at the merges in each tree, "
                          "unchecked (the trees of PARTS)")
+    ap.add_argument("--time-task-merge", action="store_true",
+                    help="time kernel 6 at the merges in each tree, "
+                         "unchecked (the trees of PARTS)")
     ap.add_argument("--passes", type=int, default=2)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--build", action="store_true", help=argparse.SUPPRESS)
@@ -1284,8 +1441,9 @@ def main():
     if a.build:
         build()
         return
+    timer = next((k for k in TIMERS if getattr(a, f"time_{k}")), "")
     if a.worker:
-        worker(a.worker, a.checks, a.time_qkv, a.time_merge)
+        worker(a.worker, a.checks, timer)
         return
     import torch
     if not torch.cuda.is_available():
@@ -1312,14 +1470,15 @@ def main():
     results = {}
     for name, root in order:
         results.setdefault(name, []).append(_run(name, root, a.checks,
-                                                 a.time_qkv, a.time_merge))
+                                                 timer))
     summary = {}
     for name, recs in results.items():
         if a.time_qkv:
             summary[name] = {k: [r[k] for r in recs] for k in (
                 "qkv_ms", "qkv_ms_no_dropout", "tail_mode_ms")}
-        elif a.time_merge:
-            summary[name] = {"merge_ms": [r["merge_ms"] for r in recs]}
+        elif timer:
+            summary[name] = {k: [r[k] for r in recs] for k in recs[0]
+                             if k.startswith(timer) and k.endswith("_ms")}
         elif a.checks:
             summary[name] = {fn: {k: [r["checks"][fn][k]["ms"] for r in recs]
                                   for k in recs[0]["checks"][fn]}
@@ -1335,7 +1494,7 @@ def main():
                 "failed": recs[0]["failed"]}
     print(json.dumps({"summary": summary,
                       "card": results["this"][0]["card"]}))
-    if not (a.checks or a.time_qkv or a.time_merge) and any(
+    if not (a.checks or timer) and any(
             r["failed"] for recs in results.values() for r in recs):
         raise SystemExit("ln_mlp_bwd_variants: a tree's kernel 4 or 4b "
                          "missed its bounds")

@@ -38,7 +38,7 @@ CLASSES: List[Tuple[str, Tuple[str, ...]]] = [
      ("ln_lora_tail_bwd_rows",)),
     ("adapter MLP-tail kernel 5 (fwd)", ("adapter_mid_fwd",)),
     ("adapter MLP-tail kernel 5b (bwd rows, weights)", ("adapter_mid_bwd",)),
-    ("task-merge kernel 6 (fwd)", ("task_merge_fwd",)),
+    ("task-merge kernel 6 (fwd)", ("task_merge_fwd_rows",)),
     ("task-merge kernel 6b (bwd rows)", ("task_merge_bwd",)),
     ("optimizer (foreach AdamW, clipping)", ("multi_tensor",)),
     ("GEMMs (cuBLAS / CUTLASS)", ("gemm", "gemv", "cutlass", "xmma",

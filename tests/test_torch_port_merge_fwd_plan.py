@@ -217,7 +217,10 @@ def test_merge_forward_bounds_match_the_cuda_source():
     assert not (_build.CSRC / "ln_lora.cu").exists()
     assert "mtlora_ln_lora_fwd" not in _build.SIGNATURES
     assert "mtlora_merge_ln_fwd" in _build.SIGNATURES
-    assert src.count("__global__") == 1
+    # one body, two kernels: kernel 3 and its task mode (kernel 6)
+    assert src.count("__global__") == 2
+    assert "fwd_rows<MT, WN, 0>(p);" in src
+    assert "fwd_rows<MT, WN, UT>(p);" in src
 
 
 # (M, K, O, Wh): C % 8 != 0, K past 4096, O % 16 != 0, O below 16, rows
