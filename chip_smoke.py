@@ -21,10 +21,14 @@ Phases, each printing a line; any failure raises and exits non-zero:
      (the dropped one); kernel 1c (the dense attention cells of
      MTLORA_ATTN_DENSE) at the four 448 stage shapes, shifted and not, and
      at stage 3 of the 224 model, also against kernel 1; kernel, plain and
-     library-call times and the roofline bound; kernel 2 also with its
-     plan, achieved TFLOP/s, share of the bound and weight-slot rate per
-     stage, and at the ragged 392 rows of stage 3, rank 16, Swin-B's
-     [6272, 1024] -> 3072, scale 3, scale 0 and dropout off;
+     library-call times and the roofline bound; kernels 1 and 1c also with
+     their plan, achieved TFLOP/s and share of the bound per shape, two
+     launches bit-identical, and at the batch-2 step's stages and Swin-B's
+     stage-0 and stage-3 heads (ATTN_COVERAGE, DENSE_COVERAGE); kernel 2
+     also with its plan, achieved TFLOP/s, share of the bound and
+     weight-slot rate per stage, and at the ragged 392 rows of stage 3,
+     rank 16, Swin-B's [6272, 1024] -> 3072, scale 3, scale 0 and dropout
+     off;
   3b. backward kernels vs plain: the same shapes, every gradient against
      the plain backward (kernel 8: its dx layout; kernel 1c: also against
      kernel 1b), with the same four numbers; kernel 4b also with its
@@ -182,6 +186,7 @@ from mtlora_tpu_torch.ops.window_attn import (
     window_attention_dense_fwd,
     window_attention_fwd,
 )
+from mtlora_tpu_torch.ops.window_attn import fwd_plan as attn_fwd_plan
 from mtlora_tpu_torch.serve import (
     predict,
     random_model,
@@ -379,10 +384,71 @@ def sdpa_operands(qkv, bias, mask, nH, nW):
     return q, k, v, am.reshape(Bw, nH, N, N).to(torch.bfloat16).contiguous()
 
 
+def attn_fwd_cost(qkv, nH, mask):
+    """Bytes (qkv, bias and mask read once, the output written once) and
+    bf16 FLOP of the attention forward."""
+    Bw, N, C3 = qkv.shape
+    mb = mask.numel() * 4 if mask is not None else 0
+    nbytes = Bw * N * C3 * 2 + nH * N * N * 4 + mb + Bw * N * C3 // 3 * 2
+    return nbytes, 4.0 * Bw * nH * N * N * (C3 // 3 // nH)
+
+
+def check_attn_fwd(label, fn, qkv, nH, bias, mask, scale, dense):
+    """Kernel 1 (``dense``: 1c) through its wrapper ``fn`` against the
+    plain version: two launches bit-identical, the error within
+    KERNEL_ATOL; times it and prints its plan, TFLOP/s and share of the
+    bound. Returns (err, kernel ms, bytes, FLOP)."""
+    out = fn(qkv, nH, bias, mask, scale)
+    again = fn(qkv, nH, bias, mask, scale)
+    ref = window_attention(qkv, nH, bias, mask, scale)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert torch.equal(out, again), f"{label}: two launches differ"
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= KERNEL_ATOL, f"{label}: attention disagrees: {err}"
+    t_k = median_ms(lambda: fn(qkv, nH, bias, mask, scale))
+    Bw, N, C3 = qkv.shape
+    plan = attn_fwd_plan(Bw, N, nH,
+                         mask.shape[0] if mask is not None else 0, dense,
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count, C3 // 3 // nH)
+    nbytes, flops = attn_fwd_cost(qkv, nH, mask)
+    t_b = nbytes / PEAK_HBM_BYTES * 1e3
+    print(f"{label} plan: {plan.group} windows a block, {plan.blocks} "
+          f"blocks, {plan.per_sm} an SM, {plan.buffers} buffers, "
+          f"{plan.tiles} resident mask tiles, {plan.smem} B; "
+          f"{flops / t_k / 1e9:.2f} TFLOP/s, {t_b / t_k:.4f} of the bound; "
+          f"two launches bit-identical")
+    return err, t_k, nbytes, flops
+
+
+# kernels 1 and 1c's coverage (checked, bit-identical, timed; not in the
+# tally): (label, batch, nW, C, heads, shifted) -- the batch-2 step's
+# stages (phase 8), Swin-B's stage 0 and stage 3 (448 px, head dim 32),
+# shifted
+ATTN_COVERAGE = tuple(
+    (f"batch 2 stage {s} shift {sh}", CROSS_BATCH, (16 // 2 ** s) ** 2,
+     96 * 2 ** s, 3 * 2 ** s, sh) for s in range(4) for sh in (0, 3)) + (
+    ("swin-b stage 0 shift 3", KERNEL_BATCH, 256, 128, 4, 3),
+    ("swin-b stage 3 shift 3", KERNEL_BATCH, 4, 1024, 32, 3))
+
+
+def coverage_operands(gen, batch, nW, C, nH, shift):
+    """qkv, bias, mask, scale of an attention coverage shape (window 7)."""
+    res = 7 * int(round(nW ** 0.5))
+    qkv = torch.randn(batch * nW, 49, 3 * C, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    bias = 0.1 * torch.randn(nH, 49, 49, generator=gen, device="cuda")
+    mask = (torch.from_numpy(shift_attention_mask(res, res, 7, shift)).cuda()
+            if shift else None)
+    return qkv, bias, mask, (C // nH) ** -0.5
+
+
 def check_attention(gen) -> dict:
     """Kernels 1 and 1b against their plain versions at the four stage
     shapes, shifted and not; each shape weighted by its blocks (half the
-    stage's depth), so that the sums are per pass over the 12 blocks."""
+    stage's depth), so that the sums are per pass over the 12 blocks.
+    Kernel 1 also at ``ATTN_COVERAGE``."""
     fwd, bwd = Tally(), Tally()
     depths = tiny_448_r64_pertask().depths
     for s, shift, qkv, dout, bias, mask, nH, nW, scale in attention_shapes(gen):
@@ -391,24 +457,17 @@ def check_attention(gen) -> dict:
         sites = depths[s] // 2
         mb = nW * N * N * 4 if mask is not None else 0
         # forward
-        out = window_attention_fwd(qkv, nH, bias, mask, scale)
-        ref = window_attention(qkv, nH, bias, mask, scale)
-        torch.cuda.synchronize()
-        assert out.shape == ref.shape and out.dtype == torch.bfloat16
-        err = (out.float() - ref.float()).abs().max().item()
+        label = f"attention fwd stage {s} qkv {tuple(qkv.shape)} nH {nH} " \
+                f"shift {shift}"
+        err, t_k, nbytes, flops = check_attn_fwd(
+            label, window_attention_fwd, qkv, nH, bias, mask, scale, False)
         q, k, v, am = sdpa_operands(qkv, bias, mask, nH, nW)
-        t_k = median_ms(lambda: window_attention_fwd(qkv, nH, bias, mask,
-                                                     scale))
         t_p = median_ms(lambda: window_attention(qkv, nH, bias, mask, scale))
         t_l = median_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=am, scale=scale))
-        nbytes = Bw * N * C3 * 2 + nH * N * N * 4 + mb + Bw * N * C * 2
-        flops = 4.0 * Bw * nH * N * N * hd
-        print(f"attention fwd stage {s} qkv {tuple(qkv.shape)} nH {nH} "
-              f"shift {shift}: max_abs_err {err:.3e} (bound "
+        print(f"{label}: max_abs_err {err:.3e} (bound "
               f"{KERNEL_ATOL:.3e}) kernel {t_k:.4f} ms plain {t_p:.4f} ms "
               f"sdpa {t_l:.4f} ms {bound_text(nbytes, flops)}")
-        assert err <= KERNEL_ATOL, f"attention disagrees: {err}"
         fwd.add(err, t_k, t_p, t_l, nbytes, flops, sites)
         # backward
         dq, db = window_attention_bwd(qkv, nH, bias, mask, scale, dout)
@@ -440,6 +499,14 @@ def check_attention(gen) -> dict:
               f"sdpa backward {t_l:.4f} ms {bound_text(nbytes, flops)}")
         assert e_q <= b_q and e_b <= b_b, "attention backward disagrees"
         bwd.add(max(e_q, e_b), t_k, t_p, t_l, nbytes, flops, sites)
+    for label, batch, nW, C, nH, shift in ATTN_COVERAGE:
+        qkv, bias, mask, scale = coverage_operands(gen, batch, nW, C, nH,
+                                                   shift)
+        label = f"attention fwd {label} qkv {tuple(qkv.shape)} nH {nH}"
+        err, t_k, nbytes, flops = check_attn_fwd(
+            label, window_attention_fwd, qkv, nH, bias, mask, scale, False)
+        print(f"{label}: max_abs_err {err:.3e} (bound {KERNEL_ATOL:.3e}) "
+              f"kernel {t_k:.4f} ms {bound_text(nbytes, flops)}")
     return {"fwd": fwd, "bwd": bwd}
 
 
@@ -1604,35 +1671,44 @@ def dense_shapes(gen):
            cfg.depths[3])
 
 
+# kernel 1c's coverage beyond dense_shapes (checked, bit-identical,
+# timed; not in the tally): (label, batch, nW, C, heads, shifted) -- the
+# batch-2 step's 448 stages, Swin-B's 448 stage 0 (shifted) and its 224
+# stage 3 (one window an image, 32 heads)
+DENSE_COVERAGE = tuple(
+    (f"batch 2 448 stage {s} shift 3", CROSS_BATCH, (16 // 2 ** s) ** 2,
+     96 * 2 ** s, 3 * 2 ** s, 3) for s in range(4)) + (
+    ("swin-b 448 stage 0 shift 3", KERNEL_BATCH, 256, 128, 4, 3),
+    ("swin-b 224 stage 3", KERNEL_BATCH, 1, 1024, 32, 0))
+
+
 def check_dense_attention(gen) -> dict:
     """Kernel 1c forward and backward against the plain versions and
-    against kernels 1 and 1b on the same tensors."""
+    against kernels 1 and 1b on the same tensors; its forward also at
+    ``DENSE_COVERAGE``."""
     fwd, bwd = Tally(), Tally()
     for label, qkv, dout, bias, mask, nH, scale, n in dense_shapes(gen):
         Bw, N, C3 = qkv.shape
         C, hd = C3 // 3, C3 // 3 // nH
         mb = mask.numel() * 4 if mask is not None else 0
-        out = window_attention_dense_fwd(qkv, nH, bias, mask, scale)
-        ref = window_attention(qkv, nH, bias, mask, scale)
+        label = f"attention 1c fwd {label} qkv {tuple(qkv.shape)} nH {nH}"
+        err, t_k, nbytes, flops = check_attn_fwd(
+            label, window_attention_dense_fwd, qkv, nH, bias, mask, scale,
+            True)
         k1 = window_attention_fwd(qkv, nH, bias, mask, scale)
+        out = window_attention_dense_fwd(qkv, nH, bias, mask, scale)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
         e1 = (out.float() - k1.float()).abs().max().item()
-        assert err <= KERNEL_ATOL and e1 <= KERNEL_ATOL, (label, err, e1)
-        t_k = median_ms(lambda: window_attention_dense_fwd(qkv, nH, bias,
-                                                           mask, scale))
+        assert e1 <= KERNEL_ATOL, (label, err, e1)
         t_1 = median_ms(lambda: window_attention_fwd(qkv, nH, bias, mask,
                                                      scale))
         q, k, v, am = sdpa_operands(qkv, bias, mask, nH, 1)
         t_p = median_ms(lambda: window_attention(qkv, nH, bias, mask, scale))
         t_l = median_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=am, scale=scale))
-        nbytes = Bw * N * C3 * 2 + nH * N * N * 4 + mb + Bw * N * C * 2
-        flops = 4.0 * Bw * nH * N * N * hd
-        print(f"attention 1c fwd {label} qkv {tuple(qkv.shape)} nH {nH} "
-              f"(x{n}): max_abs_err {err:.3e} vs plain, {e1:.3e} vs kernel 1 "
-              f"(bound {KERNEL_ATOL:.3e}) kernel {t_k:.4f} ms kernel 1 "
-              f"{t_1:.4f} ms plain {t_p:.4f} ms sdpa {t_l:.4f} ms "
+        print(f"{label} (x{n}): max_abs_err {err:.3e} vs plain, {e1:.3e} "
+              f"vs kernel 1 (bound {KERNEL_ATOL:.3e}) kernel {t_k:.4f} ms "
+              f"kernel 1 {t_1:.4f} ms plain {t_p:.4f} ms sdpa {t_l:.4f} ms "
               f"{bound_text(nbytes, flops)}")
         fwd.add(max(err, e1), t_k, t_p, t_l, nbytes, flops, n)
         dq, db = window_attention_dense_bwd(qkv, nH, bias, mask, scale, dout)
@@ -1668,6 +1744,15 @@ def check_dense_attention(gen) -> dict:
               f"{t_k:.4f} ms kernel 1b {t_1:.4f} ms plain {t_p:.4f} ms sdpa "
               f"backward {t_l:.4f} ms {bound_text(nbytes, flops)}")
         bwd.add(max(e_q, e_b, e_q1, e_b1), t_k, t_p, t_l, nbytes, flops, n)
+    for label, batch, nW, C, nH, shift in DENSE_COVERAGE:
+        qkv, bias, mask, scale = coverage_operands(gen, batch, nW, C, nH,
+                                                   shift)
+        label = f"attention 1c fwd {label} qkv {tuple(qkv.shape)} nH {nH}"
+        err, t_k, nbytes, flops = check_attn_fwd(
+            label, window_attention_dense_fwd, qkv, nH, bias, mask, scale,
+            True)
+        print(f"{label}: max_abs_err {err:.3e} (bound {KERNEL_ATOL:.3e}) "
+              f"kernel {t_k:.4f} ms {bound_text(nbytes, flops)}")
     return {"fwd": fwd, "bwd": bwd}
 
 
@@ -2336,7 +2421,7 @@ def main():
         for name in BWD_PROBES]
 
     print(json.dumps({"kernels": [
-        entry("window_attention", "window_attn.cu",
+        entry("window_attention", "window_attn_fwd.cu",
               "pallas_window_attn.py:84", attn["fwd"]),
         entry("window_attention_bwd", "window_attn_bwd.cu",
               "pallas_window_attn.py:119", attn["bwd"]),
@@ -2368,7 +2453,7 @@ def main():
               tmerge["fwd"]),
         entry("task_merge_bwd", "task_merge_bwd.cu",
               "pallas_task_merge.py:115", tmerge["bwd"]),
-        entry("window_attention_dense", "window_attn.cu",
+        entry("window_attention_dense", "window_attn_fwd.cu",
               "pallas_window_attn.py:420", dense["fwd"], "B"),
         entry("window_attention_dense_bwd", "window_attn_bwd.cu",
               "pallas_window_attn.py:450", dense["bwd"], "B"),

@@ -27,16 +27,19 @@ _P, _I, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_uint)
 # C entry points: name -> argument types; each returns a cudaError_t
 SIGNATURES = {
-    # mode, qkv, bias, mask, out, n_windows, N, C, num_heads,
+    # the probes: mode, qkv, bias, mask, out, n_windows, N, C, num_heads,
     # mask_windows, scale, stream
     "mtlora_window_attn_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                _P],
+    # kernel 1: qkv, bias, mask, out, n_windows, N, C, num_heads,
+    # mask_windows, group, smem, scale_c, stream
+    "mtlora_window_attn_fwd_rows": [_P] * 4 + [_I] * 7 + [_F, _P],
+    # kernel 1c: the same, and the resident mask tiles before smem
+    "mtlora_window_attn_dense_fwd_rows": [_P] * 4 + [_I] * 8 + [_F, _P],
     # qkv, bias, mask, dout, dqkv, dbias_part, dbias, n_windows, N, C,
     # num_heads, mask_windows, group, smem, scale_c, scale, stream
     "mtlora_window_attn_bwd": [_P] * 7 + [_I] * 7 + [_F, _F, _P],
-    # kernel 1c: the same arguments; the backward's group is whole cells
-    "mtlora_window_attn_dense_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                     _P],
+    # kernel 1c's backward: the same arguments; its group is whole cells
     "mtlora_window_attn_dense_bwd": [_P] * 7 + [_I] * 7 + [_F, _F, _P],
     # qb, kb, bias, out, nq, nH, rows, keys, stream
     "mtlora_quad_attn_fwd": [_P] * 4 + [_I] * 4 + [_P],

@@ -1,34 +1,21 @@
-// Window attention core (forward) for Hopper.
+// Window attention core (forward), the first port's kernel, kept for the
+// probes.
 //
-// Replaces mtlora_tpu/ops/pallas_window_attn.py: _fwd_kernel, launched by
-// _run_fwd through fused_window_attention_windowed /
-// fused_window_attention_padded. Per window w and head h:
+// Replaced mtlora_tpu/ops/pallas_window_attn.py: _fwd_kernel, launched by
+// _run_fwd through fused_window_attention_windowed. Per window w and head
+// h:
 //   out[w, :, h] = softmax(q*scale @ k^T + bias[h] + mask[w % nW]) @ v
 // with q*scale rounded to bf16, fp32 scores, bias, mask and softmax, P
-// rounded to bf16 and P@V accumulated in fp32.
+// rounded to bf16 and P@V accumulated in fp32. Kernels 1 and 1c now run
+// on tensor cores (window_attn_fwd.cu); this source's body stays as the
+// instrument of the probes below, and its kFull mode as probe P1 (the
+// same function as kernel 1).
 //
-// What bounds it: at the Swin-T 448 shapes (N = 49, hd = 32) the input is
-// 18.4 KB of qkv per (window, head) pair and the work 2 * 49*49*32 FMAs, so
-// the kernel is neither large in bytes nor in FLOPs; the TPU kernel's win
-// was keeping the [windows, heads, 49, 49] fp32 scores out of HBM. Design:
-// one block per (window, head); q, k and v of the head go to shared memory
-// as fp32 (rows padded to hd + 1 to avoid bank conflicts), the 49 x 49
-// scores stay in shared memory, softmax runs one warp per row, and both
-// products are plain FMA loops. No TPU pack-2 or pad-104 layout: the block
-// reads the plain [B*nW, N, 3C] window order with 16-byte loads. Tensor
-// cores (mma / wgmma) are left for a later version.
-//
-// Kernel 1c, window_attn_dense_fwd_kernel, replaces the dense mode of the
-// same TPU kernel (_fwd_kernel with chunks = 4, launched by _run_fwd_dense
-// from _fused_windows_dense when MTLORA_ATTN_DENSE is set): the TPU packed
-// two windows per 98-row instance and four pairs per 392-row cell, with a
-// block-diagonal -1e9 bias, so that the cells reshape freely from the flat
-// token order. The math per window is kernel 1's (exp(-1e9 - max) is 0
-// exactly), so here a cell is 8 consecutive windows of the plain order for
-// one head: the head's bias, and with a shift mask the tiles of the cell's
-// period positions, are staged in shared memory once per cell instead of
-// being read per window, and the windows run one after another through
-// kernel 1's per-window body.
+// Design: one block per (window, head); q, k and v of the head go to
+// shared memory as fp32 (rows padded to hd + 1 to avoid bank conflicts),
+// the N x N scores stay in shared memory, softmax runs one warp per row,
+// and both products are plain FMA loops. It reads the plain
+// [B*nW, N, 3C] window order with 16-byte loads.
 //
 // The probes of tools/attn_probe.py (_kern :30, launched by run :85) and
 // tools/attn_variants.py (kern_dots_only :78 and kern_softmax_only :96,
@@ -57,8 +44,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-// windows per dense cell: four TPU pack-2 pairs, 392 rows at N = 49
-constexpr int kCell = 8;
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -204,7 +189,7 @@ __host__ __device__ size_t attend_smem(int N, int hd) {
   return sizeof(float) * (3 * (size_t)N * (hd + 1) + (size_t)N * (N + 1));
 }
 
-// Kernel 1 (MODE kFull) and its probes: one block per (window, head),
+// The probes (kFull: kernel 1's function): one block per (window, head),
 // bias and mask read in place.
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
@@ -235,40 +220,9 @@ FwdKernel mode_kernel(int mode) {
   }
 }
 
-// Kernel 1c (dense cells): one block per (cell of kCell consecutive
-// windows, head). The head's bias, and the mask tiles of the cell's
-// period positions (kCell of them, or nW when nW divides kCell), are
-// staged in shared memory once for the cell's windows.
-__global__ void __launch_bounds__(kThreads)
-window_attn_dense_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
-                             const float* __restrict__ bias,
-                             const float* __restrict__ mask,
-                             __nv_bfloat16* __restrict__ out, int N, int C,
-                             int hd, int mask_windows, float scale) {
-  extern __shared__ float smem[];
-  const int cell = blockIdx.x;
-  const int h = blockIdx.y;
-  const int NN = N * N;
-  const int tiles = mask ? min(kCell, mask_windows) : 0;
-  float* bh = smem + attend_smem(N, hd) / sizeof(float);
-  float* ms = bh + NN;
-  const int base = (cell * kCell) % (mask ? mask_windows : 1);
-  for (int i = threadIdx.x; i < NN; i += blockDim.x)
-    bh[i] = bias[(size_t)h * NN + i];
-  for (int i = threadIdx.x; i < tiles * NN; i += blockDim.x) {
-    const int j = i / NN;
-    ms[i] = mask[(size_t)((base + j) % mask_windows) * NN + (i - j * NN)];
-  }
-  for (int j = 0; j < kCell; ++j) {
-    if (j) __syncthreads();  // the previous window is consumed
-    attend(qkv, bh, mask ? ms + (size_t)(j % tiles) * NN : nullptr, out,
-           smem, cell * kCell + j, h, N, C, hd, scale);
-  }
-}
-
 }  // namespace
 
-// Kernel 1 (kFull) or a probe mode (a Mode), at qkv
+// A probe mode (a Mode; kFull: kernel 1's function), at qkv
 // [n_windows, N, 3C] (bf16), bias [nH, N, N] and mask [mask_windows, N, N]
 // (fp32, or null); kDotsOnly and kSoftmaxOnly take no mask.
 extern "C" int mtlora_window_attn_fwd(int mode, const void* qkv,
@@ -289,34 +243,6 @@ extern "C" int mtlora_window_attn_fwd(int mode, const void* qkv,
   }
   dim3 grid(n_windows, num_heads);
   kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), static_cast<__nv_bfloat16*>(out), N,
-      C, hd, mask_windows > 0 ? mask_windows : 1, scale);
-  return (int)cudaGetLastError();
-}
-
-// Kernel 1c: n_windows a multiple of kCell; with a mask, its nW a multiple
-// of kCell or a divisor of it (the mask period tiles the cells).
-extern "C" int mtlora_window_attn_dense_fwd(const void* qkv, const void* bias,
-                                            const void* mask, void* out,
-                                            int n_windows, int N, int C,
-                                            int num_heads, int mask_windows,
-                                            float scale, void* stream) {
-  if (n_windows % kCell ||
-      (mask && (mask_windows < 1 ||
-                (mask_windows % kCell && kCell % mask_windows))))
-    return (int)cudaErrorInvalidValue;
-  const int hd = C / num_heads;
-  const int tiles = mask ? (mask_windows < kCell ? mask_windows : kCell) : 0;
-  const size_t smem = attend_smem(N, hd) +
-                      sizeof(float) * (size_t)(1 + tiles) * N * N;
-  cudaError_t e = cudaFuncSetAttribute(
-      window_attn_dense_fwd_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(n_windows / kCell, num_heads);
-  window_attn_dense_fwd_kernel<<<grid, kThreads, smem,
-                                 (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(bias),
       static_cast<const float*>(mask), static_cast<__nv_bfloat16*>(out), N,
       C, hd, mask_windows > 0 ? mask_windows : 1, scale);

@@ -59,93 +59,29 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "mma.cuh"
+#include "window_tiles.cuh"
 
 namespace {
+
+using namespace wtile;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 // blocks an SM: the plan's assumption, and the register cap it sets
 constexpr int kBlocksPerSm = 3;
-constexpr int kHd = 32;         // head dim
-constexpr int kRows = 64;       // N padded
-constexpr int kCell = 8;        // windows per dense cell (kernel 1c)
 constexpr int kBiasLd = 72;     // fp32 row stride of the staged bias
 constexpr int kOutLd = 104;     // bf16 row stride of the staged output
-constexpr int kTile = kRows * kHd;            // elements of a q/k/v/dO tile
 constexpr int kBufBytes = 4 * kTile * 2;      // one window's four tiles
 constexpr int kPsBytes = 2 * kRows * kRows * 2;  // P and dS, bf16
 
 static_assert(kWarps * 16 * kOutLd * 2 <= kPsBytes,
               "the staged output rows alias P and dS");
 
-// 16-byte chunks of a mask tile's copy: the tile starts up to 3 floats
-// into its first chunk
-__host__ __device__ constexpr int mask_chunks(int N) { return (N * N + 6) / 4; }
-
 // The shared-memory layout's bytes: two windows' tiles, P and dS, the
 // bias, the mask tiles.
 __host__ __device__ constexpr size_t smem_bytes(int N, int tiles) {
   return 2 * (size_t)kBufBytes + kPsBytes + (size_t)N * kBiasLd * 4 +
          (size_t)tiles * mask_chunks(N) * 16;
-}
-
-// Element offset of 16-byte chunk c (0..3) of row r of a [64][32] tile,
-// and of chunk c (0..7) of row r of a [64][64] tile: the chunk index XOR
-// the row bits, so that 8 consecutive rows of one chunk hit 8 distinct
-// bank groups.
-__device__ __forceinline__ int sw32(int r, int c) {
-  return r * kHd + ((c ^ ((r >> 1) & 3)) << 3);
-}
-__device__ __forceinline__ int sw64(int r, int c) {
-  return r * kRows + ((c ^ (r & 7)) << 3);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// q, k, v of head h and dO of window w, rows < N, into a buffer's tiles.
-__device__ __forceinline__ void load_window(__nv_bfloat16* buf,
-                                            const __nv_bfloat16* qkv,
-                                            const __nv_bfloat16* dout, int w,
-                                            int h, int N, int C) {
-  const __nv_bfloat16* base = qkv + (size_t)w * N * 3 * C + h * kHd;
-  const __nv_bfloat16* dbase = dout + (size_t)w * N * C + h * kHd;
-  for (int i = threadIdx.x; i < N * 16; i += kThreads) {
-    const int r = i >> 4, part = (i >> 2) & 3, c = i & 3;
-    const __nv_bfloat16* src =
-        part < 3 ? base + (size_t)r * 3 * C + part * C + c * 8
-                 : dbase + (size_t)r * C + c * 8;
-    cp_async16(buf + part * kTile + sw32(r, c), src, true);
-  }
-}
-
-// Mask tile mi as it lies in the mask array (16-byte aligned at its
-// start), from the 16-byte chunk that holds its first element: element
-// (r, c) lands at slot[(mi * N * N) % 4 + r * N + c]. The last chunk of
-// the array is read only up to the array's end.
-__device__ __forceinline__ void load_mask(float* slot, const float* mask,
-                                          int mi, int NN, const float* end) {
-  const float* start = mask + (size_t)mi * NN;
-  const float* a0 = start - ((size_t)mi * NN & 3);
-  const int n = ((int)(start - a0) + NN + 3) >> 2;
-  for (int k = threadIdx.x; k < n; k += kThreads) {
-    const float* src = a0 + 4 * k;
-    const long left = (long)(end - src) * 4;
-    cp_async16_n(slot + 4 * k, src, left < 16 ? (int)left : 16);
-  }
 }
 
 template <bool kDense>
@@ -176,9 +112,10 @@ window_attn_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
 
   // the first window's tiles and mask tiles in flight while the bias is
   // staged and the pad rows of both buffers are zeroed
-  load_window(bufs, qkv, dout, w0, h, N, C);
+  load_window<4, kThreads>(bufs, qkv, dout, w0, h, N, C);
   for (int j = 0; j < tiles; ++j)
-    load_mask(ms + j * mslot, mask, (w0 + j) % mask_windows, NN, mend);
+    load_mask<kThreads>(ms + j * mslot, mask, (w0 + j) % mask_windows, NN,
+                        mend);
   cp_async_commit();
   for (int i = tid; i < NN; i += kThreads) {
     const int r = i / N;
@@ -207,8 +144,8 @@ window_attn_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
     // the next window's tiles go to the other buffer, whose last reader
     // (the window before) has passed the barrier ahead of its output
     if (w + 1 < w1)
-      load_window(bufs + ((i + 1) & 1) * 4 * kTile, qkv, dout, w + 1, h, N,
-                  C);
+      load_window<4, kThreads>(bufs + ((i + 1) & 1) * 4 * kTile, qkv, dout,
+                               w + 1, h, N, C);
     cp_async_commit();
     cp_async_wait<1>();   // this window's tiles and mask tiles
     __syncthreads();
@@ -342,8 +279,8 @@ window_attn_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
     // the next window's mask tile (kernel 1c: the next cell's tiles)
     if (tiles && w + 1 < w1 && (!kDense || (i + 1) % kCell == 0)) {
       for (int j = 0; j < (kDense ? tiles : 1); ++j)
-        load_mask(ms + j * mslot, mask, (w + 1 + j) % mask_windows, NN,
-                  mend);
+        load_mask<kThreads>(ms + j * mslot, mask, (w + 1 + j) % mask_windows,
+                            NN, mend);
     }
     cp_async_commit();
 

@@ -1,27 +1,29 @@
 """Window attention core: the CUDA kernels, their plain versions, counters.
 
 Counterpart of ``mtlora_tpu/ops/pallas_window_attn.py``: the forward
-kernel ``csrc/window_attn.cu`` and the backward kernel
+kernel ``csrc/window_attn_fwd.cu`` and the backward kernel
 ``csrc/window_attn_bwd.cu`` under one ``torch.autograd.Function``, as the
 JAX package puts ``_run_fwd`` and ``_run_bwd`` under one ``custom_vjp``.
 Both read the plain window order that ``ops/window.py`` produces,
-``[B*nW, N, 3C]``, not the TPU's padded pack-2 layout.
+``[B*nW, N, 3C]``, not the TPU's padded pack-2 layout; both run on bf16
+tensor cores at head dim 32, blocks of consecutive windows of one head
+under a launch plan (:func:`fwd_plan`, :func:`bwd_plan`).
 
 Kernel 1c, the dense cells of ``_fused_windows_dense`` (``MTLORA_ATTN_DENSE``),
-is its own pair of launches in the same sources: one block per 8
-consecutive windows (the TPU's four pack-2 pairs, 392 rows at N = 49) and
-head, the bias and mask tiles staged once per cell. Its function is kernel
-1's, so its plain versions are kernel 1's; :func:`dense_applies` is the
-JAX package's decision to take it.
+is the dense instance of each body: whole 8-window cells (the TPU's four
+pack-2 pairs, 392 rows at N = 49), a cell's mask tiles staged at once.
+Its function is kernel 1's, so its plain versions are kernel 1's;
+:func:`dense_applies` is the JAX package's decision to take it.
 
 The probes of ``tools/attn_probe.py`` and ``tools/attn_variants.py`` are
-kernel 1's body with a part switched (:data:`PROBE_MODES`), one more
-launch of the forward source; :func:`window_attention_probe_plain` is
+the first port's forward body (``csrc/window_attn.cu``) with a part
+switched (:data:`PROBE_MODES`); :func:`window_attention_probe_plain` is
 their function per 49-token window, not on the TPU's pack-2 pairs.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -42,6 +44,14 @@ BWD_BLOCKS_PER_SM = 3
 BWD_BIAS_LD = 72
 SM_SMEM = 233_472
 SMEM_LIMIT = 232_448
+# the forward kernel (``csrc/window_attn_fwd.cu``, N padded to MAX_N rows):
+# head dim, blocks an SM (its ``__launch_bounds__``), buffers of a
+# window's q, k, v tiles (and its mask slot), the floats a mask slot holds
+# past its tile's chunks
+FWD_HEAD_DIM = 32
+FWD_BLOCKS_PER_SM = 4
+FWD_STAGES = 2
+FWD_MASK_TAIL = 64
 # the probe modes -> the CUDA source's Mode ids: attn_probe's _kern modes
 # "full" (kernel 1), "nosmax", "nodots", then attn_variants'
 # kern_dots_only and kern_softmax_only
@@ -54,8 +64,8 @@ def window_attention_probe_plain(qkv: torch.Tensor, num_heads: int,
                                  rel_bias: torch.Tensor,
                                  mask: torch.Tensor | None, scale: float,
                                  mode: str) -> torch.Tensor:
-    """A probe of kernel 1's body per window and head, ``[B*nW, N, C]``
-    in qkv's dtype, with the probes' cast points:
+    """A probe of the first port's forward body per window and head,
+    ``[B*nW, N, C]`` in qkv's dtype, with the probes' cast points:
 
     - ``full``: :func:`attention.window_attention`;
     - ``nosmax``: ``P = S``, ``S = q*scale k^T + bias + mask`` in fp32,
@@ -213,6 +223,64 @@ def bwd_plan(n_windows: int, N: int, num_heads: int, mask_windows: int,
                    per_sm, (n_groups, num_heads, N, N))
 
 
+class FwdPlan(NamedTuple):
+    """Launch plan of the forward kernel: windows per block, window
+    groups, blocks (groups x heads), buffers of a window's tiles, resident
+    mask tiles (kernel 1c, nW dividing the cell), shared-memory bytes and
+    resident blocks an SM."""
+    group: int
+    n_groups: int
+    blocks: int
+    buffers: int
+    tiles: int
+    smem: int
+    per_sm: int
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(n_windows: int, N: int, num_heads: int, mask_windows: int,
+             dense: bool, sms: int, head_dim: int = FWD_HEAD_DIM) -> FwdPlan:
+    """The forward's plan for ``n_windows`` windows of N tokens and
+    ``num_heads`` heads of ``head_dim`` (a mask of ``mask_windows`` tiles,
+    0 for none) on a card of ``sms`` SMs. One wave: the resident blocks
+    (``per_sm`` an SM, as many as shared memory and the kernel's register
+    cap allow) are shared among the heads, and each head's windows are cut
+    into that many groups of consecutive windows; a block walks its group,
+    the next ``buffers - 1`` windows' tiles loading while it computes one.
+    The forward keeps no partial per cell, so kernel 1c's groups are cut
+    as kernel 1's; where nW divides the 8-window cell (``min(8, nW)`` =
+    nW tiles) it stages the mask tiles once a block, else each window's
+    tile comes with its q, k and v into a slot of its buffer.
+
+    Refuses a head dim other than 32 and N above 64 (the kernel's tiles),
+    naming the bound."""
+    if head_dim != FWD_HEAD_DIM:
+        raise ValueError(f"window attention forward kernel: head dim "
+                         f"{head_dim}; the kernel's tiles take "
+                         f"{FWD_HEAD_DIM} only")
+    if not (0 < N <= MAX_N and n_windows > 0 and num_heads > 0):
+        raise ValueError(f"window attention forward kernel: {n_windows} "
+                         f"windows of N={N} (at most {MAX_N}), "
+                         f"{num_heads} heads")
+    tiles = mask_windows if dense and 0 < mask_windows <= DENSE_CELL else 0
+    per_window = FWD_STAGES if mask_windows and not tiles else 0
+    # the buffers' q, k, v tiles (MAX_N x 32 bf16 each), then the mask
+    # slots: a tile's 16-byte chunks from the one that holds its first
+    # element, and FWD_MASK_TAIL floats more
+    slot = 4 * (4 * ((N * N + 6) // 4) + FWD_MASK_TAIL)
+    smem = (FWD_STAGES * 3 * MAX_N * FWD_HEAD_DIM * 2
+            + (per_window + tiles) * slot)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"window attention forward kernel: {smem} bytes "
+                         f"of shared memory exceed {SMEM_LIMIT}")
+    per_sm = min(FWD_BLOCKS_PER_SM, SM_SMEM // (smem + 1024))
+    slots = max(1, per_sm * sms // num_heads)
+    group = -(-n_windows // slots)
+    n_groups = -(-n_windows // group)
+    return FwdPlan(group, n_groups, n_groups * num_heads, FWD_STAGES, tiles,
+                   smem, per_sm)
+
+
 def _check(qkv, num_heads, rel_bias, mask, what, dense=False):
     if qkv.device.type != "cuda":
         raise ValueError(f"window attention {what}: no kernel for "
@@ -297,8 +365,8 @@ def _launch_bwd(qkv, num_heads, rel_bias, mask, scale, dout, dense):
 
 
 def _launch_fwd(qkv, num_heads, rel_bias, mask, scale, mode, what):
-    """Kernel 1's forward source in ``mode`` of :data:`PROBE_MODES`
-    (``full``: kernel 1)."""
+    """The probes' source in ``mode`` of :data:`PROBE_MODES` (``full``:
+    kernel 1's function)."""
     _check(qkv, num_heads, rel_bias, mask, what)
     Bw, N, C3 = qkv.shape
     out = torch.empty((Bw, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
@@ -312,15 +380,52 @@ def _launch_fwd(qkv, num_heads, rel_bias, mask, scale, mode, what):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# the scale rounded to a dtype, once per (scale, dtype): the forward's
+# wrapper is on the host's path twelve times a forward
+_scale_c = functools.lru_cache(maxsize=None)(dtype_const)
+
+
+def _launch_fwd_rows(qkv, num_heads, rel_bias, mask, scale, dense):
+    """Kernel 1 (``dense``: 1c) under :func:`fwd_plan`. Its operands:
+    kernel 1's, a head dim of 32 (every Swin config of the repo: 96 / 3
+    heads, 128 / 4; the kernel's tiles are specialised to it), and the
+    mask 16-byte aligned (its tiles are copied in 16-byte chunks)."""
+    _check(qkv, num_heads, rel_bias, mask, "forward", dense)
+    Bw, N, C3 = qkv.shape
+    if mask is not None and mask.data_ptr() % 16:
+        raise ValueError("window attention forward kernel: the mask must "
+                         "start on a 16-byte boundary")
+    n_mask = mask.shape[0] if mask is not None else 0
+    plan = fwd_plan(Bw, N, num_heads, n_mask, dense,
+                    _sm_count(qkv.device.index), C3 // 3 // num_heads)
+    out = torch.empty((Bw, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
+    args = [qkv.data_ptr(), rel_bias.data_ptr(),
+            mask.data_ptr() if mask is not None else None, out.data_ptr(),
+            Bw, N, C3 // 3, num_heads, n_mask, plan.group]
+    name = "mtlora_window_attn_fwd_rows"
+    if dense:
+        name, args = "mtlora_window_attn_dense_fwd_rows", args + [plan.tiles]
+    err = getattr(_build.library(), name)(
+        *args, plan.smem, _scale_c(scale, qkv.dtype),
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(err, name)
+    return out
+
+
 def window_attention_fwd(qkv: torch.Tensor, num_heads: int,
                          rel_bias: torch.Tensor, mask: torch.Tensor | None,
                          scale: float) -> torch.Tensor:
     """Forward core, no autograd: the plain version for CPU tensors, the
-    kernel for CUDA tensors (bf16, N <= 64, head dim a multiple of 8)."""
+    kernel for CUDA tensors (bf16, N <= 64, head dim 32; any other CUDA
+    tensor raises)."""
     if qkv.device.type == "cpu":
         return plain(qkv, num_heads, rel_bias, mask, scale)
-    out = _launch_fwd(qkv, num_heads, rel_bias, mask, scale, "full",
-                      "forward")
+    out = _launch_fwd_rows(qkv, num_heads, rel_bias, mask, scale, False)
     window_attention_fwd.launches += 1
     return out
 
@@ -344,20 +449,11 @@ def window_attention_dense_fwd(qkv: torch.Tensor, num_heads: int,
                                mask: torch.Tensor | None,
                                scale: float) -> torch.Tensor:
     """Kernel 1c forward, no autograd: kernel 1's plain version for CPU
-    tensors, the dense-cell kernel for CUDA tensors (as kernel 1's, and
-    whole 8-window cells tiled by the mask period)."""
+    tensors, the kernel's dense instance for CUDA tensors (as kernel 1's,
+    and whole 8-window cells tiled by the mask period)."""
     if qkv.device.type == "cpu":
         return plain(qkv, num_heads, rel_bias, mask, scale)
-    _check(qkv, num_heads, rel_bias, mask, "forward", dense=True)
-    Bw, N, C3 = qkv.shape
-    out = torch.empty((Bw, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
-    err = _build.library().mtlora_window_attn_dense_fwd(
-        qkv.data_ptr(), rel_bias.data_ptr(),
-        mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        Bw, N, C3 // 3, num_heads, mask.shape[0] if mask is not None else 0,
-        dtype_const(scale, qkv.dtype),
-        torch.cuda.current_stream(qkv.device).cuda_stream)
-    _build.check(err, "mtlora_window_attn_dense_fwd")
+    out = _launch_fwd_rows(qkv, num_heads, rel_bias, mask, scale, True)
     window_attention_dense_fwd.launches += 1
     return out
 
@@ -382,8 +478,8 @@ def window_attention_probe(qkv: torch.Tensor, num_heads: int,
                            rel_bias: torch.Tensor, mask: torch.Tensor | None,
                            scale: float, mode: str) -> torch.Tensor:
     """A probe mode of :data:`PROBE_MODES`: the plain version for CPU
-    tensors, kernel 1's body with the mode's part switched for CUDA
-    tensors (kernel 1's operands; no mask for ``dots_only`` and
+    tensors, the first port's forward body with the mode's part switched
+    for CUDA tensors (kernel 1's operands; no mask for ``dots_only`` and
     ``softmax_only``)."""
     if qkv.device.type == "cpu":
         return window_attention_probe_plain(qkv, num_heads, rel_bias, mask,
@@ -434,7 +530,7 @@ def fused_window_attention(qkv: torch.Tensor, num_heads: int,
     for the math and its cast points), differentiable in qkv and rel_bias.
 
     CPU tensors take the plain versions; CUDA tensors the kernels, which
-    take bf16 only, N <= 64 and a head dim that is a multiple of 8."""
+    take bf16 only, N <= 64 and a head dim of 32."""
     return WindowAttentionFn.apply(qkv, rel_bias, mask, num_heads, scale)
 
 

@@ -31,9 +31,11 @@ launches), and prints one JSON line: the ms per stage, their sums per
 pass (stage 2 has five no-task blocks) and the card; each tree's build
 prints the registers and spills that ptxas reported for the instances of
 kernel 4, of the LN-family backward row kernels (4b, 2b, 3b, 6b), of
-kernels 3 and 6 (one body) and of the attention backward (kernels 1b and
-1c). The edits of ``VARIANTS`` reach either kernel's source and plan (and
-2b's, 2-tail's, 3's, 3b's, 6's). With
+kernels 3 and 6 (one body) and of the attention forward and backward
+(kernels 1, 1b and 1c's). The edits of ``VARIANTS`` reach either kernel's
+source and plan (and 1's, 2b's, 2-tail's, 3's, 3b's, 6's; kernel 1's,
+``attn-fwd-*``, run with ``--checks check_attention,check_dense_attention``).
+With
 ``--checks`` it runs those ``check_*`` functions of its tree's
 ``chip_smoke.py`` instead (the phase 3/3b rows of other kernels) and
 prints their sums and, per line of theirs that names a kernel time
@@ -187,6 +189,36 @@ STORES = ("              if (row >= M) continue;",
           "              if (row >= M || a.M > 0) continue;")
 
 
+# kernel 1's variant attn-fwd-p-smem: P's A fragments from shared memory
+ATTN_P_REGISTERS = """    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0] * inv[0], s[2 * kk][1] * inv[0]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2] * inv[1], s[2 * kk][3] * inv[1]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0] * inv[0],
+                            s[2 * kk + 1][1] * inv[0]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2] * inv[1],
+                            s[2 * kk + 1][3] * inv[1]);
+    }
+"""
+ATTN_P_SMEM = """    __nv_bfloat16* pw = reinterpret_cast<__nv_bfloat16*>(
+        smem + dynamic_smem_bytes()) - (kWarps - warp) * 16 * kRows;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<uint32_t*>(pw + sw64(g + 8 * half, j) + 2 * t) =
+            pack_bf16(s[j][2 * half] * inv[half],
+                      s[j][2 * half + 1] * inv[half]);
+    __syncwarp();
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ldsm_x4(pa[kk], pw + sw64((lane & 7) + ((lane >> 3) & 1) * 8,
+                                2 * kk + (lane >> 4)));
+"""
+
+
 def _fwd(*edits):
     return [("ops/csrc/merge_ln_fwd.cu", old, new) for old, new in edits]
 
@@ -248,6 +280,49 @@ VARIANTS = {
     "attn-bwd-4-waves": [
         ("ops/window_attn.py", "slots = max(1, sms * per_sm // num_heads)",
          "slots = max(1, 4 * sms * per_sm // num_heads)")],
+    # kernel 1: three buffers (two windows in flight while one is
+    # computed)
+    "attn-fwd-3-buffers": [
+        ("ops/csrc/window_attn_fwd.cu", "constexpr int kStages = 2;",
+         "constexpr int kStages = 3;"),
+        ("ops/window_attn.py", "FWD_STAGES = 2", "FWD_STAGES = 3")],
+    # kernel 1: expf of the scores less their row max, in place of ex2 of
+    # the log2(e)-prescaled scores
+    "attn-fwd-expf": [
+        ("ops/csrc/window_attn_fwd.cu",
+         "const float mo = quad_max(mx) * kLog2e;",
+         "const float mo = quad_max(mx);"),
+        ("ops/csrc/window_attn_fwd.cu",
+         "ex2(fmaf(s[j][2 * half + e], kLog2e, -mo))",
+         "expf(s[j][2 * half + e] - mo)")],
+    # kernel 1: three or five blocks an SM (registers capped at 168, 102)
+    "attn-fwd-3-per-sm": [
+        ("ops/csrc/window_attn_fwd.cu", "constexpr int kBlocksPerSm = 4;",
+         "constexpr int kBlocksPerSm = 3;"),
+        ("ops/window_attn.py", "FWD_BLOCKS_PER_SM = 4",
+         "FWD_BLOCKS_PER_SM = 3")],
+    "attn-fwd-5-per-sm": [
+        ("ops/csrc/window_attn_fwd.cu", "constexpr int kBlocksPerSm = 4;",
+         "constexpr int kBlocksPerSm = 5;"),
+        ("ops/window_attn.py", "FWD_BLOCKS_PER_SM = 4",
+         "FWD_BLOCKS_PER_SM = 5")],
+    # kernel 1: two waves of blocks with half the windows each
+    "attn-fwd-2-waves": [
+        ("ops/window_attn.py", "slots = max(1, per_sm * sms // num_heads)",
+         "slots = max(1, 2 * per_sm * sms // num_heads)")],
+    # kernel 1: P through shared memory (a 16 x 64 bf16 tile a warp at the
+    # end of the block's, read back by ldmatrix) in place of its C
+    # fragments repacked in registers
+    "attn-fwd-p-smem": [
+        ("ops/csrc/window_attn_fwd.cu",
+         "  return (size_t)kStages * kQkvBytes +",
+         "  return (size_t)kWarps * 16 * kRows * 2 +\n"
+         "         (size_t)kStages * kQkvBytes +"),
+        ("ops/csrc/window_attn_fwd.cu", ATTN_P_REGISTERS, ATTN_P_SMEM),
+        ("ops/window_attn.py",
+         "smem = (FWD_STAGES * 3 * MAX_N * FWD_HEAD_DIM * 2",
+         "smem = (4 * 16 * MAX_N * 2\n"
+         "            + FWD_STAGES * 3 * MAX_N * FWD_HEAD_DIM * 2")],
     # kernel 2b (y-only): each thread loads its A fragments of the chunk's
     # gy from device memory into registers, in place of gy's boxes through
     # the TMA ring
@@ -1148,11 +1223,13 @@ def _ptxas(log: str) -> dict:
     its task mode, kernel 6: ``task_merge_fwd_rows``) and backward row
     kernels (4b, 2b in both modes, 3b: ``patch_merge_bwd_rows``, and
     ``merge_ln_bwd_rows`` in checkouts before it; 6b) and of the attention
-    backward (kernels 1b and 1c's)."""
+    forward (kernels 1 and 1c: ``window_attn_fwd_rows``) and backward
+    (kernels 1b and 1c's)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S*(?:ln_mlp_fwd_kernel|"
-                      r"ln_mlp_bwd_rows|window_attn_bwd_kernel|ln_lora_\w*"
+                      r"ln_mlp_bwd_rows|window_attn_bwd_kernel|"
+                      r"window_attn_fwd_rows|ln_lora_\w*"
                       r"bwd_rows|merge_\w*bwd_rows|ln_lora_\w*fwd_kernel|"
                       r"patch_merge_fwd_rows|task_merge_fwd_rows)"
                       r"\S*)", line)

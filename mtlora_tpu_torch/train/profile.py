@@ -20,7 +20,7 @@ CLASSES: List[Tuple[str, Tuple[str, ...]]] = [
     # backward's own sum_groups
     ("weight-gradient passes of 2b, 3b, 4b, 5b, 6b, 7b",
      ("wgrad_kernel", "lnk::sum_")),
-    ("window attention kernel 1c (fwd)", ("window_attn_dense_fwd",)),
+    ("window attention kernel 1c (fwd)", ("window_attn_fwd_rows<true>",)),
     ("window attention kernel 1c (bwd)", ("window_attn_bwd_kernel<true>",)),
     ("LoRA GEMM kernel 8", ("lora_matmul",)),
     ("window attention kernel (fwd)", ("window_attn_fwd",)),

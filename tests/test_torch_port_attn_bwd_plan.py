@@ -125,8 +125,11 @@ def test_plan_refuses_windows_beyond_the_tile():
 def test_plan_constants_match_the_cuda_source():
     """The plan sizes shared memory by the source's constants: head dim,
     padded rows, bias row stride, blocks an SM, the dense cell, and the
-    layout's own formula."""
-    src = (_build.CSRC / "window_attn_bwd.cu").read_text()
+    layout's own formula (the tile constants and the mask-chunk count in
+    ``window_tiles.cuh``, which the source includes)."""
+    src = ((_build.CSRC / "window_attn_bwd.cu").read_text()
+           + (_build.CSRC / "window_tiles.cuh").read_text())
+    assert '#include "window_tiles.cuh"' in src
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
