@@ -50,7 +50,11 @@ Phases, each printing a line; any failure raises and exits non-zero:
      kernel 2's tail mode also with its share of the byte bound and its
      output TB/s per stage, and at the ragged 392 rows, with GELU off,
      without dropout(y) (the serve form), ranks 16 and 32 and Swin-B's
-     [6272, 1024] -> 4096;
+     [6272, 1024] -> 4096; kernel 5b also with its plan, achieved TFLOP/s
+     and share of both bounds (its rank products counted on the tensor
+     cores, and all in fp32) per stage, two launches bit-identical, and at
+     one and three tasks, the ragged 392 rows, 389 rows and Swin-B's H4 =
+     4096 (ADAPTER_COVERAGE);
   3c. the GELU form: kernels 2-tail, 4, 4b, 5 and 5b at stage 1 against
      their plain versions, which take the tanh form in bf16 as the JAX
      kernels do, with the distance to the exact-erf form beside it; the
@@ -113,6 +117,7 @@ from mtlora_tpu_torch.ops.adapter_mlp import (
     adapter_mid_fwd,
     adapter_mid_plain,
 )
+from mtlora_tpu_torch.ops.adapter_mlp import bwd_plan as adapter_bwd_plan
 from mtlora_tpu_torch.ops.ln_lora import (
     ln_lora_bwd,
     ln_lora_bwd_kernel,
@@ -1314,21 +1319,103 @@ def adapter_library(mid1T, p1, b1, a2T, s, approximate="tanh"):
     return torch.bmm(a2T, h.transpose(1, 2))
 
 
+def adapter_operands(gen, T, M, H4):
+    """Kernel 5's operands: T tasks of rank 4, M rows, H4 hidden columns,
+    and the cotangent g: (mid1T, p1, b1, a2T, g)."""
+    r = 4
+    mid1T = (0.5 * torch.randn(T, r, M, generator=gen, device="cuda")
+             ).to(torch.bfloat16)
+    p1 = torch.randn(M, H4, generator=gen, device="cuda").to(torch.bfloat16)
+    b1 = _uniform(gen, (T, r, H4), 0.1)
+    a2T = _uniform(gen, (T, r, H4), H4 ** -0.5)
+    g = torch.randn(T, r, M, generator=gen, device="cuda").to(torch.bfloat16)
+    return mid1T, p1, b1, a2T, g
+
+
+def adapter_cost(T, M, H4, backward):
+    """(bytes, bf16 FLOP, fp32 operations, the fp32 operations of the count
+    without tensor cores) of kernel 5 or 5b at T tasks of rank 4: the rank
+    rows, p1 (and dp1) and the weights once (5b: dB1 and dA2T in fp32);
+    the rank products (5: u and the projection; 5b: u, dh, dmid1, dB1 and
+    dA2T) on the tensor cores, 2 r flops an element each; on the CUDA
+    cores the GELU (5b: with its derivative) and z's add (5b: also dz's
+    product, dp1's sum and bf16(h)'s pack), or, with every rank product on
+    them too, 4 r (5b: 10 r) more."""
+    r, E = 4, float(T) * M * H4
+    if backward:
+        nbytes = (2 * (3 * T * r * M + 2 * M * H4 + 2 * T * r * H4)
+                  + 4 * 2 * T * r * H4)
+        return (nbytes, 2.0 * 5 * r * E, E * (GELU_PAIR_OPS + 4),
+                E * (GELU_PAIR_OPS + 10 * r))
+    nbytes = 2 * (2 * T * r * M + M * H4 + 2 * T * r * H4)
+    return nbytes, 2.0 * 2 * r * E, E * (GELU_OPS + 2), E * (GELU_OPS + 4 * r)
+
+
+def adapter_bounds_ms(cost):
+    """(the bound, the bound of the count with every rank product on the
+    CUDA cores) in ms."""
+    nbytes, flops, ops32, old32 = cost
+    return (max(nbytes / PEAK_HBM_BYTES, ops_seconds(flops, ops32)) * 1e3,
+            max(nbytes / PEAK_HBM_BYTES, old32 / PEAK_FP32_FLOPS) * 1e3)
+
+
+def adapter_bound_text(cost) -> str:
+    t_old = adapter_bounds_ms(cost)[1]
+    return f"{bound_text(*cost[:3])} (all fp32: {t_old:.4f} ms)"
+
+
+def check_adapter_bwd(label, args, g):
+    """Kernel 5b against ``adapter_mid_bwd_plain`` (dmid1T and dp1, bf16,
+    within 2^-6 of the largest element; dB1 and dA2T, fp32, at relative
+    RMS <= 2^-7) and a second launch on the same inputs bit for bit
+    against the first. Returns (worst error, plan, text)."""
+    mid1T, p1 = args[0], args[1]
+    plan = adapter_bwd_plan(p1.shape[0], p1.shape[1], mid1T.shape[0],
+                            ln_lora._sms(p1.device))
+    got = adapter_mid_bwd(*args, g)
+    again = adapter_mid_bwd(*args, g)
+    want = adapter_mid_bwd_plain(*args, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again)), (
+        f"{label}: two launches differ")
+    err, text = check_outputs(label, got, want,
+                              ("dmid1T", "dp1", "dB1", "dA2T"), {0, 1})
+    return err, plan, f"{text}; two launches bit-identical"
+
+
+def adapter_plan_text(plan, t_k, cost) -> str:
+    """Kernel 5b's plan, TFLOP/s and share of both bounds in ``t_k`` ms."""
+    t_b, t_old = adapter_bounds_ms(cost)
+    return (f"{cost[1] / t_k / 1e9:.2f} TFLOP/s, {t_b / t_k:.4f} of the bound "
+            f"({t_old / t_k:.4f} of the all-fp32 count); {plan.chunks} "
+            f"chunk(s) of {plan.cols} columns ({plan.pairs} pairs a warp), "
+            f"{plan.rows}-row tiles in {plan.stripes} stripes of {plan.tps}, "
+            f"{plan.blocks} blocks ({plan.per_sm} an SM), {plan.smem} bytes")
+
+
+# kernel 5b's coverage (checked and timed, not in the tally): (label, T,
+# M, H4) -- one and three tasks, the batch-2 step's stage-3 rows (392),
+# rows that are not a multiple of 8 (the scalar staging of mid1 and g),
+# Swin-B's stage-3 width (4C = 4096)
+ADAPTER_COVERAGE = (("T 1 stage 0", 1, KERNEL_BATCH * 112 ** 2, 384),
+                    ("T 3 stage 2", 3, KERNEL_BATCH * 28 ** 2, 1536),
+                    ("ragged stage 3", 4, RAGGED_ROWS, 3072),
+                    ("odd rows", 3, 389, 768),
+                    ("swin-b stage 3", 4, KERNEL_BATCH * 14 ** 2, 4096))
+
+
 def check_adapter_mid(gen) -> dict:
-    """Kernel 5 at the four stage-tail MLPs: T 4, rank 4, M = 32 L_s, H4 =
-    4 C_s; every operation counted on the CUDA cores in fp32 (the rank is
-    below a tensor-core tile's depth)."""
+    """Kernels 5 and 5b at the four stage-tail MLPs: T 4, rank 4, M = 32
+    L_s, H4 = 4 C_s; the rank products counted as bf16 tensor-core work
+    (the four tasks' ranks, 16, are one mma depth), the all-fp32 count
+    beside it. 5b with two launches bit for bit and its plan, also at
+    ``ADAPTER_COVERAGE``."""
     fwd, bwd = Tally(), Tally()
     for s in range(4):
         cfg, _, C, M = stage_dims(s)
-        T, r, H4 = len(cfg.tasks), 4, 4 * C
+        T, H4 = len(cfg.tasks), 4 * C
         scales = cfg.stages[s].task_scales
-        mid1T = (0.5 * torch.randn(T, r, M, generator=gen, device="cuda")
-                 ).to(torch.bfloat16)
-        p1 = torch.randn(M, H4, generator=gen, device="cuda").to(torch.bfloat16)
-        b1 = _uniform(gen, (T, r, H4), 0.1)
-        a2T = _uniform(gen, (T, r, H4), H4 ** -0.5)
-        g = torch.randn(T, r, M, generator=gen, device="cuda").to(torch.bfloat16)
+        mid1T, p1, b1, a2T, g = adapter_operands(gen, T, M, H4)
         args = (mid1T, p1, b1, a2T, scales)
         sv = torch.tensor(scales, device="cuda").view(T, 1, 1).to(
             torch.bfloat16)
@@ -1341,18 +1428,13 @@ def check_adapter_mid(gen) -> dict:
         t_p = median_ms(lambda: adapter_mid_plain(*args), reps=5)
         t_l = median_ms(lambda: adapter_library(mid1T, p1, b1, a2T, sv),
                         reps=5)
-        nbytes = 2 * (2 * T * r * M + M * H4 + 2 * T * r * H4)
-        ops32 = float(T) * M * H4 * (GELU_OPS + 4 * r)
+        cost = adapter_cost(T, M, H4, False)
         print(f"adapter_mid fwd stage {s} T {T} M {M} H4 {H4}: {text} kernel "
               f"{t_k:.4f} ms plain {t_p:.4f} ms library {t_l:.4f} ms "
-              f"{bound_text(nbytes, 0.0, ops32)}")
-        fwd.add(err, t_k, t_p, t_l, nbytes, 0.0, 1, ops32)
-        got = adapter_mid_bwd(*args, g)
-        want = adapter_mid_bwd_plain(*args, g)
-        torch.cuda.synchronize()
-        err, text = check_outputs(f"adapter_mid bwd stage {s}", got, want,
-                                  ("dmid1T", "dp1", "dB1", "dA2T"), {0, 1})
-        del got, want
+              f"{adapter_bound_text(cost)}")
+        fwd.add(err, t_k, t_p, t_l, *cost[:2], 1, cost[2])
+        label = f"adapter_mid bwd stage {s}"
+        err, plan, text = check_adapter_bwd(label, args, g)
         leaves = [t.detach().requires_grad_(True)
                   for t in (mid1T, p1, b1, a2T)]
         yl = adapter_library(*leaves, sv)
@@ -1361,15 +1443,24 @@ def check_adapter_mid(gen) -> dict:
         t_l = median_ms(lambda: torch.autograd.grad(yl, leaves, g,
                                                     retain_graph=True),
                         reps=5)
-        nbytes = (2 * (3 * T * r * M + 2 * M * H4 + 2 * T * r * H4)
-                  + 4 * 2 * T * r * H4)
-        # z, gelu and gelu', dh, dmid1, dB1, dA2
-        ops32 = float(T) * M * H4 * (GELU_PAIR_OPS + 10 * r)
-        print(f"adapter_mid bwd stage {s}: {text} kernel {t_k:.4f} ms plain "
-              f"{t_p:.4f} ms library backward {t_l:.4f} ms "
-              f"{bound_text(nbytes, 0.0, ops32)}")
-        bwd.add(err, t_k, t_p, t_l, nbytes, 0.0, 1, ops32)
+        cost = adapter_cost(T, M, H4, True)
+        print(f"{label}: {text} kernel {t_k:.4f} ms "
+              f"({adapter_plan_text(plan, t_k, cost)}) plain {t_p:.4f} ms "
+              f"library backward {t_l:.4f} ms {adapter_bound_text(cost)}")
+        bwd.add(err, t_k, t_p, t_l, *cost[:2], 1, cost[2])
         del mid1T, p1, g, y, ref, yl, leaves
+    # its own generator: the later checks draw the same tensors as before
+    cover = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    for name, T, M, H4 in ADAPTER_COVERAGE:
+        mid1T, p1, b1, a2T, g = adapter_operands(cover, T, M, H4)
+        args = (mid1T, p1, b1, a2T, (4.0, 2.0, 1.0, 0.5)[:T])
+        label = f"adapter_mid bwd {name} T {T} M {M} H4 {H4}"
+        _, plan, text = check_adapter_bwd(label, args, g)
+        t_k = median_ms(lambda: adapter_mid_bwd(*args, g), reps=5)
+        cost = adapter_cost(T, M, H4, True)
+        print(f"{label}: {text} kernel {t_k:.4f} ms "
+              f"({adapter_plan_text(plan, t_k, cost)})")
+        del mid1T, p1, g, args
     return {"fwd": fwd, "bwd": bwd}
 
 

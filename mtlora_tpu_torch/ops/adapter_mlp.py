@@ -19,16 +19,20 @@ in task order, ``dmid1 = s B1 dz`` and the fp32 sums ``dB1 = s mid1 dz``,
 ``dA2T = g h``. GELU is the JAX kernel's (``ln_lora.gelu_form``): the
 tanh form in bf16, the kernels' only dtype, exact erf otherwise.
 
-The probes of ``tools/adapter_variants.py`` are switches on the same two
-kernels, at T = 4 (:data:`FWD_PROBES`, :data:`BWD_PROBES`): the form of
-the activation, the rank expansion left out (``nodot1``), and the ``[T,
-M, r]`` layout of mid1 and the result (``vpu*``), with its own order of
-the expansion's sums. The probe's ``nodot2`` has no counterpart: JAX
+Kernel 5b is one fused pass (``csrc/adapter_mlp_bwd.cu``) with its rank
+products on bf16 tensor cores; :func:`bwd_plan` is its launch plan. The
+probes of ``tools/adapter_variants.py`` are switches on the forward
+kernel and on 5b's fused body, at T = 4 (:data:`FWD_PROBES`,
+:data:`BWD_PROBES`): the form of the activation, the rank expansion left
+out (``nodot1``), and the ``[T, M, r]`` layout of mid1 and the result
+(``vpu*``), with its own order of the expansion's sums. The probe's ``nodot2`` has no counterpart: JAX
 refuses it at the probe's shape (it stores an ``[R, H4]`` hidden into an
 ``[R, 1024]`` block).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -138,8 +142,6 @@ def adapter_mid_bwd_probe_plain(mid1T, p1, b1, a2T, scales, g, probe: str):
 
 def _check(name, mid1T, p1, b1, a2T, scales, extra=(), tmr=False):
     """``tmr``: mid1 in the ``[T, M, r]`` layout of the ``vpu*`` probes."""
-    if mid1T.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for {mid1T.device}")
     T, M, H4 = mid1T.shape[0], p1.shape[0], p1.shape[1]
     r1 = mid1T.shape[2] if tmr else mid1T.shape[1]
     if (T > MAX_TASKS or r1 != RANK or a2T.shape[1] != RANK or H4 % 64
@@ -148,6 +150,8 @@ def _check(name, mid1T, p1, b1, a2T, scales, extra=(), tmr=False):
                          f"of rank {RANK} and 4C % 64 == 0, got mid1T "
                          f"{tuple(mid1T.shape)}, p1 {tuple(p1.shape)}, a2T "
                          f"{tuple(a2T.shape)}")
+    if mid1T.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {mid1T.device}")
     mid = (T, M, RANK) if tmr else (T, RANK, M)
     want = [("mid1T", mid1T, mid), ("p1", p1, (M, H4)),
             ("b1", b1, (T, RANK, H4)), ("a2T", a2T, (T, RANK, H4))]
@@ -191,31 +195,87 @@ def adapter_mid_fwd(mid1T, p1, b1, a2T, scales):
     return out
 
 
-def weight_stripes(device, rows: int, H4: int) -> int:
-    """Row stripes of the weight-gradient kernel: about four blocks of 256
-    columns per SM."""
-    return max(1, min(-(-rows // 32), 4 * _sms(device) // -(-H4 // 256)))
+class BwdPlan(NamedTuple):
+    """Launch plan of kernel 5b's fused pass: ``pairs`` column pairs of n8
+    tiles a warp, ``cols`` = BWD_WARPS * 16 * pairs columns a block (a
+    chunk of H4, ``chunks`` of them), ``rows`` rows a tile, ``tiles`` row
+    tiles walked in ``stripes`` of ``tps`` tiles, ``blocks`` = chunks *
+    stripes (``per_sm`` an SM), ``smem`` bytes a block, ``part`` fp32
+    scratch elements: the dB1 and dA2T partials a stripe and, where
+    chunks > 1, the dmid1 partials a chunk."""
+
+    pairs: int
+    cols: int
+    rows: int
+    tiles: int
+    chunks: int
+    stripes: int
+    tps: int
+    blocks: int
+    per_sm: int
+    smem: int
+    part: int
+
+
+BWD_WARPS = 8            # warps a block (kWarps)
+BWD_PAIRS = 3            # column pairs of n8 tiles a warp (kPairs)
+BWD_ROWS = 64            # rows a tile
+BWD_PER_SM = 2           # blocks an SM (__launch_bounds__)
+BWD_MAX_H4 = 4096        # kMaxH4, Swin-B's widest hidden
+
+
+def bwd_smem(pairs: int, rows: int) -> int:
+    """Shared-memory bytes of a block (``bwd_smem_bytes``): B1 and A2T of
+    its columns as [h][16] bf16, two buffers of mid1 and g as [16][rows +
+    8] bf16, the warps' dmid1 partials [warps][16][rows] fp32, each lane's
+    dB1 and dA2T sums of its pairs (16 fp32 a pair)."""
+    tr = MAX_TASKS * RANK
+    return (2 * BWD_WARPS * 16 * pairs * tr * 2 + 2 * 2 * tr * (rows + 8) * 2
+            + BWD_WARPS * tr * rows * 4 + BWD_WARPS * 32 * pairs * 16 * 4)
+
+
+def bwd_plan(M: int, H4: int, T: int, sms: int) -> BwdPlan:
+    """Kernel 5b's plan for T tasks of rank 4, M rows and H4 hidden columns
+    on a card of ``sms`` SMs: chunks of BWD_WARPS * 16 * BWD_PAIRS
+    columns, about ``BWD_PER_SM`` blocks an SM (their shared memory fits
+    the SM's), the row tiles split evenly into stripes, none empty.
+    Refuses what the kernel does not take, naming the bound."""
+    if (not 1 <= T <= MAX_TASKS or M < 1 or H4 % 64
+            or not 64 <= H4 <= BWD_MAX_H4):
+        raise ValueError(f"adapter MLP tail backward kernel: needs 1 <= T <= "
+                         f"{MAX_TASKS} ({T}), M >= 1 ({M}) and H4 % 64 == 0 "
+                         f"up to {BWD_MAX_H4} ({H4})")
+    cols = BWD_WARPS * 16 * BWD_PAIRS
+    chunks = -(-H4 // cols)
+    tiles = -(-M // BWD_ROWS)
+    tps = -(-tiles // max(1, min(tiles, BWD_PER_SM * sms // chunks)))
+    stripes = -(-tiles // tps)
+    part = stripes * 2 * T * RANK * H4 + (chunks * T * RANK * M
+                                          if chunks > 1 else 0)
+    return BwdPlan(BWD_PAIRS, cols, BWD_ROWS, tiles, chunks, stripes, tps,
+                   chunks * stripes, BWD_PER_SM,
+                   bwd_smem(BWD_PAIRS, BWD_ROWS), part)
 
 
 def _launch_bwd(what, act, mid1T, p1, b1, a2T, scales, g):
-    """The row kernel (dmid1T, dp1), the weight kernel (fp32 partials of
-    dB1 and dA2T per row stripe) and their fixed-order sum, with the
-    activation ``act`` (an id of :data:`BWD_PROBES`; :data:`KERNEL5B_ACT`
-    at up to 4 tasks, the others at 4)."""
+    """Kernel 5b's fused pass (:func:`bwd_plan`) with the activation
+    ``act`` (an id of :data:`BWD_PROBES`; :data:`KERNEL5B_ACT` at up to 4
+    tasks, the others at 4), then the fixed-order sums of its partials."""
     T, M, H4 = _check(what, mid1T, p1, b1, a2T, scales,
                       [("g", g, tuple(mid1T.shape))])
     if act != KERNEL5B_ACT and T != MAX_TASKS:
         raise ValueError(f"{what}: runs at T = {MAX_TASKS}, got {T}")
-    stripes = weight_stripes(mid1T.device, M, H4)
+    plan = bwd_plan(M, H4, T, _sms(mid1T.device))
     f32 = dict(dtype=torch.float32, device=mid1T.device)
     dmid1 = torch.empty_like(mid1T)
     dp1 = torch.empty_like(p1)
-    part = torch.empty((stripes, 2, T, RANK, H4), **f32)
+    part = torch.empty((plan.part,), **f32)
     dw = torch.empty((2, T, RANK, H4), **f32)
     err = _build.library().mtlora_adapter_mid_bwd(
         act, mid1T.data_ptr(), p1.data_ptr(), b1.data_ptr(), a2T.data_ptr(),
         g.data_ptr(), dmid1.data_ptr(), dp1.data_ptr(), part.data_ptr(),
-        dw.data_ptr(), T, M, H4, stripes, *_scales(scales), _stream(mid1T))
+        dw.data_ptr(), T, M, H4, plan.pairs, plan.rows, plan.chunks,
+        plan.stripes, plan.tps, plan.smem, *_scales(scales), _stream(mid1T))
     _build.check(err, "mtlora_adapter_mid_bwd")
     return dmid1, dp1, dw[0], dw[1]
 

@@ -1,7 +1,8 @@
-// Fused MTLoRA adapter MLP tail (backward) for Hopper. With z, h = gelu(z)
-// and gelu'(z) recomputed (never stored; the tanh form, lnk::kGelu), the
-// cast points of _bwd_kernel:
-//   dh  = sum_j g[t,j,m] A2T[t,j]           fp32
+// Fused MTLoRA adapter MLP tail (backward) for Hopper: one pass over the
+// hidden elements. With z, h = gelu(z) and gelu'(z) recomputed (never
+// stored; the tanh form, lnk::kGelu), the cast points of _bwd_kernel:
+//   u   = sum_r mid1[t,r,m] B1[t,r,h]       fp32, z = p1 + s_t u
+//   dh  = sum_j g[t,j,m] A2T[t,j,h]         fp32
 //   dz  = bf16(dh gelu'(z))
 //   dp1 = bf16(sum_t dz)                    fp32 sum in task order
 //   dmid1[t,r,m] = bf16(s_t sum_h B1[t,r,h] dz[h])
@@ -14,20 +15,47 @@
 // tools/adapter_variants.py (make_bwd :136 through make_bwd_fn :209, with
 // erf_pair :173 or sig_pair :178), at T = 4.
 //
-// What bounds it: as the forward, the fp32 work per hidden element (GELU
-// and GELU' from one tanh, the rank-4 expansions and
-// contractions) at T*M*H4 elements; dp1 doubles the forward's bytes. The
-// TPU grid runs in order and carries dB1 and dA2T from step to step in
-// VMEM; blocks here run in parallel, so:
-//   - a row kernel (a warp carries 4 rows, its lanes split the hidden
-//     columns in pairs, as the forward) writes dp1 and keeps the lanes'
-//     partial sums of dmid1 in registers, reduced with shuffles once per
-//     row group;
-//   - a weight kernel gives each thread one column pair and walks a stripe
-//     of rows, holding that pair's B1 and A2T of every task and its dB1 and
-//     dA2T sums in registers; it recomputes z and dz (no [T, M, H4] tensor
-//     is stored) and writes fp32 partials per stripe, which a second pass
-//     sums in a fixed order (lnk::sum_parts). No fp32 atomics.
+// What bounds it: the fp32 work a hidden element and task (z's add, the
+// GELU and its derivative from one tanhf, dz's product, dp1's sum) at
+// T*M*H4 elements, and the MUFU under tanhf; the bytes (p1 in, dp1 out)
+// are a third of that time. Every rank product is an mma.sync m16n8k16 on
+// bf16 tensor cores, because the four tasks' ranks together, T*R = 16, are
+// one mma depth: a row's 16 (task, rank) values of mid1 (or g) are one A
+// fragment row, and task t's fragment zeros the other tasks' entries.
+//   - u_t and dh_t: A = masked mid1 (g) rows [m][tr], B = B1 (A2T) of all
+//     tasks, [h][tr] in shared memory; both come out in the C layout, so
+//     z, the GELU pair and dz are formed element-wise in registers.
+//   - dmid1_t = dz_t B1_t^T: dz_t's C fragments of two n8 tiles, packed to
+//     bf16, are the A fragment (16 columns deep); B is the same [h][tr]
+//     tile read by ldmatrix.trans (n = the 8 (task, rank) of two tasks,
+//     masked to task t), so tasks 0-1 and 2-3 share an accumulator.
+//   - dB1 and dA2T contract over rows: dz_t and bf16(h_t) are transposed
+//     in registers (movmatrix) into B fragments, and task t's masked
+//     mid1^T (g^T) is A, all tasks summing into one 16-row accumulator a
+//     column tile.
+//   - dp1 = sum_t bf16(dz_t), in task order: dz_t's A fragment times the
+//     8 x 8 identity, into an fp32 accumulator.
+// The columns of a pair of n8 tiles are permuted (logical column c of tile
+// j is column 4 (c / 2) + 2 j + c % 2 of the pair), so that a lane's four
+// p1 values of a row are adjacent: p1 is read and dp1 written as 8 bytes a
+// lane and row, whole 32-byte sectors, straight from device memory into
+// the C layout (the next pair's values loaded under the current pair's
+// work), with no shared-memory tile and no block barrier for them.
+//
+// Layout of the work: a block of kWarps warps owns a chunk of columns (kWarps *
+// 16 kPairs, a warp kPairs pairs of n8 tiles) and walks a stripe of row tiles
+// of BM rows in 16-row steps; mid1 and g of a tile are staged by cp.async as
+// [tr][m] (two tiles ahead), so their A fragments come from ldmatrix. Occupancy
+// is what the fp32 chain needs (tanhf's MUFU and FMA latencies): two blocks an
+// SM at 128 registers a thread, so the dB1 and dA2T sums of a lane's pairs wait
+// in shared memory between 16-row steps (16 fp32 a pair) rather than in
+// registers. The warps' dmid1 partials meet in shared memory and are summed in
+// warp order; with one chunk (H4 <= kWarps * 16 kPairs) dmid1 is written as
+// bf16, otherwise as fp32 partials a chunk, summed in chunk order by
+// dmid_sum_kernel. dB1 and dA2T are written as fp32 partials a stripe and
+// summed in stripe order (lnk::sum_parts). No fp32 atomics: two launches are
+// bit-identical. ops/adapter_mlp.py:bwd_plan is the launch plan; the kernel
+// traps if the shared-memory bytes do not hold its layout.
 
 #include "adapter_mlp.cuh"
 
@@ -35,197 +63,421 @@ namespace {
 
 using namespace adk;
 
-template <int T, Act A>
-__global__ void __launch_bounds__(128) adapter_mid_bwd_rows(Args a) {
-  __shared__ float mids[kMaxT * R * kBlockRows];
-  __shared__ float gs[kMaxT * R * kBlockRows];
-  __shared__ float outs[kMaxT * R * kBlockRows];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m0 = blockIdx.x * kBlockRows, M = a.M, H4 = a.H4;
-  stage_rank_rows(mids, a.mid1, T, M, m0, kBlockRows);
-  stage_rank_rows(gs, a.g, T, M, m0, kBlockRows);
-  __syncthreads();
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kPerSm = 2;          // blocks an SM (bwd_plan's BWD_PER_SM)
+constexpr int kTR = kMaxT * R;     // (task, rank) pairs: one mma depth
+constexpr int kMaxH4 = 4096;
+constexpr int kPairs = 3;          // column pairs a warp (BWD_PAIRS)
 
-  const int rl0 = warp * kRPW;
-  float acc[kRPW][T][R];
-#pragma unroll
-  for (int i = 0; i < kRPW; ++i)
-#pragma unroll
-    for (int t = 0; t < T; ++t)
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[i][t][r] = 0.f;
+struct BwdParams {
+  const bf16 *mid1, *p1, *b1, *a2, *g;  // [T,R,M] [M,H4] [T,R,H4]x2 [T,R,M]
+  bf16 *dmid1, *dp1;                      // [T,R,M], [M,H4]
+  float* part;        // [stripes][2][T*R][H4]: dB1, dA2T a stripe
+  float* dmid_part;   // [chunks][T*R][M] where chunks > 1
+  int M, H4, bm, chunks, tps;   // tps: row tiles a stripe
+  int cp_rows;        // mid1 and g staged by 16-byte cp.async (else scalar)
+  float s[kMaxT];
+};
 
-  for (int h = 2 * lane; h < H4; h += 64) {
-    float2 p[kRPW], dp[kRPW];
-#pragma unroll
-    for (int i = 0; i < kRPW; ++i) {
-      const int m = m0 + rl0 + i;
-      p[i] = m < M ? bf2(a.p1 + (size_t)m * H4 + h) : make_float2(0.f, 0.f);
-      dp[i] = make_float2(0.f, 0.f);
-    }
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      float2 b[R], w[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        b[r] = bf2(a.b1 + (size_t)(t * R + r) * H4 + h);
-        w[r] = bf2(a.a2 + (size_t)(t * R + r) * H4 + h);
-      }
-#pragma unroll
-      for (int i = 0; i < kRPW; ++i) {
-        const int rl = rl0 + i;
-        const float2 z = expand(p[i], mids + t * R * kBlockRows + rl,
-                                kBlockRows, b, a.s[t]);
-        float gx, gy, dgx, dgy;
-        act_pair<A>(z.x, &gx, &dgx);
-        act_pair<A>(z.y, &gy, &dgy);
-        float dhx = 0.f, dhy = 0.f;
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const float gv = gs[(t * R + j) * kBlockRows + rl];
-          dhx += gv * w[j].x;
-          dhy += gv * w[j].y;
-        }
-        const float dzx = round_bf16(dhx * dgx), dzy = round_bf16(dhy * dgy);
-        dp[i].x += dzx;
-        dp[i].y += dzy;
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[i][t][r] += b[r].x * dzx + b[r].y * dzy;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRPW; ++i) {
-      const int m = m0 + rl0 + i;
-      if (m < M) lnk::st_bf2(a.dp1 + (size_t)m * H4 + h, dp[i].x, dp[i].y);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kRPW; ++i)
-#pragma unroll
-    for (int t = 0; t < T; ++t)
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float v = warp_sum(acc[i][t][r]);
-        if (lane == 0) outs[(t * R + r) * kBlockRows + rl0 + i] = a.s[t] * v;
-      }
-  __syncthreads();
-  for (int i = threadIdx.x; i < T * R * kBlockRows; i += blockDim.x) {
-    const int tr = i / kBlockRows, m = m0 + i - tr * kBlockRows;
-    if (m < M) a.out[(size_t)tr * M + m] = __float2bfloat16(outs[i]);
+// Bytes of shared memory at np pairs a warp and bm rows a tile: B1 and A2T
+// of the chunk's columns as [h][16] bf16, two buffers of mid1 and g as
+// [16][bm + 8] bf16, the warps' dmid1 partials [kWarps][16][bm] fp32, and
+// each lane's dB1 and dA2T sums of its warp's pairs, [kWarps][np][4][32]
+// float4.
+__host__ __device__ constexpr int bwd_smem_bytes(int np, int bm) {
+  return 2 * kWarps * 16 * np * kTR * 2 + 2 * 2 * kTR * (bm + 8) * 2 +
+         kWarps * kTR * bm * 4 + kWarps * np * 4 * 32 * 16;
+}
+
+// Element offset of (column h, k = t R + r) in an [h][16] weight tile:
+// 128-byte lines of four columns, their 16-byte units swizzled so that
+// the eight columns an ldmatrix reads (4 (i / 2) + 2 j + i % 2 of a pair,
+// in either half of k) fall in eight distinct units.
+__device__ __forceinline__ int wt_off(int h, int k) {
+  const int line = h >> 2, u = 2 * (h & 3) + (k >> 3);
+  const int f = ((line & 1) << 2) | ((line >> 1) & 1);
+  return line * 64 + (u ^ f) * 8 + (k & 7);
+}
+
+__device__ __forceinline__ uint32_t movtrans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(d)
+               : "r"(a));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float lo_f(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+
+__device__ __forceinline__ float hi_f(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+// The activation and its derivative (lnk::act_pair), the tanh form with
+// its products factored: gl = hz + hz th, gl' = (0.5 + 0.5 th) + hz k (1 -
+// th^2), hz = z / 2, k = c + 3 c d z^2 (one tanhf).
+template <Act A>
+__device__ __forceinline__ void gelu_pair(float z, float* gl, float* dg) {
+  if constexpr (A == Act::Tanh) {
+    const float z2 = z * z, hz = 0.5f * z;
+    const float th = tanhf(z * fmaf(lnk::kGeluCD, z2, lnk::kGeluC));
+    *gl = fmaf(hz, th, hz);
+    *dg = fmaf(hz * fmaf(3.f * lnk::kGeluCD, z2, lnk::kGeluC),
+               fmaf(-th, th, 1.f), fmaf(0.5f, th, 0.5f));
+  } else {
+    act_pair<A>(z, gl, dg);
   }
 }
 
-constexpr int kChunk = 32;     // rows staged at once by the weight kernel
+// Task t's scale (a select, so that the parameters stay in their bank).
+__device__ __forceinline__ float task_scale(const BwdParams& a, int t) {
+  return t == 0 ? a.s[0] : t == 1 ? a.s[1] : t == 2 ? a.s[2] : a.s[3];
+}
 
-// One thread per hidden column pair h (blockIdx.x * 256 + 2 threadIdx.x),
-// one stripe of rows per blockIdx.y: part[stripe][0][t][r][h..] = dB1,
-// part[stripe][1][t][j][h..] = dA2T over the stripe's rows.
-template <int T, Act A>
-__global__ void __launch_bounds__(128) adapter_mid_bwd_weights(Args a) {
-  __shared__ float mids[kMaxT * R * kChunk];
-  __shared__ float gs[kMaxT * R * kChunk];
-  const int M = a.M, H4 = a.H4;
-  const int h = blockIdx.x * 256 + 2 * threadIdx.x;
-  const bool on = h < H4;
-  const int r_begin = blockIdx.y * a.stripe_rows;
-  const int r_end = min(M, r_begin + a.stripe_rows);
-  float2 b[T][R], w[T][R], db[T][R], da[T][R];
+// A lane's p1 values of a pair: rows g and g + 8 of the 16 at m0, the 4
+// adjacent columns 4 q.. of the pair at h0 (zeros past M).
+__device__ __forceinline__ void load_p(uint2* p, const bf16* p1, int M,
+                                       int H4, int m0, int h0, int g8,
+                                       int q) {
 #pragma unroll
-  for (int t = 0; t < T; ++t)
+  for (int i = 0; i < 2; ++i) {
+    const int m = m0 + g8 + 8 * i;
+    const bool ok = m < M;
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(
+        p1 + (size_t)(ok ? m : 0) * H4 + h0 + 4 * q));
+    p[i] = ok ? v : make_uint2(0u, 0u);
+  }
+}
+
+// mid1 and g of the row tile at m0 into buffer `buf`: rows tr < T R of
+// [T, R, M] (the rest zero), columns m0 .. m0 + bm (zero past M); by
+// 16-byte cp.async where `cp` (M % 8 == 0, aligned), else element-wise.
+template <int T>
+__device__ __forceinline__ void stage_rank_tile(bf16* rk, const bf16* mid1,
+                                                const bf16* g, int M, int bm,
+                                                bool cp, int buf, int m0) {
+  const int per = kTR * (bm / 8);
+  for (int i = threadIdx.x; i < 2 * per; i += kThreads) {
+    const int arr = i / per, rem = i - arr * per;
+    const int tr = rem / (bm / 8), c = rem - tr * (bm / 8);
+    const int m = m0 + 8 * c;
+    const int n = tr < T * R ? max(0, min(8, M - m)) : 0;
+    const bf16* src = (arr ? g : mid1) + (size_t)tr * M + m;
+    bf16* dst = rk + ((buf * 2 + arr) * kTR + tr) * (bm + 8) + 8 * c;
+    if (cp) {
+      cp_async16_n(dst, n ? src : mid1, 2 * n);
+    } else {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const size_t o = (size_t)(t * R + r) * H4 + h;
-      b[t][r] = on ? bf2(a.b1 + o) : make_float2(0.f, 0.f);
-      w[t][r] = on ? bf2(a.a2 + o) : make_float2(0.f, 0.f);
-      db[t][r] = da[t][r] = make_float2(0.f, 0.f);
-    }
-  for (int c0 = r_begin; c0 < r_end; c0 += kChunk) {
-    const int rows = min(kChunk, r_end - c0);
-    __syncthreads();
-    stage_rank_rows(mids, a.mid1, T, M, c0, kChunk);
-    stage_rank_rows(gs, a.g, T, M, c0, kChunk);
-    __syncthreads();
-    if (!on) continue;
-    for (int i = 0; i < rows; ++i) {
-      const float2 p = bf2(a.p1 + (size_t)(c0 + i) * H4 + h);
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        const float2 z =
-            expand(p, mids + t * R * kChunk + i, kChunk, b[t], a.s[t]);
-        float gx, gy, dgx, dgy;
-        act_pair<A>(z.x, &gx, &dgx);
-        act_pair<A>(z.y, &gy, &dgy);
-        gx = round_bf16(gx);
-        gy = round_bf16(gy);
-        float dhx = 0.f, dhy = 0.f;
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const float gv = gs[(t * R + j) * kChunk + i];
-          dhx += gv * w[t][j].x;
-          dhy += gv * w[t][j].y;
-          da[t][j].x += gv * gx;
-          da[t][j].y += gv * gy;
-        }
-        const float dzx = round_bf16(dhx * dgx), dzy = round_bf16(dhy * dgy);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float mv = mids[(t * R + r) * kChunk + i];
-          db[t][r].x += mv * dzx;
-          db[t][r].y += mv * dzy;
-        }
-      }
+      for (int e = 0; e < 8; ++e)
+        dst[e] = e < n ? src[e] : __float2bfloat16(0.f);
     }
   }
-  if (!on) return;
+}
+
+template <int T, Act A>
+__global__ void __launch_bounds__(kThreads, kPerSm)
+    adapter_mid_bwd_fused(BwdParams a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bm = a.bm, M = a.M, H4 = a.H4;
+  if (blockDim.x != kThreads || bm % 16 ||
+      bwd_smem_bytes(kPairs, bm) > (int)dynamic_smem_bytes())
+    __trap();
+  constexpr int kCols = kWarps * 16 * kPairs;
+  bf16* wb = reinterpret_cast<bf16*>(smem);           // B1 [kCols][16]
+  bf16* wa = wb + kCols * kTR;                         // A2T [kCols][16]
+  bf16* rk = wa + kCols * kTR;                         // [2][2][16][bm + 8]
+  float* red = reinterpret_cast<float*>(rk + 4 * kTR * (bm + 8));
+  float4* wacc = reinterpret_cast<float4*>(red + kWarps * kTR * bm);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, q = lane & 3;
+  const int c0 = blockIdx.x * kCols, chunk = blockIdx.x;
+  const int tiles = (M + bm - 1) / bm;
+  const int t0 = blockIdx.y * a.tps, t1 = min(tiles, t0 + a.tps);
+
+  // the chunk's B1 and A2T, every task's, as [h][tr] (zeros past T R, H4)
+  for (int i = threadIdx.x; i < kCols * kTR; i += kThreads) {
+    const int tr = i / kCols, h = i - tr * kCols;
+    const bool ok = tr < T * R && c0 + h < H4;
+    const size_t o = (size_t)tr * H4 + c0 + h;
+    wb[wt_off(h, tr)] = ok ? a.b1[o] : __float2bfloat16(0.f);
+    wa[wt_off(h, tr)] = ok ? a.a2[o] : __float2bfloat16(0.f);
+  }
+  const bf16* p1 = a.p1;
+  const bool cp = a.cp_rows;
+  if (t0 < t1) stage_rank_tile<T>(rk, a.mid1, a.g, M, bm, cp, 0, t0 * bm);
+  cp_async_commit();
+  if (t0 + 1 < t1)
+    stage_rank_tile<T>(rk, a.mid1, a.g, M, bm, cp, 1, (t0 + 1) * bm);
+  cp_async_commit();
+
+  // the warp's columns: pairs h0 = wc0 + 16 pp, local wl0 + 16 pp
+  const int wl0 = warp * 16 * kPairs, wc0 = c0 + wl0;
+  // ldmatrix row of this lane in a pair's weight tile: matrix l / 8 = (j,
+  // k half), row l % 8 = column 4 (i / 2) + 2 j + i % 2
+  const int li = lane & 7, lj = (lane >> 4) & 1, lk = (lane >> 3) & 1;
+  const int lrow = 4 * (li >> 1) + 2 * lj + (li & 1);
+  // masks of task t's entries: in the u / dh A fragment (k = 2 q.. and
+  // 8 + 2 q..: task q / 2, 2 + q / 2), and in the dB1 / dA2T A fragment and
+  // the dmid1 B fragment (row or column g: task g / 4, 2 + g / 4)
+  const uint32_t mq[2] = {(q >> 1) == 0 ? ~0u : 0u, (q >> 1) == 1 ? ~0u : 0u};
+  const uint32_t mg[2] = {(g8 >> 2) == 0 ? ~0u : 0u,
+                          (g8 >> 2) == 1 ? ~0u : 0u};
+  // B fragment of the 8 x 8 identity (bf16 1.0 where k = n): k = 2 q, 2 q +
+  // 1 against n = g
+  const uint32_t eye = (g8 == 2 * q ? 0x3f80u : 0u) |
+                       (g8 == 2 * q + 1 ? 0x3f800000u : 0u);
+
+  // the lane's dB1 / s and dA2T sums of pair pp, C fragments of [tr][h]
+  // tiles j = 0, 1: float4 v of wacc + (warp kPairs + pp) 128 + 32 v + lane
+  // (v: dB1 j 0, 1, dA2T j 0, 1), kept in shared memory between pairs
+  float4* lacc = wacc + warp * kPairs * 128 + lane;
+  for (int v = 0; v < kPairs * 4; ++v)
+    lacc[32 * v] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  uint2 pn[2] = {make_uint2(0u, 0u), make_uint2(0u, 0u)};
+  if (t0 < t1 && wc0 < H4)
+    load_p(pn, p1, M, H4, t0 * bm, wc0, g8, q);
+
+  for (int tile = t0, it = 0; tile < t1; ++tile, ++it) {
+    const int buf = it & 1, m0 = tile * bm;
+    cp_async_wait<1>();
+    __syncthreads();   // this tile's rank rows; the last tile's red read
+    const bf16* smid = rk + (buf * 2) * kTR * (bm + 8);
+    const bf16* sg = smid + kTR * (bm + 8);
+    for (int sub = 0; sub < bm / 16; ++sub) {
+      const int r0 = m0 + 16 * sub;
+      // A fragments: mid1 / g rows [m][tr] (ldmatrix.trans of [tr][m])
+      // and their transposes [tr][m]
+      uint32_t am[4], ag[4], amt[4], agt[4];
+      {
+        const int mi = lane >> 3;
+        const int ua = ((mi >> 1) * 8 + li) * (bm + 8) + 16 * sub +
+                       (mi & 1) * 8;
+        const int ut = ((mi & 1) * 8 + li) * (bm + 8) + 16 * sub +
+                       (mi >> 1) * 8;
+        ldsm_x4_t(am, smid + ua);
+        ldsm_x4_t(ag, sg + ua);
+        ldsm_x4(amt, smid + ut);
+        ldsm_x4(agt, sg + ut);
+      }
+      float dm[2][4];   // dmid1 / s: [m][8 tr] of tasks 0-1 and 2-3
+#pragma unroll
+      for (int G = 0; G < 2; ++G)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dm[G][e] = 0.f;
+#pragma unroll
+      for (int pp = 0; pp < kPairs; ++pp) {
+        const int h0 = wc0 + 16 * pp;
+        const uint2 pc[2] = {pn[0], pn[1]};
+        // the next pair's p1 (this sub's, the next sub's, the next tile's)
+        {
+          const int nh = pp + 1 < kPairs ? h0 + 16 : wc0;
+          const int nr = pp + 1 < kPairs ? r0
+                         : sub + 1 < bm / 16 ? r0 + 16
+                         : tile + 1 < t1    ? m0 + bm
+                                            : -1;
+          if (nr >= 0 && nh < H4) load_p(pn, p1, M, H4, nr, nh, g8, q);
+        }
+        if (h0 >= H4) continue;   // the chunk's columns past H4
+        uint32_t bb[4], ba[4], bt[4];
+        {
+          const int o = wt_off(wl0 + 16 * pp + lrow, 8 * lk);
+          ldsm_x4(bb, wb + o);
+          ldsm_x4(ba, wa + o);
+          ldsm_x4_t(bt, wb + o);
+        }
+        float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        float accb[2][4], acca[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float4 b = lacc[128 * pp + 32 * j];
+          const float4 c = lacc[128 * pp + 32 * (2 + j)];
+          accb[j][0] = b.x, accb[j][1] = b.y, accb[j][2] = b.z,
+          accb[j][3] = b.w;
+          acca[j][0] = c.x, acca[j][1] = c.y, acca[j][2] = c.z,
+          acca[j][3] = c.w;
+        }
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+          const int hi = t >> 1, sel = t & 1;
+          const uint32_t z0 = 0u;
+          const uint32_t au[4] = {hi ? z0 : am[0] & mq[sel],
+                                  hi ? z0 : am[1] & mq[sel],
+                                  hi ? am[2] & mq[sel] : z0,
+                                  hi ? am[3] & mq[sel] : z0};
+          const uint32_t ad[4] = {hi ? z0 : ag[0] & mq[sel],
+                                  hi ? z0 : ag[1] & mq[sel],
+                                  hi ? ag[2] & mq[sel] : z0,
+                                  hi ? ag[3] & mq[sel] : z0};
+          uint32_t dzp[2][2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float u[4] = {0.f, 0.f, 0.f, 0.f}, dh[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16_16816(u, au, bb[2 * j], bb[2 * j + 1]);
+            mma_bf16_16816(dh, ad, ba[2 * j], ba[2 * j + 1]);
+            float gl[4], dz[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const uint32_t pw = j ? pc[e >> 1].y : pc[e >> 1].x;
+              const float pv = (e & 1) ? hi_f(pw) : lo_f(pw);
+              float dg;
+              gelu_pair<A>(fmaf(task_scale(a, t), u[e], pv), &gl[e], &dg);
+              dz[e] = dh[e] * dg;
+            }
+            dzp[j][0] = pack_bf16(dz[0], dz[1]);
+            dzp[j][1] = pack_bf16(dz[2], dz[3]);
+            const uint32_t hp0 = pack_bf16(gl[0], gl[1]);
+            const uint32_t hp1 = pack_bf16(gl[2], gl[3]);
+            // dB1 += mid1_t^T dz_t, dA2T += g_t^T bf16(h_t) over the 16 rows
+            const uint32_t atm[4] = {hi ? z0 : amt[0] & mg[sel],
+                                     hi ? amt[1] & mg[sel] : z0,
+                                     hi ? z0 : amt[2] & mg[sel],
+                                     hi ? amt[3] & mg[sel] : z0};
+            const uint32_t atg[4] = {hi ? z0 : agt[0] & mg[sel],
+                                     hi ? agt[1] & mg[sel] : z0,
+                                     hi ? z0 : agt[2] & mg[sel],
+                                     hi ? agt[3] & mg[sel] : z0};
+            mma_bf16_16816(accb[j], atm, movtrans(dzp[j][0]),
+                           movtrans(dzp[j][1]));
+            mma_bf16_16816(acca[j], atg, movtrans(hp0), movtrans(hp1));
+          }
+          // dmid1 += dz_t B1_t^T over the pair's 16 columns
+          const uint32_t adz[4] = {dzp[0][0], dzp[0][1], dzp[1][0],
+                                   dzp[1][1]};
+          mma_bf16_16816(dm[hi], adz, bt[hi] & mg[sel],
+                         bt[2 + hi] & mg[sel]);
+          // dp1 += bf16(dz_t), in task order: dz_t's 16 columns times the
+          // identity, one n8 tile at a time
+          mma_bf16_16816(dp[0], adz, eye, 0u);
+          mma_bf16_16816(dp[1], adz, 0u, eye);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          lacc[128 * pp + 32 * j] =
+              make_float4(accb[j][0], accb[j][1], accb[j][2], accb[j][3]);
+          lacc[128 * pp + 32 * (2 + j)] =
+              make_float4(acca[j][0], acca[j][1], acca[j][2], acca[j][3]);
+        }
+        // dp1: rows g and g + 8, the lane's 4 adjacent columns
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int m = r0 + g8 + 8 * i;
+          if (m < M)
+            *reinterpret_cast<uint2*>(a.dp1 + (size_t)m * H4 + h0 + 4 * q) =
+                make_uint2(pack_bf16(dp[0][2 * i], dp[0][2 * i + 1]),
+                           pack_bf16(dp[1][2 * i], dp[1][2 * i + 1]));
+        }
+      }
+      // the warp's dmid1 partial of these 16 rows: column 2 q + e of
+      // group G is tr = 8 G + 2 q + e
+      float* rw = red + warp * kTR * bm + 16 * sub + g8;
+#pragma unroll
+      for (int G = 0; G < 2; ++G)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          rw[(8 * G + 2 * q + (e & 1)) * bm + 8 * (e >> 1)] = dm[G][e];
+    }
+    __syncthreads();   // red complete; rk[buf] free
+    if (tile + 2 < t1)
+      stage_rank_tile<T>(rk, a.mid1, a.g, M, bm, cp, buf, m0 + 2 * bm);
+    cp_async_commit();
+    for (int i = threadIdx.x; i < T * R * bm; i += kThreads) {
+      const int tr = i / bm, ml = i - tr * bm, m = m0 + ml;
+      if (m >= M) continue;
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) v += red[(w * kTR + tr) * bm + ml];
+      if (a.chunks == 1)
+        a.dmid1[(size_t)tr * M + m] =
+            __float2bfloat16(task_scale(a, tr / R) * v);
+      else
+        a.dmid_part[((size_t)chunk * T * R + tr) * M + m] = v;
+    }
+  }
+  cp_async_wait<0>();
+
+  // the stripe's partials: row tr of the [tr][h] tiles, columns 4 q.. of
+  // each pair (logical 2 q.. of both tiles)
   float* out = a.part + (size_t)blockIdx.y * 2 * T * R * H4;
 #pragma unroll
-  for (int t = 0; t < T; ++t)
+  for (int pp = 0; pp < kPairs; ++pp) {
+    const int h0 = wc0 + 16 * pp;
+    if (h0 >= H4) continue;
+    float accb[2][4], acca[2][4];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const size_t o = (size_t)(t * R + r) * H4 + h;
-      *reinterpret_cast<float2*>(out + o) =
-          make_float2(a.s[t] * db[t][r].x, a.s[t] * db[t][r].y);
-      *reinterpret_cast<float2*>(out + (size_t)T * R * H4 + o) = da[t][r];
+    for (int j = 0; j < 2; ++j) {
+      const float4 b = lacc[128 * pp + 32 * j];
+      const float4 c = lacc[128 * pp + 32 * (2 + j)];
+      accb[j][0] = b.x, accb[j][1] = b.y, accb[j][2] = b.z, accb[j][3] = b.w;
+      acca[j][0] = c.x, acca[j][1] = c.y, acca[j][2] = c.z, acca[j][3] = c.w;
     }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int tr = g8 + 8 * i;
+      if (tr >= T * R) continue;
+      const float s = task_scale(a, tr / R);
+      const size_t o = (size_t)tr * H4 + h0 + 4 * q;
+      *reinterpret_cast<float4*>(out + o) =
+          make_float4(s * accb[0][2 * i], s * accb[0][2 * i + 1],
+                      s * accb[1][2 * i], s * accb[1][2 * i + 1]);
+      *reinterpret_cast<float4*>(out + (size_t)T * R * H4 + o) =
+          make_float4(acca[0][2 * i], acca[0][2 * i + 1],
+                      acca[1][2 * i], acca[1][2 * i + 1]);
+    }
+  }
+}
+
+// dmid1[tr][m] = bf16(s_t sum_c part[c][tr][m]), the chunks in order.
+__global__ void dmid_sum_kernel(const float* __restrict__ part, int chunks,
+                                int TR, int M, const BwdParams a) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t E = (size_t)TR * M;
+  if (i >= E) return;
+  float v = 0.f;
+  for (int c = 0; c < chunks; ++c) v += part[(size_t)c * E + i];
+  a.dmid1[i] = __float2bfloat16(task_scale(a, (int)(i / M / R)) * v);
 }
 
 template <int T, Act A>
-cudaError_t run(const Args& a, int stripes, float* dw, cudaStream_t st) {
-  adapter_mid_bwd_rows<T, A>
-      <<<(a.M + kBlockRows - 1) / kBlockRows, 128, 0, st>>>(a);
-  cudaError_t e = cudaGetLastError();
+cudaError_t run(const BwdParams& a, int stripes, int smem, float* dw,
+                cudaStream_t st) {
+  auto kern = adapter_mid_bwd_fused<T, A>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  adapter_mid_bwd_weights<T, A>
-      <<<dim3((a.H4 + 255) / 256, stripes), 128, 0, st>>>(a);
+  kern<<<dim3(a.chunks, stripes), kThreads, smem, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
+  if (a.chunks > 1) {
+    const size_t E = (size_t)T * R * a.M;
+    dmid_sum_kernel<<<(unsigned)((E + 255) / 256), 256, 0, st>>>(
+        a.dmid_part, a.chunks, T * R, a.M, a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
   return lnk::sum_parts(a.part, stripes, 2 * (size_t)T * R * a.H4, dw, st);
 }
 
-Args make_args(const void* mid1, const void* p1, const void* b1,
-               const void* a2, const void* g, void* dmid1, void* dp1,
-               void* part, int T, int M, int H4, int stripes, float s0,
-               float s1, float s2, float s3) {
-  Args a = {};
-  a.mid1 = static_cast<const bf16*>(mid1);
-  a.p1 = static_cast<const bf16*>(p1);
-  a.b1 = static_cast<const bf16*>(b1);
-  a.a2 = static_cast<const bf16*>(a2);
-  a.g = static_cast<const bf16*>(g);
-  a.out = static_cast<bf16*>(dmid1);
-  a.dp1 = static_cast<bf16*>(dp1);
-  a.part = static_cast<float*>(part);
-  a.T = T;
-  a.M = M;
-  a.H4 = H4;
-  // stripes past the rows (the ceil) still write zero partials
-  const int chunks = (M + kChunk - 1) / kChunk;
-  a.stripe_rows = (chunks + stripes - 1) / stripes * kChunk;
-  a.s[0] = s0;
-  a.s[1] = s1;
-  a.s[2] = s2;
-  a.s[3] = s3;
-  return a;
+// The instance of T tasks (the probes' forms: T = 4 only).
+template <Act A>
+cudaError_t run_t(int T, const BwdParams& a, int stripes, int smem,
+                  float* dw, cudaStream_t st) {
+  if constexpr (A != kGelu) {
+    return run<kMaxT, A>(a, stripes, smem, dw, st);
+  } else {
+    return T == 1   ? run<1, A>(a, stripes, smem, dw, st)
+           : T == 2 ? run<2, A>(a, stripes, smem, dw, st)
+           : T == 3 ? run<3, A>(a, stripes, smem, dw, st)
+                    : run<4, A>(a, stripes, smem, dw, st);
+  }
 }
 
 // The activations' ids, which adapter_mlp.py's BWD_PROBES and KERNEL5B_ACT
@@ -241,27 +493,54 @@ static_assert(kGelu == Act::Tanh, "kernel 5b is the tanh form");
 
 // mid1T [T, 4, M], p1 [M, H4], b1, a2T [T, 4, H4], g [T, 4, M] (bf16) ->
 // dmid1T [T, 4, M], dp1 [M, H4] (bf16) and dw [2][T][4][H4] (fp32: dB1,
-// dA2T); part [stripes][2][T][4][H4] fp32 scratch; act: a BwdId.
+// dA2T); part: fp32 scratch, [stripes][2][T][4][H4] and, where chunks >
+// 1, [chunks][T][4][M] after it; act: a BwdId. The plan's numbers
+// (ops/adapter_mlp.py:bwd_plan): np column pairs a warp, bm rows a tile,
+// chunks of kWarps * 16 np columns, stripes of tps row tiles, smem bytes.
 extern "C" int mtlora_adapter_mid_bwd(int act, const void* mid1,
                                       const void* p1, const void* b1,
                                       const void* a2, const void* g,
                                       void* dmid1, void* dp1, void* part,
-                                      void* dw, int T, int M, int H4,
-                                      int stripes, float s0, float s1,
+                                      void* dw, int T, int M, int H4, int np,
+                                      int bm, int chunks, int stripes,
+                                      int tps, int smem, float s0, float s1,
                                       float s2, float s3, void* stream) {
+  const int tiles = bm > 0 ? (M + bm - 1) / bm : 0;
   if ((act != kBwdErf && act != kBwdTanh && act != kBwdSig) || T < 1 ||
       T > kMaxT || (act != kBwdTanh && T != kMaxT) || M < 1 || H4 < 64 ||
-      H4 % 64 || stripes < 1)
+      H4 % 64 || H4 > kMaxH4 || np != kPairs ||
+      (bm != 64 && bm != 128) || chunks != (H4 + kWarps * 16 * np - 1) /
+                                             (kWarps * 16 * np) ||
+      stripes < 1 || tps < 1 || (long long)stripes * tps < tiles ||
+      smem < bwd_smem_bytes(np, bm) || (uintptr_t)p1 % 16 ||
+      (uintptr_t)part % 16)
     return (int)cudaErrorInvalidValue;
-  const Args a = make_args(mid1, p1, b1, a2, g, dmid1, dp1, part, T, M, H4,
-                           stripes, s0, s1, s2, s3);
+  BwdParams a = {};
+  a.mid1 = static_cast<const bf16*>(mid1);
+  a.p1 = static_cast<const bf16*>(p1);
+  a.b1 = static_cast<const bf16*>(b1);
+  a.a2 = static_cast<const bf16*>(a2);
+  a.g = static_cast<const bf16*>(g);
+  a.dmid1 = static_cast<bf16*>(dmid1);
+  a.dp1 = static_cast<bf16*>(dp1);
+  a.part = static_cast<float*>(part);
+  a.dmid_part = a.part + (size_t)stripes * 2 * T * R * H4;
+  a.M = M;
+  a.H4 = H4;
+  a.bm = bm;
+  a.chunks = chunks;
+  a.tps = tps;
+  a.cp_rows = M % 8 == 0 && (uintptr_t)mid1 % 16 == 0 &&
+              (uintptr_t)g % 16 == 0;
+  a.s[0] = s0;
+  a.s[1] = s1;
+  a.s[2] = s2;
+  a.s[3] = s3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(dw);
-  cudaError_t e = act == kBwdErf ? run<kMaxT, Act::Erf>(a, stripes, out, st)
-                  : act == kBwdSig ? run<kMaxT, Act::Sig>(a, stripes, out, st)
-                  : T == 1       ? run<1, kGelu>(a, stripes, out, st)
-                  : T == 2       ? run<2, kGelu>(a, stripes, out, st)
-                  : T == 3       ? run<3, kGelu>(a, stripes, out, st)
-                                 : run<4, kGelu>(a, stripes, out, st);
+  const cudaError_t e =
+      act == kBwdErf   ? run_t<Act::Erf>(T, a, stripes, smem, out, st)
+      : act == kBwdSig ? run_t<Act::Sig>(T, a, stripes, smem, out, st)
+                       : run_t<kGelu>(T, a, stripes, smem, out, st);
   return (int)e;
 }

@@ -4,11 +4,13 @@ variants at the qkv sites, ``qkv-fwd-*`` and ``qkv-*``, run with
 ``--checks check_ln_lora``, kernel 2-tail's, ``tail-fwd-*``, with
 ``--checks check_ln_lora_tail``, kernels 3's and 3b's, ``merge-fwd-*`` and
 ``merge-*``, with ``--checks check_merge``, kernel 6's, ``task-merge-fwd-*``,
-with ``--checks check_task_merge``).
+with ``--checks check_task_merge``, kernel 5b's, ``adapter-bwd-*``, with
+``--checks check_adapter_mid``).
 
     python -m mtlora_tpu_torch.tools.ln_mlp_bwd_variants
         [--variants NAME,...] [--against DIR ...] [--checks FUNC,...]
-        [--time-qkv | --time-merge | --time-task-merge] [--passes 2]
+        [--time-qkv | --time-merge | --time-task-merge | --time-adapter-bwd]
+        [--passes 2]
 
 The trees: this checkout; one copy of its ``mtlora_tpu_torch`` per
 variant, with that variant's edits of ``VARIANTS`` applied (under
@@ -51,7 +53,9 @@ tree times kernel 3 at the three merges for L = 32 and 128, unchecked, so
 that the trees of ``PARTS`` with a part of kernel 3 taken out run beside
 it; with ``--time-task-merge``, kernel 6 at its three merges (four tasks,
 batch 32) and at ``chip_smoke.py``'s coverage shapes, beside the trees of
-``PARTS`` with a part of kernel 6 taken out.
+``PARTS`` with a part of kernel 6 taken out; with ``--time-adapter-bwd``,
+kernel 5b at its four stage shapes: ms a call, device ms and the
+wrapper's host ms a call.
 
 This file imports only torch and the standard library at the top: a
 process of another tree imports that tree's package, never this one's.
@@ -323,6 +327,31 @@ VARIANTS = {
          "smem = (FWD_STAGES * 3 * MAX_N * FWD_HEAD_DIM * 2",
          "smem = (4 * 16 * MAX_N * 2\n"
          "            + FWD_STAGES * 3 * MAX_N * FWD_HEAD_DIM * 2")],
+    # kernel 5b: one block an SM (up to 255 registers a thread)
+    "adapter-bwd-1-per-sm": [
+        ("ops/csrc/adapter_mlp_bwd.cu", "constexpr int kPerSm = 2;",
+         "constexpr int kPerSm = 1;"),
+        ("ops/adapter_mlp.py", "BWD_PER_SM = 2 ", "BWD_PER_SM = 1 ")],
+    # kernel 5b: blocks of 4 warps (192 columns), three an SM
+    "adapter-bwd-4-warps": [
+        ("ops/csrc/adapter_mlp_bwd.cu", "constexpr int kWarps = 8;",
+         "constexpr int kWarps = 4;"),
+        ("ops/csrc/adapter_mlp_bwd.cu", "constexpr int kPerSm = 2;",
+         "constexpr int kPerSm = 3;"),
+        ("ops/adapter_mlp.py", "BWD_WARPS = 8 ", "BWD_WARPS = 4 "),
+        ("ops/adapter_mlp.py", "BWD_PER_SM = 2 ", "BWD_PER_SM = 3 ")],
+    # kernel 5b: one block an SM of 12 warps of 2 pairs (384 columns, 168
+    # registers a thread)
+    "adapter-bwd-12-warps": [
+        ("ops/csrc/adapter_mlp_bwd.cu", "constexpr int kWarps = 8;",
+         "constexpr int kWarps = 12;"),
+        ("ops/csrc/adapter_mlp_bwd.cu", "constexpr int kPairs = 3;",
+         "constexpr int kPairs = 2;"),
+        ("ops/csrc/adapter_mlp_bwd.cu", "constexpr int kPerSm = 2;",
+         "constexpr int kPerSm = 1;"),
+        ("ops/adapter_mlp.py", "BWD_WARPS = 8 ", "BWD_WARPS = 12 "),
+        ("ops/adapter_mlp.py", "BWD_PAIRS = 3 ", "BWD_PAIRS = 2 "),
+        ("ops/adapter_mlp.py", "BWD_PER_SM = 2 ", "BWD_PER_SM = 1 ")],
     # kernel 2b (y-only): each thread loads its A fragments of the chunk's
     # gy from device memory into registers, in place of gy's boxes through
     # the TMA ring
@@ -1224,14 +1253,16 @@ def _ptxas(log: str) -> dict:
     kernels (4b, 2b in both modes, 3b: ``patch_merge_bwd_rows``, and
     ``merge_ln_bwd_rows`` in checkouts before it; 6b) and of the attention
     forward (kernels 1 and 1c: ``window_attn_fwd_rows``) and backward
-    (kernels 1b and 1c's)."""
+    (kernels 1b and 1c's), and of kernel 5b's fused pass
+    (``adapter_mid_bwd_fused``)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S*(?:ln_mlp_fwd_kernel|"
                       r"ln_mlp_bwd_rows|window_attn_bwd_kernel|"
                       r"window_attn_fwd_rows|ln_lora_\w*"
                       r"bwd_rows|merge_\w*bwd_rows|ln_lora_\w*fwd_kernel|"
-                      r"patch_merge_fwd_rows|task_merge_fwd_rows)"
+                      r"patch_merge_fwd_rows|task_merge_fwd_rows|"
+                      r"adapter_mid_bwd_fused)"
                       r"\S*)", line)
         if m:
             name = m[1]
@@ -1416,8 +1447,44 @@ def time_task_merge(rec: dict):
         del base, pre, p2, mid1T, mid2T, args
 
 
+# kernel 5b's four stage shapes of the batch-32 step: (M, H4), T = 4
+ADAPTER_STAGES = tuple((32 * (112 // 2 ** s) ** 2, 384 * 2 ** s)
+                       for s in range(4))
+
+
+def time_adapter_bwd(rec: dict):
+    """Kernel 5b at ``ADAPTER_STAGES``: ms a call of the tree's
+    ``adapter_mid_bwd`` (CUDA events around 20 calls back to back), the
+    device ms of all its kernels (a profiler trace) and the wrapper's host
+    ms a call on an idle card (unchecked: ``--checks check_adapter_mid``
+    checks it)."""
+    import torch
+    from mtlora_tpu_torch.ops import adapter_mlp
+    from mtlora_tpu_torch.tools import median_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for key in ("adapter_bwd_ms", "adapter_bwd_device_ms",
+                "adapter_bwd_host_ms"):
+        rec[key] = []
+    for M, H4 in ADAPTER_STAGES:
+        mid1T, p1, g = (torch.randn(*shape, generator=gen, device="cuda")
+                        .to(torch.bfloat16)
+                        for shape in ((4, 4, M), (M, H4), (4, 4, M)))
+        b1, a2T = ((0.1 * torch.randn(4, 4, H4, generator=gen,
+                                      device="cuda")).to(torch.bfloat16)
+                   for _ in range(2))
+        args = (mid1T, p1, b1, a2T, (4.0,) * 4, g)
+        rec["adapter_bwd_ms"].append(median_ms(
+            lambda: adapter_mlp.adapter_mid_bwd(*args)))
+        rec["adapter_bwd_device_ms"].append(device_ms(
+            lambda: adapter_mlp.adapter_mid_bwd(*args), ""))
+        rec["adapter_bwd_host_ms"].append(host_ms(
+            lambda: adapter_mlp.adapter_mid_bwd(*args)))
+        del mid1T, p1, g, args
+
+
 TIMERS = {"qkv": time_qkv, "merge": time_merge,
-          "task_merge": time_task_merge}
+          "task_merge": time_task_merge, "adapter_bwd": time_adapter_bwd}
 
 
 def worker(tree: str, checks: str, timer: str = ""):
@@ -1511,6 +1578,9 @@ def main():
     ap.add_argument("--time-task-merge", action="store_true",
                     help="time kernel 6 at the merges in each tree, "
                          "unchecked (the trees of PARTS)")
+    ap.add_argument("--time-adapter-bwd", action="store_true",
+                    help="time kernel 5b at its four stage shapes in each "
+                         "tree: events, device and host ms, unchecked")
     ap.add_argument("--passes", type=int, default=2)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--build", action="store_true", help=argparse.SUPPRESS)
