@@ -1388,8 +1388,9 @@ def adapter_plan_text(plan, t_k, cost) -> str:
     t_b, t_old = adapter_bounds_ms(cost)
     return (f"{cost[1] / t_k / 1e9:.2f} TFLOP/s, {t_b / t_k:.4f} of the bound "
             f"({t_old / t_k:.4f} of the all-fp32 count); {plan.chunks} "
-            f"chunk(s) of {plan.cols} columns ({plan.pairs} pairs a warp), "
-            f"{plan.rows}-row tiles in {plan.stripes} stripes of {plan.tps}, "
+            f"chunk(s) of {plan.cols} columns ({adapter_mlp.BWD_PAIRS} pairs "
+            f"a warp), {adapter_mlp.BWD_ROWS}-row tiles in {plan.stripes} "
+            f"stripes of {plan.tps}, "
             f"{plan.blocks} blocks ({plan.per_sm} an SM), {plan.smem} bytes")
 
 

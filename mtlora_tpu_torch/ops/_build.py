@@ -87,9 +87,8 @@ SIGNATURES = {
     # variant, mid1T, p1, b1, a2T, mid2T, T, M, H4, s0, s1, s2, s3, stream
     "mtlora_adapter_mid_fwd": [_I] + [_P] * 5 + [_I] * 3 + [_F] * 4 + [_P],
     # kernel 5b: activation, mid1T, p1, b1, a2T, g, dmid1T, dp1, part, dw,
-    # T, M, H4, pairs, rows, chunks, stripes, tps, smem, s0, s1, s2, s3,
-    # stream
-    "mtlora_adapter_mid_bwd": [_I] + [_P] * 9 + [_I] * 9 + [_F] * 4 + [_P],
+    # T, M, H4, chunks, stripes, tps, smem, s0, s1, s2, s3, stream
+    "mtlora_adapter_mid_bwd": [_I] + [_P] * 9 + [_I] * 7 + [_F] * 4 + [_P],
     # kernel 6: base, pre, p2, mid, bs_cs, coef, gamma, beta, wt, y, T, B,
     # H, W, C, O, bm, splits, blocks, stages, group, smem, stream
     "mtlora_task_merge_fwd": [_P] * 10 + [_I] * 12 + [_P],

@@ -196,17 +196,15 @@ def adapter_mid_fwd(mid1T, p1, b1, a2T, scales):
 
 
 class BwdPlan(NamedTuple):
-    """Launch plan of kernel 5b's fused pass: ``pairs`` column pairs of n8
-    tiles a warp, ``cols`` = BWD_WARPS * 16 * pairs columns a block (a
-    chunk of H4, ``chunks`` of them), ``rows`` rows a tile, ``tiles`` row
-    tiles walked in ``stripes`` of ``tps`` tiles, ``blocks`` = chunks *
-    stripes (``per_sm`` an SM), ``smem`` bytes a block, ``part`` fp32
-    scratch elements: the dB1 and dA2T partials a stripe and, where
-    chunks > 1, the dmid1 partials a chunk."""
+    """Launch plan of kernel 5b's fused pass: ``cols`` = BWD_WARPS * 16 *
+    BWD_PAIRS columns a block (a chunk of H4, ``chunks`` of them),
+    ``tiles`` row tiles of BWD_ROWS walked in ``stripes`` of ``tps``
+    tiles, ``blocks`` = chunks * stripes (``per_sm`` an SM), ``smem``
+    bytes a block, ``part`` fp32 scratch elements: the dB1 and dA2T
+    partials a stripe and, where chunks > 1, the dmid1 partials a
+    chunk."""
 
-    pairs: int
     cols: int
-    rows: int
     tiles: int
     chunks: int
     stripes: int
@@ -219,19 +217,20 @@ class BwdPlan(NamedTuple):
 
 BWD_WARPS = 8            # warps a block (kWarps)
 BWD_PAIRS = 3            # column pairs of n8 tiles a warp (kPairs)
-BWD_ROWS = 64            # rows a tile
+BWD_ROWS = 64            # rows a tile (kRows)
 BWD_PER_SM = 2           # blocks an SM (__launch_bounds__)
 BWD_MAX_H4 = 4096        # kMaxH4, Swin-B's widest hidden
 
 
-def bwd_smem(pairs: int, rows: int) -> int:
+def bwd_smem() -> int:
     """Shared-memory bytes of a block (``bwd_smem_bytes``): B1 and A2T of
-    its columns as [h][16] bf16, two buffers of mid1 and g as [16][rows +
-    8] bf16, the warps' dmid1 partials [warps][16][rows] fp32, each lane's
-    dB1 and dA2T sums of its pairs (16 fp32 a pair)."""
+    its columns as [h][16] bf16, mid1 and g of a row tile as [16][BWD_ROWS
+    + 8] bf16, the warps' dmid1 partials [warps][16][BWD_ROWS] fp32, each
+    lane's dB1 and dA2T sums of its pairs (16 fp32 a pair)."""
     tr = MAX_TASKS * RANK
-    return (2 * BWD_WARPS * 16 * pairs * tr * 2 + 2 * 2 * tr * (rows + 8) * 2
-            + BWD_WARPS * tr * rows * 4 + BWD_WARPS * 32 * pairs * 16 * 4)
+    return (2 * BWD_WARPS * 16 * BWD_PAIRS * tr * 2
+            + 2 * tr * (BWD_ROWS + 8) * 2 + BWD_WARPS * tr * BWD_ROWS * 4
+            + BWD_WARPS * 32 * BWD_PAIRS * 16 * 4)
 
 
 def bwd_plan(M: int, H4: int, T: int, sms: int) -> BwdPlan:
@@ -252,9 +251,8 @@ def bwd_plan(M: int, H4: int, T: int, sms: int) -> BwdPlan:
     stripes = -(-tiles // tps)
     part = stripes * 2 * T * RANK * H4 + (chunks * T * RANK * M
                                           if chunks > 1 else 0)
-    return BwdPlan(BWD_PAIRS, cols, BWD_ROWS, tiles, chunks, stripes, tps,
-                   chunks * stripes, BWD_PER_SM,
-                   bwd_smem(BWD_PAIRS, BWD_ROWS), part)
+    return BwdPlan(cols, tiles, chunks, stripes, tps, chunks * stripes,
+                   BWD_PER_SM, bwd_smem(), part)
 
 
 def _launch_bwd(what, act, mid1T, p1, b1, a2T, scales, g):
@@ -274,8 +272,8 @@ def _launch_bwd(what, act, mid1T, p1, b1, a2T, scales, g):
     err = _build.library().mtlora_adapter_mid_bwd(
         act, mid1T.data_ptr(), p1.data_ptr(), b1.data_ptr(), a2T.data_ptr(),
         g.data_ptr(), dmid1.data_ptr(), dp1.data_ptr(), part.data_ptr(),
-        dw.data_ptr(), T, M, H4, plan.pairs, plan.rows, plan.chunks,
-        plan.stripes, plan.tps, plan.smem, *_scales(scales), _stream(mid1T))
+        dw.data_ptr(), T, M, H4, plan.chunks, plan.stripes, plan.tps,
+        plan.smem, *_scales(scales), _stream(mid1T))
     _build.check(err, "mtlora_adapter_mid_bwd")
     return dmid1, dp1, dw[0], dw[1]
 

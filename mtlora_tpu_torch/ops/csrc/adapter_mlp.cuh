@@ -1,6 +1,7 @@
-// Shared pieces of the adapter MLP-tail kernels (adapter_mlp.cu,
-// adapter_mlp_bwd.cu): the arguments, the staging of rank rows and the
-// per-task expansion z = p1 + s_t mid1_t^T B1_t for two hidden columns.
+// Shared pieces of the adapter MLP-tail kernels: the rank, the task count
+// and the activations (adapter_mlp.cu, adapter_mlp_bwd.cu), and the
+// forward's arguments, staging of rank rows and per-task expansion z = p1 +
+// s_t mid1_t^T B1_t for two hidden columns (adapter_mlp.cu).
 #pragma once
 
 #include "ln_common.cuh"
@@ -20,10 +21,9 @@ constexpr int kRPW = 4;        // rows a warp carries at once
 constexpr int kBlockRows = 4 * kRPW;
 
 struct Args {
-  const bf16 *mid1, *p1, *b1, *a2, *g;   // [T,R,M], [M,H4], [T,R,H4] x2, [T,R,M]
-  bf16 *out, *dp1;                        // mid2T or dmid1T [T,R,M]; dp1 [M,H4]
-  float* part;                            // [stripes][2][T][R][H4]
-  int T, M, H4, stripe_rows;
+  const bf16 *mid1, *p1, *b1, *a2;   // [T,R,M], [M,H4], [T,R,H4] x2
+  bf16* out;                          // mid2T [T,R,M]
+  int T, M, H4;
   float s[kMaxT];
 };
 

@@ -44,8 +44,9 @@
 //
 // Layout of the work: a block of kWarps warps owns a chunk of columns (kWarps *
 // 16 kPairs, a warp kPairs pairs of n8 tiles) and walks a stripe of row tiles
-// of BM rows in 16-row steps; mid1 and g of a tile are staged by cp.async as
-// [tr][m] (two tiles ahead), so their A fragments come from ldmatrix. Occupancy
+// of kRows rows in 16-row steps; mid1 and g of a tile are staged in shared
+// memory as [tr][m] (the next tile's while the block sums this one's dmid1
+// partials), so their A fragments come from ldmatrix. Occupancy
 // is what the fp32 chain needs (tanhf's MUFU and FMA latencies): two blocks an
 // SM at 128 registers a thread, so the dB1 and dA2T sums of a lane's pairs wait
 // in shared memory between 16-row steps (16 fp32 a pair) rather than in
@@ -69,25 +70,25 @@ constexpr int kPerSm = 2;          // blocks an SM (bwd_plan's BWD_PER_SM)
 constexpr int kTR = kMaxT * R;     // (task, rank) pairs: one mma depth
 constexpr int kMaxH4 = 4096;
 constexpr int kPairs = 3;          // column pairs a warp (BWD_PAIRS)
+constexpr int kRows = 64;          // rows a tile (BWD_ROWS)
+constexpr int kCols = kWarps * 16 * kPairs;   // columns a chunk
 
 struct BwdParams {
   const bf16 *mid1, *p1, *b1, *a2, *g;  // [T,R,M] [M,H4] [T,R,H4]x2 [T,R,M]
   bf16 *dmid1, *dp1;                      // [T,R,M], [M,H4]
   float* part;        // [stripes][2][T*R][H4]: dB1, dA2T a stripe
   float* dmid_part;   // [chunks][T*R][M] where chunks > 1
-  int M, H4, bm, chunks, tps;   // tps: row tiles a stripe
-  int cp_rows;        // mid1 and g staged by 16-byte cp.async (else scalar)
+  int M, H4, chunks, tps;   // tps: row tiles a stripe
   float s[kMaxT];
 };
 
-// Bytes of shared memory at np pairs a warp and bm rows a tile: B1 and A2T
-// of the chunk's columns as [h][16] bf16, two buffers of mid1 and g as
-// [16][bm + 8] bf16, the warps' dmid1 partials [kWarps][16][bm] fp32, and
-// each lane's dB1 and dA2T sums of its warp's pairs, [kWarps][np][4][32]
-// float4.
-__host__ __device__ constexpr int bwd_smem_bytes(int np, int bm) {
-  return 2 * kWarps * 16 * np * kTR * 2 + 2 * 2 * kTR * (bm + 8) * 2 +
-         kWarps * kTR * bm * 4 + kWarps * np * 4 * 32 * 16;
+// Bytes of shared memory: B1 and A2T of the chunk's columns as [h][16]
+// bf16, mid1 and g of a row tile as [16][kRows + 8] bf16, the warps' dmid1
+// partials [kWarps][16][kRows] fp32, and each lane's dB1 and dA2T sums of
+// its warp's pairs, [kWarps][kPairs][4][32] float4.
+__host__ __device__ constexpr int bwd_smem_bytes() {
+  return 2 * kWarps * 16 * kPairs * kTR * 2 + 2 * kTR * (kRows + 8) * 2 +
+         kWarps * kTR * kRows * 4 + kWarps * kPairs * 4 * 32 * 16;
 }
 
 // Element offset of (column h, k = t R + r) in an [h][16] weight tile:
@@ -121,20 +122,11 @@ __device__ __forceinline__ float hi_f(uint32_t v) {
   return __uint_as_float(v & 0xffff0000u);
 }
 
-// The activation and its derivative (lnk::act_pair), the tanh form with
-// its products factored: gl = hz + hz th, gl' = (0.5 + 0.5 th) + hz k (1 -
-// th^2), hz = z / 2, k = c + 3 c d z^2 (one tanhf).
-template <Act A>
-__device__ __forceinline__ void gelu_pair(float z, float* gl, float* dg) {
-  if constexpr (A == Act::Tanh) {
-    const float z2 = z * z, hz = 0.5f * z;
-    const float th = tanhf(z * fmaf(lnk::kGeluCD, z2, lnk::kGeluC));
-    *gl = fmaf(hz, th, hz);
-    *dg = fmaf(hz * fmaf(3.f * lnk::kGeluCD, z2, lnk::kGeluC),
-               fmaf(-th, th, 1.f), fmaf(0.5f, th, 0.5f));
-  } else {
-    act_pair<A>(z, gl, dg);
-  }
+// x where the lane's entries of a fragment register are of task half sel
+// (`up`: they are of half 1), else 0: a select on a predicate, so that no
+// mask waits in a register.
+__device__ __forceinline__ uint32_t of_half(uint32_t x, bool up, int sel) {
+  return up == (sel == 1) ? x : 0u;
 }
 
 // Task t's scale (a select, so that the parameters stay in their bank).
@@ -157,28 +149,22 @@ __device__ __forceinline__ void load_p(uint2* p, const bf16* p1, int M,
   }
 }
 
-// mid1 and g of the row tile at m0 into buffer `buf`: rows tr < T R of
-// [T, R, M] (the rest zero), columns m0 .. m0 + bm (zero past M); by
-// 16-byte cp.async where `cp` (M % 8 == 0, aligned), else element-wise.
+// mid1 and g of the row tile at m0, element-wise: rows tr < T R of [T, R,
+// M] (the rest zero), columns m0 .. m0 + kRows (zero past M).
 template <int T>
 __device__ __forceinline__ void stage_rank_tile(bf16* rk, const bf16* mid1,
-                                                const bf16* g, int M, int bm,
-                                                bool cp, int buf, int m0) {
-  const int per = kTR * (bm / 8);
+                                                const bf16* g, int M,
+                                                int m0) {
+  constexpr int per = kTR * (kRows / 8);
   for (int i = threadIdx.x; i < 2 * per; i += kThreads) {
     const int arr = i / per, rem = i - arr * per;
-    const int tr = rem / (bm / 8), c = rem - tr * (bm / 8);
+    const int tr = rem / (kRows / 8), c = rem - tr * (kRows / 8);
     const int m = m0 + 8 * c;
     const int n = tr < T * R ? max(0, min(8, M - m)) : 0;
     const bf16* src = (arr ? g : mid1) + (size_t)tr * M + m;
-    bf16* dst = rk + ((buf * 2 + arr) * kTR + tr) * (bm + 8) + 8 * c;
-    if (cp) {
-      cp_async16_n(dst, n ? src : mid1, 2 * n);
-    } else {
+    bf16* dst = rk + (arr * kTR + tr) * (kRows + 8) + 8 * c;
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dst[e] = e < n ? src[e] : __float2bfloat16(0.f);
-    }
+    for (int e = 0; e < 8; ++e) dst[e] = e < n ? src[e] : __float2bfloat16(0.f);
   }
 }
 
@@ -186,20 +172,18 @@ template <int T, Act A>
 __global__ void __launch_bounds__(kThreads, kPerSm)
     adapter_mid_bwd_fused(BwdParams a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int bm = a.bm, M = a.M, H4 = a.H4;
-  if (blockDim.x != kThreads || bm % 16 ||
-      bwd_smem_bytes(kPairs, bm) > (int)dynamic_smem_bytes())
+  const int M = a.M, H4 = a.H4;
+  if (blockDim.x != kThreads || bwd_smem_bytes() > (int)dynamic_smem_bytes())
     __trap();
-  constexpr int kCols = kWarps * 16 * kPairs;
   bf16* wb = reinterpret_cast<bf16*>(smem);           // B1 [kCols][16]
   bf16* wa = wb + kCols * kTR;                         // A2T [kCols][16]
-  bf16* rk = wa + kCols * kTR;                         // [2][2][16][bm + 8]
-  float* red = reinterpret_cast<float*>(rk + 4 * kTR * (bm + 8));
-  float4* wacc = reinterpret_cast<float4*>(red + kWarps * kTR * bm);
+  bf16* rk = wa + kCols * kTR;                         // [2][16][kRows + 8]
+  float* red = reinterpret_cast<float*>(rk + 2 * kTR * (kRows + 8));
+  float4* wacc = reinterpret_cast<float4*>(red + kWarps * kTR * kRows);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g8 = lane >> 2, q = lane & 3;
   const int c0 = blockIdx.x * kCols, chunk = blockIdx.x;
-  const int tiles = (M + bm - 1) / bm;
+  const int tiles = (M + kRows - 1) / kRows;
   const int t0 = blockIdx.y * a.tps, t1 = min(tiles, t0 + a.tps);
 
   // the chunk's B1 and A2T, every task's, as [h][tr] (zeros past T R, H4)
@@ -211,12 +195,7 @@ __global__ void __launch_bounds__(kThreads, kPerSm)
     wa[wt_off(h, tr)] = ok ? a.a2[o] : __float2bfloat16(0.f);
   }
   const bf16* p1 = a.p1;
-  const bool cp = a.cp_rows;
-  if (t0 < t1) stage_rank_tile<T>(rk, a.mid1, a.g, M, bm, cp, 0, t0 * bm);
-  cp_async_commit();
-  if (t0 + 1 < t1)
-    stage_rank_tile<T>(rk, a.mid1, a.g, M, bm, cp, 1, (t0 + 1) * bm);
-  cp_async_commit();
+  if (t0 < t1) stage_rank_tile<T>(rk, a.mid1, a.g, M, t0 * kRows);
 
   // the warp's columns: pairs h0 = wc0 + 16 pp, local wl0 + 16 pp
   const int wl0 = warp * 16 * kPairs, wc0 = c0 + wl0;
@@ -224,12 +203,11 @@ __global__ void __launch_bounds__(kThreads, kPerSm)
   // k half), row l % 8 = column 4 (i / 2) + 2 j + i % 2
   const int li = lane & 7, lj = (lane >> 4) & 1, lk = (lane >> 3) & 1;
   const int lrow = 4 * (li >> 1) + 2 * lj + (li & 1);
-  // masks of task t's entries: in the u / dh A fragment (k = 2 q.. and
-  // 8 + 2 q..: task q / 2, 2 + q / 2), and in the dB1 / dA2T A fragment and
-  // the dmid1 B fragment (row or column g: task g / 4, 2 + g / 4)
-  const uint32_t mq[2] = {(q >> 1) == 0 ? ~0u : 0u, (q >> 1) == 1 ? ~0u : 0u};
-  const uint32_t mg[2] = {(g8 >> 2) == 0 ? ~0u : 0u,
-                          (g8 >> 2) == 1 ? ~0u : 0u};
+  // the task half of the lane's entries: in the u / dh A fragment (k =
+  // 2 q.. and 8 + 2 q..: task q / 2, 2 + q / 2), and in the dB1 / dA2T A
+  // fragment and the dmid1 B fragment (row or column g: task g / 4, 2 +
+  // g / 4)
+  const bool qu = q >> 1, gu = g8 >> 2;
   // B fragment of the 8 x 8 identity (bf16 1.0 where k = n): k = 2 q, 2 q +
   // 1 against n = g
   const uint32_t eye = (g8 == 2 * q ? 0x3f80u : 0u) |
@@ -244,24 +222,24 @@ __global__ void __launch_bounds__(kThreads, kPerSm)
 
   uint2 pn[2] = {make_uint2(0u, 0u), make_uint2(0u, 0u)};
   if (t0 < t1 && wc0 < H4)
-    load_p(pn, p1, M, H4, t0 * bm, wc0, g8, q);
+    load_p(pn, p1, M, H4, t0 * kRows, wc0, g8, q);
 
-  for (int tile = t0, it = 0; tile < t1; ++tile, ++it) {
-    const int buf = it & 1, m0 = tile * bm;
-    cp_async_wait<1>();
+  for (int tile = t0; tile < t1; ++tile) {
+    const int m0 = tile * kRows;
     __syncthreads();   // this tile's rank rows; the last tile's red read
-    const bf16* smid = rk + (buf * 2) * kTR * (bm + 8);
-    const bf16* sg = smid + kTR * (bm + 8);
-    for (int sub = 0; sub < bm / 16; ++sub) {
+    const bf16* smid = rk;
+    const bf16* sg = rk + kTR * (kRows + 8);
+#pragma unroll 1   // one 16-row step at a time (registers)
+    for (int sub = 0; sub < kRows / 16; ++sub) {
       const int r0 = m0 + 16 * sub;
       // A fragments: mid1 / g rows [m][tr] (ldmatrix.trans of [tr][m])
       // and their transposes [tr][m]
       uint32_t am[4], ag[4], amt[4], agt[4];
       {
         const int mi = lane >> 3;
-        const int ua = ((mi >> 1) * 8 + li) * (bm + 8) + 16 * sub +
+        const int ua = ((mi >> 1) * 8 + li) * (kRows + 8) + 16 * sub +
                        (mi & 1) * 8;
-        const int ut = ((mi & 1) * 8 + li) * (bm + 8) + 16 * sub +
+        const int ut = ((mi & 1) * 8 + li) * (kRows + 8) + 16 * sub +
                        (mi >> 1) * 8;
         ldsm_x4_t(am, smid + ua);
         ldsm_x4_t(ag, sg + ua);
@@ -281,8 +259,8 @@ __global__ void __launch_bounds__(kThreads, kPerSm)
         {
           const int nh = pp + 1 < kPairs ? h0 + 16 : wc0;
           const int nr = pp + 1 < kPairs ? r0
-                         : sub + 1 < bm / 16 ? r0 + 16
-                         : tile + 1 < t1    ? m0 + bm
+                         : sub + 1 < kRows / 16 ? r0 + 16
+                         : tile + 1 < t1    ? m0 + kRows
                                             : -1;
           if (nr >= 0 && nh < H4) load_p(pn, p1, M, H4, nr, nh, g8, q);
         }
@@ -309,14 +287,14 @@ __global__ void __launch_bounds__(kThreads, kPerSm)
         for (int t = 0; t < T; ++t) {
           const int hi = t >> 1, sel = t & 1;
           const uint32_t z0 = 0u;
-          const uint32_t au[4] = {hi ? z0 : am[0] & mq[sel],
-                                  hi ? z0 : am[1] & mq[sel],
-                                  hi ? am[2] & mq[sel] : z0,
-                                  hi ? am[3] & mq[sel] : z0};
-          const uint32_t ad[4] = {hi ? z0 : ag[0] & mq[sel],
-                                  hi ? z0 : ag[1] & mq[sel],
-                                  hi ? ag[2] & mq[sel] : z0,
-                                  hi ? ag[3] & mq[sel] : z0};
+          const uint32_t au[4] = {hi ? z0 : of_half(am[0], qu, sel),
+                                  hi ? z0 : of_half(am[1], qu, sel),
+                                  hi ? of_half(am[2], qu, sel) : z0,
+                                  hi ? of_half(am[3], qu, sel) : z0};
+          const uint32_t ad[4] = {hi ? z0 : of_half(ag[0], qu, sel),
+                                  hi ? z0 : of_half(ag[1], qu, sel),
+                                  hi ? of_half(ag[2], qu, sel) : z0,
+                                  hi ? of_half(ag[3], qu, sel) : z0};
           uint32_t dzp[2][2];
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
@@ -329,7 +307,7 @@ __global__ void __launch_bounds__(kThreads, kPerSm)
               const uint32_t pw = j ? pc[e >> 1].y : pc[e >> 1].x;
               const float pv = (e & 1) ? hi_f(pw) : lo_f(pw);
               float dg;
-              gelu_pair<A>(fmaf(task_scale(a, t), u[e], pv), &gl[e], &dg);
+              act_pair<A>(fmaf(task_scale(a, t), u[e], pv), &gl[e], &dg);
               dz[e] = dh[e] * dg;
             }
             dzp[j][0] = pack_bf16(dz[0], dz[1]);
@@ -337,14 +315,14 @@ __global__ void __launch_bounds__(kThreads, kPerSm)
             const uint32_t hp0 = pack_bf16(gl[0], gl[1]);
             const uint32_t hp1 = pack_bf16(gl[2], gl[3]);
             // dB1 += mid1_t^T dz_t, dA2T += g_t^T bf16(h_t) over the 16 rows
-            const uint32_t atm[4] = {hi ? z0 : amt[0] & mg[sel],
-                                     hi ? amt[1] & mg[sel] : z0,
-                                     hi ? z0 : amt[2] & mg[sel],
-                                     hi ? amt[3] & mg[sel] : z0};
-            const uint32_t atg[4] = {hi ? z0 : agt[0] & mg[sel],
-                                     hi ? agt[1] & mg[sel] : z0,
-                                     hi ? z0 : agt[2] & mg[sel],
-                                     hi ? agt[3] & mg[sel] : z0};
+            const uint32_t atm[4] = {hi ? z0 : of_half(amt[0], gu, sel),
+                                     hi ? of_half(amt[1], gu, sel) : z0,
+                                     hi ? z0 : of_half(amt[2], gu, sel),
+                                     hi ? of_half(amt[3], gu, sel) : z0};
+            const uint32_t atg[4] = {hi ? z0 : of_half(agt[0], gu, sel),
+                                     hi ? of_half(agt[1], gu, sel) : z0,
+                                     hi ? z0 : of_half(agt[2], gu, sel),
+                                     hi ? of_half(agt[3], gu, sel) : z0};
             mma_bf16_16816(accb[j], atm, movtrans(dzp[j][0]),
                            movtrans(dzp[j][1]));
             mma_bf16_16816(acca[j], atg, movtrans(hp0), movtrans(hp1));
@@ -352,8 +330,8 @@ __global__ void __launch_bounds__(kThreads, kPerSm)
           // dmid1 += dz_t B1_t^T over the pair's 16 columns
           const uint32_t adz[4] = {dzp[0][0], dzp[0][1], dzp[1][0],
                                    dzp[1][1]};
-          mma_bf16_16816(dm[hi], adz, bt[hi] & mg[sel],
-                         bt[2 + hi] & mg[sel]);
+          mma_bf16_16816(dm[hi], adz, of_half(bt[hi], gu, sel),
+                         of_half(bt[2 + hi], gu, sel));
           // dp1 += bf16(dz_t), in task order: dz_t's 16 columns times the
           // identity, one n8 tile at a time
           mma_bf16_16816(dp[0], adz, eye, 0u);
@@ -378,23 +356,21 @@ __global__ void __launch_bounds__(kThreads, kPerSm)
       }
       // the warp's dmid1 partial of these 16 rows: column 2 q + e of
       // group G is tr = 8 G + 2 q + e
-      float* rw = red + warp * kTR * bm + 16 * sub + g8;
+      float* rw = red + warp * kTR * kRows + 16 * sub + g8;
 #pragma unroll
       for (int G = 0; G < 2; ++G)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          rw[(8 * G + 2 * q + (e & 1)) * bm + 8 * (e >> 1)] = dm[G][e];
+          rw[(8 * G + 2 * q + (e & 1)) * kRows + 8 * (e >> 1)] = dm[G][e];
     }
-    __syncthreads();   // red complete; rk[buf] free
-    if (tile + 2 < t1)
-      stage_rank_tile<T>(rk, a.mid1, a.g, M, bm, cp, buf, m0 + 2 * bm);
-    cp_async_commit();
-    for (int i = threadIdx.x; i < T * R * bm; i += kThreads) {
-      const int tr = i / bm, ml = i - tr * bm, m = m0 + ml;
+    __syncthreads();   // red complete; rk free
+    if (tile + 1 < t1) stage_rank_tile<T>(rk, a.mid1, a.g, M, m0 + kRows);
+    for (int i = threadIdx.x; i < T * R * kRows; i += kThreads) {
+      const int tr = i / kRows, ml = i - tr * kRows, m = m0 + ml;
       if (m >= M) continue;
       float v = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) v += red[(w * kTR + tr) * bm + ml];
+      for (int w = 0; w < kWarps; ++w) v += red[(w * kTR + tr) * kRows + ml];
       if (a.chunks == 1)
         a.dmid1[(size_t)tr * M + m] =
             __float2bfloat16(task_scale(a, tr / R) * v);
@@ -402,7 +378,6 @@ __global__ void __launch_bounds__(kThreads, kPerSm)
         a.dmid_part[((size_t)chunk * T * R + tr) * M + m] = v;
     }
   }
-  cp_async_wait<0>();
 
   // the stripe's partials: row tr of the [tr][h] tiles, columns 4 q.. of
   // each pair (logical 2 q.. of both tiles)
@@ -495,25 +470,22 @@ static_assert(kGelu == Act::Tanh, "kernel 5b is the tanh form");
 // dmid1T [T, 4, M], dp1 [M, H4] (bf16) and dw [2][T][4][H4] (fp32: dB1,
 // dA2T); part: fp32 scratch, [stripes][2][T][4][H4] and, where chunks >
 // 1, [chunks][T][4][M] after it; act: a BwdId. The plan's numbers
-// (ops/adapter_mlp.py:bwd_plan): np column pairs a warp, bm rows a tile,
-// chunks of kWarps * 16 np columns, stripes of tps row tiles, smem bytes.
+// (ops/adapter_mlp.py:bwd_plan): chunks of kWarps * 16 kPairs columns,
+// stripes of tps row tiles of kRows, smem bytes.
 extern "C" int mtlora_adapter_mid_bwd(int act, const void* mid1,
                                       const void* p1, const void* b1,
                                       const void* a2, const void* g,
                                       void* dmid1, void* dp1, void* part,
-                                      void* dw, int T, int M, int H4, int np,
-                                      int bm, int chunks, int stripes,
-                                      int tps, int smem, float s0, float s1,
-                                      float s2, float s3, void* stream) {
-  const int tiles = bm > 0 ? (M + bm - 1) / bm : 0;
+                                      void* dw, int T, int M, int H4,
+                                      int chunks, int stripes, int tps,
+                                      int smem, float s0, float s1, float s2,
+                                      float s3, void* stream) {
+  const int tiles = (M + kRows - 1) / kRows;
   if ((act != kBwdErf && act != kBwdTanh && act != kBwdSig) || T < 1 ||
       T > kMaxT || (act != kBwdTanh && T != kMaxT) || M < 1 || H4 < 64 ||
-      H4 % 64 || H4 > kMaxH4 || np != kPairs ||
-      (bm != 64 && bm != 128) || chunks != (H4 + kWarps * 16 * np - 1) /
-                                             (kWarps * 16 * np) ||
+      H4 % 64 || H4 > kMaxH4 || chunks != (H4 + kCols - 1) / kCols ||
       stripes < 1 || tps < 1 || (long long)stripes * tps < tiles ||
-      smem < bwd_smem_bytes(np, bm) || (uintptr_t)p1 % 16 ||
-      (uintptr_t)part % 16)
+      smem < bwd_smem_bytes() || (uintptr_t)p1 % 16 || (uintptr_t)part % 16)
     return (int)cudaErrorInvalidValue;
   BwdParams a = {};
   a.mid1 = static_cast<const bf16*>(mid1);
@@ -527,11 +499,8 @@ extern "C" int mtlora_adapter_mid_bwd(int act, const void* mid1,
   a.dmid_part = a.part + (size_t)stripes * 2 * T * R * H4;
   a.M = M;
   a.H4 = H4;
-  a.bm = bm;
   a.chunks = chunks;
   a.tps = tps;
-  a.cp_rows = M % 8 == 0 && (uintptr_t)mid1 % 16 == 0 &&
-              (uintptr_t)g % 16 == 0;
   a.s[0] = s0;
   a.s[1] = s1;
   a.s[2] = s2;

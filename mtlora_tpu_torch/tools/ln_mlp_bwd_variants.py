@@ -352,6 +352,32 @@ VARIANTS = {
         ("ops/adapter_mlp.py", "BWD_WARPS = 8 ", "BWD_WARPS = 12 "),
         ("ops/adapter_mlp.py", "BWD_PAIRS = 3 ", "BWD_PAIRS = 2 "),
         ("ops/adapter_mlp.py", "BWD_PER_SM = 2 ", "BWD_PER_SM = 1 ")],
+    # kernel 5b: each pair's p1 loaded where the pair starts, in place of
+    # the next pair's loaded under the current pair's work
+    "adapter-bwd-p1-no-prefetch": [
+        ("ops/csrc/adapter_mlp_bwd.cu",
+         "  uint2 pn[2] = {make_uint2(0u, 0u), make_uint2(0u, 0u)};\n"
+         "  if (t0 < t1 && wc0 < H4)\n"
+         "    load_p(pn, p1, M, H4, t0 * kRows, wc0, g8, q);\n", ""),
+        ("ops/csrc/adapter_mlp_bwd.cu",
+         "        const uint2 pc[2] = {pn[0], pn[1]};\n"
+         "        // the next pair's p1 (this sub's, the next sub's, the next tile's)\n"
+         "        {\n"
+         "          const int nh = pp + 1 < kPairs ? h0 + 16 : wc0;\n"
+         "          const int nr = pp + 1 < kPairs ? r0\n"
+         "                         : sub + 1 < kRows / 16 ? r0 + 16\n"
+         "                         : tile + 1 < t1    ? m0 + kRows\n"
+         "                                            : -1;\n"
+         "          if (nr >= 0 && nh < H4) load_p(pn, p1, M, H4, nr, nh, g8, q);\n"
+         "        }\n"
+         "        if (h0 >= H4) continue;   // the chunk's columns past H4\n",
+         "        if (h0 >= H4) continue;   // the chunk's columns past H4\n"
+         "        uint2 pc[2];\n"
+         "        load_p(pc, p1, M, H4, r0, h0, g8, q);\n")],
+    # kernel 5b: the 16-row steps of a tile left to the compiler to unroll
+    "adapter-bwd-sub-unroll": [
+        ("ops/csrc/adapter_mlp_bwd.cu",
+         "#pragma unroll 1   // one 16-row step at a time (registers)\n", "")],
     # kernel 2b (y-only): each thread loads its A fragments of the chunk's
     # gy from device memory into registers, in place of gy's boxes through
     # the TMA ring

@@ -4,7 +4,7 @@ source, the wrapper's refusals, and a torch emulation of the fused pass's
 arithmetic (``csrc/adapter_mlp_bwd.cu``).
 
 The emulation follows the kernel's decomposition: blocks of a column chunk
-and a row stripe, warps of ``pairs`` pairs of n8 tiles with the columns of
+and a row stripe, warps of ``BWD_PAIRS`` pairs of n8 tiles with the columns of
 a pair permuted as the kernel reads p1, the rank products with task t's
 (task, rank) entries masked out of one 16-deep operand, dz and bf16(h)
 formed per task, dp1 summed in task order, dmid1 summed over a warp's
@@ -65,16 +65,16 @@ def _stages(embed, batch, res0=112):
 # The plan
 # ---------------------------------------------------------------------------
 
-# (M, H4) -> (pairs, chunks, stripes, tps) at T = 4 on 132 SMs: the
+# (M, H4) -> (chunks, stripes, tps) at T = 4 on 132 SMs: the
 # flagship's four stages at batch 32 and batch 2, path B's (224 px) at
 # batch 8 and 32
 PINNED = {
-    (401408, 384): (3, 1, 262, 24), (100352, 768): (3, 2, 131, 12),
-    (25088, 1536): (3, 4, 66, 6), (6272, 3072): (3, 8, 33, 3),
-    (25088, 384): (3, 1, 196, 2), (6272, 768): (3, 2, 98, 1),
-    (1568, 1536): (3, 4, 25, 1), (392, 3072): (3, 8, 7, 1),
-    (100352, 384): (3, 1, 262, 6), (25088, 768): (3, 2, 131, 3),
-    (6272, 1536): (3, 4, 49, 2), (1568, 3072): (3, 8, 25, 1),
+    (401408, 384): (1, 262, 24), (100352, 768): (2, 131, 12),
+    (25088, 1536): (4, 66, 6), (6272, 3072): (8, 33, 3),
+    (25088, 384): (1, 196, 2), (6272, 768): (2, 98, 1),
+    (1568, 1536): (4, 25, 1), (392, 3072): (8, 7, 1),
+    (100352, 384): (1, 262, 6), (25088, 768): (2, 131, 3),
+    (6272, 1536): (4, 49, 2), (1568, 3072): (8, 25, 1),
 }
 PATH_B = _stages(96, 8, 56) + _stages(96, 32, 56)
 
@@ -86,16 +86,15 @@ def test_the_pinned_shapes_are_the_flagship_and_path_b_stages():
 @pytest.mark.parametrize("M,H4", sorted(PINNED))
 def test_plan_is_pinned_at_the_flagship_and_path_b(M, H4):
     p = bwd_plan(M, H4, 4, SMS)
-    assert (p.pairs, p.chunks, p.stripes, p.tps) == PINNED[(M, H4)]
-    assert p.rows == BWD_ROWS and p.per_sm == BWD_PER_SM
-    assert p.smem == bwd_smem(p.pairs, p.rows)
+    assert (p.chunks, p.stripes, p.tps) == PINNED[(M, H4)]
+    assert p.per_sm == BWD_PER_SM and p.smem == bwd_smem()
 
 
 def _check_rules(p, M, H4, T):
     """Shared memory within a block's; every row and column covered once;
     the partial buffers sized for the sums the kernel writes."""
     assert p.smem <= SMEM_LIMIT
-    assert p.pairs == BWD_PAIRS and p.cols == BWD_WARPS * 16 * p.pairs
+    assert p.cols == BWD_WARPS * 16 * BWD_PAIRS
     # BWD_PER_SM blocks an SM, each with 1 KB of the SM's shared memory
     # reserved
     assert BWD_PER_SM * (p.smem + 1024) <= SM_SMEM
@@ -104,7 +103,7 @@ def _check_rules(p, M, H4, T):
     assert p.chunks == -(-H4 // p.cols) and (p.chunks - 1) * p.cols < H4
     assert H4 % 16 == 0
     # the stripes cover the row tiles once, none empty
-    assert p.tiles == -(-M // p.rows)
+    assert p.tiles == -(-M // BWD_ROWS)
     assert (p.stripes - 1) * p.tps < p.tiles <= p.stripes * p.tps
     assert p.blocks == p.chunks * p.stripes
     assert p.blocks <= max(p.per_sm * SMS, p.chunks)
@@ -190,23 +189,22 @@ def test_plan_constants_match_the_cuda_source():
     assert const("kPerSm") == BWD_PER_SM
     assert const("kMaxH4") == BWD_MAX_H4
     assert const("kPairs") == BWD_PAIRS
+    assert const("kRows") == BWD_ROWS
     assert "__launch_bounds__(kThreads, kPerSm)" in SRC
-    assert "(bm != 64 && bm != 128)" in SRC and BWD_ROWS in (64, 128)
     # the shared-memory layout the plan sizes, and the trap on it
-    assert ("return 2 * kWarps * 16 * np * kTR * 2 + 2 * 2 * kTR * (bm + 8) "
-            "* 2 +\n         kWarps * kTR * bm * 4 + kWarps * np * 4 * 32 * 16;"
-            ) in SRC
-    assert "bwd_smem_bytes(kPairs, bm) > (int)dynamic_smem_bytes()" in SRC
-    for pairs in (BWD_PAIRS, 2):
-        for bm in (64, 128):
-            tr = MAX_TASKS * RANK
-            assert bwd_smem(pairs, bm) == (
-                2 * BWD_WARPS * 16 * pairs * tr * 2
-                + 2 * 2 * tr * (bm + 8) * 2 + BWD_WARPS * tr * bm * 4
-                + BWD_WARPS * pairs * 4 * 32 * 16)
+    assert ("return 2 * kWarps * 16 * kPairs * kTR * 2 + 2 * kTR * "
+            "(kRows + 8) * 2 +\n         kWarps * kTR * kRows * 4 + kWarps * "
+            "kPairs * 4 * 32 * 16;") in SRC
+    assert "bwd_smem_bytes() > (int)dynamic_smem_bytes()" in SRC
+    tr = MAX_TASKS * RANK
+    assert bwd_smem() == (
+        2 * BWD_WARPS * 16 * BWD_PAIRS * tr * 2
+        + 2 * tr * (BWD_ROWS + 8) * 2 + BWD_WARPS * tr * BWD_ROWS * 4
+        + BWD_WARPS * BWD_PAIRS * 4 * 32 * 16)
     # the entry's refusals and the partials' layout
     assert "H4 % 64 || H4 > kMaxH4" in SRC
-    assert "chunks != (H4 + kWarps * 16 * np - 1) /" in SRC
+    assert "constexpr int kCols = kWarps * 16 * kPairs;" in SRC
+    assert "chunks != (H4 + kCols - 1) / kCols" in SRC
     assert "(long long)stripes * tps < tiles" in SRC
     assert "a.dmid_part = a.part + (size_t)stripes * 2 * T * R * H4;" in SRC
     # one fused body: the row and weight kernels of the first port are gone
@@ -257,12 +255,12 @@ def emulate_bwd(mid1T, p1, b1, a2T, scales, g, plan, warps=BWD_WARPS):
             acca = torch.zeros(TR, H4)
             t0 = stripe * plan.tps
             for tile in range(t0, min(plan.tiles, t0 + plan.tps)):
-                rows = torch.arange(tile * plan.rows,
-                                    min(M, (tile + 1) * plan.rows))
+                rows = torch.arange(tile * BWD_ROWS,
+                                    min(M, (tile + 1) * BWD_ROWS))
                 red = torch.zeros(warps, TR, len(rows))
                 for w in range(warps):
-                    for pp in range(plan.pairs):
-                        h0 = chunk * plan.cols + (w * plan.pairs + pp) * 16
+                    for pp in range(BWD_PAIRS):
+                        h0 = chunk * plan.cols + (w * BWD_PAIRS + pp) * 16
                         if h0 >= H4:
                             continue
                         cols = h0 + PAIR_COLS     # logical -> device column
