@@ -183,6 +183,7 @@ from mtlora_tpu_torch.ops.head import (
     head_mlp_plain,
 )
 from mtlora_tpu_torch.ops.head import bwd_plan as head_bwd_plan
+from mtlora_tpu_torch.ops.head import fwd_plan as head_fwd_plan
 from mtlora_tpu_torch.ops.window_attn import (
     dense_applies,
     window_attention_bwd,
@@ -574,12 +575,43 @@ def head_operands(gen, M, n, weights):
 # one 224-px image: 28 * 28 rows at the head, not a multiple of kernel
 # 7b's 64-row blocks
 HEAD_RAGGED_ROWS = 784
+# kernel 7's coverage (checked at the four task widths and timed, not in
+# the tally): (label, rows) -- one 224-px image (784 rows, not a multiple
+# of the 128-row tiles, 7 tiles on 7 SMs), path B's head at batch 32 and 8
+# (224 px: 28^2 rows an image)
+HEAD_COVERAGE = (("one 224-px image", HEAD_RAGGED_ROWS),
+                 ("path B batch 32", KERNEL_BATCH * 28 * 28),
+                 ("path B batch 8", 8 * 28 * 28))
+
+
+def head_plan_text(plan, t_k) -> str:
+    """Kernel 7's plan and the rate of its ring's stages in ``t_k`` ms."""
+    return (f"{plan.rows}-row tiles, {plan.tiles} tiles on {plan.blocks} "
+            f"blocks, Wp^T slot {plan.np} rows, ring {plan.stages}, "
+            f"{plan.smem} bytes, slots {plan.slot_bytes / 1e9:.3f} GB, "
+            f"{plan.slot_bytes / t_k / 1e9:.3f} TB/s")
+
+
+def check_head_fwd(label, args):
+    """Kernel 7 against ``head_mlp_plain``: y, bf16, within
+    ``KERNEL_ATOL``. Returns (error, plan, |y| max)."""
+    x, ek, pk = args[0], args[1], args[5]
+    plan = head_fwd_plan(*x.shape, ek.shape[1], pk.shape[1],
+                         ln_lora._sms(x.device))
+    out = head_mlp_fwd(*args)
+    ref = head_mlp_plain(*args)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16, label
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= KERNEL_ATOL, f"{label}: head disagrees: {err}"
+    return err, plan, ref.float().abs().max().item()
 
 
 def check_head(gen) -> dict:
-    """Kernel 7 and 7b at the four task widths of the batch-32 step; 7b
-    also at the ragged rows of one 224-px image for n = 21 and n = 1
-    (checked, not in the tally)."""
+    """Kernel 7 and 7b at the four task widths of the batch-32 step, 7
+    with its plan, rate, share of the bound and the bytes of its ring's
+    stages; 7 also at ``HEAD_COVERAGE``, 7b at the ragged rows of one
+    224-px image for n = 21 and n = 1 (checked, not in the tally)."""
     cfg = tiny_448_r64_pertask()
     res = cfg.img_size // cfg.patch_size // 2
     M, C = KERNEL_BATCH * res * res, sum(cfg.decoder_channels)
@@ -593,6 +625,7 @@ def check_head(gen) -> dict:
     mul = 0.5 + torch.rand(1, O, generator=gen, device="cuda")
     add = 0.1 * torch.randn(1, O, generator=gen, device="cuda")
     fwd, bwd = Tally(), Tally()
+    slots = 0
     for n in cfg.num_outputs:
         pk = ((torch.rand(n, O, generator=gen, device="cuda") * 2 - 1)
               * O ** -0.5).to(torch.bfloat16).t()
@@ -602,24 +635,22 @@ def check_head(gen) -> dict:
         args = (x, ek, eb, mul, add, pk, pb)
         lib_args = [a.to(torch.bfloat16).contiguous() for a in args]
         # forward
-        out = head_mlp_fwd(*args)
-        ref = head_mlp_plain(*args)
-        torch.cuda.synchronize()
-        assert out.shape == (M, n) and out.dtype == torch.bfloat16
-        err = (out.float() - ref.float()).abs().max().item()
+        err, plan, top = check_head_fwd(f"head fwd n {n}", args)
         t_k = median_ms(lambda: head_mlp_fwd(*args))
         t_p = median_ms(lambda: head_mlp_plain(*args))
         t_l = median_ms(lambda: head_library(*lib_args))
         w_bytes = C * O * 2 + 3 * O * 4 + O * n * 2 + n * 4
         nbytes = M * C * 2 + w_bytes + M * n * 2
         flops = 2.0 * M * C * O + 2.0 * M * O * n
+        t_b = max(nbytes / PEAK_HBM_BYTES, ops_seconds(flops)) * 1e3
         print(f"head fwd M {M} C {C} hidden {O} n {n}: max_abs_err "
-              f"{err:.3e} (bound {KERNEL_ATOL:.3e}, |y| max "
-              f"{ref.float().abs().max().item():.3f}) kernel {t_k:.4f} ms "
+              f"{err:.3e} (bound {KERNEL_ATOL:.3e}, |y| max {top:.3f}) "
+              f"kernel {t_k:.4f} ms ({flops / t_k / 1e9:.2f} TFLOP/s, "
+              f"{t_b / t_k:.4f} of the bound; {head_plan_text(plan, t_k)}) "
               f"plain {t_p:.4f} ms cublas {t_l:.4f} ms "
               f"{bound_text(nbytes, flops)}")
-        assert err <= KERNEL_ATOL, f"head disagrees: {err}"
         fwd.add(err, t_k, t_p, t_l, nbytes, flops)
+        slots += plan.slot_bytes
         # backward
         worst, text = head_bwd_errors(args, gy)
         leaves = [a.detach().requires_grad_(True) for a in lib_args]
@@ -638,6 +669,23 @@ def check_head(gen) -> dict:
               f"{bound_text(nbytes, flops)}")
         bwd.add(worst, t_k, t_p, t_l, nbytes, flops)
         del y, leaves
+    f = fwd.json()
+    print(f"head fwd pass of the {len(cfg.num_outputs)} tasks: kernel "
+          f"{f['ms']:.4f} ms ({f['bound_ms'] / f['ms']:.4f} of the bound "
+          f"{f['bound_ms']:.4f} ms) cublas {f['library_ms']:.4f} ms plain "
+          f"{f['plain_ms']:.4f} ms, We^T's, Wp^T's and the vectors' slots "
+          f"{slots / 1e9:.3f} GB")
+    # its own generator: the later checks draw the same tensors as before
+    cover = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for label, rows in HEAD_COVERAGE:
+        for n in cfg.num_outputs:
+            args, _ = head_operands(cover, rows, n, (ek, eb, mul, add))
+            shape = f"{label} x [{rows}, {C}] n {n}"
+            err, plan, top = check_head_fwd(f"head fwd {shape}", args)
+            t_k = median_ms(lambda: head_mlp_fwd(*args))
+            print(f"head fwd {shape}: max_abs_err {err:.3e} (bound "
+                  f"{KERNEL_ATOL:.3e}, |y| max {top:.3f}) kernel "
+                  f"{t_k:.4f} ms ({head_plan_text(plan, t_k)})")
     # its own generator: the later checks draw the same tensors as before
     ragged = torch.Generator(device="cuda").manual_seed(SEED + 2)
     for n in (21, 1):
@@ -2517,7 +2565,7 @@ def main():
               "pallas_window_attn.py:84", attn["fwd"]),
         entry("window_attention_bwd", "window_attn_bwd.cu",
               "pallas_window_attn.py:119", attn["bwd"]),
-        entry("hrnet_head_mlp", "head_mlp.cu", "pallas_head.py:96",
+        entry("hrnet_head_mlp", "head_mlp_fwd.cu", "pallas_head.py:96",
               head["fwd"]),
         entry("hrnet_head_mlp_bwd", "head_mlp_bwd.cu", "pallas_head.py:111",
               head["bwd"]),

@@ -47,9 +47,9 @@ SIGNATURES = {
     "mtlora_lora_matmul_fwd": [_P] * 6 + [_I] * 4 + [_F, _P],
     # dy, wt, at, bt, dx, M, N, K, r, scale, stream
     "mtlora_lora_matmul_dx": [_P] * 5 + [_I] * 4 + [_F, _P],
-    # x, ek_t, eb, mul, add, pk_t, pb, y, M, cin, hidden, n_out, stream
-    "mtlora_head_mlp_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _P],
+    # kernel 7: x, ek_t, eb, mul, add, pk_t, pb, y, wpad, vec, M, cin,
+    # hidden, n_out, stages, blocks, smem, stream
+    "mtlora_head_mlp_fwd": [_P] * 10 + [_I] * 7 + [_P],
     # x, ek_t, eb, mul, add, pk_t, gy, dx, wpad, xpad, gypad, dhc, z, cols,
     # part, sums, dek_t, dpk_t, M, C, O, n, ng, stages, smem, sw, sp, stream
     "mtlora_head_mlp_bwd": [_P] * 18 + [_I] * 9 + [_P],

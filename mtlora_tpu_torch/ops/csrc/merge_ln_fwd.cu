@@ -163,18 +163,6 @@ __device__ __forceinline__ float2 unpack_bf2(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
-__device__ __forceinline__ void mbar_init_n(uint64_t* bar, int n) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(n));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
 // The block's walk over its items: item k is blockIdx.x + k gridDim.x.
 struct Walk {
   int nitems, nch, nci, ncs;

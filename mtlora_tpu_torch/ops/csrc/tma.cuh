@@ -1,6 +1,7 @@
 // TMA boxes of weights into 128-byte-swizzled shared-memory slots, their
 // mbarriers, and the products on such slots: the parts that ln_mlp.cu
-// (kernel 4) and ln_lora_qkv_bwd.cu (kernel 2b, y-only) share. A slot is a
+// (kernel 4), ln_lora_qkv_bwd.cu (kernel 2b, y-only), merge_ln_fwd.cu
+// (kernels 3 and 6) and head_mlp_fwd.cu (kernel 7) share. A slot is a
 // box of up to 64 rows of 64 bf16 (128 bytes), its 16-byte chunks of row
 // r XOR-swizzled by r % 8; slots start at 1024-byte boundaries (the
 // swizzle's period). Tensor maps are built per call on the host with the
@@ -22,6 +23,20 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar) {
                    smem_u32(bar)),
                "r"(1));
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// An mbarrier that n arrivals complete (no fence: the caller fences once
+// after initialising all of them).
+__device__ __forceinline__ void mbar_init_n(uint64_t* bar, int n) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(n));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
@@ -55,6 +70,17 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous device memory into shared
+// memory, both 16-byte aligned; the bytes complete on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -144,18 +170,19 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A row-major bf16 [rows][cols] array as boxes of box_rows x 64 (64 by
-// default), 128-byte swizzle.
+// A row-major bf16 [rows][cols] array as boxes of box_rows x box_cols
+// (64 x 64 by default), 128-byte swizzle (or `swizzle`: a box of 16
+// columns takes the 32-byte one).
 inline bool box_map(CUtensorMap* m, const void* p, int rows, int cols,
-                    int box_rows = kSliceW) {
+                    int box_rows = kSliceW, int box_cols = kSliceW,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {kSliceW, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t step[2] = {1, 1};
   return encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                         const_cast<void*>(p), dims, strides, box, step,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -1,7 +1,7 @@
 """Fused HRNet head MLP: the CUDA kernels, their plain versions, counters.
 
 Counterpart of ``mtlora_tpu/ops/pallas_head.py``: the forward kernel
-``csrc/head_mlp.cu`` and the backward ``csrc/head_mlp_bwd.cu`` under one
+``csrc/head_mlp_fwd.cu`` and the backward ``csrc/head_mlp_bwd.cu`` under one
 ``torch.autograd.Function`` (the ``custom_vjp`` of ``fused_head_mlp``),
 and :func:`bn_stats_from_x`, the exact batch moments of the hidden from
 the input covariance, in plain differentiable torch. The BN affine
@@ -15,7 +15,8 @@ the hidden; blocks on the card run in parallel, so the row kernel
 computes the hidden once, writes dhc = bf16(dh) and z = relu(zpre) as bf16
 ``[M, O]`` scratch with dx and per-block column sums
 (:func:`head_bwd_rows_plain`), and dWe and dWp are products over those
-rows (:func:`head_bwd_weights_plain`). :func:`bwd_plan` sizes the launch.
+rows (:func:`head_bwd_weights_plain`). :func:`fwd_plan` and
+:func:`bwd_plan` size the launches.
 """
 
 from __future__ import annotations
@@ -29,6 +30,15 @@ from mtlora_tpu_torch.ops.ln_lora import SMEM_LIMIT, _sms, stripes_for
 
 MAX_OUT = 64
 MAX_C_BWD = 272
+# the constants of csrc/head_mlp_fwd.cu that the forward's plan sizes its
+# shared memory by (the kernel traps if the plan's bytes do not hold its
+# layout)
+FWD_ROWS = 128          # rows of a tile (kTileRows), 64 a warpgroup
+FWD_CHUNK = 64          # hidden columns of a ring stage (kS)
+FWD_SLICES = 4          # 64-wide We^T slots of a stage (kSlices)
+FWD_TAIL = 16           # C padded to 272: the last slot's width (kTail)
+FWD_VEC_BYTES = 512     # a stage's eb, bf16(mul), bf16(add) (kVecBytes)
+FWD_MAX_STAGES = 4      # (kMaxStages)
 # the constants of csrc/head_mlp_bwd.cu that the backward's plan sizes its
 # shared memory by (the kernel traps if the plan's bytes do not hold its
 # layout)
@@ -158,25 +168,98 @@ def _check(x, ek, eb, mul, add, pk, pb, what):
                              "contiguous")
 
 
-def head_mlp_fwd(x, ek, eb, mul, add, pk, pb):
-    """Forward, no autograd: the plain version for CPU tensors, the kernel
-    for CUDA tensors (bf16 x/ek/pk, even C and O, n <= 64). ``ek`` and
-    ``pk`` are read transposed: pass the transposed views of the conv
-    weights ([O, C] and [n, O] contiguous) and no copy is made."""
-    if x.device.type == "cpu":
-        return head_mlp_plain(x, ek, eb, mul, add, pk, pb)
+class FwdPlan(NamedTuple):
+    """Launch plan of kernel 7: rows of a tile, n padded to NP rows of
+    Wp^T's slot (16, 32, 48 or 64), ring stages, dynamic shared-memory
+    bytes, the tiles and the persistent blocks that walk them (one an SM;
+    the last tile masks its rows past M), the bytes the ring's stages
+    bring a launch (We^T's slots, Wp^T's, the vectors: every block reads
+    every stage once a tile), and the scratch the wrapper allocates:
+    name -> (shape, dtype)."""
+
+    rows: int
+    np: int
+    stages: int
+    smem: int
+    tiles: int
+    blocks: int
+    slot_bytes: int
+    scratch: dict
+
+
+def _fwd_stage_bytes(np_: int) -> int:
+    """Bytes of a ring stage: the chunk's We^T slots (64 x 64 bf16 each,
+    then the last 16 columns), Wp^T's slot of np rows, its vectors, padded
+    to 1024 (the swizzle's period)."""
+    return (2 * (FWD_SLICES * FWD_CHUNK + FWD_TAIL) * FWD_CHUNK
+            + 2 * np_ * FWD_CHUNK + 1024)
+
+
+def _fwd_smem(stages: int, np_: int, C: int) -> int:
+    """Bytes of kernel 7's layout: up to 1024 to the first 1024-byte
+    boundary, the ring's stages, the two warpgroups' x buffers [64][C]
+    (bf16), the ring's full and empty mbarriers and the buffers' two
+    each."""
+    return (1024 + stages * _fwd_stage_bytes(np_)
+            + 2 * (FWD_ROWS // 2) * 2 * C + 8 * (2 * stages + 4))
+
+
+def fwd_plan(M: int, C: int, O: int, n: int, sms: int) -> FwdPlan:
+    """Kernel 7's plan for x [M, C], hidden O, n outputs on a card of
+    ``sms`` SMs: 128-row tiles walked by min(tiles, sms) blocks, the
+    deepest ring of 2 to 4 hidden chunks that fits. Scratch: the padded
+    bf16 copy of We^T ``wpad`` [O, 272] and the chunks' vectors ``vec``
+    (512 bytes a chunk)."""
+    if (M < 1 or C % 2 or not 2 <= C <= MAX_C_BWD or O < 8 or O % 8
+            or not 0 < n <= MAX_OUT):
+        raise ValueError(f"head MLP forward kernel: needs M >= 1 ({M}), "
+                         f"even C <= {MAX_C_BWD} ({C}), O % 8 == 0 ({O}) "
+                         f"and 1 <= n <= {MAX_OUT} ({n})")
+    np_ = -(-n // 16) * 16
+    stages = max((s for s in range(2, FWD_MAX_STAGES + 1)
+                  if _fwd_smem(s, np_, C) <= SMEM_LIMIT))
+    tiles = -(-M // FWD_ROWS)
+    chunks = -(-O // FWD_CHUNK)
+    tx = _fwd_stage_bytes(np_) - 1024 + FWD_VEC_BYTES
+    scratch = {"wpad": ((O, MAX_C_BWD), torch.bfloat16),
+               "vec": ((chunks * FWD_VEC_BYTES,), torch.uint8)}
+    return FwdPlan(FWD_ROWS, np_, stages, _fwd_smem(stages, np_, C),
+                   tiles, min(tiles, sms), tiles * chunks * tx, scratch)
+
+
+def head_mlp_fwd_kernel(x, ek, eb, mul, add, pk, pb):
+    """The CUDA route of :func:`head_mlp_fwd`; raises for anything it does
+    not take (a CPU tensor included)."""
     _check(x, ek, eb, mul, add, pk, pb, "forward")
     M, C = x.shape
     O, n = ek.shape[1], pk.shape[1]
-    lib = _build.library()
+    plan = fwd_plan(M, C, O, n, _sms(x.device))
+    for name, t in (("x", x), ("pk^T", pk.t())):
+        if t.data_ptr() % 16:
+            raise ValueError(f"head MLP forward kernel: {name} must start "
+                             "16-byte aligned")
+    sc = {k: torch.empty(shape, dtype=dt, device=x.device)
+          for k, (shape, dt) in plan.scratch.items()}
     y = torch.empty((M, n), dtype=x.dtype, device=x.device)
-    err = lib.mtlora_head_mlp_fwd(
-        x.data_ptr(), ek.t().data_ptr(), eb.data_ptr(), mul.data_ptr(),
-        add.data_ptr(), pk.t().data_ptr(), pb.data_ptr(), y.data_ptr(),
-        M, C, O, n, torch.cuda.current_stream(x.device).cuda_stream)
+    err = _build.library().mtlora_head_mlp_fwd(
+        *(t.data_ptr() for t in (x, ek.t(), eb, mul, add, pk.t(), pb, y,
+                                 sc["wpad"], sc["vec"])),
+        M, C, O, n, plan.stages, plan.blocks, plan.smem,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "mtlora_head_mlp_fwd")
     head_mlp_fwd.launches += 1
     return y
+
+
+def head_mlp_fwd(x, ek, eb, mul, add, pk, pb):
+    """Forward, no autograd: the plain version for CPU tensors, the kernel
+    for CUDA tensors (bf16 x/ek/pk, the shapes :func:`fwd_plan` takes).
+    ``ek`` and ``pk`` are read transposed: pass the transposed views of
+    the conv weights ([O, C] and [n, O] contiguous) and no copy is
+    made."""
+    if x.device.type == "cpu":
+        return head_mlp_plain(x, ek, eb, mul, add, pk, pb)
+    return head_mlp_fwd_kernel(x, ek, eb, mul, add, pk, pb)
 
 
 class BwdPlan(NamedTuple):

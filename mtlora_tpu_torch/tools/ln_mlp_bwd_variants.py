@@ -5,7 +5,8 @@ variants at the qkv sites, ``qkv-fwd-*`` and ``qkv-*``, run with
 ``--checks check_ln_lora_tail``, kernels 3's and 3b's, ``merge-fwd-*`` and
 ``merge-*``, with ``--checks check_merge``, kernel 6's, ``task-merge-fwd-*``,
 with ``--checks check_task_merge``, kernel 5b's, ``adapter-bwd-*``, with
-``--checks check_adapter_mid``).
+``--checks check_adapter_mid``, kernel 7's, ``head-fwd-*``, with
+``--checks check_head``).
 
     python -m mtlora_tpu_torch.tools.ln_mlp_bwd_variants
         [--variants NAME,...] [--against DIR ...] [--checks FUNC,...]
@@ -33,12 +34,12 @@ launches), and prints one JSON line: the ms per stage, their sums per
 pass (stage 2 has five no-task blocks) and the card; each tree's build
 prints the registers and spills that ptxas reported for the instances of
 kernel 4, of the LN-family backward row kernels (4b, 2b, 3b, 6b), of
-kernels 3 and 6 (one body) and of the attention forward and backward
-(kernels 1, 1b and 1c's). The edits of ``VARIANTS`` reach either kernel's
-source and plan (and 1's, 2b's, 2-tail's, 3's, 3b's, 6's; kernel 1's,
-``attn-fwd-*``, run with ``--checks check_attention,check_dense_attention``).
-With
-``--checks`` it runs those ``check_*`` functions of its tree's
+kernels 3 and 6 (one body), of the attention forward and backward
+(kernels 1, 1b and 1c's), of kernel 5b and of kernel 7. The edits of
+``VARIANTS`` reach either kernel's source and plan (and 1's, 2b's,
+2-tail's, 3's, 3b's, 5b's, 6's, 7's; kernel 1's, ``attn-fwd-*``, run with
+``--checks check_attention,check_dense_attention``). With ``--checks`` it
+runs those ``check_*`` functions of its tree's
 ``chip_smoke.py`` instead (the phase 3/3b rows of other kernels) and
 prints their sums and, per line of theirs that names a kernel time
 (``<label>: ... kernel <ms> ms``), that time by label: the per-stage
@@ -225,6 +226,101 @@ ATTN_P_SMEM = """    __nv_bfloat16* pw = reinterpret_cast<__nv_bfloat16*>(
 
 def _fwd(*edits):
     return [("ops/csrc/merge_ln_fwd.cu", old, new) for old, new in edits]
+
+
+# kernel 7's first product by wgmma (the kept tree) and, in the variant
+# head-fwd-mma-sync, by mma.sync on ldmatrix fragments of the same slots
+HEAD_FWD_WGMMA = """  const uint64_t d0 = sw128_desc(st);
+  wg_fence();
+  pin(h);
+#pragma unroll
+  for (int k = 0; k < kKs - 1; ++k)
+    wgmma_64x64(h, af[k],
+                d0 + (((k / 4) * 2 * kSlot + (k % 4) * 32) >> 4), k > 0);
+  wgmma_64x64(h, af[kKs - 1], sw32_desc(st + 2 * kSlices * kSlot), 1);
+  wg_commit();
+"""
+HEAD_FWD_MMA_SYNC = """  float (*acc)[4] = reinterpret_cast<float (*)[4]>(h);
+  zero<8>(acc);
+#pragma unroll
+  for (int cs = 0; cs < kSlices; ++cs)
+    mma_slot<8>(acc, af + 4 * cs,
+                reinterpret_cast<const bf16*>(st) + cs * kSlot, 0, 4);
+  // the tail slot: rows of 32 bytes, their 16-byte halves swapped where
+  // the row's bit 2 is set (the 32-byte swizzle)
+  const int lane = lane_id();
+  const bf16* tl = reinterpret_cast<const bf16*>(st) + kSlices * kSlot;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r = 16 * q + (lane & 7) + ((lane >> 4) << 3);
+    uint32_t b[4];
+    ldsm_x4(b, tl + 16 * r + 8 * (((lane >> 3) & 1) ^ ((r >> 2) & 1)));
+    mma_bf16_16816(acc[2 * q], af[kKs - 1], b[0], b[1]);
+    mma_bf16_16816(acc[2 * q + 1], af[kKs - 1], b[2], b[3]);
+  }
+"""
+# kernel 7's chunks one at a time (the kept tree: each chunk's products
+# waited for before its epilogue) and, in the variant head-fwd-two-chunks,
+# two at a time: chunk c + 1's products issued before chunk c's epilogue
+HEAD_FWD_TWO_CHUNKS = """    float ha[32], hb[32];
+    const unsigned char* sa = ring.take();
+    issue_chunk(ha, af, sa);
+#pragma unroll 1
+    for (int c = 0; c < nch; c += 2) {
+      const unsigned char* sbs = sa;
+      if (c + 1 < nch) {
+        sbs = ring.take();
+        issue_chunk(hb, af, sbs);
+        wg_wait<1>();
+      } else {
+        wg_wait<0>();
+      }
+      pin(ha);
+      chunk_out<NT>(out, ha, sa, t);
+      ring.release();
+      if (c + 1 == nch) break;
+      if (c + 2 < nch) {
+        sa = ring.take();
+        issue_chunk(ha, af, sa);
+        wg_wait<1>();
+      } else {
+        wg_wait<0>();
+      }
+      pin(hb);
+      chunk_out<NT>(out, hb, sbs, t);
+      ring.release();
+    }
+"""
+HEAD_FWD_PING_PONG = """    float ha[32];
+#pragma unroll 1
+    for (int c = 0; c < nch; ++c) {
+      const unsigned char* sa = ring.take();
+      if (wg == 0)
+        asm volatile("bar.sync 1, 256;\\n" ::: "memory");
+      else
+        asm volatile("bar.sync 2, 256;\\n" ::: "memory");
+      issue_chunk(ha, af, sa);
+      if (wg == 0)
+        asm volatile("bar.arrive 2, 256;\\n" ::: "memory");
+      else if (--turns > 0)
+        asm volatile("bar.arrive 1, 256;\\n" ::: "memory");
+      wg_wait<0>();
+      pin(ha);
+      chunk_out<NT>(out, ha, sa, t);
+      ring.release();
+    }
+"""
+HEAD_FWD_ONE_CHUNK = """    float ha[32];
+#pragma unroll 1
+    for (int c = 0; c < nch; ++c) {
+      const unsigned char* sa = ring.take();
+      issue_chunk(ha, af, sa);
+      wg_wait<0>();
+      pin(ha);
+      chunk_out<NT>(out, ha, sa, t);
+      ring.release();
+    }
+"""
 
 
 # name -> edits (file under mtlora_tpu_torch/, text, replacement); each
@@ -1067,6 +1163,50 @@ VARIANTS = {
          "      *reinterpret_cast<uint32_t*>(out + (size_t)(row0 + i) * O +\n"
          "                                   n0 + 2 * lane) =\n"
          "          *reinterpret_cast<const uint32_t*>(sb + i * kLdS + 2 * lane);\n")],
+    # kernel 7: its first product by mma.sync on ldmatrix fragments of the
+    # same slots (a warp's 16 rows, every warp reading every B fragment)
+    "head-fwd-mma-sync": [
+        ("ops/csrc/head_mlp_fwd.cu", HEAD_FWD_WGMMA, HEAD_FWD_MMA_SYNC)],
+    # kernel 7: the last 16 columns of C in a 64 x 64 box (128-byte
+    # swizzle, zero past 272) like the other slots, in place of a 16 x 64
+    # box (32-byte swizzle): 6 KB more a stage, three stages at every n
+    "head-fwd-wide-tail": [
+        ("ops/csrc/head_mlp_fwd.cu",
+         "wgmma_64x64(h, af[kKs - 1], sw32_desc(st + 2 * kSlices * kSlot), 1);",
+         "wgmma_64x64(h, af[kKs - 1], sw128_desc(st + 2 * kSlices * kSlot), 1);"),
+        ("ops/csrc/head_mlp_fwd.cu",
+         "tma_box(st + 2 * kSlices * kSlot, &p.t, full + s, kS * kSlices,",
+         "tma_box(st + 2 * kSlices * kSlot, &p.w, full + s, kS * kSlices,"),
+        ("ops/csrc/head_mlp_fwd.cu",
+         "constexpr int kWpOff = 2 * kSlices * kSlot + 2 * kTail * kS;",
+         "constexpr int kWpOff = 2 * (kSlices + 1) * kSlot;"),
+        ("ops/head.py",
+         "return (2 * (FWD_SLICES * FWD_CHUNK + FWD_TAIL) * FWD_CHUNK",
+         "return (2 * (FWD_SLICES + 1) * FWD_CHUNK * FWD_CHUNK")],
+    # kernel 7: a ring of at most 3 stages (4 fit up to n = 32)
+    "head-fwd-3-stages": [
+        ("ops/head.py", "for s in range(2, FWD_MAX_STAGES + 1)",
+         "for s in range(2, 3 + 1)")],
+    # kernel 7: two chunks in flight a warpgroup, chunk c + 1's products
+    # on the tensor cores under chunk c's epilogue (two sets of 32
+    # accumulators)
+    "head-fwd-two-chunks": [
+        ("ops/csrc/head_mlp_fwd.cu", HEAD_FWD_ONE_CHUNK,
+         HEAD_FWD_TWO_CHUNKS)],
+    # kernel 7: the warpgroups take turns to issue a chunk's products
+    # (named barriers 1 and 2), so that one's epilogue runs under the
+    # other's products
+    "head-fwd-ping-pong": [
+        ("ops/csrc/head_mlp_fwd.cu", HEAD_FWD_ONE_CHUNK,
+         HEAD_FWD_PING_PONG),
+        ("ops/csrc/head_mlp_fwd.cu",
+         "  Stages ring{ring_buf, full, empty, sb, a.stages};\n"
+         "#pragma unroll 1\n",
+         "  Stages ring{ring_buf, full, empty, sb, a.stages};\n"
+         "  int turns = ntiles * nch;   // chunks left to issue\n"
+         "  if (wg == 1)   // warpgroup 0 issues first\n"
+         "    asm volatile(\"bar.arrive 1, 256;\\n\" ::: \"memory\");\n"
+         "#pragma unroll 1\n")],
 }
 
 # name -> edits that take a part of kernel 2's qkv mode (run with
@@ -1279,8 +1419,8 @@ def _ptxas(log: str) -> dict:
     kernels (4b, 2b in both modes, 3b: ``patch_merge_bwd_rows``, and
     ``merge_ln_bwd_rows`` in checkouts before it; 6b) and of the attention
     forward (kernels 1 and 1c: ``window_attn_fwd_rows``) and backward
-    (kernels 1b and 1c's), and of kernel 5b's fused pass
-    (``adapter_mid_bwd_fused``)."""
+    (kernels 1b and 1c's), of kernel 5b's fused pass
+    (``adapter_mid_bwd_fused``) and of kernel 7 (``head_fwd_tiles``)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S*(?:ln_mlp_fwd_kernel|"
@@ -1288,7 +1428,7 @@ def _ptxas(log: str) -> dict:
                       r"window_attn_fwd_rows|ln_lora_\w*"
                       r"bwd_rows|merge_\w*bwd_rows|ln_lora_\w*fwd_kernel|"
                       r"patch_merge_fwd_rows|task_merge_fwd_rows|"
-                      r"adapter_mid_bwd_fused)"
+                      r"adapter_mid_bwd_fused|head_fwd_tiles)"
                       r"\S*)", line)
         if m:
             name = m[1]

@@ -25,7 +25,7 @@ CLASSES: List[Tuple[str, Tuple[str, ...]]] = [
     ("LoRA GEMM kernel 8", ("lora_matmul",)),
     ("window attention kernel (fwd)", ("window_attn_fwd",)),
     ("window attention kernel (bwd)", ("window_attn_bwd", "sum_groups")),
-    ("HRNet head kernel (fwd)", ("head_mlp_fwd",)),
+    ("HRNet head kernel (fwd)", ("head_fwd_",)),
     ("HRNet head kernel (bwd)", ("head_bwd_",)),
     ("LN+LoRA kernel 2, qkv sites (fwd)", ("ln_lora_qkv_fwd_kernel",)),
     ("LN+LoRA kernel 2b, qkv sites (bwd rows)", ("ln_lora_qkv_bwd_rows",)),
