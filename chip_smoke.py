@@ -50,11 +50,12 @@ Phases, each printing a line; any failure raises and exits non-zero:
      kernel 2's tail mode also with its share of the byte bound and its
      output TB/s per stage, and at the ragged 392 rows, with GELU off,
      without dropout(y) (the serve form), ranks 16 and 32 and Swin-B's
-     [6272, 1024] -> 4096; kernel 5b also with its plan, achieved TFLOP/s
-     and share of both bounds (its rank products counted on the tensor
-     cores, and all in fp32) per stage, two launches bit-identical, and at
-     one and three tasks, the ragged 392 rows, 389 rows and Swin-B's H4 =
-     4096 (ADAPTER_COVERAGE);
+     [6272, 1024] -> 4096; kernels 5 and 5b also with their plans,
+     achieved TFLOP/s and share of both bounds (the rank products counted
+     on the tensor cores, and all in fp32) per stage, two launches
+     bit-identical, and at one and three tasks, the ragged 392 rows, 389
+     rows and Swin-B's H4 = 4096 (ADAPTER_COVERAGE), kernel 5 also at
+     path B's 1,568 stage-3 rows;
   3c. the GELU form: kernels 2-tail, 4, 4b, 5 and 5b at stage 1 against
      their plain versions, which take the tanh form in bf16 as the JAX
      kernels do, with the distance to the exact-erf form beside it; the
@@ -118,6 +119,7 @@ from mtlora_tpu_torch.ops.adapter_mlp import (
     adapter_mid_plain,
 )
 from mtlora_tpu_torch.ops.adapter_mlp import bwd_plan as adapter_bwd_plan
+from mtlora_tpu_torch.ops.adapter_mlp import fwd_plan as adapter_fwd_plan
 from mtlora_tpu_torch.ops.ln_lora import (
     ln_lora_bwd,
     ln_lora_bwd_kernel,
@@ -1412,6 +1414,36 @@ def adapter_bound_text(cost) -> str:
     return f"{bound_text(*cost[:3])} (all fp32: {t_old:.4f} ms)"
 
 
+def check_adapter_fwd(label, args):
+    """Kernel 5 against ``adapter_mid_plain`` (mid2T, bf16, within 2^-6 of
+    the largest element and within KERNEL_ATOL) and a second launch on the
+    same inputs bit for bit against the first. Returns (error, plan,
+    text)."""
+    mid1T, p1 = args[0], args[1]
+    plan = adapter_fwd_plan(p1.shape[0], p1.shape[1], mid1T.shape[0],
+                            ln_lora._sms(p1.device))
+    got = adapter_mid_fwd(*args)
+    again = adapter_mid_fwd(*args)
+    want = adapter_mid_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), f"{label}: two launches differ"
+    err, text = check_outputs(label, [got], [want], ["mid2T"], {0})
+    assert err <= KERNEL_ATOL, f"{label}: {err} > {KERNEL_ATOL}"
+    return err, plan, (f"{text} (atol {KERNEL_ATOL:.3e}); two launches "
+                       f"bit-identical")
+
+
+def adapter_fwd_plan_text(plan, t_k, cost) -> str:
+    """Kernel 5's plan, TFLOP/s and share of both bounds in ``t_k`` ms."""
+    t_b, t_old = adapter_bounds_ms(cost)
+    return (f"{cost[1] / t_k / 1e9:.2f} TFLOP/s, {t_b / t_k:.4f} of the bound "
+            f"({t_old / t_k:.4f} of the all-fp32 count); {plan.chunks} "
+            f"chunk(s) of {plan.cols} columns, {plan.steps} 16-row steps "
+            f"a chunk over {plan.stripes} blocks of "
+            f"{adapter_mlp.FWD_WARPS} warps, {plan.blocks} blocks "
+            f"({plan.per_sm} an SM), {plan.smem} bytes")
+
+
 def check_adapter_bwd(label, args, g):
     """Kernel 5b against ``adapter_mid_bwd_plain`` (dmid1T and dp1, bf16,
     within 2^-6 of the largest element; dB1 and dA2T, fp32, at relative
@@ -1442,23 +1474,28 @@ def adapter_plan_text(plan, t_k, cost) -> str:
             f"{plan.blocks} blocks ({plan.per_sm} an SM), {plan.smem} bytes")
 
 
-# kernel 5b's coverage (checked and timed, not in the tally): (label, T,
-# M, H4) -- one and three tasks, the batch-2 step's stage-3 rows (392),
-# rows that are not a multiple of 8 (the scalar staging of mid1 and g),
-# Swin-B's stage-3 width (4C = 4096)
+# kernels 5's and 5b's coverage (checked and timed, not in the tally):
+# (label, T, M, H4) -- one and three tasks, the batch-2 step's stage-3
+# rows (392, also path B's at batch 8), rows that are not a multiple of 8
+# (the scalar staging of mid1 and g; kernel 5's scalar stores), Swin-B's
+# stage-3 width (4C = 4096)
 ADAPTER_COVERAGE = (("T 1 stage 0", 1, KERNEL_BATCH * 112 ** 2, 384),
                     ("T 3 stage 2", 3, KERNEL_BATCH * 28 ** 2, 1536),
                     ("ragged stage 3", 4, RAGGED_ROWS, 3072),
                     ("odd rows", 3, 389, 768),
                     ("swin-b stage 3", 4, KERNEL_BATCH * 14 ** 2, 4096))
+# kernel 5 also at path B's stage-3 rows (224 px: 7 * 7 tokens an image)
+# at batch 32 (batch 8's 392 are the ragged stage 3 above)
+ADAPTER_FWD_COVERAGE = ADAPTER_COVERAGE + (
+    ("path B stage 3", 4, KERNEL_BATCH * 7 ** 2, 3072),)
 
 
 def check_adapter_mid(gen) -> dict:
     """Kernels 5 and 5b at the four stage-tail MLPs: T 4, rank 4, M = 32
     L_s, H4 = 4 C_s; the rank products counted as bf16 tensor-core work
     (the four tasks' ranks, 16, are one mma depth), the all-fp32 count
-    beside it. 5b with two launches bit for bit and its plan, also at
-    ``ADAPTER_COVERAGE``."""
+    beside it. Each with two launches bit for bit and its plan, also at
+    ``ADAPTER_FWD_COVERAGE`` (5) and ``ADAPTER_COVERAGE`` (5b)."""
     fwd, bwd = Tally(), Tally()
     for s in range(4):
         cfg, _, C, M = stage_dims(s)
@@ -1468,18 +1505,16 @@ def check_adapter_mid(gen) -> dict:
         args = (mid1T, p1, b1, a2T, scales)
         sv = torch.tensor(scales, device="cuda").view(T, 1, 1).to(
             torch.bfloat16)
-        y = adapter_mid_fwd(*args)
-        ref = adapter_mid_plain(*args)
-        torch.cuda.synchronize()
-        err, text = check_outputs(f"adapter_mid fwd stage {s}", [y], [ref],
-                                  ["mid2T"], {0})
+        err, plan, text = check_adapter_fwd(f"adapter_mid fwd stage {s}",
+                                            args)
         t_k = median_ms(lambda: adapter_mid_fwd(*args))
         t_p = median_ms(lambda: adapter_mid_plain(*args), reps=5)
         t_l = median_ms(lambda: adapter_library(mid1T, p1, b1, a2T, sv),
                         reps=5)
         cost = adapter_cost(T, M, H4, False)
         print(f"adapter_mid fwd stage {s} T {T} M {M} H4 {H4}: {text} kernel "
-              f"{t_k:.4f} ms plain {t_p:.4f} ms library {t_l:.4f} ms "
+              f"{t_k:.4f} ms ({adapter_fwd_plan_text(plan, t_k, cost)}) "
+              f"plain {t_p:.4f} ms library {t_l:.4f} ms "
               f"{adapter_bound_text(cost)}")
         fwd.add(err, t_k, t_p, t_l, *cost[:2], 1, cost[2])
         label = f"adapter_mid bwd stage {s}"
@@ -1497,18 +1532,25 @@ def check_adapter_mid(gen) -> dict:
               f"({adapter_plan_text(plan, t_k, cost)}) plain {t_p:.4f} ms "
               f"library backward {t_l:.4f} ms {adapter_bound_text(cost)}")
         bwd.add(err, t_k, t_p, t_l, *cost[:2], 1, cost[2])
-        del mid1T, p1, g, y, ref, yl, leaves
+        del mid1T, p1, g, yl, leaves
     # its own generator: the later checks draw the same tensors as before
     cover = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    for name, T, M, H4 in ADAPTER_COVERAGE:
+    for name, T, M, H4 in ADAPTER_FWD_COVERAGE:
         mid1T, p1, b1, a2T, g = adapter_operands(cover, T, M, H4)
         args = (mid1T, p1, b1, a2T, (4.0, 2.0, 1.0, 0.5)[:T])
-        label = f"adapter_mid bwd {name} T {T} M {M} H4 {H4}"
-        _, plan, text = check_adapter_bwd(label, args, g)
-        t_k = median_ms(lambda: adapter_mid_bwd(*args, g), reps=5)
-        cost = adapter_cost(T, M, H4, True)
+        label = f"adapter_mid fwd {name} T {T} M {M} H4 {H4}"
+        _, plan, text = check_adapter_fwd(label, args)
+        t_k = median_ms(lambda: adapter_mid_fwd(*args))
+        cost = adapter_cost(T, M, H4, False)
         print(f"{label}: {text} kernel {t_k:.4f} ms "
-              f"({adapter_plan_text(plan, t_k, cost)})")
+              f"({adapter_fwd_plan_text(plan, t_k, cost)})")
+        if (name, T, M, H4) in ADAPTER_COVERAGE:
+            label = f"adapter_mid bwd {name} T {T} M {M} H4 {H4}"
+            _, plan, text = check_adapter_bwd(label, args, g)
+            t_k = median_ms(lambda: adapter_mid_bwd(*args, g), reps=5)
+            cost = adapter_cost(T, M, H4, True)
+            print(f"{label}: {text} kernel {t_k:.4f} ms "
+                  f"({adapter_plan_text(plan, t_k, cost)})")
         del mid1T, p1, g, args
     return {"fwd": fwd, "bwd": bwd}
 
@@ -2585,7 +2627,8 @@ def main():
         entry("ln_lora_tail_bwd", "ln_lora_tail_bwd.cu",
               "pallas_ln_lora.py:124",
               tail["bwd"]),
-        entry("adapter_mid", "adapter_mlp.cu", "pallas_adapter_mlp.py:129",
+        entry("adapter_mid", "adapter_mlp_fwd.cu",
+              "pallas_adapter_mlp.py:129",
               mid["fwd"]),
         entry("adapter_mid_bwd", "adapter_mlp_bwd.cu",
               "pallas_adapter_mlp.py:146", mid["bwd"]),

@@ -84,8 +84,12 @@ SIGNATURES = {
     # mbuf, hbuf, gb, part, dgb, da1, dh, dbb2, M, C, H4, r, bm, keep_w1,
     # smem, sa, sh, s1, s2, drop threshold, use_drop, inv_keep, stream
     "mtlora_ln_mlp_bwd": [_P] * 22 + [_I] * 9 + [_F, _F, _U, _I, _F, _P],
-    # variant, mid1T, p1, b1, a2T, mid2T, T, M, H4, s0, s1, s2, s3, stream
+    # the probes: variant, mid1T, p1, b1, a2T, mid2T, T, M, H4, s0, s1, s2,
+    # s3, stream
     "mtlora_adapter_mid_fwd": [_I] + [_P] * 5 + [_I] * 3 + [_F] * 4 + [_P],
+    # kernel 5: mid1T, p1, b1, a2T, mid2T, part, T, M, H4, cols, chunks,
+    # stripes, smem, s0, s1, s2, s3, stream
+    "mtlora_adapter_mid_fwd_fused": [_P] * 6 + [_I] * 7 + [_F] * 4 + [_P],
     # kernel 5b: activation, mid1T, p1, b1, a2T, g, dmid1T, dp1, part, dw,
     # T, M, H4, chunks, stripes, tps, smem, s0, s1, s2, s3, stream
     "mtlora_adapter_mid_bwd": [_I] + [_P] * 9 + [_I] * 7 + [_F] * 4 + [_P],

@@ -19,15 +19,24 @@ in task order, ``dmid1 = s B1 dz`` and the fp32 sums ``dB1 = s mid1 dz``,
 ``dA2T = g h``. GELU is the JAX kernel's (``ln_lora.gelu_form``): the
 tanh form in bf16, the kernels' only dtype, exact erf otherwise.
 
-Kernel 5b is one fused pass (``csrc/adapter_mlp_bwd.cu``) with its rank
-products on bf16 tensor cores; :func:`bwd_plan` is its launch plan. The
-probes of ``tools/adapter_variants.py`` are switches on the forward
-kernel and on 5b's fused body, at T = 4 (:data:`FWD_PROBES`,
-:data:`BWD_PROBES`): the form of the activation, the rank expansion left
-out (``nodot1``), and the ``[T, M, r]`` layout of mid1 and the result
-(``vpu*``), with its own order of the expansion's sums. The probe's ``nodot2`` has no counterpart: JAX
-refuses it at the probe's shape (it stores an ``[R, H4]`` hidden into an
-``[R, 1024]`` block).
+Kernels 5 and 5b run their rank products on bf16 tensor cores, the four
+tasks' (task, rank) pairs one 16-deep ``mma.sync`` operand masked per
+task. Kernel 5 (``csrc/adapter_mlp_fwd.cu``) stages a chunk of B1 and A2T
+columns once a block; each warp walks 16-row steps over the chunk's
+pairs of n8 tiles, p1 straight into the C layout, z, the GELU and bf16(h)
+in registers, the projection's sums in C fragments across the chunk, its
+result out as 16-byte stores (fp32 partials a chunk, summed in chunk
+order, where H4 takes more than one); :func:`fwd_plan` is its launch
+plan. Kernel 5b is one fused pass (``csrc/adapter_mlp_bwd.cu``);
+:func:`bwd_plan` is its launch plan. The probes of
+``tools/adapter_variants.py`` are switches on the first port's forward
+body (``csrc/adapter_mlp.cu``, its rank products on the CUDA cores) and
+on 5b's fused body, at T = 4 (:data:`FWD_PROBES`, :data:`BWD_PROBES`):
+the form of the activation, the rank expansion left out (``nodot1``),
+and the ``[T, M, r]`` layout of mid1 and the result (``vpu*``), with its
+own order of the expansion's sums. The probe's ``nodot2`` has no
+counterpart: JAX refuses it at the probe's shape (it stores an ``[R,
+H4]`` hidden into an ``[R, 1024]`` block).
 """
 
 from __future__ import annotations
@@ -49,9 +58,9 @@ RANK = 4        # the kernels' per-task rank (r_max of the flagship)
 MAX_TASKS = 4
 # forward probes -> (the CUDA source's FwdId, activation form, variant):
 # make_fwd(_gelu), make_fwd(_tanh_gelu) (here the kernels' tanh algebra:
-# kernel 5), make_fwd(_sig_gelu), make_fwd(None), make_fwd(_gelu,
-# dot1=False), make_fwd_vpu(_sig_gelu), make_fwd_vpu(_sig_gelu,
-# vpu_dot2=True), make_fwd_vpu(None)
+# kernel 5's function on the first port's body), make_fwd(_sig_gelu),
+# make_fwd(None), make_fwd(_gelu, dot1=False), make_fwd_vpu(_sig_gelu),
+# make_fwd_vpu(_sig_gelu, vpu_dot2=True), make_fwd_vpu(None)
 FWD_PROBES = {
     "base": (0, "erf", "main"), "tanh": (1, "tanh", "main"),
     "sig": (2, "sig", "main"), "noact": (3, "none", "main"),
@@ -61,8 +70,7 @@ FWD_PROBES = {
 # backward probes -> (the CUDA source's BwdId, activation form):
 # make_bwd(erf_pair), kernel 5b, make_bwd(sig_pair)
 BWD_PROBES = {"base": (0, "erf"), "tanh": (1, "tanh"), "sig": (2, "sig")}
-# kernels 5 and 5b: the tanh form, at any T <= 4 (kFwdTanh, kBwdTanh)
-KERNEL5_FWD = 1
+# kernel 5b: the tanh form, at any T <= 4 (kBwdTanh)
 KERNEL5B_ACT = 1
 
 
@@ -161,6 +169,10 @@ def _check(name, mid1T, p1, b1, a2T, scales, extra=(), tmr=False):
             raise ValueError(f"{name} kernel: {label} must be contiguous "
                              f"bf16 {shape} on {mid1T.device}, got "
                              f"{t.dtype} {tuple(t.shape)}")
+    for label, t in (("p1", p1), ("b1", b1), ("a2T", a2T)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel: {label} must start on a "
+                             f"16-byte boundary")
     return T, M, H4
 
 
@@ -168,12 +180,12 @@ def _scales(scales):
     return [float(s) for s in scales] + [0.0] * (MAX_TASKS - len(scales))
 
 
-def _launch_fwd(what, fid, tmr, mid1, p1, b1, a2T, scales):
-    """The forward kernel in variant ``fid`` (an id of :data:`FWD_PROBES`;
-    :data:`KERNEL5_FWD` at up to 4 tasks, the others at 4); ``tmr``: the
-    ``[T, M, r]`` layout."""
+def _launch_probe(what, fid, tmr, mid1, p1, b1, a2T, scales):
+    """The first port's forward body in probe ``fid`` (an id of
+    :data:`FWD_PROBES`), at 4 tasks; ``tmr``: the ``[T, M, r]``
+    layout."""
     T, M, H4 = _check(what, mid1, p1, b1, a2T, scales, tmr=tmr)
-    if fid != KERNEL5_FWD and T != MAX_TASKS:
+    if T != MAX_TASKS:
         raise ValueError(f"{what}: runs at T = {MAX_TASKS}, got {T}")
     out = torch.empty((T, M, RANK) if tmr else (T, RANK, M),
                       dtype=mid1.dtype, device=mid1.device)
@@ -184,13 +196,82 @@ def _launch_fwd(what, fid, tmr, mid1, p1, b1, a2T, scales):
     return out
 
 
+class FwdPlan(NamedTuple):
+    """Launch plan of kernel 5: ``chunks`` chunks of ``cols`` columns (a
+    multiple of 16, at most FWD_MAX_COLS), the ``steps`` 16-row steps of a
+    chunk spread over ``stripes`` blocks of FWD_WARPS warps, ``blocks`` =
+    chunks * stripes (``per_sm`` an SM), ``smem`` bytes a block, ``part``
+    fp32 scratch elements: the mid2 partials a chunk where chunks > 1."""
+
+    cols: int
+    chunks: int
+    steps: int
+    stripes: int
+    blocks: int
+    per_sm: int
+    smem: int
+    part: int
+
+
+FWD_WARPS = 8            # warps a block (kWarps)
+FWD_PER_SM = 2           # blocks an SM (__launch_bounds__)
+FWD_MAX_COLS = 384       # columns a chunk at most (kMaxCols)
+FWD_MAX_H4 = 4096        # kMaxH4, Swin-B's widest hidden
+FWD_STG = 16 + 4         # row stride of a warp's result rows (kStg)
+
+
+def fwd_smem() -> int:
+    """Shared-memory bytes of a block (``fwd_smem_bytes``): B1 and A2T of
+    FWD_MAX_COLS columns as [h][16] bf16, and each warp's [16][FWD_STG]
+    fp32 result rows."""
+    tr = MAX_TASKS * RANK
+    return 2 * FWD_MAX_COLS * tr * 2 + FWD_WARPS * tr * FWD_STG * 4
+
+
+def fwd_plan(M: int, H4: int, T: int, sms: int) -> FwdPlan:
+    """Kernel 5's plan for T tasks of rank 4, M rows and H4 hidden columns
+    on a card of ``sms`` SMs: the fewest chunks of at most FWD_MAX_COLS
+    columns, of equal width in whole pairs of n8 tiles; about
+    ``FWD_PER_SM`` blocks an SM, at most one a 16-row step. Refuses what
+    the kernel does not take, naming the bound."""
+    if (not 1 <= T <= MAX_TASKS or M < 1 or H4 % 64
+            or not 64 <= H4 <= FWD_MAX_H4):
+        raise ValueError(f"adapter MLP tail forward kernel: needs 1 <= T <= "
+                         f"{MAX_TASKS} ({T}), M >= 1 ({M}) and H4 % 64 == 0 "
+                         f"up to {FWD_MAX_H4} ({H4})")
+    chunks = -(-H4 // FWD_MAX_COLS)
+    cols = 16 * -(-H4 // (16 * chunks))
+    steps = -(-M // 16)
+    stripes = max(1, min(steps, FWD_PER_SM * sms // chunks))
+    part = chunks * T * RANK * M if chunks > 1 else 0
+    return FwdPlan(cols, chunks, steps, stripes, chunks * stripes,
+                   FWD_PER_SM, fwd_smem(), part)
+
+
+def _launch_fwd(mid1T, p1, b1, a2T, scales):
+    """Kernel 5 under :func:`fwd_plan`, then, where the plan has more than
+    one chunk, the fixed-order sum of its partials."""
+    T, M, H4 = _check("adapter MLP tail forward", mid1T, p1, b1, a2T,
+                      scales)
+    plan = fwd_plan(M, H4, T, _sms(mid1T.device))
+    out = torch.empty_like(mid1T)
+    part = torch.empty((plan.part,), dtype=torch.float32,
+                       device=mid1T.device)
+    err = _build.library().mtlora_adapter_mid_fwd_fused(
+        mid1T.data_ptr(), p1.data_ptr(), b1.data_ptr(), a2T.data_ptr(),
+        out.data_ptr(), part.data_ptr(), T, M, H4, plan.cols, plan.chunks,
+        plan.stripes, plan.smem, *_scales(scales), _stream(mid1T))
+    _build.check(err, "mtlora_adapter_mid_fwd_fused")
+    return out
+
+
 def adapter_mid_fwd(mid1T, p1, b1, a2T, scales):
-    """Kernel 5 forward, no autograd: plain for CPU tensors, the kernel for
-    CUDA tensors (bf16, rank 4, at most 4 tasks)."""
+    """Kernel 5 forward, no autograd: plain for CPU tensors, the kernel of
+    :func:`_launch_fwd` for CUDA tensors (bf16, rank 4, at most 4
+    tasks)."""
     if mid1T.device.type == "cpu":
         return adapter_mid_plain(mid1T, p1, b1, a2T, scales)
-    out = _launch_fwd("adapter MLP tail forward", KERNEL5_FWD, False,
-                      mid1T, p1, b1, a2T, scales)
+    out = _launch_fwd(mid1T, p1, b1, a2T, scales)
     adapter_mid_fwd.launches += 1
     return out
 
@@ -297,8 +378,8 @@ def adapter_mid_probe(mid1, p1, b1, a2T, scales, probe: str):
     if mid1.device.type == "cpu":
         return adapter_mid_probe_plain(mid1, p1, b1, a2T, scales, probe)
     fid, _, kind = FWD_PROBES[probe]
-    out = _launch_fwd(f"adapter MLP tail probe {probe}", fid,
-                      kind in ("vpu1", "vpu12"), mid1, p1, b1, a2T, scales)
+    out = _launch_probe(f"adapter MLP tail probe {probe}", fid,
+                        kind in ("vpu1", "vpu12"), mid1, p1, b1, a2T, scales)
     adapter_mid_probe.launches[probe] += 1
     return out
 

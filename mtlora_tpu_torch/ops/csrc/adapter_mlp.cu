@@ -1,32 +1,23 @@
-// Fused MTLoRA adapter MLP tail (forward) for Hopper:
+// The first port of the fused MTLoRA adapter MLP tail (forward), kept for
+// the probes of tools/adapter_variants.py (make_fwd :56 and make_fwd_vpu
+// :80, launched by make_fwd_fn :191 and make_fwd_fn_vpu :117), at T = 4:
 //   per task t, row m:  z = p1[m] + s_t sum_r mid1[t,r,m] B1[t,r]   fp32
-//                       h = bf16(gelu(z))                            tanh form
+//                       h = act(z), rounded to bf16                  fp32
 //                       mid2[t,j,m] = bf16(sum_h h A2T[t,j,h])       fp32 sum
+// Kernel 5 itself (mtlora_tpu/ops/pallas_adapter_mlp.py: _fwd_kernel) is
+// adapter_mlp_fwd.cu, its rank products on tensor cores; this body keeps
+// them on the CUDA cores, as the probes were first measured.
 //
-// Replaces mtlora_tpu/ops/pallas_adapter_mlp.py: _fwd_kernel, launched by
-// _run_fwd through fused_adapter_mid (fc2's task projection in the four
-// stage-tail blocks, where fc1's task output stays factored). The GELU is
-// the TPU kernel's bf16 form, the tanh form (lnk::kGelu).
+// Design: a warp carries 4 rows; its lanes split the hidden columns in
+// pairs (bf16x2 loads of p1 and of the weights, which are read once per
+// pair and task for the 4 rows); each lane keeps its 4 x T x 4 partial
+// sums of mid2 in registers and the warp reduces them with shuffles once
+// per row group. mid1 and the results go through shared memory so that
+// their [T, R, M] rows are read and written in runs of 16 tokens.
 //
-// What bounds it: the rank is 4, so tensor cores buy little; per hidden
-// element and task the work is a rank-4 expansion (4 FMA), the GELU
-// (tens of fp32 operations) and a rank-4 contraction (4 FMA).
-// At stage 0 that is T*M*H4 = 617 M GELUs against 308 MB of p1, so the
-// CUDA cores' fp32 rate bounds it, not the bytes. The TPU kernel's win,
-// kept here: the [T, M, 4C] task hidden never reaches device memory, and
-// p1 is read once for all tasks. Design: a warp carries 4 rows; its lanes
-// split the hidden columns in pairs (bf16x2 loads of p1 and of the
-// weights, which are read once per pair and task for the 4 rows); each
-// lane keeps its 4 x T x 4 partial sums of mid2 in registers and the warp
-// reduces them with shuffles once per row group. mid1 and the results go
-// through shared memory so that their [T, R, M] rows are read and written
-// in runs of 16 tokens.
-//
-// The same template computes the probe variants of
-// tools/adapter_variants.py (make_fwd :56 and make_fwd_vpu :80, launched
-// by make_fwd_fn :191 and make_fwd_fn_vpu :117), at T = 4: the form of
-// the activation (Erf, Tanh, Sig, None) and the variant V:
-//   kMain   kernel 5's function;
+// The template's variants: the form of the activation (Erf, Tanh, Sig,
+// None) and V:
+//   kMain   the forward function;
 //   kNoDot1 z = s_t p1, no rank expansion (make_fwd(dot1=False));
 //   kVpu1   mid1 and the result in the [T, M, R] layout, z summed as
 //           make_fwd_vpu sums it, h rounded to bf16 before the projection;
@@ -37,6 +28,65 @@
 namespace {
 
 using namespace adk;
+
+constexpr int kRPW = 4;        // rows a warp carries at once
+constexpr int kBlockRows = 4 * kRPW;
+
+struct Args {
+  const bf16 *mid1, *p1, *b1, *a2;   // [T,R,M], [M,H4], [T,R,H4] x2
+  bf16* out;                          // mid2T [T,R,M]
+  int T, M, H4;
+  float s[kMaxT];
+};
+
+// vals[tr][i] = float(mid[t][r][m0 + i]) for tr = t * R + r < T * R, i <
+// rows (zero past M), by all threads of the block; src is [T, R, M], or
+// [T, M, R] with TMR (the probes' make_fwd_vpu layout).
+template <bool TMR = false>
+__device__ __forceinline__ void stage_rank_rows(float* vals, const bf16* src,
+                                                int T, int M, int m0,
+                                                int rows) {
+  for (int i = threadIdx.x; i < T * R * rows; i += blockDim.x) {
+    const int tr = i / rows, rr = i - tr * rows, m = m0 + rr;
+    const size_t at = TMR ? ((size_t)(tr / R) * M + m) * R + tr % R
+                          : (size_t)tr * M + m;
+    vals[i] = m < M ? __bfloat162float(src[at]) : 0.f;
+  }
+}
+
+// The two columns h, h + 1 of z for task t: z = p + s (sum_r mid[r] B1[r]).
+__device__ __forceinline__ float2 expand(float2 p, const float* mid,
+                                         int stride, const float2* b,
+                                         float s) {
+  float ux = 0.f, uy = 0.f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float mv = mid[r * stride];
+    ux += mv * b[r].x;
+    uy += mv * b[r].y;
+  }
+  return make_float2(p.x + s * ux, p.y + s * uy);
+}
+
+// The same as make_fwd_vpu sums it: z = p, then z += (s mid[r]) B1[r] in
+// r order, each product and sum rounded on its own.
+__device__ __forceinline__ float2 expand_seq(float2 p, const float* mid,
+                                             int stride, const float2* b,
+                                             float s) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float sm = __fmul_rn(s, mid[r * stride]);
+    p.x = __fadd_rn(p.x, __fmul_rn(sm, b[r].x));
+    p.y = __fadd_rn(p.y, __fmul_rn(sm, b[r].y));
+  }
+  return p;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
 
 enum Variant { kMain, kNoDot1, kVpu1, kVpu12 };
 
@@ -134,12 +184,11 @@ Args make_args(const void* mid1, const void* p1, const void* b1,
   return a;
 }
 
-// The forward variants' ids, which adapter_mlp.py's FWD_PROBES and
-// KERNEL5_FWD name: kFwdTanh, the bf16 GELU's, is kernel 5 and runs at any
-// T <= 4; the others at T = 4.
+// The probes' ids, which adapter_mlp.py's FWD_PROBES name; all run at
+// T = 4.
 enum FwdId {
   kFwdBase = 0,      // Erf
-  kFwdTanh = 1,      // kernel 5
+  kFwdTanh = 1,      // kernel 5's form
   kFwdSig = 2,
   kFwdNoAct = 3,
   kFwdNoDot1 = 4,    // Erf, no rank expansion
@@ -147,13 +196,12 @@ enum FwdId {
   kFwdVpu12Sig = 6,
   kFwdVpu1NoAct = 7,
 };
-static_assert(kGelu == Act::Tanh, "kernel 5 is the tanh-form variant");
 
 }  // namespace
 
-// Variant ``id`` (FwdId): mid1T [T, 4, M] ([T, M, 4] for the vpu
-// variants), p1 [M, H4], b1 and a2T [T, 4, H4] (bf16) -> mid2T [T, 4, M]
-// ([T, M, 4] for the vpu variants); s0..s3: the per-task scales.
+// Probe ``id`` (FwdId): mid1T [4, 4, M] ([4, M, 4] for the vpu
+// variants), p1 [M, H4], b1 and a2T [4, 4, H4] (bf16) -> mid2T [4, 4, M]
+// ([4, M, 4] for the vpu variants); s0..s3: the per-task scales.
 // H4 % 64 == 0.
 extern "C" int mtlora_adapter_mid_fwd(int id, const void* mid1,
                                       const void* p1, const void* b1,
@@ -161,18 +209,12 @@ extern "C" int mtlora_adapter_mid_fwd(int id, const void* mid1,
                                       int H4, float s0, float s1, float s2,
                                       float s3, void* stream) {
   constexpr int K = kMaxT;
-  if (T < 1 || T > kMaxT || (id != kFwdTanh && T != kMaxT) || M < 1 ||
-      H4 < 64 || H4 % 64)
+  if (T != kMaxT || M < 1 || H4 < 64 || H4 % 64)
     return (int)cudaErrorInvalidValue;
   void (*kern)(Args) = nullptr;
   switch (id) {
     case kFwdBase: kern = adapter_mid_fwd_kernel<K, Act::Erf, kMain>; break;
-    case kFwdTanh:
-      kern = T == 1   ? adapter_mid_fwd_kernel<1, kGelu, kMain>
-             : T == 2 ? adapter_mid_fwd_kernel<2, kGelu, kMain>
-             : T == 3 ? adapter_mid_fwd_kernel<3, kGelu, kMain>
-                      : adapter_mid_fwd_kernel<4, kGelu, kMain>;
-      break;
+    case kFwdTanh: kern = adapter_mid_fwd_kernel<K, Act::Tanh, kMain>; break;
     case kFwdSig: kern = adapter_mid_fwd_kernel<K, Act::Sig, kMain>; break;
     case kFwdNoAct: kern = adapter_mid_fwd_kernel<K, Act::None, kMain>; break;
     case kFwdNoDot1: kern = adapter_mid_fwd_kernel<K, Act::Erf, kNoDot1>; break;

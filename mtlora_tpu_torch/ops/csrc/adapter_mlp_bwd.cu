@@ -67,7 +67,6 @@ using namespace adk;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPerSm = 2;          // blocks an SM (bwd_plan's BWD_PER_SM)
-constexpr int kTR = kMaxT * R;     // (task, rank) pairs: one mma depth
 constexpr int kMaxH4 = 4096;
 constexpr int kPairs = 3;          // column pairs a warp (BWD_PAIRS)
 constexpr int kRows = 64;          // rows a tile (BWD_ROWS)
@@ -91,16 +90,6 @@ __host__ __device__ constexpr int bwd_smem_bytes() {
          kWarps * kTR * kRows * 4 + kWarps * kPairs * 4 * 32 * 16;
 }
 
-// Element offset of (column h, k = t R + r) in an [h][16] weight tile:
-// 128-byte lines of four columns, their 16-byte units swizzled so that
-// the eight columns an ldmatrix reads (4 (i / 2) + 2 j + i % 2 of a pair,
-// in either half of k) fall in eight distinct units.
-__device__ __forceinline__ int wt_off(int h, int k) {
-  const int line = h >> 2, u = 2 * (h & 3) + (k >> 3);
-  const int f = ((line & 1) << 2) | ((line >> 1) & 1);
-  return line * 64 + (u ^ f) * 8 + (k & 7);
-}
-
 __device__ __forceinline__ uint32_t movtrans(uint32_t a) {
   uint32_t d;
   asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
@@ -109,44 +98,9 @@ __device__ __forceinline__ uint32_t movtrans(uint32_t a) {
   return d;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float lo_f(uint32_t v) {
-  return __uint_as_float(v << 16);
-}
-
-__device__ __forceinline__ float hi_f(uint32_t v) {
-  return __uint_as_float(v & 0xffff0000u);
-}
-
-// x where the lane's entries of a fragment register are of task half sel
-// (`up`: they are of half 1), else 0: a select on a predicate, so that no
-// mask waits in a register.
-__device__ __forceinline__ uint32_t of_half(uint32_t x, bool up, int sel) {
-  return up == (sel == 1) ? x : 0u;
-}
-
 // Task t's scale (a select, so that the parameters stay in their bank).
 __device__ __forceinline__ float task_scale(const BwdParams& a, int t) {
   return t == 0 ? a.s[0] : t == 1 ? a.s[1] : t == 2 ? a.s[2] : a.s[3];
-}
-
-// A lane's p1 values of a pair: rows g and g + 8 of the 16 at m0, the 4
-// adjacent columns 4 q.. of the pair at h0 (zeros past M).
-__device__ __forceinline__ void load_p(uint2* p, const bf16* p1, int M,
-                                       int H4, int m0, int h0, int g8,
-                                       int q) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = m0 + g8 + 8 * i;
-    const bool ok = m < M;
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(
-        p1 + (size_t)(ok ? m : 0) * H4 + h0 + 4 * q));
-    p[i] = ok ? v : make_uint2(0u, 0u);
-  }
 }
 
 // mid1 and g of the row tile at m0, element-wise: rows tr < T R of [T, R,
@@ -186,14 +140,7 @@ __global__ void __launch_bounds__(kThreads, kPerSm)
   const int tiles = (M + kRows - 1) / kRows;
   const int t0 = blockIdx.y * a.tps, t1 = min(tiles, t0 + a.tps);
 
-  // the chunk's B1 and A2T, every task's, as [h][tr] (zeros past T R, H4)
-  for (int i = threadIdx.x; i < kCols * kTR; i += kThreads) {
-    const int tr = i / kCols, h = i - tr * kCols;
-    const bool ok = tr < T * R && c0 + h < H4;
-    const size_t o = (size_t)tr * H4 + c0 + h;
-    wb[wt_off(h, tr)] = ok ? a.b1[o] : __float2bfloat16(0.f);
-    wa[wt_off(h, tr)] = ok ? a.a2[o] : __float2bfloat16(0.f);
-  }
+  stage_weight_tiles<T>(wb, wa, a.b1, a.a2, H4, c0, kCols);
   const bf16* p1 = a.p1;
   if (t0 < t1) stage_rank_tile<T>(rk, a.mid1, a.g, M, t0 * kRows);
 
@@ -416,9 +363,8 @@ __global__ void dmid_sum_kernel(const float* __restrict__ part, int chunks,
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t E = (size_t)TR * M;
   if (i >= E) return;
-  float v = 0.f;
-  for (int c = 0; c < chunks; ++c) v += part[(size_t)c * E + i];
-  a.dmid1[i] = __float2bfloat16(task_scale(a, (int)(i / M / R)) * v);
+  a.dmid1[i] = __float2bfloat16(task_scale(a, (int)(i / M / R)) *
+                                chunk_sum(part, chunks, E, i));
 }
 
 template <int T, Act A>

@@ -5,12 +5,13 @@ variants at the qkv sites, ``qkv-fwd-*`` and ``qkv-*``, run with
 ``--checks check_ln_lora_tail``, kernels 3's and 3b's, ``merge-fwd-*`` and
 ``merge-*``, with ``--checks check_merge``, kernel 6's, ``task-merge-fwd-*``,
 with ``--checks check_task_merge``, kernel 5b's, ``adapter-bwd-*``, with
-``--checks check_adapter_mid``, kernel 7's, ``head-fwd-*``, with
-``--checks check_head``).
+``--checks check_adapter_mid``, kernel 5's, ``adapter-fwd-*``, with the
+same checks, kernel 7's, ``head-fwd-*``, with ``--checks check_head``).
 
     python -m mtlora_tpu_torch.tools.ln_mlp_bwd_variants
         [--variants NAME,...] [--against DIR ...] [--checks FUNC,...]
-        [--time-qkv | --time-merge | --time-task-merge | --time-adapter-bwd]
+        [--time-qkv | --time-merge | --time-task-merge | --time-adapter-bwd
+         | --time-adapter-fwd]
         [--passes 2]
 
 The trees: this checkout; one copy of its ``mtlora_tpu_torch`` per
@@ -56,7 +57,9 @@ it; with ``--time-task-merge``, kernel 6 at its three merges (four tasks,
 batch 32) and at ``chip_smoke.py``'s coverage shapes, beside the trees of
 ``PARTS`` with a part of kernel 6 taken out; with ``--time-adapter-bwd``,
 kernel 5b at its four stage shapes: ms a call, device ms and the
-wrapper's host ms a call.
+wrapper's host ms a call; with ``--time-adapter-fwd``, kernel 5 at the
+same shapes (ms and device ms a call) and the SM clock under it, beside
+the trees of ``PARTS`` with a part of kernel 5 taken out.
 
 This file imports only torch and the standard library at the top: a
 process of another tree imports that tree's package, never this one's.
@@ -474,6 +477,31 @@ VARIANTS = {
     "adapter-bwd-sub-unroll": [
         ("ops/csrc/adapter_mlp_bwd.cu",
          "#pragma unroll 1   // one 16-row step at a time (registers)\n", "")],
+    # kernel 5: three blocks an SM (at most 80 registers a thread)
+    "adapter-fwd-3-per-sm": [
+        ("ops/csrc/adapter_mlp_fwd.cu", "constexpr int kPerSm = 2;",
+         "constexpr int kPerSm = 3;"),
+        ("ops/adapter_mlp.py", "FWD_PER_SM = 2 ", "FWD_PER_SM = 3 ")],
+    # kernel 5: chunks of at most 768 columns (half the chunks from stage
+    # 1 on: too few warp steps to fill the card at stages 2 and 3)
+    "adapter-fwd-768-cols": [
+        ("ops/csrc/adapter_mlp_fwd.cu", "constexpr int kMaxCols = 384;",
+         "constexpr int kMaxCols = 768;"),
+        ("ops/adapter_mlp.py", "FWD_MAX_COLS = 384 ", "FWD_MAX_COLS = 768 ")],
+    # kernel 5: the GELU's 0.5 taken out of each element and put on the
+    # projection's sums (bf16 rounding commutes with a power of two: the
+    # same bits but for subnormal h)
+    "adapter-fwd-half-fold": [
+        ("ops/csrc/adapter_mlp_fwd.cu",
+         "            h[e] = act_fwd<kGelu>(fmaf(a.s[t], u[e], pv[j][e]));\n",
+         "          {\n"
+         "            const float z = fmaf(a.s[t], u[e], pv[j][e]);\n"
+         "            h[e] = z * (1.f + tanhf(z * (lnk::kGeluC + lnk::kGeluCD"
+         " * (z * z))));\n"
+         "          }\n"),
+        ("ops/csrc/adapter_mlp_fwd.cu",
+         "* kStg + g8 + 8 * (e >> 1)] = mo[G][e];",
+         "* kStg + g8 + 8 * (e >> 1)] = 0.5f * mo[G][e];")],
     # kernel 2b (y-only): each thread loads its A fragments of the chunk's
     # gy from device memory into registers, in place of gy's boxes through
     # the TMA ring
@@ -1213,6 +1241,21 @@ VARIANTS = {
 # --time-qkv), of kernel 3 (--time-merge) or of kernel 6 (--time-task-merge)
 # out, its output then wrong by design: those modes time and never check
 PARTS = {
+    # kernel 5: the GELU taken out (h = bf16(z))
+    "adapter-fwd-without-gelu": [
+        ("ops/csrc/adapter_mlp_fwd.cu",
+         "h[e] = act_fwd<kGelu>(fmaf(a.s[t], u[e], pv[j][e]));",
+         "h[e] = fmaf(a.s[t], u[e], pv[j][e]);")],
+    # kernel 5: tanhf taken out of the GELU (tanh(x) = x), its two MUFU
+    # operations with it
+    "adapter-fwd-without-tanh": [
+        ("ops/csrc/adapter_mlp_fwd.cu",
+         "            h[e] = act_fwd<kGelu>(fmaf(a.s[t], u[e], pv[j][e]));\n",
+         "          {\n"
+         "            const float z = fmaf(a.s[t], u[e], pv[j][e]);\n"
+         "            h[e] = 0.5f * z * (1.f + z * (lnk::kGeluC + "
+         "lnk::kGeluCD * (z * z)));\n"
+         "          }\n")],
     # kernel 3: the products (the slots still arrive and are handed back)
     "merge-fwd-without-products": [
         ("ops/csrc/merge_ln_fwd.cu",
@@ -1419,8 +1462,9 @@ def _ptxas(log: str) -> dict:
     kernels (4b, 2b in both modes, 3b: ``patch_merge_bwd_rows``, and
     ``merge_ln_bwd_rows`` in checkouts before it; 6b) and of the attention
     forward (kernels 1 and 1c: ``window_attn_fwd_rows``) and backward
-    (kernels 1b and 1c's), of kernel 5b's fused pass
-    (``adapter_mid_bwd_fused``) and of kernel 7 (``head_fwd_tiles``)."""
+    (kernels 1b and 1c's), of kernel 5 (``adapter_mid_fwd_fused``) and
+    5b's fused pass (``adapter_mid_bwd_fused``) and of kernel 7
+    (``head_fwd_tiles``)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S*(?:ln_mlp_fwd_kernel|"
@@ -1428,7 +1472,7 @@ def _ptxas(log: str) -> dict:
                       r"window_attn_fwd_rows|ln_lora_\w*"
                       r"bwd_rows|merge_\w*bwd_rows|ln_lora_\w*fwd_kernel|"
                       r"patch_merge_fwd_rows|task_merge_fwd_rows|"
-                      r"adapter_mid_bwd_fused|head_fwd_tiles)"
+                      r"adapter_mid_\w+_fused|head_fwd_tiles)"
                       r"\S*)", line)
         if m:
             name = m[1]
@@ -1649,8 +1693,47 @@ def time_adapter_bwd(rec: dict):
         del mid1T, p1, g, args
 
 
+def time_adapter_fwd(rec: dict):
+    """Kernel 5 at ``ADAPTER_STAGES``: ms a call of the tree's
+    ``adapter_mid_fwd`` (CUDA events around 20 calls back to back) and the
+    device ms of its kernels (a profiler trace), unchecked, so that the
+    trees of ``PARTS`` with a part of kernel 5 taken out run beside it;
+    and the SM clock (MHz, ``nvidia-smi``, the median of its samples)
+    under a second of stage-0 calls."""
+    import statistics
+    import torch
+    from mtlora_tpu_torch.ops import adapter_mlp
+    from mtlora_tpu_torch.tools import median_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rec["adapter_fwd_ms"], rec["adapter_fwd_device_ms"] = [], []
+    for M, H4 in ADAPTER_STAGES:
+        mid1T, p1 = (torch.randn(*shape, generator=gen, device="cuda")
+                     .to(torch.bfloat16) for shape in ((4, 4, M), (M, H4)))
+        b1, a2T = ((0.1 * torch.randn(4, 4, H4, generator=gen,
+                                      device="cuda")).to(torch.bfloat16)
+                   for _ in range(2))
+        args = (mid1T, p1, b1, a2T, (4.0,) * 4)
+        rec["adapter_fwd_ms"].append(median_ms(
+            lambda: adapter_mlp.adapter_mid_fwd(*args)))
+        rec["adapter_fwd_device_ms"].append(device_ms(
+            lambda: adapter_mlp.adapter_mid_fwd(*args), ""))
+        if M == ADAPTER_STAGES[0][0]:
+            smi = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=clocks.sm",
+                 "--format=csv,noheader,nounits", "-lms", "50"],
+                stdout=subprocess.PIPE, text=True)
+            median_ms(lambda: adapter_mlp.adapter_mid_fwd(*args), reps=200,
+                      rounds=5)
+            smi.terminate()
+            mhz = [float(v) for v in smi.communicate()[0].split()]
+            rec["adapter_fwd_sm_mhz"] = statistics.median(mhz)
+        del mid1T, p1, args
+
+
 TIMERS = {"qkv": time_qkv, "merge": time_merge,
-          "task_merge": time_task_merge, "adapter_bwd": time_adapter_bwd}
+          "task_merge": time_task_merge, "adapter_bwd": time_adapter_bwd,
+          "adapter_fwd": time_adapter_fwd}
 
 
 def worker(tree: str, checks: str, timer: str = ""):
@@ -1728,8 +1811,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", default="",
                     help=f"comma-separated, of {sorted(VARIANTS)} (and, "
-                         f"with --time-qkv, --time-merge or "
-                         f"--time-task-merge, of {sorted(PARTS)})")
+                         f"with --time-qkv, --time-merge, "
+                         f"--time-task-merge or --time-adapter-fwd, of "
+                         f"{sorted(PARTS)})")
     ap.add_argument("--against", action="append", default=[],
                     help="root of another checkout (repeatable; named by "
                          "its directory)")
@@ -1747,6 +1831,10 @@ def main():
     ap.add_argument("--time-adapter-bwd", action="store_true",
                     help="time kernel 5b at its four stage shapes in each "
                          "tree: events, device and host ms, unchecked")
+    ap.add_argument("--time-adapter-fwd", action="store_true",
+                    help="time kernel 5 at its four stage shapes in each "
+                         "tree, unchecked (the trees of PARTS), and the SM "
+                         "clock")
     ap.add_argument("--passes", type=int, default=2)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--build", action="store_true", help=argparse.SUPPRESS)

@@ -36,7 +36,8 @@ CLASSES: List[Tuple[str, Tuple[str, ...]]] = [
     ("LN+LoRA kernel 2, tail mode (fwd)", ("ln_lora_tail_fwd_kernel",)),
     ("LN+LoRA kernel 2b, tail mode (fused rows)",
      ("ln_lora_tail_bwd_rows",)),
-    ("adapter MLP-tail kernel 5 (fwd)", ("adapter_mid_fwd",)),
+    ("adapter MLP-tail kernel 5 (fwd)",
+     ("adapter_mid_fwd", "mid2_sum_kernel")),
     ("adapter MLP-tail kernel 5b (fused bwd, dmid1 chunk sums)",
      ("adapter_mid_bwd_fused", "dmid_sum_kernel")),
     ("task-merge kernel 6 (fwd)", ("task_merge_fwd_rows",)),

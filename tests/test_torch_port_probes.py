@@ -51,7 +51,6 @@ from mtlora_tpu_torch.ops import ln_lora as port_ln_lora
 from mtlora_tpu_torch.ops.adapter_mlp import (
     BWD_PROBES,
     FWD_PROBES,
-    KERNEL5_FWD,
     KERNEL5B_ACT,
     adapter_mid_bwd_plain,
     adapter_mid_bwd_probe,
@@ -582,12 +581,12 @@ def _enum(source: str, name: str) -> dict:
 ], ids=["attention", "adapter_fwd", "adapter_bwd"])
 def test_variant_ids_match_the_cuda_sources(source, enum, table, names):
     """Each variant's id in the Python table is the value of the named
-    constant in the CUDA source, and the main path's own variants (kernel
-    1, kernels 5 and 5b) are the ones the wrappers pass."""
+    constant in the CUDA source, and the main path's own variant (kernel
+    5b's) is the one its wrapper passes; the ``tanh`` probe is kernel 5's
+    function on the first port's body."""
     consts = _enum(source, enum)
     assert set(consts) == set(names) and len(table) == len(names)
     assert [consts[n] for n in names] == list(table.values())
-    assert FWD_PROBES["tanh"][0] == KERNEL5_FWD
     assert BWD_PROBES["tanh"][0] == KERNEL5B_ACT
     assert FWD_PROBES["tanh"][1] == BWD_PROBES["tanh"][1] == gelu_form(
         torch.bfloat16)
