@@ -90,6 +90,19 @@ with kernel 1c), each with its seconds per phase:
      drop-path off, on the card in bf16 and on the CPU in fp32 through
      the plain versions, from the same weights and batch; the card step's
      exact launches (kernel 8's backward takes its dx layout here);
+then, on the adapter route only:
+  9. validate: ``train.loop.validate`` at batch 32 over 3 synthetic
+     labelled batches (the last padded, 20 valid rows) on the bf16 kernel
+     path and on the fp32 clone with every kernel off
+     (``models.mtl.eval_model_for``), after the eval forward img/s of
+     both paths at batch 32 and a warm-up, each loop timed and under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); exact
+     launches (serve's per forward times 3 on the bf16 path, none on the
+     clone); finite scores and their distance between the paths; the
+     meters on the card against the same meters on the CPU on the same
+     ``get_output`` results (first and last batch: counts equal, fp32
+     sums within 1e-5 relative); the clone's validate of one 2-image
+     batch (one row padded) against the same on the CPU in fp32;
 then a JSON line of the kernels, and the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -206,7 +219,14 @@ from mtlora_tpu_torch.train.optim import (
     build_optimizer,
     build_schedule,
 )
-from mtlora_tpu_torch.train.step import synthetic_batch, train_step
+from mtlora_tpu_torch.train.step import (
+    synthetic_batch,
+    synthetic_eval_batches,
+    train_step,
+)
+from mtlora_tpu_torch.evaluation.meters import PerformanceMeter, get_output
+from mtlora_tpu_torch.train.loop import throughput as eval_throughput
+from mtlora_tpu_torch.train.loop import validate
 from mtlora_tpu_torch.ops import adapter_mlp, ln_lora
 from mtlora_tpu_torch.ops.adapter_mlp import (
     BWD_PROBES,
@@ -308,6 +328,34 @@ CROSS_REL_RMS = 5e-2
 TRAIN_LOSS_REL = 2e-2
 TRAIN_GRAD_NORM_REL = 5e-2
 TRAIN_GRAD_COSINE = 0.98
+# phase 9: validate over 3 batches of 32, the last with 20 valid rows
+EVAL_BATCHES = 3
+EVAL_VALID_LAST = 20
+# meters, card vs CPU on the same get_output results: the confusion and
+# pixel counts are integers of integer inputs and equal; the fp32 sums
+# (angles, per-image ratios) differ by their order of summation only.
+# The threshold counts (normals' angles under 11.25, 22.5, 30 degrees, the
+# saliency's double sigmoid over 19 thresholds) count fp32 values that the
+# card's and the CPU's acos or sigmoid give an ulp apart, so a pixel
+# within an ulp of a threshold can fall on the other side: O(1) pixels of
+# the 6.4 M a batch tests; bound 1e-6 of the pixels tested
+METER_SUM_REL = 1e-5
+METER_SUM_KEYS = ("v1_sum", "v2_sum", "jac_sum", "prec_sum", "rec_sum",
+                  "sq", "log_sq", "loss")
+# (task, key) -> the count's scale in the state (normals keep 100 x count)
+METER_THRESHOLD_COUNTS = {("normals", "v1_1125"): 100.0,
+                          ("normals", "v1_225"): 100.0,
+                          ("normals", "v1_30"): 100.0,
+                          ("sal", "tp"): 1.0, ("sal", "pred_pos"): 1.0}
+METER_FLIP_SHARE = 1e-6
+# the fp32 clone on the card (TF32 off) vs the same on the CPU, one image
+# of 448^2 pixels: the logits differ by fp32 round-off (~1e-6 relative),
+# so the loss averages agree to ~1e-6 and 1e-4 leaves margin; a score moves
+# only where a pixel's argmax or a threshold test flips, each flip
+# 1 / (tp + fp + fn) of an IoU (~5e-5 here) or 100 / 200,704 of a
+# normals percentage: 1e-3 absolute allows about 2 flips in one number
+EVAL_LOSS_REL = 1e-4
+EVAL_SCORE_ABS = 1e-3
 
 
 def ops_seconds(flops, fp32_ops=0.0) -> float:
@@ -2496,6 +2544,153 @@ def train_cross_check(cfg) -> dict:
     return card_counts
 
 
+def score_items(scores) -> dict:
+    """``{task/metric[/class]: value}`` of a score dict, per-class IoUs
+    included."""
+    out = {}
+    for task, res in scores.items():
+        for k, v in res.items():
+            vals = v if isinstance(v, list) else [v]
+            for i, x in enumerate(vals):
+                key = f"{task}/{k}" + (f"/{i}" if isinstance(v, list) else "")
+                out[key] = float(x)
+    return out
+
+
+def largest_diff(a: dict, b: dict, rel: bool = False) -> tuple:
+    """(key, difference) of the largest |a - b| (relative to |b| with
+    ``rel``) over the keys of ``a``."""
+    diffs = {k: abs(a[k] - b[k]) / (abs(b[k]) if rel else 1.0) for k in a}
+    key = max(diffs, key=diffs.get)
+    return key, diffs[key]
+
+
+def check_meters(model, batch, cfg, label):
+    """The meters on the card against the same meters on the CPU, on the
+    card's ``get_output`` results for ``batch`` (bf16 path): every
+    confusion and pixel count equal, every fp32 sum within
+    ``METER_SUM_REL``, every threshold count within ``METER_FLIP_SHARE``
+    of the pixels tested."""
+    weight = batch.get("_valid")
+    with torch.inference_mode():
+        preds = predict(model, batch["image"])
+        outs = {t: get_output(preds[t], t) for t in cfg.tasks}
+        card = PerformanceMeter(cfg.tasks, "PASCALContext", "cuda")
+        card.update(outs, batch, processed=True, weight=weight)
+        cpu = PerformanceMeter(cfg.tasks, "PASCALContext", "cpu")
+        cpu.update({t: v.cpu() for t, v in outs.items()},
+                   {t: batch[t].cpu() for t in cfg.tasks}, processed=True,
+                   weight=None if weight is None else weight.cpu())
+    pixels = batch["image"][..., 0].numel()
+    worst, flips = 0.0, 0.0
+    for t in cfg.tasks:
+        for k, v in card.states[t].items():
+            a, b = v.double().cpu(), cpu.states[t][k].double()
+            if k in METER_SUM_KEYS:
+                rel = float((a - b).abs().max()
+                            / b.abs().max().clamp(min=1e-30))
+                assert rel <= METER_SUM_REL, f"meter {t}.{k}: rel {rel}"
+                worst = max(worst, rel)
+            elif (t, k) in METER_THRESHOLD_COUNTS:
+                n = float((a - b).abs().max()) / METER_THRESHOLD_COUNTS[t, k]
+                assert n <= METER_FLIP_SHARE * pixels, \
+                    f"meter {t}.{k}: {n} pixels flipped"
+                flips = max(flips, n)
+            else:
+                assert torch.equal(a, b), f"meter {t}.{k}: {a} vs {b}"
+    print(f"meters ({label}): card = CPU on every confusion and pixel "
+          f"count, fp32 sums within {worst:.2e} relative (bound "
+          f"{METER_SUM_REL:.0e}), threshold counts within {flips:.0f} "
+          f"pixels (bound {METER_FLIP_SHARE * pixels:.1f} of {pixels})")
+
+
+def eval_cross_check(model, cfg) -> tuple:
+    """The fp32 clone's validate of one 2-image batch (one row padded) on
+    the card against the same weights and batch on the CPU in fp32; returns
+    the largest (score, loss) differences."""
+    cpu = build_mtl_model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    runs = []
+    for m, device in ((model, "cuda"), (cpu, "cpu")):
+        batch = synthetic_eval_batches(1, CROSS_BATCH, cfg.img_size, SEED + 2,
+                                       device)
+        t0 = time.perf_counter()
+        runs.append(validate(m, batch, cfg.tasks, "PASCALContext", "float32")
+                    + (time.perf_counter() - t0,))
+    (sc, lc, _), (sf, lf, secs) = runs
+    skey, sdiff = largest_diff(score_items(sc), score_items(sf))
+    lkey, ldiff = largest_diff(lc, lf, rel=True)
+    print(f"eval cross-check (fp32 clone, card vs CPU, batch {CROSS_BATCH} "
+          f"with 1 valid row): largest score difference {sdiff:.3e} at "
+          f"{skey} (bound {EVAL_SCORE_ABS:.0e} absolute), largest loss "
+          f"difference {ldiff:.3e} relative at {lkey} (bound "
+          f"{EVAL_LOSS_REL:.0e}); CPU validate took {secs:.1f} s")
+    assert sdiff <= EVAL_SCORE_ABS, f"score {skey} disagrees: {sdiff}"
+    assert ldiff <= EVAL_LOSS_REL, f"loss {lkey} disagrees: {ldiff}"
+    return sdiff, ldiff
+
+
+def eval_phase(card) -> dict:
+    """Phase 9, on the adapter route: the eval forward img/s of both
+    paths; validate on both with exact launches and no host sync in the
+    loop, its img/s; the meters and the clone against the CPU; returns
+    the launches of the bf16 run."""
+    cfg = tiny_448_r64_pertask()
+    model = random_model(cfg, SEED, "cuda")
+    batches = synthetic_eval_batches(EVAL_BATCHES, THROUGHPUT_BATCH,
+                                     cfg.img_size, SEED, "cuda",
+                                     EVAL_VALID_LAST)
+    per_forward = launches_per_pass(cfg, backward=False,
+                                    batch=THROUGHPUT_BATCH)
+    # the forward rates first, and a validate of the first batch on each
+    # path: they warm both paths and the meters' kernels for the timed loops
+    rates = eval_throughput(model, batches[0]["image"], "float32", iters=5)
+    for path, rate in rates.items():
+        print(f"eval throughput ({path}): {rate:.2f} img/s forward at batch "
+              f"{THROUGHPUT_BATCH} on {card}")
+    for dtype in ("bfloat16", "float32"):
+        validate(model, batches[:1], cfg.tasks, "PASCALContext", dtype)
+    results = {}
+    for dtype in ("bfloat16", "float32"):
+        want = ({k: EVAL_BATCHES * n for k, n in per_forward.items()}
+                if dtype == "bfloat16" else dict.fromkeys(per_forward, 0))
+        torch.cuda.synchronize()
+        counters.reset()
+        t0 = time.perf_counter()
+        scores, losses = validate(model, batches, cfg.tasks, "PASCALContext",
+                                  dtype, sync_debug="error")
+        secs = time.perf_counter() - t0
+        counts = counters.read()
+        path = "bf16 + kernels" if dtype == "bfloat16" else "fp32 clone"
+        assert counts == want, \
+            f"validate ({path}): expected {want}, got {counts}"
+        items = score_items(scores)
+        bad = [k for k, v in {**items, **losses}.items()
+               if v != v or abs(v) == float("inf")]
+        assert not bad, f"validate ({path}): non-finite {bad}"
+        results[dtype] = (items, losses, counts)
+        main_scores = {t: {k: round(v, 5) for k, v in r.items()
+                           if not isinstance(v, list)}
+                       for t, r in scores.items()}
+        print(f"validate ({path}, TPU.EVAL_DTYPE {dtype}): "
+              f"{EVAL_BATCHES} batches of {THROUGHPUT_BATCH} (last "
+              f"{EVAL_VALID_LAST} valid) in {secs:.3f} s, "
+              f"{EVAL_BATCHES * THROUGHPUT_BATCH / secs:.2f} img/s on {card}, "
+              f"no host sync in the loop; scores {main_scores}; loss "
+              f"{ {t: round(v, 6) for t, v in losses.items()} }; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+    (ib, lb, counts), (i32, l32, _) = results["bfloat16"], results["float32"]
+    skey, sdiff = largest_diff(ib, i32)
+    lkey, ldiff = largest_diff(lb, l32, rel=True)
+    print(f"validate bf16 path vs fp32 clone (reported, not gated): largest "
+          f"score difference {sdiff:.4e} at {skey}, largest loss difference "
+          f"{ldiff:.4e} relative at {lkey}")
+    check_meters(model, batches[0], cfg, "first batch")
+    check_meters(model, batches[-1], cfg, "padded last batch")
+    eval_cross_check(model, cfg)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -2569,6 +2764,10 @@ def main():
               f"6 {t3 - t2:.1f}, 7 {t4 - t3:.1f}, 8 {t5 - t4:.1f}")
         train_counts.setdefault(path_of(cfg), counts)
         cross_counts.setdefault(path_of(cfg), cross)
+    print(f"=== validate ({route_name(tiny_448_r64_pertask())})")
+    t0 = time.perf_counter()
+    eval_phase(card)
+    print(f"phase seconds (validate): 9 {time.perf_counter() - t0:.1f}")
 
     def entry(name, source, replaces, tally, path="main", counts=None,
               root="mtlora_tpu/ops/"):

@@ -1,8 +1,10 @@
 """PyTorch / CUDA port of mtlora_tpu for NVIDIA Hopper (H100).
 
 The JAX package ``mtlora_tpu`` is the reference; this package reproduces
-its bf16 eval forward (Swin-T MTLoRA backbone, per-task downsamplers and
-HRNet heads) with hand-written CUDA kernels for the two Pallas kernels on
-that path: window attention (``ops/window_attn.py``) and the fused HRNet
-head (``ops/head.py``). It imports torch and numpy only.
+its bf16 forward and training step (Swin-T MTLoRA backbone, per-task
+downsamplers and HRNet heads) with hand-written CUDA kernels for its
+Pallas kernels (``ops/``), and its eval path: the meters
+(``evaluation/meters.py``), ``validate`` and ``throughput``
+(``train/loop.py``) and the fp32 eval clone (``models/mtl.py``). It
+imports torch and numpy only.
 """

@@ -62,6 +62,19 @@ class ModelConfig:
     # MTLORA_ATTN_DENSE: window attention of a stage with one window per
     # image, no mask and a batch that fills 8-window cells in kernel 1c
     attn_dense: bool = False
+    # TPU.USE_PALLAS: False turns every kernel off (the JAX package's
+    # ``_pallas_available`` gate, mtl.py:284-293): the four switches above
+    # off, and kernels 1, 1c and 7 replaced by their plain versions on any
+    # device; the fp32 eval clone's setting (``models.mtl.eval_model_for``)
+    use_pallas: bool = True
+
+    def __post_init__(self):
+        if not self.use_pallas and (
+                self.use_pallas_ln or self.use_pallas_adapter
+                or self.use_pallas_lora_gemm or self.attn_dense):
+            raise ValueError("use_pallas False turns every kernel off: "
+                             "use_pallas_ln, use_pallas_adapter, "
+                             "use_pallas_lora_gemm and attn_dense must be off")
 
 
 def attn_dense_enabled() -> bool:
@@ -81,7 +94,8 @@ def from_config(config) -> ModelConfig:
     """Build from a loaded reference-schema config node (after
     ``normalize_mtlora``), read by attribute; ``TPU.USE_PALLAS`` and
     ``TPU.REMAT`` by ``get`` with the JAX package's defaults, as it reads
-    them."""
+    them. ``TPU.USE_PALLAS`` False gates every kernel switch off, as the
+    JAX package's ``_pallas_available`` does."""
     tpu = config.TPU
     m = config.MODEL.MTLORA
     swin = config.MODEL.SWIN
@@ -89,15 +103,13 @@ def from_config(config) -> ModelConfig:
     if config.MODEL.TYPE != "swin":
         _unsupported(f"MODEL.TYPE {config.MODEL.TYPE!r} (the reference "
                      "builds only 'swin')", "Queue 1, item 10")
-    if not bool(config.get("TPU", {}).get("USE_PALLAS", True)):
-        _unsupported("TPU.USE_PALLAS False (every kernel off, exact-erf "
-                     "GELU)", "Queue 1, item 7")
+    use_pallas = bool(config.get("TPU", {}).get("USE_PALLAS", True))
     if (bool(config.get("TPU", {}).get("REMAT", False))
             or bool(config.TRAIN.USE_CHECKPOINT)):
         _unsupported("TRAIN.USE_CHECKPOINT / TPU.REMAT (rematerialized "
                      "Swin blocks)", "Queue 1, item 10")
-    use_ln = bool(tpu.USE_PALLAS_LN)
-    use_adapter = bool(tpu.USE_PALLAS_ADAPTER)
+    use_ln = use_pallas and bool(tpu.USE_PALLAS_LN)
+    use_adapter = use_pallas and bool(tpu.USE_PALLAS_ADAPTER)
     _check_adapter_route(use_ln, use_adapter, bool(m.PROJ_ENABLED))
     if use_ln and not (bool(m.QKV_ENABLED) and bool(m.FC1_ENABLED)
                        and bool(m.FC2_ENABLED)):
@@ -167,9 +179,19 @@ def from_config(config) -> ModelConfig:
         drop_path_rate=float(config.MODEL.DROP_PATH_RATE),
         use_pallas_ln=use_ln,
         use_pallas_adapter=use_adapter,
-        use_pallas_lora_gemm=bool(tpu.USE_PALLAS_LORA_GEMM),
-        attn_dense=attn_dense_enabled(),
+        use_pallas_lora_gemm=use_pallas and bool(tpu.USE_PALLAS_LORA_GEMM),
+        attn_dense=use_pallas and attn_dense_enabled(),
+        use_pallas=use_pallas,
     )
+
+
+def eval_dtype(config) -> str:
+    """``TPU.EVAL_DTYPE`` read as the JAX package reads it (``get`` with
+    the default ``"float32"``, ``models/mtl.py:eval_model_for``):
+    ``"bfloat16"`` keeps the model's bf16 kernel path for eval, anything
+    else selects the fp32 clone with every kernel off."""
+    return ("bfloat16" if str(config.get("TPU", {}).get(
+        "EVAL_DTYPE", "float32")) == "bfloat16" else "float32")
 
 
 def _check_adapter_route(use_ln: bool, use_adapter: bool,

@@ -47,8 +47,10 @@ class HighResolutionHead(nn.Module):
     the reference module (seg_hrnet.py:498-526), whose parameters the
     fused kernel reads in place."""
 
-    def __init__(self, in_channels: int, num_outputs: int):
+    def __init__(self, in_channels: int, num_outputs: int,
+                 kernel: bool = True):
         super().__init__()
+        self.kernel = kernel        # TPU.USE_PALLAS: kernel 7 or plain
         c4 = 4 * in_channels
         self.last_layer = nn.Sequential(
             nn.Conv2d(in_channels, c4, 1), nn.BatchNorm2d(c4, eps=1e-5),
@@ -78,5 +80,5 @@ class HighResolutionHead(nn.Module):
         mul = (inv * bn.weight)[None]
         add = (bn.bias - mu * inv * bn.weight)[None]
         y = head_mlp(x2, ek, expand.bias[None], mul, add, pk,
-                     pred.bias[None])
+                     pred.bias[None], kernel=self.kernel)
         return y.view(B, H, W, -1)

@@ -302,9 +302,15 @@ class MTLoRALinear(nn.Module):
 
 
 def _scales(scales, dtype, device, ndim: int) -> torch.Tensor:
-    """The per-task scales ``[T, 1, ..]`` (``ndim`` dims) in ``dtype``."""
-    return torch.tensor(scales, dtype=dtype, device=device).view(
-        -1, *([1] * (ndim - 1)))
+    """The per-task scales ``[T, 1, ..]`` (``ndim`` dims) in ``dtype``; to
+    a card from pinned host memory without waiting, where a copy from
+    pageable memory first waits for the stream (a host sync)."""
+    t = torch.tensor(scales, dtype=dtype)
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    else:
+        t = t.to(device)
+    return t.view(-1, *([1] * (ndim - 1)))
 
 
 def fold_task_ln_project(stream: TaskStream, gamma: torch.Tensor,

@@ -11,10 +11,13 @@ autograd through those casts gives fp32 gradients.
 BatchNorm (``mtl.py:153-155``): adapter dropout and drop-path draw from the
 ``generator`` passed to the forward, and the heads normalise with the
 batch moments and update their running statistics. ``model.eval()`` is
-the eval path, with no draw.
+the eval path, with no draw. :func:`eval_model_for` is the fp32 eval clone
+with every kernel off (``mtl.py:296-314``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -62,7 +65,8 @@ class MultiTaskSwin(nn.Module):
             {t: PerTaskDownsampler(self.stage_dims, cfg.decoder_channels)
              for t in cfg.tasks})
         self.decoders = nn.ModuleDict(
-            {t: HighResolutionHead(sum(cfg.decoder_channels), n_out)
+            {t: HighResolutionHead(sum(cfg.decoder_channels), n_out,
+                                   kernel=cfg.use_pallas)
              for t, n_out in zip(cfg.tasks, cfg.num_outputs)})
 
     def forward(self, images: torch.Tensor,
@@ -87,6 +91,43 @@ def build_mtl_model(cfg: ModelConfig, device="cuda") -> MultiTaskSwin:
     # buffers made from numpy constants (window masks, the relative
     # position index) are born on the CPU
     return model.to(device).eval()
+
+
+def eval_model_for(model: MultiTaskSwin,
+                   eval_dtype: str = "float32") -> MultiTaskSwin:
+    """The model that ``validate`` and ``throughput`` run (``mtl.py:296-314``,
+    ``TPU.EVAL_DTYPE``): with ``"bfloat16"`` the model itself, its bf16
+    kernel path; otherwise a clone that computes in fp32 with every kernel
+    off (``use_pallas`` False: LayerNorm outside the GEMMs, materialized
+    task streams, the plain versions of kernels 1 and 7, GELU the exact
+    erf), the reference's eval numerics.
+
+    The clone SHARES the model's tensors: its parameters are the model's
+    ``nn.Parameter`` objects and its buffers (BatchNorm running statistics,
+    masks) the model's buffers, so it always computes with the model's
+    current weights and statistics, as the JAX clone shares ``params``;
+    nothing is copied and nothing is allocated on the device. It is a
+    separate module tree with its own ``training`` flag (eval), so the
+    model's route and mode stay as they were."""
+    if eval_dtype == "bfloat16":
+        return model
+    cfg = dataclasses.replace(model.cfg, compute_dtype="float32",
+                              use_pallas=False, use_pallas_ln=False,
+                              use_pallas_adapter=False,
+                              use_pallas_lora_gemm=False, attn_dense=False)
+    with torch.device("meta"):
+        clone = MultiTaskSwin(cfg)
+    # remove_duplicate=False: a tensor the model uses at two sites is
+    # shared at both
+    for name, t in (*model.named_parameters(remove_duplicate=False),
+                    *model.named_buffers(remove_duplicate=False)):
+        owner, _, leaf = name.rpartition(".")
+        setattr(clone.get_submodule(owner), leaf, t)
+    left = [n for n, t in (*clone.named_parameters(), *clone.named_buffers())
+            if t.is_meta]
+    if left:
+        raise RuntimeError(f"eval clone: no tensor of the model for {left}")
+    return clone.eval()
 
 
 @torch.no_grad()

@@ -186,10 +186,12 @@ class WindowAttention(nn.Module):
                  lora: StageLoRA, tasks: tuple, proj_tasks: bool,
                  qkv_lora: bool = True, proj_lora: bool = True,
                  qkv_bias: bool = True, qk_scale: float | None = None,
-                 gemm: bool = False, dense: bool = False):
+                 gemm: bool = False, dense: bool = False,
+                 kernel: bool = True):
         super().__init__()
         self.dim, self.window_size, self.num_heads = dim, window_size, num_heads
         self.dense = dense
+        self.kernel = kernel        # TPU.USE_PALLAS: kernels 1 / 1c or plain
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
@@ -233,15 +235,18 @@ class WindowAttention(nn.Module):
     def _core(self, qkv, B: int, H: int, W: int, mask):
         """Kernel 1c where the JAX model takes ``_fused_windows_dense``:
         not the padded pack-2 route (an even window count, ``2N <= 128``),
-        and ``_maybe_packed``'s dense decision; kernel 1 elsewhere."""
+        and ``_maybe_packed``'s dense decision; kernel 1 elsewhere; the
+        plain version on any device where ``kernel`` is off."""
         ws = self.window_size
         nw, N = (H // ws) * (W // ws), ws * ws
         pad2 = nw % 2 == 0 and 2 * N <= 128
-        fn = (fused_window_attention_dense
-              if self.dense and not pad2
-              and dense_applies(qkv.dtype, N, nw, B, mask)
-              else fused_window_attention)
-        return fn(qkv, self.num_heads, self.rel_bias(), mask, self.scale)
+        if (self.kernel and self.dense and not pad2
+                and dense_applies(qkv.dtype, N, nw, B, mask)):
+            return fused_window_attention_dense(qkv, self.num_heads,
+                                                self.rel_bias(), mask,
+                                                self.scale)
+        return fused_window_attention(qkv, self.num_heads, self.rel_bias(),
+                                      mask, self.scale, kernel=self.kernel)
 
 
 class SwinBlock(nn.Module):
@@ -270,7 +275,8 @@ class SwinBlock(nn.Module):
             proj_tasks=produce_tasks and cfg.proj_enabled,
             qkv_lora=cfg.qkv_enabled, proj_lora=cfg.proj_enabled,
             qkv_bias=cfg.qkv_bias, qk_scale=cfg.qk_scale,
-            gemm=cfg.use_pallas_lora_gemm, dense=cfg.attn_dense)
+            gemm=cfg.use_pallas_lora_gemm, dense=cfg.attn_dense,
+            kernel=cfg.use_pallas)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio), lora, tasks,
                        fc1_tasks=produce_tasks and cfg.fc1_enabled,

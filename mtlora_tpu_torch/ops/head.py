@@ -251,13 +251,14 @@ def head_mlp_fwd_kernel(x, ek, eb, mul, add, pk, pb):
     return y
 
 
-def head_mlp_fwd(x, ek, eb, mul, add, pk, pb):
+def head_mlp_fwd(x, ek, eb, mul, add, pk, pb, kernel: bool = True):
     """Forward, no autograd: the plain version for CPU tensors, the kernel
     for CUDA tensors (bf16 x/ek/pk, the shapes :func:`fwd_plan` takes).
     ``ek`` and ``pk`` are read transposed: pass the transposed views of
     the conv weights ([O, C] and [n, O] contiguous) and no copy is
-    made."""
-    if x.device.type == "cpu":
+    made. ``kernel`` False (``TPU.USE_PALLAS`` off) takes the plain
+    version on any device."""
+    if x.device.type == "cpu" or not kernel:
         return head_mlp_plain(x, ek, eb, mul, add, pk, pb)
     return head_mlp_fwd_kernel(x, ek, eb, mul, add, pk, pb)
 
@@ -377,14 +378,15 @@ def head_mlp_bwd_kernel(x, ek, eb, mul, add, pk, pb, gy, scratch=None):
             tail[3 * O:].view(1, n))
 
 
-def head_mlp_bwd(x, ek, eb, mul, add, pk, pb, gy):
+def head_mlp_bwd(x, ek, eb, mul, add, pk, pb, gy, kernel: bool = True):
     """``(dx, dek, deb, dmul, dadd, dpk, dpb)`` of
-    :func:`head_mlp_bwd_plain`: the plain version for CPU tensors; for
-    CUDA tensors the row kernel (dx, dhc, z, the column partials), the
-    weight-gradient products of dWe and dWp and the fixed-order sums.
-    ``dek`` and ``dpk`` come back as transposed views of ``[O, C]`` and
-    ``[n, O]`` tensors, the layout of the conv weights."""
-    if x.device.type == "cpu":
+    :func:`head_mlp_bwd_plain`: the plain version for CPU tensors (and,
+    ``kernel`` False, for any); for CUDA tensors the row kernel (dx, dhc,
+    z, the column partials), the weight-gradient products of dWe and dWp
+    and the fixed-order sums. ``dek`` and ``dpk`` come back as transposed
+    views of ``[O, C]`` and ``[n, O]`` tensors, the layout of the conv
+    weights."""
+    if x.device.type == "cpu" or not kernel:
         return head_mlp_bwd_plain(x, ek, eb, mul, add, pk, pb, gy)
     return head_mlp_bwd_kernel(x, ek, eb, mul, add, pk, pb, gy)
 
@@ -398,18 +400,22 @@ class HeadMLPFn(torch.autograd.Function):
     gradients (the decoder heads train under MTLoRA)."""
 
     @staticmethod
-    def forward(ctx, x, ek, eb, mul, add, pk, pb):
+    def forward(ctx, x, ek, eb, mul, add, pk, pb, kernel=True):
         ctx.save_for_backward(x, ek, eb, mul, add, pk, pb)
-        return head_mlp_fwd(x, ek, eb, mul, add, pk, pb)
+        ctx.kernel = kernel
+        return head_mlp_fwd(x, ek, eb, mul, add, pk, pb, kernel)
 
     @staticmethod
     def backward(ctx, gy):
         x, ek, eb, mul, add, pk, pb = ctx.saved_tensors
-        return head_mlp_bwd(x, ek, eb, mul, add, pk, pb, gy.contiguous())
+        return (*head_mlp_bwd(x, ek, eb, mul, add, pk, pb, gy.contiguous(),
+                              ctx.kernel), None)
 
 
-def head_mlp(x, ek, eb, mul, add, pk, pb):
+def head_mlp(x, ek, eb, mul, add, pk, pb, kernel: bool = True):
     """Fused head on ``x [M, C]`` (see :func:`head_mlp_plain`),
     differentiable in all seven operands. CPU tensors take the plain
-    versions; CUDA tensors the kernels (see :func:`head_mlp_fwd`)."""
-    return HeadMLPFn.apply(x, ek, eb, mul, add, pk, pb)
+    versions; CUDA tensors the kernels (see :func:`head_mlp_fwd`);
+    ``kernel`` False (a model with ``TPU.USE_PALLAS`` off) the plain
+    versions on any device."""
+    return HeadMLPFn.apply(x, ek, eb, mul, add, pk, pb, kernel)

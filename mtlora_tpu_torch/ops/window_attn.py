@@ -419,11 +419,12 @@ def _launch_fwd_rows(qkv, num_heads, rel_bias, mask, scale, dense):
 
 def window_attention_fwd(qkv: torch.Tensor, num_heads: int,
                          rel_bias: torch.Tensor, mask: torch.Tensor | None,
-                         scale: float) -> torch.Tensor:
+                         scale: float, kernel: bool = True) -> torch.Tensor:
     """Forward core, no autograd: the plain version for CPU tensors, the
     kernel for CUDA tensors (bf16, N <= 64, head dim 32; any other CUDA
-    tensor raises)."""
-    if qkv.device.type == "cpu":
+    tensor raises). ``kernel`` False (``TPU.USE_PALLAS`` off) takes the
+    plain version on any device."""
+    if qkv.device.type == "cpu" or not kernel:
         return plain(qkv, num_heads, rel_bias, mask, scale)
     out = _launch_fwd_rows(qkv, num_heads, rel_bias, mask, scale, False)
     window_attention_fwd.launches += 1
@@ -432,11 +433,13 @@ def window_attention_fwd(qkv: torch.Tensor, num_heads: int,
 
 def window_attention_bwd(qkv: torch.Tensor, num_heads: int,
                          rel_bias: torch.Tensor, mask: torch.Tensor | None,
-                         scale: float, dout: torch.Tensor):
+                         scale: float, dout: torch.Tensor,
+                         kernel: bool = True):
     """Backward core: ``(dqkv, dbias)`` of :func:`window_attention_bwd_plain`,
-    from the plain version for CPU tensors and from the kernel (plus its
-    deterministic group reduction) for CUDA tensors."""
-    if qkv.device.type == "cpu":
+    from the plain version for CPU tensors (and, ``kernel`` False, for any)
+    and from the kernel (plus its deterministic group reduction) for CUDA
+    tensors."""
+    if qkv.device.type == "cpu" or not kernel:
         return window_attention_bwd_plain(qkv, num_heads, rel_bias, mask,
                                           scale, dout)
     out = _launch_bwd(qkv, num_heads, rel_bias, mask, scale, dout, False)
@@ -509,29 +512,34 @@ class WindowAttentionFn(torch.autograd.Function):
     gathered bias; none for the mask."""
 
     @staticmethod
-    def forward(ctx, qkv, rel_bias, mask, num_heads, scale):
+    def forward(ctx, qkv, rel_bias, mask, num_heads, scale, kernel=True):
         ctx.save_for_backward(qkv, rel_bias, mask)
-        ctx.num_heads, ctx.scale = num_heads, scale
-        return window_attention_fwd(qkv, num_heads, rel_bias, mask, scale)
+        ctx.num_heads, ctx.scale, ctx.kernel = num_heads, scale, kernel
+        return window_attention_fwd(qkv, num_heads, rel_bias, mask, scale,
+                                    kernel)
 
     @staticmethod
     def backward(ctx, dout):
         qkv, rel_bias, mask = ctx.saved_tensors
         dqkv, dbias = window_attention_bwd(qkv, ctx.num_heads, rel_bias, mask,
-                                           ctx.scale, dout.contiguous())
-        return dqkv, dbias.to(rel_bias.dtype), None, None, None
+                                           ctx.scale, dout.contiguous(),
+                                           ctx.kernel)
+        return dqkv, dbias.to(rel_bias.dtype), None, None, None, None
 
 
 def fused_window_attention(qkv: torch.Tensor, num_heads: int,
                            rel_bias: torch.Tensor, mask: torch.Tensor | None,
-                           scale: float) -> torch.Tensor:
+                           scale: float, kernel: bool = True) -> torch.Tensor:
     """qkv [B*nW, N, 3C], rel_bias [nH, N, N] fp32, mask [nW, N, N] fp32
     or None -> [B*nW, N, C] in qkv's dtype (see ``attention.window_attention``
     for the math and its cast points), differentiable in qkv and rel_bias.
 
     CPU tensors take the plain versions; CUDA tensors the kernels, which
-    take bf16 only, N <= 64 and a head dim of 32."""
-    return WindowAttentionFn.apply(qkv, rel_bias, mask, num_heads, scale)
+    take bf16 only, N <= 64 and a head dim of 32. ``kernel`` False (a
+    model with ``TPU.USE_PALLAS`` off) takes the plain versions on any
+    device."""
+    return WindowAttentionFn.apply(qkv, rel_bias, mask, num_heads, scale,
+                                   kernel)
 
 
 class WindowAttentionDenseFn(torch.autograd.Function):

@@ -18,6 +18,21 @@ keeps the task streams materialized (kernels 2, 3, 4), and
 ``--profile TRACE`` then runs 3 more forwards under ``torch.profiler``,
 writes the Chrome trace to TRACE and prints a second JSON line: device
 ms per forward by kernel class, busy time and idle share.
+
+    python -m mtlora_tpu_torch.serve --validate 3 --eval-dtype bfloat16
+
+instead scores the model (``train/loop.py:validate``) over 3 synthetic
+labelled batches of ``--batch-size`` (``train/step.py:
+synthetic_eval_batches``: the last one padded) on the eval path that
+``--eval-dtype`` selects, ``TPU.EVAL_DTYPE``: ``float32`` (the default,
+as the JAX package's) the fp32 clone with every kernel off
+(``models.mtl.eval_model_for``), ``bfloat16`` the model's own bf16 kernel
+path. It prints one JSON line: the scores, the per-task eval-loss
+averages and the eval img/s of the path (``loop.throughput``, over
+``--requests`` forwards; on the fp32 path the bf16 path's rate beside
+it), and the img/s of the whole validate loop, meters included, timed
+with CUDA events after those forwards and a validate of the first batch
+warmed the path.
 """
 
 from __future__ import annotations
@@ -99,6 +114,13 @@ def main(argv=None):
     ap.add_argument("--img-size", type=int, default=448,
                     help="DATA.IMG_SIZE: 448 (the flagship YAML) or 224 "
                     "(the JAX package's default)")
+    ap.add_argument("--validate", type=int, default=0, metavar="N",
+                    help="score the model over N synthetic labelled batches "
+                    "(the last padded) instead of serving")
+    ap.add_argument("--eval-dtype", choices=("float32", "bfloat16"),
+                    default="float32",
+                    help="TPU.EVAL_DTYPE of --validate: the fp32 clone with "
+                    "every kernel off, or the bf16 kernel path")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serve: no CUDA device")
@@ -110,6 +132,8 @@ def main(argv=None):
             use_pallas_lora_gemm=args.pallas_lora_gemm),
         img_size=args.img_size, attn_dense=args.attn_dense)
     model = random_model(cfg, args.seed, "cuda")
+    if args.validate:
+        return _validate(model, cfg, args)
     images = torch.from_numpy(synthetic_images(
         args.batch_size, cfg.img_size, args.seed)).cuda()
     rate = throughput(model, images, args.requests)
@@ -132,6 +156,39 @@ def main(argv=None):
             torch.cuda.synchronize()
         prof.export_chrome_trace(args.profile)
         print(json.dumps({"profile": breakdown(args.profile, forwards)}))
+
+
+def _validate(model, cfg, args):
+    """``--validate N``: one JSON line of scores, eval losses and rates."""
+    from mtlora_tpu_torch.models.mtl import eval_model_for
+    from mtlora_tpu_torch.train.loop import path_label, throughput, validate
+    from mtlora_tpu_torch.train.step import synthetic_eval_batches
+
+    batches = synthetic_eval_batches(args.validate, args.batch_size,
+                                     cfg.img_size, args.seed, "cuda")
+    # the forward rates first, and a validate of the first batch: they warm
+    # the path and the meters' kernels for the timed validate
+    rates = throughput(model, batches[0]["image"], args.eval_dtype,
+                       iters=args.requests)
+    validate(model, batches[:1], cfg.tasks, "PASCALContext", args.eval_dtype)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    scores, losses = validate(model, batches, cfg.tasks, "PASCALContext",
+                              args.eval_dtype)
+    end.record()
+    end.synchronize()
+    secs = start.elapsed_time(end) / 1e3
+    path = path_label(eval_model_for(model, args.eval_dtype))
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "batch_size": args.batch_size,
+                      "batches": args.validate,
+                      "eval_dtype": args.eval_dtype, "path": path,
+                      "img_size": cfg.img_size, "scores": scores,
+                      "loss": losses, "eval_img_per_s": rates[path],
+                      "img_per_s_by_path": rates,
+                      "validate_img_per_s":
+                          args.validate * args.batch_size / secs}))
 
 
 if __name__ == "__main__":

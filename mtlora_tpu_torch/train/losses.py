@@ -61,7 +61,7 @@ def balanced_bce_logits(logits: torch.Tensor, label: torch.Tensor,
     y = (label.float() >= 0.5).float()
     if row_weight is None:
         wrow = None
-        num_total = torch.tensor(float(y.numel()), device=x.device)
+        num_total = x.new_full((), float(y.numel()))   # no host copy
     else:
         wrow = row_weight.float().reshape((y.shape[0],) + (1,) * (y.dim() - 1))
         num_total = (row_weight.float().sum()

@@ -68,3 +68,31 @@ def synthetic_batch(batch_size: int, img_size: int, seed: int,
         "human_parts": r.randint(0, 7, (B, S, S, 1)).astype(np.float32),
     }
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def synthetic_eval_batches(n: int, batch_size: int, img_size: int, seed: int,
+                           device="cuda", valid_last: Optional[int] = None):
+    """``n`` labelled batches for ``loop.validate``: batch ``i`` is
+    :func:`synthetic_batch` at seed ``seed + i`` with the first
+    ``img_size // 8`` rows of semseg and human_parts set to the ignore
+    label 255 (``mtlora_tpu/data/synthetic.py:97``). The last batch is
+    padded as a ragged last batch is: rows from ``valid_last`` on
+    (default ``max(1, 5 * batch_size // 8)``) carry ``"_valid"`` 0 and
+    targets ignore-filled with 255 (``mtlora_tpu/data/loader.py:42-49``);
+    the other batches carry no ``"_valid"``."""
+    if valid_last is None:
+        valid_last = max(1, 5 * batch_size // 8)
+    batches = []
+    for i in range(n):
+        b = synthetic_batch(batch_size, img_size, seed + i, device)
+        for t in ("semseg", "human_parts"):
+            b[t][:, : img_size // 8] = 255.0
+        if i == n - 1:
+            for k, v in b.items():
+                if k != "image":
+                    v[valid_last:] = 255.0
+            valid = torch.zeros(batch_size, dtype=torch.float32)
+            valid[:valid_last] = 1.0
+            b["_valid"] = valid.to(device)
+        batches.append(b)
+    return batches

@@ -174,7 +174,6 @@ def test_unported_kernel_flags_raise(flag, ln, extra):
 
 
 @pytest.mark.parametrize("opts,item", [
-    (["TPU.USE_PALLAS", "False"], "Queue 1, item 7"),
     (["MODEL.TYPE", "swinv2"], "Queue 1, item 10"),
     (["TRAIN.USE_CHECKPOINT", "True"], "Queue 1, item 10"),
     (["TPU.REMAT", "True"], "Queue 1, item 10"),
@@ -185,14 +184,13 @@ def test_unported_kernel_flags_raise(flag, ln, extra):
       "False"], "Queue 1, item 9"),
     (["MODEL.MTLORA.R_PER_TASK.semseg", "[8]"], "Queue 1, item 9"),
     ("tasks", "Queue 1, item 9"),
-], ids=["TPU.USE_PALLAS", "MODEL.TYPE", "TRAIN.USE_CHECKPOINT", "TPU.REMAT",
+], ids=["MODEL.TYPE", "TRAIN.USE_CHECKPOINT", "TPU.REMAT",
         "TPU.USE_PALLAS_LN-fc1-off", "shared-rank-8", "shared-rank-24",
         "shared-rank-128-ln-route", "task-rank-8-adapter-route",
         "five-tasks-adapter-route"])
 def test_config_keys_the_port_does_not_run_raise(opts, item):
     """Keys the JAX package acts on and the port does not run raise and
-    name their ROADMAP item: ``TPU.USE_PALLAS`` False (every kernel off
-    and the exact-erf GELU, the fp32 eval clone's switch), a model type
+    name their ROADMAP item: a model type
     the reference does not build, rematerialization by either key, the
     LN route with an adapter off (kernel 2's other modes), a shared rank
     that kernels 2, 2b, 2-tail and 2b-tail do not take on the LN routes
@@ -314,6 +312,23 @@ for tool in (attn_probe, adapter_variants):   # the entry points need a card
         assert e.code not in (0, None), e.code
     else:
         raise AssertionError(f"{tool.__name__} ran without a CUDA device")
+from mtlora_tpu_torch.evaluation.meters import PerformanceMeter
+from mtlora_tpu_torch.train.loop import validate
+from mtlora_tpu_torch.train.step import synthetic_eval_batches
+from mtlora_tpu_torch import serve
+for dtype in ("float32", "bfloat16"):
+    batches = synthetic_eval_batches(2, 2, 64, 0, "cpu")
+    scores, losses = validate(model, batches, cfg.tasks, "PASCALContext",
+                              dtype)
+    assert set(scores) == set(losses) == set(cfg.tasks), scores
+    assert all(v == v for v in losses.values()), losses
+assert isinstance(PerformanceMeter(cfg.tasks).meters["sal"].init(), dict)
+try:
+    serve.main(["--validate", "1"])
+except SystemExit as e:
+    assert e.code not in (0, None), e.code
+else:
+    raise AssertionError("serve --validate ran without a CUDA device")
 assert not any(counters.read().values())   # the CPU route counts nothing
 assert not any(k.split(".")[0] == "mtlora_tpu" for k in sys.modules)
 print("HYGIENE-OK")
@@ -326,8 +341,10 @@ def test_port_imports_no_jax_flax_yaml_cv2():
     training step run on the three routes (LN outside the GEMMs; kernels
     2, 3, 4; and the adapter route, kernels 2 to 6), and with kernel 8 on
     the first and the last; the probes' plain versions run, and each
-    probe entry point exits non-zero without a CUDA device; all with jax,
-    flax, yaml and cv2 made unimportable."""
+    probe entry point exits non-zero without a CUDA device; the eval path
+    (``evaluation.meters``, ``train.loop.validate`` on both eval dtypes)
+    runs and ``serve --validate`` exits non-zero without a CUDA device;
+    all with jax, flax, yaml and cv2 made unimportable."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
     proc = subprocess.run([sys.executable, "-c", HYGIENE], env=env,
                           cwd=os.path.abspath(ROOT), capture_output=True,
