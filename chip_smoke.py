@@ -103,6 +103,19 @@ then, on the adapter route only:
      ``get_output`` results (first and last batch: counts equal, fp32
      sums within 1e-5 relative); the clone's validate of one 2-image
      batch (one row padded) against the same on the CPU in fp32;
+  10. data: the data pipeline (``mtlora_tpu_torch.data``) feeding the
+     adapter route at batch 32 and 448: a line of what the machine has
+     (PIL and scipy.io importable, the cores, the loader's workers, the
+     image ops' build time); epoch 0 of the train loader (SyntheticMTL
+     structured, the train transforms) bit-identical with 0 workers, with
+     persistent workers and over two passes, epoch 1 different; the
+     loader's own img/s; 3 training steps fed by the pinned loader with
+     phase 7's checks, then the train img/s fed by it against the fixed
+     batch; the padded val loader over 84 samples (batches of 32, 32, 20)
+     feeding validate on both eval paths under set_sync_debug_mode("error"),
+     the valid rows summing to 84, exact launches, its img/s against the
+     pre-built batches; where PIL imports, a 6-image PASCAL tree written
+     here, read through build_loader and validated on the bf16 path;
 then a JSON line of the kernels, and the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -111,13 +124,29 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import json
+import os
+import shutil
 import time
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
 
 from mtlora_tpu_torch.config import tiny_448_r64_pertask
+from mtlora_tpu_torch.data import native as data_native
+from mtlora_tpu_torch.data.loader import (
+    DataLoader,
+    build_loader,
+    data_node,
+    epochs,
+    ignore_fill_sample,
+)
+from mtlora_tpu_torch.data.synthetic import SyntheticMTL
+from mtlora_tpu_torch.data.task_config import get_tasks_config
+from mtlora_tpu_torch.data.transforms import get_transformations
 from mtlora_tpu_torch.models.mtl import build_mtl_model
 from mtlora_tpu_torch.ops import _build, counters
 from mtlora_tpu_torch.ops.attention import (
@@ -220,6 +249,7 @@ from mtlora_tpu_torch.train.optim import (
     build_schedule,
 )
 from mtlora_tpu_torch.train.step import (
+    device_batch,
     synthetic_batch,
     synthetic_eval_batches,
     train_step,
@@ -2691,6 +2721,336 @@ def eval_phase(card) -> dict:
     return counts
 
 
+# phase 10: the data pipeline feeding the adapter route at batch 32
+DATA_TRAIN_BATCHES = 7          # the train loader's epoch: 224 samples
+DATA_DET_LEN, DATA_DET_BATCH = 16, 4   # the determinism check's set
+DATA_VAL_LEN = 84               # val batches of 32, 32 and 20 (padded)
+DATA_TIMED = 3                  # timed train steps on the fixed batch
+# worker processes of the loaders: the cores this process may run on, one
+# left to it, at most 7 (the card's machine has 8)
+LOADER_MAX_WORKERS = 7
+
+
+def loader_workers() -> int:
+    return max(1, min(len(os.sched_getaffinity(0)) - 1, LOADER_MAX_WORKERS))
+
+
+def synthetic_loader(cfg, n, train, workers, batch=TRAIN_BATCH):
+    """A pinned loader over ``SyntheticMTL(structured=True)`` of ``n``
+    samples through the train transforms (shuffled, dropping last) or the
+    eval transforms (in order, the last batch padded)."""
+    tc, _ = get_tasks_config("PASCALContext", list(cfg.tasks), cfg.img_size)
+    tr, tv = get_transformations("PASCALContext", tc)
+    ds = SyntheticMTL(cfg.tasks, cfg.img_size, length=n, seed=SEED,
+                      structured=True, transform=tr if train else tv)
+    kw = (dict(seed=SEED) if train else
+          dict(shuffle=False, drop_last=False, pad_last=True,
+               pad_fill=ignore_fill_sample))
+    return DataLoader(ds, batch, num_workers=workers, pin_memory=True,
+                      persistent_workers=workers > 0, **kw)
+
+
+def same_batches(a, b) -> bool:
+    """Two lists of loader batches equal bit for bit, meta included."""
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(
+            x[k] == y[k] if k == "meta" else torch.equal(x[k], y[k])
+            for k in x) for x, y in zip(a, b))
+
+
+def check_loader_determinism(cfg, workers):
+    """Epoch 0 of a train loader (16 samples in batches of 4, so that the
+    workers share the epoch) bit-identical with 0 workers and with
+    ``workers`` persistent workers, and over two passes of the latter;
+    epoch 1 different."""
+    n, batch = DATA_DET_LEN, DATA_DET_BATCH
+    t0 = time.perf_counter()
+    alone = list(synthetic_loader(cfg, n, True, 0, batch).iter_epoch(0))
+    loader = synthetic_loader(cfg, n, True, workers, batch)
+    first = list(loader.iter_epoch(0))
+    second = list(loader.iter_epoch(0))
+    other = list(loader.iter_epoch(1))
+    del loader
+    assert len(alone) == n // batch, len(alone)
+    assert same_batches(alone, first), f"0 and {workers} workers differ"
+    assert same_batches(first, second), "two passes of epoch 0 differ"
+    assert not torch.equal(first[0]["image"], other[0]["image"]), \
+        "epoch 1 repeats epoch 0"
+    print(f"loader determinism: epoch 0 ({n // batch} batches of "
+          f"{batch}, train transforms at {cfg.img_size}) bit-identical "
+          f"with 0 workers, with {workers} persistent workers and over two "
+          f"passes; epoch 1 differs ({time.perf_counter() - t0:.1f} s)")
+
+
+def loader_rate(loader, epoch) -> float:
+    """img/s of one epoch of ``loader`` alone (its workers up already)."""
+    t0 = time.perf_counter()
+    n = sum(b["image"].shape[0] for b in loader.iter_epoch(epoch))
+    return n / (time.perf_counter() - t0)
+
+
+def data_train(cfg, card, workers):
+    """The train loader feeds 3 checked steps (phase 7's checks: finite
+    losses, exact launches per step), then the timed steps fed by it
+    against the timed steps on a fixed batch."""
+    model = random_model(cfg, SEED, "cuda")
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, warmup_epochs=0)
+    opt = build_optimizer(model, tcfg)
+    sched = build_schedule(tcfg, ITERS_PER_EPOCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    loader = synthetic_loader(cfg, DATA_TRAIN_BATCHES * TRAIN_BATCH, True,
+                              workers)
+    t0 = time.perf_counter()
+    assert loader_rate(loader, 0) > 0     # starts the workers
+    start_s = time.perf_counter() - t0
+    rate = loader_rate(loader, 1)
+    print(f"loader alone: {rate:.2f} img/s (train transforms at "
+          f"{cfg.img_size}, {workers} workers, an epoch of "
+          f"{DATA_TRAIN_BATCHES} batches of {TRAIN_BATCH}; the first epoch, "
+          f"workers starting, took {start_s:.1f} s) on {card}")
+    stream = epochs(loader, start=2)
+    keys = ("image", *cfg.tasks)
+    waits = []
+
+    def fed_step():
+        t = time.perf_counter()
+        batch = next(stream)
+        waits.append(time.perf_counter() - t)
+        assert batch["image"].is_pinned(), "the loader's batch is not pinned"
+        return train_step(model, opt, sched, device_batch(batch, keys, "cuda"),
+                          gen, clip_grad=tcfg.clip_grad)
+
+    want = launches_per_pass(cfg, backward=True, batch=TRAIN_BATCH)
+    counters.reset()
+    for i in range(TRAIN_STEPS):
+        before = counters.read()
+        m = fed_step()
+        torch.cuda.synchronize()
+        after = counters.read()
+        step_counts = {k: after[k] - before[k] for k in after}
+        vals = {k: float(v) for k, v in m.items()}
+        print(f"train step {i} fed by the loader: "
+              + " ".join(f"{k} {v:.5f}" for k, v in vals.items())
+              + f"; loader wait {1e3 * waits[-1]:.1f} ms")
+        assert all(v == v and abs(v) != float("inf") for v in vals.values())
+        assert step_counts == want, f"expected {want}, got {step_counts}"
+    counts = counters.read()
+    fixed = synthetic_batch(TRAIN_BATCH, cfg.img_size, SEED)
+    rates = {}
+    for label, steps in (("fixed batch", DATA_TIMED),
+                         ("loader", DATA_TRAIN_BATCHES),
+                         ("fixed batch", DATA_TIMED)):
+        waits.clear()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(steps):
+            if label == "loader":
+                fed_step()
+            else:
+                train_step(model, opt, sched, fixed, gen,
+                           clip_grad=tcfg.clip_grad)
+        b.record()
+        b.synchronize()
+        rates.setdefault(label, []).append(
+            TRAIN_BATCH * steps / (a.elapsed_time(b) / 1e3))
+        if label == "loader":
+            fed_waits = list(waits)
+    print(f"train throughput fed by the loader: {rates['loader'][0]:.2f} "
+          f"img/s over {DATA_TRAIN_BATCHES} steps (an epoch's worth, across "
+          f"an epoch boundary; loader wait "
+          f"{1e3 * sum(fed_waits) / len(fed_waits):.1f} ms a step, longest "
+          f"{1e3 * max(fed_waits):.1f} ms) against the fixed "
+          f"batch {' / '.join(f'{r:.2f}' for r in rates['fixed batch'])} "
+          f"img/s ({DATA_TIMED} steps before and after), batch {TRAIN_BATCH},"
+          f" on {card}")
+    del loader, stream
+    return counts
+
+
+def valid_rows(batches, rows):
+    """``batches`` passed through, each one's valid rows (its ``_valid``
+    on the host) appended to ``rows``."""
+    for b in batches:
+        rows.append(float(b["_valid"].sum()))
+        yield b
+
+
+def data_validate(cfg, card, workers):
+    """The padded val loader over 84 samples feeds ``validate`` on both
+    eval paths under set_sync_debug_mode("error"): the valid rows sum to
+    84, exact launches (serve's per forward times 3 on the bf16 path, none
+    on the clone), finite scores; its img/s against the pre-built batches
+    of phase 9 on the same path."""
+    model = random_model(cfg, SEED, "cuda")
+    loader = synthetic_loader(cfg, DATA_VAL_LEN, False, workers,
+                              THROUGHPUT_BATCH)
+    n_batches = len(loader)
+    assert n_batches == 3, n_batches
+    prebuilt = synthetic_eval_batches(n_batches, THROUGHPUT_BATCH,
+                                      cfg.img_size, SEED, "cuda",
+                                      DATA_VAL_LEN % THROUGHPUT_BATCH)
+    per_forward = launches_per_pass(cfg, backward=False,
+                                    batch=THROUGHPUT_BATCH)
+    for dtype in ("bfloat16", "float32"):    # warm both paths and workers
+        validate(model, prebuilt[:1], cfg.tasks, "PASCALContext", dtype)
+    assert sum(b["image"].shape[0] for b in loader.iter_epoch(0)) > 0
+    for dtype in ("bfloat16", "float32"):
+        want = ({k: n_batches * n for k, n in per_forward.items()}
+                if dtype == "bfloat16" else dict.fromkeys(per_forward, 0))
+        rates = {}
+        for source in ("pre-built", "loader"):
+            rows = []
+            batches = (prebuilt if source == "pre-built"
+                       else valid_rows(loader.iter_epoch(0), rows))
+            torch.cuda.synchronize()
+            counters.reset()
+            t0 = time.perf_counter()
+            scores, losses = validate(model, batches, cfg.tasks,
+                                      "PASCALContext", dtype,
+                                      sync_debug="error")
+            secs = time.perf_counter() - t0
+            counts = counters.read()
+            assert counts == want, \
+                f"validate ({dtype}, {source}): expected {want}, got {counts}"
+            items = score_items(scores)
+            bad = [k for k, v in {**items, **losses}.items()
+                   if v != v or abs(v) == float("inf")]
+            assert not bad, f"validate ({dtype}, {source}): non-finite {bad}"
+            if source == "loader":
+                assert len(rows) == n_batches and sum(rows) == DATA_VAL_LEN, \
+                    f"valid rows {rows}"
+            rates[source] = n_batches * THROUGHPUT_BATCH / secs
+        print(f"validate fed by the loader (TPU.EVAL_DTYPE {dtype}): "
+              f"{n_batches} batches of {THROUGHPUT_BATCH}, valid rows "
+              f"{[int(r) for r in rows]} (sum {int(sum(rows))}), no host sync "
+              f"in the loop, launches exact; {rates['loader']:.2f} img/s "
+              f"against {rates['pre-built']:.2f} img/s on the pre-built "
+              f"batches, on {card}")
+    del loader
+    return model
+
+
+def write_pascal_tree(root, n=6, hw=(64, 80)):
+    """A PASCAL_MT tree of ``n`` images (the first 4 train, the rest val)
+    in the layout of tests/fixtures_mtl.py: JPEG images, PNG semseg,
+    distilled normals and saliency, the context LabelMap and the
+    human-parts ``anno`` structs as MATLAB files."""
+    import scipy.io as sio
+    from PIL import Image
+
+    def save(path, arr, **kw):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(arr).save(path, **kw)
+
+    ids = [f"2008_{i:06d}" for i in range(n)]
+    for i, im_id in enumerate(ids):
+        r = np.random.RandomState(np.array([SEED, i], np.uint32))
+        save(os.path.join(root, "JPEGImages", im_id + ".jpg"),
+             r.randint(0, 255, (*hw, 3), dtype=np.uint8), quality=90)
+        tiles = r.choice([0, 3, 4, 9, 59], size=(hw[0] // 8, hw[1] // 8))
+        lab = np.kron(tiles, np.ones((8, 8), np.int64)).astype(np.uint16)
+        os.makedirs(os.path.join(root, "pascal-context", "trainval"),
+                    exist_ok=True)
+        sio.savemat(os.path.join(root, "pascal-context", "trainval",
+                                 im_id + ".mat"), {"LabelMap": lab})
+        mask = np.zeros(hw, np.uint8)
+        mask[8:40, 8:40] = 1
+        head = np.zeros(hw, np.uint8)
+        head[8:16, 8:40] = 1
+        parts = np.zeros((1, 1), dtype=[("part_name", "O"), ("mask", "O")])
+        parts[0, 0] = ("head", head)
+        objs = np.zeros((1, 1), dtype=[("class", "O"), ("class_ind", "O"),
+                                       ("mask", "O"), ("parts", "O")])
+        objs[0, 0] = ("obj0", np.array([[15]], np.uint8), mask, parts)
+        anno = np.zeros((1, 1), dtype=[("imname", "O"), ("objects", "O")])
+        anno[0, 0] = (im_id, objs)
+        os.makedirs(os.path.join(root, "human_parts"), exist_ok=True)
+        sio.savemat(os.path.join(root, "human_parts", im_id + ".mat"),
+                    {"anno": anno})
+        save(os.path.join(root, "normals_distill", im_id + ".png"),
+             r.randint(0, 255, (*hw, 3), dtype=np.uint8))
+        save(os.path.join(root, "sal_distill", im_id + ".png"),
+             r.randint(0, 255, hw, dtype=np.uint8))
+        save(os.path.join(root, "semseg", "VOC12", im_id + ".png"),
+             r.randint(0, 21, hw, dtype=np.uint8))
+    os.makedirs(os.path.join(root, "ImageSets", "Context"), exist_ok=True)
+    for split, part in (("train", ids[:4]), ("val", ids[4:])):
+        with open(os.path.join(root, "ImageSets", "Context", split + ".txt"),
+                  "w") as f:
+            f.write("\n".join(part) + "\n")
+    return len(ids) - 4
+
+
+def data_pascal(model, cfg, card):
+    """The PASCAL tree, written here, read through ``build_loader`` at
+    the model's size (its val split of 2 images, padded to one batch of
+    32, built in this process: 2 images do not pay for starting workers)
+    and validated on the bf16 path with exact launches."""
+    root = str(_build.BUILD_DIR / "smoke_pascal")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        n_val = write_pascal_tree(root)
+        loader = build_loader(data_node("PASCALContext", root, cfg.tasks,
+                                        cfg.img_size, THROUGHPUT_BATCH, SEED,
+                                        num_workers=0))[3]
+        rows = []
+        counters.reset()
+        scores, losses = validate(model, valid_rows(loader.iter_epoch(0),
+                                                    rows),
+                                  cfg.tasks, "PASCALContext", "bfloat16",
+                                  sync_debug="error")
+        counts = counters.read()
+        del loader
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = launches_per_pass(cfg, backward=False, batch=THROUGHPUT_BATCH)
+    assert counts == want, f"PASCAL validate: expected {want}, got {counts}"
+    assert rows == [float(n_val)], rows
+    items = score_items(scores)
+    bad = [k for k, v in {**items, **losses}.items()
+           if v != v or abs(v) == float("inf")]
+    assert not bad, f"PASCAL validate: non-finite {bad}"
+    print(f"PASCAL tree ({n_val + 4} images written with PIL and "
+          f"scipy.io): build_loader at {cfg.img_size}, val split of {n_val} "
+          f"in one batch of {THROUGHPUT_BATCH} (valid rows {rows}), validate "
+          f"on the bf16 path, launches exact, scores finite: "
+          f"{ {t: {k: round(v, 4) for k, v in r.items() if not isinstance(v, list)} for t, r in scores.items()} } "
+          f"on {card}")
+
+
+def data_phase(card):
+    """Phase 10, on the adapter route at full width: what the machine has,
+    the loader's determinism across worker counts, the loader feeding the
+    training step and validate, the PASCAL tree where PIL is present."""
+    cfg = tiny_448_r64_pertask()
+    pil = importlib.util.find_spec("PIL") is not None
+    try:
+        import scipy.io  # noqa: F401
+        scipy_io = True
+    except ImportError:
+        scipy_io = False
+    workers = loader_workers()
+    t0 = time.perf_counter()
+    data_native.library()
+    built = data_native.build_seconds
+    print(f"data machine: PIL {'importable' if pil else 'NOT importable'}, "
+          f"scipy.io {'importable' if scipy_io else 'NOT importable'}, "
+          f"os.cpu_count() {os.cpu_count()}, cores usable "
+          f"{len(os.sched_getaffinity(0))}, loader workers {workers}, image "
+          f"ops " + (f"built in {built:.1f} s" if built is not None else
+                     f"loaded from an earlier build in "
+                     f"{time.perf_counter() - t0:.2f} s"))
+    check_loader_determinism(cfg, workers)
+    counts = data_train(cfg, card, workers)
+    model = data_validate(cfg, card, workers)
+    if pil:
+        data_pascal(model, cfg, card)
+    else:
+        print("PASCAL tree: not run, PIL is not importable")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -2768,6 +3128,10 @@ def main():
     t0 = time.perf_counter()
     eval_phase(card)
     print(f"phase seconds (validate): 9 {time.perf_counter() - t0:.1f}")
+    print(f"=== data pipeline ({route_name(tiny_448_r64_pertask())})")
+    t0 = time.perf_counter()
+    data_phase(card)
+    print(f"phase seconds (data): 10 {time.perf_counter() - t0:.1f}")
 
     def entry(name, source, replaces, tally, path="main", counts=None,
               root="mtlora_tpu/ops/"):

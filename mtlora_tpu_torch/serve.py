@@ -27,25 +27,32 @@ synthetic_eval_batches``: the last one padded) on the eval path that
 ``--eval-dtype`` selects, ``TPU.EVAL_DTYPE``: ``float32`` (the default,
 as the JAX package's) the fp32 clone with every kernel off
 (``models.mtl.eval_model_for``), ``bfloat16`` the model's own bf16 kernel
-path. It prints one JSON line: the scores, the per-task eval-loss
-averages and the eval img/s of the path (``loop.throughput``, over
-``--requests`` forwards; on the fp32 path the bf16 path's rate beside
-it), and the img/s of the whole validate loop, meters included, timed
-with CUDA events after those forwards and a validate of the first batch
-warmed the path.
+path. With ``--pascal ROOT`` (or ``--nyud ROOT``: the model then takes
+the four NYUD tasks) it scores the first 3 batches of the dataset's val
+split instead, read through the padded val loader of
+``data.loader.build_loader`` (workers, pinned batches). It prints one
+JSON line: the scores, the per-task eval-loss averages and the eval img/s
+of the path (``loop.throughput``, over ``--requests`` forwards; on the
+fp32 path the bf16 path's rate beside it), the img/s of the whole
+validate loop, meters (and loader) included, timed with CUDA events after
+those forwards and a validate of the first batch warmed the path, and the
+host ms the loop waited for each batch from the loader.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
+import time
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from mtlora_tpu_torch.config import ModelConfig, tiny_448_r64_pertask
+from mtlora_tpu_torch.data.task_config import NYUD_TASKS, get_tasks_config
 from mtlora_tpu_torch.models.mtl import (
     MultiTaskSwin,
     build_mtl_model,
@@ -69,6 +76,36 @@ def random_model(cfg: ModelConfig, seed: int, device) -> MultiTaskSwin:
     model = build_mtl_model(cfg, device)
     init_random_(model, torch.Generator().manual_seed(seed))
     return model
+
+
+def add_dataset_args(group):
+    """``--pascal ROOT`` and ``--nyud ROOT`` (``main.py:29-30``) on an
+    argparse group."""
+    group.add_argument("--pascal", metavar="ROOT", default=None,
+                       help="PASCAL-Context root (PASCAL_MT layout)")
+    group.add_argument("--nyud", metavar="ROOT", default=None,
+                       help="NYUD root (NYUD_MT layout); the model takes "
+                       "the four NYUD tasks")
+
+
+def dataset_of(args):
+    """(DATA.DBNAME, root) of ``--pascal`` / ``--nyud``, or (None, None)."""
+    if args.pascal:
+        return "PASCALContext", args.pascal
+    if args.nyud:
+        return "NYUD", args.nyud
+    return None, None
+
+
+def for_dataset(cfg: ModelConfig, db) -> ModelConfig:
+    """The flagship's tasks are PASCAL's; on NYUD the model takes the four
+    NYUD tasks (as many as the per-task ranks) and their output widths."""
+    if db != "NYUD":
+        return cfg
+    tc, _ = get_tasks_config(db, list(NYUD_TASKS), cfg.img_size)
+    return dataclasses.replace(
+        cfg, tasks=NYUD_TASKS,
+        num_outputs=tuple(tc["NUM_OUTPUT"][t] for t in NYUD_TASKS))
 
 
 def synthetic_images(batch: int, size: int, seed: int) -> np.ndarray:
@@ -116,11 +153,13 @@ def main(argv=None):
                     "(the JAX package's default)")
     ap.add_argument("--validate", type=int, default=0, metavar="N",
                     help="score the model over N synthetic labelled batches "
-                    "(the last padded) instead of serving")
+                    "(the last padded), or the first N of the val split of "
+                    "--pascal / --nyud, instead of serving")
     ap.add_argument("--eval-dtype", choices=("float32", "bfloat16"),
                     default="float32",
                     help="TPU.EVAL_DTYPE of --validate: the fp32 clone with "
                     "every kernel off, or the bf16 kernel path")
+    add_dataset_args(ap.add_mutually_exclusive_group())
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serve: no CUDA device")
@@ -131,6 +170,7 @@ def main(argv=None):
                                     or args.no_pallas_adapter),
             use_pallas_lora_gemm=args.pallas_lora_gemm),
         img_size=args.img_size, attn_dense=args.attn_dense)
+    cfg = for_dataset(cfg, dataset_of(args)[0])
     model = random_model(cfg, args.seed, "cuda")
     if args.validate:
         return _validate(model, cfg, args)
@@ -160,35 +200,62 @@ def main(argv=None):
 
 def _validate(model, cfg, args):
     """``--validate N``: one JSON line of scores, eval losses and rates."""
+    from mtlora_tpu_torch.data.loader import build_loader, data_node
     from mtlora_tpu_torch.models.mtl import eval_model_for
     from mtlora_tpu_torch.train.loop import path_label, throughput, validate
     from mtlora_tpu_torch.train.step import synthetic_eval_batches
 
-    batches = synthetic_eval_batches(args.validate, args.batch_size,
-                                     cfg.img_size, args.seed, "cuda")
+    db, root = dataset_of(args)
+    waits = []
+    if root:
+        loader = build_loader(data_node(db, root, cfg.tasks, cfg.img_size,
+                                        args.batch_size, args.seed))[3]
+
+        def batches():
+            it = itertools.islice(loader.iter_epoch(0), args.validate)
+            while True:
+                t0 = time.perf_counter()
+                batch = next(it, None)
+                waits.append(time.perf_counter() - t0)
+                if batch is None:
+                    return
+                yield batch
+
+        first = next(iter(loader.iter_epoch(0)))
+        first = {k: v.to("cuda") for k, v in first.items() if k != "meta"}
+    else:
+        db = "PASCALContext"
+        fixed = synthetic_eval_batches(args.validate, args.batch_size,
+                                       cfg.img_size, args.seed, "cuda")
+        first = fixed[0]
+
+        def batches():
+            return iter(fixed)
     # the forward rates first, and a validate of the first batch: they warm
     # the path and the meters' kernels for the timed validate
-    rates = throughput(model, batches[0]["image"], args.eval_dtype,
+    rates = throughput(model, first["image"], args.eval_dtype,
                        iters=args.requests)
-    validate(model, batches[:1], cfg.tasks, "PASCALContext", args.eval_dtype)
+    validate(model, [first], cfg.tasks, db, args.eval_dtype)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    scores, losses = validate(model, batches, cfg.tasks, "PASCALContext",
+    scores, losses = validate(model, batches(), cfg.tasks, db,
                               args.eval_dtype)
     end.record()
     end.synchronize()
     secs = start.elapsed_time(end) / 1e3
+    n = len(waits) - 1 if root else args.validate
     path = path_label(eval_model_for(model, args.eval_dtype))
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "batch_size": args.batch_size,
-                      "batches": args.validate,
+                      "batches": n, "data": root or "synthetic",
                       "eval_dtype": args.eval_dtype, "path": path,
                       "img_size": cfg.img_size, "scores": scores,
                       "loss": losses, "eval_img_per_s": rates[path],
                       "img_per_s_by_path": rates,
-                      "validate_img_per_s":
-                          args.validate * args.batch_size / secs}))
+                      "validate_img_per_s": n * args.batch_size / secs,
+                      "loader_wait_ms": (1e3 * sum(waits) / n if root
+                                         else None)}))
 
 
 if __name__ == "__main__":

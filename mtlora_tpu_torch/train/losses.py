@@ -19,17 +19,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-# Fixed multi-task loss weights (reference main.py:192-199), the port's
-# own copy of ``mtlora_tpu/data/task_config.py:LOSS_WEIGHTS``: that module
-# imports cv2.
-LOSS_WEIGHTS = {
-    "depth": 1.0,
-    "semseg": 1.0,
-    "human_parts": 2.0,
-    "sal": 5.0,
-    "edge": 50.0,
-    "normals": 10.0,
-}
+from mtlora_tpu_torch.data.task_config import LOSS_WEIGHTS
 
 
 def softmax_ce_ignore(logits: torch.Tensor, label: torch.Tensor,

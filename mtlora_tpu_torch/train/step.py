@@ -54,6 +54,14 @@ def train_step(model: MultiTaskSwin, optimizer: torch.optim.Optimizer,
             **{f"loss_{t}": per_task[t].detach() for t in tasks}}
 
 
+def device_batch(batch: Dict, keys, device) -> Dict[str, torch.Tensor]:
+    """The entries ``keys`` of a batch on ``device``: a no-op for tensors
+    already there; from the pinned batches of ``data.loader`` the copies
+    do not wait for the stream."""
+    return {k: torch.as_tensor(batch[k]).to(device, non_blocking=True)
+            for k in keys}
+
+
 def synthetic_batch(batch_size: int, img_size: int, seed: int,
                     device="cuda") -> Dict[str, torch.Tensor]:
     """The bench's batch (``bench.py:76-85``): standard-normal images and

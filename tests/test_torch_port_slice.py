@@ -224,9 +224,9 @@ def test_lora_gemm_flag_at_224_equals_preset(monkeypatch):
 HYGIENE = r"""
 import importlib, pkgutil, sys
 for name in list(sys.modules):
-    if name.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "cv2"):
+    if name.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "cv2", "PIL"):
         del sys.modules[name]
-for name in ("jax", "jaxlib", "flax", "yaml", "cv2"):
+for name in ("jax", "jaxlib", "flax", "yaml", "cv2", "PIL"):
     sys.modules[name] = None
 import torch
 torch.set_num_threads(2)
@@ -329,6 +329,32 @@ except SystemExit as e:
     assert e.code not in (0, None), e.code
 else:
     raise AssertionError("serve --validate ran without a CUDA device")
+from mtlora_tpu_torch.data.loader import DataLoader
+from mtlora_tpu_torch.data.pascal import read_image
+from mtlora_tpu_torch.data.synthetic import SyntheticMTL
+from mtlora_tpu_torch.data.task_config import get_tasks_config
+from mtlora_tpu_torch.data.transforms import get_transformations
+from mtlora_tpu_torch.train import __main__ as train_main
+tc, _ = get_tasks_config("PASCALContext", list(cfg.tasks), 32)
+ds = SyntheticMTL(cfg.tasks, 32, length=4,
+                  transform=get_transformations("PASCALContext", tc)[0])
+batches = list(DataLoader(ds, 2, num_workers=2).iter_epoch(0))
+assert [tuple(b["image"].shape) for b in batches] == [(2, 32, 32, 3)] * 2
+assert batches[0]["sal"].shape == (2, 32, 32, 1)
+try:
+    read_image("no-such-image.jpg")
+except ImportError as e:
+    assert "PIL" in str(e), e
+else:
+    raise AssertionError("read_image ran without PIL")
+for main, args in ((train_main.main, ["--synthetic-data"]),
+                   (serve.main, ["--validate", "1", "--pascal", "."])):
+    try:
+        main(args)
+    except SystemExit as e:
+        assert e.code not in (0, None), e.code
+    else:
+        raise AssertionError(f"{args} ran without a CUDA device")
 assert not any(counters.read().values())   # the CPU route counts nothing
 assert not any(k.split(".")[0] == "mtlora_tpu" for k in sys.modules)
 print("HYGIENE-OK")
@@ -344,7 +370,11 @@ def test_port_imports_no_jax_flax_yaml_cv2():
     probe entry point exits non-zero without a CUDA device; the eval path
     (``evaluation.meters``, ``train.loop.validate`` on both eval dtypes)
     runs and ``serve --validate`` exits non-zero without a CUDA device;
-    all with jax, flax, yaml and cv2 made unimportable."""
+    the data pipeline (``mtlora_tpu_torch.data``) runs the synthetic set
+    through the train transforms and a 2-worker loader, the PASCAL reader
+    raises an error naming PIL, and ``train --synthetic-data`` and ``serve
+    --validate --pascal`` exit non-zero without a CUDA device; all with
+    jax, flax, yaml, cv2 and PIL made unimportable."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
     proc = subprocess.run([sys.executable, "-c", HYGIENE], env=env,
                           cwd=os.path.abspath(ROOT), capture_output=True,
