@@ -116,6 +116,23 @@ then, on the adapter route only:
      the valid rows summing to 84, exact launches, its img/s against the
      pre-built batches; where PIL imports, a 6-image PASCAL tree written
      here, read through build_loader and validated on the bf16 path;
+  11. checkpoints, on the adapter route at 448 and batch 32: a
+     backbone-only Swin-T ``.pth`` in the official layout (no
+     ``backbone.`` prefix, plain ``qkv.weight``, window-7 tables,
+     ``attn_mask``, ``relative_position_index``, the final norm, a
+     1000-class head) written from seeded weights and loaded onto the
+     JAX init as ``--pretrained`` loads it, its loaded, missing and
+     unexpected counts equal to ``pretrained_expectation`` (which the CPU
+     tests hold to the JAX package's ``merge_converted``); the loaded
+     model's bf16 forward of one image with exact launches against the
+     CPU fp32 forward (phase 5's bound); 3 training steps with dropout and
+     drop-path on, a checkpoint, a fresh model, optimizer and generator
+     loaded from it and 3 more steps, against 5 uninterrupted runs of 6
+     from the same start: ``updates``, the LR and the generator state
+     equal, the losses of steps 4-6 and the final trainables within twice
+     the uninterrupted runs' largest pairwise distance (the bilinear
+     backward adds with atomics); the file's MB, the save and load
+     seconds;
 then a JSON line of the kernels, and the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -127,6 +144,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
 import shutil
 import time
 
@@ -147,9 +165,17 @@ from mtlora_tpu_torch.data.loader import (
 from mtlora_tpu_torch.data.synthetic import SyntheticMTL
 from mtlora_tpu_torch.data.task_config import get_tasks_config
 from mtlora_tpu_torch.data.transforms import get_transformations
+from mtlora_tpu_torch.ckpt.checkpoint import (
+    load_checkpoint,
+    load_pretrained_,
+    save_checkpoint,
+)
+from mtlora_tpu_torch.ckpt.torch_convert import load_unit
+from mtlora_tpu_torch.models.init import init_weights_
 from mtlora_tpu_torch.models.mtl import build_mtl_model
 from mtlora_tpu_torch.ops import _build, counters
 from mtlora_tpu_torch.ops.attention import (
+    relative_position_index,
     shift_attention_mask,
     window_attention,
 )
@@ -238,6 +264,7 @@ from mtlora_tpu_torch.ops.window_attn import (
 )
 from mtlora_tpu_torch.ops.window_attn import fwd_plan as attn_fwd_plan
 from mtlora_tpu_torch.serve import (
+    initial_model,
     predict,
     random_model,
     synthetic_images,
@@ -3051,6 +3078,222 @@ def data_phase(card):
     return counts
 
 
+# phase 11: init, pretrained load and checkpoints on the adapter route
+OFFICIAL_WINDOW = 7             # swin_tiny_patch4_window7_224.pth
+OFFICIAL_CLASSES = 1000
+CKPT_STEPS = 3                  # steps before the save, and after the load
+# uninterrupted runs from the same start: the bilinear upsampling's
+# backward adds with atomics on CUDA (models/heads.py:resize_bilinear), so
+# two of them differ; their largest pairwise distance is the noise floor
+CKPT_FLOOR_RUNS = 5
+# the resumed run against the first uninterrupted one: at most
+# CKPT_FLOOR_FACTOR times the floor, or these absolute bounds where the
+# floor is 0 (loss: the largest relative difference over steps 4-6 and
+# every loss; params: the relative L2 distance of all trainables)
+CKPT_FLOOR_FACTOR = 2.0
+CKPT_ABS = {"loss": 1e-6, "params": 1e-6}
+
+
+def official_swin_state_dict(model, window: int = OFFICIAL_WINDOW,
+                             classes: int = OFFICIAL_CLASSES,
+                             seed: int = SEED) -> dict:
+    """A Swin backbone in the layout of the official ImageNet checkpoints
+    (``swin_tiny_patch4_window7_224.pth``) from ``model``'s backbone: no
+    ``backbone.`` prefix, plain ``qkv.weight``, relative position tables
+    of ``window`` with their ``relative_position_index``, an ``attn_mask``
+    in each shifted block, the final ``norm`` and a ``classes``-way
+    ``head``; the tables, norm and head drawn from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in model.state_dict().items():
+        if not k.startswith("backbone.") or "lora_" in k:
+            continue
+        k = k[len("backbone."):].replace(".linear.", ".")
+        v = v.detach().float().cpu()
+        if k.endswith("relative_position_bias_table"):
+            v = _cpu_uniform(g, ((2 * window - 1) ** 2, v.shape[1]), 0.02)
+            sd[k.replace("bias_table", "index")] = torch.from_numpy(
+                relative_position_index(window)).long()
+        sd[k] = v
+        m = re.match(r"(layers\.\d+\.blocks\.(\d+))\.norm1\.weight$", k)
+        if m and int(m.group(2)) % 2:
+            sd[m.group(1) + ".attn_mask"] = torch.zeros(
+                1, window ** 2, window ** 2)
+    dim = model.stage_dims[-1]
+    sd["norm.weight"] = 1.0 + _cpu_uniform(g, (dim,), 0.1)
+    sd["norm.bias"] = _cpu_uniform(g, (dim,), 0.02)
+    sd["head.weight"] = _cpu_uniform(g, (classes, dim), dim ** -0.5)
+    sd["head.bias"] = _cpu_uniform(g, (classes,), 0.02)
+    return sd
+
+
+def pretrained_expectation(model) -> dict:
+    """What ``--pretrained`` loads from an official backbone file into the
+    model, in ``load_converted_``'s units: every backbone tensor but the
+    adapters; missing the adapters, downsamplers and decoders (they keep
+    their init); unexpected the final norm, which the MTL backbone does not
+    have. ``tests/test_torch_port_ckpt.py`` holds this to the JAX
+    package's ``merge_converted`` at the toy shape."""
+    units = sorted({load_unit(k) for k in model.state_dict()
+                    if not k.endswith("num_batches_tracked")})
+    missing = [u for u in units if "lora_" in u
+               or u.startswith(("downsampler.", "decoders."))]
+    return {"loaded": len(units) - len(missing), "missing": missing,
+            "unexpected": ["backbone.norm.bias", "backbone.norm.weight"]}
+
+
+def _cpu_uniform(g, shape, bound):
+    return torch.empty(shape).uniform_(-bound, bound, generator=g)
+
+
+def ckpt_train(model, opt, gen, batch, steps, tcfg) -> list:
+    """``steps`` training steps; their metrics as floats."""
+    sched = build_schedule(tcfg, ITERS_PER_EPOCH)
+    out = [train_step(model, opt, sched, batch, gen,
+                      clip_grad=tcfg.clip_grad) for _ in range(steps)]
+    return [{k: float(v) for k, v in m.items()} for m in out]
+
+
+def ckpt_run(cfg, start, batch, steps, tcfg):
+    """A model, optimizer and step generator from the start state, and
+    ``steps`` steps; returns (model, optimizer, generator, metrics)."""
+    model = build_mtl_model(cfg, "cuda")
+    model.load_state_dict(start)
+    opt = build_optimizer(model, tcfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return model, opt, gen, ckpt_train(model, opt, gen, batch, steps, tcfg)
+
+
+def ckpt_trainables(model) -> torch.Tensor:
+    return torch.cat([p.detach().float().flatten()
+                      for _, p in sorted(model.named_parameters())
+                      if p.requires_grad])
+
+
+def ckpt_distances(a, b) -> dict:
+    """(metrics, trainables) of two runs -> the largest relative loss
+    difference over steps 4-6 and the relative L2 distance of the final
+    trainables."""
+    (ma, pa), (mb, pb) = a, b
+    loss = max(abs(x[k] - y[k]) / abs(y[k])
+               for x, y in zip(ma[CKPT_STEPS:], mb[CKPT_STEPS:])
+               for k in y if k.startswith("loss"))
+    params = float((pa - pb).norm() / pb.norm())
+    return {"loss": loss, "params": params}
+
+
+def ckpt_phase(card):
+    """Phase 11, on the adapter route at full width: a backbone-only
+    official-layout ``.pth`` loaded as ``--pretrained`` loads it, with the
+    counts held to :func:`pretrained_expectation`; the loaded model's bf16
+    forward against the CPU fp32 forward with exact launches; 3 steps,
+    save, a fresh model, optimizer and generator from the file, 3 more,
+    against uninterrupted runs from the same start."""
+    cfg = tiny_448_r64_pertask()
+    root = _build.BUILD_DIR / "smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    model = build_mtl_model(cfg, "cuda")
+    init_weights_(model, torch.Generator().manual_seed(SEED))
+    source = random_model(cfg, SEED + 11, "cpu")
+    official = root / "swin_tiny_official.pth"
+    torch.save({"model": official_swin_state_dict(source)}, official)
+    del source
+    counts = load_pretrained_(model, str(official))
+    want = pretrained_expectation(model)
+    got = {**counts, "missing": sorted(counts["missing"]),
+           "unexpected": sorted(counts["unexpected"])}
+    print(f"pretrained load ({official.stat().st_size / 2 ** 20:.1f} MB "
+          f"official-layout Swin-T, window {OFFICIAL_WINDOW}, "
+          f"{OFFICIAL_CLASSES}-class head): loaded {got['loaded']}, missing "
+          f"{len(got['missing'])}, unexpected {len(got['unexpected'])} "
+          f"{got['unexpected']}; expected {want['loaded']}, "
+          f"{len(want['missing'])}, {len(want['unexpected'])}")
+    assert got == want, f"pretrained load: expected {want}, got {got}"
+
+    images = synthetic_images(REQUESTS[0], cfg.img_size, SEED + 11)
+    counters.reset()
+    out = predict(model, images)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    want_launches = launches_per_pass(cfg, backward=False,
+                                      batch=REQUESTS[0])
+    print(f"pretrained forward: {REQUESTS[0]} image, launches {launches}")
+    assert launches == want_launches, \
+        f"expected {want_launches} launches, got {launches}"
+    cross_check(model, cfg, images, {t: v.float().cpu()
+                                     for t, v in out.items()})
+
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, warmup_epochs=0)
+    batch = synthetic_batch(TRAIN_BATCH, cfg.img_size, SEED + 11, "cuda")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    del model, out
+    resumed, state, secs, mb = ckpt_resumed(cfg, start, batch, tcfg, root)
+    runs = [resumed]
+    for _ in range(CKPT_FLOOR_RUNS):
+        m, opt, gen, metrics = ckpt_run(cfg, start, batch, 2 * CKPT_STEPS,
+                                        tcfg)
+        assert [g["updates"] for g in opt.param_groups] == state[0]
+        assert [g["lr"] for g in opt.param_groups] == state[1]
+        assert torch.equal(gen.get_state(), state[2])
+        runs.append((metrics, ckpt_trainables(m)))
+        del m, opt, gen
+    bad = [(i, k, v) for i, r in enumerate(runs)
+           for k, v in r[0][-1].items() if v != v or abs(v) == float("inf")]
+    assert not bad, f"non-finite metrics {bad}"
+    dist = ckpt_distances(runs[0], runs[1])
+    floor = {k: max(ckpt_distances(runs[i], runs[j])[k]
+                    for i in range(1, len(runs))
+                    for j in range(i + 1, len(runs))) for k in dist}
+    # the check's power, reported and not gated: the same resume with the
+    # step generator left at a fresh seed (other dropout and drop-path)
+    unrestored = ckpt_distances(ckpt_resumed(cfg, start, batch, tcfg, root,
+                                             generator=False)[0], runs[1])
+    for k in dist:
+        bound = CKPT_FLOOR_FACTOR * floor[k] if floor[k] > 0 else CKPT_ABS[k]
+        print(f"resume ({CKPT_STEPS} + {CKPT_STEPS} steps at batch "
+              f"{TRAIN_BATCH}, dropout and drop-path on) vs uninterrupted "
+              f"{2 * CKPT_STEPS}: {k} distance {dist[k]:.3e}, noise floor "
+              f"{floor[k]:.3e} (largest of {CKPT_FLOOR_RUNS} uninterrupted "
+              f"runs' pairs), bound {bound:.3e}; a resume without the "
+              f"generator's state {unrestored[k]:.3e} (not gated)")
+        assert dist[k] <= bound, f"resume {k}: {dist[k]} > {bound}"
+    print(f"checkpoint: {mb:.1f} MB, saved in {secs[0]:.2f} s, loaded in "
+          f"{secs[1]:.2f} s (model, optimizer, generator); updates "
+          f"{state[0]}, lr {state[1]} and the generator state equal to the "
+          f"uninterrupted runs'; losses of step 6: resumed "
+          f"{runs[0][0][-1]['loss']:.6f}, uninterrupted "
+          f"{runs[1][0][-1]['loss']:.6f} on {card}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def ckpt_resumed(cfg, start, batch, tcfg, root, generator=True):
+    """``CKPT_STEPS`` steps from the start state, a checkpoint, a fresh
+    model, optimizer and generator (other seeds) loaded from it (the
+    generator's state left out without ``generator``), ``CKPT_STEPS``
+    more; returns ((metrics, trainables), (updates, LRs, generator state),
+    (save s, load s), the file's MB)."""
+    m, opt, gen, metrics = ckpt_run(cfg, start, batch, CKPT_STEPS, tcfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_checkpoint(str(root), 0, m, opt, gen)
+    save_s = time.perf_counter() - t0
+    del m, opt, gen
+    m = initial_model(cfg, SEED + 12, "cuda")
+    opt = build_optimizer(m, tcfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    t0 = time.perf_counter()
+    info = load_checkpoint(path, m, opt, gen if generator else None)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    assert info == {"epoch": 0, "max_accuracy": 0.0}, info
+    metrics += ckpt_train(m, opt, gen, batch, CKPT_STEPS, tcfg)
+    state = ([g["updates"] for g in opt.param_groups],
+             [g["lr"] for g in opt.param_groups], gen.get_state())
+    return ((metrics, ckpt_trainables(m)), state, (save_s, load_s),
+            os.path.getsize(path) / 2 ** 20)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -3132,6 +3375,10 @@ def main():
     t0 = time.perf_counter()
     data_phase(card)
     print(f"phase seconds (data): 10 {time.perf_counter() - t0:.1f}")
+    print(f"=== checkpoints ({route_name(tiny_448_r64_pertask())})")
+    t0 = time.perf_counter()
+    ckpt_phase(card)
+    print(f"phase seconds (checkpoints): 11 {time.perf_counter() - t0:.1f}")
 
     def entry(name, source, replaces, tally, path="main", counts=None,
               root="mtlora_tpu/ops/"):

@@ -84,8 +84,12 @@ class MultiTaskSwin(nn.Module):
 
 def build_mtl_model(cfg: ModelConfig, device="cuda") -> MultiTaskSwin:
     """Eval model with zero-initialised parameters, allocated on ``device``
-    (the card unless the caller names another); load a state dict
-    (``ckpt/convert.py``) or call :func:`init_random_` next."""
+    (the card unless the caller names another). Next, draw the JAX
+    package's init (``models/init.py:init_weights_``), then load a
+    reference ``.pth`` or a checkpoint of the port
+    (``ckpt/checkpoint.py:load_pretrained_``, ``resume_from``,
+    ``load_checkpoint``) or a state dict (``ckpt/convert.py``); the
+    tests and the card's parity checks take :func:`init_random_`."""
     with torch.device(device):
         model = MultiTaskSwin(cfg)
     # buffers made from numpy constants (window masks, the relative
@@ -132,11 +136,13 @@ def eval_model_for(model: MultiTaskSwin,
 
 @torch.no_grad()
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random weights on which every branch counts: weights
-    U(+-1/sqrt(fan_in)), LoRA A likewise and LoRA B U(+-0.01) (B is zero
-    at a real init), norm scales 1 +- 0.1, biases U(+-0.02), relative
-    position bias U(+-0.02), BatchNorm running mean U(+-0.05) and
-    variance U(0.8, 1.2). Draws on the CPU generator, then copies."""
+    """A test fill, not an init (that is ``models/init.py``): seeded
+    random weights on which every branch counts, for the tests and the
+    card's parity checks. Weights U(+-1/sqrt(fan_in)), LoRA A likewise
+    and LoRA B U(+-0.01) (B is zero at a real init), norm scales 1 +- 0.1,
+    biases U(+-0.02), relative position bias U(+-0.02), BatchNorm running
+    mean U(+-0.05) and variance U(0.8, 1.2). Draws on the CPU generator,
+    then copies."""
     def fill(t, lo, hi):
         t.copy_(torch.empty(t.shape).uniform_(lo, hi, generator=generator))
 

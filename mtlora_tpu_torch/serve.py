@@ -5,9 +5,14 @@ and of ``main.py --throughput`` (``main.py:265-281``).
 
     python -m mtlora_tpu_torch.serve --batch-size 32 --requests 10 --seed 0
 
-builds the flagship (``config.tiny_448_r64_pertask``) on the GPU with
-seeded random weights, runs synthetic images through :func:`predict` and
-prints the img/s timed with CUDA events. It needs a CUDA device. The
+builds the flagship (``config.tiny_448_r64_pertask``) on the GPU with the
+JAX package's init drawn from ``--seed`` (``models/init.py``), runs
+synthetic images through :func:`predict` and prints the img/s timed with
+CUDA events. ``--pretrained PATH`` first loads a reference ``.pth`` (an
+ImageNet Swin backbone: decoders skipped, position tables resized,
+non-strict), ``--resume PATH`` the weights of a checkpoint of the port or
+of a reference ``.pth`` (``ckpt/checkpoint.py``). It needs a CUDA device,
+and exits non-zero without one. The
 flagship runs the JAX package's default route, ``TPU.USE_PALLAS_LN`` and
 ``TPU.USE_PALLAS_ADAPTER`` on (kernels 2 to 6); ``--no-pallas-adapter``
 keeps the task streams materialized (kernels 2, 3, 4), and
@@ -51,8 +56,14 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from mtlora_tpu_torch.ckpt.checkpoint import (
+    auto_resume_helper,
+    load_pretrained_,
+    resume_from,
+)
 from mtlora_tpu_torch.config import ModelConfig, tiny_448_r64_pertask
 from mtlora_tpu_torch.data.task_config import NYUD_TASKS, get_tasks_config
+from mtlora_tpu_torch.models.init import init_weights_
 from mtlora_tpu_torch.models.mtl import (
     MultiTaskSwin,
     build_mtl_model,
@@ -70,12 +81,63 @@ def predict(model: MultiTaskSwin, images) -> dict:
 
 
 def random_model(cfg: ModelConfig, seed: int, device) -> MultiTaskSwin:
-    """The model, built on ``device``, with weights drawn from
-    ``torch.Generator().manual_seed(seed)`` (on the CPU, then copied, so
-    every device gets the same weights)."""
+    """The model, built on ``device``, with the test fill of
+    ``models.mtl.init_random_`` (on which every branch counts: LoRA B is
+    nonzero) drawn from ``torch.Generator().manual_seed(seed)`` (on the
+    CPU, then copied, so every device gets the same weights); for the
+    tests and the card's parity checks. The entry points start from
+    :func:`initial_model`."""
     model = build_mtl_model(cfg, device)
     init_random_(model, torch.Generator().manual_seed(seed))
     return model
+
+
+def initial_model(cfg: ModelConfig, seed: int, device) -> MultiTaskSwin:
+    """The model, built on ``device``, with the JAX package's init
+    (``models/init.py:init_weights_``, LoRA B zero) drawn from
+    ``torch.Generator().manual_seed(seed)``, as JAX ``main.py:113`` starts
+    from ``model.init``."""
+    model = build_mtl_model(cfg, device)
+    init_weights_(model, torch.Generator().manual_seed(seed))
+    return model
+
+
+def add_weight_args(ap, train: bool = False):
+    """``--pretrained PATH`` and ``--resume PATH`` (``main.py:31-37``); for
+    training also ``--auto-resume`` and ``--skip-decoder``."""
+    ap.add_argument("--pretrained", metavar="PATH", default=None,
+                    help="start from the weights of a reference .pth (an "
+                    "ImageNet Swin backbone): the decoders skipped, the "
+                    "position tables resized, non-strict")
+    ap.add_argument("--resume", metavar="PATH", default=None,
+                    help="a checkpoint of the port (the whole state"
+                    + (", the next epoch" if train else ": its weights")
+                    + ") or a reference .pth (its weights)")
+    if train:
+        ap.add_argument("--auto-resume", action="store_true",
+                        help="resume from the latest ckpt_epoch_*.pth of "
+                        "--output, where there is one")
+        ap.add_argument("--skip-decoder", action="store_true",
+                        help="a reference .pth given to --resume loads "
+                        "without its decoders and downsamplers")
+
+
+def start_from(args, model, optimizer=None, generator=None) -> tuple:
+    """Load what ``--resume`` (or ``--auto-resume``) or ``--pretrained``
+    name into the model (and, on resume from the port's checkpoint, the
+    optimizer and generator), the resume first as in ``main.py:212-243``;
+    returns (the epoch the run starts at, the file loaded or "init")."""
+    resume = args.resume
+    if getattr(args, "auto_resume", False) and not resume:
+        resume = auto_resume_helper(args.output)
+    if resume:
+        out = resume_from(resume, model, optimizer, generator,
+                          skip_decoder=getattr(args, "skip_decoder", False))
+        return out["start_epoch"], resume
+    if args.pretrained:
+        load_pretrained_(model, args.pretrained)
+        return 0, args.pretrained
+    return 0, "init"
 
 
 def add_dataset_args(group):
@@ -160,6 +222,7 @@ def main(argv=None):
                     help="TPU.EVAL_DTYPE of --validate: the fp32 clone with "
                     "every kernel off, or the bf16 kernel path")
     add_dataset_args(ap.add_mutually_exclusive_group())
+    add_weight_args(ap)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serve: no CUDA device")
@@ -171,9 +234,10 @@ def main(argv=None):
             use_pallas_lora_gemm=args.pallas_lora_gemm),
         img_size=args.img_size, attn_dense=args.attn_dense)
     cfg = for_dataset(cfg, dataset_of(args)[0])
-    model = random_model(cfg, args.seed, "cuda")
+    model = initial_model(cfg, args.seed, "cuda")
+    weights = start_from(args, model)[1]
     if args.validate:
-        return _validate(model, cfg, args)
+        return _validate(model, cfg, args, weights)
     images = torch.from_numpy(synthetic_images(
         args.batch_size, cfg.img_size, args.seed)).cuda()
     rate = throughput(model, images, args.requests)
@@ -185,7 +249,8 @@ def main(argv=None):
                       "use_pallas_adapter": cfg.use_pallas_adapter,
                       "use_pallas_lora_gemm": cfg.use_pallas_lora_gemm,
                       "attn_dense": cfg.attn_dense,
-                      "img_size": cfg.img_size, "img_per_s": rate}))
+                      "img_size": cfg.img_size, "img_per_s": rate,
+                      "weights": weights}))
     if args.profile:
         from mtlora_tpu_torch.train.profile import breakdown
         forwards = 3
@@ -198,7 +263,7 @@ def main(argv=None):
         print(json.dumps({"profile": breakdown(args.profile, forwards)}))
 
 
-def _validate(model, cfg, args):
+def _validate(model, cfg, args, weights):
     """``--validate N``: one JSON line of scores, eval losses and rates."""
     from mtlora_tpu_torch.data.loader import build_loader, data_node
     from mtlora_tpu_torch.models.mtl import eval_model_for
@@ -255,7 +320,8 @@ def _validate(model, cfg, args):
                       "img_per_s_by_path": rates,
                       "validate_img_per_s": n * args.batch_size / secs,
                       "loader_wait_ms": (1e3 * sum(waits) / n if root
-                                         else None)}))
+                                         else None),
+                      "weights": weights}))
 
 
 if __name__ == "__main__":

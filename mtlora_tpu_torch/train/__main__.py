@@ -3,14 +3,16 @@
     python -m mtlora_tpu_torch.train --batch-size 32 --steps 10 --seed 0
 
 builds the flagship (``config.tiny_448_r64_pertask``: Swin-T 448, four
-tasks, adapter dropout 0.05, drop-path 0.2) on the card with seeded random
-weights, and runs the training step of ``train/step.py`` (forward,
-backward, AdamW with the cosine schedule and clipping at 5.0) on the
-synthetic batch of ``bench.py``: ``--warmup`` steps, then ``--steps``
-timed with CUDA events. Prints one JSON line with the img/s, the step
-time, the device and the launches of each kernel in the timed steps. It
-needs a CUDA device and exits non-zero without one. The flagship runs the
-JAX package's default route, ``TPU.USE_PALLAS_LN`` and
+tasks, adapter dropout 0.05, drop-path 0.2) on the card with the JAX
+package's init drawn from ``--seed`` (``models/init.py``), and runs the
+training step of ``train/step.py`` (forward, backward, AdamW with the
+cosine schedule and clipping at 5.0) on the synthetic batch of
+``bench.py``: ``--warmup`` steps, then ``--steps`` timed with CUDA
+events. Prints one JSON line with the img/s, the step time, the device,
+the weights it started from, its epoch and the optimizer's ``updates``,
+the checkpoint it wrote and the launches of each kernel in the timed
+steps. It needs a CUDA device and exits non-zero without one. The
+flagship runs the JAX package's default route, ``TPU.USE_PALLAS_LN`` and
 ``TPU.USE_PALLAS_ADAPTER`` on (kernels 2 to 6 forward and backward);
 ``--no-pallas-adapter`` keeps the task streams materialized (kernels 2, 3,
 4), and ``--no-pallas-ln`` also runs LayerNorm outside the GEMMs.
@@ -28,6 +30,19 @@ train split of that dataset through ``data.loader.build_loader``. The
 JSON line then also gives the host ms each timed step waited for its
 batch from the loader (null for the fixed batch).
 
+``--pretrained PATH`` starts from a reference ``.pth`` (an ImageNet Swin
+backbone, ``main.py:231-243``: the relative position tables resized to the
+window, the absolute positions to ``(img // 4)^2`` patches, decoders and
+downsamplers skipped, non-strict). ``--resume PATH`` takes a checkpoint of
+the port (model, optimizer with the schedule's index, the step generator;
+the run is at its epoch + 1) or a reference ``.pth`` (weights only, epoch
+0; ``--skip-decoder`` leaves its decoders out); ``--auto-resume`` takes
+the latest ``ckpt_epoch_*.pth`` of ``--output`` where there is one
+(``main.py:208-230``). ``--output DIR`` writes
+``DIR/ckpt_epoch_<epoch>.pth`` after the timed steps
+(``ckpt/checkpoint.py``); the epoch loop and ``--ckpt-freq`` are not
+ported.
+
 ``--profile TRACE`` then runs 2 more steps under ``torch.profiler``,
 writes the Chrome trace to TRACE and prints a second JSON line: device ms
 per step by kernel class, busy time and idle share (``train/profile.py``).
@@ -44,13 +59,16 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from mtlora_tpu_torch.ckpt.checkpoint import save_checkpoint
 from mtlora_tpu_torch.config import tiny_448_r64_pertask
 from mtlora_tpu_torch.ops import counters
 from mtlora_tpu_torch.serve import (
     add_dataset_args,
+    add_weight_args,
     dataset_of,
     for_dataset,
-    random_model,
+    initial_model,
+    start_from,
 )
 from mtlora_tpu_torch.train.profile import breakdown
 from mtlora_tpu_torch.train.optim import (
@@ -97,7 +115,13 @@ def main(argv=None):
                       help="feed the steps from SyntheticMTL (length 64) "
                       "through the train transforms and the loader")
     add_dataset_args(data)
+    add_weight_args(ap, train=True)
+    ap.add_argument("--output", metavar="DIR", default=None,
+                    help="write DIR/ckpt_epoch_<epoch>.pth after the timed "
+                    "steps")
     args = ap.parse_args(argv)
+    if args.auto_resume and not args.output:
+        ap.error("--auto-resume needs --output")
     if not torch.cuda.is_available():
         raise SystemExit("train: no CUDA device")
     cfg = dataclasses.replace(
@@ -109,10 +133,11 @@ def main(argv=None):
         img_size=args.img_size, attn_dense=args.attn_dense)
     cfg = for_dataset(cfg, dataset_of(args)[0])
     tcfg = TrainConfig(batch_size=args.batch_size)
-    model = random_model(cfg, args.seed, "cuda")
+    model = initial_model(cfg, args.seed, "cuda")
     optimizer = build_optimizer(model, tcfg)
     schedule = build_schedule(tcfg, ITERS_PER_EPOCH)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    epoch, weights = start_from(args, model, optimizer, gen)
     stream = train_batches(cfg, args)
     waits = []
 
@@ -137,6 +162,8 @@ def main(argv=None):
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / args.steps
+    ckpt = (save_checkpoint(args.output, epoch, model, optimizer, gen)
+            if args.output else None)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "batch_size": args.batch_size, "steps": args.steps,
@@ -150,6 +177,8 @@ def main(argv=None):
         "data": data_name(args),
         "loader_wait_ms": (1e3 * sum(waits) / len(waits)
                            if data_name(args) != "fixed batch" else None),
+        "weights": weights, "start_epoch": epoch,
+        "updates": optimizer.param_groups[0]["updates"], "checkpoint": ckpt,
         "kernels": counters.read()}))
     if args.profile:
         steps = 2

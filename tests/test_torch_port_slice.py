@@ -347,7 +347,19 @@ except ImportError as e:
     assert "PIL" in str(e), e
 else:
     raise AssertionError("read_image ran without PIL")
+import tempfile
+from mtlora_tpu_torch.ckpt.checkpoint import (load_checkpoint,
+                                              save_checkpoint)
+from mtlora_tpu_torch.models.init import init_weights_
+init_weights_(model, torch.Generator().manual_seed(0))
+with tempfile.TemporaryDirectory() as tmp:
+    opt = build_optimizer(model, tcfg)
+    path = save_checkpoint(tmp, 0, model, opt, torch.Generator())
+    assert load_checkpoint(path, model, opt)["epoch"] == 0
 for main, args in ((train_main.main, ["--synthetic-data"]),
+                   (train_main.main, ["--pretrained", "x.pth"]),
+                   (train_main.main, ["--resume", "x.pth"]),
+                   (serve.main, ["--resume", "x.pth"]),
                    (serve.main, ["--validate", "1", "--pascal", "."])):
     try:
         main(args)
@@ -373,8 +385,11 @@ def test_port_imports_no_jax_flax_yaml_cv2():
     the data pipeline (``mtlora_tpu_torch.data``) runs the synthetic set
     through the train transforms and a 2-worker loader, the PASCAL reader
     raises an error naming PIL, and ``train --synthetic-data`` and ``serve
-    --validate --pascal`` exit non-zero without a CUDA device; all with
-    jax, flax, yaml, cv2 and PIL made unimportable."""
+    --validate --pascal`` exit non-zero without a CUDA device; the init
+    (``models.init``) and a checkpoint's save and load (``ckpt``) run, and
+    ``train --pretrained``, ``train --resume`` and ``serve --resume`` exit
+    non-zero without a CUDA device; all with jax, flax, yaml, cv2 and PIL
+    made unimportable."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
     proc = subprocess.run([sys.executable, "-c", HYGIENE], env=env,
                           cwd=os.path.abspath(ROOT), capture_output=True,
