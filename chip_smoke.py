@@ -133,7 +133,24 @@ then, on the adapter route only:
      the uninterrupted runs' largest pairwise distance (the bilinear
      backward adds with atomics); the file's MB, the save and load
      seconds;
-then a JSON line of the kernels, and the last line
+  12. the CLI (``mtlora_tpu_torch.main.cli``, what ``python -m
+     mtlora_tpu_torch`` runs), driven in this process on the flagship
+     YAML read by the port's own reader (held equal to the preset) with
+     ``--tasks semseg,normals,sal,human_parts --synthetic-data
+     --batch-size 32``: 2 epochs (``--ckpt-freq 1 --eval-freq 1``) under
+     ``--sync-debug error`` (a host sync inside a step fails it), exact
+     launches (phase 7's a step), two checkpoints, ``config.json``,
+     ``config.yaml``, ``log_rank0.txt`` and ``val_scores_r0.json``, each
+     epoch's loss the mean of its steps', the epoch seconds and the
+     CLI's train img/s beside phase 7's fixed batch; ``--eval --resume
+     ckpt_epoch_1.pth`` against the final validate (``CLI_EVAL_REL``),
+     no launch (the fp32 clone); ``--throughput``, both eval paths, exact
+     launches; ``--accumulation-steps 2`` (launches of 2 microbatches an
+     update, the LR scaled by 2, BN statistics updated a microbatch); a
+     world-1 NCCL run from torchrun's environment against plain runs by
+     phase 11's noise-floor rule;
+then a JSON line of the kernels (with ``cli_launches``, each kernel's
+launches in phase 12's training run), and the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -171,6 +188,8 @@ from mtlora_tpu_torch.ckpt.checkpoint import (
     save_checkpoint,
 )
 from mtlora_tpu_torch.ckpt.torch_convert import load_unit
+from mtlora_tpu_torch.config import from_config, load_config
+from mtlora_tpu_torch.main import cli
 from mtlora_tpu_torch.models.init import init_weights_
 from mtlora_tpu_torch.models.mtl import build_mtl_model
 from mtlora_tpu_torch.ops import _build, counters
@@ -311,6 +330,8 @@ from mtlora_tpu_torch.tools import (
 )
 
 SEED = 0
+# phase 7's fixed-batch train img/s, by path (the first route of each)
+TRAIN_RATES = {}
 REQUESTS = (1, 8, 32)
 THROUGHPUT_BATCH = 32
 TRAIN_BATCH = 32
@@ -2544,6 +2565,7 @@ def train_phase(cfg, card) -> dict:
     print(f"train throughput: {TRAIN_BATCH / (ms / 1e3):.2f} img/s at batch "
           f"{TRAIN_BATCH} ({ms:.2f} ms/step, bf16, dropout and drop-path "
           f"on) on {card}")
+    TRAIN_RATES.setdefault(path_of(cfg), TRAIN_BATCH / (ms / 1e3))
     return counts
 
 
@@ -3294,6 +3316,213 @@ def ckpt_resumed(cfg, start, batch, tcfg, root, generator=True):
             os.path.getsize(path) / 2 ** 20)
 
 
+# phase 12: the CLI (``python -m mtlora_tpu_torch``) on the flagship YAML,
+# driven in this process so that the kernels' counts are read
+CLI_YAML = "configs/mtlora/tiny_448/mtlora_tiny_448_r64_scale4_pertask.yaml"
+CLI_NAME = "mtlora_tiny_448_r64_scale4_pertask"
+CLI_ARGS = ["--cfg", CLI_YAML, "--tasks", "semseg,normals,sal,human_parts",
+            "--synthetic-data", "--batch-size", str(TRAIN_BATCH),
+            "--disable_wandb"]
+CLI_TRAIN_STEPS = 64 // TRAIN_BATCH     # main.py's 64 synthetic samples
+# --eval --resume ckpt_epoch_1.pth against the training run's final
+# validate: the same weights and BN statistics through the same fp32 clone
+# (TF32 off); the meters' fp32 sums add with atomics in another order, and
+# an IoU moves only where a pixel's argmax flips
+CLI_EVAL_REL = 1e-5
+# plain 1-epoch runs beside the 2-epoch run's first epoch (the same LRs:
+# the warmup spans 20 epochs) for the world-1 NCCL run's noise floor
+CLI_FLOOR_RUNS = 2
+
+
+@contextlib.contextmanager
+def env_vars(values):
+    """The environment with ``values`` set inside, restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def cli_run(root, name, *flags, env=None):
+    """One CLI run writing under ``root/name``: (its result, the kernels'
+    launches in it, seconds, its output directory)."""
+    out = root / name
+    counters.reset()
+    t0 = time.perf_counter()
+    with env_vars(env or {}):
+        result = cli([*CLI_ARGS, "--output", str(out), *flags])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"CLI {name} ({' '.join(flags) or 'train'}): {secs:.1f} s")
+    return result, counters.read(), secs, out / CLI_NAME / "default"
+
+
+def flat_scores(scores) -> dict:
+    return {f"{t}/{k}": float(v) for t, res in scores.items()
+            for k, v in res.items() if isinstance(v, (int, float))}
+
+
+def step_losses(result) -> list:
+    return [loss for e in result["epochs"] for _, loss in e["logged"]]
+
+
+def times_counts(per: dict, n: int) -> dict:
+    return {k: v * n for k, v in per.items()}
+
+
+def loss_distance(a: list, b: list) -> float:
+    """The largest relative difference of two runs' step losses."""
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def cli_phase(card) -> dict:
+    """Phase 12: the CLI on the flagship YAML at batch 32, synthetic data:
+    2 epochs saving and validating each, under
+    ``set_sync_debug_mode("error")``; ``--eval --resume`` of the last
+    checkpoint; ``--throughput``; ``--accumulation-steps 2``; a world-1
+    NCCL run from torchrun's environment against plain runs. Returns the
+    kernels' launches of the 2-epoch run."""
+    cfg = tiny_448_r64_pertask()
+    yaml_cfg = load_config(CLI_YAML, tasks=list(cfg.tasks))
+    assert from_config(yaml_cfg) == cfg, "the YAML is not the flagship"
+    root = _build.BUILD_DIR / "smoke_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    per_step = launches_per_pass(cfg, backward=True, batch=TRAIN_BATCH)
+
+    # the training run
+    result, counts, secs, out = cli_run(
+        root, "train", "--epochs", "2", "--ckpt-freq", "1", "--eval-freq",
+        "1", "--sync-debug", "error")
+    epochs = result["epochs"]
+    steps = sum(e["steps"] for e in epochs)
+    assert [e["steps"] for e in epochs] == [CLI_TRAIN_STEPS] * 2, epochs
+    want = times_counts(per_step, steps)
+    assert counts == want, f"expected {want} launches, got {counts}"
+    files = sorted(os.listdir(out))
+    assert files == ["ckpt_epoch_0.pth", "ckpt_epoch_1.pth", "config.json",
+                     "config.yaml", "log_rank0.txt", "val_scores_r0.json"], \
+        files
+    for e in epochs:
+        logged = [loss for _, loss in e["logged"]]
+        assert len(logged) == e["steps"], e     # PRINT_FREQ 10 > 2 steps
+        mean = sum(logged) / len(logged)
+        assert abs(e["loss"] - mean) <= 1e-6 * abs(mean), (e["loss"], mean)
+        assert all(v == v and abs(v) != float("inf") for v in logged)
+    scores = flat_scores(result["scores"])
+    assert scores and all(v == v for v in scores.values()), scores
+    with open(out / "val_scores_r0.json") as f:
+        assert flat_scores(json.load(f)) == scores
+    fixed = TRAIN_RATES["main"]
+    for e in epochs:
+        print(f"CLI epoch {e['epoch']}: {e['seconds']:.2f} s, "
+              f"{e['samples'] / e['seconds']:.2f} img/s train (loader, "
+              f"{int(yaml_cfg.DATA.NUM_WORKERS)} workers, validate not "
+              f"included) against {fixed:.2f} img/s on phase 7's fixed "
+              f"batch; loss {e['loss']:.6f} = mean of its steps "
+              f"{[round(v, 6) for _, v in e['logged']]} on {card}")
+    print(f"CLI training: {steps} steps, launches exact ({per_step} a "
+          f"step), no host sync inside the steps, files {files}, final "
+          f"scores {scores}")
+
+    # --eval of the last checkpoint
+    ckpt = str(out / "ckpt_epoch_1.pth")
+    ev, ev_counts, _, _ = cli_run(root, "eval", "--eval", "--resume", ckpt)
+    assert ev["start_epoch"] == 2, ev["start_epoch"]
+    assert not any(ev_counts.values()), ev_counts     # the fp32 clone
+    got = flat_scores(ev["scores"])
+    assert set(got) == set(scores)
+    worst = max(abs(got[k] - scores[k]) / max(abs(scores[k]), 1e-12)
+                for k in scores)
+    print(f"CLI --eval --resume ckpt_epoch_1.pth vs the final validate: "
+          f"largest relative score difference {worst:.3e} (bound "
+          f"{CLI_EVAL_REL:g})")
+    assert worst <= CLI_EVAL_REL, (got, scores)
+
+    # --throughput: both eval paths
+    tp, tp_counts, _, _ = cli_run(root, "throughput", "--throughput")
+    rates = tp["throughput"]
+    assert set(rates) == {"fp32, kernels off", "bf16 + kernels"}, rates
+    assert all(r > 0 for r in rates.values()), rates
+    forwards = 35                               # 5 warm-up and 30 timed
+    want = times_counts(launches_per_pass(cfg, backward=False,
+                                          batch=TRAIN_BATCH), forwards)
+    assert tp_counts == want, f"expected {want}, got {tp_counts}"
+    print(f"CLI --throughput at batch {TRAIN_BATCH}: "
+          + ", ".join(f"{k} {v:.2f} img/s" for k, v in rates.items())
+          + f"; launches {forwards} forwards' on {card}")
+
+    # --accumulation-steps 2
+    ac, ac_counts, _, ac_out = cli_run(root, "accum", "--epochs", "1",
+                                       "--accumulation-steps", "2")
+    updates = ac["epochs"][0]["steps"]
+    want = times_counts(launches_per_pass(cfg, backward=True,
+                                          batch=TRAIN_BATCH // 2),
+                        2 * updates)
+    assert ac_counts == want, f"expected {want}, got {ac_counts}"
+    state = torch.load(ac_out / "ckpt_epoch_0.pth", map_location="cpu",
+                       weights_only=True)
+    groups = state["optimizer"]["param_groups"]
+    t = yaml_cfg.TRAIN
+    # update 1 in the warmup, over n_eff = steps // 2 updates an epoch,
+    # at batch * world / 512 times the 2 accumulated microbatches
+    scale = TRAIN_BATCH / 512 * 2
+    n_eff = CLI_TRAIN_STEPS // 2
+    lr = (t.WARMUP_LR * scale + (updates - 1)
+          * (t.BASE_LR * scale - t.WARMUP_LR * scale)
+          / (t.WARMUP_EPOCHS * n_eff))
+    assert [g["updates"] for g in groups] == [updates] * 2, groups
+    assert all(abs(g["lr"] - lr) <= 1e-12 + 1e-9 * lr for g in groups), \
+        (groups[0]["lr"], lr)
+    tracked = [v for k, v in state["model"].items()
+               if k.endswith("num_batches_tracked")]
+    assert tracked and all(int(v) == 2 * updates for v in tracked), tracked
+    print(f"CLI --accumulation-steps 2: {updates} updates of 2 microbatches "
+          f"of {TRAIN_BATCH // 2}, launches exact, lr {groups[0]['lr']:.6e} "
+          f"(the LR scaled by 2), BN statistics updated {2 * updates} "
+          f"times, loss {ac['epochs'][0]['loss']:.6f}")
+
+    # a world-1 NCCL run from torchrun's environment against plain runs
+    plain = [step_losses({"epochs": epochs[:1]})]
+    for i in range(CLI_FLOOR_RUNS):
+        r, c, _, _ = cli_run(root, f"plain{i}", "--epochs", "1")
+        assert r["backend"] is None and c == times_counts(per_step,
+                                                          CLI_TRAIN_STEPS)
+        plain.append(step_losses(r))
+    torchrun = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                "MASTER_ADDR": "127.0.0.1",
+                "MASTER_PORT": str(free_port())}
+    nc, nc_counts, _, _ = cli_run(root, "nccl", "--epochs", "1",
+                                  env=torchrun)
+    assert nc["backend"] == "nccl" and nc["world"] == 1, nc["backend"]
+    assert nc_counts == times_counts(per_step, CLI_TRAIN_STEPS), nc_counts
+    assert not torch.distributed.is_initialized()
+    dist_ = loss_distance(step_losses(nc), plain[0])
+    floor = max(loss_distance(plain[i], plain[j])
+                for i in range(len(plain)) for j in range(i + 1, len(plain)))
+    bound = CKPT_FLOOR_FACTOR * floor if floor > 0 else CKPT_ABS["loss"]
+    print(f"CLI world-1 NCCL run (torchrun's environment) vs plain: step "
+          f"losses {step_losses(nc)} vs {plain[0]}, largest relative "
+          f"difference {dist_:.3e}, noise floor {floor:.3e} (largest of "
+          f"{len(plain)} plain runs' pairs), bound {bound:.3e}")
+    assert dist_ <= bound, f"NCCL run {dist_} > {bound}"
+    shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -3379,15 +3608,23 @@ def main():
     t0 = time.perf_counter()
     ckpt_phase(card)
     print(f"phase seconds (checkpoints): 11 {time.perf_counter() - t0:.1f}")
+    print(f"=== CLI ({route_name(tiny_448_r64_pertask())})")
+    t0 = time.perf_counter()
+    cli_counts = cli_phase(card)
+    print(f"phase seconds (CLI): 12 {time.perf_counter() - t0:.1f}")
 
     def entry(name, source, replaces, tally, path="main", counts=None,
               root="mtlora_tpu/ops/"):
         launches = (counts or train_counts)[path][name]
         assert launches > 0, f"{name} never launched on its path"
+        # the CLI's training run (phase 12) drives the main path
+        if path == "main":
+            assert cli_counts[name] > 0, f"{name} never launched by the CLI"
         return {"name": name, "route": "cuda",
                 "source": f"mtlora_tpu_torch/ops/csrc/{source}",
                 "replaces": f"{root}{replaces}",
-                "launches": launches, **tally.json()}
+                "launches": launches,
+                "cli_launches": cli_counts.get(name, 0), **tally.json()}
 
     def probe_entry(name, source, replaces, tally):
         return entry(name, source, replaces, tally, "probe", probe_counts,

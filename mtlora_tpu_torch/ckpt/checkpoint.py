@@ -10,14 +10,22 @@ Counterpart of ``mtlora_tpu/ckpt/checkpoint.py`` (reference
   - ``optimizer``: its ``state_dict``; its param groups carry ``updates``,
     the schedule's index (``train/optim.py:build_optimizer``);
   - ``generator``: the state of the generator the steps draw dropout and
-    drop-path from;
+    drop-path from, and ``generators``, every rank's, in rank order,
+    where several processes trained (``parallel.distributed``: rank r's
+    generator is its own stream);
   - ``epoch``, ``max_accuracy``, and ``FORMAT_KEY``, which marks the file
     as the port's.
 
 :func:`resume_from` and :func:`load_pretrained_` start a run as JAX
 ``main.py:212-243`` does: a ``.pth`` without ``FORMAT_KEY`` is a reference
 checkpoint, whose weights only are loaded (at epoch 0); one with it
-resumes the whole state at the next epoch.
+resumes the whole state at the next epoch. Under several processes
+every rank calls :func:`save_checkpoint` (the generators are gathered)
+and rank 0 alone writes the file, then the ranks meet at a barrier; the
+model saved is the module itself, whose keys are the reference's (the
+port's data parallelism wraps nothing). ``config_dump`` also writes the
+run's config as ``config.yaml`` beside the checkpoints, as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -35,6 +43,12 @@ from mtlora_tpu_torch.ckpt.torch_convert import (
     load_converted_,
     load_torch_checkpoint,
 )
+from mtlora_tpu_torch.parallel.distributed import (
+    barrier,
+    gather_generator_states,
+    rank,
+    world,
+)
 
 FORMAT_KEY = "mtlora_tpu_torch_checkpoint"
 FORMAT_VERSION = 1
@@ -48,29 +62,38 @@ def _list_ckpts(output_dir: str):
 def save_checkpoint(output_dir: str, epoch: int, model: nn.Module,
                     optimizer: torch.optim.Optimizer,
                     generator: torch.Generator, max_accuracy: float = 0.0,
-                    keep: int = 0) -> str:
+                    keep: int = 0, config_dump: Optional[str] = None) -> str:
     """Write ``ckpt_epoch_{epoch}.pth`` (reference save_checkpoint
-    utils.py:280-294); with ``keep`` > 0, only the ``keep`` highest epochs
-    stay. Returns the path."""
-    os.makedirs(output_dir, exist_ok=True)
+    utils.py:280-294) and, with ``config_dump``, ``config.yaml``; with
+    ``keep`` > 0, only the ``keep`` highest epochs stay. Every rank calls
+    it; rank 0 writes. Returns the path."""
     path = os.path.abspath(os.path.join(output_dir,
                                         f"ckpt_epoch_{epoch}.pth"))
-    payload = {
-        FORMAT_KEY: FORMAT_VERSION,
-        "model": {k: torch.from_numpy(v).clone()
-                  for k, v in to_reference_state_dict(model).items()},
-        "optimizer": optimizer.state_dict(),
-        "generator": generator.get_state(),
-        "epoch": int(epoch),
-        "max_accuracy": float(max_accuracy),
-    }
-    torch.save(payload, path)
-    if keep > 0:
-        ckpts = sorted(_list_ckpts(output_dir),
-                       key=lambda p: int(os.path.basename(p)[
-                           len("ckpt_epoch_"):-len(".pth")]))
-        for old in ckpts[:-keep]:
-            os.remove(old)
+    generators = gather_generator_states(generator)
+    if rank() == 0:
+        os.makedirs(output_dir, exist_ok=True)
+        payload = {
+            FORMAT_KEY: FORMAT_VERSION,
+            "model": {k: torch.from_numpy(v).clone()
+                      for k, v in to_reference_state_dict(model).items()},
+            "optimizer": optimizer.state_dict(),
+            "generator": generators[0],
+            "epoch": int(epoch),
+            "max_accuracy": float(max_accuracy),
+        }
+        if len(generators) > 1:
+            payload["generators"] = generators
+        torch.save(payload, path)
+        if config_dump:
+            with open(os.path.join(output_dir, "config.yaml"), "w") as f:
+                f.write(config_dump)
+        if keep > 0:
+            ckpts = sorted(_list_ckpts(output_dir),
+                           key=lambda p: int(os.path.basename(p)[
+                               len("ckpt_epoch_"):-len(".pth")]))
+            for old in ckpts[:-keep]:
+                os.remove(old)
+    barrier()
     return path
 
 
@@ -89,8 +112,18 @@ def _restore(ckpt: Dict, model: nn.Module,
     if optimizer is not None:
         optimizer.load_state_dict(ckpt["optimizer"])
     if generator is not None:
-        generator.set_state(ckpt["generator"])
+        generator.set_state(_generator_state(ckpt, generator))
     return {"epoch": ckpt["epoch"], "max_accuracy": ckpt["max_accuracy"]}
+
+
+def _generator_state(ckpt: Dict, generator: torch.Generator):
+    """This rank's state: its own where the file holds one a rank of this
+    run's world; otherwise rank 0 takes the file's ``generator`` and any
+    other rank keeps the stream it was seeded with."""
+    states = ckpt.get("generators")
+    if states is not None and len(states) == world():
+        return states[rank()]
+    return ckpt["generator"] if rank() == 0 else generator.get_state()
 
 
 def load_checkpoint(path: str, model: nn.Module,

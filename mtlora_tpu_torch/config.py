@@ -1,18 +1,524 @@
-"""Model settings of the port.
+"""Configuration of the port: the config tree read from the YAML files,
+and the model settings drawn from it.
 
 Counterpart of ``mtlora_tpu/config.py`` plus ``MTLoRASpec.from_config``
-(``mtlora_tpu/models/lora.py:49-128``). The port never parses YAML: the
-machine that runs it has no ``yaml``, and ``mtlora_tpu``'s loader reaches
-``cv2``. :func:`from_config` reads a config node that was already loaded
-(any object with the reference schema's attributes), and
-:func:`tiny_448_r64_pertask` is the flagship written out as a literal.
+(``mtlora_tpu/models/lora.py:49-128``):
+
+  - :class:`ConfigNode`, :func:`default_config`, :func:`update_config`,
+    :func:`get_config` and :func:`load_config`: the same schema, ``BASE``
+    chains, ``--opts`` coercion and MTLoRA rank/scale normalization, read
+    by the port's own YAML subset (``utils/yaml_subset.py``), since the
+    machine that runs the port has no ``yaml``;
+  - :func:`from_config`: the :class:`ModelConfig` of a loaded node (the
+    port's or any with the reference schema's attributes), and
+    :func:`tiny_448_r64_pertask`, the flagship written out as a literal.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import json
 import os
-from typing import Tuple
+import re
+from typing import Any, Dict, List, Optional, Tuple
+
+from mtlora_tpu_torch.utils import yaml_subset
+
+
+class ConfigNode(dict):
+    """A dict with attribute access, freezing, and recursive merge
+    (``mtlora_tpu/config.py:20-131``, the subset of ``yacs.CfgNode`` the
+    reference relies on)."""
+
+    IMMUTABLE = "__immutable__"
+    NEW_ALLOWED = "__new_allowed__"
+
+    def __init__(self, init: Optional[Dict] = None, new_allowed: bool = True):
+        super().__init__()
+        object.__setattr__(self, ConfigNode.IMMUTABLE, False)
+        object.__setattr__(self, ConfigNode.NEW_ALLOWED, new_allowed)
+        if init:
+            for k, v in init.items():
+                self[k] = self._convert(v)
+
+    @classmethod
+    def _convert(cls, v):
+        if isinstance(v, ConfigNode):
+            return v
+        if isinstance(v, dict):
+            return cls(v, new_allowed=True)
+        return v
+
+    def __getattr__(self, name):
+        if name in self:
+            return self[name]
+        raise AttributeError(f"Config has no attribute '{name}'")
+
+    def __setattr__(self, name, value):
+        self[name] = value
+
+    def __setitem__(self, name, value):
+        if object.__getattribute__(self, ConfigNode.IMMUTABLE):
+            raise AttributeError(
+                f"Attempted to set '{name}' on a frozen config")
+        super().__setitem__(name, self._convert(value))
+
+    def freeze(self):
+        self._set_immutable(True)
+
+    def defrost(self):
+        self._set_immutable(False)
+
+    def is_frozen(self) -> bool:
+        return object.__getattribute__(self, ConfigNode.IMMUTABLE)
+
+    def _set_immutable(self, value: bool):
+        object.__setattr__(self, ConfigNode.IMMUTABLE, value)
+        for v in self.values():
+            if isinstance(v, ConfigNode):
+                v._set_immutable(value)
+
+    def set_new_allowed(self, value: bool):
+        object.__setattr__(self, ConfigNode.NEW_ALLOWED, value)
+
+    def merge_from_dict(self, other: Dict):
+        for k, v in other.items():
+            if (k in self and isinstance(self[k], ConfigNode)
+                    and isinstance(v, dict)):
+                self[k].merge_from_dict(v)
+            else:
+                allowed = (k in self or object.__getattribute__(
+                    self, ConfigNode.NEW_ALLOWED))
+                if not allowed:
+                    raise KeyError(f"Unknown config key during merge: {k}")
+                super().__setitem__(k, self._convert(v))
+
+    def merge_from_file(self, cfg_file: str):
+        loaded = yaml_subset.load(cfg_file) or {}
+        loaded.pop("BASE", None)
+        self.merge_from_dict(loaded)
+
+    def merge_from_list(self, opts: List[str]):
+        assert len(opts) % 2 == 0, "--opts must come in KEY VALUE pairs"
+        for key, value in zip(opts[0::2], opts[1::2]):
+            node = self
+            parts = key.split(".")
+            for p in parts[:-1]:
+                node = node[p]
+            old = node.get(parts[-1], None)
+            node[parts[-1]] = _coerce(value, old)
+
+    def clone(self) -> "ConfigNode":
+        node = copy.deepcopy(self)
+        node._set_immutable(False)
+        return node
+
+    def to_dict(self) -> Dict:
+        return {k: v.to_dict() if isinstance(v, ConfigNode) else v
+                for k, v in self.items()}
+
+    def dump(self) -> str:
+        """YAML text with sorted keys, as ``yaml.safe_dump`` writes it in
+        the JAX package; :func:`yaml_subset.loads` reads it back equal to
+        :meth:`to_dict` (tuples as lists)."""
+        return yaml_subset.dumps(self.to_dict(), sort_keys=True)
+
+    def __deepcopy__(self, memo):
+        node = ConfigNode(new_allowed=True)
+        for k, v in self.items():
+            dict.__setitem__(node, k, copy.deepcopy(v, memo))
+        object.__setattr__(node, ConfigNode.NEW_ALLOWED,
+                           object.__getattribute__(self,
+                                                   ConfigNode.NEW_ALLOWED))
+        return node
+
+    def __repr__(self):
+        return self.dump()
+
+
+def _coerce(value: str, old: Any):
+    """A CLI string override coerced to the type of the value it replaces
+    (``mtlora_tpu/config.py:134-150``); a list, dict or None old value
+    takes the YAML reading of the string."""
+    if isinstance(old, bool):
+        return value.lower() in ("1", "true", "yes", "on")
+    if isinstance(old, int) and not isinstance(old, bool):
+        try:
+            return int(value)
+        except ValueError:
+            return float(value)
+    if isinstance(old, float):
+        return float(value)
+    if isinstance(old, (list, tuple, dict)) or old is None:
+        try:
+            return yaml_subset.loads(value)
+        except Exception:
+            return value
+    return value
+
+
+def default_config() -> ConfigNode:
+    """The default tree (``mtlora_tpu/config.py:157-335``, schema parity
+    with the reference's ``config.py:24-326``)."""
+    C = ConfigNode(new_allowed=True)
+    C.BASE = [""]
+
+    C.DATA = ConfigNode(new_allowed=True)
+    C.DATA.BATCH_SIZE = 128
+    C.DATA.DATA_PATH = ""
+    C.DATA.DATASET = "nyud"
+    C.DATA.IMG_SIZE = 224
+    C.DATA.INTERPOLATION = "bicubic"
+    C.DATA.ZIP_MODE = False
+    C.DATA.CACHE_MODE = "part"
+    C.DATA.PIN_MEMORY = True
+    C.DATA.NUM_WORKERS = 4
+    C.DATA.MASK_PATCH_SIZE = 32
+    C.DATA.MASK_RATIO = 0.6
+
+    C.MODEL = ConfigNode(new_allowed=True)
+    C.MODEL.TYPE = "swin"
+    C.MODEL.NAME = "swin_tiny_patch4_window7_224"
+    C.MODEL.PRETRAINED = ""
+    C.MODEL.RESUME = ""
+    C.MODEL.NUM_CLASSES = 1000
+    C.MODEL.DROP_RATE = 0.0
+    C.MODEL.DROP_PATH_RATE = 0.1
+    C.MODEL.LABEL_SMOOTHING = 0.1
+
+    C.MODEL.SWIN = ConfigNode(new_allowed=True)
+    C.MODEL.SWIN.PATCH_SIZE = 4
+    C.MODEL.SWIN.IN_CHANS = 3
+    C.MODEL.SWIN.EMBED_DIM = 96
+    C.MODEL.SWIN.DEPTHS = [2, 2, 6, 2]
+    C.MODEL.SWIN.NUM_HEADS = [3, 6, 12, 24]
+    C.MODEL.SWIN.WINDOW_SIZE = 7
+    C.MODEL.SWIN.MLP_RATIO = 4.0
+    C.MODEL.SWIN.QKV_BIAS = True
+    C.MODEL.SWIN.QK_SCALE = None
+    C.MODEL.SWIN.APE = False
+    C.MODEL.SWIN.PATCH_NORM = True
+    C.MODEL.SWIN.DECODER_DIM = 256
+    C.MODEL.SWIN.DECODER_PATCH_RES = [7, 7, 14, 28]
+
+    C.MODEL.DECODER_HEAD = ConfigNode(new_allowed=True)
+    for task in ("semseg", "normals", "sal", "human_parts", "edge", "depth"):
+        C.MODEL.DECODER_HEAD[task] = "hrnet"
+    C.MODEL.DECODER_CHANNELS = [18, 36, 72, 144]
+    C.MODEL.SEGFORMER_CHANNELS = 256
+    C.MODEL.DECODER_DOWNSAMPLER = True
+    C.MODEL.PER_TASK_DOWNSAMPLER = True
+    C.MODEL.UPDATE_RELATIVE_POSITION = False
+
+    C.MODEL.MTLORA = ConfigNode(new_allowed=True)
+    C.MODEL.MTLORA.ENABLED = False
+    C.MODEL.MTLORA.BIAS = "none"
+    C.MODEL.MTLORA.R = [8, 8, 8, 8]
+    C.MODEL.MTLORA.SHARED_SCALE = [2.0, 2.0, 2.0, 2.0]
+    C.MODEL.MTLORA.TASK_SCALE = [2.0, 2.0, 2.0, 2.0]
+    C.MODEL.MTLORA.DROPOUT = [0.05, 0.05, 0.05, 0.05]
+    C.MODEL.MTLORA.TRAINABLE_SCALE_SHARED = False
+    C.MODEL.MTLORA.TRAINABLE_SCALE_PER_TASK = False
+    C.MODEL.MTLORA.INTERMEDIATE_SPECIALIZATION = False
+    C.MODEL.MTLORA.FREEZE_PRETRAINED = True
+    C.MODEL.MTLORA.SPLIT_QKV = False
+    C.MODEL.MTLORA.R_PER_TASK = ConfigNode(new_allowed=True)
+    C.MODEL.MTLORA.SCALE_PER_TASK = ConfigNode(new_allowed=True)
+    C.MODEL.MTLORA.SHARED_MODE = "matrix"
+    C.MODEL.MTLORA.QKV_ENABLED = True
+    C.MODEL.MTLORA.PROJ_ENABLED = True
+    C.MODEL.MTLORA.FC1_ENABLED = True
+    C.MODEL.MTLORA.FC2_ENABLED = True
+    C.MODEL.MTLORA.DOWNSAMPLER_ENABLED = False
+
+    C.TRAIN = ConfigNode(new_allowed=True)
+    C.TRAIN.START_EPOCH = 0
+    C.TRAIN.EPOCHS = 300
+    C.TRAIN.WARMUP_EPOCHS = 20
+    C.TRAIN.WEIGHT_DECAY = 0.05
+    C.TRAIN.BASE_LR = 5e-4
+    C.TRAIN.WARMUP_LR = 5e-7
+    C.TRAIN.MIN_LR = 5e-6
+    C.TRAIN.CLIP_GRAD = 5.0
+    C.TRAIN.AUTO_RESUME = False
+    C.TRAIN.ACCUMULATION_STEPS = 1
+    C.TRAIN.USE_CHECKPOINT = False
+    C.TRAIN.SKIP_DECODER_CKPT = False
+
+    C.TRAIN.LR_SCHEDULER = ConfigNode(new_allowed=True)
+    C.TRAIN.LR_SCHEDULER.NAME = "cosine"
+    C.TRAIN.LR_SCHEDULER.DECAY_EPOCHS = 30
+    C.TRAIN.LR_SCHEDULER.DECAY_RATE = 0.1
+    C.TRAIN.LR_SCHEDULER.WARMUP_PREFIX = True
+    C.TRAIN.LR_SCHEDULER.GAMMA = 0.1
+    C.TRAIN.LR_SCHEDULER.MULTISTEPS = []
+
+    C.TRAIN.FREEZE_PATCH_EMBED = False
+    C.TRAIN.FREEZE_LAYER_NORM = False
+    C.TRAIN.FREEZE_RELATIVE_POSITION_BIAS = False
+    C.TRAIN.FREEZE_DOWNSAMPLE_REDUCTION = False
+
+    C.TRAIN.OPTIMIZER = ConfigNode(new_allowed=True)
+    C.TRAIN.OPTIMIZER.NAME = "adamw"
+    C.TRAIN.OPTIMIZER.EPS = 1e-8
+    C.TRAIN.OPTIMIZER.BETAS = (0.9, 0.999)
+    C.TRAIN.OPTIMIZER.MOMENTUM = 0.9
+    C.TRAIN.LAYER_DECAY = 1.0
+
+    C.AUG = ConfigNode(new_allowed=True)
+    C.AUG.COLOR_JITTER = 0.4
+    C.AUG.AUTO_AUGMENT = "rand-m9-mstd0.5-inc1"
+    C.AUG.REPROB = 0.25
+    C.AUG.REMODE = "pixel"
+    C.AUG.RECOUNT = 1
+    C.AUG.MIXUP = 0.8
+    C.AUG.CUTMIX = 1.0
+    C.AUG.CUTMIX_MINMAX = None
+    C.AUG.MIXUP_PROB = 1.0
+    C.AUG.MIXUP_SWITCH_PROB = 0.5
+    C.AUG.MIXUP_MODE = "batch"
+
+    C.TEST = ConfigNode(new_allowed=True)
+    C.TEST.CROP = True
+    C.TEST.SEQUENTIAL = False
+    C.TEST.SHUFFLE = False
+
+    C.ENABLE_AMP = False
+    C.AMP_ENABLE = True     # bf16 compute
+    C.AMP_OPT_LEVEL = ""
+    C.OUTPUT = ""
+    C.TAG = "default"
+    C.SAVE_FREQ = 1
+    C.PRINT_FREQ = 10
+    C.SEED = 0
+    C.EVAL_MODE = False
+    C.THROUGHPUT_MODE = False
+    C.LOCAL_RANK = 0
+    C.FUSED_WINDOW_PROCESS = False
+    C.FUSED_LAYERNORM = False
+    C.SKIP_INITIAL_EVAL = False
+    # the reference's per-batch val-loss wandb series (one host read a
+    # batch), off by default
+    C.WANDB_STEP_VAL = False
+
+    # the JAX package's kernel switches, read by :func:`from_config`
+    C.TPU = ConfigNode(new_allowed=True)
+    C.TPU.MESH_SHAPE = [-1]
+    C.TPU.USE_PALLAS = True
+    C.TPU.USE_PALLAS_LORA_GEMM = False
+    C.TPU.USE_PALLAS_ADAPTER = True
+    C.TPU.USE_PALLAS_LN = True
+    C.TPU.COMPUTE_DTYPE = "bfloat16"
+    C.TPU.EVAL_DTYPE = "float32"
+    C.TPU.REMAT = False
+    return C
+
+
+def _update_config_from_file(config: ConfigNode, cfg_file: str):
+    """Merge a YAML file after its ``BASE`` list, depth-first
+    (``mtlora_tpu/config.py:342-350``)."""
+    yaml_cfg = yaml_subset.load(cfg_file) or {}
+    for base in yaml_cfg.get("BASE", [""]):
+        if base:
+            _update_config_from_file(
+                config, os.path.join(os.path.dirname(cfg_file), base))
+    config.merge_from_file(cfg_file)
+
+
+def _broadcast_per_stage(value, n_stages: int, what: str) -> list:
+    if not isinstance(value, (list, tuple)):
+        return [value] * n_stages
+    value = list(value)
+    if len(value) == 1:
+        return value * n_stages
+    assert len(value) == n_stages, (
+        f"MTLoRA {what} length should be the same as the number of layers")
+    return value
+
+
+def normalize_mtlora(config: ConfigNode):
+    """The MTLoRA rank, scale and dropout options as one value per stage,
+    and ``R_PER_TASK_LIST`` / ``SCALE_PER_TASK_LIST``: one
+    ``{task_or_shared: value}`` dict per Swin stage
+    (``mtlora_tpu/config.py:365-409``, reference ``config.py:477-557``)."""
+    m = config.MODEL.MTLORA
+    if not m.ENABLED:
+        return
+    n = len(config.MODEL.SWIN.DEPTHS)
+    m.R = _broadcast_per_stage(m.R, n, "ranks")
+    m.SHARED_SCALE = _broadcast_per_stage(m.SHARED_SCALE, n, "shared scale")
+    m.TASK_SCALE = _broadcast_per_stage(m.TASK_SCALE, n, "task scale")
+    m.DROPOUT = _broadcast_per_stage(m.DROPOUT, n, "dropout")
+    tasks = list(config.TASKS)
+    if len(m.R_PER_TASK) == 0:
+        for task in tasks + ["shared"]:
+            m.R_PER_TASK[task] = list(m.R)
+    else:
+        for task in tasks + ["shared"]:
+            m.R_PER_TASK[task] = _broadcast_per_stage(
+                m.R_PER_TASK[task], n, "ranks")
+    if len(m.SCALE_PER_TASK) == 0:
+        for task in tasks:
+            m.SCALE_PER_TASK[task] = list(m.SHARED_SCALE)
+    else:
+        for task in tasks:
+            m.SCALE_PER_TASK[task] = _broadcast_per_stage(
+                m.SCALE_PER_TASK[task], n, "task scale")
+    r_list, s_list = [], []
+    for i in range(n):
+        layer_r = {"shared": (m.R[i] if "shared" not in m.R_PER_TASK
+                              else m.R_PER_TASK["shared"][i])}
+        layer_s = {}
+        for task in tasks:
+            layer_r[task] = m.R_PER_TASK[task][i]
+            layer_s[task] = m.SCALE_PER_TASK[task][i]
+        r_list.append(layer_r)
+        s_list.append(layer_s)
+    m.R_PER_TASK_LIST = r_list
+    m.SCALE_PER_TASK_LIST = s_list
+
+
+def _set_tasks(config: ConfigNode, tasks, db_name: str):
+    from mtlora_tpu_torch.data.task_config import get_tasks_config
+
+    config.TASKS = list(tasks)
+    config.MTL = True
+    tsk_config, _ = get_tasks_config(db_name, config.TASKS,
+                                     config.DATA.IMG_SIZE)
+    config.TASKS_CONFIG = ConfigNode(tsk_config, new_allowed=True)
+    config.MODEL.NUM_CLASSES = 0
+
+
+def update_config(config: ConfigNode, args):
+    """The YAML file, then ``--opts``, then the CLI flags
+    (``mtlora_tpu/config.py:412-506``); the output directory becomes
+    ``OUTPUT/<MODEL.NAME>/<TAG>``."""
+    _update_config_from_file(config, args.cfg)
+    if getattr(args, "opts", None):
+        config.merge_from_list(args.opts)
+
+    def has(name):
+        return getattr(args, name, None) not in (None, False, "", 0)
+
+    if has("batch_size"):
+        config.DATA.BATCH_SIZE = args.batch_size
+    if has("ckpt_freq"):
+        config.SAVE_FREQ = args.ckpt_freq
+    config.EVAL_FREQ = args.eval_freq if has("eval_freq") else 1
+    if has("skip_initial_validation"):
+        config.SKIP_INITIAL_EVAL = True
+    config.EVAL_TRAINING = (args.eval_training_freq
+                            if has("eval_training_freq") else None)
+    if has("epochs"):
+        config.TRAIN.EPOCHS = args.epochs
+    if has("decoder_map"):
+        with open(args.decoder_map) as f:
+            for task, head in json.load(f).items():
+                config.MODEL.DECODER_HEAD[task] = head
+    if has("skip_decoder"):
+        config.TRAIN.SKIP_DECODER_CKPT = args.skip_decoder
+    if has("data_path"):
+        config.DATA.DATA_PATH = args.data_path
+
+    db_name = "NYUD"
+    if has("nyud"):
+        config.DATA.NYUD = args.nyud
+        config.DATA.DATA_PATH = args.nyud
+        db_name = "NYUD"
+    elif has("pascal"):
+        config.DATA.PASCAL = args.pascal
+        config.DATA.DATA_PATH = args.pascal
+        db_name = "PASCALContext"
+    elif has("tasks") and any(t in args.tasks
+                              for t in ("sal", "human_parts")):
+        # synthetic runs without a dataset: PASCAL-only tasks name it
+        db_name = "PASCALContext"
+    config.DATA.DBNAME = db_name
+
+    if has("tasks"):
+        tasks = re.split(r"\s*,\s*", args.tasks.strip())
+        assert "shared" not in tasks, "shared is a reserved task name"
+        _set_tasks(config, tasks, db_name)
+    if has("pretrained"):
+        config.MODEL.PRETRAINED = args.pretrained
+    if has("resume"):
+        config.MODEL.RESUME = args.resume
+    config.MODEL.RESUME_BACKBONE = (args.resume_backbone
+                                    if has("resume_backbone") else False)
+    config.MODEL.FREEZE_BACKBONE = (bool(args.freeze_backbone)
+                                    if has("freeze_backbone") else False)
+    config.MODEL.SAVE_SAMPLE = (bool(args.save_sample)
+                                if has("save_sample") else False)
+    if has("accumulation_steps"):
+        config.TRAIN.ACCUMULATION_STEPS = args.accumulation_steps
+    if has("use_checkpoint"):
+        config.TRAIN.USE_CHECKPOINT = True
+        config.TPU.REMAT = True
+    if has("disable_amp"):
+        config.AMP_ENABLE = False
+    if has("output"):
+        config.OUTPUT = args.output
+    if has("tag"):
+        config.TAG = args.tag
+    if has("eval"):
+        config.EVAL_MODE = True
+    if has("throughput"):
+        config.THROUGHPUT_MODE = True
+    if has("fused_window_process"):
+        config.FUSED_WINDOW_PROCESS = True
+    if has("fused_layernorm"):
+        config.FUSED_LAYERNORM = True
+    if has("optim"):
+        config.TRAIN.OPTIMIZER.NAME = args.optim
+    if has("name"):
+        config.MODEL.NAME = args.name
+    config.LOCAL_RANK = getattr(args, "local_rank", 0) or 0
+    config.OUTPUT = os.path.join(config.OUTPUT, config.MODEL.NAME,
+                                 config.TAG)
+    if config.MODEL.MTLORA.ENABLED:
+        normalize_mtlora(config)
+    config.freeze()
+
+
+def get_config(args) -> ConfigNode:
+    """A frozen config from parsed CLI arguments (reference get_config)."""
+    config = default_config()
+    update_config(config, args)
+    return config
+
+
+def load_config(cfg_file: str, tasks: Optional[List[str]] = None,
+                db_name: str = "PASCALContext",
+                img_size: Optional[int] = None,
+                opts: Optional[List[str]] = None, **overrides) -> ConfigNode:
+    """A frozen config from a YAML file without argparse
+    (``mtlora_tpu/config.py:516-551``): the file, ``opts``, ``overrides``
+    by dotted key, the image size, and the tasks of ``db_name``."""
+    config = default_config()
+    _update_config_from_file(config, cfg_file)
+    if opts:
+        config.merge_from_list(opts)
+    for k, v in overrides.items():
+        node = config
+        parts = k.split(".")
+        for p in parts[:-1]:
+            node = node[p]
+        node[parts[-1]] = v
+    if img_size is not None:
+        config.DATA.IMG_SIZE = img_size
+    config.DATA.DBNAME = db_name
+    if tasks is not None:
+        _set_tasks(config, tasks, db_name)
+        if config.MODEL.MTLORA.ENABLED:
+            normalize_mtlora(config)
+    config.EVAL_FREQ = 1
+    config.EVAL_TRAINING = None
+    config.MODEL.RESUME_BACKBONE = False
+    config.MODEL.FREEZE_BACKBONE = False
+    config.MODEL.SAVE_SAMPLE = False
+    config.freeze()
+    return config
 
 
 @dataclasses.dataclass(frozen=True)

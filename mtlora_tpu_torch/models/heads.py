@@ -9,7 +9,9 @@ training from the batch moments of ``ops.head.bn_stats_from_x``, through
 which the BN gradient flows; training also updates the running statistics
 as ``0.9 * old + 0.1 * batch`` with the BIASED batch variance
 (``heads.py:127-133``), which is why ``nn.BatchNorm2d``'s own update (with
-the unbiased one) is not used.
+the unbiased one) is not used. Under several processes the batch moments
+are the global batch's (``parallel.distributed.global_sum`` over the
+ranks' sums), as in the JAX package's SPMD step.
 """
 
 from __future__ import annotations

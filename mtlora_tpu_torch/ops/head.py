@@ -27,6 +27,7 @@ import torch
 
 from mtlora_tpu_torch.ops import _build
 from mtlora_tpu_torch.ops.ln_lora import SMEM_LIMIT, _sms, stripes_for
+from mtlora_tpu_torch.parallel.distributed import global_sum
 
 MAX_OUT = 64
 MAX_C_BWD = 272
@@ -59,12 +60,17 @@ def bn_stats_from_x(x, ek, eb):
     x [M, C] and ek [C, O] in the compute dtype, eb [O] fp32. Returns
     ``(mu [O], var [O])`` fp32, biased variance, from one [C, C]
     covariance product over x read once:
-    ``E[h^2] = diag(ek^T S ek) + 2 eb (E[x] ek) + eb^2``, ``S = E[x x^T]``."""
-    M = x.shape[0]
+    ``E[h^2] = diag(ek^T S ek) + 2 eb (E[x] ek) + eb^2``, ``S = E[x x^T]``.
+    The sums of ``x x^T``, x and the row count go through
+    ``parallel.distributed.global_sum`` before the means, so under several
+    processes the moments are the global batch's, differentiably."""
+    M, C = x.shape
     f = _acc(x.dtype)
     xf = x.to(f)
-    s = torch.matmul(xf.t(), xf) / M
-    mx = xf.mean(0)
+    sums = global_sum(torch.cat([torch.matmul(xf.t(), xf).reshape(-1),
+                                 xf.sum(0), xf.new_full((1,), float(M))]))
+    s = sums[:C * C].view(C, C) / sums[-1]
+    mx = sums[C * C:C * C + C] / sums[-1]
     ekf = ek.to(f)
     ebf = eb.to(f)
     mxe = mx @ ekf

@@ -177,9 +177,15 @@ def synthetic_images(batch: int, size: int, seed: int) -> np.ndarray:
 
 def throughput(model, images: torch.Tensor, iters: int,
                warmup: int = 2) -> float:
-    """img/s of :func:`predict` on device-resident images, CUDA events."""
+    """img/s of :func:`predict` on device-resident images, CUDA events
+    (the host clock for images on the CPU)."""
     for _ in range(warmup):
         predict(model, images)
+    if images.device.type == "cpu":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            predict(model, images)
+        return images.shape[0] * iters / (time.perf_counter() - t0)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()

@@ -40,8 +40,8 @@ the run is at its epoch + 1) or a reference ``.pth`` (weights only, epoch
 the latest ``ckpt_epoch_*.pth`` of ``--output`` where there is one
 (``main.py:208-230``). ``--output DIR`` writes
 ``DIR/ckpt_epoch_<epoch>.pth`` after the timed steps
-(``ckpt/checkpoint.py``); the epoch loop and ``--ckpt-freq`` are not
-ported.
+(``ckpt/checkpoint.py``). The epoch loop, ``--ckpt-freq`` and the YAML
+configs are the CLI's, ``python -m mtlora_tpu_torch`` (``main.py``).
 
 ``--profile TRACE`` then runs 2 more steps under ``torch.profiler``,
 writes the Chrome trace to TRACE and prints a second JSON line: device ms

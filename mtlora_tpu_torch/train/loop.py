@@ -1,25 +1,38 @@
-"""Eval loop: validate, the score log schema, throughput.
+"""The epoch loops: train_one_epoch, validate, throughput.
 
-Counterpart of ``mtlora_tpu/train/loop.py:134-276``. :func:`validate` runs
-the eval model of ``TPU.EVAL_DTYPE`` (``models.mtl.eval_model_for``: the
-fp32 clone with every kernel off by default, the model's own bf16 kernel
-path with ``"bfloat16"``) over a loader, streams the meters of
+Counterpart of ``mtlora_tpu/train/loop.py``. :func:`train_one_epoch`
+(:40-130) runs the training step of ``train/step.py`` over a loader's
+epoch, keeps every step's metrics summed on the device and reads the host
+only every ``PRINT_FREQ`` steps and once at the epoch's end; on an
+``EVAL_TRAINING`` epoch it scores the epoch's last batch. :func:`validate`
+runs the eval model of ``TPU.EVAL_DTYPE`` (``models.mtl.eval_model_for``:
+the fp32 clone with every kernel off by default, the model's own bf16
+kernel path with ``"bfloat16"``) over a loader, streams the meters of
 ``evaluation/meters.py`` and the per-task eval losses on the device, and
 reads the host once, after the loop (the reference reads back every
-batch, main.py:466-476). :func:`throughput` times the eval forward with
-CUDA events through ``serve.throughput`` and names the path it measured.
+batch, main.py:466-476). Under several processes both sum what they read
+over the ranks first (``parallel.distributed``). :func:`throughput` times
+the eval forward through ``serve.throughput`` and names the path it
+measured.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
+from mtlora_tpu_torch.config import eval_dtype as config_eval_dtype
 from mtlora_tpu_torch.evaluation.meters import PerformanceMeter
 from mtlora_tpu_torch.models.mtl import MultiTaskSwin, eval_model_for
+from mtlora_tpu_torch.parallel.distributed import (
+    allreduce_tree,
+    global_sum,
+)
 from mtlora_tpu_torch.train.losses import multi_task_loss
+from mtlora_tpu_torch.train.step import device_batch, train_step
 from mtlora_tpu_torch.utils.logger import AverageMeter
 
 
@@ -75,6 +88,99 @@ def _sync_debug(mode: Optional[str]):
         torch.cuda.set_sync_debug_mode(prev)
 
 
+def train_one_epoch(config, model: MultiTaskSwin,
+                    optimizer: torch.optim.Optimizer,
+                    schedule: Callable[[int], float], loader, epoch: int,
+                    generator: Optional[torch.Generator], logger=None,
+                    log_fn: Optional[Callable] = None,
+                    sync_debug: Optional[str] = None) -> Dict:
+    """One epoch of ``loader.iter_epoch(epoch)`` (reference
+    train_one_epoch main.py:313-436). ``config`` is read by attribute:
+    ``TASKS``, ``TRAIN.CLIP_GRAD``, ``TRAIN.ACCUMULATION_STEPS``,
+    ``TRAIN.EPOCHS``, ``PRINT_FREQ``, ``EVAL_TRAINING``, ``DATA.DBNAME``
+    and ``TPU.EVAL_DTYPE``.
+
+    Every step's loss, grad norm and task losses are added up on the
+    device; the host reads a step's metrics at steps ``idx %
+    PRINT_FREQ == 0`` and the last (the log line, ``log_fn``'s
+    ``train/*`` series), and the sums once after the loop.
+    ``sync_debug`` runs each step (the batch's copy to the device, the
+    step, the sums) under ``torch.cuda.set_sync_debug_mode(sync_debug)``:
+    ``"error"`` checks that nothing between two reads waits for the card.
+    Where ``EVAL_TRAINING`` divides the epoch, the eval model scores the
+    epoch's last batch (:114-126; ``train_eval/*`` through ``log_fn``).
+
+    Returns the epoch averages over every step, ``loss`` and one per task
+    (as the JAX loop), and ``grad_norm``, ``steps``, ``samples`` (this
+    process's rows), ``seconds`` (host clock, the loop and the final
+    read) and ``logged``, the ``(idx, loss)`` pairs read at
+    ``PRINT_FREQ``."""
+    tasks = list(config.TASKS)
+    device = next(model.parameters()).device
+    clip = float(config.TRAIN.CLIP_GRAD or 0.0)
+    accum = int(config.TRAIN.ACCUMULATION_STEPS)
+    print_freq = int(config.PRINT_FREQ)
+    num_steps = len(loader)
+    loss_meter, norm_meter, batch_time = (AverageMeter(), AverageMeter(),
+                                          AverageMeter())
+    logged = []
+    sums, dev, n_acc, samples = None, None, 0, 0
+    start = time.perf_counter()
+    end, last_sync = start, -1
+    for idx, batch in enumerate(loader.iter_epoch(epoch)):
+        with _sync_debug(sync_debug):
+            dev = device_batch(batch, ("image", *tasks), device)
+            m = train_step(model, optimizer, schedule, dev, generator,
+                           clip_grad=clip, accum_steps=accum)
+            vec = torch.stack([m["loss"], m["grad_norm"],
+                               *(m[f"loss_{t}"] for t in tasks)])
+            sums = vec if sums is None else sums + vec
+        n_acc += 1
+        bsz = int(batch["image"].shape[0])
+        samples += bsz
+        if idx % print_freq == 0 or idx == num_steps - 1:
+            loss, norm, *task_losses = vec.tolist()
+            logged.append((idx, loss))
+            loss_meter.update(loss, bsz)
+            norm_meter.update(norm)
+            # the read drains the steps queued since the last one
+            batch_time.update((time.perf_counter() - end)
+                              / max(idx - last_sync, 1))
+            last_sync = idx
+            if logger:
+                etas = batch_time.avg * (num_steps - idx)
+                logger.info(
+                    f"Train: [{epoch}/{config.TRAIN.EPOCHS}]"
+                    f"[{idx}/{num_steps}] eta {etas:.0f}s "
+                    f"lr {optimizer.param_groups[0]['lr']:.6g} "
+                    f"loss {loss_meter.val:.4f} ({loss_meter.avg:.4f}) "
+                    f"grad_norm {norm_meter.val:.4f}")
+            if log_fn:
+                log_fn({"train/loss": loss, "train/grad_norm": norm,
+                        **{f"train/loss_{t}": v
+                           for t, v in zip(tasks, task_losses)},
+                        "epoch": epoch, "step": idx})
+        end = time.perf_counter()
+    out = {"loss": 0.0, **{t: 0.0 for t in tasks}, "grad_norm": 0.0}
+    if sums is not None:
+        loss, norm, *task_losses = (sums / n_acc).tolist()
+        out.update(loss=loss, grad_norm=norm, **dict(zip(tasks, task_losses)))
+    seconds = time.perf_counter() - start
+    out.update(steps=n_acc, samples=samples, seconds=seconds, logged=logged)
+    eval_training = config.get("EVAL_TRAINING", None)
+    if eval_training and dev is not None and epoch % eval_training == 0:
+        scores, _ = validate(model, [dev], tasks, config.DATA.DBNAME,
+                             config_eval_dtype(config))
+        if log_fn:
+            log_fn(_score_logs(scores, epoch, prefix="train_eval"))
+    if logger:
+        logger.info(f"EPOCH {epoch} training takes {seconds:.1f}s; "
+                    f"averages over {n_acc} steps: loss {out['loss']:.6f} "
+                    f"grad_norm {out['grad_norm']:.8g} "
+                    + " ".join(f"{t} {out[t]:.6f}" for t in tasks))
+    return out
+
+
 def validate(model: MultiTaskSwin, loader: Iterable[Dict], tasks,
              database: str = "PASCALContext", eval_dtype: str = "float32",
              epoch: int = 0, log_fn: Optional[Callable] = None,
@@ -95,7 +201,10 @@ def validate(model: MultiTaskSwin, loader: Iterable[Dict], tasks,
     the per-batch series (:183, :208-213). ``sync_debug`` runs the loop
     under ``torch.cuda.set_sync_debug_mode(sync_debug)`` (``"error"``: a
     check that the loop never waits for the card). The model's mode is
-    restored after.
+    restored after. Under several processes each rank scores its rows of
+    every global batch, and the meter states and loss sums are summed
+    over the ranks before the read, so every rank returns the global
+    scores.
 
     Returns ``(scores, loss_avgs)``: the score dict by task and the
     per-task eval-loss averages."""
@@ -117,17 +226,23 @@ def validate(model: MultiTaskSwin, loader: Iterable[Dict], tasks,
                 preds = eval_model(images)
                 if "_valid" in batch:
                     wrow = _put(batch["_valid"], device).float()
-                    n = wrow.sum()
+                    n_local = wrow.sum()
                 else:
-                    wrow, n = None, float(images.shape[0])
+                    wrow = None
+                    n_local = images.new_full((), images.shape[0],
+                                              dtype=torch.float32)
+                # the global batch's rows weight its (global) losses; each
+                # rank adds its share, summed over the ranks after the loop
+                n = global_sum(n_local)
                 states = meter.update_states(states, preds, targets, wrow)
                 total, per_task = multi_task_loss(preds, targets, tasks,
                                                   row_weight=wrow)
                 for t in tasks:
                     loss_sums[t] = loss_sums[t] + per_task[t] * n
-                loss_sums["_n"] = loss_sums["_n"] + n
+                loss_sums["_n"] = loss_sums["_n"] + n_local
                 if step_val:
-                    vals = torch.stack([total, *(per_task[t] for t in tasks)])
+                    vals = global_sum(torch.stack(
+                        [total, *(per_task[t] for t in tasks)]))
                     total_v, *task_v = vals.tolist()
                     step_loss_meter.update(total_v)
                     log_fn({"val/epoch_ndx": epoch, "val/batch_ndx": bidx,
@@ -137,7 +252,7 @@ def validate(model: MultiTaskSwin, loader: Iterable[Dict], tasks,
                                for t, v in zip(tasks, task_v)}})
     finally:
         model.train(was_training)
-    host = _to_host({**states, "_loss": loss_sums})
+    host = _to_host(allreduce_tree({**states, "_loss": loss_sums}))
     loss_sums = host.pop("_loss")
     meter.states = host
     n = max(float(loss_sums["_n"]), 1.0)

@@ -11,6 +11,12 @@ counts are clamped tensors, never Python numbers.
   - normals: L2-normalised prediction, masked L1, sum / valid count;
   - depth: masked L1, mean over valid;
   - total = sum_t w_t * loss_t with the fixed weights below.
+
+Under several processes each normaliser (valid counts, the BCE's element
+count and positives) is summed over the ranks
+(``parallel.distributed.global_sum``), as the JAX package's SPMD step sums
+it over the global batch: each rank's loss is then its share of the
+global batch's loss, and the shares sum to it.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from mtlora_tpu_torch.data.task_config import LOSS_WEIGHTS
+from mtlora_tpu_torch.parallel.distributed import global_sum
 
 
 def softmax_ce_ignore(logits: torch.Tensor, label: torch.Tensor,
@@ -36,7 +43,7 @@ def softmax_ce_ignore(logits: torch.Tensor, label: torch.Tensor,
     lse = torch.logsumexp(x, dim=-1)
     x_lab = torch.gather(x, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, lse - x_lab, torch.zeros_like(lse))
-    return nll.sum() / valid.sum().clamp(min=1)
+    return nll.sum() / global_sum(valid.sum()).clamp(min=1)
 
 
 def balanced_bce_logits(logits: torch.Tensor, label: torch.Tensor,
@@ -51,14 +58,14 @@ def balanced_bce_logits(logits: torch.Tensor, label: torch.Tensor,
     y = (label.float() >= 0.5).float()
     if row_weight is None:
         wrow = None
-        num_total = x.new_full((), float(y.numel()))   # no host copy
+        num_total = global_sum(x.new_full((), float(y.numel())))
     else:
         wrow = row_weight.float().reshape((y.shape[0],) + (1,) * (y.dim() - 1))
-        num_total = (row_weight.float().sum()
-                     * (y.numel() // y.shape[0])).clamp(min=1.0)
+        num_total = global_sum(row_weight.float().sum()
+                               * (y.numel() // y.shape[0])).clamp(min=1.0)
         y = y * wrow
     if pos_weight is None:
-        w = (num_total - y.sum()) / num_total
+        w = (num_total - global_sum(y.sum())) / num_total
     else:
         w = pos_weight
     x_gt0 = (x >= 0).float()
@@ -78,7 +85,7 @@ def normals_loss(pred: torch.Tensor, label: torch.Tensor,
     p = p / (torch.linalg.vector_norm(p, dim=-1, keepdim=True) + 1e-12)
     mask = lbl != ignore_label
     diff = torch.where(mask, (p - lbl).abs(), torch.zeros_like(p))
-    return diff.sum() / mask.sum().clamp(min=1)
+    return diff.sum() / global_sum(mask.sum()).clamp(min=1)
 
 
 def depth_loss(pred: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
@@ -87,7 +94,7 @@ def depth_loss(pred: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     lbl = label.float()
     mask = lbl != 255
     diff = torch.where(mask, (p - lbl).abs(), torch.zeros_like(p))
-    return diff.sum() / mask.sum().clamp(min=1)
+    return diff.sum() / global_sum(mask.sum()).clamp(min=1)
 
 
 def get_task_loss(task: str):

@@ -3,17 +3,22 @@
 Counterpart of ``mtlora_tpu/train/optim.py``:
 
   - the four step-wise schedules (timm parity), ``scaled_lrs`` (linear LR
-    scaling by batch * world / 512; accumulation raises) and
-    ``build_schedule``;
+    scaling by batch * world / 512, times the accumulation steps,
+    :99-106) and ``build_schedule`` (over the epoch's updates, ``n_eff``,
+    :109-130);
   - ``no_weight_decay_mask`` and ``lora_trainable_mask`` over the port's
     parameter names, which are the reference torch keys;
-  - ``build_optimizer``: ``torch.optim.AdamW`` over the trainable
-    parameters in two groups, with and without weight decay; parameters
-    that the mask freezes get ``requires_grad=False``, so they take no
-    gradient (the JAX package computes their gradient and zeroes the
-    update, ``multi_transform`` with ``set_to_zero``);
+  - ``build_optimizer``: ``torch.optim.AdamW``, or ``torch.optim.SGD``
+    with Nesterov momentum and the weight decay added to the gradient
+    (optax's ``add_decayed_weights`` then ``sgd(momentum, nesterov=True)``,
+    :234-239), over the trainable parameters in two groups, with and
+    without weight decay; parameters that the mask freezes get
+    ``requires_grad=False``, so they take no gradient (the JAX package
+    computes their gradient and zeroes the update, ``multi_transform``
+    with ``set_to_zero``);
   - ``clip_by_global_norm_``, optax's rule: ``(g / |g|) * max`` when
-    ``|g| >= max``, else ``g`` unchanged.
+    ``|g| >= max``, else ``g`` unchanged;
+  - ``count_params``, the parameter accounting ``main.py`` logs.
 
 The schedules are Python functions of the update index, counted from 0
 as optax counts; they return Python floats, so setting the LR needs no
@@ -45,6 +50,7 @@ class TrainConfig:
     optimizer: str = "adamw"
     betas: Tuple[float, float] = (0.9, 0.999)
     eps: float = 1e-8
+    momentum: float = 0.9             # SGD's
     scheduler: str = "cosine"
     warmup_prefix: bool = True
     decay_epochs: float = 30
@@ -75,6 +81,7 @@ def train_from_config(config) -> TrainConfig:
         optimizer=str(t.OPTIMIZER.NAME).lower(),
         betas=tuple(float(b) for b in t.OPTIMIZER.BETAS),
         eps=float(t.OPTIMIZER.EPS),
+        momentum=float(t.OPTIMIZER.MOMENTUM),
         scheduler=str(sch.NAME),
         warmup_prefix=bool(sch.WARMUP_PREFIX),
         decay_epochs=float(sch.DECAY_EPOCHS),
@@ -152,23 +159,23 @@ def multistep_schedule(base_lr, warmup_lr, warmup_steps, milestones,
 
 def scaled_lrs(tcfg: TrainConfig, world_size: int = 1
                ) -> Tuple[float, float, float]:
-    """Linear LR scaling by batch * world / 512. Gradient accumulation,
-    which also scales the LR in the JAX package, is not ported: the step
-    makes one update per batch."""
-    if tcfg.accumulation_steps > 1:
-        raise NotImplementedError(
-            "gradient accumulation (TRAIN.ACCUMULATION_STEPS > 1) is not "
-            "ported yet (ROADMAP.md, Queue 1 item 5)")
+    """Linear LR scaling by batch * world / 512, times the accumulation
+    steps where there are more than one (``main.py:578-592``)."""
     scale = tcfg.batch_size * world_size / 512.0
+    if tcfg.accumulation_steps > 1:
+        scale *= tcfg.accumulation_steps
     return (tcfg.base_lr * scale, tcfg.warmup_lr * scale,
             tcfg.min_lr * scale)
 
 
 def build_schedule(tcfg: TrainConfig, n_iter_per_epoch: int,
                    world_size: int = 1) -> Callable[[int], float]:
-    """Schedule dispatch with the LR scaling applied."""
+    """Schedule dispatch with the LR scaling applied, over the updates of
+    an epoch: ``n_iter_per_epoch // accumulation_steps`` where the steps
+    accumulate."""
     base_lr, warmup_lr, min_lr = scaled_lrs(tcfg, world_size)
-    n = n_iter_per_epoch
+    accum = max(tcfg.accumulation_steps, 1)
+    n = n_iter_per_epoch // accum if accum > 1 else n_iter_per_epoch
     num_steps = int(tcfg.epochs * n)
     warmup_steps = int(tcfg.warmup_epochs * n)
     if tcfg.scheduler == "cosine":
@@ -233,14 +240,16 @@ def lora_trainable_mask(model: nn.Module, tcfg: TrainConfig
 
 def build_optimizer(model: nn.Module, tcfg: TrainConfig
                     ) -> torch.optim.Optimizer:
-    """AdamW over the trainable parameters, in a weight-decay group and a
-    no-decay group; frozen parameters get ``requires_grad=False``. Each
-    group carries ``updates``, the number of updates made, from which the
-    step takes the schedule's index."""
-    if tcfg.optimizer != "adamw":
+    """AdamW (``TRAIN.OPTIMIZER.NAME adamw``) or SGD with Nesterov
+    momentum (``sgd``: the decay added to the gradient, then the momentum
+    trace, as optax's chain) over the trainable parameters, in a
+    weight-decay group and a no-decay group; frozen parameters get
+    ``requires_grad=False``. Each group carries ``updates``, the number of
+    updates made, from which the step takes the schedule's index."""
+    if tcfg.optimizer not in ("adamw", "sgd"):
         raise NotImplementedError(
-            f"optimizer {tcfg.optimizer!r} is not ported yet (ROADMAP.md, "
-            "Queue 1 item 5)")
+            f"optimizer {tcfg.optimizer!r} (the JAX package takes adamw "
+            "and sgd)")
     trainable = lora_trainable_mask(model, tcfg)
     decay = no_weight_decay_mask(model)
     groups: Dict[bool, List[nn.Parameter]] = {True: [], False: []}
@@ -248,11 +257,33 @@ def build_optimizer(model: nn.Module, tcfg: TrainConfig
         p.requires_grad_(trainable[name])
         if trainable[name]:
             groups[decay[name]].append(p)
-    return torch.optim.AdamW(
-        [{"params": groups[True], "weight_decay": tcfg.weight_decay,
-          "updates": 0},
-         {"params": groups[False], "weight_decay": 0.0, "updates": 0}],
-        lr=0.0, betas=tcfg.betas, eps=tcfg.eps)
+    param_groups = [
+        {"params": groups[True], "weight_decay": tcfg.weight_decay,
+         "updates": 0},
+        {"params": groups[False], "weight_decay": 0.0, "updates": 0}]
+    if tcfg.optimizer == "sgd":
+        return torch.optim.SGD(param_groups, lr=0.0,
+                               momentum=tcfg.momentum, nesterov=True)
+    return torch.optim.AdamW(param_groups, lr=0.0, betas=tcfg.betas,
+                             eps=tcfg.eps)
+
+
+def count_params(model: nn.Module, tcfg: TrainConfig) -> Dict[str, int]:
+    """The parameter accounting of ``main.py:build_all``
+    (``count_params``, :257-275): total, LoRA (any name segment holding
+    "lora"), decoder (outside the backbone), trainable (the mask of
+    :func:`lora_trainable_mask`) and extra (trainable, neither)."""
+    trainable = lora_trainable_mask(model, tcfg)
+    out = {"total": 0, "lora": 0, "decoder": 0, "trainable": 0}
+    for name, p in model.named_parameters():
+        n = p.numel()
+        out["total"] += n
+        out["lora"] += n if any("lora" in seg
+                                for seg in name.split(".")) else 0
+        out["decoder"] += n if name.split(".")[0] != "backbone" else 0
+        out["trainable"] += n if trainable[name] else 0
+    out["extra"] = out["trainable"] - (out["lora"] + out["decoder"])
+    return out
 
 
 def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:

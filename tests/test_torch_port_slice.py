@@ -367,6 +367,24 @@ for main, args in ((train_main.main, ["--synthetic-data"]),
         assert e.code not in (0, None), e.code
     else:
         raise AssertionError(f"{args} ran without a CUDA device")
+from mtlora_tpu_torch.main import cli
+cli_args = ["--cfg", "configs/mtlora/tiny_448/"
+            "mtlora_tiny_448_r64_scale4_pertask.yaml",
+            "--tasks", "semseg,sal", "--synthetic-data", "--batch-size", "4",
+            "--eval", "--disable_wandb", "--opts", "DATA.IMG_SIZE", "64",
+            "MODEL.SWIN.DEPTHS", "[2, 2, 2, 2]", "MODEL.SWIN.EMBED_DIM", "24",
+            "MODEL.SWIN.NUM_HEADS", "[2, 2, 2, 2]",
+            "MODEL.SWIN.WINDOW_SIZE", "4", "AMP_ENABLE", "False",
+            "DATA.NUM_WORKERS", "0"]
+with tempfile.TemporaryDirectory() as tmp:
+    result = cli(["--device", "cpu", "--output", tmp] + cli_args)
+    assert set(result["scores"]) == {"semseg", "sal"}, result
+    try:
+        cli(["--output", tmp] + cli_args)
+    except SystemExit as e:
+        assert e.code not in (0, None), e.code
+    else:
+        raise AssertionError("the CLI ran without a CUDA device")
 assert not any(counters.read().values())   # the CPU route counts nothing
 assert not any(k.split(".")[0] == "mtlora_tpu" for k in sys.modules)
 print("HYGIENE-OK")
@@ -388,8 +406,10 @@ def test_port_imports_no_jax_flax_yaml_cv2():
     --validate --pascal`` exit non-zero without a CUDA device; the init
     (``models.init``) and a checkpoint's save and load (``ckpt``) run, and
     ``train --pretrained``, ``train --resume`` and ``serve --resume`` exit
-    non-zero without a CUDA device; all with jax, flax, yaml, cv2 and PIL
-    made unimportable."""
+    non-zero without a CUDA device; the CLI (``mtlora_tpu_torch.main``)
+    reads the flagship YAML and scores a toy model with ``--device cpu
+    --eval``, and exits non-zero without ``--device cpu``; all with jax,
+    flax, yaml, cv2 and PIL made unimportable."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
     proc = subprocess.run([sys.executable, "-c", HYGIENE], env=env,
                           cwd=os.path.abspath(ROOT), capture_output=True,

@@ -309,17 +309,22 @@ def test_build_mtl_model_defaults_to_the_card():
 
 
 def test_accumulation_steps_raise():
-    """TRAIN.ACCUMULATION_STEPS > 1 is refused where the LR and schedule
-    are built, so no run scales the LR for an accumulation that the step
-    does not do."""
+    """TRAIN.ACCUMULATION_STEPS > 1, once refused, now scales the LR as
+    the JAX package does (by the steps) and runs the schedule over the
+    epoch's updates (``ITERS // 2``): nothing raises, and the LRs equal
+    the JAX package's (tests/test_torch_port_loop.py holds the
+    accumulated step itself to the JAX step)."""
     cfg = load_config(CFG, tasks=TASKS, opts=SLICE_FLAGS + [
         "TRAIN.ACCUMULATION_STEPS", "2"])
     tcfg = optim.train_from_config(cfg)
     assert tcfg.accumulation_steps == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim.build_schedule(tcfg, ITERS)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim.scaled_lrs(tcfg)
+    np.testing.assert_allclose(optim.scaled_lrs(tcfg),
+                               joptim.scaled_lrs(cfg), rtol=1e-12)
+    jsched = joptim.build_schedule(cfg, ITERS)
+    psched = optim.build_schedule(tcfg, ITERS)
+    for step in range(0, 4 * ITERS, 7):
+        np.testing.assert_allclose(psched(step), float(jsched(step)),
+                                   rtol=1e-6, err_msg=str(step))
 
 
 def test_trace_breakdown_classes_and_idle_share(tmp_path):
